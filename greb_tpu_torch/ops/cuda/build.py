@@ -1,0 +1,84 @@
+"""Build and load the package's CUDA kernels.
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (sm_90a) into a
+shared library with a plain C interface, loaded with ctypes.  The build
+goes into ``greb_tpu_torch/_build/`` (git-ignored) at first use, one
+library per source named by the hash of the source, so an edited source is
+rebuilt and an unchanged one is reused.  All sources compile at once, one
+``nvcc`` each.  Numerics: no ``--use_fast_math``, and ``--fmad=false`` so
+no multiply and add are fused into one rounding (see csrc/year_kernel.cu).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCES = ("year_kernel",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every source that has no current library, all at once.
+    Returns {source: seconds}; the compiler's register/shared-memory report
+    goes to ``_build/<source>.ptxas.txt``."""
+    todo = [n for n in SOURCES if not os.path.exists(_lib_path(n))]
+    if not todo:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name in todo:
+        tmp = _lib_path(name) + f".{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(SRC_DIR, name + ".cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    times, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        with open(os.path.join(BUILD_DIR, name + ".ptxas.txt"), "w") as f:
+            f.write(out)
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{out}")
+            continue
+        os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return times
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _libs:
+        build_all()
+        _libs[name] = ctypes.CDLL(_lib_path(name))
+    return _libs[name]

@@ -1,0 +1,427 @@
+"""Uniform coefficient-folded circulation (``greb_tpu.ops.fastcirc2``).
+
+The polar-band zonal stencils fold into the same full-field 7-point apply
+as the interior rows, with per-row coefficient fields (reference
+src/greb.f90:556-915):
+
+* interior and polar zonal diffusion share the 10/4/1 smoothed 7-point
+  form; only the per-row coefficient differs (:582 vs :654);
+* interior (2-point upwind /3, :798-836) and polar (10/4/1 smooth3,
+  :842-906) zonal advection are both linear with reach <= 3;
+* the positivity clamps (:715, :907) apply on polar rows only — a masked
+  ``where`` on the full-field increment;
+* the outer wz of dX_diffuse = wz*(dTx+dTy) (:721) multiplies after the
+  clamp, so the substep applies ``wz * dd`` once.
+
+Rows with more diffusion sub-cycles than one collapse into composite
+operators (dense, or packed SVD factors on refined grids); rows with a few
+iterate explicitly (``diff_segs`` / ``adv_segs``).
+
+The eager ``substep`` / ``circulation`` here are the plain PyTorch versions
+the CUDA year kernels (ops/cuda/year_kernel.py) are held against.  Their
+float32 operation order follows the JAX package: the balanced-tree 7-point
+sum, the sequential meridional sum, ``x + wz*dd + da + dy``.  The composite
+row sums run in a fixed blocked order (``_row_dot``) that the kernel
+repeats.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as tnf
+
+from ..grid import Grid
+from . import fastcirc as v1
+from . import stencils as stc
+
+F32 = np.float32
+F64 = np.float64
+
+FastPlan = v1.FastPlan
+_LON_IDX_SHIFT = v1._LON_IDX_SHIFT
+
+# zam multiplier index map (x u_m for 0..3, x u_p for 4..7)
+_ZA_M3, _ZA_M2, _ZA_M1, _ZA_CM = 0, 1, 2, 3
+_ZA_CP, _ZA_P1, _ZA_P2, _ZA_P3 = 4, 5, 6, 7
+# mer index map
+_MD_KM1, _MD_KP1, _C0_MD = 0, 1, 2
+_MAM2, _MAM1, _MAP1, _MAP2, _MA0M, _MA0P = 3, 4, 5, 6, 7, 8
+
+
+@dataclass
+class Fast2Const:
+    """Time-constant tensors of the uniform fold."""
+    zd: torch.Tensor       # (7, F, Y, X) zonal diffusion [m3,m2,m1,c,p1,p2,p3]
+    zam: torch.Tensor      # (8, F, Y, X) zonal advection wind multipliers
+    mer: torch.Tensor      # (9, F, Y, X) meridional constants/multipliers
+    wz: torch.Tensor       # (F, Y, X) outer diffusion weight
+    band: torch.Tensor     # (Y, 1) bool — rows whose zonal increments clamp
+    pcomp: torch.Tensor    # dense composites (F, K, X, X); placeholder else
+    pcu: torch.Tensor      # packed: (X, Rtot) U_all; placeholder else
+    pcw: torch.Tensor      # packed: (Rtot, X) W_all; placeholder else
+    pmask: torch.Tensor    # packed: (F*K, Rtot) 0/1 block mask
+
+
+@dataclass
+class Fast2Coeffs:
+    """One step's assembled coefficients."""
+    za: torch.Tensor       # (7, F, Y, X) zonal advection [m3,...,p3]
+    mc: torch.Tensor       # (4, F, Y, X) meridional [km2,km1,kp1,kp2]
+    c0m: torch.Tensor      # (F, Y, X) meridional centre
+
+
+def step_coeffs(u: torch.Tensor, v: torch.Tensor, const: Fast2Const,
+                plan: FastPlan) -> Fast2Coeffs:
+    """Assemble one forcing step's wind-dependent coefficients
+    (sign splits per src/greb.f90:203-216)."""
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    u_m = torch.maximum(u, zero)
+    u_p = torch.minimum(u, zero)
+    v_m = torch.maximum(v, zero)
+    v_p = torch.minimum(v, zero)
+    a = const.zam
+    za = torch.stack([
+        a[_ZA_M3] * u_m,
+        a[_ZA_M2] * u_m,
+        a[_ZA_M1] * u_m,
+        a[_ZA_CM] * u_m + a[_ZA_CP] * u_p,
+        a[_ZA_P1] * u_p,
+        a[_ZA_P2] * u_p,
+        a[_ZA_P3] * u_p,
+    ])
+    m = const.mer
+    mc = torch.stack([
+        m[_MAM2] * v_m,
+        m[_MD_KM1] + m[_MAM1] * v_m,
+        m[_MD_KP1] + m[_MAP1] * v_p,
+        m[_MAP2] * v_p,
+    ])
+    c0m = m[_C0_MD] + m[_MA0M] * v_m + m[_MA0P] * v_p
+    return Fast2Coeffs(za=za, mc=mc, c0m=c0m)
+
+
+# ---------------------------------------------------------------------------
+# construction (NumPy float64, float32 results)
+# ---------------------------------------------------------------------------
+def build_packed_composites(pdc64: np.ndarray, n_extra: np.ndarray,
+                            ktc: int, kbc: int, F: int, B: int, X: int,
+                            tol: float = v1.LOWRANK_TOL):
+    """Block-diagonal packed SVD composites: per-(field,row) adaptive-rank
+    factors concatenated along one axis, so the composite block applies as
+    t2 = ((T @ U_all) * mask) @ W_all.
+
+    Returns (U_all (X, Rtot) f32, W_all (Rtot, X) f32, mask (F*K, Rtot))."""
+    rows_fb, pc64 = v1.composite_mats(pdc64, n_extra, ktc, kbc, F, B, X)
+    K = ktc + kbc
+    ublocks, wblocks, ranks = [], [], []
+    for f in range(F):
+        for k in range(K):
+            b = k if k < ktc else B - K + k
+            uu, s, vt = np.linalg.svd(pc64[(f, b)])
+            r = max(1, int((s > tol * s[0]).sum()))
+            ublocks.append(uu[:, :r] * s[:r])
+            wblocks.append(vt[:r])
+            ranks.append(r)
+    rtot = sum(ranks)
+    u_all = np.concatenate(ublocks, axis=1).astype(F32)
+    w_all = np.concatenate(wblocks, axis=0).astype(F32)
+    mask = np.zeros((F * K, rtot), F32)
+    off = 0
+    for i, r in enumerate(ranks):
+        mask[i, off:off + r] = 1.0
+        off += r
+    return u_all, w_all, mask
+
+
+def build_const(wz_air: np.ndarray, wz_vapor: np.ndarray, grid: Grid,
+                st: stc.StencilStatic, kappa: float, device=None,
+                plan: Optional[FastPlan] = None,
+                ) -> Tuple[FastPlan, Fast2Const]:
+    """Precompute the uniform constant coefficient fields (float64 builds,
+    float32 results), as ``greb_tpu.ops.fastcirc2.build_const``."""
+    if plan is None:
+        plan = v1.make_plan(grid)
+    Y, X = plan.ydim, plan.xdim
+    wz2 = np.stack([np.asarray(wz_air, F64), np.asarray(wz_vapor, F64)])
+    F = wz2.shape[0]
+
+    w = v1._np_lon_shifts(wz2)
+    col = lambda a: np.asarray(a, F64).reshape(Y, 1)
+    dtc = F64(F32(st.dt_crcl))
+    kap = F64(F32(kappa))
+    dyy = F64(F32(st.dyy))
+    polar = np.asarray(grid.polar_rows, bool).reshape(Y, 1)
+
+    # --- zonal diffusion: one coefficient per row, no outer wz -------------
+    # interior rows: cc = kappa*dt_crcl/dxlat^2 (src/greb.f90:582)
+    # polar rows:    cc = kappa*dtdff2/dxlat^2  (:654)
+    cc_in = kap * dtc / col(grid.dxlat.astype(F64) ** 2)
+    cc_po = kap * col(grid.diff_sched.dtdff2) / col(grid.dxlat.astype(F64) ** 2)
+    ccd = np.where(polar, cc_po, cc_in) / 20.0
+    zd = np.stack([
+        ccd * w["m3"],
+        ccd * (3.0 * w["m2"] - w["m3"]),
+        ccd * (6.0 * w["m1"] - 3.0 * w["m2"]),
+        ccd * (-6.0 * (w["m1"] + w["p1"])),
+        ccd * (6.0 * w["p1"] - 3.0 * w["p2"]),
+        ccd * (3.0 * w["p2"] - w["p3"]),
+        ccd * w["p3"],
+    ])
+
+    # --- zonal advection wind multipliers -----------------------------------
+    # interior rows: 2-point upwind /3 (src/greb.f90:798-836)
+    cax = col(np.asarray(grid.ccx_adv, F64)) / 3.0
+    # polar rows: 10/4/1 smooth3 /20 with static ccx2 (:842-906) + jp2 quirk
+    ca = col(grid.adv_sched.ccx2) / 20.0
+    if st.quirk_jp2:
+        qcol = (np.arange(X) == X - 3)              # Fortran j = xdim-2 (:881)
+        wp2q = np.where(qcol, w["p1"], w["p2"])
+    else:
+        qcol = np.zeros(X, bool)
+        wp2q = w["p2"]
+    pp1 = ca * (-10.0 * w["p1"] + 4.0 * wp2q)
+    pp2q = ca * (-4.0 * wp2q + w["p3"])
+    zam = np.zeros((8, F, Y, X))
+    zam[_ZA_M3] = np.where(polar, ca * w["m3"], 0.0)
+    zam[_ZA_M2] = np.where(polar, ca * (4.0 * w["m2"] - w["m3"]), cax * w["m2"])
+    zam[_ZA_M1] = np.where(polar, ca * (10.0 * w["m1"] - 4.0 * w["m2"]),
+                           cax * w["m1"])
+    zam[_ZA_CM] = np.where(polar, -10.0 * ca * w["m1"],
+                           -cax * (w["m1"] + w["m2"]))
+    zam[_ZA_CP] = np.where(polar, 10.0 * ca * w["p1"],
+                           cax * (w["p1"] + w["p2"]))
+    zam[_ZA_P1] = np.where(polar, pp1 + np.where(qcol, pp2q, 0.0),
+                           -cax * w["p1"])
+    zam[_ZA_P2] = np.where(polar, np.where(qcol, 0.0, pp2q), -cax * w["p2"])
+    zam[_ZA_P3] = np.where(polar, -ca * w["p3"], 0.0)
+
+    # --- meridional (diffusion parts carry the outer wz) --------------------
+    ccy = kap * dtc / dyy ** 2
+    wzm1 = v1._np_lat_shift(wz2, -1)
+    wzm2 = v1._np_lat_shift(wz2, -2)
+    wzp1 = v1._np_lat_shift(wz2, 1)
+    wzp2 = v1._np_lat_shift(wz2, 2)
+    ccy2 = dtc / dyy / 2.0
+    rows = np.arange(Y).reshape(Y, 1)
+    am = np.where(rows == 1, ccy2, ccy2 / 3.0)
+    ap = np.where(rows == Y - 2, ccy2, ccy2 / 3.0)
+    mer = np.zeros((9, F, Y, X))
+    mer[_MD_KM1] = ccy * wzm1 * wz2
+    mer[_MD_KP1] = ccy * wzp1 * wz2
+    mer[_C0_MD] = -ccy * (wzm1 + wzp1) * wz2
+    mer[_MAM2] = am * wzm2
+    mer[_MAM1] = am * wzm1
+    mer[_MAP1] = -ap * wzp1
+    mer[_MAP2] = -ap * wzp2
+    mer[_MA0M] = -am * (wzm1 + wzm2)
+    mer[_MA0P] = ap * (wzp1 + wzp2)
+
+    # --- composites of the extra diffusion iterations ------------------------
+    B = plan.nband
+    pcomp = np.zeros((1, 1, 1, 1), F32)
+    pcu = np.zeros((1, 1), F32)
+    pcw = np.zeros((1, 1), F32)
+    pmask = np.zeros((1, 1), F32)
+    if B and plan.diff_composite:
+        bidx = np.r_[np.arange(plan.bt), np.arange(Y - plan.bb, Y)]
+        pdc64 = zd[:, :, bidx, :]                   # (7, F, B, X)
+        n_extra = np.asarray(grid.diff_sched.time2)[bidx] - 1
+        if plan.comp_mode == "lowrank":
+            pcu, pcw, pmask = build_packed_composites(
+                pdc64, n_extra, plan.comp_kt, plan.comp_kb, F, B, X)
+            plan = dataclasses.replace(plan, comp_mode="packed")
+        else:
+            pcomp = v1.build_composites(pdc64, n_extra, plan, F, B, X)
+
+    band = np.zeros((Y, 1), bool)
+    band[:plan.bt] = True
+    if plan.bb:
+        band[Y - plan.bb:] = True
+
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device)
+    const = Fast2Const(
+        zd=t(zd.astype(F32)), zam=t(zam.astype(F32)), mer=t(mer.astype(F32)),
+        wz=t(wz2.astype(F32)), band=t(band), pcomp=t(pcomp), pcu=t(pcu),
+        pcw=t(pcw), pmask=t(pmask))
+    return plan, const
+
+
+# ---------------------------------------------------------------------------
+# apply (eager PyTorch)
+# ---------------------------------------------------------------------------
+def _apply7_rolled(rolls, x, coef):
+    """sum_s coef[s] * roll(x, s) with the 6 rolls shared, summed as the
+    JAX package's balanced tree: ((c*x + m3) + (m2 + m1)) + ((p1 + p2) + p3)."""
+    terms = [coef[3] * x] + [coef[i] * r
+                             for (i, _), r in zip(_LON_IDX_SHIFT, rolls)]
+    while len(terms) > 1:
+        nxt = [terms[k] + terms[k + 1] for k in range(0, len(terms) - 1, 2)]
+        if len(terms) % 2:
+            nxt.append(terms[-1])
+        terms = nxt
+    return terms[0]
+
+
+def _masked_clamp(d, x, band):
+    """Positivity clamp on band rows only (src/greb.f90:715, :907):
+    where(band & (d <= -x)) d = -0.9*x."""
+    return torch.where(band & (d <= -x), F32(-0.9) * x, d)
+
+
+# composite row sums run over blocks of this many consecutive terms
+COMP_BLOCK = 8
+
+
+def _row_dot(t_row: torch.Tensor, pmat: torch.Tensor) -> torch.Tensor:
+    """(..., N) x (N, Z): out[j] = sum_i t[i] * P[i, j], with no library
+    matmul on the state path.  The sum runs in a fixed order that the CUDA
+    year kernel repeats: in sequence within each block of COMP_BLOCK
+    consecutive i, then over the blocks in sequence (the last block padded
+    with exact zeros)."""
+    n = t_row.shape[-1]
+    prod = t_row.unsqueeze(-1) * pmat                    # (..., N, Z)
+    nb = -(-n // COMP_BLOCK)
+    if nb * COMP_BLOCK != n:
+        prod = tnf.pad(prod, (0, 0, 0, nb * COMP_BLOCK - n))
+    prod = prod.reshape(prod.shape[:-2] + (nb, COMP_BLOCK, prod.shape[-1]))
+    part = prod[..., 0, :]
+    for i in range(1, COMP_BLOCK):
+        part = part + prod[..., i, :]
+    out = part[..., 0, :]
+    for b in range(1, nb):
+        out = out + part[..., b, :]
+    return out
+
+
+def _packed_comp(x, dd, const: Fast2Const, plan: FastPlan):
+    """Packed block-diagonal composites (comp_mode "packed"):
+    t2 = ((T @ U_all) * mask) @ W_all, clamped once against the composite
+    result (src/greb.f90:715 semantics)."""
+    Y = plan.ydim
+    ktc, kbc = plan.comp_kt, plan.comp_kb
+    X = x.shape[-1]
+    x_slab = torch.cat([x[..., :ktc, :], x[..., Y - kbc:, :]], dim=-2)
+    d_slab = torch.cat([dd[..., :ktc, :], dd[..., Y - kbc:, :]], dim=-2)
+    t1 = x_slab + d_slab                              # (..., F, K, X)
+    lead = t1.shape[:-3]
+    fk = t1.shape[-3] * t1.shape[-2]
+    flat = t1.reshape(lead + (fk, X))
+    z = _row_dot(flat, const.pcu) * const.pmask
+    t2 = _row_dot(z, const.pcw).reshape(t1.shape)
+    t1 = t1 + v1._clamped(t2 - t1, t1)
+    dcomp = t1 - x_slab
+    return torch.cat([dcomp[..., :ktc, :], dd[..., ktc:Y - kbc, :],
+                      dcomp[..., ktc:, :]], dim=-2)
+
+
+def _extra_diffusion(x, dd, const: Fast2Const, plan: FastPlan):
+    """Extra sub-cycle iterations for rows with diffusion time2 > 1: the
+    explicit prefix/suffix segments (past the composite rows), then the
+    composite rows.  Returns the updated full-field dd."""
+    Y = plan.ydim
+    ktc, kbc = plan.comp_kt, plan.comp_kb
+
+    def seg_iter(dd, r0, r1, iters):
+        t1 = x[..., r0:r1, :] + dd[..., r0:r1, :]
+        t1 = v1._iterate(t1, const.zd[:, :, r0:r1, :], iters)
+        return torch.cat([dd[..., :r0, :], t1 - x[..., r0:r1, :],
+                          dd[..., r1:, :]], dim=-2)
+
+    # segments are cumulative levels on nested prefixes/suffixes: apply in
+    # order, carrying dd
+    for kt, kb, iters in plan.diff_segs:
+        if kt:
+            dd = seg_iter(dd, ktc, ktc + kt, iters)
+        if kb:
+            dd = seg_iter(dd, Y - kbc - kb, Y - kbc, iters)
+
+    if not plan.diff_composite:
+        return dd
+    if plan.comp_mode == "packed":
+        return _packed_comp(x, dd, const, plan)
+
+    def comp_rows(r0, n, k0):
+        """Composite rows [r0, r0+n) of every field at once."""
+        t1 = x[..., r0:r0 + n, :] + dd[..., r0:r0 + n, :]   # (..., F, n, X)
+        t2 = _row_dot(t1, const.pcomp[:, k0:k0 + n])
+        t1 = t1 + v1._clamped(t2 - t1, t1)
+        return t1 - x[..., r0:r0 + n, :]
+
+    slabs = []
+    if ktc:
+        slabs.append(comp_rows(0, ktc, 0))
+    slabs.append(dd[..., ktc:Y - kbc, :])
+    if kbc:
+        slabs.append(comp_rows(Y - kbc, kbc, ktc))
+    return torch.cat(slabs, dim=-2)
+
+
+def _extra_advection(x, da, cf: Fast2Coeffs, plan: FastPlan):
+    """Extra advection sub-cycle iterations (adv_segs; empty at 96x48)."""
+    Y = plan.ydim
+    for kt, kb, iters in plan.adv_segs:
+        if kt:
+            t1 = x[..., :kt, :] + da[..., :kt, :]
+            t1 = v1._iterate(t1, cf.za[:, :, :kt, :], iters)
+            da = torch.cat([t1 - x[..., :kt, :], da[..., kt:, :]], dim=-2)
+        if kb:
+            t1 = x[..., Y - kb:, :] + da[..., Y - kb:, :]
+            t1 = v1._iterate(t1, cf.za[:, :, Y - kb:, :], iters)
+            da = torch.cat([da[..., :Y - kb, :], t1 - x[..., Y - kb:, :]],
+                           dim=-2)
+    return da
+
+
+def extend_lat_zero(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Meridional halo: zeros beyond the poles (one-sided forms)."""
+    return tnf.pad(x, (0, 0, width, width))
+
+
+def substep(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
+            plan: FastPlan) -> torch.Tensor:
+    """One dt_crcl circulation substep on the (..., F, Y, X) stacked field."""
+    Y = x.shape[-2]
+    rolls = [torch.roll(x, s, dims=-1) for _, s in _LON_IDX_SHIFT]
+    band = const.band
+
+    # zonal diffusion (clamped on band rows), then extra iterations
+    dd = _apply7_rolled(rolls, x, const.zd)
+    dd = _masked_clamp(dd, x, band)
+    dd = _extra_diffusion(x, dd, const, plan)
+
+    # zonal advection (clamped on band rows); extension grids advect the
+    # zonally-diffused state
+    if plan.seq_zonal:
+        xa = x + const.wz * dd
+        rolls_a = [torch.roll(xa, s, dims=-1) for _, s in _LON_IDX_SHIFT]
+    else:
+        xa, rolls_a = x, rolls
+    da = _apply7_rolled(rolls_a, xa, cf.za)
+    da = _masked_clamp(da, xa, band)
+    da = _extra_advection(xa, da, cf, plan)
+
+    # meridional diffusion+advection, merged (never clamped; reads the
+    # substep's initial state)
+    xe = extend_lat_zero(x, 2)
+    dy = cf.c0m * x
+    dy = dy + cf.mc[0] * xe[..., 0:Y, :]        # km2
+    dy = dy + cf.mc[1] * xe[..., 1:Y + 1, :]    # km1
+    dy = dy + cf.mc[2] * xe[..., 3:Y + 3, :]    # kp1
+    dy = dy + cf.mc[3] * xe[..., 4:Y + 4, :]    # kp2
+
+    if plan.seq_zonal:
+        return xa + da + dy
+    return x + const.wz * dd + da + dy
+
+
+def circulation(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
+                plan: FastPlan, nsub: int) -> torch.Tensor:
+    """Sub-cycled circulation increment over one 12-h step."""
+    xc = x
+    for _ in range(nsub):
+        xc = substep(xc, cf, const, plan)
+    return xc - x

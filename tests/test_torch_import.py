@@ -1,0 +1,70 @@
+"""The PyTorch port imports without JAX and refuses to run without its
+device: ``greb_tpu_torch`` and every submodule import with neither ``jax``,
+``flax`` nor ``greb_tpu`` in ``sys.modules``, the float32 settings hold,
+and an entry point with no device (CUDA) raises on a machine without a
+card."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import greb_tpu_torch
+for info in pkgutil.walk_packages(greb_tpu_torch.__path__, "greb_tpu_torch."):
+    importlib.import_module(info.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "greb_tpu"))
+assert not bad, bad
+import torch
+assert torch.backends.cuda.matmul.allow_tf32 is False
+assert torch.backends.cudnn.allow_tf32 is False
+assert torch.get_float32_matmul_precision() == "highest"
+print("OK", len([m for m in sys.modules if m.startswith("greb_tpu_torch")]))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("OK")
+    # walk_packages imported every module: 21 in the first slice
+    assert int(res.stdout.split()[1]) >= 21
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card path cannot run")
+    from greb_tpu_torch import resolve_device
+    from greb_tpu_torch.config import GrebConfig, Numerics
+    from greb_tpu_torch.model.driver import GREB
+
+    cfg = GrebConfig(numerics=Numerics(xdim=48, ydim=24, ndays_yr=10,
+                                       jday_mon=(6, 4)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GREB(cfg, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_unported_options_raise_with_their_roadmap_item():
+    from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
+    from greb_tpu_torch.model.driver import GREB
+
+    num = Numerics(xdim=48, ydim=24, ndays_yr=10, jday_mon=(6, 4))
+    for cfg, item in ((GrebConfig(numerics=num,
+                                  experiment=Experiment(log_exp=10)),
+                       "item 8"),
+                      (GrebConfig(numerics=num, fast_circulation=False),
+                       "item 8"),
+                      (GrebConfig(numerics=num, fastcirc_version=1),
+                       "Not to port")):
+        with pytest.raises(NotImplementedError, match=item):
+            GREB(cfg, verbose=False, device="cpu")
