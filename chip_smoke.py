@@ -12,10 +12,26 @@
    version the same way;
    then times the scenario kernel at one substep per step, which splits a
    launch into substep time and per-step time;
-5. drives the main path, GREB.run: 3 spin-up years and 10 scenario years at
-   96x48 through both kernels, with launch counts, finiteness, the output
-   file read back, and the warming under 680 ppm checked;
-6. prints one JSON line per kernel set ({"kernels": [...]}) and, last,
+5. holds the member-batched spin-up kernel (fluxcorr_years) against its
+   plain version: M=2 members (ct_sens +-2%), one full year;
+6. holds the multi-year scenario kernel (scenario_years) against its plain
+   version: M=2, 2 years at CO2 560 and 680, from step 5's output;
+7. times the multi-year kernel for one year at M = 1, 16, 64, 100 and 132
+   members (member scaling: one thread block, one SM, per member);
+8. drives the main path, GREB.run: 3 spin-up years and 10 scenario years at
+   96x48 through the single-run kernels, with launch counts, finiteness,
+   the output file read back, and the warming under 680 ppm checked;
+9. drives the long-run path: 3 spin-up years, then 50 scenario years
+   through run_long + driver_year_runner in blocks of 10 years of the
+   multi-year kernel, a checkpoint every 10 years and the output file;
+   then the same run stopped at year 20 and resumed to 50 in a fresh
+   process (this script with --resume-long DIR), which must leave a
+   bitwise equal final state and output file; its first 10 years are held
+   to step 8's at the golden tolerances;
+10. drives the member chain, GREB.run_members: 3 members (one with the
+   base params) through 3 member-batched spin-up years and a 10-year
+   scenario block; the base member must equal step 9's run bit for bit;
+11. prints one JSON line per kernel set ({"kernels": [...]}) and, last,
    {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no ok line.
@@ -79,14 +95,6 @@ def _time_ms(fn, repeats):
     return start.elapsed_time(stop) / repeats, out
 
 
-def _bound(plan, num, scenario):
-    from greb_tpu_torch.ops.cuda import year_kernel as yk
-    nbytes, ops = yk.year_work(plan, num, scenario)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def _compare_state(tag, s_k, s_p, tol_t, tol_q):
     errs = []
     for name in ("ts", "ta", "to"):
@@ -96,20 +104,95 @@ def _compare_state(tag, s_k, s_p, tol_t, tol_q):
     return max(errs)
 
 
-def main() -> int:
+def _bound_of(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the long run: the reference's 50 scenario years (time_scnr) at 680 ppm,
+# in blocks of 10 years, a checkpoint every 10
+LONG_YEARS = 50
+LONG_BLOCK = 10
+LONG_STOP = 20
+
+
+def _long_runner(model, tmp, tag):
+    from greb_tpu_torch.io.checkpoint import Checkpointer
+    from greb_tpu_torch.model import longrun
+    ck = Checkpointer(os.path.join(tmp, f"ck_{tag}"), every_years=LONG_BLOCK)
+    runner = longrun.driver_year_runner(
+        model, os.path.join(tmp, f"long_{tag}"), years_per_call=LONG_BLOCK)
+    return ck, runner
+
+
+def _resume_long(tmp: str) -> int:
+    """The fresh process of step 9: resume the stopped long run from its
+    newest checkpoint and run it to the end."""
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import GrebConfig, Numerics
+    from greb_tpu_torch.model import longrun
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.ops.cuda import multiyear as my
+
+    model = GREB(GrebConfig(numerics=Numerics(time_flux=3)), device="cuda",
+                 verbose=False)
+    ck, runner = _long_runner(model, tmp, "resumed")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ck.restore(device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _, _, start = longrun.run_long(
+        LONG_YEARS, None, None, np.full(LONG_YEARS, 680.0, np.float32),
+        runner, checkpointer=ck, chunk_years=LONG_BLOCK, device=model.device)
+    torch.cuda.synchronize()
+    runner.close()
+    t3 = time.perf_counter()
+    print(json.dumps({"start": start, "setup_s": t1 - t0,
+                      "restore_s": t2 - t1, "run_s": t3 - t2,
+                      "scenario_years_launches": my.scenario_years.launches}))
+    return 0
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on a CUDA card", file=sys.stderr)
         return 1
+    if argv[:1] == ["--resume-long"]:
+        return _resume_long(argv[1])
     import numpy as np
 
     from greb_tpu_torch.config import Diagnostics, GrebConfig, Numerics
+    from greb_tpu_torch.forcing import ModelState
     from greb_tpu_torch.io.binio import read_output
-    from greb_tpu_torch.model import core
+    from greb_tpu_torch.io.checkpoint import Checkpointer
+    from greb_tpu_torch.model import core, longrun
     from greb_tpu_torch.model.driver import GREB
     from greb_tpu_torch.ops.cuda import build
+    from greb_tpu_torch.ops.cuda import multiyear as my
     from greb_tpu_torch.ops.cuda import year_kernel as yk
+    from greb_tpu_torch.parallel import ensemble as ens
+
+    counters = {"fluxcorr_year": yk.fluxcorr_year,
+                "scenario_year": yk.scenario_year,
+                "fluxcorr_years": my.fluxcorr_years,
+                "scenario_years": my.scenario_years}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts(path, want):
+        got = {k: fn.launches for k, fn in counters.items()}
+        print(f"  {path} launches: {got}")
+        if got != want:
+            raise AssertionError(f"{path}: launch counts {got}, want {want}")
+        return got
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -202,22 +285,91 @@ def main() -> int:
               f"{ms_one * 1e3 / num.nstep_yr - us_sub:.3f} us per step "
               f"outside the substeps")
 
+        # -- K4: member-batched spin-up year vs its plain version -------------
+        # M=2 members, ct_sens +-2% (the JAX CLI's default sweep)
+        members = ens.perturbed_params(
+            model.params, {"ct_sens": np.linspace(22.05, 22.95, 2)})
+        ppack = my.pack_member_params(members, "cuda")
+        s5_0 = s0.stack()[:, None].repeat(1, 2, 1, 1)
+        s4_k, c4_k = my.fluxcorr_years(s5_0, ppack, co2f, yd)   # first launch
+        ms_k4, (s4_k, c4_k) = _time_ms(
+            lambda: my.fluxcorr_years(s5_0, ppack, co2f, yd), 1)
+        plain_k4, (s4_p, c4_p) = _time_ms(
+            lambda: my.fluxcorr_years_plain(s5_0, ppack, co2f, yd), 1)
+        print(f"K4 fluxcorr_years (M=2): kernel {ms_k4:.2f} ms/launch, "
+              f"plain {plain_k4:.1f} ms")
+        u4_k, u4_p = ModelState.unstack(s4_k), ModelState.unstack(s4_p)
+        err_k4 = _compare_state("K4", u4_k, u4_p, TOL_T, TOL_Q)
+        _check("K4 state cap_surf (rel)", float(
+            ((u4_k.cap_surf - u4_p.cap_surf).abs() / u4_p.cap_surf).max()),
+            RTOL_CAP)
+        _check("K4 tf annual mean [W/m^2]", _max_abs(
+            c4_k[:, :, 0].mean(1), c4_p[:, :, 0].mean(1)), TOL_TF_MEAN)
+        _check("K4 qf annual mean", _max_abs(
+            c4_k[:, :, 2].mean(1), c4_p[:, :, 2].mean(1)), TOL_QF_MEAN)
+        print(f"  K4 per-step tables max |diff|: tf "
+              f"{_max_abs(c4_k[:, :, 0], c4_p[:, :, 0]):.3e} tof "
+              f"{_max_abs(c4_k[:, :, 1], c4_p[:, :, 1]):.3e} qf "
+              f"{_max_abs(c4_k[:, :, 2], c4_p[:, :, 2]):.3e}")
+        if torch.equal(s4_k[:, 0], s4_k[:, 1]):
+            raise AssertionError("K4: the two members did not differ")
+
+        # -- K3: multi-year scenario block vs its plain version --------------
+        co2y = np.asarray([560.0, 680.0], np.float32)
+        s3_k, m3_k, a3_k = my.scenario_years(s4_p, ppack, c4_p, co2y, yd)
+        ms_k3, (s3_k, m3_k, a3_k) = _time_ms(
+            lambda: my.scenario_years(s4_p, ppack, c4_p, co2y, yd), 1)
+        plain_k3, (s3_p, m3_p, a3_p) = _time_ms(
+            lambda: my.scenario_years_plain(s4_p, ppack, c4_p, co2y, yd), 1)
+        print(f"K3 scenario_years (M=2, 2 years): kernel {ms_k3:.2f} "
+              f"ms/launch, plain {plain_k3:.1f} ms")
+        u3_k, u3_p = ModelState.unstack(s3_k), ModelState.unstack(s3_p)
+        err_k3 = _compare_state("K3", u3_k, u3_p, TOL_T_END, TOL_Q_END)
+        _check("K3 state cap_surf [J/K/m^2]",
+               _max_abs(u3_k.cap_surf, u3_p.cap_surf), slope * TOL_T_END)
+        for v, (name, tol) in enumerate((("ts", TOL_T), ("ta", TOL_T),
+                                         ("to", TOL_T), ("q", TOL_Q),
+                                         ("albedo", TOL_ALBEDO))):
+            _check(f"K3 monthly {name}",
+                   _max_abs(m3_k[:, :, v], m3_p[:, :, v]), tol)
+        for i, name in enumerate(core.StepOutputs._fields):
+            tol = {"q": TOL_Q, "albedo": TOL_ALBEDO}.get(
+                name, TOL_T if name in ("ts", "ta", "to") else TOL_FLUX_MEAN)
+            _check(f"K3 annual mean {name}", _max_abs(
+                a3_k[:, :, i] / num.nstep_yr, a3_p[:, :, i] / num.nstep_yr),
+                tol)
+
+        # -- member scaling: one K3 year at M = 1 .. 132 (the coefficient
+        #    scratch, 0.44 MB a member, passes the 50 MB L2 above M ~ 110)
+        for M in (1, 16, 64, 100, 132):
+            pp = my.pack_member_params(ens.perturbed_params(
+                model.params, {"ct_sens": np.linspace(22.05, 22.95, M)}),
+                "cuda")
+            s5m = s4_p[:, :1].repeat(1, M, 1, 1)
+            cpm = c4_p[:1].expand(M, -1, -1, -1, -1).contiguous()
+            my.scenario_years(s5m, pp, cpm, co2y[:1], yd)
+            ms_m, _ = _time_ms(
+                lambda: my.scenario_years(s5m, pp, cpm, co2y[:1], yd), 1)
+            print(f"member scaling: M={M:3d} {ms_m:.2f} ms/launch (1 year) "
+                  f"= {M / ms_m * 1e3:.3f} member-yr/s; corrections "
+                  f"{cpm.numel() * 4 / 1e9:.2f} GB, coefficient scratch "
+                  f"{M * 12 * 2 * num.ydim * num.xdim * 4 / 1e6:.1f} MB")
+            del pp, s5m, cpm
+        torch.cuda.empty_cache()
+
         # -- the main path: GREB.run, 3 spin-up + 10 scenario years ----------
-        yk.fluxcorr_year.launches = 0
-        yk.scenario_year.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, corr, monthly, diags = model.run(output_path=out_path)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"fluxcorr_year": yk.fluxcorr_year.launches,
-                    "scenario_year": yk.scenario_year.launches}
         years = num.time_flux + num.time_scnr
         print(f"main path: {years} sim-years in {wall:.3f} s = "
-              f"{years / wall:.3f} sim-yr/s; launches {launches}")
-        if launches != {"fluxcorr_year": num.time_flux,
-                        "scenario_year": num.time_scnr}:
-            raise AssertionError(f"launch counts {launches}")
+              f"{years / wall:.3f} sim-yr/s")
+        launches = read_counts("main path", {
+            "fluxcorr_year": num.time_flux, "scenario_year": num.time_scnr,
+            "fluxcorr_years": 0, "scenario_years": 0})
         for name in ("ts", "ta", "to", "q", "cap_surf"):
             if not bool(torch.isfinite(getattr(state, name)).all()):
                 raise AssertionError(f"state {name} not finite")
@@ -237,16 +389,129 @@ def main() -> int:
         if not gm[-1] > gm[0]:
             raise AssertionError(f"no warming under 680 ppm: {gm}")
 
+        # -- the long-run path: 3 spin-up + 50 scenario years, checkpoints ---
+        co2_long = np.full(LONG_YEARS, 680.0, np.float32)
+        nmon = len(num.jday_mon)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_fc, corr_fc = model.flux_correction()
+        ck_full, run_full = _long_runner(model, tmp, "full")
+        s_full, _, _ = longrun.run_long(
+            LONG_YEARS, state_fc, corr_fc, co2_long, run_full,
+            checkpointer=ck_full, chunk_years=LONG_BLOCK)
+        torch.cuda.synchronize()
+        run_full.close()
+        wall_long = time.perf_counter() - t0
+        years_long = num.time_flux + LONG_YEARS
+        print(f"long run: {years_long} sim-years in {wall_long:.3f} s = "
+              f"{years_long / wall_long:.3f} sim-yr/s ({num.time_flux} "
+              f"spin-up + {LONG_YEARS} scenario years in blocks of "
+              f"{LONG_BLOCK}, checkpoints every {LONG_BLOCK})")
+        launches_long = read_counts("long run", {
+            "fluxcorr_year": num.time_flux, "scenario_year": 0,
+            "fluxcorr_years": 0, "scenario_years": LONG_YEARS // LONG_BLOCK})
+        for name in ModelState.FIELDS:
+            if not bool(torch.isfinite(getattr(s_full, name)).all()):
+                raise AssertionError(f"long run state {name} not finite")
+        long_out = read_output(os.path.join(tmp, "long_full"), num.xdim,
+                               num.ydim)
+        if long_out.shape != (LONG_YEARS * nmon, 5, num.ydim, num.xdim) \
+                or not np.isfinite(long_out).all():
+            raise AssertionError(f"long run output {long_out.shape}")
+        print(f"  output file {os.path.getsize(os.path.join(tmp, 'long_full'))}"
+              f" B; checkpoints {sorted(os.listdir(ck_full.dir))}")
+        # its first 10 years against the main path's (both at 680 ppm): the
+        # multi-year kernel sums monthly means step by step, GREB.run's path
+        # as one product, so they agree at the golden tolerances
+        first = long_out[:num.time_scnr * nmon].reshape(monthly.shape)
+        for v, (name, tol) in enumerate((("ts", TOL_T), ("ta", TOL_T),
+                                         ("to", TOL_T), ("q", TOL_Q),
+                                         ("albedo", TOL_ALBEDO))):
+            _check(f"long vs main monthly {name}", float(
+                np.abs(first[:, :, v] - monthly[:, :, v]).max()), tol)
+
+        # stop at year 20, resume to 50 in a fresh process
+        ck_res, run_res = _long_runner(model, tmp, "resumed")
+        longrun.run_long(LONG_STOP, state_fc, corr_fc, co2_long, run_res,
+                         checkpointer=ck_res, chunk_years=LONG_BLOCK)
+        run_res.close()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--resume-long", tmp],
+            capture_output=True, text=True, timeout=900)
+        wall_resume = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"resume process exited {proc.returncode}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"resume in a fresh process: {wall_resume:.3f} s wall "
+              f"(setup {child['setup_s']:.3f} s, restore "
+              f"{child['restore_s']:.3f} s, years {child['start']}.."
+              f"{LONG_YEARS} in {child['run_s']:.3f} s, "
+              f"{child['scenario_years_launches']} scenario_years launches)")
+        if child["start"] != LONG_STOP:
+            raise AssertionError(f"resumed at {child['start']}")
+        s_res, _, cursor = Checkpointer(ck_res.dir).restore(device="cuda")
+        if cursor.year_index != LONG_YEARS:
+            raise AssertionError(f"last checkpoint at {cursor.year_index}")
+        for name in ModelState.FIELDS:
+            if not torch.equal(getattr(s_res, name), getattr(s_full, name)):
+                raise AssertionError(f"resumed state {name} differs")
+        with open(os.path.join(tmp, "long_full"), "rb") as f, \
+                open(os.path.join(tmp, "long_resumed"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("resumed output file differs")
+        print("  resumed run: final state and output file bitwise equal")
+
+        # -- the member chain: 3 spin-up years + a 10-year block, 3 members --
+        members3 = ens.perturbed_params(
+            model.params, {"ct_sens": np.linspace(22.05, 22.95, 3)})
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s5_m, corr_m, mon_m, _ = model.run_members(
+            members3, years=LONG_BLOCK, years_per_call=LONG_BLOCK,
+            co2_series=co2_long)
+        torch.cuda.synchronize()
+        wall_m = time.perf_counter() - t0
+        print(f"member chain: 3 members x {num.time_flux + LONG_BLOCK} years "
+              f"in {wall_m:.3f} s = {3 * (num.time_flux + LONG_BLOCK) / wall_m:.3f}"
+              f" member-yr/s")
+        launches_m = read_counts("member chain", {
+            "fluxcorr_year": 0, "scenario_year": 0,
+            "fluxcorr_years": num.time_flux, "scenario_years": 1})
+        if not (np.isfinite(mon_m).all()
+                and bool(torch.isfinite(s5_m).all())):
+            raise AssertionError("member chain not finite")
+        # member 1 has the base params: it is the long run's first block
+        if not (torch.equal(corr_m[1, :, 0], corr_fc.tf)
+                and np.array_equal(mon_m[1], long_out[:LONG_BLOCK * nmon])):
+            raise AssertionError("base member differs from the long run")
+        if np.array_equal(mon_m[0], mon_m[2]):
+            raise AssertionError("perturbed members do not differ")
+        print("  base member bitwise equal to the long run's first block")
+
     kernels = []
-    for name, line, ms, plain_ms, err, scen in (
-            ("fluxcorr_year", 353, ms_k1, plain_k1, err_k1, False),
-            ("scenario_year", 231, ms_k2, plain_k2, err_k2, True)):
-        bound_ms, bound_by = _bound(plan, num, scen)
+    for name, src, line, count, ms, plain_ms, err, work in (
+            ("fluxcorr_year", "year_kernel.py", 353,
+             launches["fluxcorr_year"], ms_k1, plain_k1, err_k1,
+             yk.year_work(plan, num, False)),
+            ("scenario_year", "year_kernel.py", 231,
+             launches["scenario_year"], ms_k2, plain_k2, err_k2,
+             yk.year_work(plan, num, True)),
+            ("scenario_years", "multiyear.py", 107,
+             launches_long["scenario_years"], ms_k3, plain_k3, err_k3,
+             my.years_work(plan, num, 2, 2, "scenario")),
+            ("fluxcorr_years", "multiyear.py", 253,
+             launches_m["fluxcorr_years"], ms_k4, plain_k4, err_k4,
+             my.years_work(plan, num, 1, 2, "fluxcorr"))):
+        bound_ms, bound_by = _bound_of(*work)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "greb_tpu_torch/csrc/year_kernel.cu",
-            "replaces": f"greb_tpu/ops/pallas/year_kernel.py:{line}",
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "replaces": f"greb_tpu/ops/pallas/{src}:{line}",
+            "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
@@ -257,4 +522,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

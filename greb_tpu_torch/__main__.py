@@ -7,6 +7,11 @@ inputs come from ``--input-dir`` in the reference's binary format (or are
 synthesized with ``--synthetic``), and the output is the reference's
 5-variable monthly-mean record stream.  It runs on the card (``--device
 cuda``, the default) through the fused CUDA year kernels.
+
+``--checkpoint-dir D`` runs the scenario in chunks of ``--checkpoint-every``
+years with a checkpoint after each (the reference has none); ``--resume``
+continues from the newest checkpoint in D, with the output stream placed
+at the checkpoint's record.
 """
 from __future__ import annotations
 
@@ -35,6 +40,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the card the fused kernels always run")
     p.add_argument("--strict-circulation", action="store_true",
                    help="strict term-by-term stencils (not ported yet)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint the scenario into this directory")
+    p.add_argument("--checkpoint-every", type=int, default=10,
+                   help="years between checkpoints")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in "
+                        "--checkpoint-dir")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -72,10 +84,43 @@ def main(argv=None) -> int:
         os.makedirs(out_dir, exist_ok=True)
 
     t0 = time.perf_counter()
-    model.run(output_path=out_path)
+    if args.checkpoint_dir:
+        run_checkpointed(model, out_path, args)
+    else:
+        model.run(output_path=out_path)
     if not args.quiet:
         print(f"% total wall time {time.perf_counter() - t0:.2f}s")
     return 0
+
+
+def run_checkpointed(model, out_path: str, args) -> None:
+    """Spin-up (unless resuming), then the scenario in chunks of
+    ``--checkpoint-every`` years through ``longrun.run_long``, one
+    per-year kernel call a year, with a checkpoint after each chunk.  A
+    resume continues from the newest checkpoint, and the output stream
+    continues at the checkpoint's record: months written after it by the
+    interrupted run are written again once, not appended twice."""
+    from .io.checkpoint import Checkpointer
+    from .model import longrun
+
+    num = model.num
+    ck = Checkpointer(args.checkpoint_dir, every_years=args.checkpoint_every)
+    resume = args.resume and ck.latest_step() is not None
+    if resume:
+        state = corr = None          # run_long restores both
+    else:
+        state, corr = model.flux_correction()
+    run_years = longrun.driver_year_runner(model, output_path=out_path)
+    try:
+        _, _, start = longrun.run_long(
+            num.time_scnr, state, corr, model.cfg.co2.series(num.time_scnr),
+            run_years, checkpointer=ck, chunk_years=args.checkpoint_every,
+            resume=resume, device=model.device)
+    finally:
+        run_years.close()
+    if not args.quiet:
+        print(f"% scenario years {start}..{num.time_scnr} run; checkpoints "
+              f"in {args.checkpoint_dir}")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,19 @@
 // Fused GREB year kernels for NVIDIA Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of greb_tpu/ops/pallas/year_kernel.py:
-//   fluxcorr_year  <- build_fluxcorr_year (year_kernel.py:353): one spin-up
+// Replaces the four Pallas TPU kernels of greb_tpu/ops/pallas/:
+//   fluxcorr_year  <- year_kernel.py build_fluxcorr_year (:353): one spin-up
 //                     year; writes each step's (tf, tof, qf) correction slice.
-//   scenario_year  <- build_scenario_year (year_kernel.py:231): one scenario
+//   scenario_year  <- year_kernel.py build_scenario_year (:231): one scenario
 //                     year; writes the 5 output fields of every step and the
 //                     sequential float32 annual sums of all 9 step outputs.
-// Both run one shared __device__ step body: the pointwise physics
+//   fluxcorr_years <- multiyear.py build_fluxcorr_years (:253): fluxcorr_year
+//                     for M members, each with its own physics parameters.
+//   scenario_years <- multiyear.py build_scenario_years (:107): n_years
+//                     scenario years for M members, CO2 from a table per
+//                     year; monthly means (weight 1/steps-in-month) and the 9
+//                     annual sums add up in the kernel, with no per-step
+//                     outputs.
+// All four run one shared __device__ step body: the pointwise physics
 // (ops/pointwise.py), the fold's per-step coefficients
 // (ops/fastcirc2.py step_coeffs) and nsub circulation substeps
 // (fastcirc2.substep): the 7-point zonal diffusion, the band clamp, the
@@ -14,14 +21,21 @@
 // the merged 5-point meridional step and the combine.
 //
 // Design.  The TPU kernel's sequential grid axis (one grid step per model
-// step, state resident in VMEM) becomes a loop inside ONE thread block: the
+// step, state resident in VMEM) becomes a loop inside one thread block per
+// member (blockIdx.x; one block for the single-run kernels): the
 // 5-field state (90 KiB at 96x48) and a double buffer of the two transported
 // fields (2 x 36 KiB) stay in dynamic shared memory for the whole year.  The
 // fold's constant planes, each step's forcing slice and the per-step
 // coefficient scratch are read from global memory / L2.  __syncthreads()
 // separates the phases of a substep whose cells read cells other threads
-// wrote.  Each thread owns fixed cells, so the coefficient scratch and the
-// annual sums are thread-private and need no barrier.
+// wrote.  Each thread owns fixed cells, so the coefficient scratch, the
+// monthly means and the annual sums are thread-private and need no barrier.
+// Each member has its own slice of every buffer the kernel writes (state,
+// coefficient scratch, corrections, monthly means, sums), so the blocks of
+// a member-batched launch never share a written address.  The monthly
+// means and annual sums are read-modified-written in global memory every
+// step: with the state they would need 262 KB of shared memory, over a
+// block's 227 KB.
 //
 // What bounds it.  One block runs on one of the card's 132 SMs.  A substep
 // rereads about 20 coefficient planes x 2 fields x 4608 cells x 4 B
@@ -42,6 +56,8 @@
 
 #define NT 1024
 #define COMP_BLOCK 8   // = fastcirc2.COMP_BLOCK
+#define N_SUM 9        // annual sums: the 9 StepOutputs fields
+#define N_OUT 5        // written fields: ts, ta, to, q, albedo
 
 struct GrebParams {
   float sig, rho_air, ct_sens, da_ice, a_no_ice, a_cloud;
@@ -64,15 +80,31 @@ struct YearArgs {
   const float *mer;    // (9, 2, Y, X)
   const float *wz;     // (2, Y, X)
   const float *pcomp;  // (2, K, X, X), K = ktc + kbc
-  // correction tables (T, Y, X): read by scenario_year, written by
-  // fluxcorr_year
+  // correction tables: step t of member m at (m*T + t)*corr_step; read by
+  // the scenario kernels, written by the spin-up kernels
   float *tf, *tof, *qf;
   float *outs;         // scenario_year: (T, 5, Y, X)
-  float *asum;         // scenario_year: (9, Y, X)
-  const float *state_in;  // (5, Y, X): ts, ta, to, q, cap_surf
-  float *state_out;       // (5, Y, X)
-  float *cf;              // scratch (12, 2, Y, X): za 7, mc 4, c0m 1
+  float *asum;         // scenario_year: (9, Y, X); scenario_years:
+                       // (M, n_years, 9, Y, X)
+  float *monthly;      // scenario_years: (M, n_years*nmon, 5, Y, X)
+  const int *mon;      // scenario_years: (T,) month of each step
+  const float *mon_w;  // scenario_years: (T,) weight 1/steps-in-month
+  const float *co2_years;  // scenario_years: (n_years,) CO2 [ppm]
+  const float *ppack;  // member kernels: (M, n_pack) physics parameters
+  const float *state_in;  // (5, M, Y, X): ts, ta, to, q, cap_surf
+  float *state_out;       // (5, M, Y, X)
+  float *cf;              // scratch (M, 12, 2, Y, X): za 7, mc 4, c0m 1
   int Y, X, T, nsub, bt, bb, ktc, kbc;
+  int M, n_years, nmon, corr_step, n_pack;
+};
+
+// Columns of the member pack (multiyear.pack_member_params) that hold each
+// GrebParams field; p_emi is 10 consecutive columns.
+struct PackCols {
+  int sig, rho_air, ct_sens, da_ice, a_no_ice, a_cloud;
+  int Tl_ice1, Tl_ice2, To_ice1, To_ice2;
+  int co_turb, ce, cq_latent, cq_rain, r_qviwv, c_effmix;
+  int p_emi, cap_ocean, cap_land, cap_air;
 };
 
 static size_t smem_bytes(const YearArgs& a) {
@@ -183,8 +215,8 @@ __device__ __forceinline__ float seaice(const GrebParams& p, float ts0,
 
 // One circulation substep of both transported fields, xa -> xb
 // (fastcirc2.substep, comp_mode "dense", no explicit segments).
-__device__ void substep(const YearArgs& a, const float* xa, float* xb,
-                        float* s_t1, float* s_da, float* s_dy) {
+__device__ void substep(const YearArgs& a, const float* cf_m, const float* xa,
+                        float* xb, float* s_t1, float* s_da, float* s_dy) {
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
   const int ktc = a.ktc, kbc = a.kbc, K = ktc + kbc;
   for (int c = threadIdx.x; c < P; c += blockDim.x) {
@@ -210,7 +242,7 @@ __device__ void substep(const YearArgs& a, const float* xa, float* xb,
     if (band) dd = clamp_neg(dd, x0);
 
     // zonal advection, clamped on the band rows
-    const float* cf = a.cf + c;
+    const float* cf = cf_m + c;
     float da = tree7(cf[3 * P] * x0, cf[0] * xm3, cf[P] * xm2, cf[2 * P] * xm1,
                      cf[4 * P] * xp1, cf[5 * P] * xp2, cf[6 * P] * xp3);
     if (band) da = clamp_neg(da, x0);
@@ -268,9 +300,34 @@ __device__ void substep(const YearArgs& a, const float* xa, float* xb,
   }
 }
 
-// The year: a loop over the T model steps of one block.
-template <bool SCEN>
-__device__ void run_year(const YearArgs& a, const GrebParams& p) {
+// The physics of member blockIdx.x: the pack's row, by field name; dt and
+// CO2 come from the host's p.
+__device__ GrebParams member_params(GrebParams p, const YearArgs& a,
+                                    const PackCols& c) {
+  const float* r = a.ppack + (size_t)blockIdx.x * a.n_pack;
+  p.sig = r[c.sig];           p.rho_air = r[c.rho_air];
+  p.ct_sens = r[c.ct_sens];   p.da_ice = r[c.da_ice];
+  p.a_no_ice = r[c.a_no_ice]; p.a_cloud = r[c.a_cloud];
+  p.Tl_ice1 = r[c.Tl_ice1];   p.Tl_ice2 = r[c.Tl_ice2];
+  p.To_ice1 = r[c.To_ice1];   p.To_ice2 = r[c.To_ice2];
+  p.co_turb = r[c.co_turb];   p.ce = r[c.ce];
+  p.cq_latent = r[c.cq_latent]; p.cq_rain = r[c.cq_rain];
+  p.r_qviwv = r[c.r_qviwv];   p.c_effmix = r[c.c_effmix];
+  for (int k = 0; k < 10; ++k) p.p_emi[k] = r[c.p_emi + k];
+  p.cap_ocean = r[c.cap_ocean];
+  p.cap_land = r[c.cap_land];
+  p.cap_air = r[c.cap_air];
+  return p;
+}
+
+enum Kind { FLUX, SCEN, SCEN_YEARS };
+
+// The years of member m = blockIdx.x: a loop over n_years x T model steps
+// in one block.  FLUX is a spin-up year (fluxcorr_year, fluxcorr_years),
+// SCEN one scenario year with per-step outputs (scenario_year), SCEN_YEARS
+// n_years scenario years with monthly means (scenario_years).
+template <int KIND>
+__device__ void run_years(const YearArgs& a, GrebParams p) {
   extern __shared__ float smem[];
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
   const int KX = (a.ktc + a.kbc) * X;
@@ -281,141 +338,202 @@ __device__ void run_year(const YearArgs& a, const GrebParams& p) {
   float* s_da = s_t1 + 2 * KX;
   float* s_dy = s_da + 2 * KX;
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int m = blockIdx.x;
+  // this member's slice of every buffer: field f of the state at f*MYX
+  const size_t MYX = (size_t)a.M * YX;
+  const float* state_in = a.state_in + (size_t)m * YX;
+  float* state_out = a.state_out + (size_t)m * YX;
+  float* cf = a.cf + (size_t)m * 12 * P;
+  const size_t corr_m = (size_t)m * a.T * a.corr_step;
+  float* tf_m = a.tf + corr_m;
+  float* tof_m = a.tof + corr_m;
+  float* qf_m = a.qf + corr_m;
 
-  for (int i = tid; i < 5 * YX; i += nt) s_state[i] = a.state_in[i];
-  if (SCEN)
-    for (int i = tid; i < 9 * YX; i += nt) a.asum[i] = 0.f;
+  for (int i = tid; i < 5 * YX; i += nt)
+    s_state[i] = state_in[(i / YX) * MYX + i % YX];
+  if (KIND == SCEN)
+    for (int i = tid; i < N_SUM * YX; i += nt) a.asum[i] = 0.f;
   __syncthreads();
 
-  for (int t = 0; t < a.T; ++t) {
-    const size_t tyx = (size_t)t * YX;
-    // -- step start: copy (Ta, q) and assemble this step's coefficients
-    //    (fastcirc2.step_coeffs) into the thread-private scratch
-    for (int c = tid; c < P; c += nt) {
-      const int f = c / YX;
-      const int pix = c - f * YX;
-      s_xa[c] = s_state[(f == 0 ? 1 : 3) * YX + pix];
-      const float u = a.u[tyx + pix], v = a.v[tyx + pix];
-      const float um = u > 0.f ? u : 0.f, up = u < 0.f ? u : 0.f;
-      const float vm = v > 0.f ? v : 0.f, vp = v < 0.f ? v : 0.f;
-      const float* zam = a.zam + c;
-      const float* mer = a.mer + c;
-      float* cf = a.cf + c;
-      cf[0 * P] = zam[0 * P] * um;
-      cf[1 * P] = zam[1 * P] * um;
-      cf[2 * P] = zam[2 * P] * um;
-      cf[3 * P] = zam[3 * P] * um + zam[4 * P] * up;
-      cf[4 * P] = zam[5 * P] * up;
-      cf[5 * P] = zam[6 * P] * up;
-      cf[6 * P] = zam[7 * P] * up;
-      cf[7 * P] = mer[3 * P] * vm;
-      cf[8 * P] = mer[0 * P] + mer[4 * P] * vm;
-      cf[9 * P] = mer[1 * P] + mer[5 * P] * vp;
-      cf[10 * P] = mer[6 * P] * vp;
-      cf[11 * P] = (mer[2 * P] + mer[7 * P] * vm) + mer[8 * P] * vp;
+  const int n_years = KIND == SCEN_YEARS ? a.n_years : 1;
+  for (int y = 0; y < n_years; ++y) {
+    float* asum = a.asum;
+    float* mon_y = nullptr;
+    if (KIND == SCEN_YEARS) {
+      p.co2 = a.co2_years[y];
+      const size_t my = (size_t)m * a.n_years + y;
+      asum = a.asum + my * N_SUM * YX;
+      mon_y = a.monthly + my * a.nmon * N_OUT * YX;
     }
-    __syncthreads();
-
-    // -- circulation: nsub substeps, ping-ponging the two buffers
-    float* xa = s_xa;
-    float* xb = s_xb;
-    for (int s = 0; s < a.nsub; ++s) {
-      substep(a, xa, xb, s_t1, s_da, s_dy);
-      __syncthreads();
-      float* tmp = xa; xa = xb; xb = tmp;
-    }
-
-    // -- pointwise physics and the state update of every cell
-    for (int pix = tid; pix < YX; pix += nt) {
-      const int r = pix / X;
-      const size_t tp = tyx + pix;
-      const float ts = s_state[pix], ta = s_state[YX + pix];
-      const float to = s_state[2 * YX + pix], q = s_state[3 * YX + pix];
-      const float cap = s_state[4 * YX + pix];
-      const float mld = a.mld[tp];
-      const float z_topo = a.z_topo[pix], glacier = a.glacier[pix];
-      const Tend e = tendencies(p, ts, ta, to, q, a.tclim[tp], a.swet[tp],
-                                a.u[tp], a.v[tp], mld, a.mld_prev[tp],
-                                a.cld[tp], a.sw_solar[(size_t)t * Y + r],
-                                z_topo, glacier, a.wz_air[pix], a.z_ocean[pix]);
-      const float dta_crcl = xa[pix] - ta;
-      const float dq_crcl = xa[YX + pix] - q;
-      const float dt = p.dt;
-      const float air = ((e.lwair + e.lwair) - e.em * e.lw_surf + e.q_lat_air) - e.q_sens;
-      float ts0, ta0, to0, q0;
-      if (SCEN) {
-        // scenario step (core.scenario_step; src/greb.f90:239-274)
-        const float tf = a.tf[tp], tof = a.tof[tp], qf = a.qf[tp];
-        ts0 = (ts + e.dt_ocean)
-              + (dt * (((((e.sw + e.lw_surf) - e.lwair) + e.q_lat) + e.q_sens) + tf)) / cap;
-        ta0 = (ta + dta_crcl) + (dt * air) / p.cap_air;
-        to0 = (to + e.dto) + tof;
-        float dq = ((dt * (e.dq_eva + e.dq_rain)) + dq_crcl) + qf;
-        dq = dq <= -q ? -0.9f * q : dq;               // positivity (:265)
-        q0 = q + dq;
-        float* out = a.outs + (size_t)t * 5 * YX + pix;
-        out[0] = ts0;
-        out[YX] = ta0;
-        out[2 * YX] = to0;
-        out[3 * YX] = q0;
-        out[4 * YX] = e.albedo;
-        const float vals[9] = {ts0, ta0, to0, q0, e.albedo, e.sw, e.lw_surf,
-                               e.q_lat, e.q_sens};
-        for (int k = 0; k < 9; ++k) a.asum[k * YX + pix] = a.asum[k * YX + pix] + vals[k];
-      } else {
-        // flux-correction step (core.fluxcorr_step; src/greb.f90:311-364)
-        const float dts = (dt * ((((e.sw + e.lw_surf) - e.lwair) + e.q_lat) + e.q_sens)) / cap;
-        const float ts0_raw = (ts + dts) + e.dt_ocean;
-        const float tf = ((a.tclim[tp] - ts0_raw) * cap) / dt;
-        ts0 = ((ts + dts) + e.dt_ocean) + (tf * dt) / cap;
-        ta0 = (ta + (dt * air) / p.cap_air) + dta_crcl;
-        const float tof = a.toclim[pix] - (to + e.dto);
-        to0 = (to + e.dto) + tof;
-        const float dq = dt * (e.dq_eva + e.dq_rain);
-        const float qf = a.qclim[tp] - ((q + dq) + dq_crcl);
-        q0 = ((q + dq) + dq_crcl) + qf;
-        a.tf[tp] = tf;
-        a.tof[tp] = tof;
-        a.qf[tp] = qf;
+    for (int t = 0; t < a.T; ++t) {
+      const size_t tyx = (size_t)t * YX;
+      const size_t tc = (size_t)t * a.corr_step;
+      // -- step start: copy (Ta, q) and assemble this step's coefficients
+      //    (fastcirc2.step_coeffs) into the thread-private scratch
+      for (int c = tid; c < P; c += nt) {
+        const int f = c / YX;
+        const int pix = c - f * YX;
+        s_xa[c] = s_state[(f == 0 ? 1 : 3) * YX + pix];
+        const float u = a.u[tyx + pix], v = a.v[tyx + pix];
+        const float um = u > 0.f ? u : 0.f, up = u < 0.f ? u : 0.f;
+        const float vm = v > 0.f ? v : 0.f, vp = v < 0.f ? v : 0.f;
+        const float* zam = a.zam + c;
+        const float* mer = a.mer + c;
+        float* cfc = cf + c;
+        cfc[0 * P] = zam[0 * P] * um;
+        cfc[1 * P] = zam[1 * P] * um;
+        cfc[2 * P] = zam[2 * P] * um;
+        cfc[3 * P] = zam[3 * P] * um + zam[4 * P] * up;
+        cfc[4 * P] = zam[5 * P] * up;
+        cfc[5 * P] = zam[6 * P] * up;
+        cfc[6 * P] = zam[7 * P] * up;
+        cfc[7 * P] = mer[3 * P] * vm;
+        cfc[8 * P] = mer[0 * P] + mer[4 * P] * vm;
+        cfc[9 * P] = mer[1 * P] + mer[5 * P] * vp;
+        cfc[10 * P] = mer[6 * P] * vp;
+        cfc[11 * P] = (mer[2 * P] + mer[7 * P] * vm) + mer[8 * P] * vp;
       }
-      s_state[pix] = ts0;
-      s_state[YX + pix] = ta0;
-      s_state[2 * YX + pix] = to0;
-      s_state[3 * YX + pix] = q0;
-      s_state[4 * YX + pix] = seaice(p, ts0, cap, mld, z_topo, glacier);
+      __syncthreads();
+
+      // -- circulation: nsub substeps, ping-ponging the two buffers
+      float* xa = s_xa;
+      float* xb = s_xb;
+      for (int s = 0; s < a.nsub; ++s) {
+        substep(a, cf, xa, xb, s_t1, s_da, s_dy);
+        __syncthreads();
+        float* tmp = xa; xa = xb; xb = tmp;
+      }
+
+      // this step's month slot (SCEN_YEARS), zeroed at the month's first step
+      int mo = 0;
+      bool mstart = false;
+      float w = 0.f;
+      if (KIND == SCEN_YEARS) {
+        mo = a.mon[t];
+        mstart = t == 0 || a.mon[t - 1] != mo;
+        w = a.mon_w[t];
+      }
+
+      // -- pointwise physics and the state update of every cell
+      for (int pix = tid; pix < YX; pix += nt) {
+        const int r = pix / X;
+        const size_t tp = tyx + pix;
+        const float ts = s_state[pix], ta = s_state[YX + pix];
+        const float to = s_state[2 * YX + pix], q = s_state[3 * YX + pix];
+        const float cap = s_state[4 * YX + pix];
+        const float mld = a.mld[tp];
+        const float z_topo = a.z_topo[pix], glacier = a.glacier[pix];
+        const Tend e = tendencies(p, ts, ta, to, q, a.tclim[tp], a.swet[tp],
+                                  a.u[tp], a.v[tp], mld, a.mld_prev[tp],
+                                  a.cld[tp], a.sw_solar[(size_t)t * Y + r],
+                                  z_topo, glacier, a.wz_air[pix], a.z_ocean[pix]);
+        const float dta_crcl = xa[pix] - ta;
+        const float dq_crcl = xa[YX + pix] - q;
+        const float dt = p.dt;
+        const float air = ((e.lwair + e.lwair) - e.em * e.lw_surf + e.q_lat_air) - e.q_sens;
+        const size_t cp = tc + pix;
+        float ts0, ta0, to0, q0;
+        if (KIND != FLUX) {
+          // scenario step (core.scenario_step; src/greb.f90:239-274)
+          const float tf = tf_m[cp], tof = tof_m[cp], qf = qf_m[cp];
+          ts0 = (ts + e.dt_ocean)
+                + (dt * (((((e.sw + e.lw_surf) - e.lwair) + e.q_lat) + e.q_sens) + tf)) / cap;
+          ta0 = (ta + dta_crcl) + (dt * air) / p.cap_air;
+          to0 = (to + e.dto) + tof;
+          float dq = ((dt * (e.dq_eva + e.dq_rain)) + dq_crcl) + qf;
+          dq = dq <= -q ? -0.9f * q : dq;               // positivity (:265)
+          q0 = q + dq;
+          const float vals[N_SUM] = {ts0, ta0, to0, q0, e.albedo, e.sw,
+                                     e.lw_surf, e.q_lat, e.q_sens};
+          if (KIND == SCEN) {
+            float* out = a.outs + (size_t)t * N_OUT * YX + pix;
+            for (int k = 0; k < N_OUT; ++k) out[k * YX] = vals[k];
+            for (int k = 0; k < N_SUM; ++k)
+              asum[k * YX + pix] = asum[k * YX + pix] + vals[k];
+          } else {
+            // monthly means and annual sums in sequence, from 0 at the
+            // month's / year's first step
+            float* mp = mon_y + (size_t)mo * N_OUT * YX + pix;
+            for (int k = 0; k < N_OUT; ++k)
+              mp[k * YX] = (mstart ? 0.f : mp[k * YX]) + w * vals[k];
+            for (int k = 0; k < N_SUM; ++k)
+              asum[k * YX + pix] = (t == 0 ? 0.f : asum[k * YX + pix]) + vals[k];
+          }
+        } else {
+          // flux-correction step (core.fluxcorr_step; src/greb.f90:311-364)
+          const float dts = (dt * ((((e.sw + e.lw_surf) - e.lwair) + e.q_lat) + e.q_sens)) / cap;
+          const float ts0_raw = (ts + dts) + e.dt_ocean;
+          const float tf = ((a.tclim[tp] - ts0_raw) * cap) / dt;
+          ts0 = ((ts + dts) + e.dt_ocean) + (tf * dt) / cap;
+          ta0 = (ta + (dt * air) / p.cap_air) + dta_crcl;
+          const float tof = a.toclim[pix] - (to + e.dto);
+          to0 = (to + e.dto) + tof;
+          const float dq = dt * (e.dq_eva + e.dq_rain);
+          const float qf = a.qclim[tp] - ((q + dq) + dq_crcl);
+          q0 = ((q + dq) + dq_crcl) + qf;
+          tf_m[cp] = tf;
+          tof_m[cp] = tof;
+          qf_m[cp] = qf;
+        }
+        s_state[pix] = ts0;
+        s_state[YX + pix] = ta0;
+        s_state[2 * YX + pix] = to0;
+        s_state[3 * YX + pix] = q0;
+        s_state[4 * YX + pix] = seaice(p, ts0, cap, mld, z_topo, glacier);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
-  for (int i = tid; i < 5 * YX; i += nt) a.state_out[i] = s_state[i];
+  for (int i = tid; i < 5 * YX; i += nt)
+    state_out[(i / YX) * MYX + i % YX] = s_state[i];
 }
 
 __global__ void __launch_bounds__(NT, 1) fluxcorr_year(YearArgs a, GrebParams p) {
-  run_year<false>(a, p);
+  run_years<FLUX>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_year(YearArgs a, GrebParams p) {
-  run_year<true>(a, p);
+  run_years<SCEN>(a, p);
 }
 
-template <typename Kernel>
-static int launch(Kernel kernel, const YearArgs& a, const GrebParams& p,
-                  void* stream) {
+__global__ void __launch_bounds__(NT, 1) fluxcorr_years(YearArgs a, GrebParams p,
+                                                        PackCols c) {
+  run_years<FLUX>(a, member_params(p, a, c));
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_years(YearArgs a, GrebParams p,
+                                                        PackCols c) {
+  run_years<SCEN_YEARS>(a, member_params(p, a, c));
+}
+
+// One block of NT threads per member (a.M blocks).
+template <typename Kernel, typename... Extra>
+static int launch(Kernel kernel, const YearArgs& a, void* stream,
+                  const GrebParams& p, Extra... extra) {
   const size_t smem = smem_bytes(a);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<1, NT, smem, (cudaStream_t)stream>>>(a, p);
+  kernel<<<a.M, NT, smem, (cudaStream_t)stream>>>(a, p, extra...);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 int greb_fluxcorr_year(YearArgs a, GrebParams p, void* stream) {
-  return launch(fluxcorr_year, a, p, stream);
+  return launch(fluxcorr_year, a, stream, p);
 }
 
 int greb_scenario_year(YearArgs a, GrebParams p, void* stream) {
-  return launch(scenario_year, a, p, stream);
+  return launch(scenario_year, a, stream, p);
+}
+
+int greb_fluxcorr_years(YearArgs a, GrebParams p, PackCols c, void* stream) {
+  return launch(fluxcorr_years, a, stream, p, c);
+}
+
+int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, void* stream) {
+  return launch(scenario_years, a, stream, p, c);
 }
 
 const char* greb_error_string(int err) {

@@ -110,6 +110,9 @@ class OutputWriter:
         self._f.write(buf.tobytes())
         self.irec += buf.shape[0] * self.NVAR
 
+    def flush(self) -> None:
+        self._f.flush()
+
     def close(self) -> None:
         self._f.close()
 

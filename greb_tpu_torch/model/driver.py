@@ -6,12 +6,15 @@ Each phase calls one year at a time: on the card through the fused CUDA
 year kernels (ops/cuda/year_kernel.py), on the CPU through their plain
 PyTorch versions.  Monthly means are one (12, nstep) product outside the
 kernel; the scenario writes them to the reference's direct-access binary
-stream and prints one console line per year.
+stream and prints one console line per year.  ``run_scenario(...,
+years_per_call=n)`` instead runs blocks of n years through the multi-year
+kernel (ops/cuda/multiyear.py), which adds up the monthly means itself;
+``run_members`` chains the member-batched spin-up and scenario kernels.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +26,7 @@ from ..forcing import (ClimForcing, Corrections, ModelState, build_derived,
 from ..grid import make_grid, month_average_matrix
 from ..ops import fastcirc2 as fc2
 from ..ops import stencils as stc
+from ..ops.cuda import multiyear as my
 from ..ops.cuda import year_kernel as yk
 from . import core
 
@@ -86,6 +90,15 @@ class GREB:
         self.month_mat = torch.as_tensor(
             month_average_matrix(self.num.jday_mon, self.num.ndt_days),
             device=self.device)
+        self._ppack = None   # the base params' member pack, made on first use
+
+    def _multiyear_args(self, corr: Corrections):
+        """(member pack (1, 1, N_PPACK), corrections (1, T, 3, Y, X)) of the
+        multi-year kernel at M=1."""
+        if self._ppack is None:
+            self._ppack = my.pack_member_params([self.params], self.device)
+        corrpack = torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None]
+        return self._ppack, corrpack
 
     # -- phases ---------------------------------------------------------------
     def initial_state(self) -> ModelState:
@@ -113,9 +126,23 @@ class GREB:
                      state: Optional[ModelState] = None,
                      years: Optional[int] = None,
                      co2_series: Optional[np.ndarray] = None,
-                     output_path: Optional[str] = None):
-        """Scenario phase (reference src/greb.f90:223-234), one year per
-        kernel call.  Returns (state, monthly (years,12,5,y,x), diag list)."""
+                     output_path: Optional[str] = None,
+                     collect_monthly: bool = True,
+                     years_per_call: int = 1,
+                     first_year: int = 0):
+        """Scenario phase (reference src/greb.f90:223-234).
+
+        One year per kernel call, or with ``years_per_call > 1`` blocks of
+        that many years per call of the multi-year kernel.  Both paths print
+        the console line of a year from the kernel's annual sums over
+        nstep_yr, so they print the same numbers; their monthly means differ
+        by float32 rounding (summed step by step in the multi-year kernel,
+        one product after the per-year kernel).  ``collect_monthly=False``
+        skips the per-year path's monthly means, diagnostics and console
+        lines (the multi-year path always collects them).  ``first_year``
+        numbers the console lines of a run continued in chunks.
+
+        Returns (state, monthly (years,12,5,y,x) | None, diag list)."""
         num = self.num
         years = years if years is not None else num.time_scnr
         if co2_series is None:
@@ -133,37 +160,158 @@ class GREB:
         if output_path:
             from ..io.binio import OutputWriter
             writer = OutputWriter(output_path, num.xdim, num.ydim)
-        if self.verbose:
-            print(f"% MODEL RUN; years = {years}")
-            print("console output: year, co2, global avg temp, "
-                  "avg temp for ipx/ipy")
-        monthly_all, diags = [], []
-        ft_mean, fq_mean = core.correction_annual_means(corr)
-        year = num.year0
         try:
+            if years_per_call > 1:
+                return self._run_scenario_multiyear(
+                    corr, state, years, co2_series, writer, years_per_call,
+                    first_year)
+            if self.verbose:
+                print(f"% MODEL RUN; years = {years}")
+                print("console output: year, co2, global avg temp, "
+                      "avg temp for ipx/ipy")
+            monthly_all, diags = [], []
+            ft_mean, fq_mean = core.correction_annual_means(corr)
             for iy in range(years):
                 co2 = co2_series[iy]
                 state, outs, asum = yk.scenario_year(state, corr, co2,
                                                      self.year_data)
+                if not collect_monthly:
+                    continue
                 monthly_np = core.monthly_means(self.month_mat,
                                                 outs).cpu().numpy()
                 monthly_all.append(monthly_np)
                 if writer:
                     writer.write_months(monthly_np)
-                diag = core.year_diag(core.annual_means(asum, num),
-                                      num)._replace(ft_mean=ft_mean,
-                                                    fq_mean=fq_mean)
-                diags.append(diag)
-                if self.verbose:
-                    print(f" {year + 1} {float(co2):10.4f} "
-                          f"{float(diag.global_mean_ts) - 273.15:12.6f} "
-                          f"{float(diag.point_ts) - 273.15:12.6f}")
-                year += 1
+                diags.append(self._year_line(first_year + iy, co2,
+                                             asum.cpu(), ft_mean, fq_mean))
         finally:
             if writer:
                 writer.close()
         monthly_arr = np.stack(monthly_all) if monthly_all else None
         return state, monthly_arr, diags
+
+    def _year_line(self, iy: int, co2, asum: torch.Tensor, ft_mean,
+                   fq_mean) -> core.YearDiag:
+        """A year's diagnostics from its annual sums (on the host, for both
+        scenario paths), and its console line."""
+        num = self.num
+        diag = core.year_diag(core.annual_means(asum, num), num)._replace(
+            ft_mean=ft_mean, fq_mean=fq_mean)
+        if self.verbose:
+            print(f" {num.year0 + iy + 1} {float(co2):10.4f} "
+                  f"{float(diag.global_mean_ts) - 273.15:12.6f} "
+                  f"{float(diag.point_ts) - 273.15:12.6f}")
+        return diag
+
+    def _run_scenario_multiyear(self, corr, state, years, co2_series,
+                                writer, years_per_call, first_year):
+        """Scenario phase in blocks of ``years_per_call`` years, one call of
+        the multi-year kernel each (see run_scenario).
+
+        Dispatch, then drain: block N's monthly means and sums go to pinned
+        host buffers by copies queued behind it on the stream, an event
+        marks them, and block N+1 is launched before the host waits on that
+        event to write N's months and print its lines.  So the host's
+        file writes overlap the card's next block."""
+        num = self.num
+        nmon = len(num.jday_mon)
+        shape = (num.ydim, num.xdim)
+        ppack, corrpack = self._multiyear_args(corr)
+        ft_mean, fq_mean = core.correction_annual_means(corr)
+        if self.verbose:
+            print(f"% MODEL RUN; years = {years} "
+                  f"(fused blocks of {years_per_call})")
+            print("console output: year, co2, global avg temp, "
+                  "avg temp for ipx/ipy")
+        cuda = self.device.type == "cuda"
+        co2_dev = torch.as_tensor(co2_series[:years], device=self.device)
+        if cuda:
+            ypc = min(years_per_call, years)
+            host = [(torch.empty((1, ypc * nmon, core.N_OUT) + shape,
+                                 pin_memory=True),
+                     torch.empty((1, ypc, yk.N_SUM) + shape, pin_memory=True))
+                    for _ in range(2)]
+        state5 = state.stack()[:, None]
+        monthly_all, diags = [], []
+
+        def drain(block):
+            done, ny, mon, asum, event = block
+            if event is not None:
+                event.synchronize()
+            mon_np = mon[0, :ny * nmon].numpy().reshape(
+                (ny, nmon, core.N_OUT) + shape).copy()
+            for iy in range(ny):
+                monthly_all.append(mon_np[iy])
+                if writer:
+                    writer.write_months(mon_np[iy])
+                diags.append(self._year_line(
+                    first_year + done + iy, co2_series[done + iy],
+                    asum[0, iy].clone(), ft_mean, fq_mean))
+
+        pending, done, k = None, 0, 0
+        while done < years:
+            ny = min(years_per_call, years - done)
+            state5, monthly, asum = my.scenario_years(
+                state5, ppack, corrpack, co2_dev[done:done + ny],
+                self.year_data)
+            event = None
+            if cuda:
+                h_mon, h_asum = host[k % 2]
+                h_mon[:, :ny * nmon].copy_(monthly, non_blocking=True)
+                h_asum[:, :ny].copy_(asum, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                monthly, asum = h_mon, h_asum
+            if pending is not None:
+                drain(pending)
+            pending = (done, ny, monthly, asum, event)
+            done += ny
+            k += 1
+        if pending is not None:
+            drain(pending)
+        final = ModelState.unstack(state5[:, 0])
+        return final, np.stack(monthly_all), diags
+
+    def run_members(self, members: Sequence[PhysicsParams],
+                    years: Optional[int] = None, years_per_call: int = 10,
+                    co2_series: Optional[np.ndarray] = None):
+        """Member-batched chain: ``time_flux`` spin-up years of the
+        member-batched spin-up kernel (each member learns its own correction
+        tables under its own params), then ``years`` scenario years in
+        blocks of ``years_per_call`` through the multi-year kernel.  The
+        members share forcing and fold, so they may not differ from the
+        model's params in a transport parameter.
+
+        Returns (state5 (5, M, y, x), corrections (M, T, 3, y, x), monthly
+        means (M, years*12, 5, y, x) and annual sums (M, years, 9, y, x) as
+        host numpy arrays)."""
+        num, yd = self.num, self.year_data
+        years = years if years is not None else num.time_scnr
+        if co2_series is None:
+            co2_series = core.co2_series_for_run(
+                num, self.cfg.co2.series(num.time_scnr))
+        co2_series = np.asarray(co2_series, F32)[:years]
+        ppack = my.pack_member_params(members, self.device)
+        state5 = torch.stack([
+            initial_state(p, self.forcing,
+                          build_derived(p, self.forcing)).stack()
+            for p in members], dim=1)
+        corrpack = torch.zeros((len(members), num.nstep_yr, 3, num.ydim,
+                                num.xdim), dtype=torch.float32,
+                               device=self.device)
+        for _ in range(num.time_flux):
+            state5, corrpack = my.fluxcorr_years(
+                state5, ppack, F32(self.cfg.co2.co2_flux), yd)
+        co2_dev = torch.as_tensor(co2_series, device=self.device)
+        monthly, asums = [], []
+        for done in range(0, years, years_per_call):
+            state5, mon, asum = my.scenario_years(
+                state5, ppack, corrpack,
+                co2_dev[done:done + years_per_call], yd)
+            monthly.append(mon.cpu().numpy())
+            asums.append(asum.cpu().numpy())
+        return (state5, corrpack, np.concatenate(monthly, axis=1),
+                np.concatenate(asums, axis=1))
 
     # -- the reference's full default workload --------------------------------
     def run(self, output_path: Optional[str] = None):

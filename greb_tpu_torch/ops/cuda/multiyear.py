@@ -1,0 +1,300 @@
+"""The member-batched multi-year kernels: wrappers, plain versions and
+launch counters.
+
+``fluxcorr_years`` replaces ``greb_tpu/ops/pallas/multiyear.py``
+``build_fluxcorr_years`` (:253): one spin-up year for each of M members,
+each with its own physics parameters.  ``scenario_years`` replaces
+``build_scenario_years`` (:107): ``n_years`` scenario years for each
+member, CO2 from a table per year, with the monthly means (weight
+1/steps-in-month) and the 9 annual sums added up inside the kernel.  Both
+run the step body of ``csrc/year_kernel.cu`` with one thread block per
+member.  On a CUDA tensor each wrapper launches its kernel or raises; on a
+CPU tensor it runs its plain PyTorch version, ``*_plain``, which loops
+over the members and steps through ``core.fluxcorr_step`` /
+``core.scenario_step`` in the kernel's order of accumulation.
+
+Layouts are the JAX package's: state (5, M, Y, X), member pack
+(M, 1, N_PPACK), corrections (M, T, 3, Y, X), monthly means
+(M, 12 * n_years, 5, Y, X), annual sums (M, n_years, 9, Y, X).  The fold
+is built once from the base parameters, so the members may not differ from
+them in a transport parameter (``parallel.ensemble.TRANSPORT_PARAM_KEYS``).
+The TPU kernel's members-per-block ``mb`` has no counterpart: two members'
+state does not fit one block's shared memory, and members do not interact.
+
+Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...config import Numerics, PhysicsParams
+from ...forcing import ModelState
+from ...grid import month_average_matrix
+from ...model import core
+from ...parallel.ensemble import TRANSPORT_PARAM_KEYS
+from .. import fastcirc2 as fc2
+from . import year_kernel as yk
+
+F32 = np.float32
+
+# member pack columns: the 29 scalar PhysicsParams fields in declaration
+# order, the 10 p_emi entries, then the 3 heat capacities (cap_ocean,
+# cap_land, cap_air)
+_SCALAR_FIELDS = tuple(f.name for f in dataclasses.fields(PhysicsParams)
+                       if f.name != "p_emi")
+N_PPACK = len(_SCALAR_FIELDS) + 10 + 3
+_COL_P_EMI = len(_SCALAR_FIELDS)
+_COL_CAPS = _COL_P_EMI + 10
+
+
+def pack_member_params(members: Sequence[PhysicsParams],
+                       device="cpu") -> torch.Tensor:
+    """Per-member params -> (M, 1, N_PPACK) float32 table."""
+    rows = []
+    for p in members:
+        caps = (p.cp_ocean * p.rho_ocean, p.cp_land * p.rho_land * p.d_land,
+                p.cp_air * p.rho_air * p.d_air)
+        rows.append(np.concatenate([
+            np.asarray([getattr(p, f) for f in _SCALAR_FIELDS], F32),
+            np.asarray(p.p_emi, F32).reshape(10), np.asarray(caps, F32)]))
+    return torch.as_tensor(np.stack(rows)[:, None, :], device=device)
+
+
+def member_params(row: np.ndarray) -> Tuple[PhysicsParams, Tuple]:
+    """One (N_PPACK,) pack row -> (PhysicsParams, (cap_ocean, cap_land,
+    cap_air))."""
+    row = np.asarray(row, F32)
+    p = PhysicsParams(**{f: row[i] for i, f in enumerate(_SCALAR_FIELDS)},
+                      p_emi=row[_COL_P_EMI:_COL_CAPS].copy())
+    return p, tuple(row[_COL_CAPS:_COL_CAPS + 3])
+
+
+def _pack_cols() -> yk._PackCols:
+    col = {f: i for i, f in enumerate(_SCALAR_FIELDS)}
+    return yk._PackCols(**{n: col[n] for n in yk._PARAM_NAMES},
+                        p_emi=_COL_P_EMI, cap_ocean=_COL_CAPS,
+                        cap_land=_COL_CAPS + 1, cap_air=_COL_CAPS + 2)
+
+
+def month_maps(num: Numerics) -> Tuple[np.ndarray, np.ndarray]:
+    """(month index (T,) int32, weight 1/steps-in-month (T,) float32) of
+    every step of the year (multiyear.py ``_month_maps`` at one step per
+    block: here one block loops over every step itself)."""
+    mm = month_average_matrix(num.jday_mon, num.ndt_days)      # (12, T)
+    return mm.argmax(axis=0).astype(np.int32), mm.max(axis=0).astype(F32)
+
+
+def _maps_on(yd: yk.YearData, dev: torch.device):
+    """The month maps on ``dev``, copied there once per run: a copy from
+    pageable host memory would wait for the block in flight."""
+    key = ("month maps", str(dev))
+    if key not in yd.cache:
+        mon, w = month_maps(yd.num)
+        yd.cache[key] = (torch.as_tensor(mon, device=dev),
+                         torch.as_tensor(w, device=dev))
+    return yd.cache[key]
+
+
+def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
+               kind: str):
+    """(bytes, operations) a launch of ``kind`` ("fluxcorr": K4, one year;
+    "scenario": K3) must move and compute at least for ``members`` members
+    over ``n_years`` years, counted as ``year_kernel.year_work``: the shared
+    inputs (forcing, constants, fold) read once, each member's state, pack,
+    monthly means and annual sums once.  The correction tables count once
+    per member and year: a year streams them step by step, and from one
+    year to the next 40 MB a member (at 96x48) cannot stay on chip."""
+    scen = kind == "scenario"
+    if not scen and n_years != 1:
+        raise ValueError("a spin-up launch runs one year")
+    yx, t = plan.ydim * plan.xdim, num.nstep_yr
+    kk = plan.comp_kt + plan.comp_kb
+    nmon = len(num.jday_mon)
+    words = (8 * t * yx + t * plan.ydim          # forcing, insolation
+             + 5 * yx                            # constant fields
+             + (7 + 8 + 9 + 1) * 2 * yx          # fold planes
+             + 2 * kk * plan.xdim ** 2           # composites
+             + members * (10 * yx + N_PPACK)     # state in and out, pack
+             + members * n_years * 3 * t * yx)   # corrections in / out
+    if scen:
+        words += (n_years + 2 * t                # CO2 table, month maps
+                  + members * n_years * (nmon * core.N_OUT + yk.N_SUM) * yx)
+    # per year and member: the single-year step body (with the annual sums
+    # for a scenario year), plus a multiply and an add for each of the 5
+    # monthly means
+    ops = yk.year_work(plan, num, scen)[1] + (t * yx * 10 if scen else 0)
+    return 4 * words, members * n_years * ops
+
+
+# ---------------------------------------------------------------------------
+# checks shared by both wrappers
+# ---------------------------------------------------------------------------
+def _pack_np(ppack: torch.Tensor, yd: yk.YearData) -> np.ndarray:
+    """The pack's host copy, kept for the last pack object seen: a driver
+    reuses one pack across its blocks, so the card syncs for it once."""
+    hit = yd.cache.get("pack")
+    if hit is None or hit[0] is not ppack:   # identity: holds a reference
+        hit = yd.cache["pack"] = (ppack, ppack.detach().cpu().numpy())
+    return hit[1]
+
+
+def _check(state5: torch.Tensor, ppack: torch.Tensor,
+           yd: yk.YearData) -> int:
+    """Raise for what the kernels do not run; return the member count."""
+    yk.check_supported(yd.fold[0])
+    if state5.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"year kernels run on cuda (or plain on cpu), "
+                         f"not {state5.device}")
+    M = state5.shape[1]
+    if tuple(ppack.shape) != (M, 1, N_PPACK):
+        raise ValueError(f"ppack: want shape {(M, 1, N_PPACK)}, got "
+                         f"{tuple(ppack.shape)}")
+    base = yd.md.params
+    rows = _pack_np(ppack, yd)[:, 0]
+    for k in sorted(TRANSPORT_PARAM_KEYS):
+        i = _SCALAR_FIELDS.index(k)
+        if not (rows[:, i] == F32(getattr(base, k))).all():
+            raise ValueError(
+                f"members differ from the base params in {k!r}, a transport "
+                f"parameter: the folded circulation is built once, from the "
+                f"base params")
+    return M
+
+
+def _member_data(row: np.ndarray, yd: yk.YearData) -> core.ModelData:
+    """The model data of one member: its params and the pack's caps."""
+    p, (cap_ocean, cap_land, cap_air) = member_params(row)
+    derived = dataclasses.replace(yd.md.derived, cap_ocean=cap_ocean,
+                                  cap_land=cap_land, cap_air=cap_air)
+    return core.ModelData(params=p, derived=derived, z_topo=yd.md.z_topo,
+                          glacier=yd.md.glacier)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def fluxcorr_years_plain(state5: torch.Tensor, ppack: torch.Tensor, co2,
+                         yd: yk.YearData):
+    """One spin-up year per member: (state5 (5, M, Y, X), corr
+    (M, T, 3, Y, X))."""
+    rows = _pack_np(ppack, yd)[:, 0]
+    out, corrs = torch.empty_like(state5), []
+    for m, row in enumerate(rows):
+        s, c = core.run_year_fluxcorr(ModelState.unstack(state5[:, m]),
+                                      yd.sfx, F32(co2), _member_data(row, yd),
+                                      yd.num, yd.fold)
+        out[:, m] = s.stack()
+        corrs.append(torch.stack([c.tf, c.tof, c.qf], dim=1))
+    return out, torch.stack(corrs)
+
+
+def scenario_years_plain(state5: torch.Tensor, ppack: torch.Tensor,
+                         corrpack: torch.Tensor, co2_years, yd: yk.YearData):
+    """``n_years`` scenario years per member: (state5, monthly
+    (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X)).  Monthly
+    means add w * fields step by step from 0 at each month's first step,
+    and the annual sums add the 9 outputs from 0 at each year's start, as
+    the kernel does."""
+    num, dev = yd.num, state5.device
+    co2s = np.asarray(torch.as_tensor(co2_years).cpu(), F32).reshape(-1)
+    M, ny, nmon = state5.shape[1], len(co2s), len(num.jday_mon)
+    mon_idx, _ = month_maps(num)
+    _, w = _maps_on(yd, dev)
+    shape = tuple(state5.shape[2:])
+    out = torch.empty_like(state5)
+    monthly = torch.empty((M, ny * nmon, core.N_OUT) + shape,
+                          dtype=torch.float32, device=dev)
+    asum = torch.empty((M, ny, yk.N_SUM) + shape, dtype=torch.float32,
+                       device=dev)
+    for m, row in enumerate(_pack_np(ppack, yd)[:, 0]):
+        md = _member_data(row, yd)
+        state = ModelState.unstack(state5[:, m])
+        corr = corrpack[m]
+        for y, co2 in enumerate(co2s):
+            acc = torch.zeros((yk.N_SUM,) + shape, dtype=torch.float32,
+                              device=dev)
+            for t in range(num.nstep_yr):
+                state, o = core.scenario_step(
+                    state, yd.sfx.at(t), tuple(corr[t].unbind(0)), co2, md,
+                    num, yd.fold)
+                slot = monthly[m, y * nmon + mon_idx[t]]
+                if t == 0 or mon_idx[t - 1] != mon_idx[t]:
+                    slot.zero_()
+                slot.copy_(slot + w[t] * torch.stack(o[:core.N_OUT]))
+                acc += torch.stack(o)
+            asum[m, y] = acc
+        out[:, m] = state.stack()
+    return out, monthly, asum
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
+                   yd: yk.YearData):
+    """One spin-up year for each member: (state5 (5, M, Y, X), corr
+    (M, T, 3, Y, X))."""
+    M = _check(state5, ppack, yd)
+    dev = state5.device
+    if dev.type == "cpu":
+        return fluxcorr_years_plain(state5, ppack, co2, yd)
+    T, Y, X = yd.num.nstep_yr, state5.shape[2], state5.shape[3]
+    state_out = torch.empty_like(state5)
+    corr = torch.empty((M, T, 3, Y, X), dtype=torch.float32, device=dev)
+    args = yk._args(
+        yd, state5, ints=dict(M=M, corr_step=3 * Y * X, n_pack=N_PPACK),
+        state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
+        cf=(yk._scratch(yd, dev, M), None), tf=(corr, None),
+        ppack=(ppack, (M, 1, N_PPACK)))
+    args.tof = args.tf + 4 * Y * X
+    args.qf = args.tf + 8 * Y * X
+    # dt and CO2 from the host; the pack overrides the physics per member
+    yk._launch("greb_fluxcorr_years", args, yk._params(yd, co2), dev,
+               _pack_cols())
+    fluxcorr_years.launches += 1
+    return state_out, corr
+
+
+def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
+                   corrpack: torch.Tensor, co2_years, yd: yk.YearData):
+    """``n_years`` scenario years for each member, one CO2 value per year
+    (an array, or a float32 tensor on the state's device): (state5,
+    monthly (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X))."""
+    M = _check(state5, ppack, yd)
+    dev = state5.device
+    if dev.type == "cpu":
+        return scenario_years_plain(state5, ppack, corrpack, co2_years, yd)
+    num = yd.num
+    T, Y, X, nmon = num.nstep_yr, state5.shape[2], state5.shape[3], \
+        len(num.jday_mon)
+    co2t = torch.as_tensor(co2_years, dtype=torch.float32, device=dev)
+    ny = co2t.numel()
+    state_out = torch.empty_like(state5)
+    monthly = torch.empty((M, ny * nmon, core.N_OUT, Y, X),
+                          dtype=torch.float32, device=dev)
+    asum = torch.empty((M, ny, yk.N_SUM, Y, X), dtype=torch.float32,
+                       device=dev)
+    mon, w = _maps_on(yd, dev)
+    args = yk._args(
+        yd, state5,
+        ints=dict(M=M, n_years=ny, corr_step=3 * Y * X, n_pack=N_PPACK),
+        state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
+        cf=(yk._scratch(yd, dev, M), None), tf=(corrpack, (M, T, 3, Y, X)),
+        ppack=(ppack, (M, 1, N_PPACK)), co2_years=(co2t, (ny,)),
+        mon=(mon, (T,), torch.int32), mon_w=(w, (T,)),
+        monthly=(monthly, None), asum=(asum, None))
+    args.tof = args.tf + 4 * Y * X
+    args.qf = args.tf + 8 * Y * X
+    # each year's CO2 comes from the table; the pack overrides the physics
+    yk._launch("greb_scenario_years", args, yk._params(yd, 0.0), dev,
+               _pack_cols())
+    scenario_years.launches += 1
+    return state_out, monthly, asum
+
+
+fluxcorr_years.launches = 0
+scenario_years.launches = 0

@@ -19,8 +19,8 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -39,11 +39,14 @@ N_SUM = len(core.StepOutputs._fields)
 
 @dataclass
 class YearData:
-    """Everything constant across the year calls of a run."""
+    """Everything constant across the year calls of a run; ``cache`` keeps
+    the member wrappers' copies of constants (month maps on the device,
+    the member pack on the host), made once per run."""
     md: core.ModelData
     sfx: core.StepForcing
     fold: core.Fold
     num: Numerics
+    cache: Dict = field(default_factory=dict, repr=False)
 
 
 def smem_bytes(plan: fc2.FastPlan) -> int:
@@ -126,8 +129,10 @@ _PARAM_NAMES = ("sig", "rho_air", "ct_sens", "da_ice", "a_no_ice", "a_cloud",
 _PTR_NAMES = ("tclim", "qclim", "swet", "u", "v", "mld", "mld_prev", "cld",
               "sw_solar", "z_topo", "glacier", "wz_air", "z_ocean", "toclim",
               "zd", "zam", "mer", "wz", "pcomp", "tf", "tof", "qf", "outs",
-              "asum", "state_in", "state_out", "cf")
-_INT_NAMES = ("Y", "X", "T", "nsub", "bt", "bb", "ktc", "kbc")
+              "asum", "monthly", "mon", "mon_w", "co2_years", "ppack",
+              "state_in", "state_out", "cf")
+_INT_NAMES = ("Y", "X", "T", "nsub", "bt", "bb", "ktc", "kbc", "M", "n_years",
+              "nmon", "corr_step", "n_pack")
 
 
 class _Params(ctypes.Structure):
@@ -142,11 +147,21 @@ class _Args(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in _INT_NAMES])
 
 
+class _PackCols(ctypes.Structure):
+    """Columns of the member pack holding each kernel parameter
+    (csrc/year_kernel.cu PackCols)."""
+    _fields_ = [(n, ctypes.c_int) for n in
+                _PARAM_NAMES + ("p_emi", "cap_ocean", "cap_land", "cap_air")]
+
+
 def _lib():
     from . import build
     lib = build.load("year_kernel")
     for fn in (lib.greb_fluxcorr_year, lib.greb_scenario_year):
         fn.argtypes = [_Args, _Params, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.greb_fluxcorr_years, lib.greb_scenario_years):
+        fn.argtypes = [_Args, _Params, _PackCols, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.greb_error_string.argtypes = [ctypes.c_int]
     lib.greb_error_string.restype = ctypes.c_char_p
@@ -162,9 +177,12 @@ def _params(yd: YearData, co2) -> _Params:
     return out
 
 
-def _args(yd: YearData, state5: torch.Tensor, **extra) -> _Args:
+def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
     """Pointers of every tensor the kernel reads or writes, after checking
-    device, dtype, shape and contiguity."""
+    device, dtype, shape and contiguity.  ``extra`` maps a field to
+    ``(tensor, shape)`` or ``(tensor, shape, dtype)`` (float32 unless
+    given; shape None skips the shape check); ``ints`` overrides the
+    single-run sizes (M=1, one year, corrections step by step)."""
     plan, const = yd.fold
     check_supported(plan)
     num, sfx, md = yd.num, yd.sfx, yd.md
@@ -187,9 +205,10 @@ def _args(yd: YearData, state5: torch.Tensor, **extra) -> _Args:
         state_in=(state5, (5, Y, X)))
     t.update(extra)
     ptrs = {}
-    for name, (ten, shape) in t.items():
-        if ten.device != dev or ten.dtype != torch.float32:
-            raise ValueError(f"{name}: want float32 on {dev}, got "
+    for name, (ten, shape, *dtype) in t.items():
+        want = dtype[0] if dtype else torch.float32
+        if ten.device != dev or ten.dtype != want:
+            raise ValueError(f"{name}: want {want} on {dev}, got "
                              f"{ten.dtype} on {ten.device}")
         if shape is not None and tuple(ten.shape) != shape:
             raise ValueError(f"{name}: want shape {shape}, got "
@@ -197,27 +216,30 @@ def _args(yd: YearData, state5: torch.Tensor, **extra) -> _Args:
         if not ten.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
         ptrs[name] = ten.data_ptr()
-    ints = dict(Y=Y, X=X, T=T, nsub=num.nsub_crcl, bt=plan.bt, bb=plan.bb,
-                ktc=plan.comp_kt, kbc=plan.comp_kb)
-    return _Args(**ptrs, **ints)
+    sizes = dict(Y=Y, X=X, T=T, nsub=num.nsub_crcl, bt=plan.bt, bb=plan.bb,
+                 ktc=plan.comp_kt, kbc=plan.comp_kb, M=1, n_years=1,
+                 nmon=len(num.jday_mon), corr_step=Y * X, n_pack=0)
+    sizes.update(ints or {})
+    return _Args(**ptrs, **sizes)
 
 
-def _launch(fn_name: str, args: _Args, params: _Params,
-            dev: torch.device) -> None:
+def _launch(fn_name: str, args: _Args, params: _Params, dev: torch.device,
+            *extra) -> None:
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(args, params, stream)
+        err = getattr(lib, fn_name)(args, params, *extra, stream)
     if err:
         raise RuntimeError(f"{fn_name}: CUDA error {err}: "
                            f"{lib.greb_error_string(err).decode()}")
 
 
-def _scratch(yd: YearData, dev: torch.device) -> torch.Tensor:
-    """The per-step coefficient scratch (12, 2, Y, X): za 7, mc 4, c0m 1."""
+def _scratch(yd: YearData, dev: torch.device, members: int = 1) -> torch.Tensor:
+    """The per-step coefficient scratch (M, 12, 2, Y, X): za 7, mc 4, c0m 1,
+    one slice per member (block)."""
     plan = yd.fold[0]
-    return torch.empty((12, 2, plan.ydim, plan.xdim), dtype=torch.float32,
-                       device=dev)
+    return torch.empty((members, 12, 2, plan.ydim, plan.xdim),
+                       dtype=torch.float32, device=dev)
 
 
 def _check_device(state: ModelState) -> torch.device:

@@ -1,4 +1,6 @@
-"""The CUDA year kernels against their plain PyTorch versions, on the card.
+"""The CUDA year kernels against their plain PyTorch versions, on the card:
+the single-run kernels (spin-up and scenario year) and the member-batched
+ones (spin-up years of M members, multi-year scenario blocks) at M=2.
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one.  They import no JAX; run them on the card with
@@ -17,7 +19,9 @@ import torch
 from greb_tpu_torch.config import Numerics, GrebConfig
 from greb_tpu_torch.model import core
 from greb_tpu_torch.model.driver import GREB
+from greb_tpu_torch.ops.cuda import multiyear as my
 from greb_tpu_torch.ops.cuda import year_kernel as yk
+from greb_tpu_torch.parallel import ensemble as ens
 
 pytestmark = pytest.mark.cuda
 
@@ -71,3 +75,35 @@ def test_kernel_rejects_what_it_does_not_run(model):
     with pytest.raises(ValueError, match="float32"):
         bad = s0.replace(ts=s0.ts.double())
         yk.fluxcorr_year(bad, 298.0, model.year_data)
+
+
+def test_member_kernels_match_plain(model):
+    """K4 then K3 (2 years, CO2 560 and 680) at M=2 members, ct_sens +-2%,
+    each against its plain version on the same inputs."""
+    yd = model.year_data
+    members = ens.perturbed_params(model.params,
+                                   {"ct_sens": [22.05, 22.95]})
+    ppack = my.pack_member_params(members, "cuda")
+    s5 = model.initial_state().stack()[:, None].repeat(1, 2, 1, 1)
+    n4, n3 = my.fluxcorr_years.launches, my.scenario_years.launches
+    s_k, c_k = my.fluxcorr_years(s5, ppack, 298.0, yd)
+    assert my.fluxcorr_years.launches == n4 + 1
+    s_p, c_p = my.fluxcorr_years_plain(s5, ppack, 298.0, yd)
+    for i, (name, atol) in enumerate((("ts", 2e-2), ("ta", 2e-2),
+                                      ("to", 2e-2), ("q", 3e-6))):
+        _close(s_k[i], s_p[i], atol, f"K4 {name}")
+    _close(c_k[:, :, 0].mean(1), c_p[:, :, 0].mean(1), 1.0, "K4 tf mean")
+    _close(c_k[:, :, 2].mean(1), c_p[:, :, 2].mean(1), 1e-7, "K4 qf mean")
+
+    co2 = np.asarray([560.0, 680.0], np.float32)
+    s3_k, m_k, a_k = my.scenario_years(s_p, ppack, c_p, co2, yd)
+    assert my.scenario_years.launches == n3 + 1
+    s3_p, m_p, a_p = my.scenario_years_plain(s_p, ppack, c_p, co2, yd)
+    for v, (name, atol) in enumerate((("ts", 2e-2), ("ta", 2e-2),
+                                      ("to", 2e-2), ("q", 3e-6),
+                                      ("albedo", 5e-4))):
+        if v < 4:
+            _close(s3_k[v], s3_p[v], atol, f"K3 state {name}")
+        _close(m_k[:, :, v], m_p[:, :, v], atol, f"K3 monthly {name}")
+        _close(a_k[:, :, v] / NUM.nstep_yr, a_p[:, :, v] / NUM.nstep_yr,
+               atol, f"K3 annual {name}")
