@@ -6,16 +6,24 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from greb_tpu_torch/csrc/ (nvcc, sm_90a) into
    greb_tpu_torch/_build/ and prints the build time;
-3. holds the spin-up year kernel (fluxcorr_year) against its plain PyTorch
-   version on the card: one year at 96x48, 730 steps, 24 substeps;
+   and holds the kernel's own reckoning of a cluster block's shared
+   memory against ops/cuda/year_kernel.cluster_layout at each cluster size;
+3. holds the spin-up year kernel (fluxcorr_year, on a cluster of
+   DEFAULT_CLUSTER blocks) against its plain PyTorch version on the card:
+   one year at 96x48, 730 steps, 24 substeps, max |diff| 0 required;
 4. holds the scenario year kernel (scenario_year) against its plain
-   version the same way;
-   then times the scenario kernel at one substep per step, which splits a
-   launch into substep time and per-step time;
+   version the same way, and against the multi-year kernel at M=1 (one
+   block, the same per-cell device functions: bitwise equal required);
+   then sweeps the cluster size (8, 12, 16 blocks): ms per launch, bitwise
+   equality with the plain version, and the same year at one substep per
+   step, which splits a launch into substep time and per-step time; then
+   times the year without the pole composites and a bare cluster barrier
+   (csrc/cluster_probe.cu), with and without its release, which split a
+   substep's time;
 5. holds the member-batched spin-up kernel (fluxcorr_years) against its
-   plain version: M=2 members (ct_sens +-2%), one full year;
+   plain version: M=2 members (ct_sens +-2%), one full year, bitwise;
 6. holds the multi-year scenario kernel (scenario_years) against its plain
-   version: M=2, 2 years at CO2 560 and 680, from step 5's output;
+   version: M=2, 2 years at CO2 560 and 680, from step 5's output, bitwise;
 7. times the multi-year kernel for one year at M = 1, 16, 64, 100 and 132
    members (member scaling: one thread block, one SM, per member);
 8. drives the main path, GREB.run: 3 spin-up years and 10 scenario years at
@@ -64,9 +72,13 @@ TOL_Q_END = 5e-6
 # a surface flux by at most ~0.15 W/m^2 (4 sigma T^3 at 300 K), so 0.5
 TOL_FLUX_MEAN = 0.5
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+# H100 SXM peaks at the 700 W limit: HBM 3.35 TB/s (NVIDIA data sheet);
+# float32 operations that do not fuse, 132 SMs x 128 lanes x 1.98 GHz.  The
+# data sheet's 67 TFLOP/s counts a fused multiply-add as two operations,
+# but the kernels build with --fmad=false (no add fuses), and year_work /
+# years_work count each add and multiply as one operation.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
+PEAK_F32_OP_PER_S = 132 * 128 * 1.98e9
 
 
 def _check(label, got, limit):
@@ -95,6 +107,39 @@ def _time_ms(fn, repeats):
     return start.elapsed_time(stop) / repeats, out
 
 
+def _bitwise(tag, pairs):
+    """max |diff| of each (name, kernel, plain) pair; all must be 0."""
+    worst = 0.0
+    for name, a, b in pairs:
+        d = _max_abs(a, b)
+        print(f"  {tag} {name:<22s} max |diff| {d:.3e}")
+        worst = max(worst, d)
+    if worst != 0.0:
+        raise AssertionError(f"{tag}: not bitwise equal (max |diff| {worst})")
+    return worst
+
+
+def _barrier_costs(build, threads_of):
+    """Time a loop of cluster barriers (csrc/cluster_probe.cu) at each
+    cluster size, with a remote store before each, as a substep does."""
+    import ctypes
+    lib = build.load("cluster_probe")
+    lib.greb_cluster_barrier_ns.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_double)]
+    lib.greb_cluster_barrier_ns.restype = ctypes.c_int
+    for c, threads in threads_of.items():
+        got = []
+        for release in (1, 0):
+            ns = ctypes.c_double()
+            err = lib.greb_cluster_barrier_ns(c, threads, 17520, release,
+                                              ctypes.byref(ns))
+            if err:
+                raise RuntimeError(f"cluster probe: CUDA error {err}")
+            got.append(ns.value)
+        print(f"cluster barrier C={c:2d}, {threads} threads: {got[0]:.1f} ns "
+              f"with release (the kernels'), {got[1]:.1f} ns relaxed")
+
+
 def _compare_state(tag, s_k, s_p, tol_t, tol_q):
     errs = []
     for name in ("ts", "ta", "to"):
@@ -106,7 +151,7 @@ def _compare_state(tag, s_k, s_p, tol_t, tol_q):
 
 def _bound_of(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -209,8 +254,10 @@ def main(argv) -> int:
           f"({', '.join(f'{k}.cu {v:.1f} s' for k, v in built.items()) or 'cached'})")
     with open(os.path.join(build.BUILD_DIR, "year_kernel.ptxas.txt")) as f:
         for line in f:
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                print("  ptxas:", line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print("  ptxas:   ", line.split(":", 1)[-1].strip())
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
         out_path = os.path.join(tmp, "scenario")
@@ -222,6 +269,27 @@ def main(argv) -> int:
         print(f"96x48: {num.nstep_yr} steps/yr, {num.nsub_crcl} substeps, "
               f"plan {plan}")
 
+        # -- a cluster block's shared memory: the kernel's own reckoning
+        #    against cluster_layout, at each offered size
+        C = yk.DEFAULT_CLUSTER
+        for c in yk.CLUSTER_SIZES:
+            for scen in (False, True):
+                lay = yk.cluster_layout(plan, c, scen)
+                parts, threads = yk.kernel_cluster_layout(plan, c, scen)
+                if parts != dict(lay.parts) or threads != lay.threads:
+                    raise AssertionError(
+                        f"C={c}: kernel layout {parts}, {threads} threads; "
+                        f"cluster_layout {dict(lay.parts)}, {lay.threads}")
+            print(f"cluster C={c:2d}: {lay.rows} rows/block, {lay.threads} "
+                  f"threads, {lay.nbytes} B shared memory a block (K2; K1 "
+                  f"{yk.cluster_layout(plan, c, False).nbytes} B), kernel "
+                  f"and cluster_layout agree: {dict(lay.parts)}")
+        lay1 = yk.cluster_layout(plan, C, False)
+        lay2 = yk.cluster_layout(plan, C, True)
+        print(f"K1 and K2 run on a cluster of C={C} blocks: K1 {lay1.nbytes} "
+              f"B, K2 {lay2.nbytes} B of shared memory a block, "
+              f"{lay2.threads} threads a block")
+
         # -- K1: spin-up year kernel vs its plain version --------------------
         s0 = model.initial_state()
         co2f = np.float32(cfg.co2.co2_flux)
@@ -229,19 +297,12 @@ def main(argv) -> int:
         ms_k1, (s_k, c_k) = _time_ms(lambda: yk.fluxcorr_year(s0, co2f, yd), 2)
         plain_k1, (s_p, c_p) = _time_ms(
             lambda: yk.fluxcorr_year_plain(s0, co2f, yd), 1)
-        print(f"K1 fluxcorr_year: kernel {ms_k1:.2f} ms/launch, plain "
-              f"{plain_k1:.1f} ms/year")
-        err_k1 = _compare_state("K1", s_k, s_p, TOL_T, TOL_Q)
-        _check("K1 state cap_surf (rel)", float(
-            ((s_k.cap_surf - s_p.cap_surf).abs() / s_p.cap_surf).max()),
-            RTOL_CAP)
-        _check("K1 tf annual mean [W/m^2]",
-               _max_abs(c_k.tf.mean(0), c_p.tf.mean(0)), TOL_TF_MEAN)
-        _check("K1 qf annual mean", _max_abs(c_k.qf.mean(0), c_p.qf.mean(0)),
-               TOL_QF_MEAN)
-        print(f"  K1 per-step tables max |diff|: tf "
-              f"{_max_abs(c_k.tf, c_p.tf):.3e} tof {_max_abs(c_k.tof, c_p.tof):.3e} "
-              f"qf {_max_abs(c_k.qf, c_p.qf):.3e}")
+        print(f"K1 fluxcorr_year (C={C}): kernel {ms_k1:.2f} ms/launch, "
+              f"plain {plain_k1:.1f} ms/year")
+        err_k1 = _bitwise("K1", [(f"state {n}", getattr(s_k, n), getattr(s_p, n))
+                                 for n in ModelState.FIELDS]
+                          + [(f"table {n}", getattr(c_k, n), getattr(c_p, n))
+                             for n in ("tf", "tof", "qf")])
 
         # -- K2: scenario year kernel vs its plain version -------------------
         co2s = np.float32(680.0)
@@ -250,40 +311,74 @@ def main(argv) -> int:
             lambda: yk.scenario_year(s_p, c_p, co2s, yd), 2)
         plain_k2, (s_p2, o_p, a_p) = _time_ms(
             lambda: yk.scenario_year_plain(s_p, c_p, co2s, yd), 1)
-        print(f"K2 scenario_year: kernel {ms_k2:.2f} ms/launch, plain "
-              f"{plain_k2:.1f} ms/year")
-        err_k2 = _compare_state("K2", s_k2, s_p2, TOL_T_END, TOL_Q_END)
-        # a free-running Ts moves cap_surf along the sea-ice ramp, at most
-        # (cap_ocean*max(mld) - cap_land)/(To_ice2 - To_ice1) per K
-        p, d = model.params, model.derived
-        slope = (float(d.cap_ocean) * float(model.forcing.mldclim.max())
-                 - float(d.cap_land)) / float(p.To_ice2 - p.To_ice1)
-        _check("K2 state cap_surf [J/K/m^2]",
-               _max_abs(s_k2.cap_surf, s_p2.cap_surf), slope * TOL_T_END)
-        m_k = core.monthly_means(model.month_mat, o_k)
-        m_p = core.monthly_means(model.month_mat, o_p)
-        for v, (name, tol) in enumerate((("ts", TOL_T), ("ta", TOL_T),
-                                         ("to", TOL_T), ("q", TOL_Q),
-                                         ("albedo", TOL_ALBEDO))):
-            _check(f"K2 monthly {name}", _max_abs(m_k[:, v], m_p[:, v]), tol)
-        mean_k = core.annual_means(a_k, num)
-        mean_p = core.annual_means(a_p, num)
-        for name in core.StepOutputs._fields:
-            tol = {"q": TOL_Q, "albedo": TOL_ALBEDO}.get(
-                name, TOL_T if name in ("ts", "ta", "to") else TOL_FLUX_MEAN)
-            _check(f"K2 annual mean {name}", _max_abs(
-                getattr(mean_k, name), getattr(mean_p, name)), tol)
+        print(f"K2 scenario_year (C={C}): kernel {ms_k2:.2f} ms/launch, "
+              f"plain {plain_k2:.1f} ms/year")
 
-        # -- where a launch's time goes: the same scenario year with one
-        #    substep per step splits substep time from per-step time
+        def k2_pairs(s, o, a):
+            return ([(f"state {n}", getattr(s, n), getattr(s_p2, n))
+                     for n in ModelState.FIELDS]
+                    + [("outs", o, o_p), ("annual sums", a, a_p)])
+
+        err_k2 = _bitwise("K2", k2_pairs(s_k2, o_k, a_k))
+        _bitwise("K2", [("monthly means", core.monthly_means(model.month_mat, o_k),
+                         core.monthly_means(model.month_mat, o_p))])
+
+        # -- K2 on the cluster against K3 at M=1 (one block): the per-cell
+        #    device functions are shared, so the year must agree bitwise
+        pp_base = my.pack_member_params([model.params], "cuda")
+        corr_base = torch.stack([c_p.tf, c_p.tof, c_p.qf], dim=1)[None]
+        s3_1, _, a3_1 = my.scenario_years(s_p.stack()[:, None], pp_base,
+                                          corr_base, np.asarray([co2s]), yd)
+        _bitwise("K2 vs K3 (M=1)", [("state", s_k2.stack(), s3_1[:, 0]),
+                                    ("annual sums", a_k, a3_1[0, 0])])
+        del s3_1, a3_1
+
+        # -- cluster-size sweep of K2, and where a launch's time goes: the
+        #    same year with one substep per step splits substep time from
+        #    per-step time
         one = yk.YearData(md=yd.md, sfx=yd.sfx, fold=yd.fold,
                           num=dataclasses.replace(num, dt_crcl=num.dt))
-        ms_one, _ = _time_ms(lambda: yk.scenario_year(s_p, c_p, co2s, one), 2)
-        us_sub = (ms_k2 - ms_one) * 1e3 / (num.nstep_yr * (num.nsub_crcl - 1))
-        print(f"K2 split: {ms_one:.2f} ms/launch at 1 substep/step -> "
-              f"{us_sub:.3f} us per substep, "
-              f"{ms_one * 1e3 / num.nstep_yr - us_sub:.3f} us per step "
-              f"outside the substeps")
+        sweep = {}
+        for c in yk.CLUSTER_SIZES:
+            yk.scenario_year(s_p, c_p, co2s, yd, cluster=c)
+            ms_c, (s_c, o_c, a_c) = _time_ms(
+                lambda: yk.scenario_year(s_p, c_p, co2s, yd, cluster=c), 2)
+            _bitwise(f"K2 C={c}", k2_pairs(s_c, o_c, a_c))
+            yk.scenario_year(s_p, c_p, co2s, one, cluster=c)
+            ms_one, _ = _time_ms(
+                lambda: yk.scenario_year(s_p, c_p, co2s, one, cluster=c), 2)
+            us_sub = (ms_c - ms_one) * 1e3 / (num.nstep_yr * (num.nsub_crcl - 1))
+            sweep[c] = ms_c
+            print(f"K2 sweep C={c:2d}: {ms_c:.3f} ms/launch; "
+                  f"{ms_one:.3f} ms/launch at 1 substep/step -> "
+                  f"{us_sub:.3f} us per substep, "
+                  f"{ms_one * 1e3 / num.nstep_yr - us_sub:.3f} us per step "
+                  f"outside the substeps")
+        best = min(sweep, key=sweep.get)
+        print(f"K2 sweep: fastest C={best} ({sweep[best]:.3f} ms); the "
+              f"wrappers' default is C={C}")
+        del s_c, o_c, a_c
+        # a timing probe, not the model: the same year on a plan without
+        # the pole composite rows shows what they add to a substep (the
+        # two pole blocks' extra phases, which every block waits for)
+        bare = dataclasses.replace(plan, comp_mode="none", comp_kt=0,
+                                   comp_kb=0)
+        ms_bare = []
+        for n in (num, one.num):
+            ydb = yk.YearData(md=yd.md, sfx=yd.sfx, fold=(bare, yd.fold[1]),
+                              num=n)
+            yk.scenario_year(s_p, c_p, co2s, ydb)
+            ms_bare.append(_time_ms(
+                lambda: yk.scenario_year(s_p, c_p, co2s, ydb), 2)[0])
+        us_bare = (ms_bare[0] - ms_bare[1]) * 1e3 / (
+            num.nstep_yr * (num.nsub_crcl - 1))
+        print(f"K2 C={C} without pole composites (timing probe): "
+              f"{ms_bare[0]:.3f} ms/launch, {ms_bare[1]:.3f} at 1 substep/step "
+              f"-> {us_bare:.3f} us per substep")
+        # ... and what one cluster barrier costs, with the release the
+        # kernels need (the pushed halo rows) and, for comparison, relaxed
+        _barrier_costs(build, {c: yk.cluster_layout(plan, c).threads
+                               for c in yk.CLUSTER_SIZES})
 
         # -- K4: member-batched spin-up year vs its plain version -------------
         # M=2 members, ct_sens +-2% (the JAX CLI's default sweep)
@@ -299,7 +394,7 @@ def main(argv) -> int:
         print(f"K4 fluxcorr_years (M=2): kernel {ms_k4:.2f} ms/launch, "
               f"plain {plain_k4:.1f} ms")
         u4_k, u4_p = ModelState.unstack(s4_k), ModelState.unstack(s4_p)
-        err_k4 = _compare_state("K4", u4_k, u4_p, TOL_T, TOL_Q)
+        _compare_state("K4", u4_k, u4_p, TOL_T, TOL_Q)
         _check("K4 state cap_surf (rel)", float(
             ((u4_k.cap_surf - u4_p.cap_surf).abs() / u4_p.cap_surf).max()),
             RTOL_CAP)
@@ -313,6 +408,8 @@ def main(argv) -> int:
               f"{_max_abs(c4_k[:, :, 2], c4_p[:, :, 2]):.3e}")
         if torch.equal(s4_k[:, 0], s4_k[:, 1]):
             raise AssertionError("K4: the two members did not differ")
+        err_k4 = _bitwise("K4", [("state", s4_k, s4_p),
+                                 ("tables", c4_k, c4_p)])
 
         # -- K3: multi-year scenario block vs its plain version --------------
         co2y = np.asarray([560.0, 680.0], np.float32)
@@ -324,7 +421,12 @@ def main(argv) -> int:
         print(f"K3 scenario_years (M=2, 2 years): kernel {ms_k3:.2f} "
               f"ms/launch, plain {plain_k3:.1f} ms")
         u3_k, u3_p = ModelState.unstack(s3_k), ModelState.unstack(s3_p)
-        err_k3 = _compare_state("K3", u3_k, u3_p, TOL_T_END, TOL_Q_END)
+        _compare_state("K3", u3_k, u3_p, TOL_T_END, TOL_Q_END)
+        # a free-running Ts moves cap_surf along the sea-ice ramp, at most
+        # (cap_ocean*max(mld) - cap_land)/(To_ice2 - To_ice1) per K
+        p, d = model.params, model.derived
+        slope = (float(d.cap_ocean) * float(model.forcing.mldclim.max())
+                 - float(d.cap_land)) / float(p.To_ice2 - p.To_ice1)
         _check("K3 state cap_surf [J/K/m^2]",
                _max_abs(u3_k.cap_surf, u3_p.cap_surf), slope * TOL_T_END)
         for v, (name, tol) in enumerate((("ts", TOL_T), ("ta", TOL_T),
@@ -338,6 +440,9 @@ def main(argv) -> int:
             _check(f"K3 annual mean {name}", _max_abs(
                 a3_k[:, :, i] / num.nstep_yr, a3_p[:, :, i] / num.nstep_yr),
                 tol)
+        err_k3 = _bitwise("K3", [("state", s3_k, s3_p),
+                                 ("monthly means", m3_k, m3_p),
+                                 ("annual sums", a3_k, a3_p)])
 
         # -- member scaling: one K3 year at M = 1 .. 132 (the coefficient
         #    scratch, 0.44 MB a member, passes the 50 MB L2 above M ~ 110)
@@ -365,8 +470,11 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         years = num.time_flux + num.time_scnr
+        kern = (num.time_flux * ms_k1 + num.time_scnr * ms_k2) / 1e3
         print(f"main path: {years} sim-years in {wall:.3f} s = "
-              f"{years / wall:.3f} sim-yr/s")
+              f"{years / wall:.3f} sim-yr/s; kernels ~{kern:.3f} s of it "
+              f"(launches x the times above), host ~{wall - kern:.3f} s = "
+              f"{(wall - kern) / wall:.1%}")
         launches = read_counts("main path", {
             "fluxcorr_year": num.time_flux, "scenario_year": num.time_scnr,
             "fluxcorr_years": 0, "scenario_years": 0})
@@ -507,13 +615,16 @@ def main(argv) -> int:
              launches_m["fluxcorr_years"], ms_k4, plain_k4, err_k4,
              my.years_work(plan, num, 1, 2, "fluxcorr"))):
         bound_ms, bound_by = _bound_of(*work)
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "greb_tpu_torch/csrc/year_kernel.cu",
             "replaces": f"greb_tpu/ops/pallas/{src}:{line}",
             "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "bound_by": bound_by, "library_ms": None}
+        if name.endswith("_year"):
+            entry["cluster"] = C
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

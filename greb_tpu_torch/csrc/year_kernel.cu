@@ -13,37 +13,65 @@
 //                     year; monthly means (weight 1/steps-in-month) and the 9
 //                     annual sums add up in the kernel, with no per-step
 //                     outputs.
-// All four run one shared __device__ step body: the pointwise physics
-// (ops/pointwise.py), the fold's per-step coefficients
-// (ops/fastcirc2.py step_coeffs) and nsub circulation substeps
-// (fastcirc2.substep): the 7-point zonal diffusion, the band clamp, the
-// dense pole composite rows, the 7-point zonal advection, the band clamp,
-// the merged 5-point meridional step and the combine.
+// All four run the same per-cell __device__ functions, so they round alike:
+// the pointwise physics and state update (ops/pointwise.py, core.*_step),
+// the fold's per-step coefficients (ops/fastcirc2.py step_coeffs) and the
+// nsub circulation substeps (fastcirc2.substep): the 7-point zonal
+// diffusion, the band clamp, the dense pole composite rows, the 7-point
+// zonal advection, the band clamp, the merged 5-point meridional step and
+// the combine.
 //
-// Design.  The TPU kernel's sequential grid axis (one grid step per model
-// step, state resident in VMEM) becomes a loop inside one thread block per
-// member (blockIdx.x; one block for the single-run kernels): the
-// 5-field state (90 KiB at 96x48) and a double buffer of the two transported
-// fields (2 x 36 KiB) stay in dynamic shared memory for the whole year.  The
-// fold's constant planes, each step's forcing slice and the per-step
-// coefficient scratch are read from global memory / L2.  __syncthreads()
-// separates the phases of a substep whose cells read cells other threads
-// wrote.  Each thread owns fixed cells, so the coefficient scratch, the
-// monthly means and the annual sums are thread-private and need no barrier.
-// Each member has its own slice of every buffer the kernel writes (state,
-// coefficient scratch, corrections, monthly means, sums), so the blocks of
-// a member-batched launch never share a written address.  The monthly
-// means and annual sums are read-modified-written in global memory every
-// step: with the state they would need 262 KB of shared memory, over a
-// block's 227 KB.
+// Single-run kernels (fluxcorr_year, scenario_year): a thread-block cluster.
+// One year of one run is spread over a cluster of C blocks (C = 8, 12 or 16,
+// a launch argument; 12 and 16 are above the portable 8).  Block b owns the
+// R = Y/C latitude rows [b*R, (b+1)*R) and keeps in its own shared memory,
+// for the whole year, everything those rows read every substep: the 5-field
+// state, a double buffer of the two transported fields with +-2 halo rows,
+// the step's 12 coefficient planes (built at each step start from the
+// fold's zam/mer planes and the step's wind), the 7 zonal-diffusion planes,
+// wz, the two 96x96 composite matrices of any pole row it holds, and
+// (scenario) the 9 annual sums, written out once at the year's end.  No
+// coefficient is read from global memory inside the substep loop.  The
+// meridional 5-point stencil reads 2 rows beyond the block: every block
+// pushes the first and last 2 rows of each buffer it writes into its
+// neighbours' halo slots through distributed shared memory, as it writes
+// them, so a substep reads only its own shared memory.  With the double
+// buffer one cluster.sync() per substep is enough: no block writes a
+// buffer until every block has finished reading it.  One more follows each
+// step start (its pushed (Ta, q) rows), one precedes the first remote write
+// (every block's shared memory is live) and one the exit (no block leaves
+// while another may still write into it).  The zonal stencils, band clamps
+// and composite rows are row-local: the composite row sum needs only its
+// block's __syncthreads(), and is split into partial sums of COMP_BLOCK
+// terms, 4 columns a thread, then summed in the same order.
 //
-// What bounds it.  One block runs on one of the card's 132 SMs.  A substep
-// rereads about 20 coefficient planes x 2 fields x 4608 cells x 4 B
-// (~0.74 MB) plus the four 96x96 composite matrices (~0.15 MB) from L2, and
-// does ~0.44 MFLOP.  Per substep that is a few microseconds of one SM's L2
-// bandwidth against ~1 us of its float32 rate, so the kernel is bound by
-// one SM's L2 bandwidth and uses 1/132 of the card.  The whole-card bound
-// (PERF.md) is far lower; spreading a year over many SMs is later work.
+// What bounds the cluster kernel: latency, not bandwidth.  A substep is one
+// (field, cell) a thread at C=16: ~31 shared-memory loads (11 taps, 19
+// coefficients, wz) and ~60 float32 operations, then, in the two blocks
+// that hold a pole row, the composite row sums, which every other block
+// waits for at the cluster barrier, and the barrier itself.  On an H100
+// (700 W, chip_smoke.py) a substep at C=16 takes ~2.3 us: ~1.3 us without
+// the pole composites, and ~0.76 us of it the barrier, whose release (the
+// pushed halo rows must be visible) compiles to a GPU-scope memory barrier
+// (a relaxed barrier costs ~0.1 us, but orders nothing).  The sweep over C
+// reads ~3.0 us a substep at C=8 (two cells for some threads), ~2.5 at
+// C=12 and ~2.3 at C=16, with no block reading beyond its own shared
+// memory at any C.  The step outside the substeps (its start, the physics
+// reading the step's forcing from global memory) is ~5 us.  The whole-card
+// bound (PERF.md) counts operations and is far lower: one run on 16 SMs
+// does not fill 132.
+//
+// Member kernels (fluxcorr_years, scenario_years): one thread block of NT
+// threads per member (blockIdx.x), looping over n_years x T model steps,
+// with the 5-field state (90 KiB at 96x48) and a (Ta, q) double buffer
+// (2 x 36 KiB) in dynamic shared memory.  The fold's planes, each step's
+// forcing and a per-member coefficient scratch (written each step start)
+// are read from global memory / L2, so a member is bound by one SM's reads
+// from L2.  Each member has its own slice of every buffer the kernel writes
+// (state, coefficient scratch, corrections, monthly means, sums), so the
+// blocks never share a written address.  The monthly means and annual sums
+// are read-modified-written in global memory every step: with the state
+// they would need 262 KB of shared memory, over a block's 227 KB.
 //
 // Numerics.  Built without --use_fast_math and with --fmad=false, so every
 // float32 operation rounds as in the plain PyTorch version and in the JAX
@@ -52,12 +80,22 @@
 // The composite row sums follow the plain version's blocked order
 // (fastcirc2._row_dot), which differs from the JAX package's library dot.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 #define NT 1024
-#define COMP_BLOCK 8   // = fastcirc2.COMP_BLOCK
-#define N_SUM 9        // annual sums: the 9 StepOutputs fields
-#define N_OUT 5        // written fields: ts, ta, to, q, albedo
+#define COMP_BLOCK 8      // = fastcirc2.COMP_BLOCK
+#define N_SUM 9           // annual sums: the 9 StepOutputs fields
+#define N_OUT 5           // written fields: ts, ta, to, q, albedo
+#define HALO 2            // meridional stencil reach, rows
+#define MAX_CLUSTER 16    // largest (non-portable) cluster on Hopper
+#define MAX_SMEM 232448   // shared memory one block may use (227 KB)
+
+// error codes of the launchers beside cudaError_t's (which are >= 0)
+#define GREB_ERR_LAYOUT (-1)      // C does not split the grid, or too big
+#define GREB_ERR_NO_CLUSTER (-2)  // no cluster of this shape fits the card
 
 struct GrebParams {
   float sig, rho_air, ct_sens, da_ice, a_no_ice, a_cloud;
@@ -93,7 +131,8 @@ struct YearArgs {
   const float *ppack;  // member kernels: (M, n_pack) physics parameters
   const float *state_in;  // (5, M, Y, X): ts, ta, to, q, cap_surf
   float *state_out;       // (5, M, Y, X)
-  float *cf;              // scratch (M, 12, 2, Y, X): za 7, mc 4, c0m 1
+  float *cf;              // member kernels' scratch (M, 12, 2, Y, X):
+                          // za 7, mc 4, c0m 1
   int Y, X, T, nsub, bt, bb, ktc, kbc;
   int M, n_years, nmon, corr_step, n_pack;
 };
@@ -107,12 +146,11 @@ struct PackCols {
   int p_emi, cap_ocean, cap_land, cap_air;
 };
 
-static size_t smem_bytes(const YearArgs& a) {
-  const size_t yx = (size_t)a.Y * a.X;
-  const size_t kx = (size_t)(a.ktc + a.kbc) * a.X;
-  return sizeof(float) * (5 * yx + 4 * yx + 6 * kx);
-}
+enum Kind { FLUX, SCEN, SCEN_YEARS };
 
+// ---------------------------------------------------------------------------
+// per-cell arithmetic, shared by every kernel
+// ---------------------------------------------------------------------------
 __device__ __forceinline__ float clamp_neg(float d, float x) {
   // positivity clamp of the polar sub-cycles (src/greb.f90:715, :907)
   return d <= -x ? -0.9f * x : d;
@@ -213,8 +251,189 @@ __device__ __forceinline__ float seaice(const GrebParams& p, float ts0,
   return glacier > 0.5f ? p.cap_land : cap;
 }
 
-// One circulation substep of both transported fields, xa -> xb
-// (fastcirc2.substep, comp_mode "dense", no explicit segments).
+// One cell's state update at step t (core.scenario_step, src/greb.f90:
+// 239-274; core.fluxcorr_step, :311-364).  s holds the cell's ts, ta, to,
+// q, cap_surf and becomes its new state; ta_c, q_c are the circulated Ta
+// and q.  A scenario step reads this step's corrections at tf[cp],
+// tof[cp], qf[cp] and returns the 9 step outputs in vals; a spin-up step
+// writes its corrections there.
+template <int KIND>
+__device__ __forceinline__ void update_cell(const YearArgs& a,
+                                            const GrebParams& p, int t,
+                                            int pix, float s[5], float ta_c,
+                                            float q_c, float* tf_m,
+                                            float* tof_m, float* qf_m,
+                                            size_t cp, float vals[N_SUM]) {
+  const size_t tp = (size_t)t * a.Y * a.X + pix;
+  const float ts = s[0], ta = s[1], to = s[2], q = s[3], cap = s[4];
+  const float mld = a.mld[tp];
+  const float z_topo = a.z_topo[pix], glacier = a.glacier[pix];
+  const Tend e = tendencies(p, ts, ta, to, q, a.tclim[tp], a.swet[tp],
+                            a.u[tp], a.v[tp], mld, a.mld_prev[tp], a.cld[tp],
+                            a.sw_solar[(size_t)t * a.Y + pix / a.X], z_topo,
+                            glacier, a.wz_air[pix], a.z_ocean[pix]);
+  const float dta_crcl = ta_c - ta;
+  const float dq_crcl = q_c - q;
+  const float dt = p.dt;
+  const float air = ((e.lwair + e.lwair) - e.em * e.lw_surf + e.q_lat_air) - e.q_sens;
+  float ts0, ta0, to0, q0;
+  if (KIND != FLUX) {
+    // scenario step (core.scenario_step; src/greb.f90:239-274)
+    const float tf = tf_m[cp], tof = tof_m[cp], qf = qf_m[cp];
+    ts0 = (ts + e.dt_ocean)
+          + (dt * (((((e.sw + e.lw_surf) - e.lwair) + e.q_lat) + e.q_sens) + tf)) / cap;
+    ta0 = (ta + dta_crcl) + (dt * air) / p.cap_air;
+    to0 = (to + e.dto) + tof;
+    float dq = ((dt * (e.dq_eva + e.dq_rain)) + dq_crcl) + qf;
+    dq = dq <= -q ? -0.9f * q : dq;               // positivity (:265)
+    q0 = q + dq;
+    vals[0] = ts0; vals[1] = ta0; vals[2] = to0; vals[3] = q0;
+    vals[4] = e.albedo; vals[5] = e.sw; vals[6] = e.lw_surf;
+    vals[7] = e.q_lat; vals[8] = e.q_sens;
+  } else {
+    // flux-correction step (core.fluxcorr_step; src/greb.f90:311-364)
+    const float dts = (dt * ((((e.sw + e.lw_surf) - e.lwair) + e.q_lat) + e.q_sens)) / cap;
+    const float ts0_raw = (ts + dts) + e.dt_ocean;
+    const float tf = ((a.tclim[tp] - ts0_raw) * cap) / dt;
+    ts0 = ((ts + dts) + e.dt_ocean) + (tf * dt) / cap;
+    ta0 = (ta + (dt * air) / p.cap_air) + dta_crcl;
+    const float tof = a.toclim[pix] - (to + e.dto);
+    to0 = (to + e.dto) + tof;
+    const float dq = dt * (e.dq_eva + e.dq_rain);
+    const float qf = a.qclim[tp] - ((q + dq) + dq_crcl);
+    q0 = ((q + dq) + dq_crcl) + qf;
+    tf_m[cp] = tf;
+    tof_m[cp] = tof;
+    qf_m[cp] = qf;
+  }
+  s[0] = ts0;
+  s[1] = ta0;
+  s[2] = to0;
+  s[3] = q0;
+  s[4] = seaice(p, ts0, cap, mld, z_topo, glacier);
+}
+
+// This step's 12 coefficients of one (field, cell) (fastcirc2.step_coeffs;
+// sign splits per src/greb.f90:203-216): the fold's zam (8) and mer (9)
+// planes at stride zs, out at stride cs as za 0..6, mc 7..10, c0m 11.
+__device__ __forceinline__ void step_coeffs(const float* zam, const float* mer,
+                                            int zs, float u, float v,
+                                            float* cf, int cs) {
+  const float um = u > 0.f ? u : 0.f, up = u < 0.f ? u : 0.f;
+  const float vm = v > 0.f ? v : 0.f, vp = v < 0.f ? v : 0.f;
+  cf[0 * cs] = zam[0 * zs] * um;
+  cf[1 * cs] = zam[1 * zs] * um;
+  cf[2 * cs] = zam[2 * zs] * um;
+  cf[3 * cs] = zam[3 * zs] * um + zam[4 * zs] * up;
+  cf[4 * cs] = zam[5 * zs] * up;
+  cf[5 * cs] = zam[6 * zs] * up;
+  cf[6 * cs] = zam[7 * zs] * up;
+  cf[7 * cs] = mer[3 * zs] * vm;
+  cf[8 * cs] = mer[0 * zs] + mer[4 * zs] * vm;
+  cf[9 * cs] = mer[1 * zs] + mer[5 * zs] * vp;
+  cf[10 * cs] = mer[6 * zs] * vp;
+  cf[11 * cs] = (mer[2 * zs] + mer[7 * zs] * vm) + mer[8 * zs] * vp;
+}
+
+// The stencil inputs of one (field, cell).
+struct Taps {
+  float x0, xm3, xm2, xm1, xp1, xp2, xp3;  // its row, columns j-3..j+3
+  float km2, km1, kp1, kp2;                // rows r-2, r-1, r+1, r+2
+};
+
+// The 7 zonal taps of column j of a periodic row.
+__device__ __forceinline__ void zonal_taps(const float* row, int j, int X,
+                                           Taps& t) {
+  t.x0 = row[j];
+  t.xm3 = row[j >= 3 ? j - 3 : j - 3 + X];
+  t.xm2 = row[j >= 2 ? j - 2 : j - 2 + X];
+  t.xm1 = row[j >= 1 ? j - 1 : j - 1 + X];
+  t.xp1 = row[j + 1 < X ? j + 1 : j + 1 - X];
+  t.xp2 = row[j + 2 < X ? j + 2 : j + 2 - X];
+  t.xp3 = row[j + 3 < X ? j + 3 : j + 3 - X];
+}
+
+// The substep's increments of one (field, cell) (fastcirc2.substep): zonal
+// diffusion dd and zonal advection da, each clamped on the band rows, and
+// the merged meridional step dy.  Coefficient plane s of the cell is
+// zd[s * zs] (7 planes) and cf[s * cs] (12: za 0..6, mc 7..10, c0m 11).
+__device__ __forceinline__ void increments(const float* zd, int zs,
+                                           const float* cf, int cs,
+                                           const Taps& t, bool band,
+                                           float& dd, float& da, float& dy) {
+  dd = tree7(zd[3 * zs] * t.x0, zd[0] * t.xm3, zd[zs] * t.xm2,
+             zd[2 * zs] * t.xm1, zd[4 * zs] * t.xp1, zd[5 * zs] * t.xp2,
+             zd[6 * zs] * t.xp3);
+  if (band) dd = clamp_neg(dd, t.x0);
+  da = tree7(cf[3 * cs] * t.x0, cf[0] * t.xm3, cf[cs] * t.xm2,
+             cf[2 * cs] * t.xm1, cf[4 * cs] * t.xp1, cf[5 * cs] * t.xp2,
+             cf[6 * cs] * t.xp3);
+  if (band) da = clamp_neg(da, t.x0);
+  dy = cf[11 * cs] * t.x0;
+  dy = dy + cf[7 * cs] * t.km2;
+  dy = dy + cf[8 * cs] * t.km1;
+  dy = dy + cf[9 * cs] * t.kp1;
+  dy = dy + cf[10 * cs] * t.kp2;
+}
+
+// The new value of a cell that no composite row covers.
+__device__ __forceinline__ float combine(float x0, float wz, float dd,
+                                         float da, float dy) {
+  return ((x0 + wz * dd) + da) + dy;
+}
+
+// Partial sums of a composite row (fastcirc2._row_dot) for W adjacent
+// columns: s[w] = t1row[i] * pc[i*X + w] over the COMP_BLOCK consecutive i
+// from b, in sequence (zeros past X); the row sum adds the partials of
+// b = 0, COMP_BLOCK, ... in sequence.  Both widths do the same operations
+// on each column.  W = 1 (the member kernels, pc in global memory) keeps
+// the load inside the guard, which lets the compiler start a partial's
+// loads ahead; W = 4 (the cluster kernels, pc in shared memory, 16-byte
+// aligned) loads four columns at once, a quarter of the shared-memory
+// loads.
+template <int W>
+__device__ __forceinline__ void comp_partial(const float* t1row,
+                                             const float* pc, int b, int X,
+                                             float s[W]) {
+  if constexpr (W == 1) {
+    s[0] = t1row[b] * pc[(size_t)b * X];
+    for (int i = b + 1; i < b + COMP_BLOCK; ++i)
+      s[0] = s[0] + (i < X ? t1row[i] * pc[(size_t)i * X] : 0.f);
+  } else {
+    static_assert(W == 4, "one or four columns");
+    float4 p = *reinterpret_cast<const float4*>(pc + (size_t)b * X);
+    float t = t1row[b];
+    s[0] = t * p.x; s[1] = t * p.y; s[2] = t * p.z; s[3] = t * p.w;
+    for (int i = b + 1; i < b + COMP_BLOCK; ++i) {
+      t = i < X ? t1row[i] : 0.f;
+      if (i < X) p = *reinterpret_cast<const float4*>(pc + (size_t)i * X);
+      s[0] = s[0] + (i < X ? t * p.x : 0.f);
+      s[1] = s[1] + (i < X ? t * p.y : 0.f);
+      s[2] = s[2] + (i < X ? t * p.z : 0.f);
+      s[3] = s[3] + (i < X ? t * p.w : 0.f);
+    }
+  }
+}
+
+// The new value of a composite cell: the composite t2 clamped once
+// against t1 (fastcirc2._extra_diffusion), then combined.
+__device__ __forceinline__ float comp_combine(float t1, float t2, float x0,
+                                              float wz, float da, float dy) {
+  t1 = t1 + clamp_neg(t2 - t1, t1);
+  return ((x0 + wz * (t1 - x0)) + da) + dy;
+}
+
+// ---------------------------------------------------------------------------
+// member kernels: one block per member
+// ---------------------------------------------------------------------------
+static size_t smem_bytes(const YearArgs& a) {
+  const size_t yx = (size_t)a.Y * a.X;
+  const size_t kx = (size_t)(a.ktc + a.kbc) * a.X;
+  return sizeof(float) * (5 * yx + 4 * yx + 6 * kx);
+}
+
+// One circulation substep of both transported fields of the whole grid,
+// xa -> xb, in one block.
 __device__ void substep(const YearArgs& a, const float* cf_m, const float* xa,
                         float* xb, float* s_t1, float* s_da, float* s_dy) {
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
@@ -225,56 +444,32 @@ __device__ void substep(const YearArgs& a, const float* cf_m, const float* xa,
     const int r = pix / X;
     const int j = pix - r * X;
     const float* xf = xa + f * YX;
-    const float* row = xf + r * X;
-    const float x0 = row[j];
-    const float xm3 = row[j >= 3 ? j - 3 : j - 3 + X];
-    const float xm2 = row[j >= 2 ? j - 2 : j - 2 + X];
-    const float xm1 = row[j >= 1 ? j - 1 : j - 1 + X];
-    const float xp1 = row[j + 1 < X ? j + 1 : j + 1 - X];
-    const float xp2 = row[j + 2 < X ? j + 2 : j + 2 - X];
-    const float xp3 = row[j + 3 < X ? j + 3 : j + 3 - X];
-    const bool band = r < a.bt || r >= Y - a.bb;
-
-    // zonal diffusion, clamped on the band rows
-    const float* zd = a.zd + c;
-    float dd = tree7(zd[3 * P] * x0, zd[0] * xm3, zd[P] * xm2, zd[2 * P] * xm1,
-                     zd[4 * P] * xp1, zd[5 * P] * xp2, zd[6 * P] * xp3);
-    if (band) dd = clamp_neg(dd, x0);
-
-    // zonal advection, clamped on the band rows
-    const float* cf = cf_m + c;
-    float da = tree7(cf[3 * P] * x0, cf[0] * xm3, cf[P] * xm2, cf[2 * P] * xm1,
-                     cf[4 * P] * xp1, cf[5 * P] * xp2, cf[6 * P] * xp3);
-    if (band) da = clamp_neg(da, x0);
-
-    // merged meridional step; zero halo beyond the poles
-    const float km2 = r >= 2 ? xf[(r - 2) * X + j] : 0.f;
-    const float km1 = r >= 1 ? xf[(r - 1) * X + j] : 0.f;
-    const float kp1 = r + 1 < Y ? xf[(r + 1) * X + j] : 0.f;
-    const float kp2 = r + 2 < Y ? xf[(r + 2) * X + j] : 0.f;
-    float dy = cf[11 * P] * x0;
-    dy = dy + cf[7 * P] * km2;
-    dy = dy + cf[8 * P] * km1;
-    dy = dy + cf[9 * P] * kp1;
-    dy = dy + cf[10 * P] * kp2;
-
+    Taps tp;
+    zonal_taps(xf + r * X, j, X, tp);
+    // zero halo beyond the poles
+    tp.km2 = r >= 2 ? xf[(r - 2) * X + j] : 0.f;
+    tp.km1 = r >= 1 ? xf[(r - 1) * X + j] : 0.f;
+    tp.kp1 = r + 1 < Y ? xf[(r + 1) * X + j] : 0.f;
+    tp.kp2 = r + 2 < Y ? xf[(r + 2) * X + j] : 0.f;
+    float dd, da, dy;
+    increments(a.zd + c, P, cf_m + c, P, tp, r < a.bt || r >= Y - a.bb,
+               dd, da, dy);
     int k = -1;
     if (r < ktc) k = r;
     else if (r >= Y - kbc) k = ktc + (r - (Y - kbc));
     if (k >= 0) {
       // composite row: finished below, once the whole row's t1 is known
       const int o = (f * K + k) * X + j;
-      s_t1[o] = x0 + dd;
+      s_t1[o] = tp.x0 + dd;
       s_da[o] = da;
       s_dy[o] = dy;
     } else {
-      xb[c] = ((x0 + a.wz[c] * dd) + da) + dy;
+      xb[c] = combine(tp.x0, a.wz[c], dd, da, dy);
     }
   }
   if (K == 0) return;
   __syncthreads();
   // dense pole composites: t2[j] = sum_i t1[i] * pcomp[f, k, i, j]
-  // (fastcirc2._extra_diffusion / _row_dot), clamped once against t2
   for (int o = threadIdx.x; o < 2 * K * X; o += blockDim.x) {
     const int fk = o / X;
     const int j = o - fk * X;
@@ -283,20 +478,14 @@ __device__ void substep(const YearArgs& a, const float* cf_m, const float* xa,
     const int r = k < ktc ? k : Y - kbc + (k - ktc);
     const float* t1row = s_t1 + fk * X;
     const float* pc = a.pcomp + (size_t)fk * X * X + j;
-    // summed as fastcirc2._row_dot: in sequence within blocks of
-    // COMP_BLOCK consecutive i, then over the blocks in sequence
-    float t2 = 0.f;
-    for (int b = 0; b < X; b += COMP_BLOCK) {
-      float s = t1row[b] * pc[(size_t)b * X];
-      for (int i = b + 1; i < b + COMP_BLOCK; ++i)
-        s = s + (i < X ? t1row[i] * pc[(size_t)i * X] : 0.f);
-      t2 = b == 0 ? s : t2 + s;
+    float t2, s;
+    comp_partial<1>(t1row, pc, 0, X, &t2);
+    for (int b = COMP_BLOCK; b < X; b += COMP_BLOCK) {
+      comp_partial<1>(t1row, pc, b, X, &s);
+      t2 = t2 + s;
     }
-    float t1 = t1row[j];
-    t1 = t1 + clamp_neg(t2 - t1, t1);
     const int c = f * YX + r * X + j;
-    const float x0 = xa[c];
-    xb[c] = ((x0 + a.wz[c] * (t1 - x0)) + s_da[o]) + s_dy[o];
+    xb[c] = comp_combine(t1row[j], t2, xa[c], a.wz[c], s_da[o], s_dy[o]);
   }
 }
 
@@ -320,11 +509,8 @@ __device__ GrebParams member_params(GrebParams p, const YearArgs& a,
   return p;
 }
 
-enum Kind { FLUX, SCEN, SCEN_YEARS };
-
 // The years of member m = blockIdx.x: a loop over n_years x T model steps
-// in one block.  FLUX is a spin-up year (fluxcorr_year, fluxcorr_years),
-// SCEN one scenario year with per-step outputs (scenario_year), SCEN_YEARS
+// in one block.  FLUX is one spin-up year (fluxcorr_years), SCEN_YEARS
 // n_years scenario years with monthly means (scenario_years).
 template <int KIND>
 __device__ void run_years(const YearArgs& a, GrebParams p) {
@@ -351,13 +537,11 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
 
   for (int i = tid; i < 5 * YX; i += nt)
     s_state[i] = state_in[(i / YX) * MYX + i % YX];
-  if (KIND == SCEN)
-    for (int i = tid; i < N_SUM * YX; i += nt) a.asum[i] = 0.f;
   __syncthreads();
 
   const int n_years = KIND == SCEN_YEARS ? a.n_years : 1;
   for (int y = 0; y < n_years; ++y) {
-    float* asum = a.asum;
+    float* asum = nullptr;
     float* mon_y = nullptr;
     if (KIND == SCEN_YEARS) {
       p.co2 = a.co2_years[y];
@@ -367,31 +551,14 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
     }
     for (int t = 0; t < a.T; ++t) {
       const size_t tyx = (size_t)t * YX;
-      const size_t tc = (size_t)t * a.corr_step;
       // -- step start: copy (Ta, q) and assemble this step's coefficients
-      //    (fastcirc2.step_coeffs) into the thread-private scratch
+      //    into the thread-private scratch
       for (int c = tid; c < P; c += nt) {
         const int f = c / YX;
         const int pix = c - f * YX;
         s_xa[c] = s_state[(f == 0 ? 1 : 3) * YX + pix];
-        const float u = a.u[tyx + pix], v = a.v[tyx + pix];
-        const float um = u > 0.f ? u : 0.f, up = u < 0.f ? u : 0.f;
-        const float vm = v > 0.f ? v : 0.f, vp = v < 0.f ? v : 0.f;
-        const float* zam = a.zam + c;
-        const float* mer = a.mer + c;
-        float* cfc = cf + c;
-        cfc[0 * P] = zam[0 * P] * um;
-        cfc[1 * P] = zam[1 * P] * um;
-        cfc[2 * P] = zam[2 * P] * um;
-        cfc[3 * P] = zam[3 * P] * um + zam[4 * P] * up;
-        cfc[4 * P] = zam[5 * P] * up;
-        cfc[5 * P] = zam[6 * P] * up;
-        cfc[6 * P] = zam[7 * P] * up;
-        cfc[7 * P] = mer[3 * P] * vm;
-        cfc[8 * P] = mer[0 * P] + mer[4 * P] * vm;
-        cfc[9 * P] = mer[1 * P] + mer[5 * P] * vp;
-        cfc[10 * P] = mer[6 * P] * vp;
-        cfc[11 * P] = (mer[2 * P] + mer[7 * P] * vm) + mer[8 * P] * vp;
+        step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + pix], a.v[tyx + pix],
+                    cf + c, P);
       }
       __syncthreads();
 
@@ -416,70 +583,21 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
 
       // -- pointwise physics and the state update of every cell
       for (int pix = tid; pix < YX; pix += nt) {
-        const int r = pix / X;
-        const size_t tp = tyx + pix;
-        const float ts = s_state[pix], ta = s_state[YX + pix];
-        const float to = s_state[2 * YX + pix], q = s_state[3 * YX + pix];
-        const float cap = s_state[4 * YX + pix];
-        const float mld = a.mld[tp];
-        const float z_topo = a.z_topo[pix], glacier = a.glacier[pix];
-        const Tend e = tendencies(p, ts, ta, to, q, a.tclim[tp], a.swet[tp],
-                                  a.u[tp], a.v[tp], mld, a.mld_prev[tp],
-                                  a.cld[tp], a.sw_solar[(size_t)t * Y + r],
-                                  z_topo, glacier, a.wz_air[pix], a.z_ocean[pix]);
-        const float dta_crcl = xa[pix] - ta;
-        const float dq_crcl = xa[YX + pix] - q;
-        const float dt = p.dt;
-        const float air = ((e.lwair + e.lwair) - e.em * e.lw_surf + e.q_lat_air) - e.q_sens;
-        const size_t cp = tc + pix;
-        float ts0, ta0, to0, q0;
-        if (KIND != FLUX) {
-          // scenario step (core.scenario_step; src/greb.f90:239-274)
-          const float tf = tf_m[cp], tof = tof_m[cp], qf = qf_m[cp];
-          ts0 = (ts + e.dt_ocean)
-                + (dt * (((((e.sw + e.lw_surf) - e.lwair) + e.q_lat) + e.q_sens) + tf)) / cap;
-          ta0 = (ta + dta_crcl) + (dt * air) / p.cap_air;
-          to0 = (to + e.dto) + tof;
-          float dq = ((dt * (e.dq_eva + e.dq_rain)) + dq_crcl) + qf;
-          dq = dq <= -q ? -0.9f * q : dq;               // positivity (:265)
-          q0 = q + dq;
-          const float vals[N_SUM] = {ts0, ta0, to0, q0, e.albedo, e.sw,
-                                     e.lw_surf, e.q_lat, e.q_sens};
-          if (KIND == SCEN) {
-            float* out = a.outs + (size_t)t * N_OUT * YX + pix;
-            for (int k = 0; k < N_OUT; ++k) out[k * YX] = vals[k];
-            for (int k = 0; k < N_SUM; ++k)
-              asum[k * YX + pix] = asum[k * YX + pix] + vals[k];
-          } else {
-            // monthly means and annual sums in sequence, from 0 at the
-            // month's / year's first step
-            float* mp = mon_y + (size_t)mo * N_OUT * YX + pix;
-            for (int k = 0; k < N_OUT; ++k)
-              mp[k * YX] = (mstart ? 0.f : mp[k * YX]) + w * vals[k];
-            for (int k = 0; k < N_SUM; ++k)
-              asum[k * YX + pix] = (t == 0 ? 0.f : asum[k * YX + pix]) + vals[k];
-          }
-        } else {
-          // flux-correction step (core.fluxcorr_step; src/greb.f90:311-364)
-          const float dts = (dt * ((((e.sw + e.lw_surf) - e.lwair) + e.q_lat) + e.q_sens)) / cap;
-          const float ts0_raw = (ts + dts) + e.dt_ocean;
-          const float tf = ((a.tclim[tp] - ts0_raw) * cap) / dt;
-          ts0 = ((ts + dts) + e.dt_ocean) + (tf * dt) / cap;
-          ta0 = (ta + (dt * air) / p.cap_air) + dta_crcl;
-          const float tof = a.toclim[pix] - (to + e.dto);
-          to0 = (to + e.dto) + tof;
-          const float dq = dt * (e.dq_eva + e.dq_rain);
-          const float qf = a.qclim[tp] - ((q + dq) + dq_crcl);
-          q0 = ((q + dq) + dq_crcl) + qf;
-          tf_m[cp] = tf;
-          tof_m[cp] = tof;
-          qf_m[cp] = qf;
+        float s[5];
+        for (int k = 0; k < 5; ++k) s[k] = s_state[k * YX + pix];
+        float vals[N_SUM];
+        update_cell<KIND>(a, p, t, pix, s, xa[pix], xa[YX + pix], tf_m,
+                          tof_m, qf_m, (size_t)t * a.corr_step + pix, vals);
+        if (KIND == SCEN_YEARS) {
+          // monthly means and annual sums in sequence, from 0 at the
+          // month's / year's first step
+          float* mp = mon_y + (size_t)mo * N_OUT * YX + pix;
+          for (int k = 0; k < N_OUT; ++k)
+            mp[k * YX] = (mstart ? 0.f : mp[k * YX]) + w * vals[k];
+          for (int k = 0; k < N_SUM; ++k)
+            asum[k * YX + pix] = (t == 0 ? 0.f : asum[k * YX + pix]) + vals[k];
         }
-        s_state[pix] = ts0;
-        s_state[YX + pix] = ta0;
-        s_state[2 * YX + pix] = to0;
-        s_state[3 * YX + pix] = q0;
-        s_state[4 * YX + pix] = seaice(p, ts0, cap, mld, z_topo, glacier);
+        for (int k = 0; k < 5; ++k) s_state[k * YX + pix] = s[k];
       }
       __syncthreads();
     }
@@ -488,12 +606,281 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
     state_out[(i / YX) * MYX + i % YX] = s_state[i];
 }
 
+// ---------------------------------------------------------------------------
+// single-run kernels: one year on a cluster of C blocks
+// ---------------------------------------------------------------------------
+// Parts of a cluster block's shared memory, in layout order
+// (ops/cuda/year_kernel.py CLUSTER_PARTS).
+enum ClusterPart { P_STATE, P_XBUF, P_COEFFS, P_ZD, P_WZ, P_ASUM, P_PCOMP,
+                   P_COMP_ROWS, P_COMP_PARTS, N_PARTS };
+
+// Composite rows among the rows [r0, r1): the top ktc and bottom kbc rows.
+__host__ __device__ inline int comp_rows_in(int r0, int r1, int Y, int ktc,
+                                            int kbc) {
+  const int top = (r1 < ktc ? r1 : ktc) - r0;
+  const int bot = r1 - (r0 > Y - kbc ? r0 : Y - kbc);
+  return (top > 0 ? top : 0) + (bot > 0 ? bot : 0);
+}
+
+// Bytes of each part of a cluster block's shared memory for a Y x X grid
+// on C blocks (scenario: with the annual sums), and their total; 0 where C
+// does not split the rows into blocks of at least HALO rows, or X is not a
+// multiple of 4 (the composite sums load 16 bytes at a time; every part is
+// then a multiple of 16 bytes).  The same reckoning as
+// ops/cuda/year_kernel.py cluster_layout.
+__host__ __device__ inline long long cluster_parts(int Y, int X, int ktc,
+                                                   int kbc, int C,
+                                                   int scenario,
+                                                   long long* parts) {
+  if (C < 1 || C > MAX_CLUSTER || Y % C != 0 || Y / C < HALO || X % 4 != 0)
+    return 0;
+  const long long R = Y / C, RX = R * X, f = sizeof(float);
+  long long kmax = 0;
+  for (int b = 0; b < C; ++b) {
+    const int k = comp_rows_in(b * R, (b + 1) * R, Y, ktc, kbc);
+    kmax = k > kmax ? k : kmax;
+  }
+  const long long nb = (X + COMP_BLOCK - 1) / COMP_BLOCK;
+  parts[P_STATE] = f * 5 * RX;
+  parts[P_XBUF] = f * 2 * 2 * (R + 2 * HALO) * X;
+  parts[P_COEFFS] = f * 12 * 2 * RX;
+  parts[P_ZD] = f * 7 * 2 * RX;
+  parts[P_WZ] = f * 2 * RX;
+  parts[P_ASUM] = scenario ? f * N_SUM * RX : 0;
+  parts[P_PCOMP] = f * 2 * kmax * X * X;
+  parts[P_COMP_ROWS] = f * 3 * 2 * kmax * X;
+  parts[P_COMP_PARTS] = f * 2 * kmax * nb * X;
+  long long total = 0;
+  for (int k = 0; k < N_PARTS; ++k) total += parts[k];
+  return total;
+}
+
+// Threads of a cluster block: one per (field, cell) of its rows, at most NT.
+__host__ __device__ inline int cluster_threads(int R, int X) {
+  const int n = (2 * R * X + 31) / 32 * 32;
+  return n < NT ? n : NT;
+}
+
+// n / d as one multiply-high, m = ceil(2^32 / d): exact for 0 <= n with
+// n * d <= 2^32, which the substep's indices keep (n < 2 * R * X cells or
+// 2 * kmax * nb * X / 4 partial sums, far below 2^32 / d for a layout that
+// fits 227 KB).  A runtime integer division costs a substep ~1 us here.
+struct Div {
+  unsigned m;
+  __device__ explicit Div(int d) : m(d > 1 ? 0xffffffffu / (unsigned)d + 1u : 0u) {}
+  __device__ __forceinline__ int operator()(int n) const {
+    return m ? (int)__umulhi((unsigned)n, m) : n;
+  }
+};
+
+// A block's two transported buffers, (2, R + 2*HALO, X) each with the
+// block's rows at buffer rows HALO..HALO+R-1, and the same buffers of its
+// neighbours (the same offsets in every block; null past the poles).
+struct Bufs {
+  float* mine;
+  float* up;   // block rank-1: rows above
+  float* dn;   // block rank+1: rows below
+  int R, X;
+
+  __device__ __forceinline__ int field() const { return (R + 2 * HALO) * X; }
+
+  // v at field f, local row i, column j of the buffer at offset off: into
+  // this block's buffer and into the halo slot of each neighbour that reads
+  // that row.
+  __device__ __forceinline__ void put(int off, int f, int i, int j,
+                                      float v) const {
+    const int o = off + f * field() + j;
+    mine[o + (i + HALO) * X] = v;
+    if (up != nullptr && i < HALO) up[o + (R + HALO + i) * X] = v;
+    if (dn != nullptr && i >= R - HALO) dn[o + (i - R + HALO) * X] = v;
+  }
+};
+
+// One year of one run, this block's rows: FLUX a spin-up year
+// (fluxcorr_year), SCEN a scenario year with per-step outputs and annual
+// sums (scenario_year).
+template <int KIND>
+__device__ void run_year_cluster(const YearArgs& a, const GrebParams& p) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
+  const int R = Y / C, RX = R * X, r0 = rank * R;
+  const int ktc = a.ktc, kbc = a.kbc, K = ktc + kbc;
+  long long parts[N_PARTS];
+  cluster_parts(Y, X, ktc, kbc, C, KIND == SCEN, parts);
+  const int nb = (X + COMP_BLOCK - 1) / COMP_BLOCK;
+  const int kmax = (int)(parts[P_PCOMP] / (sizeof(float) * 2 * X * X));
+  float* sp[N_PARTS];
+  sp[0] = smem;
+  for (int k = 1; k < N_PARTS; ++k)
+    sp[k] = sp[k - 1] + parts[k - 1] / sizeof(float);
+  float* s_state = sp[P_STATE];   // (5, R, X)
+  float* s_cf = sp[P_COEFFS];     // (12, 2, R, X)
+  float* s_zd = sp[P_ZD];         // (7, 2, R, X)
+  float* s_wz = sp[P_WZ];         // (2, R, X)
+  float* s_asum = sp[P_ASUM];     // (9, R, X), scenario
+  float* s_pc = sp[P_PCOMP];      // (2, kmax, X, X): slot q of field f
+  float* s_t1 = sp[P_COMP_ROWS];  // (2, kmax, X) each: t1, da, dy
+  float* s_da = s_t1 + 2 * kmax * X;
+  float* s_dy = s_da + 2 * kmax * X;
+  float* s_part = sp[P_COMP_PARTS];  // (2, kmax, nb, X) partial row sums
+  Bufs bufs{sp[P_XBUF], nullptr, nullptr, R, X};
+  const int BX = bufs.field();
+  const int NXT = 2 * BX;  // offset of the second buffer
+  // this block's composite rows: local rows [0, ntop) at the top pole and
+  // [bot0, R) at the bottom pole, slots q = 0, 1, ... in row order
+  const int ntop = comp_rows_in(r0, r0 + R, Y, ktc, 0);
+  const int kb = comp_rows_in(r0, r0 + R, Y, ktc, kbc);
+  const int bot0 = R - (kb - ntop);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int X4 = X / 4;   // the partial sums run 4 columns a thread
+  const Div by_rx(RX), by_x(X), by_x4(X4), by_nbx4(nb * X4), by_kb(kb);
+
+  for (int i = tid; i < 5 * RX; i += nt)
+    s_state[i] = a.state_in[(size_t)(i / RX) * YX + r0 * X + i % RX];
+  for (int i = tid; i < 7 * 2 * RX; i += nt)
+    s_zd[i] = a.zd[(size_t)(i / RX) * YX + r0 * X + i % RX];
+  for (int i = tid; i < 2 * RX; i += nt)
+    s_wz[i] = a.wz[(size_t)(i / RX) * YX + r0 * X + i % RX];
+  if (KIND == SCEN)
+    for (int i = tid; i < N_SUM * RX; i += nt) s_asum[i] = 0.f;
+  // halo rows start at zero: those past the poles stay so
+  for (int i = tid; i < 2 * 2 * 2 * HALO * X; i += nt) {
+    const int fb = i / (2 * HALO * X);          // buffer*2 + field
+    const int h = i - fb * 2 * HALO * X;
+    const int row = h < HALO * X ? h / X : R + h / X;
+    bufs.mine[fb * BX + row * X + h % X] = 0.f;
+  }
+  for (int i = tid; i < 2 * kb * X * X; i += nt) {
+    const int fq = i / (X * X);
+    const int f = fq / kb, q = fq - f * kb;
+    const int r = q < ntop ? r0 + q : r0 + bot0 + (q - ntop);
+    const int k = r < ktc ? r : ktc + (r - (Y - kbc));
+    s_pc[(size_t)(f * kmax + q) * X * X + i % (X * X)] =
+        a.pcomp[(size_t)(f * K + k) * X * X + i % (X * X)];
+  }
+  // every block's shared memory is live before any remote write
+  cluster.sync();
+  if (rank > 0) bufs.up = cluster.map_shared_rank(bufs.mine, rank - 1);
+  if (rank < C - 1) bufs.dn = cluster.map_shared_rank(bufs.mine, rank + 1);
+
+  for (int t = 0; t < a.T; ++t) {
+    const size_t tyx = (size_t)t * YX;
+    // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
+    //    halos, and this step's coefficients into shared memory
+    for (int l = tid; l < 2 * RX; l += nt) {
+      const int f = by_rx(l), li = l - f * RX;
+      const int i = by_x(li), j = li - i * X;
+      const int c = f * YX + r0 * X + li;
+      bufs.put(0, f, i, j, s_state[(f == 0 ? 1 : 3) * RX + li]);
+      step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + r0 * X + li],
+                  a.v[tyx + r0 * X + li], s_cf + l, 2 * RX);
+    }
+    cluster.sync();
+
+    // -- circulation: nsub substeps, buffer cur -> nxt
+    int cur = 0;
+    for (int s = 0; s < a.nsub; ++s) {
+      const float* xa = bufs.mine + cur;
+      const int nxt = NXT - cur;
+      for (int l = tid; l < 2 * RX; l += nt) {
+        const int f = by_rx(l), li = l - f * RX;
+        const int i = by_x(li), j = li - i * X;
+        const int r = r0 + i;
+        const float* row = xa + f * BX + (i + HALO) * X;
+        Taps tp;
+        zonal_taps(row, j, X, tp);
+        tp.km2 = row[j - 2 * X];
+        tp.km1 = row[j - X];
+        tp.kp1 = row[j + X];
+        tp.kp2 = row[j + 2 * X];
+        float dd, da, dy;
+        increments(s_zd + l, 2 * RX, s_cf + l, 2 * RX, tp,
+                   r < a.bt || r >= Y - a.bb, dd, da, dy);
+        const int q = i < ntop ? i : (i >= bot0 ? ntop + (i - bot0) : -1);
+        if (q >= 0) {
+          // composite row: finished below, once the whole row's t1 is known
+          const int o = (f * kmax + q) * X + j;
+          s_t1[o] = tp.x0 + dd;
+          s_da[o] = da;
+          s_dy[o] = dy;
+        } else {
+          bufs.put(nxt, f, i, j, combine(tp.x0, s_wz[l], dd, da, dy));
+        }
+      }
+      if (kb) {   // block-uniform: only the blocks that hold a pole row
+        __syncthreads();
+        // dense pole composites t2[j] = sum_i t1[i] * pcomp[f, k, i, j]:
+        // the partial sums of COMP_BLOCK terms, 4 columns a thread, then
+        // their sum in order
+        for (int o = tid; o < 2 * kb * nb * X4; o += nt) {
+          const int fq = by_nbx4(o), rest = o - fq * nb * X4;
+          const int b = by_x4(rest), j = 4 * (rest - b * X4);
+          const int f = by_kb(fq);
+          const int sl = f * kmax + (fq - f * kb);
+          float ps[4];
+          comp_partial<4>(s_t1 + sl * X, s_pc + (size_t)sl * X * X + j,
+                          b * COMP_BLOCK, X, ps);
+          *reinterpret_cast<float4*>(s_part + (sl * nb + b) * X + j) =
+              make_float4(ps[0], ps[1], ps[2], ps[3]);
+        }
+        __syncthreads();
+        for (int o = tid; o < 2 * kb * X; o += nt) {
+          const int fq = by_x(o), j = o - fq * X;
+          const int f = by_kb(fq), q = fq - f * kb;
+          const int sl = f * kmax + q;
+          const float* part = s_part + sl * nb * X + j;
+          float t2 = part[0];
+          for (int b = 1; b < nb; ++b) t2 = t2 + part[b * X];
+          const int i = q < ntop ? q : bot0 + (q - ntop);
+          const int so = sl * X + j;
+          bufs.put(nxt, f, i, j,
+                   comp_combine(s_t1[so], t2, xa[f * BX + (i + HALO) * X + j],
+                                s_wz[f * RX + i * X + j], s_da[so], s_dy[so]));
+        }
+      }
+      // every block's rows and halos of buffer nxt are written, and no
+      // block reads buffer cur any more
+      cluster.sync();
+      cur = nxt;
+    }
+
+    // -- pointwise physics and the state update of this block's cells
+    const float* xc = bufs.mine + cur + HALO * X;   // circulated, row 0
+    for (int li = tid; li < RX; li += nt) {
+      const int pix = r0 * X + li;
+      float s[5];
+      for (int k = 0; k < 5; ++k) s[k] = s_state[k * RX + li];
+      float vals[N_SUM];
+      update_cell<KIND>(a, p, t, pix, s, xc[li], xc[BX + li], a.tf, a.tof,
+                        a.qf, (size_t)t * a.corr_step + pix, vals);
+      if (KIND == SCEN) {
+        float* out = a.outs + (size_t)t * N_OUT * YX + pix;
+        for (int k = 0; k < N_OUT; ++k) out[k * YX] = vals[k];
+        for (int k = 0; k < N_SUM; ++k)
+          s_asum[k * RX + li] = s_asum[k * RX + li] + vals[k];
+      }
+      for (int k = 0; k < 5; ++k) s_state[k * RX + li] = s[k];
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < 5 * RX; i += nt)
+    a.state_out[(size_t)(i / RX) * YX + r0 * X + i % RX] = s_state[i];
+  if (KIND == SCEN)
+    for (int i = tid; i < N_SUM * RX; i += nt)
+      a.asum[(size_t)(i / RX) * YX + r0 * X + i % RX] = s_asum[i];
+  // no block leaves while another may still write into its shared memory
+  cluster.sync();
+}
+
 __global__ void __launch_bounds__(NT, 1) fluxcorr_year(YearArgs a, GrebParams p) {
-  run_years<FLUX>(a, p);
+  run_year_cluster<FLUX>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_year(YearArgs a, GrebParams p) {
-  run_years<SCEN>(a, p);
+  run_year_cluster<SCEN>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) fluxcorr_years(YearArgs a, GrebParams p,
@@ -518,14 +905,52 @@ static int launch(Kernel kernel, const YearArgs& a, void* stream,
   return (int)cudaGetLastError();
 }
 
-extern "C" {
-
-int greb_fluxcorr_year(YearArgs a, GrebParams p, void* stream) {
-  return launch(fluxcorr_year, a, stream, p);
+// One run on one cluster of C blocks; raises (returns GREB_ERR_NO_CLUSTER)
+// where the card cannot schedule such a cluster, and takes no other C.
+static int launch_cluster(void (*kernel)(YearArgs, GrebParams),
+                          const YearArgs& a, const GrebParams& p, int C,
+                          int scenario, void* stream) {
+  long long parts[N_PARTS];
+  const long long smem = cluster_parts(a.Y, a.X, a.ktc, a.kbc, C, scenario,
+                                       parts);
+  if (smem == 0 || smem > MAX_SMEM || a.M != 1) return GREB_ERR_LAYOUT;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (C > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(cluster_threads(a.Y / C, a.X), 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters == 0) return GREB_ERR_NO_CLUSTER;
+  e = cudaLaunchKernelEx(&cfg, kernel, a, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
-int greb_scenario_year(YearArgs a, GrebParams p, void* stream) {
-  return launch(scenario_year, a, stream, p);
+extern "C" {
+
+int greb_fluxcorr_year(YearArgs a, GrebParams p, int C, void* stream) {
+  return launch_cluster(fluxcorr_year, a, p, C, 0, stream);
+}
+
+int greb_scenario_year(YearArgs a, GrebParams p, int C, void* stream) {
+  return launch_cluster(scenario_year, a, p, C, 1, stream);
 }
 
 int greb_fluxcorr_years(YearArgs a, GrebParams p, PackCols c, void* stream) {
@@ -536,7 +961,25 @@ int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, void* stream) {
   return launch(scenario_years, a, stream, p, c);
 }
 
+// The kernel's own reckoning of a cluster block's shared memory: fills
+// parts[N_PARTS] (bytes, layout order), returns the total (0: no layout).
+long long greb_cluster_layout(int Y, int X, int ktc, int kbc, int C,
+                              int scenario, long long* parts) {
+  return cluster_parts(Y, X, ktc, kbc, C, scenario, parts);
+}
+
+int greb_cluster_threads(int Y, int X, int C) {
+  return cluster_threads(Y / C, X);
+}
+
 const char* greb_error_string(int err) {
+  if (err == GREB_ERR_LAYOUT)
+    return "no cluster layout: C does not split the latitude rows into "
+           "blocks of at least 2 rows, or a block's shared memory exceeds "
+           "227 KB";
+  if (err == GREB_ERR_NO_CLUSTER)
+    return "cudaOccupancyMaxActiveClusters is 0: the card cannot schedule "
+           "a cluster of this size with this shared memory";
   return cudaGetErrorString((cudaError_t)err);
 }
 

@@ -131,8 +131,16 @@ def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
 
 
 # ---------------------------------------------------------------------------
-# checks shared by both wrappers
+# checks and scratch shared by both wrappers
 # ---------------------------------------------------------------------------
+def _scratch(yd: yk.YearData, dev: torch.device, members: int) -> torch.Tensor:
+    """The per-step coefficient scratch (M, 12, 2, Y, X): za 7, mc 4, c0m 1,
+    one slice per member (block)."""
+    plan = yd.fold[0]
+    return torch.empty((members, 12, 2, plan.ydim, plan.xdim),
+                       dtype=torch.float32, device=dev)
+
+
 def _pack_np(ppack: torch.Tensor, yd: yk.YearData) -> np.ndarray:
     """The pack's host copy, kept for the last pack object seen: a driver
     reuses one pack across its blocks, so the card syncs for it once."""
@@ -145,7 +153,8 @@ def _pack_np(ppack: torch.Tensor, yd: yk.YearData) -> np.ndarray:
 def _check(state5: torch.Tensor, ppack: torch.Tensor,
            yd: yk.YearData) -> int:
     """Raise for what the kernels do not run; return the member count."""
-    yk.check_supported(yd.fold[0])
+    yk.check_plan(yd.fold[0])
+    yk.check_block_fit(yd.fold[0])
     if state5.device.type not in ("cpu", "cuda"):
         raise ValueError(f"year kernels run on cuda (or plain on cpu), "
                          f"not {state5.device}")
@@ -248,7 +257,7 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     args = yk._args(
         yd, state5, ints=dict(M=M, corr_step=3 * Y * X, n_pack=N_PPACK),
         state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
-        cf=(yk._scratch(yd, dev, M), None), tf=(corr, None),
+        cf=(_scratch(yd, dev, M), None), tf=(corr, None),
         ppack=(ppack, (M, 1, N_PPACK)))
     args.tof = args.tf + 4 * Y * X
     args.qf = args.tf + 8 * Y * X
@@ -283,7 +292,7 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
         yd, state5,
         ints=dict(M=M, n_years=ny, corr_step=3 * Y * X, n_pack=N_PPACK),
         state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
-        cf=(yk._scratch(yd, dev, M), None), tf=(corrpack, (M, T, 3, Y, X)),
+        cf=(_scratch(yd, dev, M), None), tf=(corrpack, (M, T, 3, Y, X)),
         ppack=(ppack, (M, 1, N_PPACK)), co2_years=(co2t, (ny,)),
         mon=(mon, (T,), torch.int32), mon_w=(w, (T,)),
         monthly=(monthly, None), asum=(asum, None))

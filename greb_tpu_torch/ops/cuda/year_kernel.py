@@ -3,16 +3,24 @@
 ``fluxcorr_year`` replaces ``greb_tpu/ops/pallas/year_kernel.py``
 ``build_fluxcorr_year`` (:353) and ``scenario_year`` replaces
 ``build_scenario_year`` (:231).  On a CUDA tensor each wrapper launches
-its kernel from ``csrc/year_kernel.cu`` (one thread block runs the whole
-year with the state resident in shared memory) or raises; on a CPU tensor
-it runs its plain PyTorch version, ``*_plain``, the eager loop over
+its kernel from ``csrc/year_kernel.cu`` or raises; on a CPU tensor it runs
+its plain PyTorch version, ``*_plain``, the eager loop over
 ``core.fluxcorr_step`` / ``core.scenario_step``.  Nothing falls back from
 the card to the plain version.
 
-Bound on the card: one block uses one of 132 SMs, and each substep rereads
-~0.9 MB of coefficient planes and composites from L2, so a launch is bound
-by one SM's L2 bandwidth (see the source note and PERF.md).  ``year_work``
-gives the bytes and operations of a year, for the whole-card bound.
+On the card one year runs on a thread-block cluster of ``cluster`` blocks
+(one of ``CLUSTER_SIZES``; ``DEFAULT_CLUSTER`` was the fastest in
+``chip_smoke.py``'s sweep).  Each block owns ``Y / cluster`` latitude rows
+and keeps everything its rows read every substep in its own shared memory
+for the whole year (``cluster_layout``): the state, the transported fields
+with +-2 halo rows pushed in by its neighbours through distributed shared
+memory, the step's coefficient planes, the fold's diffusion planes and the
+pole composites of the rows it holds.  A substep reads nothing from global
+memory and ends at one cluster barrier, so it is bound by the latency of
+its load chain and the barrier (see the source note and PERF.md).  A
+cluster the card cannot schedule raises; no other size is taken.
+``year_work`` gives the bytes and operations of a year, for the
+whole-card bound.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -36,6 +44,20 @@ F32 = np.float32
 MAX_SMEM_BYTES = 232448
 N_SUM = len(core.StepOutputs._fields)
 
+# blocks per cluster the single-run kernels launch with (12 and 16 are
+# above the portable 8); the meridional stencil reaches HALO rows
+CLUSTER_SIZES = (8, 12, 16)
+MAX_CLUSTER = 16
+HALO = 2
+# the fastest size in chip_smoke.py's sweep of scenario_year at 96x48 on an
+# H100 (700 W): 44.7 ms a year at 16 blocks, 47.7 at 12, 57.0 at 8
+DEFAULT_CLUSTER = 16
+# threads a block may have (csrc/year_kernel.cu NT)
+MAX_THREADS = 1024
+# parts of a cluster block's shared memory, in the kernel's layout order
+CLUSTER_PARTS = ("state", "transported", "coeffs", "zd", "wz", "asum",
+                 "pcomp", "comp_rows", "comp_partials")
+
 
 @dataclass
 class YearData:
@@ -49,20 +71,85 @@ class YearData:
     cache: Dict = field(default_factory=dict, repr=False)
 
 
+@dataclass(frozen=True)
+class ClusterLayout:
+    """One block's share of a single-run year on a cluster: its latitude
+    rows, the most pole composite rows any block holds, its threads, and
+    the bytes of each part of its shared memory (``CLUSTER_PARTS``
+    order)."""
+    blocks: int
+    rows: int
+    comp_rows: int
+    threads: int
+    parts: Tuple[Tuple[str, int], ...]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b for _, b in self.parts)
+
+
+def _comp_rows_in(r0: int, r1: int, plan: fc2.FastPlan) -> int:
+    """Composite rows among rows [r0, r1): the top comp_kt and the bottom
+    comp_kb."""
+    top = min(r1, plan.comp_kt) - r0
+    bot = r1 - max(r0, plan.ydim - plan.comp_kb)
+    return max(top, 0) + max(bot, 0)
+
+
+def cluster_layout(plan: fc2.FastPlan, blocks: int,
+                   scenario: bool = True) -> ClusterLayout:
+    """The shared memory of each block of a ``blocks``-block cluster
+    (csrc/year_kernel.cu ``cluster_parts``, the same reckoning): the
+    5-field state of its rows, two buffers of the 2 transported fields
+    with HALO rows each side, the step's 12 coefficient planes, the 7
+    zonal-diffusion planes and wz for 2 fields, the 9 annual sums
+    (``scenario``), the (2, X, X) composite matrices, their t1/da/dy rows
+    and their partial row sums for each pole row a block holds.  Raises
+    ValueError where the rows do not split evenly, a block would hold
+    fewer rows than the halo depth, the row length is not a multiple of 4
+    (the composite sums load 16 bytes at a time), or a block needs more
+    than MAX_SMEM_BYTES."""
+    Y, X = plan.ydim, plan.xdim
+    if X % 4:
+        raise ValueError(f"cluster kernels: {X} columns, not a multiple of 4")
+    if not 1 <= blocks <= MAX_CLUSTER or Y % blocks:
+        raise ValueError(f"a cluster of {blocks} blocks: {Y} latitude rows "
+                         f"do not split evenly over 1..{MAX_CLUSTER} blocks")
+    R = Y // blocks
+    if R < HALO:
+        raise ValueError(f"a cluster of {blocks} blocks gives {R} row(s) per "
+                         f"block, under the meridional halo depth {HALO}")
+    kmax = max(_comp_rows_in(b * R, (b + 1) * R, plan) for b in range(blocks))
+    nb = -(-X // fc2.COMP_BLOCK)
+    words = dict(state=5 * R * X, transported=2 * 2 * (R + 2 * HALO) * X,
+                 coeffs=12 * 2 * R * X, zd=7 * 2 * R * X, wz=2 * R * X,
+                 asum=N_SUM * R * X if scenario else 0,
+                 pcomp=2 * kmax * X * X, comp_rows=3 * 2 * kmax * X,
+                 comp_partials=2 * kmax * nb * X)
+    lay = ClusterLayout(
+        blocks=blocks, rows=R, comp_rows=kmax,
+        threads=min(MAX_THREADS, -(-2 * R * X // 32) * 32),
+        parts=tuple((n, 4 * words[n]) for n in CLUSTER_PARTS))
+    if lay.nbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"a cluster of {blocks} blocks at {X}x{Y} needs "
+                         f"{lay.nbytes} B of shared memory a block, over "
+                         f"{MAX_SMEM_BYTES} B")
+    return lay
+
+
 def smem_bytes(plan: fc2.FastPlan) -> int:
-    """Dynamic shared memory of one launch: the 5-field state, two buffers
-    of the 2 transported fields, and 3 slabs of the composite rows (the
-    layout of csrc/year_kernel.cu run_year)."""
+    """Dynamic shared memory of a member kernel's block (K3, K4): the
+    5-field state, two buffers of the 2 transported fields, and 3 slabs of
+    the composite rows (the layout of csrc/year_kernel.cu run_years)."""
     yx = plan.ydim * plan.xdim
     kx = (plan.comp_kt + plan.comp_kb) * plan.xdim
     return 4 * (5 * yx + 4 * yx + 6 * kx)
 
 
-def check_supported(plan: fc2.FastPlan) -> None:
-    """Raise for what the kernels do not run: explicit segment iterations,
+def check_plan(plan: fc2.FastPlan) -> None:
+    """Raise for what no year kernel runs: explicit segment iterations,
     packed composites, sequential zonal splitting (all refined-grid plans;
-    ROADMAP Queue 1 item 10), and grids whose state does not fit one block's
-    shared memory."""
+    ROADMAP Queue 1 item 10)."""
     if plan.diff_segs or plan.adv_segs:
         raise NotImplementedError(
             f"year kernels: explicit polar segments (diff_segs="
@@ -73,12 +160,24 @@ def check_supported(plan: fc2.FastPlan) -> None:
             f"year kernels: comp_mode={plan.comp_mode!r} / seq_zonal="
             f"{plan.seq_zonal} come with the refined-grid slice (ROADMAP "
             f"Queue 1 item 10)")
+
+
+def check_supported(plan: fc2.FastPlan) -> None:
+    """Raise for what the single-run kernels do not run: the plans of
+    ``check_plan``, and grids that a cluster of DEFAULT_CLUSTER blocks does
+    not hold (``cluster_layout``)."""
+    check_plan(plan)
+    cluster_layout(plan, DEFAULT_CLUSTER)
+
+
+def check_block_fit(plan: fc2.FastPlan) -> None:
+    """Raise where one member's state does not fit one block's shared
+    memory (the member kernels K3, K4)."""
     need = smem_bytes(plan)
     if need > MAX_SMEM_BYTES:
         raise NotImplementedError(
-            f"year kernels: a {plan.xdim}x{plan.ydim} state needs {need} B of "
-            f"shared memory, over one block's {MAX_SMEM_BYTES} B (multi-block "
-            f"years: ROADMAP Queue 1 item 10)")
+            f"member kernels: a {plan.xdim}x{plan.ydim} state needs {need} B "
+            f"of shared memory, over one block's {MAX_SMEM_BYTES} B")
 
 
 def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool):
@@ -158,14 +257,35 @@ def _lib():
     from . import build
     lib = build.load("year_kernel")
     for fn in (lib.greb_fluxcorr_year, lib.greb_scenario_year):
-        fn.argtypes = [_Args, _Params, ctypes.c_void_p]
+        fn.argtypes = [_Args, _Params, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for fn in (lib.greb_fluxcorr_years, lib.greb_scenario_years):
         fn.argtypes = [_Args, _Params, _PackCols, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.greb_cluster_layout.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.greb_cluster_layout.restype = ctypes.c_longlong
+    lib.greb_cluster_threads.argtypes = [ctypes.c_int] * 3
+    lib.greb_cluster_threads.restype = ctypes.c_int
     lib.greb_error_string.argtypes = [ctypes.c_int]
     lib.greb_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_cluster_layout(plan: fc2.FastPlan, blocks: int,
+                          scenario: bool = True):
+    """The kernel's own reckoning of a cluster block (csrc/year_kernel.cu
+    ``greb_cluster_layout``, built on first use): ({part: bytes}, threads),
+    for holding against ``cluster_layout``."""
+    lib = _lib()
+    parts = (ctypes.c_longlong * len(CLUSTER_PARTS))()
+    total = lib.greb_cluster_layout(plan.ydim, plan.xdim, plan.comp_kt,
+                                    plan.comp_kb, blocks, int(scenario),
+                                    parts)
+    if total <= 0:
+        raise ValueError(f"the kernel has no layout for {blocks} blocks")
+    return (dict(zip(CLUSTER_PARTS, parts)),
+            lib.greb_cluster_threads(plan.ydim, plan.xdim, blocks))
 
 
 def _params(yd: YearData, co2) -> _Params:
@@ -184,7 +304,7 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
     given; shape None skips the shape check); ``ints`` overrides the
     single-run sizes (M=1, one year, corrections step by step)."""
     plan, const = yd.fold
-    check_supported(plan)
+    check_plan(plan)
     num, sfx, md = yd.num, yd.sfx, yd.md
     Y, X, T = plan.ydim, plan.xdim, num.nstep_yr
     K = plan.comp_kt + plan.comp_kb
@@ -234,14 +354,6 @@ def _launch(fn_name: str, args: _Args, params: _Params, dev: torch.device,
                            f"{lib.greb_error_string(err).decode()}")
 
 
-def _scratch(yd: YearData, dev: torch.device, members: int = 1) -> torch.Tensor:
-    """The per-step coefficient scratch (M, 12, 2, Y, X): za 7, mc 4, c0m 1,
-    one slice per member (block)."""
-    plan = yd.fold[0]
-    return torch.empty((members, 12, 2, plan.ydim, plan.xdim),
-                       dtype=torch.float32, device=dev)
-
-
 def _check_device(state: ModelState) -> torch.device:
     dev = state.ts.device
     if dev.type not in ("cpu", "cuda"):
@@ -250,43 +362,57 @@ def _check_device(state: ModelState) -> torch.device:
     return dev
 
 
+def _check_cluster(cluster: int) -> None:
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster={cluster}: the single-run kernels launch "
+                         f"on clusters of {CLUSTER_SIZES} blocks")
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-def fluxcorr_year(state: ModelState, co2,
-                  yd: YearData) -> Tuple[ModelState, Corrections]:
-    """One spin-up year: (end state, correction tables)."""
+def fluxcorr_year(state: ModelState, co2, yd: YearData,
+                  cluster: int = DEFAULT_CLUSTER
+                  ) -> Tuple[ModelState, Corrections]:
+    """One spin-up year: (end state, correction tables).  On the card the
+    year runs on a cluster of ``cluster`` blocks."""
+    _check_cluster(cluster)
     dev = _check_device(state)
     if dev.type == "cpu":
         return fluxcorr_year_plain(state, co2, yd)
+    cluster_layout(yd.fold[0], cluster, scenario=False)
     T, (Y, X) = yd.num.nstep_yr, tuple(state.ts.shape)
     state5 = state.stack()
     state_out = torch.empty_like(state5)
     tabs = torch.empty((3, T, Y, X), dtype=torch.float32, device=dev)
-    cf = _scratch(yd, dev)
-    args = _args(yd, state5, state_out=(state_out, None), cf=(cf, None),
+    args = _args(yd, state5, state_out=(state_out, None),
                  tf=(tabs[0], None), tof=(tabs[1], None), qf=(tabs[2], None))
-    _launch("greb_fluxcorr_year", args, _params(yd, co2), dev)
+    _launch("greb_fluxcorr_year", args, _params(yd, co2), dev,
+            ctypes.c_int(cluster))
     fluxcorr_year.launches += 1
     return ModelState.unstack(state_out), Corrections(*tabs.unbind(0))
 
 
-def scenario_year(state: ModelState, corr: Corrections, co2, yd: YearData):
-    """One scenario year: (end state, outs (T, 5, Y, X), asum (9, Y, X))."""
+def scenario_year(state: ModelState, corr: Corrections, co2, yd: YearData,
+                  cluster: int = DEFAULT_CLUSTER):
+    """One scenario year: (end state, outs (T, 5, Y, X), asum (9, Y, X)).
+    On the card the year runs on a cluster of ``cluster`` blocks."""
+    _check_cluster(cluster)
     dev = _check_device(state)
     if dev.type == "cpu":
         return scenario_year_plain(state, corr, co2, yd)
+    cluster_layout(yd.fold[0], cluster, scenario=True)
     T, (Y, X) = yd.num.nstep_yr, tuple(state.ts.shape)
     state5 = state.stack()
     state_out = torch.empty_like(state5)
     outs = torch.empty((T, core.N_OUT, Y, X), dtype=torch.float32, device=dev)
     asum = torch.empty((N_SUM, Y, X), dtype=torch.float32, device=dev)
-    cf = _scratch(yd, dev)
-    args = _args(yd, state5, state_out=(state_out, None), cf=(cf, None),
+    args = _args(yd, state5, state_out=(state_out, None),
                  tf=(corr.tf, (T, Y, X)), tof=(corr.tof, (T, Y, X)),
                  qf=(corr.qf, (T, Y, X)), outs=(outs, None),
                  asum=(asum, None))
-    _launch("greb_scenario_year", args, _params(yd, co2), dev)
+    _launch("greb_scenario_year", args, _params(yd, co2), dev,
+            ctypes.c_int(cluster))
     scenario_year.launches += 1
     return ModelState.unstack(state_out), outs, asum
 

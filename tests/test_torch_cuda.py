@@ -1,6 +1,7 @@
 """The CUDA year kernels against their plain PyTorch versions, on the card:
-the single-run kernels (spin-up and scenario year) and the member-batched
-ones (spin-up years of M members, multi-year scenario blocks) at M=2.
+the single-run kernels (spin-up and scenario year, on a thread-block
+cluster of each offered size) and the member-batched ones (spin-up years
+of M members, multi-year scenario blocks) at M=2.
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one.  They import no JAX; run them on the card with
@@ -10,7 +11,10 @@ without one.  They import no JAX; run them on the card with
 (``--noconftest``: the repository's conftest files set JAX up).  The
 grid is the main path's 96x48, with dense pole composites and 24
 substeps, on a 10-day calendar; ``chip_smoke.py`` runs the full calendar.
-Tolerances: tests/test_golden_year.py:29.
+The single-run kernels must equal their plain versions bit for bit (max
+|diff| = 0), and a scenario year on the cluster must equal the member
+kernel's single-block year at M=1: both run the same per-cell device
+functions.  Member-kernel tolerances: tests/test_golden_year.py:29.
 """
 import numpy as np
 import pytest
@@ -40,34 +44,56 @@ def _close(a, b, atol, name):
                                atol=atol, err_msg=name)
 
 
-def test_fluxcorr_year_kernel_matches_plain(model):
+def _equal(a, b, name):
+    diff = float((a - b).abs().max())
+    assert diff == 0.0, f"{name}: max |diff| {diff}"
+
+
+@pytest.mark.parametrize("cluster", yk.CLUSTER_SIZES)
+def test_fluxcorr_year_kernel_matches_plain(model, cluster):
     s0 = model.initial_state()
     n0 = yk.fluxcorr_year.launches
-    s_k, c_k = yk.fluxcorr_year(s0, 298.0, model.year_data)
+    s_k, c_k = yk.fluxcorr_year(s0, 298.0, model.year_data, cluster=cluster)
     assert yk.fluxcorr_year.launches == n0 + 1
     s_p, c_p = yk.fluxcorr_year_plain(s0, 298.0, model.year_data)
-    for name in ("ts", "ta", "to"):
-        _close(getattr(s_k, name), getattr(s_p, name), 2e-2, name)
-    _close(s_k.q, s_p.q, 3e-6, "q")
-    _close(c_k.tf.mean(0), c_p.tf.mean(0), 1.0, "tf mean")
-    _close(c_k.qf.mean(0), c_p.qf.mean(0), 1e-7, "qf mean")
+    _equal(s_k.stack(), s_p.stack(), "state")
+    for name in ("tf", "tof", "qf"):
+        _equal(getattr(c_k, name), getattr(c_p, name), name)
 
 
-def test_scenario_year_kernel_matches_plain(model):
+@pytest.mark.parametrize("cluster", yk.CLUSTER_SIZES)
+def test_scenario_year_kernel_matches_plain(model, cluster):
     s0, corr = yk.fluxcorr_year_plain(model.initial_state(), 298.0,
                                       model.year_data)
     n0 = yk.scenario_year.launches
-    s_k, o_k, a_k = yk.scenario_year(s0, corr, 680.0, model.year_data)
+    s_k, o_k, a_k = yk.scenario_year(s0, corr, 680.0, model.year_data,
+                                     cluster=cluster)
     assert yk.scenario_year.launches == n0 + 1
     s_p, o_p, a_p = yk.scenario_year_plain(s0, corr, 680.0, model.year_data)
-    m_k = core.monthly_means(model.month_mat, o_k)
-    m_p = core.monthly_means(model.month_mat, o_p)
-    for v, (name, atol) in enumerate((("ts", 2e-2), ("ta", 2e-2),
-                                      ("to", 2e-2), ("q", 3e-6),
-                                      ("albedo", 5e-4))):
-        _close(m_k[:, v], m_p[:, v], atol, f"monthly {name}")
-        _close(a_k[v] / NUM.nstep_yr, a_p[v] / NUM.nstep_yr, atol,
-               f"annual {name}")
+    _equal(s_k.stack(), s_p.stack(), "state")
+    _equal(o_k, o_p, "outs")
+    _equal(a_k, a_p, "annual sums")
+
+
+def test_scenario_year_on_a_cluster_equals_the_member_kernel(model):
+    """K2 on the cluster against K3 at M=1 (one block) for the same year:
+    the per-cell device functions are shared, so state and annual sums
+    agree bit for bit."""
+    yd = model.year_data
+    s0, corr = yk.fluxcorr_year_plain(model.initial_state(), 298.0, yd)
+    s_2, _, a_2 = yk.scenario_year(s0, corr, 680.0, yd)
+    ppack = my.pack_member_params([model.params], "cuda")
+    corrpack = torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None]
+    s_3, _, a_3 = my.scenario_years(s0.stack()[:, None], ppack, corrpack,
+                                    np.asarray([680.0], np.float32), yd)
+    _equal(s_2.stack(), s_3[:, 0], "state")
+    _equal(a_2, a_3[0, 0], "annual sums")
+
+
+def test_kernel_rejects_an_unoffered_cluster(model):
+    with pytest.raises(ValueError, match="clusters of"):
+        yk.fluxcorr_year(model.initial_state(), 298.0, model.year_data,
+                         cluster=2)
 
 
 def test_kernel_rejects_what_it_does_not_run(model):
