@@ -7,25 +7,37 @@
 2. builds the CUDA kernels from greb_tpu_torch/csrc/ (nvcc, sm_90a) into
    greb_tpu_torch/_build/ and prints the build time;
    and holds the kernel's own reckoning of a cluster block's shared
-   memory against ops/cuda/year_kernel.cluster_layout at each cluster size;
+   memory against ops/cuda/year_kernel.cluster_layout for each kind at
+   each size it offers, with how many such clusters the card runs at once;
 3. holds the spin-up year kernel (fluxcorr_year, on a cluster of
    DEFAULT_CLUSTER blocks) against its plain PyTorch version on the card:
    one year at 96x48, 730 steps, 24 substeps, max |diff| 0 required;
 4. holds the scenario year kernel (scenario_year) against its plain
-   version the same way, and against the multi-year kernel at M=1 (one
-   block, the same per-cell device functions: bitwise equal required);
-   then sweeps the cluster size (8, 12, 16 blocks): ms per launch, bitwise
-   equality with the plain version, and the same year at one substep per
-   step, which splits a launch into substep time and per-step time; then
-   times the year without the pole composites and a bare cluster barrier
-   (csrc/cluster_probe.cu), with and without its release, which split a
-   substep's time;
+   version the same way; holds it against the multi-year kernel at M=1,
+   and the spin-up year kernel against the member spin-up kernel at M=1,
+   at every size those offer (the same cluster body and per-cell device
+   functions: bitwise equal required); then sweeps the cluster size (8,
+   12, 16 blocks): ms per launch, bitwise equality with the plain version,
+   and the same year at one substep per step, which splits a launch into
+   substep time and per-step time; then times the year without the pole
+   composites and a bare cluster barrier (csrc/cluster_probe.cu), with and
+   without its release, which split a substep's time;
 5. holds the member-batched spin-up kernel (fluxcorr_years) against its
-   plain version: M=2 members (ct_sens +-2%), one full year, bitwise;
+   plain version at every size it offers, at the member chain's shape:
+   M=3 members (ct_sens -2%, base, +2%), one full year, state and
+   per-step tables bitwise;
 6. holds the multi-year scenario kernel (scenario_years) against its plain
-   version: M=2, 2 years at CO2 560 and 680, from step 5's output, bitwise;
-7. times the multi-year kernel for one year at M = 1, 16, 64, 100 and 132
-   members (member scaling: one thread block, one SM, per member);
+   version at every size it offers: M=2 (step 5's two perturbed members),
+   2 years at CO2 560 and 680, from step 5's output, state, monthly means
+   and annual sums bitwise;
+7. times both member kernels at the shapes their paths launch (K3 one
+   member for 10 years, the long run's block; K4 step 5's 3 members, the
+   member chain's year): a warm-up launch, then 3 timed launches, the last
+   of which is held bitwise against the plain version on the same inputs;
+   then the member scaling: one year of each member kernel at M = 1 to
+   132 members on each size it offers (one member a cluster, clusters
+   beyond the card's capacity in waves; K3 also one block a member),
+   against the size the wrappers pick by default;
 8. drives the main path, GREB.run: 3 spin-up years and 10 scenario years at
    96x48 through the single-run kernels, with launch counts, finiteness,
    the output file read back, and the warming under 680 ppm checked;
@@ -44,6 +56,14 @@
 
 Any failure raises, so the script exits non-zero and prints no ok line.
 It needs a CUDA card and the repository's greb_tpu_torch package.
+
+    python3 chip_smoke.py --time-members
+
+runs step 7's timing at the paths' shapes alone and prints it as JSON.  It
+calls the member wrappers with their defaults only, so a copy of this
+script placed in a checkout of an earlier commit times that commit's
+member kernels: a change to K3 or K4 is measured against its parent this
+way, both trees in one chip call (PERF.md section 6).
 """
 from __future__ import annotations
 
@@ -57,20 +77,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Year-level tolerances of tests/test_golden_year.py (kernel vs plain):
-# monthly means and the spin-up end state (:29, :61-67)
+# Year-level tolerances of tests/test_golden_year.py (:29) for monthly
+# means, which hold the long run's multi-year kernel against the main
+# path's per-year one
 TOL_T = 2e-2          # temperatures [K]
 TOL_Q = 3e-6          # q [kg/kg]
 TOL_ALBEDO = 5e-4
-RTOL_CAP = 1e-5       # cap_surf at the spin-up end, relative
-TOL_TF_MEAN = 1.0     # tf annual mean [W/m^2]
-TOL_QF_MEAN = 1e-7    # qf annual mean [kg/kg/step]
-# ... and the free-running scenario end state (:83-87)
-TOL_T_END = 3e-2
-TOL_Q_END = 5e-6
-# annual-mean fluxes (sw, lw_surf, q_lat, q_sens): 2e-2 K of Ts or Ta moves
-# a surface flux by at most ~0.15 W/m^2 (4 sigma T^3 at 300 K), so 0.5
-TOL_FLUX_MEAN = 0.5
 
 # H100 SXM peaks at the 700 W limit: HBM 3.35 TB/s (NVIDIA data sheet);
 # float32 operations that do not fuse, 132 SMs x 128 lanes x 1.98 GHz.  The
@@ -107,6 +119,10 @@ def _time_ms(fn, repeats):
     return start.elapsed_time(stop) / repeats, out
 
 
+def _median(values):
+    return sorted(values)[len(values) // 2]
+
+
 def _bitwise(tag, pairs):
     """max |diff| of each (name, kernel, plain) pair; all must be 0."""
     worst = 0.0
@@ -140,15 +156,6 @@ def _barrier_costs(build, threads_of):
               f"with release (the kernels'), {got[1]:.1f} ns relaxed")
 
 
-def _compare_state(tag, s_k, s_p, tol_t, tol_q):
-    errs = []
-    for name in ("ts", "ta", "to"):
-        errs.append(_check(f"{tag} state {name} [K]", _max_abs(
-            getattr(s_k, name), getattr(s_p, name)), tol_t))
-    _check(f"{tag} state q", _max_abs(s_k.q, s_p.q), tol_q)
-    return max(errs)
-
-
 def _bound_of(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OP_PER_S * 1e3
@@ -160,6 +167,9 @@ def _bound_of(nbytes, ops):
 LONG_YEARS = 50
 LONG_BLOCK = 10
 LONG_STOP = 20
+# member counts of the member scaling (132: one a streaming multiprocessor;
+# 7/8 and 49/56 either side of the default size's crossovers)
+SCALING_M = (1, 7, 8, 16, 49, 56, 64, 100, 132)
 
 
 def _long_runner(model, tmp, tag):
@@ -202,6 +212,73 @@ def _resume_long(tmp: str) -> int:
     return 0
 
 
+def _path_shape_inputs(model, state, corr):
+    """The member kernels' arguments at the shapes their paths launch: K3
+    one member with the base params for LONG_BLOCK years at 680 ppm from
+    (state, corr), the long run's block; K4 the member chain's 3 members
+    (ct_sens -2%, base, +2%: the JAX CLI's default sweep) from the initial
+    state, its spin-up year."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.parallel import ensemble as ens
+    yd = model.year_data
+    pp1 = my.pack_member_params([model.params], "cuda")
+    corr1 = torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None]
+    pp3 = my.pack_member_params(ens.perturbed_params(
+        model.params, {"ct_sens": np.linspace(22.05, 22.95, 3)}), "cuda")
+    return {"scenario_years": (state.stack()[:, None], pp1, corr1,
+                               np.full(LONG_BLOCK, 680.0, np.float32), yd),
+            "fluxcorr_years": (
+                model.initial_state().stack()[:, None].repeat(1, 3, 1, 1),
+                pp3, np.float32(model.cfg.co2.co2_flux), yd)}
+
+
+def _time_member_kernels(inputs, repeats=3):
+    """ms of ``repeats`` launches of K3 and K4 on ``inputs``
+    (``_path_shape_inputs``), each after a warm-up launch, and the last
+    launch's outputs.  Only the wrappers' defaults, so an earlier tree's
+    kernels are timed the same way."""
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    ms, outs = {}, {}
+    for name, args in inputs.items():
+        def fn():
+            return getattr(my, name)(*args)
+        fn()
+        ms[name] = []
+        for _ in range(repeats):
+            t, outs[name] = _time_ms(fn, 1)
+            ms[name].append(t)
+        runs_ms = " ".join(f"{v:.3f}" for v in ms[name])
+        print(f"{name} at its path's shape: {_median(ms[name]):.3f} "
+              f"ms/launch median of {repeats} after a warm-up ({runs_ms}; "
+              f"spread {max(ms[name]) - min(ms[name]):.3f})")
+    return ms, outs
+
+
+def _time_members_only() -> int:
+    """--time-members: step 7's timing at the paths' shapes, alone."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import GrebConfig, Numerics
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi)
+    model = GREB(GrebConfig(numerics=Numerics(time_flux=3)), device="cuda",
+                 verbose=False)
+    state, corr = yk.fluxcorr_year(model.initial_state(),
+                                   np.float32(model.cfg.co2.co2_flux),
+                                   model.year_data)
+    got, _ = _time_member_kernels(_path_shape_inputs(model, state, corr))
+    torch.cuda.synchronize()
+    print(json.dumps({"card": smi, "ms": got}))
+    return 0
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -210,6 +287,10 @@ def main(argv) -> int:
         return 1
     if argv[:1] == ["--resume-long"]:
         return _resume_long(argv[1])
+    if argv[:1] == ["--time-members"]:
+        return _time_members_only()
+    import math
+
     import numpy as np
 
     from greb_tpu_torch.config import Diagnostics, GrebConfig, Numerics
@@ -270,25 +351,25 @@ def main(argv) -> int:
               f"plan {plan}")
 
         # -- a cluster block's shared memory: the kernel's own reckoning
-        #    against cluster_layout, at each offered size
+        #    against cluster_layout, for each kind at each size it offers,
+        #    and how many such clusters the card runs at once
         C = yk.DEFAULT_CLUSTER
-        for c in yk.CLUSTER_SIZES:
-            for scen in (False, True):
-                lay = yk.cluster_layout(plan, c, scen)
-                parts, threads = yk.kernel_cluster_layout(plan, c, scen)
+        capacity = {}
+        for kind in yk.KINDS:
+            for c in yk.CLUSTER_SIZES[kind]:
+                lay = yk.cluster_layout(plan, c, kind)
+                parts, threads = yk.kernel_cluster_layout(plan, c, kind)
                 if parts != dict(lay.parts) or threads != lay.threads:
                     raise AssertionError(
-                        f"C={c}: kernel layout {parts}, {threads} threads; "
-                        f"cluster_layout {dict(lay.parts)}, {lay.threads}")
-            print(f"cluster C={c:2d}: {lay.rows} rows/block, {lay.threads} "
-                  f"threads, {lay.nbytes} B shared memory a block (K2; K1 "
-                  f"{yk.cluster_layout(plan, c, False).nbytes} B), kernel "
-                  f"and cluster_layout agree: {dict(lay.parts)}")
-        lay1 = yk.cluster_layout(plan, C, False)
-        lay2 = yk.cluster_layout(plan, C, True)
-        print(f"K1 and K2 run on a cluster of C={C} blocks: K1 {lay1.nbytes} "
-              f"B, K2 {lay2.nbytes} B of shared memory a block, "
-              f"{lay2.threads} threads a block")
+                        f"{kind} C={c}: kernel layout {parts}, {threads} "
+                        f"threads; cluster_layout {dict(lay.parts)}, "
+                        f"{lay.threads}")
+                capacity[kind, c] = yk.cluster_capacity(plan, c, kind)
+                print(f"cluster {kind:<14s} C={c:2d}: {lay.rows} rows/block, "
+                      f"{lay.threads} threads, {lay.nbytes} B shared memory "
+                      f"a block, {capacity[kind, c]} clusters at once; "
+                      f"kernel and cluster_layout agree: {dict(lay.parts)}")
+        print(f"the single-run wrappers' default: clusters of C={C} blocks")
 
         # -- K1: spin-up year kernel vs its plain version --------------------
         s0 = model.initial_state()
@@ -323,15 +404,27 @@ def main(argv) -> int:
         _bitwise("K2", [("monthly means", core.monthly_means(model.month_mat, o_k),
                          core.monthly_means(model.month_mat, o_p))])
 
-        # -- K2 on the cluster against K3 at M=1 (one block): the per-cell
-        #    device functions are shared, so the year must agree bitwise
+        # -- K2 against K3 and K1 against K4 at M=1 with the base params, at
+        #    every size the member kernel offers: the cluster body and the
+        #    per-cell device functions are shared, so the year must agree
+        #    bitwise
         pp_base = my.pack_member_params([model.params], "cuda")
         corr_base = torch.stack([c_p.tf, c_p.tof, c_p.qf], dim=1)[None]
-        s3_1, _, a3_1 = my.scenario_years(s_p.stack()[:, None], pp_base,
-                                          corr_base, np.asarray([co2s]), yd)
-        _bitwise("K2 vs K3 (M=1)", [("state", s_k2.stack(), s3_1[:, 0]),
-                                    ("annual sums", a_k, a3_1[0, 0])])
-        del s3_1, a3_1
+        for c in yk.offered_sizes("scenario_years"):
+            s3_1, _, a3_1 = my.scenario_years(
+                s_p.stack()[:, None], pp_base, corr_base,
+                np.asarray([co2s]), yd, cluster=c)
+            _bitwise(f"K2 vs K3 (M=1, C={c})",
+                     [("state", s_k2.stack(), s3_1[:, 0]),
+                      ("annual sums", a_k, a3_1[0, 0])])
+        for c in yk.offered_sizes("fluxcorr"):
+            s4_1, c4_1 = my.fluxcorr_years(s0.stack()[:, None], pp_base, co2f,
+                                           yd, cluster=c)
+            _bitwise(f"K1 vs K4 (M=1, C={c})",
+                     [("state", s_k.stack(), s4_1[:, 0])]
+                     + [(f"table {n}", getattr(c_k, n), c4_1[0, :, i])
+                        for i, n in enumerate(("tf", "tof", "qf"))])
+        del s3_1, a3_1, s4_1, c4_1
 
         # -- cluster-size sweep of K2, and where a launch's time goes: the
         #    same year with one substep per step splits substep time from
@@ -339,7 +432,7 @@ def main(argv) -> int:
         one = yk.YearData(md=yd.md, sfx=yd.sfx, fold=yd.fold,
                           num=dataclasses.replace(num, dt_crcl=num.dt))
         sweep = {}
-        for c in yk.CLUSTER_SIZES:
+        for c in yk.CLUSTER_SIZES["scenario"]:
             yk.scenario_year(s_p, c_p, co2s, yd, cluster=c)
             ms_c, (s_c, o_c, a_c) = _time_ms(
                 lambda: yk.scenario_year(s_p, c_p, co2s, yd, cluster=c), 2)
@@ -377,88 +470,98 @@ def main(argv) -> int:
               f"-> {us_bare:.3f} us per substep")
         # ... and what one cluster barrier costs, with the release the
         # kernels need (the pushed halo rows) and, for comparison, relaxed
-        _barrier_costs(build, {c: yk.cluster_layout(plan, c).threads
-                               for c in yk.CLUSTER_SIZES})
+        _barrier_costs(build, {
+            c: yk.cluster_layout(plan, c, "scenario").threads
+            for c in yk.CLUSTER_SIZES["scenario"]})
 
-        # -- K4: member-batched spin-up year vs its plain version -------------
-        # M=2 members, ct_sens +-2% (the JAX CLI's default sweep)
-        members = ens.perturbed_params(
-            model.params, {"ct_sens": np.linspace(22.05, 22.95, 2)})
-        ppack = my.pack_member_params(members, "cuda")
-        s5_0 = s0.stack()[:, None].repeat(1, 2, 1, 1)
-        s4_k, c4_k = my.fluxcorr_years(s5_0, ppack, co2f, yd)   # first launch
-        ms_k4, (s4_k, c4_k) = _time_ms(
-            lambda: my.fluxcorr_years(s5_0, ppack, co2f, yd), 1)
+        # -- K4: member-batched spin-up year vs its plain version at the
+        #    member chain's shape, at every size it offers: M=3 members,
+        #    ct_sens -2%, base, +2%
+        path_in = _path_shape_inputs(model, s_p, c_p)
+        s5_0, pp3, _, _ = path_in["fluxcorr_years"]
         plain_k4, (s4_p, c4_p) = _time_ms(
-            lambda: my.fluxcorr_years_plain(s5_0, ppack, co2f, yd), 1)
-        print(f"K4 fluxcorr_years (M=2): kernel {ms_k4:.2f} ms/launch, "
-              f"plain {plain_k4:.1f} ms")
-        u4_k, u4_p = ModelState.unstack(s4_k), ModelState.unstack(s4_p)
-        _compare_state("K4", u4_k, u4_p, TOL_T, TOL_Q)
-        _check("K4 state cap_surf (rel)", float(
-            ((u4_k.cap_surf - u4_p.cap_surf).abs() / u4_p.cap_surf).max()),
-            RTOL_CAP)
-        _check("K4 tf annual mean [W/m^2]", _max_abs(
-            c4_k[:, :, 0].mean(1), c4_p[:, :, 0].mean(1)), TOL_TF_MEAN)
-        _check("K4 qf annual mean", _max_abs(
-            c4_k[:, :, 2].mean(1), c4_p[:, :, 2].mean(1)), TOL_QF_MEAN)
-        print(f"  K4 per-step tables max |diff|: tf "
-              f"{_max_abs(c4_k[:, :, 0], c4_p[:, :, 0]):.3e} tof "
-              f"{_max_abs(c4_k[:, :, 1], c4_p[:, :, 1]):.3e} qf "
-              f"{_max_abs(c4_k[:, :, 2], c4_p[:, :, 2]):.3e}")
-        if torch.equal(s4_k[:, 0], s4_k[:, 1]):
-            raise AssertionError("K4: the two members did not differ")
-        err_k4 = _bitwise("K4", [("state", s4_k, s4_p),
-                                 ("tables", c4_k, c4_p)])
+            lambda: my.fluxcorr_years_plain(*path_in["fluxcorr_years"]), 1)
+        print(f"K4 fluxcorr_years plain (M=3): {plain_k4:.1f} ms")
+        err_k4 = 0.0
+        for c in yk.offered_sizes("fluxcorr"):
+            s4_k, c4_k = my.fluxcorr_years(s5_0, pp3, co2f, yd, cluster=c)
+            if torch.equal(s4_k[:, 0], s4_k[:, 2]):
+                raise AssertionError("K4: the perturbed members did not "
+                                     "differ")
+            err_k4 = max(err_k4, _bitwise(f"K4 C={c}", [
+                ("state", s4_k, s4_p), ("tables", c4_k, c4_p)]))
+        del s4_k, c4_k
 
-        # -- K3: multi-year scenario block vs its plain version --------------
+        # -- K3: multi-year scenario block vs its plain version, at every
+        #    size it offers; M=2, K4's two perturbed members, for 2 years,
+        #    so both the month and the year boundaries are crossed
+        two = [0, 2]
+        pp2, s3_in, c3_in = pp3[two], s4_p[:, two], c4_p[two]
         co2y = np.asarray([560.0, 680.0], np.float32)
-        s3_k, m3_k, a3_k = my.scenario_years(s4_p, ppack, c4_p, co2y, yd)
-        ms_k3, (s3_k, m3_k, a3_k) = _time_ms(
-            lambda: my.scenario_years(s4_p, ppack, c4_p, co2y, yd), 1)
-        plain_k3, (s3_p, m3_p, a3_p) = _time_ms(
-            lambda: my.scenario_years_plain(s4_p, ppack, c4_p, co2y, yd), 1)
-        print(f"K3 scenario_years (M=2, 2 years): kernel {ms_k3:.2f} "
-              f"ms/launch, plain {plain_k3:.1f} ms")
-        u3_k, u3_p = ModelState.unstack(s3_k), ModelState.unstack(s3_p)
-        _compare_state("K3", u3_k, u3_p, TOL_T_END, TOL_Q_END)
-        # a free-running Ts moves cap_surf along the sea-ice ramp, at most
-        # (cap_ocean*max(mld) - cap_land)/(To_ice2 - To_ice1) per K
-        p, d = model.params, model.derived
-        slope = (float(d.cap_ocean) * float(model.forcing.mldclim.max())
-                 - float(d.cap_land)) / float(p.To_ice2 - p.To_ice1)
-        _check("K3 state cap_surf [J/K/m^2]",
-               _max_abs(u3_k.cap_surf, u3_p.cap_surf), slope * TOL_T_END)
-        for v, (name, tol) in enumerate((("ts", TOL_T), ("ta", TOL_T),
-                                         ("to", TOL_T), ("q", TOL_Q),
-                                         ("albedo", TOL_ALBEDO))):
-            _check(f"K3 monthly {name}",
-                   _max_abs(m3_k[:, :, v], m3_p[:, :, v]), tol)
-        for i, name in enumerate(core.StepOutputs._fields):
-            tol = {"q": TOL_Q, "albedo": TOL_ALBEDO}.get(
-                name, TOL_T if name in ("ts", "ta", "to") else TOL_FLUX_MEAN)
-            _check(f"K3 annual mean {name}", _max_abs(
-                a3_k[:, :, i] / num.nstep_yr, a3_p[:, :, i] / num.nstep_yr),
-                tol)
-        err_k3 = _bitwise("K3", [("state", s3_k, s3_p),
-                                 ("monthly means", m3_k, m3_p),
-                                 ("annual sums", a3_k, a3_p)])
+        plain_k3_m2, (s3_p, m3_p, a3_p) = _time_ms(
+            lambda: my.scenario_years_plain(s3_in, pp2, c3_in, co2y, yd), 1)
+        print(f"K3 scenario_years plain (M=2, 2 years): {plain_k3_m2:.1f} ms")
+        err_k3 = 0.0
+        for c in yk.offered_sizes("scenario_years"):
+            s3_k, m3_k, a3_k = my.scenario_years(s3_in, pp2, c3_in, co2y, yd,
+                                                 cluster=c)
+            if torch.equal(m3_k[0], m3_k[1]):
+                raise AssertionError("K3: the two members did not differ")
+            err_k3 = max(err_k3, _bitwise(f"K3 C={c}", [
+                ("state", s3_k, s3_p), ("monthly means", m3_k, m3_p),
+                ("annual sums", a3_k, a3_p)]))
+        del s3_k, m3_k, a3_k, s3_p, m3_p, a3_p
 
-        # -- member scaling: one K3 year at M = 1 .. 132 (the coefficient
-        #    scratch, 0.44 MB a member, passes the 50 MB L2 above M ~ 110)
-        for M in (1, 16, 64, 100, 132):
+        # -- both member kernels at the shapes their paths launch, each
+        #    timed launch held bitwise against its plain version on the same
+        #    inputs (K4's plain version is step 5's)
+        member_ms, member_out = _time_member_kernels(path_in)
+        err_k4 = max(err_k4, _bitwise("K4 timed (M=3)", [
+            ("state", member_out["fluxcorr_years"][0], s4_p),
+            ("tables", member_out["fluxcorr_years"][1], c4_p)]))
+        plain_k3, k3_p = _time_ms(
+            lambda: my.scenario_years_plain(*path_in["scenario_years"]), 1)
+        print(f"K3 scenario_years plain (M=1, {LONG_BLOCK} years): "
+              f"{plain_k3:.1f} ms")
+        err_k3 = max(err_k3, _bitwise(
+            f"K3 timed (M=1 x {LONG_BLOCK} years)",
+            zip(("state", "monthly means", "annual sums"),
+                member_out["scenario_years"], k3_p)))
+        del member_out, k3_p
+
+        # -- member scaling: one year of each member kernel at M = 1 .. 132
+        #    on each size it offers (clusters beyond the card's capacity run
+        #    in waves; one block a member is one SM), against the size the
+        #    wrappers pick by default
+        for M in SCALING_M:
             pp = my.pack_member_params(ens.perturbed_params(
                 model.params, {"ct_sens": np.linspace(22.05, 22.95, M)}),
                 "cuda")
             s5m = s4_p[:, :1].repeat(1, M, 1, 1)
             cpm = c4_p[:1].expand(M, -1, -1, -1, -1).contiguous()
-            my.scenario_years(s5m, pp, cpm, co2y[:1], yd)
-            ms_m, _ = _time_ms(
-                lambda: my.scenario_years(s5m, pp, cpm, co2y[:1], yd), 1)
-            print(f"member scaling: M={M:3d} {ms_m:.2f} ms/launch (1 year) "
-                  f"= {M / ms_m * 1e3:.3f} member-yr/s; corrections "
-                  f"{cpm.numel() * 4 / 1e9:.2f} GB, coefficient scratch "
-                  f"{M * 12 * 2 * num.ydim * num.xdim * 4 / 1e6:.1f} MB")
+            for kind in my.KINDS:
+                got = {}
+                for c in yk.offered_sizes(kind):
+                    if kind == "fluxcorr":
+                        def run():
+                            return my.fluxcorr_years(s5m, pp, co2f, yd,
+                                                     cluster=c)
+                    else:
+                        def run():
+                            return my.scenario_years(s5m, pp, cpm, co2y[:1],
+                                                     yd, cluster=c)
+                    run()
+                    got[c], _ = _time_ms(run, 1)
+                    cap = 132 if c == 1 else capacity[kind, c]
+                    print(f"member scaling {kind:<14s} C={c:2d} M={M:3d}: "
+                          f"{got[c]:.3f} ms (1 year) = "
+                          f"{M / got[c] * 1e3:.3f} member-yr/s; {cap} at "
+                          f"once, {math.ceil(M / cap)} wave(s)")
+                best = min(got, key=got.get)
+                pick = my.default_cluster(kind, M, capacity[kind, C])
+                print(f"member scaling {kind:<14s} M={M:3d}: fastest C={best}"
+                      f", default C={pick} ({got[pick] / got[best]:.3f}x the "
+                      f"fastest)")
             del pp, s5m, cpm
         torch.cuda.empty_cache()
 
@@ -600,31 +703,38 @@ def main(argv) -> int:
             raise AssertionError("perturbed members do not differ")
         print("  base member bitwise equal to the long run's first block")
 
+    # ms, plain_ms and bound_ms at the shape each path launches the kernel
+    # (K3 one member for 10 years, K4 3 members: the median of member_ms's
+    # 3 launches, on the size the wrapper picks for that member count);
+    # max_abs_err over that shape and every comparison above
+    k3_ms, k4_ms = (_median(member_ms[k])
+                    for k in ("scenario_years", "fluxcorr_years"))
     kernels = []
-    for name, src, line, count, ms, plain_ms, err, work in (
+    for name, src, line, count, ms, plain_ms, err, work, shape, c in (
             ("fluxcorr_year", "year_kernel.py", 353,
              launches["fluxcorr_year"], ms_k1, plain_k1, err_k1,
-             yk.year_work(plan, num, False)),
+             yk.year_work(plan, num, False), "1 year", C),
             ("scenario_year", "year_kernel.py", 231,
              launches["scenario_year"], ms_k2, plain_k2, err_k2,
-             yk.year_work(plan, num, True)),
+             yk.year_work(plan, num, True), "1 year", C),
             ("scenario_years", "multiyear.py", 107,
-             launches_long["scenario_years"], ms_k3, plain_k3, err_k3,
-             my.years_work(plan, num, 2, 2, "scenario")),
+             launches_long["scenario_years"], k3_ms, plain_k3, err_k3,
+             my.years_work(plan, num, LONG_BLOCK, 1, "scenario"),
+             f"M=1 x {LONG_BLOCK} years", my.default_cluster(
+                 "scenario_years", 1, capacity["scenario_years", C])),
             ("fluxcorr_years", "multiyear.py", 253,
-             launches_m["fluxcorr_years"], ms_k4, plain_k4, err_k4,
-             my.years_work(plan, num, 1, 2, "fluxcorr"))):
+             launches_m["fluxcorr_years"], k4_ms, plain_k4, err_k4,
+             my.years_work(plan, num, 1, 3, "fluxcorr"), "M=3 x 1 year",
+             my.default_cluster("fluxcorr", 3, capacity["fluxcorr", C]))):
         bound_ms, bound_by = _bound_of(*work)
-        entry = {
+        kernels.append({
             "name": name, "route": "cuda",
             "source": "greb_tpu_torch/csrc/year_kernel.cu",
             "replaces": f"greb_tpu/ops/pallas/{src}:{line}",
             "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
-        if name.endswith("_year"):
-            entry["cluster"] = C
-        kernels.append(entry)
+            "bound_by": bound_by, "library_ms": None, "cluster": c,
+            "shape": shape})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,16 +21,23 @@
 // zonal advection, the band clamp, the merged 5-point meridional step and
 // the combine.
 //
-// Single-run kernels (fluxcorr_year, scenario_year): a thread-block cluster.
-// One year of one run is spread over a cluster of C blocks (C = 8, 12 or 16,
-// a launch argument; 12 and 16 are above the portable 8).  Block b owns the
+// All four run on one cluster body (run_cluster), one member per
+// thread-block cluster: the single-run kernels are one member with the
+// host's physics; the member kernels launch M clusters, cluster m reading
+// row m of the member pack and its own slice of every global buffer, and
+// scenario_years loops over n_years inside the kernel.  One member's years
+// are spread over a cluster of C blocks (C = 8, 12 or 16, a launch
+// argument; 12 and 16 are above the portable 8; scenario_years 12 or 16:
+// its block with a pole row does not fit 8).  Block b owns the
 // R = Y/C latitude rows [b*R, (b+1)*R) and keeps in its own shared memory,
 // for the whole year, everything those rows read every substep: the 5-field
 // state, a double buffer of the two transported fields with +-2 halo rows,
 // the step's 12 coefficient planes (built at each step start from the
 // fold's zam/mer planes and the step's wind), the 7 zonal-diffusion planes,
-// wz, the two 96x96 composite matrices of any pole row it holds, and
-// (scenario) the 9 annual sums, written out once at the year's end.  No
+// wz, the two 96x96 composite matrices of any pole row it holds, (scenario
+// kernels) the 9 annual sums, written out once at each year's end, and
+// (scenario_years) the month's 5 means, written out once at each month's
+// end.  The state stays in shared memory from one year to the next.  No
 // coefficient is read from global memory inside the substep loop.  The
 // meridional 5-point stencil reads 2 rows beyond the block: every block
 // pushes the first and last 2 rows of each buffer it writes into its
@@ -59,19 +66,21 @@
 // memory at any C.  The step outside the substeps (its start, the physics
 // reading the step's forcing from global memory) is ~5 us.  The whole-card
 // bound (PERF.md) counts operations and is far lower: one run on 16 SMs
-// does not fill 132.
+// does not fill 132.  M members run as many clusters at once as the card
+// schedules (cudaOccupancyMaxActiveClusters), the rest in waves.
 //
-// Member kernels (fluxcorr_years, scenario_years): one thread block of NT
-// threads per member (blockIdx.x), looping over n_years x T model steps,
-// with the 5-field state (90 KiB at 96x48) and a (Ta, q) double buffer
-// (2 x 36 KiB) in dynamic shared memory.  The fold's planes, each step's
-// forcing and a per-member coefficient scratch (written each step start)
-// are read from global memory / L2, so a member is bound by one SM's reads
-// from L2.  Each member has its own slice of every buffer the kernel writes
-// (state, coefficient scratch, corrections, monthly means, sums), so the
-// blocks never share a written address.  The monthly means and annual sums
-// are read-modified-written in global memory every step: with the state
-// they would need 262 KB of shared memory, over a block's 227 KB.
+// The one-block body of scenario_years (run_years, C = 1): one thread
+// block of NT threads per member (blockIdx.x), looping over n_years x T
+// model steps, with the 5-field state (90 KiB at 96x48) and a (Ta, q)
+// double buffer (2 x 36 KiB) in dynamic shared memory.  The fold's planes,
+// each step's forcing and a per-member coefficient scratch (written each
+// step start) are read from global memory / L2, so a member is bound by one
+// SM's reads from L2; the monthly means and annual sums are
+// read-modified-written in global memory every step.  A member's year takes
+// ~7x a cluster's, but 132 members run at once, one an SM, where the card
+// runs 7 clusters of 12 or 16 blocks at once: past ~50 members it gives
+// more member-years a second (PERF.md; ops/cuda/multiyear.py
+// default_cluster).
 //
 // Numerics.  Built without --use_fast_math and with --fmad=false, so every
 // float32 operation rounds as in the plain PyTorch version and in the JAX
@@ -131,7 +140,7 @@ struct YearArgs {
   const float *ppack;  // member kernels: (M, n_pack) physics parameters
   const float *state_in;  // (5, M, Y, X): ts, ta, to, q, cap_surf
   float *state_out;       // (5, M, Y, X)
-  float *cf;              // member kernels' scratch (M, 12, 2, Y, X):
+  float *cf;              // one-block body's scratch (M, 12, 2, Y, X):
                           // za 7, mc 4, c0m 1
   int Y, X, T, nsub, bt, bb, ktc, kbc;
   int M, n_years, nmon, corr_step, n_pack;
@@ -424,7 +433,7 @@ __device__ __forceinline__ float comp_combine(float t1, float t2, float x0,
 }
 
 // ---------------------------------------------------------------------------
-// member kernels: one block per member
+// scenario_years' one-block body: one block per member
 // ---------------------------------------------------------------------------
 static size_t smem_bytes(const YearArgs& a) {
   const size_t yx = (size_t)a.Y * a.X;
@@ -489,11 +498,11 @@ __device__ void substep(const YearArgs& a, const float* cf_m, const float* xa,
   }
 }
 
-// The physics of member blockIdx.x: the pack's row, by field name; dt and
-// CO2 come from the host's p.
+// The physics of member m: the pack's row m, by field name; dt and CO2
+// come from the host's p.
 __device__ GrebParams member_params(GrebParams p, const YearArgs& a,
-                                    const PackCols& c) {
-  const float* r = a.ppack + (size_t)blockIdx.x * a.n_pack;
+                                    const PackCols& c, int m) {
+  const float* r = a.ppack + (size_t)m * a.n_pack;
   p.sig = r[c.sig];           p.rho_air = r[c.rho_air];
   p.ct_sens = r[c.ct_sens];   p.da_ice = r[c.da_ice];
   p.a_no_ice = r[c.a_no_ice]; p.a_cloud = r[c.a_cloud];
@@ -509,10 +518,9 @@ __device__ GrebParams member_params(GrebParams p, const YearArgs& a,
   return p;
 }
 
-// The years of member m = blockIdx.x: a loop over n_years x T model steps
-// in one block.  FLUX is one spin-up year (fluxcorr_years), SCEN_YEARS
-// n_years scenario years with monthly means (scenario_years).
-template <int KIND>
+// The n_years scenario years of member m = blockIdx.x with monthly means
+// (scenario_years at C = 1): a loop over n_years x T model steps in one
+// block.
 __device__ void run_years(const YearArgs& a, GrebParams p) {
   extern __shared__ float smem[];
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
@@ -539,16 +547,11 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
     s_state[i] = state_in[(i / YX) * MYX + i % YX];
   __syncthreads();
 
-  const int n_years = KIND == SCEN_YEARS ? a.n_years : 1;
-  for (int y = 0; y < n_years; ++y) {
-    float* asum = nullptr;
-    float* mon_y = nullptr;
-    if (KIND == SCEN_YEARS) {
-      p.co2 = a.co2_years[y];
-      const size_t my = (size_t)m * a.n_years + y;
-      asum = a.asum + my * N_SUM * YX;
-      mon_y = a.monthly + my * a.nmon * N_OUT * YX;
-    }
+  for (int y = 0; y < a.n_years; ++y) {
+    p.co2 = a.co2_years[y];
+    const size_t my = (size_t)m * a.n_years + y;
+    float* asum = a.asum + my * N_SUM * YX;
+    float* mon_y = a.monthly + my * a.nmon * N_OUT * YX;
     for (int t = 0; t < a.T; ++t) {
       const size_t tyx = (size_t)t * YX;
       // -- step start: copy (Ta, q) and assemble this step's coefficients
@@ -571,32 +574,26 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
         float* tmp = xa; xa = xb; xb = tmp;
       }
 
-      // this step's month slot (SCEN_YEARS), zeroed at the month's first step
-      int mo = 0;
-      bool mstart = false;
-      float w = 0.f;
-      if (KIND == SCEN_YEARS) {
-        mo = a.mon[t];
-        mstart = t == 0 || a.mon[t - 1] != mo;
-        w = a.mon_w[t];
-      }
+      // this step's month slot, zeroed at the month's first step
+      const int mo = a.mon[t];
+      const bool mstart = t == 0 || a.mon[t - 1] != mo;
+      const float w = a.mon_w[t];
 
       // -- pointwise physics and the state update of every cell
       for (int pix = tid; pix < YX; pix += nt) {
         float s[5];
         for (int k = 0; k < 5; ++k) s[k] = s_state[k * YX + pix];
         float vals[N_SUM];
-        update_cell<KIND>(a, p, t, pix, s, xa[pix], xa[YX + pix], tf_m,
-                          tof_m, qf_m, (size_t)t * a.corr_step + pix, vals);
-        if (KIND == SCEN_YEARS) {
-          // monthly means and annual sums in sequence, from 0 at the
-          // month's / year's first step
-          float* mp = mon_y + (size_t)mo * N_OUT * YX + pix;
-          for (int k = 0; k < N_OUT; ++k)
-            mp[k * YX] = (mstart ? 0.f : mp[k * YX]) + w * vals[k];
-          for (int k = 0; k < N_SUM; ++k)
-            asum[k * YX + pix] = (t == 0 ? 0.f : asum[k * YX + pix]) + vals[k];
-        }
+        update_cell<SCEN_YEARS>(a, p, t, pix, s, xa[pix], xa[YX + pix],
+                                tf_m, tof_m, qf_m,
+                                (size_t)t * a.corr_step + pix, vals);
+        // monthly means and annual sums in sequence, from 0 at the month's
+        // / year's first step
+        float* mp = mon_y + (size_t)mo * N_OUT * YX + pix;
+        for (int k = 0; k < N_OUT; ++k)
+          mp[k * YX] = (mstart ? 0.f : mp[k * YX]) + w * vals[k];
+        for (int k = 0; k < N_SUM; ++k)
+          asum[k * YX + pix] = (t == 0 ? 0.f : asum[k * YX + pix]) + vals[k];
         for (int k = 0; k < 5; ++k) s_state[k * YX + pix] = s[k];
       }
       __syncthreads();
@@ -607,12 +604,12 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// single-run kernels: one year on a cluster of C blocks
+// cluster kernels: each member's years on a cluster of C blocks
 // ---------------------------------------------------------------------------
 // Parts of a cluster block's shared memory, in layout order
 // (ops/cuda/year_kernel.py CLUSTER_PARTS).
-enum ClusterPart { P_STATE, P_XBUF, P_COEFFS, P_ZD, P_WZ, P_ASUM, P_PCOMP,
-                   P_COMP_ROWS, P_COMP_PARTS, N_PARTS };
+enum ClusterPart { P_STATE, P_XBUF, P_COEFFS, P_ZD, P_WZ, P_ASUM, P_MONTHLY,
+                   P_PCOMP, P_COMP_ROWS, P_COMP_PARTS, N_PARTS };
 
 // Composite rows among the rows [r0, r1): the top ktc and bottom kbc rows.
 __host__ __device__ inline int comp_rows_in(int r0, int r1, int Y, int ktc,
@@ -623,14 +620,14 @@ __host__ __device__ inline int comp_rows_in(int r0, int r1, int Y, int ktc,
 }
 
 // Bytes of each part of a cluster block's shared memory for a Y x X grid
-// on C blocks (scenario: with the annual sums), and their total; 0 where C
+// on C blocks for a kernel of `kind` (SCEN, SCEN_YEARS: with the annual
+// sums; SCEN_YEARS: with the month's means), and their total; 0 where C
 // does not split the rows into blocks of at least HALO rows, or X is not a
 // multiple of 4 (the composite sums load 16 bytes at a time; every part is
 // then a multiple of 16 bytes).  The same reckoning as
 // ops/cuda/year_kernel.py cluster_layout.
 __host__ __device__ inline long long cluster_parts(int Y, int X, int ktc,
-                                                   int kbc, int C,
-                                                   int scenario,
+                                                   int kbc, int C, int kind,
                                                    long long* parts) {
   if (C < 1 || C > MAX_CLUSTER || Y % C != 0 || Y / C < HALO || X % 4 != 0)
     return 0;
@@ -646,7 +643,8 @@ __host__ __device__ inline long long cluster_parts(int Y, int X, int ktc,
   parts[P_COEFFS] = f * 12 * 2 * RX;
   parts[P_ZD] = f * 7 * 2 * RX;
   parts[P_WZ] = f * 2 * RX;
-  parts[P_ASUM] = scenario ? f * N_SUM * RX : 0;
+  parts[P_ASUM] = kind != FLUX ? f * N_SUM * RX : 0;
+  parts[P_MONTHLY] = kind == SCEN_YEARS ? f * N_OUT * RX : 0;
   parts[P_PCOMP] = f * 2 * kmax * X * X;
   parts[P_COMP_ROWS] = f * 3 * 2 * kmax * X;
   parts[P_COMP_PARTS] = f * 2 * kmax * nb * X;
@@ -696,20 +694,31 @@ struct Bufs {
   }
 };
 
-// One year of one run, this block's rows: FLUX a spin-up year
-// (fluxcorr_year), SCEN a scenario year with per-step outputs and annual
-// sums (scenario_year).
+// The member of this block: its cluster's index in the grid.
+__device__ __forceinline__ int member_index() {
+  return (int)(blockIdx.x / cg::this_cluster().num_blocks());
+}
+
+// The years of member m = member_index(), this block's rows: FLUX a
+// spin-up year (fluxcorr_year, fluxcorr_years), SCEN a scenario year with
+// per-step outputs and annual sums (scenario_year, one member),
+// SCEN_YEARS n_years scenario years with monthly means and annual sums
+// (scenario_years).  The state stays in shared memory from one year to
+// the next; the annual sums restart from 0 at each year's first step and
+// go out at its last, the month's means restart at each month's first step
+// and go out at its last.
 template <int KIND>
-__device__ void run_year_cluster(const YearArgs& a, const GrebParams& p) {
+__device__ void run_cluster(const YearArgs& a, GrebParams p) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  const int m = member_index();
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
   const int R = Y / C, RX = R * X, r0 = rank * R;
   const int ktc = a.ktc, kbc = a.kbc, K = ktc + kbc;
   long long parts[N_PARTS];
-  cluster_parts(Y, X, ktc, kbc, C, KIND == SCEN, parts);
+  cluster_parts(Y, X, ktc, kbc, C, KIND, parts);
   const int nb = (X + COMP_BLOCK - 1) / COMP_BLOCK;
   const int kmax = (int)(parts[P_PCOMP] / (sizeof(float) * 2 * X * X));
   float* sp[N_PARTS];
@@ -720,7 +729,8 @@ __device__ void run_year_cluster(const YearArgs& a, const GrebParams& p) {
   float* s_cf = sp[P_COEFFS];     // (12, 2, R, X)
   float* s_zd = sp[P_ZD];         // (7, 2, R, X)
   float* s_wz = sp[P_WZ];         // (2, R, X)
-  float* s_asum = sp[P_ASUM];     // (9, R, X), scenario
+  float* s_asum = sp[P_ASUM];     // (9, R, X), SCEN and SCEN_YEARS
+  float* s_mon = sp[P_MONTHLY];   // (5, R, X), SCEN_YEARS: the month's means
   float* s_pc = sp[P_PCOMP];      // (2, kmax, X, X): slot q of field f
   float* s_t1 = sp[P_COMP_ROWS];  // (2, kmax, X) each: t1, da, dy
   float* s_da = s_t1 + 2 * kmax * X;
@@ -737,15 +747,22 @@ __device__ void run_year_cluster(const YearArgs& a, const GrebParams& p) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int X4 = X / 4;   // the partial sums run 4 columns a thread
   const Div by_rx(RX), by_x(X), by_x4(X4), by_nbx4(nb * X4), by_kb(kb);
+  // this member's slice of every buffer it reads or writes, from this
+  // block's first row: field f of the state at f * M * YX, step t of its
+  // corrections at t * corr_step
+  const size_t MYX = (size_t)a.M * YX;
+  const size_t row0 = (size_t)m * YX + r0 * X;
+  const size_t corr_m = (size_t)m * a.T * a.corr_step;
+  float* tf_m = a.tf + corr_m;
+  float* tof_m = a.tof + corr_m;
+  float* qf_m = a.qf + corr_m;
 
   for (int i = tid; i < 5 * RX; i += nt)
-    s_state[i] = a.state_in[(size_t)(i / RX) * YX + r0 * X + i % RX];
+    s_state[i] = a.state_in[row0 + (size_t)(i / RX) * MYX + i % RX];
   for (int i = tid; i < 7 * 2 * RX; i += nt)
     s_zd[i] = a.zd[(size_t)(i / RX) * YX + r0 * X + i % RX];
   for (int i = tid; i < 2 * RX; i += nt)
     s_wz[i] = a.wz[(size_t)(i / RX) * YX + r0 * X + i % RX];
-  if (KIND == SCEN)
-    for (int i = tid; i < N_SUM * RX; i += nt) s_asum[i] = 0.f;
   // halo rows start at zero: those past the poles stay so
   for (int i = tid; i < 2 * 2 * 2 * HALO * X; i += nt) {
     const int fb = i / (2 * HALO * X);          // buffer*2 + field
@@ -766,7 +783,11 @@ __device__ void run_year_cluster(const YearArgs& a, const GrebParams& p) {
   if (rank > 0) bufs.up = cluster.map_shared_rank(bufs.mine, rank - 1);
   if (rank < C - 1) bufs.dn = cluster.map_shared_rank(bufs.mine, rank + 1);
 
-  for (int t = 0; t < a.T; ++t) {
+  // step t of year y; each year's CO2 from the table (SCEN_YEARS)
+  const int n_years = KIND == SCEN_YEARS ? a.n_years : 1;
+  for (int yt = 0; yt < n_years * a.T; ++yt) {
+    const int y = yt / a.T, t = yt - y * a.T;
+    if (KIND == SCEN_YEARS && t == 0) p.co2 = a.co2_years[y];
     const size_t tyx = (size_t)t * YX;
     // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
     //    halos, and this step's coefficients into shared memory
@@ -847,6 +868,22 @@ __device__ void run_year_cluster(const YearArgs& a, const GrebParams& p) {
       cur = nxt;
     }
 
+    // this year's annual sums (m, y) and, SCEN_YEARS, this step's month:
+    // its slot is set at the month's first step and goes out at its last
+    const bool last = t == a.T - 1;
+    const size_t my = (size_t)m * n_years + y;
+    float* asum = KIND == FLUX ? nullptr : a.asum + my * N_SUM * YX + r0 * X;
+    float* mon = nullptr;
+    bool mstart = false, mend = false;
+    float w = 0.f;
+    if (KIND == SCEN_YEARS) {
+      const int mo = a.mon[t];
+      mstart = t == 0 || a.mon[t - 1] != mo;
+      mend = last || a.mon[t + 1] != mo;
+      w = a.mon_w[t];
+      mon = a.monthly + (my * a.nmon + mo) * N_OUT * YX + r0 * X;
+    }
+
     // -- pointwise physics and the state update of this block's cells
     const float* xc = bufs.mine + cur + HALO * X;   // circulated, row 0
     for (int li = tid; li < RX; li += nt) {
@@ -854,43 +891,60 @@ __device__ void run_year_cluster(const YearArgs& a, const GrebParams& p) {
       float s[5];
       for (int k = 0; k < 5; ++k) s[k] = s_state[k * RX + li];
       float vals[N_SUM];
-      update_cell<KIND>(a, p, t, pix, s, xc[li], xc[BX + li], a.tf, a.tof,
-                        a.qf, (size_t)t * a.corr_step + pix, vals);
-      if (KIND == SCEN) {
+      update_cell<KIND>(a, p, t, pix, s, xc[li], xc[BX + li], tf_m, tof_m,
+                        qf_m, (size_t)t * a.corr_step + pix, vals);
+      if (KIND == SCEN) {   // one member
         float* out = a.outs + (size_t)t * N_OUT * YX + pix;
         for (int k = 0; k < N_OUT; ++k) out[k * YX] = vals[k];
-        for (int k = 0; k < N_SUM; ++k)
-          s_asum[k * RX + li] = s_asum[k * RX + li] + vals[k];
+      }
+      if (KIND != FLUX) {
+        // annual sums in sequence, from 0 at the year's first step
+        for (int k = 0; k < N_SUM; ++k) {
+          const float v = (t == 0 ? 0.f : s_asum[k * RX + li]) + vals[k];
+          s_asum[k * RX + li] = v;
+          if (last) asum[k * YX + li] = v;
+        }
+      }
+      if (KIND == SCEN_YEARS) {
+        // monthly means: w * fields in sequence, from 0 at the month's
+        // first step
+        for (int k = 0; k < N_OUT; ++k) {
+          const float v = (mstart ? 0.f : s_mon[k * RX + li]) + w * vals[k];
+          s_mon[k * RX + li] = v;
+          if (mend) mon[k * YX + li] = v;
+        }
       }
       for (int k = 0; k < 5; ++k) s_state[k * RX + li] = s[k];
     }
     __syncthreads();
   }
   for (int i = tid; i < 5 * RX; i += nt)
-    a.state_out[(size_t)(i / RX) * YX + r0 * X + i % RX] = s_state[i];
-  if (KIND == SCEN)
-    for (int i = tid; i < N_SUM * RX; i += nt)
-      a.asum[(size_t)(i / RX) * YX + r0 * X + i % RX] = s_asum[i];
+    a.state_out[row0 + (size_t)(i / RX) * MYX + i % RX] = s_state[i];
   // no block leaves while another may still write into its shared memory
   cluster.sync();
 }
 
 __global__ void __launch_bounds__(NT, 1) fluxcorr_year(YearArgs a, GrebParams p) {
-  run_year_cluster<FLUX>(a, p);
+  run_cluster<FLUX>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_year(YearArgs a, GrebParams p) {
-  run_year_cluster<SCEN>(a, p);
+  run_cluster<SCEN>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) fluxcorr_years(YearArgs a, GrebParams p,
                                                         PackCols c) {
-  run_years<FLUX>(a, member_params(p, a, c));
+  run_cluster<FLUX>(a, member_params(p, a, c, member_index()));
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_years(YearArgs a, GrebParams p,
                                                         PackCols c) {
-  run_years<SCEN_YEARS>(a, member_params(p, a, c));
+  run_cluster<SCEN_YEARS>(a, member_params(p, a, c, member_index()));
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_years_block(
+    YearArgs a, GrebParams p, PackCols c) {
+  run_years(a, member_params(p, a, c, blockIdx.x));
 }
 
 // One block of NT threads per member (a.M blocks).
@@ -905,15 +959,17 @@ static int launch(Kernel kernel, const YearArgs& a, void* stream,
   return (int)cudaGetLastError();
 }
 
-// One run on one cluster of C blocks; raises (returns GREB_ERR_NO_CLUSTER)
-// where the card cannot schedule such a cluster, and takes no other C.
-static int launch_cluster(void (*kernel)(YearArgs, GrebParams),
-                          const YearArgs& a, const GrebParams& p, int C,
-                          int scenario, void* stream) {
+// The launch of a.M clusters of C blocks of `kernel` (of `kind`), one
+// member a cluster, into cfg (whose attrs point at attr), and how many such
+// clusters the card runs at once; GREB_ERR_NO_CLUSTER where none.
+template <typename Kernel>
+static int cluster_config(Kernel kernel, const YearArgs& a, int C, int kind,
+                          void* stream, cudaLaunchAttribute* attr,
+                          cudaLaunchConfig_t* cfg, int* clusters) {
   long long parts[N_PARTS];
-  const long long smem = cluster_parts(a.Y, a.X, a.ktc, a.kbc, C, scenario,
+  const long long smem = cluster_parts(a.Y, a.X, a.ktc, a.kbc, C, kind,
                                        parts);
-  if (smem == 0 || smem > MAX_SMEM || a.M != 1) return GREB_ERR_LAYOUT;
+  if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -922,23 +978,37 @@ static int launch_cluster(void (*kernel)(YearArgs, GrebParams),
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
-  cfg.blockDim = dim3(cluster_threads(a.Y / C, a.X), 1, 1);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+  *cfg = {};
+  cfg->gridDim = dim3(a.M * C, 1, 1);
+  cfg->blockDim = dim3(cluster_threads(a.Y / C, a.X), 1, 1);
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = (cudaStream_t)stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  *clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(clusters, (void*)kernel, cfg);
   if (e != cudaSuccess) return (int)e;
-  if (clusters == 0) return GREB_ERR_NO_CLUSTER;
-  e = cudaLaunchKernelEx(&cfg, kernel, a, p);
+  return *clusters == 0 ? GREB_ERR_NO_CLUSTER : 0;
+}
+
+// a.M members on a.M clusters of C blocks; raises (returns
+// GREB_ERR_NO_CLUSTER) where the card cannot schedule such a cluster, and
+// takes no other C.  Clusters beyond the card's capacity run in waves.
+template <typename Kernel, typename... Extra>
+static int launch_cluster(Kernel kernel, const YearArgs& a,
+                          const GrebParams& p, int C, int kind, void* stream,
+                          Extra... extra) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  int clusters;
+  const int err = cluster_config(kernel, a, C, kind, stream, attr, &cfg,
+                                 &clusters);
+  if (err) return err;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, p, extra...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -946,26 +1016,49 @@ static int launch_cluster(void (*kernel)(YearArgs, GrebParams),
 extern "C" {
 
 int greb_fluxcorr_year(YearArgs a, GrebParams p, int C, void* stream) {
-  return launch_cluster(fluxcorr_year, a, p, C, 0, stream);
+  return launch_cluster(fluxcorr_year, a, p, C, FLUX, stream);
 }
 
 int greb_scenario_year(YearArgs a, GrebParams p, int C, void* stream) {
-  return launch_cluster(scenario_year, a, p, C, 1, stream);
+  return launch_cluster(scenario_year, a, p, C, SCEN, stream);
 }
 
-int greb_fluxcorr_years(YearArgs a, GrebParams p, PackCols c, void* stream) {
-  return launch(fluxcorr_years, a, stream, p, c);
+int greb_fluxcorr_years(YearArgs a, GrebParams p, PackCols c, int C,
+                        void* stream) {
+  return launch_cluster(fluxcorr_years, a, p, C, FLUX, stream, c);
 }
 
-int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, void* stream) {
-  return launch(scenario_years, a, stream, p, c);
+// C = 1: the one-block body, one block per member
+int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, int C,
+                        void* stream) {
+  if (C == 1) return launch(scenario_years_block, a, stream, p, c);
+  return launch_cluster(scenario_years, a, p, C, SCEN_YEARS, stream, c);
 }
 
 // The kernel's own reckoning of a cluster block's shared memory: fills
 // parts[N_PARTS] (bytes, layout order), returns the total (0: no layout).
 long long greb_cluster_layout(int Y, int X, int ktc, int kbc, int C,
-                              int scenario, long long* parts) {
-  return cluster_parts(Y, X, ktc, kbc, C, scenario, parts);
+                              int kind, long long* parts) {
+  return cluster_parts(Y, X, ktc, kbc, C, kind, parts);
+}
+
+// How many clusters of C blocks of the member kernel of `kind` (FLUX:
+// fluxcorr_years, SCEN: scenario_year, SCEN_YEARS: scenario_years) the card
+// runs at once, into *clusters; returns an error code as the launchers do.
+int greb_cluster_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
+                          int* clusters) {
+  YearArgs a = {};
+  a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  if (kind == FLUX)
+    return cluster_config(fluxcorr_years, a, C, kind, nullptr, attr, &cfg,
+                          clusters);
+  if (kind == SCEN)
+    return cluster_config(scenario_year, a, C, kind, nullptr, attr, &cfg,
+                          clusters);
+  return cluster_config(scenario_years, a, C, kind, nullptr, attr, &cfg,
+                        clusters);
 }
 
 int greb_cluster_threads(int Y, int X, int C) {

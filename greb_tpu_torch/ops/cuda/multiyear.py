@@ -7,10 +7,18 @@ each with its own physics parameters.  ``scenario_years`` replaces
 ``build_scenario_years`` (:107): ``n_years`` scenario years for each
 member, CO2 from a table per year, with the monthly means (weight
 1/steps-in-month) and the 9 annual sums added up inside the kernel.  Both
-run the step body of ``csrc/year_kernel.cu`` with one thread block per
-member.  On a CUDA tensor each wrapper launches its kernel or raises; on a
-CPU tensor it runs its plain PyTorch version, ``*_plain``, which loops
-over the members and steps through ``core.fluxcorr_step`` /
+run the cluster body of ``csrc/year_kernel.cu`` that the single-run
+kernels run: one member per thread-block cluster of ``cluster`` blocks,
+each block with its rows' state, coefficient planes, diffusion planes, pole
+composites, annual sums and (K3) the month's means in its own shared
+memory; M clusters beyond the card's capacity run in waves.  For
+``scenario_years`` ``cluster=1`` is the one-block body instead: one thread
+block per member, the state in shared memory and the coefficient planes in
+a per-member global scratch.  By default each wrapper picks the size by
+the member count (``default_cluster``).  On a CUDA tensor each wrapper
+launches its kernel or
+raises; on a CPU tensor it runs its plain PyTorch version, ``*_plain``,
+which loops over the members and steps through ``core.fluxcorr_step`` /
 ``core.scenario_step`` in the kernel's order of accumulation.
 
 Layouts are the JAX package's: state (5, M, Y, X), member pack
@@ -18,15 +26,16 @@ Layouts are the JAX package's: state (5, M, Y, X), member pack
 (M, 12 * n_years, 5, Y, X), annual sums (M, n_years, 9, Y, X).  The fold
 is built once from the base parameters, so the members may not differ from
 them in a transport parameter (``parallel.ensemble.TRANSPORT_PARAM_KEYS``).
-The TPU kernel's members-per-block ``mb`` has no counterpart: two members'
-state does not fit one block's shared memory, and members do not interact.
+The TPU kernel's members-per-block ``mb`` has no counterpart: a member
+fills a cluster's shared memory, and members do not interact.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +82,39 @@ def member_params(row: np.ndarray) -> Tuple[PhysicsParams, Tuple]:
     return p, tuple(row[_COL_CAPS:_COL_CAPS + 3])
 
 
+# the member kernels' kinds (year_kernel.KINDS); the sizes each offers are
+# year_kernel.offered_sizes(kind)
+KINDS = ("fluxcorr", "scenario_years")
+# The size each kernel launches with by default: DEFAULT_CLUSTER while the
+# members fill at most ``waves`` waves of DEFAULT_CLUSTER-block clusters,
+# the other size beyond.  The waves were measured in chip_smoke.py's member
+# scaling (one year) on an H100 80GB HBM3 at 700 W, which runs 7 clusters
+# of 16 blocks at once (year_kernel.cluster_capacity), 15 of 8, and 132
+# one-block members: K4 at M=7 (1 wave) took 45.0 ms at C=16 against 57.9
+# at C=8, at M=8 88.0 against 57.8 (at M=132 835.4 against 511.9); K3 at
+# M=49 (7 waves) took 325.0 ms on 16-block clusters against 354.0 on one
+# block a member, at M=56 371.6 against 359.0 (at M=132 868.4 against
+# 606.7).
+_BEYOND_WAVES = {"fluxcorr": (1, 8), "scenario_years": (7, 1)}
+
+
+def default_cluster(kind: str, members: int, capacity: int) -> int:
+    """The cluster size ``kind``'s wrapper launches ``members`` members
+    with by default, on a card that runs ``capacity`` clusters of
+    DEFAULT_CLUSTER blocks at once (``_BEYOND_WAVES``)."""
+    waves, beyond = _BEYOND_WAVES[kind]
+    return yk.DEFAULT_CLUSTER if members <= waves * capacity else beyond
+
+
+def _default_cluster_on(yd: yk.YearData, kind: str, members: int) -> int:
+    """``default_cluster`` on this card, its capacity asked once per run."""
+    key = ("capacity", kind)
+    if key not in yd.cache:
+        yd.cache[key] = yk.cluster_capacity(yd.fold[0], yk.DEFAULT_CLUSTER,
+                                            kind)
+    return default_cluster(kind, members, yd.cache[key])
+
+
 def _pack_cols() -> yk._PackCols:
     col = {f: i for i, f in enumerate(_SCALAR_FIELDS)}
     return yk._PackCols(**{n: col[n] for n in yk._PARAM_NAMES},
@@ -83,7 +125,7 @@ def _pack_cols() -> yk._PackCols:
 def month_maps(num: Numerics) -> Tuple[np.ndarray, np.ndarray]:
     """(month index (T,) int32, weight 1/steps-in-month (T,) float32) of
     every step of the year (multiyear.py ``_month_maps`` at one step per
-    block: here one block loops over every step itself)."""
+    block: here the kernel loops over every step itself)."""
     mm = month_average_matrix(num.jday_mon, num.ndt_days)      # (12, T)
     return mm.argmax(axis=0).astype(np.int32), mm.max(axis=0).astype(F32)
 
@@ -131,16 +173,8 @@ def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
 
 
 # ---------------------------------------------------------------------------
-# checks and scratch shared by both wrappers
+# checks shared by both wrappers
 # ---------------------------------------------------------------------------
-def _scratch(yd: yk.YearData, dev: torch.device, members: int) -> torch.Tensor:
-    """The per-step coefficient scratch (M, 12, 2, Y, X): za 7, mc 4, c0m 1,
-    one slice per member (block)."""
-    plan = yd.fold[0]
-    return torch.empty((members, 12, 2, plan.ydim, plan.xdim),
-                       dtype=torch.float32, device=dev)
-
-
 def _pack_np(ppack: torch.Tensor, yd: yk.YearData) -> np.ndarray:
     """The pack's host copy, kept for the last pack object seen: a driver
     reuses one pack across its blocks, so the card syncs for it once."""
@@ -154,7 +188,6 @@ def _check(state5: torch.Tensor, ppack: torch.Tensor,
            yd: yk.YearData) -> int:
     """Raise for what the kernels do not run; return the member count."""
     yk.check_plan(yd.fold[0])
-    yk.check_block_fit(yd.fold[0])
     if state5.device.type not in ("cpu", "cuda"):
         raise ValueError(f"year kernels run on cuda (or plain on cpu), "
                          f"not {state5.device}")
@@ -244,42 +277,63 @@ def scenario_years_plain(state5: torch.Tensor, ppack: torch.Tensor,
 # wrappers
 # ---------------------------------------------------------------------------
 def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
-                   yd: yk.YearData):
+                   yd: yk.YearData, cluster: Optional[int] = None):
     """One spin-up year for each member: (state5 (5, M, Y, X), corr
-    (M, T, 3, Y, X))."""
+    (M, T, 3, Y, X)).  On the card each member runs on a cluster of
+    ``cluster`` blocks (default: ``default_cluster``)."""
     M = _check(state5, ppack, yd)
+    if cluster is not None:
+        yk._check_cluster(cluster, "fluxcorr")
     dev = state5.device
     if dev.type == "cpu":
         return fluxcorr_years_plain(state5, ppack, co2, yd)
+    if cluster is None:
+        cluster = _default_cluster_on(yd, "fluxcorr", M)
+    yk.cluster_layout(yd.fold[0], cluster, "fluxcorr")
     T, Y, X = yd.num.nstep_yr, state5.shape[2], state5.shape[3]
     state_out = torch.empty_like(state5)
     corr = torch.empty((M, T, 3, Y, X), dtype=torch.float32, device=dev)
     args = yk._args(
         yd, state5, ints=dict(M=M, corr_step=3 * Y * X, n_pack=N_PPACK),
         state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
-        cf=(_scratch(yd, dev, M), None), tf=(corr, None),
-        ppack=(ppack, (M, 1, N_PPACK)))
+        tf=(corr, None), ppack=(ppack, (M, 1, N_PPACK)))
     args.tof = args.tf + 4 * Y * X
     args.qf = args.tf + 8 * Y * X
     # dt and CO2 from the host; the pack overrides the physics per member
     yk._launch("greb_fluxcorr_years", args, yk._params(yd, co2), dev,
-               _pack_cols())
+               _pack_cols(), ctypes.c_int(cluster))
     fluxcorr_years.launches += 1
     return state_out, corr
 
 
 def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
-                   corrpack: torch.Tensor, co2_years, yd: yk.YearData):
+                   corrpack: torch.Tensor, co2_years, yd: yk.YearData,
+                   cluster: Optional[int] = None):
     """``n_years`` scenario years for each member, one CO2 value per year
     (an array, or a float32 tensor on the state's device): (state5,
-    monthly (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X))."""
+    monthly (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X)).  On
+    the card each member runs on a cluster of ``cluster`` blocks, or with
+    ``cluster=1`` on one block (default: ``default_cluster``)."""
     M = _check(state5, ppack, yd)
+    if cluster is not None:
+        yk._check_cluster(cluster, "scenario_years")
     dev = state5.device
     if dev.type == "cpu":
         return scenario_years_plain(state5, ppack, corrpack, co2_years, yd)
+    if cluster is None:
+        cluster = _default_cluster_on(yd, "scenario_years", M)
     num = yd.num
     T, Y, X, nmon = num.nstep_yr, state5.shape[2], state5.shape[3], \
         len(num.jday_mon)
+    scratch = {}
+    if cluster == 1:
+        # one block a member: the step's coefficient planes (M, 12, 2, Y,
+        # X), za 7, mc 4, c0m 1, in a global scratch, a slice per member
+        yk.check_block_fit(yd.fold[0])
+        scratch["cf"] = (torch.empty((M, 12, 2, Y, X), dtype=torch.float32,
+                                     device=dev), None)
+    else:
+        yk.cluster_layout(yd.fold[0], cluster, "scenario_years")
     co2t = torch.as_tensor(co2_years, dtype=torch.float32, device=dev)
     ny = co2t.numel()
     state_out = torch.empty_like(state5)
@@ -292,15 +346,15 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
         yd, state5,
         ints=dict(M=M, n_years=ny, corr_step=3 * Y * X, n_pack=N_PPACK),
         state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
-        cf=(_scratch(yd, dev, M), None), tf=(corrpack, (M, T, 3, Y, X)),
+        tf=(corrpack, (M, T, 3, Y, X)),
         ppack=(ppack, (M, 1, N_PPACK)), co2_years=(co2t, (ny,)),
         mon=(mon, (T,), torch.int32), mon_w=(w, (T,)),
-        monthly=(monthly, None), asum=(asum, None))
+        monthly=(monthly, None), asum=(asum, None), **scratch)
     args.tof = args.tf + 4 * Y * X
     args.qf = args.tf + 8 * Y * X
     # each year's CO2 comes from the table; the pack overrides the physics
     yk._launch("greb_scenario_years", args, yk._params(yd, 0.0), dev,
-               _pack_cols())
+               _pack_cols(), ctypes.c_int(cluster))
     scenario_years.launches += 1
     return state_out, monthly, asum
 

@@ -10,15 +10,17 @@ the card to the plain version.
 
 On the card one year runs on a thread-block cluster of ``cluster`` blocks
 (one of ``CLUSTER_SIZES``; ``DEFAULT_CLUSTER`` was the fastest in
-``chip_smoke.py``'s sweep).  Each block owns ``Y / cluster`` latitude rows
-and keeps everything its rows read every substep in its own shared memory
-for the whole year (``cluster_layout``): the state, the transported fields
-with +-2 halo rows pushed in by its neighbours through distributed shared
-memory, the step's coefficient planes, the fold's diffusion planes and the
-pole composites of the rows it holds.  A substep reads nothing from global
-memory and ends at one cluster barrier, so it is bound by the latency of
-its load chain and the barrier (see the source note and PERF.md).  A
-cluster the card cannot schedule raises; no other size is taken.
+``chip_smoke.py``'s sweep); the member kernels of ``multiyear.py`` run the
+same cluster body, one member a cluster.  Each block owns ``Y / cluster``
+latitude rows and keeps everything its rows read every substep in its own
+shared memory for the whole year (``cluster_layout``): the state, the
+transported fields with +-2 halo rows pushed in by its neighbours through
+distributed shared memory, the step's coefficient planes, the fold's
+diffusion planes and the pole composites of the rows it holds.  A substep
+reads nothing from global memory and ends at one cluster barrier, so it is
+bound by the latency of its load chain and the barrier (see the source
+note and PERF.md).  A cluster the card cannot schedule raises; no other
+size is taken.
 ``year_work`` gives the bytes and operations of a year, for the
 whole-card bound.
 
@@ -44,9 +46,20 @@ F32 = np.float32
 MAX_SMEM_BYTES = 232448
 N_SUM = len(core.StepOutputs._fields)
 
-# blocks per cluster the single-run kernels launch with (12 and 16 are
-# above the portable 8); the meridional stencil reaches HALO rows
-CLUSTER_SIZES = (8, 12, 16)
+# the kernels' kinds (csrc/year_kernel.cu enum Kind): a spin-up year (K1
+# fluxcorr_year, K4 fluxcorr_years), a scenario year with per-step outputs
+# (K2 scenario_year) and blocks of scenario years with monthly means (K3
+# scenario_years)
+KINDS = ("fluxcorr", "scenario", "scenario_years")
+# blocks per cluster each kind launches with at 96x48 (12 and 16 are above
+# the portable 8; K3's block with a pole row needs 236,544 B at 8, over
+# MAX_SMEM_BYTES); the meridional stencil reaches HALO rows
+CLUSTER_SIZES = {"fluxcorr": (8, 12, 16), "scenario": (8, 12, 16),
+                 "scenario_years": (12, 16)}
+# kinds that also offer cluster=1, the one-block body (csrc/year_kernel.cu
+# run_years: one thread block a member, the coefficient planes in a global
+# scratch): K3 only
+ONE_BLOCK_KINDS = ("scenario_years",)
 MAX_CLUSTER = 16
 HALO = 2
 # the fastest size in chip_smoke.py's sweep of scenario_year at 96x48 on an
@@ -56,7 +69,7 @@ DEFAULT_CLUSTER = 16
 MAX_THREADS = 1024
 # parts of a cluster block's shared memory, in the kernel's layout order
 CLUSTER_PARTS = ("state", "transported", "coeffs", "zd", "wz", "asum",
-                 "pcomp", "comp_rows", "comp_partials")
+                 "monthly", "pcomp", "comp_rows", "comp_partials")
 
 
 @dataclass
@@ -73,7 +86,7 @@ class YearData:
 
 @dataclass(frozen=True)
 class ClusterLayout:
-    """One block's share of a single-run year on a cluster: its latitude
+    """One block's share of a member's years on a cluster: its latitude
     rows, the most pole composite rows any block holds, its threads, and
     the bytes of each part of its shared memory (``CLUSTER_PARTS``
     order)."""
@@ -97,18 +110,21 @@ def _comp_rows_in(r0: int, r1: int, plan: fc2.FastPlan) -> int:
 
 
 def cluster_layout(plan: fc2.FastPlan, blocks: int,
-                   scenario: bool = True) -> ClusterLayout:
-    """The shared memory of each block of a ``blocks``-block cluster
-    (csrc/year_kernel.cu ``cluster_parts``, the same reckoning): the
-    5-field state of its rows, two buffers of the 2 transported fields
-    with HALO rows each side, the step's 12 coefficient planes, the 7
-    zonal-diffusion planes and wz for 2 fields, the 9 annual sums
-    (``scenario``), the (2, X, X) composite matrices, their t1/da/dy rows
-    and their partial row sums for each pole row a block holds.  Raises
-    ValueError where the rows do not split evenly, a block would hold
-    fewer rows than the halo depth, the row length is not a multiple of 4
-    (the composite sums load 16 bytes at a time), or a block needs more
-    than MAX_SMEM_BYTES."""
+                   kind: str) -> ClusterLayout:
+    """The shared memory of each block of a ``blocks``-block cluster that
+    runs a kernel of ``kind`` (one of KINDS; csrc/year_kernel.cu
+    ``cluster_parts``, the same reckoning): the 5-field state of its rows,
+    two buffers of the 2 transported fields with HALO rows each side, the
+    step's 12 coefficient planes, the 7 zonal-diffusion planes and wz for 2
+    fields, the 9 annual sums (the scenario kinds), the month's 5 means
+    (``scenario_years``), the (2, X, X) composite matrices, their t1/da/dy
+    rows and their partial row sums for each pole row a block holds.
+    Raises ValueError where the rows do not split evenly, a block would
+    hold fewer rows than the halo depth, the row length is not a multiple
+    of 4 (the composite sums load 16 bytes at a time), or a block needs
+    more than MAX_SMEM_BYTES."""
+    if kind not in KINDS:
+        raise ValueError(f"kind {kind!r}: one of {KINDS}")
     Y, X = plan.ydim, plan.xdim
     if X % 4:
         raise ValueError(f"cluster kernels: {X} columns, not a multiple of 4")
@@ -123,7 +139,8 @@ def cluster_layout(plan: fc2.FastPlan, blocks: int,
     nb = -(-X // fc2.COMP_BLOCK)
     words = dict(state=5 * R * X, transported=2 * 2 * (R + 2 * HALO) * X,
                  coeffs=12 * 2 * R * X, zd=7 * 2 * R * X, wz=2 * R * X,
-                 asum=N_SUM * R * X if scenario else 0,
+                 asum=N_SUM * R * X if kind != "fluxcorr" else 0,
+                 monthly=core.N_OUT * R * X if kind == "scenario_years" else 0,
                  pcomp=2 * kmax * X * X, comp_rows=3 * 2 * kmax * X,
                  comp_partials=2 * kmax * nb * X)
     lay = ClusterLayout(
@@ -131,16 +148,17 @@ def cluster_layout(plan: fc2.FastPlan, blocks: int,
         threads=min(MAX_THREADS, -(-2 * R * X // 32) * 32),
         parts=tuple((n, 4 * words[n]) for n in CLUSTER_PARTS))
     if lay.nbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"a cluster of {blocks} blocks at {X}x{Y} needs "
-                         f"{lay.nbytes} B of shared memory a block, over "
-                         f"{MAX_SMEM_BYTES} B")
+        raise ValueError(f"{kind}: a cluster of {blocks} blocks at {X}x{Y} "
+                         f"needs {lay.nbytes} B of shared memory a block, "
+                         f"over {MAX_SMEM_BYTES} B")
     return lay
 
 
 def smem_bytes(plan: fc2.FastPlan) -> int:
-    """Dynamic shared memory of a member kernel's block (K3, K4): the
-    5-field state, two buffers of the 2 transported fields, and 3 slabs of
-    the composite rows (the layout of csrc/year_kernel.cu run_years)."""
+    """Dynamic shared memory of a block of K3's one-block body
+    (``scenario_years`` at cluster=1): the 5-field state, two buffers of
+    the 2 transported fields, and 3 slabs of the composite rows (the
+    layout of csrc/year_kernel.cu run_years)."""
     yx = plan.ydim * plan.xdim
     kx = (plan.comp_kt + plan.comp_kb) * plan.xdim
     return 4 * (5 * yx + 4 * yx + 6 * kx)
@@ -163,21 +181,22 @@ def check_plan(plan: fc2.FastPlan) -> None:
 
 
 def check_supported(plan: fc2.FastPlan) -> None:
-    """Raise for what the single-run kernels do not run: the plans of
-    ``check_plan``, and grids that a cluster of DEFAULT_CLUSTER blocks does
-    not hold (``cluster_layout``)."""
+    """Raise for what the kernels do not run: the plans of ``check_plan``,
+    and grids that a cluster of DEFAULT_CLUSTER blocks does not hold for
+    every kind (``cluster_layout``)."""
     check_plan(plan)
-    cluster_layout(plan, DEFAULT_CLUSTER)
+    for kind in KINDS:
+        cluster_layout(plan, DEFAULT_CLUSTER, kind)
 
 
 def check_block_fit(plan: fc2.FastPlan) -> None:
     """Raise where one member's state does not fit one block's shared
-    memory (the member kernels K3, K4)."""
+    memory (K3's one-block body)."""
     need = smem_bytes(plan)
     if need > MAX_SMEM_BYTES:
         raise NotImplementedError(
-            f"member kernels: a {plan.xdim}x{plan.ydim} state needs {need} B "
-            f"of shared memory, over one block's {MAX_SMEM_BYTES} B")
+            f"one block a member: a {plan.xdim}x{plan.ydim} state needs "
+            f"{need} B of shared memory, over one block's {MAX_SMEM_BYTES} B")
 
 
 def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool):
@@ -260,11 +279,15 @@ def _lib():
         fn.argtypes = [_Args, _Params, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for fn in (lib.greb_fluxcorr_years, lib.greb_scenario_years):
-        fn.argtypes = [_Args, _Params, _PackCols, ctypes.c_void_p]
+        fn.argtypes = [_Args, _Params, _PackCols, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.greb_cluster_layout.argtypes = [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.greb_cluster_layout.restype = ctypes.c_longlong
+    lib.greb_cluster_capacity.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.greb_cluster_capacity.restype = ctypes.c_int
     lib.greb_cluster_threads.argtypes = [ctypes.c_int] * 3
     lib.greb_cluster_threads.restype = ctypes.c_int
     lib.greb_error_string.argtypes = [ctypes.c_int]
@@ -272,20 +295,34 @@ def _lib():
     return lib
 
 
-def kernel_cluster_layout(plan: fc2.FastPlan, blocks: int,
-                          scenario: bool = True):
+def kernel_cluster_layout(plan: fc2.FastPlan, blocks: int, kind: str):
     """The kernel's own reckoning of a cluster block (csrc/year_kernel.cu
     ``greb_cluster_layout``, built on first use): ({part: bytes}, threads),
     for holding against ``cluster_layout``."""
     lib = _lib()
     parts = (ctypes.c_longlong * len(CLUSTER_PARTS))()
     total = lib.greb_cluster_layout(plan.ydim, plan.xdim, plan.comp_kt,
-                                    plan.comp_kb, blocks, int(scenario),
+                                    plan.comp_kb, blocks, KINDS.index(kind),
                                     parts)
     if total <= 0:
         raise ValueError(f"the kernel has no layout for {blocks} blocks")
     return (dict(zip(CLUSTER_PARTS, parts)),
             lib.greb_cluster_threads(plan.ydim, plan.xdim, blocks))
+
+
+def cluster_capacity(plan: fc2.FastPlan, blocks: int, kind: str) -> int:
+    """How many clusters of ``blocks`` blocks of the kernel of ``kind`` the
+    card runs at once (``cudaOccupancyMaxActiveClusters``); members beyond
+    it run in waves.  Raises where the card runs none."""
+    lib = _lib()
+    n = ctypes.c_int()
+    err = lib.greb_cluster_capacity(plan.ydim, plan.xdim, plan.comp_kt,
+                                    plan.comp_kb, blocks, KINDS.index(kind),
+                                    ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cluster capacity, {kind} at {blocks} blocks: "
+                           f"{lib.greb_error_string(err).decode()}")
+    return n.value
 
 
 def _params(yd: YearData, co2) -> _Params:
@@ -362,10 +399,16 @@ def _check_device(state: ModelState) -> torch.device:
     return dev
 
 
-def _check_cluster(cluster: int) -> None:
-    if cluster not in CLUSTER_SIZES:
-        raise ValueError(f"cluster={cluster}: the single-run kernels launch "
-                         f"on clusters of {CLUSTER_SIZES} blocks")
+def offered_sizes(kind: str) -> Tuple[int, ...]:
+    """The ``cluster=`` sizes a kernel of ``kind`` launches with: its
+    CLUSTER_SIZES, and 1 for the ONE_BLOCK_KINDS."""
+    return (1,) * (kind in ONE_BLOCK_KINDS) + CLUSTER_SIZES[kind]
+
+
+def _check_cluster(cluster: int, kind: str) -> None:
+    if cluster not in offered_sizes(kind):
+        raise ValueError(f"cluster={cluster}: {kind} launches on clusters of "
+                         f"{offered_sizes(kind)} blocks")
 
 
 # ---------------------------------------------------------------------------
@@ -376,11 +419,11 @@ def fluxcorr_year(state: ModelState, co2, yd: YearData,
                   ) -> Tuple[ModelState, Corrections]:
     """One spin-up year: (end state, correction tables).  On the card the
     year runs on a cluster of ``cluster`` blocks."""
-    _check_cluster(cluster)
+    _check_cluster(cluster, "fluxcorr")
     dev = _check_device(state)
     if dev.type == "cpu":
         return fluxcorr_year_plain(state, co2, yd)
-    cluster_layout(yd.fold[0], cluster, scenario=False)
+    cluster_layout(yd.fold[0], cluster, "fluxcorr")
     T, (Y, X) = yd.num.nstep_yr, tuple(state.ts.shape)
     state5 = state.stack()
     state_out = torch.empty_like(state5)
@@ -397,11 +440,11 @@ def scenario_year(state: ModelState, corr: Corrections, co2, yd: YearData,
                   cluster: int = DEFAULT_CLUSTER):
     """One scenario year: (end state, outs (T, 5, Y, X), asum (9, Y, X)).
     On the card the year runs on a cluster of ``cluster`` blocks."""
-    _check_cluster(cluster)
+    _check_cluster(cluster, "scenario")
     dev = _check_device(state)
     if dev.type == "cpu":
         return scenario_year_plain(state, corr, co2, yd)
-    cluster_layout(yd.fold[0], cluster, scenario=True)
+    cluster_layout(yd.fold[0], cluster, "scenario")
     T, (Y, X) = yd.num.nstep_yr, tuple(state.ts.shape)
     state5 = state.stack()
     state_out = torch.empty_like(state5)

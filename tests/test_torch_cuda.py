@@ -1,7 +1,7 @@
 """The CUDA year kernels against their plain PyTorch versions, on the card:
-the single-run kernels (spin-up and scenario year, on a thread-block
-cluster of each offered size) and the member-batched ones (spin-up years
-of M members, multi-year scenario blocks) at M=2.
+the single-run kernels (spin-up and scenario year) and the member-batched
+ones (spin-up years of M members, multi-year scenario blocks, at M=2), on
+a thread-block cluster of each offered size.
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one.  They import no JAX; run them on the card with
@@ -11,10 +11,10 @@ without one.  They import no JAX; run them on the card with
 (``--noconftest``: the repository's conftest files set JAX up).  The
 grid is the main path's 96x48, with dense pole composites and 24
 substeps, on a 10-day calendar; ``chip_smoke.py`` runs the full calendar.
-The single-run kernels must equal their plain versions bit for bit (max
-|diff| = 0), and a scenario year on the cluster must equal the member
-kernel's single-block year at M=1: both run the same per-cell device
-functions.  Member-kernel tolerances: tests/test_golden_year.py:29.
+Every kernel must equal its plain version bit for bit (max |diff| = 0),
+and at M=1 with the base params the member kernels must equal the
+single-run kernels (K3 = K2, K4 = K1): they run the same cluster body and
+per-cell device functions.
 """
 import numpy as np
 import pytest
@@ -39,17 +39,12 @@ def model():
     return GREB(GrebConfig(numerics=NUM), verbose=False, device="cuda")
 
 
-def _close(a, b, atol, name):
-    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
-                               atol=atol, err_msg=name)
-
-
 def _equal(a, b, name):
     diff = float((a - b).abs().max())
     assert diff == 0.0, f"{name}: max |diff| {diff}"
 
 
-@pytest.mark.parametrize("cluster", yk.CLUSTER_SIZES)
+@pytest.mark.parametrize("cluster", yk.CLUSTER_SIZES["fluxcorr"])
 def test_fluxcorr_year_kernel_matches_plain(model, cluster):
     s0 = model.initial_state()
     n0 = yk.fluxcorr_year.launches
@@ -61,7 +56,7 @@ def test_fluxcorr_year_kernel_matches_plain(model, cluster):
         _equal(getattr(c_k, name), getattr(c_p, name), name)
 
 
-@pytest.mark.parametrize("cluster", yk.CLUSTER_SIZES)
+@pytest.mark.parametrize("cluster", yk.CLUSTER_SIZES["scenario"])
 def test_scenario_year_kernel_matches_plain(model, cluster):
     s0, corr = yk.fluxcorr_year_plain(model.initial_state(), 298.0,
                                       model.year_data)
@@ -75,19 +70,41 @@ def test_scenario_year_kernel_matches_plain(model, cluster):
     _equal(a_k, a_p, "annual sums")
 
 
-def test_scenario_year_on_a_cluster_equals_the_member_kernel(model):
-    """K2 on the cluster against K3 at M=1 (one block) for the same year:
-    the per-cell device functions are shared, so state and annual sums
-    agree bit for bit."""
+@pytest.mark.parametrize("cluster", yk.offered_sizes("scenario_years"))
+def test_scenario_year_on_a_cluster_equals_the_member_kernel(model, cluster):
+    """K2 against K3 at M=1 with the base params for the same year: the
+    per-cell device functions are shared, so state, annual sums and
+    monthly means agree bit for bit."""
     yd = model.year_data
     s0, corr = yk.fluxcorr_year_plain(model.initial_state(), 298.0, yd)
-    s_2, _, a_2 = yk.scenario_year(s0, corr, 680.0, yd)
+    s_2, o_2, a_2 = yk.scenario_year(s0, corr, 680.0, yd)
     ppack = my.pack_member_params([model.params], "cuda")
     corrpack = torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None]
-    s_3, _, a_3 = my.scenario_years(s0.stack()[:, None], ppack, corrpack,
-                                    np.asarray([680.0], np.float32), yd)
+    s_3, m_3, a_3 = my.scenario_years(s0.stack()[:, None], ppack, corrpack,
+                                      np.asarray([680.0], np.float32), yd,
+                                      cluster=cluster)
     _equal(s_2.stack(), s_3[:, 0], "state")
     _equal(a_2, a_3[0, 0], "annual sums")
+    # K3 sums w * fields step by step, as monthly_means' plain loop does
+    _, m_p, _ = my.scenario_years_plain(s0.stack()[:, None], ppack, corrpack,
+                                        np.asarray([680.0], np.float32), yd)
+    _equal(m_3, m_p, "monthly means")
+
+
+@pytest.mark.parametrize("cluster", yk.offered_sizes("fluxcorr"))
+def test_fluxcorr_year_on_a_cluster_equals_the_member_kernel(model, cluster):
+    """K1 against K4 at M=1 with the base params: the base member's pack
+    reproduces the model's params, so state and all three correction
+    tables agree bit for bit."""
+    yd = model.year_data
+    s0 = model.initial_state()
+    s_1, c_1 = yk.fluxcorr_year(s0, 298.0, yd)
+    ppack = my.pack_member_params([model.params], "cuda")
+    s_4, c_4 = my.fluxcorr_years(s0.stack()[:, None], ppack, 298.0, yd,
+                                 cluster=cluster)
+    _equal(s_1.stack(), s_4[:, 0], "state")
+    for i, name in enumerate(("tf", "tof", "qf")):
+        _equal(getattr(c_1, name), c_4[0, :, i], name)
 
 
 def test_kernel_rejects_an_unoffered_cluster(model):
@@ -103,33 +120,39 @@ def test_kernel_rejects_what_it_does_not_run(model):
         yk.fluxcorr_year(bad, 298.0, model.year_data)
 
 
-def test_member_kernels_match_plain(model):
+@pytest.mark.parametrize("cluster", sorted(set(
+    yk.offered_sizes("fluxcorr") + yk.offered_sizes("scenario_years"))))
+def test_member_kernels_match_plain(model, cluster):
     """K4 then K3 (2 years, CO2 560 and 680) at M=2 members, ct_sens +-2%,
-    each against its plain version on the same inputs."""
+    on ``cluster`` blocks a member, each bitwise equal to its plain version
+    on the same inputs; a kernel refuses a size it does not offer."""
     yd = model.year_data
     members = ens.perturbed_params(model.params,
                                    {"ct_sens": [22.05, 22.95]})
     ppack = my.pack_member_params(members, "cuda")
     s5 = model.initial_state().stack()[:, None].repeat(1, 2, 1, 1)
     n4, n3 = my.fluxcorr_years.launches, my.scenario_years.launches
-    s_k, c_k = my.fluxcorr_years(s5, ppack, 298.0, yd)
-    assert my.fluxcorr_years.launches == n4 + 1
     s_p, c_p = my.fluxcorr_years_plain(s5, ppack, 298.0, yd)
-    for i, (name, atol) in enumerate((("ts", 2e-2), ("ta", 2e-2),
-                                      ("to", 2e-2), ("q", 3e-6))):
-        _close(s_k[i], s_p[i], atol, f"K4 {name}")
-    _close(c_k[:, :, 0].mean(1), c_p[:, :, 0].mean(1), 1.0, "K4 tf mean")
-    _close(c_k[:, :, 2].mean(1), c_p[:, :, 2].mean(1), 1e-7, "K4 qf mean")
+    if cluster in yk.offered_sizes("fluxcorr"):
+        s_k, c_k = my.fluxcorr_years(s5, ppack, 298.0, yd, cluster=cluster)
+        assert my.fluxcorr_years.launches == n4 + 1
+        _equal(s_k, s_p, "K4 state")
+        _equal(c_k, c_p, "K4 tables")
+        assert not torch.equal(s_k[:, 0], s_k[:, 1]), "members do not differ"
+    else:
+        with pytest.raises(ValueError, match="clusters of"):
+            my.fluxcorr_years(s5, ppack, 298.0, yd, cluster=cluster)
 
     co2 = np.asarray([560.0, 680.0], np.float32)
-    s3_k, m_k, a_k = my.scenario_years(s_p, ppack, c_p, co2, yd)
+    if cluster not in yk.offered_sizes("scenario_years"):
+        with pytest.raises(ValueError, match="clusters of"):
+            my.scenario_years(s_p, ppack, c_p, co2, yd, cluster=cluster)
+        return
+    s3_k, m_k, a_k = my.scenario_years(s_p, ppack, c_p, co2, yd,
+                                       cluster=cluster)
     assert my.scenario_years.launches == n3 + 1
     s3_p, m_p, a_p = my.scenario_years_plain(s_p, ppack, c_p, co2, yd)
-    for v, (name, atol) in enumerate((("ts", 2e-2), ("ta", 2e-2),
-                                      ("to", 2e-2), ("q", 3e-6),
-                                      ("albedo", 5e-4))):
-        if v < 4:
-            _close(s3_k[v], s3_p[v], atol, f"K3 state {name}")
-        _close(m_k[:, :, v], m_p[:, :, v], atol, f"K3 monthly {name}")
-        _close(a_k[:, :, v] / NUM.nstep_yr, a_p[:, :, v] / NUM.nstep_yr,
-               atol, f"K3 annual {name}")
+    _equal(s3_k, s3_p, "K3 state")
+    _equal(m_k, m_p, "K3 monthly means")
+    _equal(a_k, a_p, "K3 annual sums")
+    assert not torch.equal(m_k[0], m_k[1]), "members do not differ"
