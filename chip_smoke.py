@@ -39,8 +39,10 @@
    beyond the card's capacity in waves; K3 also one block a member),
    against the size the wrappers pick by default;
 8. drives the main path, GREB.run: 3 spin-up years and 10 scenario years at
-   96x48 through the single-run kernels, with launch counts, finiteness,
-   the output file read back, and the warming under 680 ppm checked;
+   96x48 through the single-run kernels, MAIN_RUNS times (a process's
+   first run is its slowest; the rate is the median of the later ones),
+   with launch counts around each run, finiteness, the output file read
+   back, and the warming under 680 ppm checked;
 9. drives the long-run path: 3 spin-up years, then 50 scenario years
    through run_long + driver_year_runner in blocks of 10 years of the
    multi-year kernel, a checkpoint every 10 years and the output file;
@@ -51,19 +53,24 @@
 10. drives the member chain, GREB.run_members: 3 members (one with the
    base params) through 3 member-batched spin-up years and a 10-year
    scenario block; the base member must equal step 9's run bit for bit;
-11. prints one JSON line per kernel set ({"kernels": [...]}) and, last,
+11. the legacy log_exp switchboard: for every log_exp the kernels run
+   (0-6, 9-15), at 96x48 on a 20-step calendar, K1 and K2 bitwise against
+   their plain versions (state, tables, outs, annual sums); under 11 and
+   15, K2 = K3 and K1 = K4 at M=1 at every size offered; one K1 and one
+   K2 year on the full calendar with no circulation (log_exp 4) timed,
+   the last timed launch of each held bitwise against its plain version;
+   then the legacy path, the CLI's run_legacy at log_exp 13 (A1B CO2) on
+   the full calendar, 3 spin-up, 1 control and 10 scenario years, with
+   launch counts, finiteness, the control file's two layers and both
+   files read back bitwise against a re-run, the A1B CO2 in the console
+   lines, and the path's last spin-up year and first control year held
+   bitwise against the plain versions on the same inputs;
+12. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+   each kernel was held bitwise in) and, last,
    {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no ok line.
 It needs a CUDA card and the repository's greb_tpu_torch package.
-
-    python3 chip_smoke.py --time-members
-
-runs step 7's timing at the paths' shapes alone and prints it as JSON.  It
-calls the member wrappers with their defaults only, so a copy of this
-script placed in a checkout of an earlier commit times that commit's
-member kernels: a change to K3 or K4 is measured against its parent this
-way, both trees in one chip call (PERF.md section 6).
 """
 from __future__ import annotations
 
@@ -123,13 +130,35 @@ def _median(values):
     return sorted(values)[len(values) // 2]
 
 
-def _bitwise(tag, pairs):
-    """max |diff| of each (name, kernel, plain) pair; all must be 0."""
-    worst = 0.0
+def _launches_ms(fn, repeats):
+    """ms of each of ``repeats`` calls of fn, timed one by one after a
+    warm-up call, and the last call's result."""
+    fn()
+    got = []
+    for _ in range(repeats):
+        t, out = _time_ms(fn, 1)
+        got.append(t)
+    return got, out
+
+
+def _runs(ms):
+    return (f"median {_median(ms):.3f} ms of {len(ms)} after a warm-up ("
+            f"{' '.join(f'{v:.3f}' for v in ms)}; spread "
+            f"{max(ms) - min(ms):.3f})")
+
+
+def _bitwise(tag, pairs, quiet=False):
+    """max |diff| of each (name, kernel, plain) pair; all must be 0.
+    ``quiet`` prints one line for all pairs."""
+    worst, names = 0.0, []
     for name, a, b in pairs:
         d = _max_abs(a, b)
-        print(f"  {tag} {name:<22s} max |diff| {d:.3e}")
+        if not quiet:
+            print(f"  {tag} {name:<22s} max |diff| {d:.3e}")
         worst = max(worst, d)
+        names.append(name)
+    if quiet:
+        print(f"  {tag}: max |diff| {worst:.3e} over {', '.join(names)}")
     if worst != 0.0:
         raise AssertionError(f"{tag}: not bitwise equal (max |diff| {worst})")
     return worst
@@ -162,6 +191,8 @@ def _bound_of(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# runs of the main path; the first is a process's slowest
+MAIN_RUNS = 5
 # the long run: the reference's 50 scenario years (time_scnr) at 680 ppm,
 # in blocks of 10 years, a checkpoint every 10
 LONG_YEARS = 50
@@ -170,6 +201,209 @@ LONG_STOP = 20
 # member counts of the member scaling (132: one a streaming multiprocessor;
 # 7/8 and 49/56 either side of the default size's crossovers)
 SCALING_M = (1, 7, 8, 16, 49, 56, 64, 100, 132)
+
+
+# the legacy log_exp values the kernels run (7, 8 and 16 transport with the
+# strict stencils, which the port does not have yet); under the member
+# modes K3/K4 are also held against K2/K1 at M=1
+LEGACY_EXPS = (0, 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14, 15)
+LEGACY_MEMBER_EXPS = (11, 15)
+# the legacy path: the CLI's run_legacy at log_exp 13 (A1B CO2, no
+# hydrology) on the full calendar
+LEGACY_PATH_EXP = 13
+LEGACY_YEARS = dict(time_flux=3, time_ctrl=1, time_scnr=10)
+
+
+def _k1_vs_plain(tag, s0, co2, yd, got):
+    """max |diff| (0 required) of K1's ``got`` = (state, corr) against the
+    plain version's year from (s0, co2)."""
+    from greb_tpu_torch.forcing import ModelState
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    s_p, c_p = yk.fluxcorr_year_plain(s0, co2, yd)
+    return _bitwise(tag, [(f"state {n}", getattr(got[0], n), getattr(s_p, n))
+                          for n in ModelState.FIELDS]
+                    + [(n, getattr(got[1], n), getattr(c_p, n))
+                       for n in ("tf", "tof", "qf")], quiet=True)
+
+
+def _k2_vs_plain(tag, s0, corr, co2, yd, got):
+    """max |diff| (0 required) of K2's ``got`` = (state, outs, annual sums)
+    against the plain version's year from (s0, corr, co2)."""
+    from greb_tpu_torch.forcing import ModelState
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    s_p, o_p, a_p = yk.scenario_year_plain(s0, corr, co2, yd)
+    return _bitwise(tag, [(f"state {n}", getattr(got[0], n), getattr(s_p, n))
+                          for n in ModelState.FIELDS]
+                    + [("outs", got[1], o_p), ("annual sums", got[2], a_p)],
+                    quiet=True)
+
+
+def _legacy_phase(tmp, reset_counts, read_counts):
+    """Step 11: the legacy switchboard in every kernel, and the legacy
+    path.  Returns the worst max |diff| per kernel and the legacy path's
+    launches."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch.__main__ import run_legacy
+    from greb_tpu_torch.config import (Diagnostics, Experiment, GrebConfig,
+                                       Numerics)
+    from greb_tpu_torch.io.binio import read_output, read_records
+    from greb_tpu_torch.model import core
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+
+    err = dict.fromkeys(("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                         "scenario_years"), 0.0)
+    short = Numerics(ndays_yr=10, jday_mon=(6, 4))
+    co2_scn = np.float32(680.0)
+    t0 = time.perf_counter()
+    plain_s = 0.0
+    for e in LEGACY_EXPS:
+        m = GREB(GrebConfig(numerics=short, experiment=Experiment(e)),
+                 device="cuda", verbose=False)
+        yd, co2 = m.year_data, np.float32(m.exp.co2_ctrl)
+        tag = f"log_exp {e:2d} (flags {yk.experiment_flags(m.exp):#04x})"
+        s0 = m.initial_state()
+        s_k, c_k = yk.fluxcorr_year(s0, co2, yd)
+        s2_k, _, a_k = k2 = yk.scenario_year(s_k, c_k, co2_scn, yd)
+        t1 = time.perf_counter()
+        err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
+            f"K1 {tag}", s0, co2, yd, (s_k, c_k)))
+        err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
+            f"K2 {tag}", s_k, c_k, co2_scn, yd, k2))
+        plain_s += time.perf_counter() - t1
+        if e not in LEGACY_MEMBER_EXPS:
+            continue
+        pp = my.pack_member_params([m.params], "cuda")
+        corrp = torch.stack([c_k.tf, c_k.tof, c_k.qf], dim=1)[None]
+        for c in yk.offered_sizes("scenario_years"):
+            s3, _, a3 = my.scenario_years(s_k.stack()[:, None], pp, corrp,
+                                          np.asarray([co2_scn]), yd,
+                                          cluster=c)
+            err["scenario_years"] = max(err["scenario_years"], _bitwise(
+                f"K2 vs K3 {tag} (M=1, C={c})",
+                [("state", s2_k.stack(), s3[:, 0]),
+                 ("annual sums", a_k, a3[0, 0])], quiet=True))
+        for c in yk.offered_sizes("fluxcorr"):
+            s4, c4 = my.fluxcorr_years(s0.stack()[:, None], pp, co2, yd,
+                                       cluster=c)
+            err["fluxcorr_years"] = max(err["fluxcorr_years"], _bitwise(
+                f"K1 vs K4 {tag} (M=1, C={c})",
+                [("state", s_k.stack(), s4[:, 0])]
+                + [(n, getattr(c_k, n), c4[0, :, i])
+                   for i, n in enumerate(("tf", "tof", "qf"))], quiet=True))
+    print(f"legacy kernels vs plain, {len(LEGACY_EXPS)} modes on a "
+          f"{short.nstep_yr}-step calendar: {time.perf_counter() - t0:.1f} s"
+          f" (plain versions {plain_s:.1f} s)")
+
+    # -- one year with no circulation (log_exp 4) on the full calendar
+    #    (the last timed launch of each against its plain version)
+    m4 = GREB(GrebConfig(experiment=Experiment(4)), device="cuda",
+              verbose=False)
+    yd4, co2 = m4.year_data, np.float32(m4.exp.co2_ctrl)
+    s0 = m4.initial_state()
+    k1_off, (s4_, c4_) = _launches_ms(
+        lambda: yk.fluxcorr_year(s0, co2, yd4), 5)
+    k2_off_ms, k2_off = _launches_ms(
+        lambda: yk.scenario_year(s4_, c4_, co2_scn, yd4), 5)
+    print(f"no circulation (log_exp 4), {m4.num.nstep_yr} steps: K1 "
+          f"{_runs(k1_off)}; K2 {_runs(k2_off_ms)}")
+    err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
+        "K1 log_exp 4 timed", s0, co2, yd4, (s4_, c4_)))
+    err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
+        "K2 log_exp 4 timed", s4_, c4_, co2_scn, yd4, k2_off))
+    del m4, s4_, c4_, k2_off
+
+    # -- the legacy path: run_legacy as the CLI runs it
+    num = Numerics(**LEGACY_YEARS)
+    out = os.path.join(tmp, "legacy", "scenario")
+    m = GREB(GrebConfig(numerics=num,
+                        experiment=Experiment(LEGACY_PATH_EXP),
+                        diagnostics=Diagnostics(output_file=out)),
+             device="cuda")
+    console = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(console):
+        run_legacy(m, out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(console.getvalue(), end="")
+    years = num.time_flux + num.time_ctrl + num.time_scnr
+    print(f"legacy path (log_exp {LEGACY_PATH_EXP}): {years} sim-years in "
+          f"{wall:.3f} s = {years / wall:.3f} sim-yr/s ({num.time_flux} "
+          f"spin-up, {num.time_ctrl} control, {num.time_scnr} scenario)")
+    launches = read_counts("legacy path", {
+        "fluxcorr_year": num.time_flux,
+        "scenario_year": num.time_ctrl + num.time_scnr,
+        "fluxcorr_years": 0, "scenario_years": 0})
+    Y, X, nmon = num.ydim, num.xdim, len(num.jday_mon)
+    ctl = read_records(os.path.join(tmp, "legacy", "control"), (Y, X))
+    back = read_output(out, X, Y)
+    if ctl.shape[0] != num.nstep_yr or not np.isfinite(ctl).all():
+        raise AssertionError(f"control file {ctl.shape} not finite")
+    if back.shape != (num.time_scnr * nmon, 5, Y, X) \
+            or not np.isfinite(back).all():
+        raise AssertionError(f"legacy scenario output {back.shape}")
+    # both files against a re-run of the phases (the kernels are
+    # deterministic): the control file's tail is the spin-up's TF_correct,
+    # its head the control run's monthly means, the scenario file the
+    # scenario's
+    m.verbose = False
+    state_fc, corr = m.flux_correction()
+    tf = corr.tf.cpu().numpy()
+    nrec = nmon * 5 * num.time_ctrl
+    _, mon_ctl, _ = m.run_scenario(
+        corr, years=num.time_ctrl, state=state_fc,
+        co2_series=np.full(num.time_ctrl, m.exp.co2_ctrl, np.float32))
+    _, mon_scn, _ = m.run_scenario(corr, state=state_fc)
+    if not np.array_equal(ctl[nrec:], tf[nrec:]):
+        raise AssertionError("control file tail is not the TF_correct dump")
+    if not np.array_equal(ctl[:nrec], mon_ctl.reshape(-1, Y, X)) \
+            or np.array_equal(ctl[:nrec], tf[:nrec]):
+        raise AssertionError("control file head is not the control run")
+    if not np.array_equal(back, mon_scn.reshape(back.shape)):
+        raise AssertionError("legacy scenario output does not read back")
+    print(f"  control file: {nrec} control records over the "
+          f"{num.nstep_yr}-record TF_correct dump, its tail kept; both files "
+          f"bitwise equal to a re-run")
+    # the path's last spin-up year and its first control year against the
+    # plain versions on the same inputs: the kernels' years are the path's
+    # (end state and tables, monthly means bitwise)
+    yd, co2_ctrl = m.year_data, np.float32(m.exp.co2_ctrl)
+    s_last = m.initial_state()
+    for _ in range(num.time_flux - 1):
+        s_last, _ = yk.fluxcorr_year(s_last, co2_ctrl, yd)
+    t1 = time.perf_counter()
+    s_k, c_k = yk.fluxcorr_year(s_last, co2_ctrl, yd)
+    if not (torch.equal(s_k.stack(), state_fc.stack())
+            and torch.equal(c_k.tf, corr.tf)):
+        raise AssertionError("K1's last spin-up year is not the path's")
+    err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
+        f"K1 legacy path, spin-up year {num.time_flux}", s_last, co2_ctrl,
+        yd, (s_k, c_k)))
+    k2 = yk.scenario_year(state_fc, corr, co2_ctrl, yd)
+    if not np.array_equal(
+            core.monthly_means(m.month_mat, k2[1]).cpu().numpy(), mon_ctl[0]):
+        raise AssertionError("K2's control year is not the path's")
+    err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
+        "K2 legacy path, control year 1", state_fc, corr, co2_ctrl, yd, k2))
+    print(f"  legacy path's years vs plain: {time.perf_counter() - t1:.1f} s")
+    # the scenario's console lines carry the A1B ramp
+    want = core.co2_series_for_run(num, m.exp,
+                                   m.cfg.co2.series(num.time_scnr))
+    scen = console.getvalue().rsplit("% MODEL RUN", 1)[1]
+    got = re.findall(r"^ \d+ +(\S+) ", scen, flags=re.M)
+    if got != [f"{v:.4f}" for v in want] or not want[0] < want[-1]:
+        raise AssertionError(f"console CO2 {got}, want the A1B ramp {want}")
+    print(f"  console CO2 follows the A1B ramp: {got[0]} .. {got[-1]} ppm")
+    return dict(err=err, launches=launches)
 
 
 def _long_runner(model, tmp, tag):
@@ -237,46 +471,14 @@ def _path_shape_inputs(model, state, corr):
 def _time_member_kernels(inputs, repeats=3):
     """ms of ``repeats`` launches of K3 and K4 on ``inputs``
     (``_path_shape_inputs``), each after a warm-up launch, and the last
-    launch's outputs.  Only the wrappers' defaults, so an earlier tree's
-    kernels are timed the same way."""
+    launch's outputs, through the wrappers' defaults."""
     from greb_tpu_torch.ops.cuda import multiyear as my
     ms, outs = {}, {}
     for name, args in inputs.items():
-        def fn():
-            return getattr(my, name)(*args)
-        fn()
-        ms[name] = []
-        for _ in range(repeats):
-            t, outs[name] = _time_ms(fn, 1)
-            ms[name].append(t)
-        runs_ms = " ".join(f"{v:.3f}" for v in ms[name])
-        print(f"{name} at its path's shape: {_median(ms[name]):.3f} "
-              f"ms/launch median of {repeats} after a warm-up ({runs_ms}; "
-              f"spread {max(ms[name]) - min(ms[name]):.3f})")
+        ms[name], outs[name] = _launches_ms(
+            lambda: getattr(my, name)(*args), repeats)
+        print(f"{name} at its path's shape: {_runs(ms[name])}")
     return ms, outs
-
-
-def _time_members_only() -> int:
-    """--time-members: step 7's timing at the paths' shapes, alone."""
-    import numpy as np
-    import torch
-    from greb_tpu_torch.config import GrebConfig, Numerics
-    from greb_tpu_torch.model.driver import GREB
-    from greb_tpu_torch.ops.cuda import year_kernel as yk
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(smi)
-    model = GREB(GrebConfig(numerics=Numerics(time_flux=3)), device="cuda",
-                 verbose=False)
-    state, corr = yk.fluxcorr_year(model.initial_state(),
-                                   np.float32(model.cfg.co2.co2_flux),
-                                   model.year_data)
-    got, _ = _time_member_kernels(_path_shape_inputs(model, state, corr))
-    torch.cuda.synchronize()
-    print(json.dumps({"card": smi, "ms": got}))
-    return 0
 
 
 def main(argv) -> int:
@@ -287,8 +489,6 @@ def main(argv) -> int:
         return 1
     if argv[:1] == ["--resume-long"]:
         return _resume_long(argv[1])
-    if argv[:1] == ["--time-members"]:
-        return _time_members_only()
     import math
 
     import numpy as np
@@ -565,22 +765,30 @@ def main(argv) -> int:
             del pp, s5m, cpm
         torch.cuda.empty_cache()
 
-        # -- the main path: GREB.run, 3 spin-up + 10 scenario years ----------
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, corr, monthly, diags = model.run(output_path=out_path)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        # -- the main path: GREB.run, 3 spin-up + 10 scenario years, run
+        #    MAIN_RUNS times, the counts reset and read around each run ------
+        walls = []
+        for _ in range(MAIN_RUNS):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, corr, monthly, diags = model.run(output_path=out_path)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = read_counts("main path", {
+                "fluxcorr_year": num.time_flux,
+                "scenario_year": num.time_scnr,
+                "fluxcorr_years": 0, "scenario_years": 0})
         years = num.time_flux + num.time_scnr
+        rates = [years / w for w in walls]
+        wall = _median(walls[1:])
         kern = (num.time_flux * ms_k1 + num.time_scnr * ms_k2) / 1e3
-        print(f"main path: {years} sim-years in {wall:.3f} s = "
-              f"{years / wall:.3f} sim-yr/s; kernels ~{kern:.3f} s of it "
-              f"(launches x the times above), host ~{wall - kern:.3f} s = "
-              f"{(wall - kern) / wall:.1%}")
-        launches = read_counts("main path", {
-            "fluxcorr_year": num.time_flux, "scenario_year": num.time_scnr,
-            "fluxcorr_years": 0, "scenario_years": 0})
+        print(f"main path: {years} sim-years, {MAIN_RUNS} runs: "
+              f"{' '.join(f'{r:.3f}' for r in rates)} sim-yr/s; after the "
+              f"first: median {years / wall:.3f} sim-yr/s, spread "
+              f"{(max(rates[1:]) - min(rates[1:])) / (years / wall):.1%}; "
+              f"kernels ~{kern:.3f} s of a run (launches x the times above), "
+              f"host ~{wall - kern:.3f} s = {(wall - kern) / wall:.1%}")
         for name in ("ts", "ta", "to", "q", "cap_surf"):
             if not bool(torch.isfinite(getattr(state, name)).all()):
                 raise AssertionError(f"state {name} not finite")
@@ -703,38 +911,47 @@ def main(argv) -> int:
             raise AssertionError("perturbed members do not differ")
         print("  base member bitwise equal to the long run's first block")
 
+        # -- the legacy switchboard in every kernel, and the legacy path ---
+        legacy = _legacy_phase(tmp, reset_counts, read_counts)
+
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for 10 years, K4 3 members: the median of member_ms's
     # 3 launches, on the size the wrapper picks for that member count);
-    # max_abs_err over that shape and every comparison above
+    # max_abs_err over that shape and every comparison above, the legacy
+    # modes' included; "modes" the variants each kernel was held bitwise in
+    single = ["modern"] + [f"log_exp {e}" for e in LEGACY_EXPS]
+    member = ["modern"] + [f"log_exp {e}" for e in LEGACY_MEMBER_EXPS]
     k3_ms, k4_ms = (_median(member_ms[k])
                     for k in ("scenario_years", "fluxcorr_years"))
     kernels = []
-    for name, src, line, count, ms, plain_ms, err, work, shape, c in (
+    for name, src, line, count, ms, plain_ms, err, work, shape, c, modes in (
             ("fluxcorr_year", "year_kernel.py", 353,
              launches["fluxcorr_year"], ms_k1, plain_k1, err_k1,
-             yk.year_work(plan, num, False), "1 year", C),
+             yk.year_work(plan, num, False), "1 year", C, single),
             ("scenario_year", "year_kernel.py", 231,
              launches["scenario_year"], ms_k2, plain_k2, err_k2,
-             yk.year_work(plan, num, True), "1 year", C),
+             yk.year_work(plan, num, True), "1 year", C, single),
             ("scenario_years", "multiyear.py", 107,
              launches_long["scenario_years"], k3_ms, plain_k3, err_k3,
              my.years_work(plan, num, LONG_BLOCK, 1, "scenario"),
              f"M=1 x {LONG_BLOCK} years", my.default_cluster(
-                 "scenario_years", 1, capacity["scenario_years", C])),
+                 "scenario_years", 1, capacity["scenario_years", C]),
+             member),
             ("fluxcorr_years", "multiyear.py", 253,
              launches_m["fluxcorr_years"], k4_ms, plain_k4, err_k4,
              my.years_work(plan, num, 1, 3, "fluxcorr"), "M=3 x 1 year",
-             my.default_cluster("fluxcorr", 3, capacity["fluxcorr", C]))):
+             my.default_cluster("fluxcorr", 3, capacity["fluxcorr", C]),
+             member)):
         bound_ms, bound_by = _bound_of(*work)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "greb_tpu_torch/csrc/year_kernel.cu",
             "replaces": f"greb_tpu/ops/pallas/{src}:{line}",
-            "launches": count, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "launches": count, "max_abs_err": max(err, legacy["err"][name]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "cluster": c,
-            "shape": shape})
+            "shape": shape, "modes": modes,
+            "launches_legacy_path": legacy["launches"][name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

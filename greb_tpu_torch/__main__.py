@@ -12,6 +12,13 @@ cuda``, the default) through the fused CUDA year kernels.
 years with a checkpoint after each (the reference has none); ``--resume``
 continues from the newest checkpoint in D, with the output stream placed
 at the checkpoint's record.
+
+``--legacy`` runs the original variant's experiment workflow for the
+namelist's ``log_exp`` (src/greb.original.model.f90:199-231): the spin-up,
+the TF_correct dump to ``<output dir>/control``, the control phase
+(``time_ctrl`` years, rewinding that file) and the scenario.  It takes
+``log_exp`` 0-6 and 9-15; 7, 8 and 16 transport with the strict stencils
+and raise, as ``--strict-circulation`` does.
 """
 from __future__ import annotations
 
@@ -38,8 +45,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pallas", action="store_true",
                    help="accepted for compatibility with python -m greb_tpu; "
                         "on the card the fused kernels always run")
+    p.add_argument("--legacy", action="store_true",
+                   help="legacy experiment workflow for the namelist's "
+                        "log_exp (0-6, 9-15): spin-up, TF_correct dump and "
+                        "control phase into <output dir>/control, scenario")
     p.add_argument("--strict-circulation", action="store_true",
-                   help="strict term-by-term stencils (not ported yet)")
+                   help="strict term-by-term stencils: they come with the "
+                        "strict-transport slice (ROADMAP Queue 1 item 2) "
+                        "and raise until then")
     p.add_argument("--checkpoint-dir", default=None,
                    help="checkpoint the scenario into this directory")
     p.add_argument("--checkpoint-every", type=int, default=10,
@@ -84,13 +97,35 @@ def main(argv=None) -> int:
         os.makedirs(out_dir, exist_ok=True)
 
     t0 = time.perf_counter()
-    if args.checkpoint_dir:
+    if args.legacy:
+        run_legacy(model, out_path)
+    elif args.checkpoint_dir:
         run_checkpointed(model, out_path, args)
     else:
         model.run(output_path=out_path)
     if not args.quiet:
         print(f"% total wall time {time.perf_counter() - t0:.2f}s")
     return 0
+
+
+def run_legacy(model, out_path: str) -> None:
+    """The legacy workflow (src/greb.original.model.f90:199-231): spin-up,
+    the nstep_yr TF_correct records dumped to ``<out dir>/control``, the
+    control phase when ``time_ctrl > 0`` (overwriting that file from its
+    first record and keeping its tail), then the scenario.  Both phases
+    start from the spin-up end state: the reference re-initialises from
+    Ts_ini etc. (:210, :219), which qflux_correction mutated in place
+    (:201)."""
+    from .io.binio import write_records
+
+    state_fc, corr = model.flux_correction()
+    base = os.path.dirname(out_path) or "."
+    os.makedirs(base, exist_ok=True)
+    control_path = os.path.join(base, "control")
+    write_records(control_path, corr.tf.cpu().numpy())
+    if model.num.time_ctrl > 0:
+        model.run_control(corr, state_fc=state_fc, output_path=control_path)
+    model.run_scenario(corr, state=state_fc, output_path=out_path)
 
 
 def run_checkpointed(model, out_path: str, args) -> None:

@@ -8,8 +8,12 @@ Mirrors ``greb_tpu.config`` (reference src/greb.f90:32-158):
                      stays in float32, as in the JAX package.
 - ``Diagnostics``  : output file naming.
 - ``CO2Params``    : CO2 pathway (flux-correction level + scenario series).
-- ``Experiment``   : the legacy ``log_exp`` switchboard.  This port runs the
-                     modern variant only (``log_exp=None``).
+- ``Experiment``   : the legacy ``log_exp`` switchboard of the original
+                     variant (reference src/greb.original.model.f90), with
+                     the same derived flags as ``greb_tpu.config``.  The port
+                     runs ``log_exp`` 0-6 and 9-15 and the modern variant
+                     (``log_exp=None``); 7, 8 and 16 transport Ta or q with
+                     the strict stencils, which the port does not have yet.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ class Numerics:
     jday_mon: Tuple[int, ...] = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
 
     time_flux: int = 0             # flux-correction phase length [yr]
+    time_ctrl: int = 0             # control phase length [yr] (legacy variant)
     time_scnr: int = 0             # scenario phase length [yr]
     ipx: int = 1                   # diagnostic point, x (1-based, as Fortran)
     ipy: int = 1                   # diagnostic point, y (1-based)
@@ -154,11 +159,74 @@ class CO2Params:
 
 @dataclass(frozen=True)
 class Experiment:
+    """Legacy experiment switchboard (reference src/greb.original.model.f90);
+    ``log_exp`` changes which processes run, so it is fixed per run."""
     log_exp: Optional[int] = None    # None => modernized variant (no switches)
 
     @property
     def active(self) -> bool:
         return self.log_exp is not None
+
+    @property
+    def flat_topo(self) -> bool:            # :162
+        return self.active and self.log_exp == 1
+
+    @property
+    def const_cloud(self) -> bool:          # :163
+        return self.active and self.log_exp <= 2
+
+    @property
+    def const_vapor(self) -> bool:          # :164
+        return self.active and self.log_exp <= 3
+
+    @property
+    def no_deep_ocean_mld(self) -> bool:    # :165-166 (mldclim = d_ocean)
+        return self.active and (self.log_exp <= 9 or self.log_exp == 11)
+
+    @property
+    def fixed_albedo(self) -> bool:         # :394
+        return self.active and self.log_exp <= 5
+
+    @property
+    def simple_seaice(self) -> bool:        # :492-496
+        return self.active and self.log_exp <= 5
+
+    @property
+    def hydro_off(self) -> bool:            # :453
+        return self.active and (self.log_exp <= 6 or self.log_exp in (13, 15))
+
+    @property
+    def circulation_off(self) -> bool:      # :553
+        return self.active and self.log_exp <= 4
+
+    @property
+    def vapor_circulation_off(self) -> bool:  # :554-555 (exp 7 and 16)
+        return self.active and self.log_exp in (7, 16)
+
+    @property
+    def vapor_diffusion_only(self) -> bool:  # :560
+        return self.active and self.log_exp == 8
+
+    @property
+    def deep_ocean_off(self) -> bool:       # :514-515
+        return self.active and (self.log_exp <= 9 or self.log_exp == 11
+                                or 14 <= self.log_exp <= 16)
+
+    @property
+    def linear_vapor_lw(self) -> bool:      # :423,430
+        return self.active and self.log_exp == 11
+
+    @property
+    def a1b_co2(self) -> bool:              # :179, :946
+        return self.active and self.log_exp in (12, 13)
+
+    @property
+    def sst_plus_one(self) -> bool:         # :225-226 (exp 14-16)
+        return self.active and 14 <= self.log_exp <= 16
+
+    @property
+    def co2_ctrl(self) -> float:            # :178-179
+        return 298.0 if self.a1b_co2 else 340.0
 
 
 @dataclass(frozen=True)
@@ -188,6 +256,7 @@ def config_from_namelist(path: str) -> Tuple[GrebConfig, PhysicsParams]:
 
     numerics = Numerics(
         time_flux=int(num.get("time_flux", legacy_num.get("time_flux", 0))),
+        time_ctrl=int(legacy_num.get("time_ctrl", 0)),
         time_scnr=int(num.get("time_scnr", legacy_num.get("time_scnr", 0))),
         ipx=int(num.get("ipx", 1)),
         ipy=int(num.get("ipy", 1)),

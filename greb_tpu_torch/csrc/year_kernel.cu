@@ -88,6 +88,21 @@
 // every sum (the 7-point sums as the JAX balanced tree), true division.
 // The composite row sums follow the plain version's blocked order
 // (fastcirc2._row_dot), which differs from the JAX package's library dot.
+//
+// The legacy log_exp switchboard (reference src/greb.original.model.f90;
+// greb_tpu/config.py Experiment) comes in GrebParams::flags, one bit per
+// switch of the step body (enum Flag; ops/cuda/year_kernel.py FLAGS):
+// fixed albedo, the simple sea-ice capacity, no hydrology, no deep-ocean
+// exchange and the linearised vapour feedback in the pointwise physics,
+// SST = Tclim + 1 over the ocean at the start of a scenario step, and no
+// circulation (no coefficient build, no substeps; the step takes Ta and q
+// uncirculated).  Each branch repeats the plain version's float32
+// operations.  Every kernel has two instantiations: LEGACY = false, the
+// modern variant, compiles without the branches (flags 0), and
+// LEGACY = true branches on the flags word, which is the same for every
+// thread of a launch.  The launchers pick one by the word and refuse a
+// word with a bit they do not know.  The modes whose transport needs the
+// strict stencils (log_exp 7, 8, 16) have no bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -105,6 +120,7 @@ namespace cg = cooperative_groups;
 // error codes of the launchers beside cudaError_t's (which are >= 0)
 #define GREB_ERR_LAYOUT (-1)      // C does not split the grid, or too big
 #define GREB_ERR_NO_CLUSTER (-2)  // no cluster of this shape fits the card
+#define GREB_ERR_FLAGS (-3)       // a flags word with a bit not in Flag
 
 struct GrebParams {
   float sig, rho_air, ct_sens, da_ice, a_no_ice, a_cloud;
@@ -114,7 +130,31 @@ struct GrebParams {
   float cap_ocean, cap_land, cap_air;
   float dt;    // model step [s]
   float co2;   // this year's CO2 [ppm]
+  int flags;   // the legacy switchboard (enum Flag); 0: the modern variant
 };
+
+// The bits of GrebParams::flags (ops/cuda/year_kernel.py FLAGS).
+enum Flag {
+  FIXED_ALBEDO = 1,      // log_exp <= 5: surface albedo a_no_ice
+  SIMPLE_SEAICE = 2,     // log_exp <= 5: no sea-ice ramp
+  HYDRO_OFF = 4,         // log_exp <= 6, 13, 15: no hydrological cycle
+  CIRCULATION_OFF = 8,   // log_exp <= 4: no transport of Ta and q
+  DEEP_OCEAN_OFF = 16,   // log_exp <= 9, 11, 14-16: no deep-ocean exchange
+  LINEAR_VAPOR_LW = 32,  // log_exp 11: linearised vapour feedback
+  SST_PLUS_ONE = 64,     // log_exp 14-16: ocean Ts = Tclim + 1 (scenario)
+  KNOWN_FLAGS = 127
+};
+
+// The linearised vapour feedback's coefficient (greb.original.model.f90:
+// 430), rounded once to float32 (ops/pointwise.py LINEAR_VAPOR_LW_C).
+#define LINEAR_VAPOR_LW_C ((float)(0.022 / (0.15 * 24.0)))
+
+// Switch f is on: never in the modern instantiation, which compiles
+// without the branch.
+template <bool LEGACY>
+__device__ __forceinline__ bool on(const GrebParams& p, int f) {
+  return LEGACY && (p.flags & f) != 0;
+}
 
 struct YearArgs {
   // forcing: (T, Y, X) each, sw_solar (T, Y)
@@ -182,12 +222,13 @@ struct Tend {
 };
 
 // Pointwise tendencies of one cell (ops/pointwise.py; reference
-// src/greb.f90:277-308, 367-525).
+// src/greb.f90:277-308, 367-525), with the legacy switches of LEGACY.
+template <bool LEGACY>
 __device__ Tend tendencies(const GrebParams& p, float ts, float ta, float to,
-                           float q, float tclim, float swet, float u, float v,
-                           float mld, float mld_prev, float cld, float swsol,
-                           float z_topo, float glacier, float wz_air,
-                           float z_ocean) {
+                           float q, float tclim, float qclim, float swet,
+                           float u, float v, float mld, float mld_prev,
+                           float cld, float swsol, float z_topo,
+                           float glacier, float wz_air, float z_ocean) {
   Tend o;
   // shortwave (src/greb.f90:367-403)
   const float a_atmos = cld * p.a_cloud;
@@ -198,19 +239,22 @@ __device__ Tend tendencies(const GrebParams& p, float ts, float ta, float to,
   const float ramp = p.a_no_ice + p.da_ice * (1.f - (ts - t1) / (t2 - t1));
   float a_surf = ts <= t1 ? a_ice : (ts >= t2 ? p.a_no_ice : ramp);
   if (glacier > 0.5f) a_surf = a_ice;
+  if (on<LEGACY>(p, FIXED_ALBEDO)) a_surf = p.a_no_ice;
   o.albedo = (a_surf + a_atmos) - a_surf * a_atmos;
   o.sw = swsol * (1.f - o.albedo);
 
   // longwave (src/greb.f90:407-434)
   const float* pe = p.p_emi;
   const float e_co2 = wz_air * p.co2;
-  const float e_vapor = (wz_air * p.r_qviwv) * q;
+  const bool lin = on<LEGACY>(p, LINEAR_VAPOR_LW);
+  const float e_vapor = (wz_air * p.r_qviwv) * (lin ? qclim : q);
   const float a0 = pe[0] * e_co2;
   const float a1 = pe[1] * e_vapor;
   float em = pe[3] * logf((a0 + a1) + pe[2]) + pe[6];
   em = em + pe[4] * logf(a0 + pe[2]);
   em = em + pe[5] * logf(a1 + pe[2]);
   em = ((pe[7] - cld) / pe[8]) * (em - pe[9]) + pe[9];
+  if (lin) em = em + (LINEAR_VAPOR_LW_C * p.r_qviwv) * (q - qclim);
   o.em = em;
   const float dtrad = -0.16f * tclim - 5.f;
   o.lw_surf = (-p.sig) * pow4(ts);
@@ -220,18 +264,30 @@ __device__ Tend tendencies(const GrebParams& p, float ts, float ta, float to,
   o.q_sens = p.ct_sens * (ta - ts);
 
   // hydrology (src/greb.f90:438-469)
-  float wind = sqrtf(u * u + v * v);
-  if (z_topo > 0.f) wind = sqrtf(wind * wind + 4.f);
-  if (z_topo < 0.f) wind = sqrtf(wind * wind + 9.f);
-  const float tc = ts - 273.15f;
-  float qs = 3.75e-3f * expf((17.08085f * tc) / (tc + 234.175f));
-  qs = qs * wz_air;
-  o.q_lat = (((((q - qs) * wind) * p.cq_latent) * p.rho_air) * p.ce) * swet;
-  o.dq_eva = ((-o.q_lat) / p.cq_latent) / p.r_qviwv;
-  o.dq_rain = p.cq_rain * q;
-  o.q_lat_air = ((-o.dq_rain) * p.cq_latent) * p.r_qviwv;
+  if (on<LEGACY>(p, HYDRO_OFF)) {
+    o.q_lat = 0.f;
+    o.dq_eva = 0.f;
+    o.dq_rain = 0.f;
+    o.q_lat_air = 0.f;
+  } else {
+    float wind = sqrtf(u * u + v * v);
+    if (z_topo > 0.f) wind = sqrtf(wind * wind + 4.f);
+    if (z_topo < 0.f) wind = sqrtf(wind * wind + 9.f);
+    const float tc = ts - 273.15f;
+    float qs = 3.75e-3f * expf((17.08085f * tc) / (tc + 234.175f));
+    qs = qs * wz_air;
+    o.q_lat = (((((q - qs) * wind) * p.cq_latent) * p.rho_air) * p.ce) * swet;
+    o.dq_eva = ((-o.q_lat) / p.cq_latent) / p.r_qviwv;
+    o.dq_rain = p.cq_rain * q;
+    o.q_lat_air = ((-o.dq_rain) * p.cq_latent) * p.r_qviwv;
+  }
 
   // deep ocean (src/greb.f90:495-525)
+  if (on<LEGACY>(p, DEEP_OCEAN_OFF)) {
+    o.dto = 0.f;
+    o.dt_ocean = 0.f;
+    return o;
+  }
   const float dmld = mld - mld_prev;
   const bool ocean_warm = (z_topo < 0.f) && (ts >= p.To_ice2);
   const float below = z_ocean - mld;
@@ -248,11 +304,18 @@ __device__ Tend tendencies(const GrebParams& p, float ts, float ta, float to,
   return o;
 }
 
-// Sea-ice heat capacity (src/greb.f90:472-492).
+// Sea-ice heat capacity (src/greb.f90:472-492; the legacy simple form,
+// greb.original.model.f90:492-496, keeps the previous value at z_topo 0).
+template <bool LEGACY>
 __device__ __forceinline__ float seaice(const GrebParams& p, float ts0,
                                         float cap_prev, float mld,
                                         float z_topo, float glacier) {
   const float cap_open = p.cap_ocean * mld;
+  if (on<LEGACY>(p, SIMPLE_SEAICE)) {
+    float cap = z_topo > 0.f ? p.cap_land : cap_open;
+    cap = z_topo == 0.f ? cap_prev : cap;
+    return glacier > 0.5f ? p.cap_land : cap;
+  }
   const float ramp = p.cap_land + ((cap_open - p.cap_land) / (p.To_ice2 - p.To_ice1))
                      * (ts0 - p.To_ice1);
   const float oc = ts0 <= p.To_ice1 ? p.cap_land : (ts0 >= p.To_ice2 ? cap_open : ramp);
@@ -265,8 +328,9 @@ __device__ __forceinline__ float seaice(const GrebParams& p, float ts0,
 // q, cap_surf and becomes its new state; ta_c, q_c are the circulated Ta
 // and q.  A scenario step reads this step's corrections at tf[cp],
 // tof[cp], qf[cp] and returns the 9 step outputs in vals; a spin-up step
-// writes its corrections there.
-template <int KIND>
+// writes its corrections there.  Under SST_PLUS_ONE a scenario step first
+// sets an ocean cell's ts to tclim + 1 (core.scenario_step).
+template <int KIND, bool LEGACY>
 __device__ __forceinline__ void update_cell(const YearArgs& a,
                                             const GrebParams& p, int t,
                                             int pix, float s[5], float ta_c,
@@ -274,13 +338,17 @@ __device__ __forceinline__ void update_cell(const YearArgs& a,
                                             float* tof_m, float* qf_m,
                                             size_t cp, float vals[N_SUM]) {
   const size_t tp = (size_t)t * a.Y * a.X + pix;
-  const float ts = s[0], ta = s[1], to = s[2], q = s[3], cap = s[4];
+  float ts = s[0];
+  const float ta = s[1], to = s[2], q = s[3], cap = s[4];
   const float mld = a.mld[tp];
   const float z_topo = a.z_topo[pix], glacier = a.glacier[pix];
-  const Tend e = tendencies(p, ts, ta, to, q, a.tclim[tp], a.swet[tp],
-                            a.u[tp], a.v[tp], mld, a.mld_prev[tp], a.cld[tp],
-                            a.sw_solar[(size_t)t * a.Y + pix / a.X], z_topo,
-                            glacier, a.wz_air[pix], a.z_ocean[pix]);
+  if (KIND != FLUX && on<LEGACY>(p, SST_PLUS_ONE) && z_topo < 0.f)
+    ts = a.tclim[tp] + 1.f;
+  const Tend e = tendencies<LEGACY>(
+      p, ts, ta, to, q, a.tclim[tp], LEGACY ? a.qclim[tp] : 0.f, a.swet[tp],
+      a.u[tp], a.v[tp], mld, a.mld_prev[tp], a.cld[tp],
+      a.sw_solar[(size_t)t * a.Y + pix / a.X], z_topo, glacier,
+      a.wz_air[pix], a.z_ocean[pix]);
   const float dta_crcl = ta_c - ta;
   const float dq_crcl = q_c - q;
   const float dt = p.dt;
@@ -319,7 +387,7 @@ __device__ __forceinline__ void update_cell(const YearArgs& a,
   s[1] = ta0;
   s[2] = to0;
   s[3] = q0;
-  s[4] = seaice(p, ts0, cap, mld, z_topo, glacier);
+  s[4] = seaice<LEGACY>(p, ts0, cap, mld, z_topo, glacier);
 }
 
 // This step's 12 coefficients of one (field, cell) (fastcirc2.step_coeffs;
@@ -520,7 +588,9 @@ __device__ GrebParams member_params(GrebParams p, const YearArgs& a,
 
 // The n_years scenario years of member m = blockIdx.x with monthly means
 // (scenario_years at C = 1): a loop over n_years x T model steps in one
-// block.
+// block.  Under CIRCULATION_OFF a step skips the coefficients and the
+// substeps and takes Ta and q from the state.
+template <bool LEGACY>
 __device__ void run_years(const YearArgs& a, GrebParams p) {
   extern __shared__ float smem[];
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
@@ -546,6 +616,7 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
   for (int i = tid; i < 5 * YX; i += nt)
     s_state[i] = state_in[(i / YX) * MYX + i % YX];
   __syncthreads();
+  const bool circ = !on<LEGACY>(p, CIRCULATION_OFF);
 
   for (int y = 0; y < a.n_years; ++y) {
     p.co2 = a.co2_years[y];
@@ -554,24 +625,26 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
     float* mon_y = a.monthly + my * a.nmon * N_OUT * YX;
     for (int t = 0; t < a.T; ++t) {
       const size_t tyx = (size_t)t * YX;
-      // -- step start: copy (Ta, q) and assemble this step's coefficients
-      //    into the thread-private scratch
-      for (int c = tid; c < P; c += nt) {
-        const int f = c / YX;
-        const int pix = c - f * YX;
-        s_xa[c] = s_state[(f == 0 ? 1 : 3) * YX + pix];
-        step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + pix], a.v[tyx + pix],
-                    cf + c, P);
-      }
-      __syncthreads();
-
-      // -- circulation: nsub substeps, ping-ponging the two buffers
       float* xa = s_xa;
       float* xb = s_xb;
-      for (int s = 0; s < a.nsub; ++s) {
-        substep(a, cf, xa, xb, s_t1, s_da, s_dy);
+      if (circ) {
+        // -- step start: copy (Ta, q) and assemble this step's
+        //    coefficients into the thread-private scratch
+        for (int c = tid; c < P; c += nt) {
+          const int f = c / YX;
+          const int pix = c - f * YX;
+          s_xa[c] = s_state[(f == 0 ? 1 : 3) * YX + pix];
+          step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + pix],
+                      a.v[tyx + pix], cf + c, P);
+        }
         __syncthreads();
-        float* tmp = xa; xa = xb; xb = tmp;
+
+        // -- circulation: nsub substeps, ping-ponging the two buffers
+        for (int s = 0; s < a.nsub; ++s) {
+          substep(a, cf, xa, xb, s_t1, s_da, s_dy);
+          __syncthreads();
+          float* tmp = xa; xa = xb; xb = tmp;
+        }
       }
 
       // this step's month slot, zeroed at the month's first step
@@ -584,9 +657,9 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
         float s[5];
         for (int k = 0; k < 5; ++k) s[k] = s_state[k * YX + pix];
         float vals[N_SUM];
-        update_cell<SCEN_YEARS>(a, p, t, pix, s, xa[pix], xa[YX + pix],
-                                tf_m, tof_m, qf_m,
-                                (size_t)t * a.corr_step + pix, vals);
+        update_cell<SCEN_YEARS, LEGACY>(
+            a, p, t, pix, s, circ ? xa[pix] : s[1], circ ? xa[YX + pix] : s[3],
+            tf_m, tof_m, qf_m, (size_t)t * a.corr_step + pix, vals);
         // monthly means and annual sums in sequence, from 0 at the month's
         // / year's first step
         float* mp = mon_y + (size_t)mo * N_OUT * YX + pix;
@@ -706,8 +779,10 @@ __device__ __forceinline__ int member_index() {
 // (scenario_years).  The state stays in shared memory from one year to
 // the next; the annual sums restart from 0 at each year's first step and
 // go out at its last, the month's means restart at each month's first step
-// and go out at its last.
-template <int KIND>
+// and go out at its last.  Under CIRCULATION_OFF a step skips the
+// coefficients, the substeps and their barriers and takes Ta and q from
+// the state.
+template <int KIND, bool LEGACY>
 __device__ void run_cluster(const YearArgs& a, GrebParams p) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -785,87 +860,90 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 
   // step t of year y; each year's CO2 from the table (SCEN_YEARS)
   const int n_years = KIND == SCEN_YEARS ? a.n_years : 1;
+  const bool circ = !on<LEGACY>(p, CIRCULATION_OFF);
   for (int yt = 0; yt < n_years * a.T; ++yt) {
     const int y = yt / a.T, t = yt - y * a.T;
     if (KIND == SCEN_YEARS && t == 0) p.co2 = a.co2_years[y];
     const size_t tyx = (size_t)t * YX;
-    // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
-    //    halos, and this step's coefficients into shared memory
-    for (int l = tid; l < 2 * RX; l += nt) {
-      const int f = by_rx(l), li = l - f * RX;
-      const int i = by_x(li), j = li - i * X;
-      const int c = f * YX + r0 * X + li;
-      bufs.put(0, f, i, j, s_state[(f == 0 ? 1 : 3) * RX + li]);
-      step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + r0 * X + li],
-                  a.v[tyx + r0 * X + li], s_cf + l, 2 * RX);
-    }
-    cluster.sync();
-
-    // -- circulation: nsub substeps, buffer cur -> nxt
     int cur = 0;
-    for (int s = 0; s < a.nsub; ++s) {
-      const float* xa = bufs.mine + cur;
-      const int nxt = NXT - cur;
+    if (circ) {
+      // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
+      //    halos, and this step's coefficients into shared memory
       for (int l = tid; l < 2 * RX; l += nt) {
         const int f = by_rx(l), li = l - f * RX;
         const int i = by_x(li), j = li - i * X;
-        const int r = r0 + i;
-        const float* row = xa + f * BX + (i + HALO) * X;
-        Taps tp;
-        zonal_taps(row, j, X, tp);
-        tp.km2 = row[j - 2 * X];
-        tp.km1 = row[j - X];
-        tp.kp1 = row[j + X];
-        tp.kp2 = row[j + 2 * X];
-        float dd, da, dy;
-        increments(s_zd + l, 2 * RX, s_cf + l, 2 * RX, tp,
-                   r < a.bt || r >= Y - a.bb, dd, da, dy);
-        const int q = i < ntop ? i : (i >= bot0 ? ntop + (i - bot0) : -1);
-        if (q >= 0) {
-          // composite row: finished below, once the whole row's t1 is known
-          const int o = (f * kmax + q) * X + j;
-          s_t1[o] = tp.x0 + dd;
-          s_da[o] = da;
-          s_dy[o] = dy;
-        } else {
-          bufs.put(nxt, f, i, j, combine(tp.x0, s_wz[l], dd, da, dy));
-        }
+        const int c = f * YX + r0 * X + li;
+        bufs.put(0, f, i, j, s_state[(f == 0 ? 1 : 3) * RX + li]);
+        step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + r0 * X + li],
+                    a.v[tyx + r0 * X + li], s_cf + l, 2 * RX);
       }
-      if (kb) {   // block-uniform: only the blocks that hold a pole row
-        __syncthreads();
-        // dense pole composites t2[j] = sum_i t1[i] * pcomp[f, k, i, j]:
-        // the partial sums of COMP_BLOCK terms, 4 columns a thread, then
-        // their sum in order
-        for (int o = tid; o < 2 * kb * nb * X4; o += nt) {
-          const int fq = by_nbx4(o), rest = o - fq * nb * X4;
-          const int b = by_x4(rest), j = 4 * (rest - b * X4);
-          const int f = by_kb(fq);
-          const int sl = f * kmax + (fq - f * kb);
-          float ps[4];
-          comp_partial<4>(s_t1 + sl * X, s_pc + (size_t)sl * X * X + j,
-                          b * COMP_BLOCK, X, ps);
-          *reinterpret_cast<float4*>(s_part + (sl * nb + b) * X + j) =
-              make_float4(ps[0], ps[1], ps[2], ps[3]);
-        }
-        __syncthreads();
-        for (int o = tid; o < 2 * kb * X; o += nt) {
-          const int fq = by_x(o), j = o - fq * X;
-          const int f = by_kb(fq), q = fq - f * kb;
-          const int sl = f * kmax + q;
-          const float* part = s_part + sl * nb * X + j;
-          float t2 = part[0];
-          for (int b = 1; b < nb; ++b) t2 = t2 + part[b * X];
-          const int i = q < ntop ? q : bot0 + (q - ntop);
-          const int so = sl * X + j;
-          bufs.put(nxt, f, i, j,
-                   comp_combine(s_t1[so], t2, xa[f * BX + (i + HALO) * X + j],
-                                s_wz[f * RX + i * X + j], s_da[so], s_dy[so]));
-        }
-      }
-      // every block's rows and halos of buffer nxt are written, and no
-      // block reads buffer cur any more
       cluster.sync();
-      cur = nxt;
+
+      // -- circulation: nsub substeps, buffer cur -> nxt
+      for (int s = 0; s < a.nsub; ++s) {
+        const float* xa = bufs.mine + cur;
+        const int nxt = NXT - cur;
+        for (int l = tid; l < 2 * RX; l += nt) {
+          const int f = by_rx(l), li = l - f * RX;
+          const int i = by_x(li), j = li - i * X;
+          const int r = r0 + i;
+          const float* row = xa + f * BX + (i + HALO) * X;
+          Taps tp;
+          zonal_taps(row, j, X, tp);
+          tp.km2 = row[j - 2 * X];
+          tp.km1 = row[j - X];
+          tp.kp1 = row[j + X];
+          tp.kp2 = row[j + 2 * X];
+          float dd, da, dy;
+          increments(s_zd + l, 2 * RX, s_cf + l, 2 * RX, tp,
+                     r < a.bt || r >= Y - a.bb, dd, da, dy);
+          const int q = i < ntop ? i : (i >= bot0 ? ntop + (i - bot0) : -1);
+          if (q >= 0) {
+            // composite row: finished below, once the whole row's t1 is known
+            const int o = (f * kmax + q) * X + j;
+            s_t1[o] = tp.x0 + dd;
+            s_da[o] = da;
+            s_dy[o] = dy;
+          } else {
+            bufs.put(nxt, f, i, j, combine(tp.x0, s_wz[l], dd, da, dy));
+          }
+        }
+        if (kb) {   // block-uniform: only the blocks that hold a pole row
+          __syncthreads();
+          // dense pole composites t2[j] = sum_i t1[i] * pcomp[f, k, i, j]:
+          // the partial sums of COMP_BLOCK terms, 4 columns a thread, then
+          // their sum in order
+          for (int o = tid; o < 2 * kb * nb * X4; o += nt) {
+            const int fq = by_nbx4(o), rest = o - fq * nb * X4;
+            const int b = by_x4(rest), j = 4 * (rest - b * X4);
+            const int f = by_kb(fq);
+            const int sl = f * kmax + (fq - f * kb);
+            float ps[4];
+            comp_partial<4>(s_t1 + sl * X, s_pc + (size_t)sl * X * X + j,
+                            b * COMP_BLOCK, X, ps);
+            *reinterpret_cast<float4*>(s_part + (sl * nb + b) * X + j) =
+                make_float4(ps[0], ps[1], ps[2], ps[3]);
+          }
+          __syncthreads();
+          for (int o = tid; o < 2 * kb * X; o += nt) {
+            const int fq = by_x(o), j = o - fq * X;
+            const int f = by_kb(fq), q = fq - f * kb;
+            const int sl = f * kmax + q;
+            const float* part = s_part + sl * nb * X + j;
+            float t2 = part[0];
+            for (int b = 1; b < nb; ++b) t2 = t2 + part[b * X];
+            const int i = q < ntop ? q : bot0 + (q - ntop);
+            const int so = sl * X + j;
+            bufs.put(nxt, f, i, j,
+                     comp_combine(s_t1[so], t2, xa[f * BX + (i + HALO) * X + j],
+                                  s_wz[f * RX + i * X + j], s_da[so], s_dy[so]));
+          }
+        }
+        // every block's rows and halos of buffer nxt are written, and no
+        // block reads buffer cur any more
+        cluster.sync();
+        cur = nxt;
+      }
     }
 
     // this year's annual sums (m, y) and, SCEN_YEARS, this step's month:
@@ -891,8 +969,9 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
       float s[5];
       for (int k = 0; k < 5; ++k) s[k] = s_state[k * RX + li];
       float vals[N_SUM];
-      update_cell<KIND>(a, p, t, pix, s, xc[li], xc[BX + li], tf_m, tof_m,
-                        qf_m, (size_t)t * a.corr_step + pix, vals);
+      update_cell<KIND, LEGACY>(a, p, t, pix, s, circ ? xc[li] : s[1],
+                                circ ? xc[BX + li] : s[3], tf_m, tof_m, qf_m,
+                                (size_t)t * a.corr_step + pix, vals);
       if (KIND == SCEN) {   // one member
         float* out = a.outs + (size_t)t * N_OUT * YX + pix;
         for (int k = 0; k < N_OUT; ++k) out[k * YX] = vals[k];
@@ -924,27 +1003,54 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
   cluster.sync();
 }
 
+// Each kernel in two instantiations: the modern variant (flags 0) and, with
+// the suffix _legacy, the one that branches on the flags word.
 __global__ void __launch_bounds__(NT, 1) fluxcorr_year(YearArgs a, GrebParams p) {
-  run_cluster<FLUX>(a, p);
+  run_cluster<FLUX, false>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_year(YearArgs a, GrebParams p) {
-  run_cluster<SCEN>(a, p);
+  run_cluster<SCEN, false>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) fluxcorr_years(YearArgs a, GrebParams p,
                                                         PackCols c) {
-  run_cluster<FLUX>(a, member_params(p, a, c, member_index()));
+  run_cluster<FLUX, false>(a, member_params(p, a, c, member_index()));
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_years(YearArgs a, GrebParams p,
                                                         PackCols c) {
-  run_cluster<SCEN_YEARS>(a, member_params(p, a, c, member_index()));
+  run_cluster<SCEN_YEARS, false>(a, member_params(p, a, c, member_index()));
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_years_block(
     YearArgs a, GrebParams p, PackCols c) {
-  run_years(a, member_params(p, a, c, blockIdx.x));
+  run_years<false>(a, member_params(p, a, c, blockIdx.x));
+}
+
+__global__ void __launch_bounds__(NT, 1) fluxcorr_year_legacy(YearArgs a,
+                                                              GrebParams p) {
+  run_cluster<FLUX, true>(a, p);
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_year_legacy(YearArgs a,
+                                                              GrebParams p) {
+  run_cluster<SCEN, true>(a, p);
+}
+
+__global__ void __launch_bounds__(NT, 1) fluxcorr_years_legacy(
+    YearArgs a, GrebParams p, PackCols c) {
+  run_cluster<FLUX, true>(a, member_params(p, a, c, member_index()));
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_years_legacy(
+    YearArgs a, GrebParams p, PackCols c) {
+  run_cluster<SCEN_YEARS, true>(a, member_params(p, a, c, member_index()));
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_years_block_legacy(
+    YearArgs a, GrebParams p, PackCols c) {
+  run_years<true>(a, member_params(p, a, c, blockIdx.x));
 }
 
 // One block of NT threads per member (a.M blocks).
@@ -1013,25 +1119,47 @@ static int launch_cluster(Kernel kernel, const YearArgs& a,
   return (int)cudaGetLastError();
 }
 
+// A flags word with a bit not in Flag.
+static bool unknown_flags(const GrebParams& p) {
+  return (p.flags & ~KNOWN_FLAGS) != 0;
+}
+
 extern "C" {
 
+// Each launcher runs the modern instantiation at flags 0, the legacy one
+// otherwise, and refuses (GREB_ERR_FLAGS) a word with an unknown bit.
 int greb_fluxcorr_year(YearArgs a, GrebParams p, int C, void* stream) {
+  if (unknown_flags(p)) return GREB_ERR_FLAGS;
+  if (p.flags)
+    return launch_cluster(fluxcorr_year_legacy, a, p, C, FLUX, stream);
   return launch_cluster(fluxcorr_year, a, p, C, FLUX, stream);
 }
 
 int greb_scenario_year(YearArgs a, GrebParams p, int C, void* stream) {
+  if (unknown_flags(p)) return GREB_ERR_FLAGS;
+  if (p.flags)
+    return launch_cluster(scenario_year_legacy, a, p, C, SCEN, stream);
   return launch_cluster(scenario_year, a, p, C, SCEN, stream);
 }
 
 int greb_fluxcorr_years(YearArgs a, GrebParams p, PackCols c, int C,
                         void* stream) {
+  if (unknown_flags(p)) return GREB_ERR_FLAGS;
+  if (p.flags)
+    return launch_cluster(fluxcorr_years_legacy, a, p, C, FLUX, stream, c);
   return launch_cluster(fluxcorr_years, a, p, C, FLUX, stream, c);
 }
 
 // C = 1: the one-block body, one block per member
 int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, int C,
                         void* stream) {
-  if (C == 1) return launch(scenario_years_block, a, stream, p, c);
+  if (unknown_flags(p)) return GREB_ERR_FLAGS;
+  if (C == 1)
+    return p.flags ? launch(scenario_years_block_legacy, a, stream, p, c)
+                   : launch(scenario_years_block, a, stream, p, c);
+  if (p.flags)
+    return launch_cluster(scenario_years_legacy, a, p, C, SCEN_YEARS, stream,
+                          c);
   return launch_cluster(scenario_years, a, p, C, SCEN_YEARS, stream, c);
 }
 
@@ -1073,6 +1201,8 @@ const char* greb_error_string(int err) {
   if (err == GREB_ERR_NO_CLUSTER)
     return "cudaOccupancyMaxActiveClusters is 0: the card cannot schedule "
            "a cluster of this size with this shared memory";
+  if (err == GREB_ERR_FLAGS)
+    return "the legacy flags word has a bit the kernels do not know";
   return cudaGetErrorString((cudaError_t)err);
 }
 

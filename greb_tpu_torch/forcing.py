@@ -17,7 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .config import Numerics, PhysicsParams
+from .config import Experiment, Numerics, PhysicsParams
 
 F32 = np.float32
 
@@ -120,6 +120,28 @@ def synthetic_forcing(num: Numerics, device) -> ClimForcing:
     return forcing_from_arrays(
         make_synthetic_forcing(num.xdim, num.ydim, num.nstep_yr, num.ndays_yr),
         device)
+
+
+def apply_experiment(forcing: ClimForcing, params: PhysicsParams,
+                     exp: Experiment) -> ClimForcing:
+    """Static field overrides of the legacy log_exp switchboard
+    (src/greb.original.model.f90:162-166): flat topography, constant cloud
+    and vapour climatologies, a mixed layer of d_ocean everywhere."""
+    out = forcing
+    if exp.flat_topo:
+        z = out.z_topo
+        out = dataclasses.replace(
+            out, z_topo=torch.where(z > 1.0, torch.ones_like(z), z))
+    if exp.const_cloud:
+        out = dataclasses.replace(
+            out, cldclim=torch.full_like(out.cldclim, F32(0.7)))
+    if exp.const_vapor:
+        out = dataclasses.replace(
+            out, qclim=torch.full_like(out.qclim, F32(0.0052)))
+    if exp.no_deep_ocean_mld:
+        out = dataclasses.replace(
+            out, mldclim=torch.full_like(out.mldclim, params.d_ocean))
+    return out
 
 
 def build_derived(params: PhysicsParams, forcing: ClimForcing) -> Derived:

@@ -4,7 +4,10 @@
 One 12-hour step is a function ``(state, step_forcing) -> (state,
 outputs)``; a year is a Python loop over the 730 steps.  These eager year
 runners are the plain PyTorch versions of the two CUDA year kernels
-(ops/cuda/year_kernel.py), which run the same step body on the card.
+(ops/cuda/year_kernel.py), which run the same step body on the card.  The
+legacy ``log_exp`` switchboard reaches every function through ``exp``, as
+in the JAX package; the modes whose transport needs the strict stencils
+raise (``check_transport``).
 Monthly means are one (12, nstep) x (nstep, 5*y*x) product outside the
 year, as in the JAX package.
 """
@@ -17,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Numerics, PhysicsParams
+from ..config import Experiment, Numerics, PhysicsParams
 from ..forcing import ClimForcing, Corrections, Derived, ModelState
 from ..ops import fastcirc2 as fc2
 from ..ops import pointwise as pw
@@ -100,41 +103,67 @@ class ModelData:
     glacier: torch.Tensor
 
 
+# where the transport of the legacy modes that need the strict stencils
+# comes (log_exp 7, 8, 16 and the strict circulation)
+STRICT_TRANSPORT_SLICE = "the strict-transport slice (ROADMAP Queue 1 item 2)"
+
+
+def check_transport(exp: Experiment) -> None:
+    """Raise for the legacy modes that transport Ta or q with the strict
+    term-by-term stencils (log_exp 7 and 16: Ta only; 8: q by diffusion
+    alone), which the port does not have."""
+    if exp.vapor_circulation_off or exp.vapor_diffusion_only:
+        raise NotImplementedError(
+            f"legacy log_exp={exp.log_exp} transports Ta and q with the "
+            f"strict stencils: they come with {STRICT_TRANSPORT_SLICE}")
+
+
 def compute_tendencies(state: ModelState, fx: StepForcing, co2,
-                       md: ModelData, num: Numerics, fold: Fold) -> Tendencies:
+                       md: ModelData, num: Numerics, fold: Fold,
+                       exp: Experiment = Experiment()) -> Tendencies:
     """Reference: tendencies, src/greb.f90:277-308, with the circulation
-    of (Ta, q) through the coefficient-folded fold (ops/fastcirc2.py)."""
+    of (Ta, q) through the coefficient-folded fold (ops/fastcirc2.py), or
+    none under the legacy ``circulation_off``."""
+    check_transport(exp)
     p, d = md.params, md.derived
-    swr = pw.shortwave(state.ts, fx.cld, fx.sw_solar, md.z_topo, md.glacier, p)
+    swr = pw.shortwave(state.ts, fx.cld, fx.sw_solar, md.z_topo, md.glacier,
+                       p, exp)
     lwr = pw.longwave(state.ts, state.ta, state.q, co2, fx.cld, fx.tclim,
-                      d.wz_air, p)
+                      fx.qclim, d.wz_air, p, exp)
     q_sens = pw.sensible_heat(state.ts, state.ta, p)
     hyd = pw.hydrology(state.ts, state.q, fx.u, fx.v, fx.swet, md.z_topo,
-                       d.wz_air, p)
+                       d.wz_air, p, exp)
 
-    plan, const = fold
-    x2 = torch.stack([state.ta, state.q], dim=-3)
-    cf_t = fc2.step_coeffs(fx.u, fx.v, const, plan)
-    dx2 = fc2.circulation(x2, cf_t, const, plan, num.nsub_crcl)
+    if exp.circulation_off:                      # legacy log_exp <= 4
+        dta_crcl = dq_crcl = torch.zeros_like(state.ta)
+    else:
+        plan, const = fold
+        x2 = torch.stack([state.ta, state.q], dim=-3)
+        cf_t = fc2.step_coeffs(fx.u, fx.v, const, plan)
+        dx2 = fc2.circulation(x2, cf_t, const, plan, num.nsub_crcl)
+        dta_crcl, dq_crcl = dx2[..., 0, :, :], dx2[..., 1, :, :]
 
     doc = pw.deep_ocean(state.ts, state.to, fx.mld, fx.mld_prev, md.z_topo,
-                        F32(num.dt), d, p)
+                        F32(num.dt), d, p, exp)
     return Tendencies(sw=swr.sw, albedo=swr.albedo, lw_surf=lwr.lw_surf,
                       lwair_up=lwr.lwair_up, lwair_down=lwr.lwair_down,
                       em=lwr.em, q_sens=q_sens, q_lat=hyd.q_lat,
                       q_lat_air=hyd.q_lat_air, dq_eva=hyd.dq_eva,
-                      dq_rain=hyd.dq_rain, dta_crcl=dx2[..., 0, :, :],
-                      dq_crcl=dx2[..., 1, :, :], dt_ocean=doc.dt_ocean,
-                      dto=doc.dto)
+                      dq_rain=hyd.dq_rain, dta_crcl=dta_crcl,
+                      dq_crcl=dq_crcl, dt_ocean=doc.dt_ocean, dto=doc.dto)
 
 
 # ---------------------------------------------------------------------------
 # Scenario step (reference: time_loop, src/greb.f90:239-274)
 # ---------------------------------------------------------------------------
 def scenario_step(state: ModelState, fx: StepForcing, corr_t, co2,
-                  md: ModelData, num: Numerics,
-                  fold: Fold) -> Tuple[ModelState, StepOutputs]:
-    ten = compute_tendencies(state, fx, co2, md, num, fold)
+                  md: ModelData, num: Numerics, fold: Fold,
+                  exp: Experiment = Experiment()
+                  ) -> Tuple[ModelState, StepOutputs]:
+    if exp.sst_plus_one:  # legacy exp 14-16 (greb.original.model.f90:225-226)
+        state = state.replace(ts=torch.where(md.z_topo < 0.0,
+                                             fx.tclim + 1.0, state.ts))
+    ten = compute_tendencies(state, fx, co2, md, num, fold, exp)
     tf_t, tof_t, qf_t = corr_t
     dt = F32(num.dt)
 
@@ -149,7 +178,7 @@ def scenario_step(state: ModelState, fx: StepForcing, corr_t, co2,
     dq = torch.where(dq <= -state.q, F32(-0.9) * state.q, dq)  # positivity (:265)
     q0 = state.q + dq
     cap = pw.seaice_capacity(ts0, state.cap_surf, fx.mld, md.z_topo,
-                             md.glacier, md.derived, md.params)
+                             md.glacier, md.derived, md.params, exp)
     new_state = ModelState(ts=ts0, ta=ta0, to=to0, q=q0, cap_surf=cap)
     out = StepOutputs(ts=ts0, ta=ta0, to=to0, q=q0, albedo=ten.albedo,
                       sw=ten.sw, lw_surf=ten.lw_surf, q_lat=ten.q_lat,
@@ -161,8 +190,8 @@ def scenario_step(state: ModelState, fx: StepForcing, corr_t, co2,
 # Flux-correction step (reference: qflux_correction, src/greb.f90:311-364)
 # ---------------------------------------------------------------------------
 def fluxcorr_step(state: ModelState, fx: StepForcing, co2, md: ModelData,
-                  num: Numerics, fold: Fold):
-    ten = compute_tendencies(state, fx, co2, md, num, fold)
+                  num: Numerics, fold: Fold, exp: Experiment = Experiment()):
+    ten = compute_tendencies(state, fx, co2, md, num, fold, exp)
     dt = F32(num.dt)
     cap = state.cap_surf
     dts = dt * (ten.sw + ten.lw_surf - ten.lwair_down + ten.q_lat
@@ -185,7 +214,7 @@ def fluxcorr_step(state: ModelState, fx: StepForcing, co2, md: ModelData,
     q0 = state.q + dq + ten.dq_crcl + qf
 
     cap_new = pw.seaice_capacity(ts0, cap, fx.mld, md.z_topo, md.glacier,
-                                 md.derived, md.params)
+                                 md.derived, md.params, exp)
     new_state = ModelState(ts=ts0, ta=ta0, to=to0, q=q0, cap_surf=cap_new)
     return new_state, (tf, tof, qf)
 
@@ -194,21 +223,24 @@ def fluxcorr_step(state: ModelState, fx: StepForcing, co2, md: ModelData,
 # Eager year runners (the plain versions of the CUDA year kernels)
 # ---------------------------------------------------------------------------
 def run_year_fluxcorr(state: ModelState, sfx: StepForcing, co2,
-                      md: ModelData, num: Numerics, fold: Fold):
+                      md: ModelData, num: Numerics, fold: Fold,
+                      exp: Experiment = Experiment()):
     """One spin-up year; returns the end state and the nstep-slot
     correction tables (each year overwrites them; src/greb.f90:325-362)."""
     nstep = sfx.tclim.shape[0]
     tabs = torch.empty((3, nstep) + tuple(state.ts.shape),
                        dtype=torch.float32, device=state.ts.device)
     for t in range(nstep):
-        state, corr_t = fluxcorr_step(state, sfx.at(t), co2, md, num, fold)
+        state, corr_t = fluxcorr_step(state, sfx.at(t), co2, md, num, fold,
+                                      exp)
         for i in range(3):
             tabs[i, t] = corr_t[i]
     return state, Corrections(tf=tabs[0], tof=tabs[1], qf=tabs[2])
 
 
 def run_year_scenario(state: ModelState, sfx: StepForcing, corr: Corrections,
-                      co2, md: ModelData, num: Numerics, fold: Fold):
+                      co2, md: ModelData, num: Numerics, fold: Fold,
+                      exp: Experiment = Experiment()):
     """One scenario year.  Returns (state, outs (nstep, 5, y, x) — the 5
     written variables per step — and asum (9, y, x), the annual sums of
     all StepOutputs fields in sequential float32, src/greb.f90:944-948)."""
@@ -221,7 +253,7 @@ def run_year_scenario(state: ModelState, sfx: StepForcing, corr: Corrections,
     for t in range(nstep):
         corr_t = (corr.tf[t], corr.tof[t], corr.qf[t])
         state, out = scenario_step(state, sfx.at(t), corr_t, co2, md, num,
-                                   fold)
+                                   fold, exp)
         outs[t] = torch.stack(out[:N_OUT])
         asum += torch.stack(out)
     return state, outs, asum
@@ -261,7 +293,25 @@ def year_diag(mean_fields: StepOutputs, num: Numerics) -> YearDiag:
     return YearDiag(global_mean_ts=gm, point_ts=pt, mean_fields=mean_fields)
 
 
-def co2_series_for_run(num: Numerics, co2_ppm_series: np.ndarray) -> np.ndarray:
-    """Per-year CO2 of the scenario phase: the namelist series
-    (src/greb.f90:918-926; modern variant)."""
-    return np.asarray(co2_ppm_series, F32)[: num.time_scnr]
+def co2_series_for_run(num: Numerics, exp: Experiment,
+                       co2_ppm_series: np.ndarray) -> np.ndarray:
+    """Per-year CO2 of the scenario phase.
+
+    Modern variant: the namelist series (src/greb.f90:918-926).  Legacy
+    variant: constant 680, CO2_ctrl under SST+1, or the A1B ramp for
+    log_exp 12/13 (src/greb.original.model.f90:939-953)."""
+    if not exp.active:
+        return np.asarray(co2_ppm_series, F32)[: num.time_scnr]
+    if exp.sst_plus_one:
+        return np.full(num.time_scnr, exp.co2_ctrl, F32)
+    if exp.a1b_co2:
+        y = (num.year0 + np.arange(num.time_scnr)).astype(F32)
+        co2 = np.full(num.time_scnr, 680.0, F32)
+        co2 = np.where(y <= 2000, F32(310.0) + F32(60.0 / 50.0) * (y - 1950),
+                       co2)
+        co2 = np.where((y > 2000) & (y <= 2050),
+                       F32(370.0) + F32(150.0 / 50.0) * (y - 2000), co2)
+        co2 = np.where((y > 2050) & (y <= 2100),
+                       F32(520.0) + F32(180.0 / 50.0) * (y - 2050), co2)
+        return co2.astype(F32)
+    return np.full(num.time_scnr, 680.0, F32)

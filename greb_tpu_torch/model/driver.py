@@ -10,6 +10,12 @@ stream and prints one console line per year.  ``run_scenario(...,
 years_per_call=n)`` instead runs blocks of n years through the multi-year
 kernel (ops/cuda/multiyear.py), which adds up the monthly means itself;
 ``run_members`` chains the member-batched spin-up and scenario kernels.
+
+The legacy ``log_exp`` switchboard (``cfg.experiment``) runs in every
+kernel: ``apply_experiment`` sets the static field overrides, the spin-up
+and control phases run at the experiment's CO2_ctrl, the scenario's CO2
+follows ``core.co2_series_for_run``, and ``run_control`` is the original
+variant's control phase (reference src/greb.original.model.f90:199-231).
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ import torch
 
 from .. import resolve_device
 from ..config import GrebConfig, PhysicsParams
-from ..forcing import (ClimForcing, Corrections, ModelState, build_derived,
-                       initial_state, load_forcing, synthetic_forcing)
+from ..forcing import (ClimForcing, Corrections, ModelState,
+                       apply_experiment, build_derived, initial_state,
+                       load_forcing, synthetic_forcing)
 from ..grid import make_grid, month_average_matrix
 from ..ops import fastcirc2 as fc2
 from ..ops import stencils as stc
@@ -40,14 +47,13 @@ class GREB:
                  forcing: Optional[ClimForcing] = None,
                  input_dir: Optional[str] = None, verbose: bool = True,
                  device=None):
-        if cfg.experiment.active:
-            raise NotImplementedError(
-                f"legacy log_exp={cfg.experiment.log_exp}: the legacy "
-                f"switchboard comes with ROADMAP Queue 1 item 8")
+        # the legacy modes that transport with the strict stencils (log_exp
+        # 7, 8, 16) and the strict circulation raise before anything runs
+        core.check_transport(cfg.experiment)
         if not cfg.fast_circulation:
             raise NotImplementedError(
-                "strict circulation: the strict stencils come with ROADMAP "
-                "Queue 1 item 8")
+                f"strict circulation: the strict stencils come with "
+                f"{core.STRICT_TRANSPORT_SLICE}")
         if cfg.fastcirc_version != 2:
             raise NotImplementedError(
                 f"fastcirc_version={cfg.fastcirc_version}: the port runs the "
@@ -56,6 +62,7 @@ class GREB:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.num = cfg.numerics
+        self.exp = cfg.experiment
         self.params = params if params is not None else PhysicsParams.default()
         self.verbose = verbose and cfg.diagnostics.console
 
@@ -63,6 +70,7 @@ class GREB:
             forcing = (load_forcing(input_dir, self.num, self.device)
                        if input_dir else
                        synthetic_forcing(self.num, self.device))
+        forcing = apply_experiment(forcing, self.params, self.exp)
         self.forcing = forcing
 
         uabs = forcing.uclim.abs().cpu().numpy()
@@ -86,7 +94,8 @@ class GREB:
             # before any year runs
             yk.check_supported(self.fold[0])
         self.year_data = yk.YearData(md=self.md, sfx=self.sfx,
-                                     fold=self.fold, num=self.num)
+                                     fold=self.fold, num=self.num,
+                                     exp=self.exp)
         self.month_mat = torch.as_tensor(
             month_average_matrix(self.num.jday_mon, self.num.ndt_days),
             device=self.device)
@@ -104,6 +113,17 @@ class GREB:
     def initial_state(self) -> ModelState:
         return initial_state(self.params, self.forcing, self.derived)
 
+    def _spinup_co2(self) -> np.float32:
+        """The spin-up's CO2: CO2_ctrl under the legacy switchboard
+        (greb.original.model.f90:178-179), else the namelist's co2_flux."""
+        return F32(self.exp.co2_ctrl if self.exp.active
+                   else self.cfg.co2.co2_flux)
+
+    def _co2_series(self) -> np.ndarray:
+        num = self.num
+        return core.co2_series_for_run(num, self.exp,
+                                       self.cfg.co2.series(num.time_scnr))
+
     def flux_correction(self, state: Optional[ModelState] = None,
                         co2: Optional[float] = None
                         ) -> Tuple[ModelState, Corrections]:
@@ -112,7 +132,7 @@ class GREB:
         (whose cap_surf carries into the scenario) and the tables."""
         num = self.num
         state = state if state is not None else self.initial_state()
-        co2v = F32(co2 if co2 is not None else self.cfg.co2.co2_flux)
+        co2v = F32(co2) if co2 is not None else self._spinup_co2()
         if self.verbose:
             print(f"% FLUX CORRECTION RUN; years = {num.time_flux} "
                   f"co2 = {float(co2v)}")
@@ -129,7 +149,9 @@ class GREB:
                      output_path: Optional[str] = None,
                      collect_monthly: bool = True,
                      years_per_call: int = 1,
-                     first_year: int = 0):
+                     first_year: int = 0,
+                     output_start_record: Optional[int] = None,
+                     output_truncate: bool = True):
         """Scenario phase (reference src/greb.f90:223-234).
 
         One year per kernel call, or with ``years_per_call > 1`` blocks of
@@ -141,13 +163,15 @@ class GREB:
         skips the per-year path's monthly means, diagnostics and console
         lines (the multi-year path always collects them).  ``first_year``
         numbers the console lines of a run continued in chunks.
+        ``output_start_record`` / ``output_truncate`` place the output
+        stream (io/binio.OutputWriter; ``run_control`` overwrites the
+        control file from its first record and keeps its tail).
 
         Returns (state, monthly (years,12,5,y,x) | None, diag list)."""
         num = self.num
         years = years if years is not None else num.time_scnr
         if co2_series is None:
-            co2_series = core.co2_series_for_run(
-                num, self.cfg.co2.series(num.time_scnr))
+            co2_series = self._co2_series()
         co2_series = np.asarray(co2_series, F32)
         if len(co2_series) < years:
             raise ValueError(f"co2 series has {len(co2_series)} years, "
@@ -159,7 +183,9 @@ class GREB:
         writer = None
         if output_path:
             from ..io.binio import OutputWriter
-            writer = OutputWriter(output_path, num.xdim, num.ydim)
+            writer = OutputWriter(output_path, num.xdim, num.ydim,
+                                  start_record=output_start_record,
+                                  truncate=output_truncate)
         try:
             if years_per_call > 1:
                 return self._run_scenario_multiyear(
@@ -288,8 +314,7 @@ class GREB:
         num, yd = self.num, self.year_data
         years = years if years is not None else num.time_scnr
         if co2_series is None:
-            co2_series = core.co2_series_for_run(
-                num, self.cfg.co2.series(num.time_scnr))
+            co2_series = self._co2_series()
         co2_series = np.asarray(co2_series, F32)[:years]
         ppack = my.pack_member_params(members, self.device)
         state5 = torch.stack([
@@ -301,7 +326,7 @@ class GREB:
                                device=self.device)
         for _ in range(num.time_flux):
             state5, corrpack = my.fluxcorr_years(
-                state5, ppack, F32(self.cfg.co2.co2_flux), yd)
+                state5, ppack, self._spinup_co2(), yd)
         co2_dev = torch.as_tensor(co2_series, device=self.device)
         monthly, asums = [], []
         for done in range(0, years, years_per_call):
@@ -331,3 +356,21 @@ class GREB:
             print(f"% done: {tot} sim-years in {dt:.2f}s "
                   f"({tot / dt:.1f} sim-yr/s)")
         return state, corr, monthly, diags
+
+    def run_control(self, corr: Corrections,
+                    state_fc: Optional[ModelState] = None,
+                    output_path: Optional[str] = None):
+        """The legacy variant's control phase: ``time_ctrl`` years at
+        CO2_ctrl from the spin-up end state (greb.original.model.f90:208-215;
+        qflux_correction mutated Ts_ini in place at :201).
+
+        The reference rewinds the control unit to record 1 (irec=0 at :211)
+        after the nstep_yr-record TF_correct dump (:204-206) without
+        truncating it: the control run's monthly records overwrite the
+        dump's head, and its tail survives."""
+        num = self.num
+        co2 = np.full(max(num.time_ctrl, 1), self.exp.co2_ctrl, F32)
+        return self.run_scenario(corr, years=num.time_ctrl, co2_series=co2,
+                                 output_path=output_path, state=state_fc,
+                                 output_start_record=0,
+                                 output_truncate=False)

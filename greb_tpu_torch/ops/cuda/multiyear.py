@@ -19,7 +19,9 @@ the member count (``default_cluster``).  On a CUDA tensor each wrapper
 launches its kernel or
 raises; on a CPU tensor it runs its plain PyTorch version, ``*_plain``,
 which loops over the members and steps through ``core.fluxcorr_step`` /
-``core.scenario_step`` in the kernel's order of accumulation.
+``core.scenario_step`` in the kernel's order of accumulation.  The legacy
+switchboard reaches both through ``YearData.exp``, as in the single-run
+kernels.
 
 Layouts are the JAX package's: state (5, M, Y, X), member pack
 (M, 1, N_PPACK), corrections (M, T, 3, Y, X), monthly means
@@ -228,7 +230,7 @@ def fluxcorr_years_plain(state5: torch.Tensor, ppack: torch.Tensor, co2,
     for m, row in enumerate(rows):
         s, c = core.run_year_fluxcorr(ModelState.unstack(state5[:, m]),
                                       yd.sfx, F32(co2), _member_data(row, yd),
-                                      yd.num, yd.fold)
+                                      yd.num, yd.fold, yd.exp)
         out[:, m] = s.stack()
         corrs.append(torch.stack([c.tf, c.tof, c.qf], dim=1))
     return out, torch.stack(corrs)
@@ -262,7 +264,7 @@ def scenario_years_plain(state5: torch.Tensor, ppack: torch.Tensor,
             for t in range(num.nstep_yr):
                 state, o = core.scenario_step(
                     state, yd.sfx.at(t), tuple(corr[t].unbind(0)), co2, md,
-                    num, yd.fold)
+                    num, yd.fold, yd.exp)
                 slot = monthly[m, y * nmon + mon_idx[t]]
                 if t == 0 or mon_idx[t - 1] != mon_idx[t]:
                     slot.zero_()
@@ -282,6 +284,7 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     (M, T, 3, Y, X)).  On the card each member runs on a cluster of
     ``cluster`` blocks (default: ``default_cluster``)."""
     M = _check(state5, ppack, yd)
+    params = yk._params(yd, co2)    # refuses the strict modes, on CPU too
     if cluster is not None:
         yk._check_cluster(cluster, "fluxcorr")
     dev = state5.device
@@ -300,7 +303,7 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     args.tof = args.tf + 4 * Y * X
     args.qf = args.tf + 8 * Y * X
     # dt and CO2 from the host; the pack overrides the physics per member
-    yk._launch("greb_fluxcorr_years", args, yk._params(yd, co2), dev,
+    yk._launch("greb_fluxcorr_years", args, params, dev,
                _pack_cols(), ctypes.c_int(cluster))
     fluxcorr_years.launches += 1
     return state_out, corr
@@ -315,6 +318,9 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     the card each member runs on a cluster of ``cluster`` blocks, or with
     ``cluster=1`` on one block (default: ``default_cluster``)."""
     M = _check(state5, ppack, yd)
+    # each year's CO2 comes from the table; refuses the strict modes, on
+    # CPU too
+    params = yk._params(yd, 0.0)
     if cluster is not None:
         yk._check_cluster(cluster, "scenario_years")
     dev = state5.device
@@ -352,8 +358,8 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
         monthly=(monthly, None), asum=(asum, None), **scratch)
     args.tof = args.tf + 4 * Y * X
     args.qf = args.tf + 8 * Y * X
-    # each year's CO2 comes from the table; the pack overrides the physics
-    yk._launch("greb_scenario_years", args, yk._params(yd, 0.0), dev,
+    # the pack overrides the physics per member
+    yk._launch("greb_scenario_years", args, params, dev,
                _pack_cols(), ctypes.c_int(cluster))
     scenario_years.launches += 1
     return state_out, monthly, asum

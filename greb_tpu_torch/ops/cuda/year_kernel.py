@@ -24,6 +24,13 @@ size is taken.
 ``year_work`` gives the bytes and operations of a year, for the
 whole-card bound.
 
+The legacy ``log_exp`` switchboard (``YearData.exp``) reaches every kernel
+as one flags word in the physics parameters (``experiment_flags``, bits
+``FLAGS``); a non-zero word launches the kernel's legacy instantiation,
+whose step body branches on it uniformly, and a zero word the modern one,
+compiled without the branches.  The modes that transport with the strict
+stencils raise, on the CPU too.
+
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
@@ -35,7 +42,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ...config import Numerics
+from ...config import Experiment, Numerics
 from ...forcing import Corrections, ModelState
 from ...model import core
 from .. import fastcirc2 as fc2
@@ -70,17 +77,32 @@ MAX_THREADS = 1024
 # parts of a cluster block's shared memory, in the kernel's layout order
 CLUSTER_PARTS = ("state", "transported", "coeffs", "zd", "wz", "asum",
                  "monthly", "pcomp", "comp_rows", "comp_partials")
+# the bits of the switchboard's flags word (csrc/year_kernel.cu enum Flag),
+# each an Experiment property; a launcher refuses a word with a bit it does
+# not know (GREB_ERR_FLAGS)
+FLAGS = ("fixed_albedo", "simple_seaice", "hydro_off", "circulation_off",
+         "deep_ocean_off", "linear_vapor_lw", "sst_plus_one")
+
+
+def experiment_flags(exp: Experiment) -> int:
+    """The kernels' flags word of ``exp`` (0 for the modern variant).
+    Raises NotImplementedError for the modes that transport with the strict
+    stencils (``core.check_transport``)."""
+    core.check_transport(exp)
+    return sum(1 << i for i, name in enumerate(FLAGS) if getattr(exp, name))
 
 
 @dataclass
 class YearData:
-    """Everything constant across the year calls of a run; ``cache`` keeps
-    the member wrappers' copies of constants (month maps on the device,
-    the member pack on the host), made once per run."""
+    """Everything constant across the year calls of a run, with the legacy
+    switchboard ``exp``; ``cache`` keeps the member wrappers' copies of
+    constants (month maps on the device, the member pack on the host), made
+    once per run."""
     md: core.ModelData
     sfx: core.StepForcing
     fold: core.Fold
     num: Numerics
+    exp: Experiment = field(default_factory=Experiment)
     cache: Dict = field(default_factory=dict, repr=False)
 
 
@@ -167,17 +189,17 @@ def smem_bytes(plan: fc2.FastPlan) -> int:
 def check_plan(plan: fc2.FastPlan) -> None:
     """Raise for what no year kernel runs: explicit segment iterations,
     packed composites, sequential zonal splitting (all refined-grid plans;
-    ROADMAP Queue 1 item 10)."""
+    ROADMAP Queue 1 item 3)."""
     if plan.diff_segs or plan.adv_segs:
         raise NotImplementedError(
             f"year kernels: explicit polar segments (diff_segs="
             f"{plan.diff_segs}, adv_segs={plan.adv_segs}) come with the "
-            f"refined-grid slice (ROADMAP Queue 1 item 10)")
+            f"refined-grid slice (ROADMAP Queue 1 item 3)")
     if plan.comp_mode not in ("dense", "none") or plan.seq_zonal:
         raise NotImplementedError(
             f"year kernels: comp_mode={plan.comp_mode!r} / seq_zonal="
             f"{plan.seq_zonal} come with the refined-grid slice (ROADMAP "
-            f"Queue 1 item 10)")
+            f"Queue 1 item 3)")
 
 
 def check_supported(plan: fc2.FastPlan) -> None:
@@ -229,13 +251,13 @@ def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool):
 def fluxcorr_year_plain(state: ModelState, co2,
                         yd: YearData) -> Tuple[ModelState, Corrections]:
     return core.run_year_fluxcorr(state, yd.sfx, F32(co2), yd.md, yd.num,
-                                  yd.fold)
+                                  yd.fold, yd.exp)
 
 
 def scenario_year_plain(state: ModelState, corr: Corrections, co2,
                         yd: YearData):
     return core.run_year_scenario(state, yd.sfx, corr, F32(co2), yd.md,
-                                  yd.num, yd.fold)
+                                  yd.num, yd.fold, yd.exp)
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +279,8 @@ class _Params(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_float) for n in _PARAM_NAMES]
                 + [("p_emi", ctypes.c_float * 10)]
                 + [(n, ctypes.c_float) for n in
-                   ("cap_ocean", "cap_land", "cap_air", "dt", "co2")])
+                   ("cap_ocean", "cap_land", "cap_air", "dt", "co2")]
+                + [("flags", ctypes.c_int)])
 
 
 class _Args(ctypes.Structure):
@@ -331,6 +354,7 @@ def _params(yd: YearData, co2) -> _Params:
     out.p_emi[:] = [float(v) for v in np.asarray(p.p_emi, F32)]
     out.cap_ocean, out.cap_land = float(d.cap_ocean), float(d.cap_land)
     out.cap_air, out.dt, out.co2 = float(d.cap_air), float(yd.num.dt), float(F32(co2))
+    out.flags = experiment_flags(yd.exp)
     return out
 
 
@@ -420,6 +444,7 @@ def fluxcorr_year(state: ModelState, co2, yd: YearData,
     """One spin-up year: (end state, correction tables).  On the card the
     year runs on a cluster of ``cluster`` blocks."""
     _check_cluster(cluster, "fluxcorr")
+    params = _params(yd, co2)       # refuses the strict modes, on CPU too
     dev = _check_device(state)
     if dev.type == "cpu":
         return fluxcorr_year_plain(state, co2, yd)
@@ -430,7 +455,7 @@ def fluxcorr_year(state: ModelState, co2, yd: YearData,
     tabs = torch.empty((3, T, Y, X), dtype=torch.float32, device=dev)
     args = _args(yd, state5, state_out=(state_out, None),
                  tf=(tabs[0], None), tof=(tabs[1], None), qf=(tabs[2], None))
-    _launch("greb_fluxcorr_year", args, _params(yd, co2), dev,
+    _launch("greb_fluxcorr_year", args, params, dev,
             ctypes.c_int(cluster))
     fluxcorr_year.launches += 1
     return ModelState.unstack(state_out), Corrections(*tabs.unbind(0))
@@ -441,6 +466,7 @@ def scenario_year(state: ModelState, corr: Corrections, co2, yd: YearData,
     """One scenario year: (end state, outs (T, 5, Y, X), asum (9, Y, X)).
     On the card the year runs on a cluster of ``cluster`` blocks."""
     _check_cluster(cluster, "scenario")
+    params = _params(yd, co2)       # refuses the strict modes, on CPU too
     dev = _check_device(state)
     if dev.type == "cpu":
         return scenario_year_plain(state, corr, co2, yd)
@@ -454,7 +480,7 @@ def scenario_year(state: ModelState, corr: Corrections, co2, yd: YearData,
                  tf=(corr.tf, (T, Y, X)), tof=(corr.tof, (T, Y, X)),
                  qf=(corr.qf, (T, Y, X)), outs=(outs, None),
                  asum=(asum, None))
-    _launch("greb_scenario_year", args, _params(yd, co2), dev,
+    _launch("greb_scenario_year", args, params, dev,
             ctypes.c_int(cluster))
     scenario_year.launches += 1
     return ModelState.unstack(state_out), outs, asum

@@ -3,8 +3,8 @@
 Pure float32 functions of state slices, forcing slices and params; each
 names the reference subroutine it reproduces.  The float32 operation order
 follows the JAX package, and the CUDA step body (csrc/year_kernel.cu)
-repeats it.  Only the modern variant is ported: the legacy ``log_exp``
-overrides are not.
+repeats it.  The legacy ``log_exp`` overrides sit behind ``exp`` exactly as
+in the JAX package (the default ``Experiment()`` is the modern variant).
 """
 from __future__ import annotations
 
@@ -13,10 +13,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import PhysicsParams
+from ..config import Experiment, PhysicsParams
 from ..forcing import Derived
 
 F32 = np.float32
+
+# the linearised vapour feedback's coefficient 0.022 / (0.15 * 24) (legacy
+# log_exp 11, greb.original.model.f90:430), rounded once to float32 as the
+# JAX package's weak-typed Python float is
+LINEAR_VAPOR_LW_C = F32(0.022 / (0.15 * 24.0))
 
 
 def div(a: torch.Tensor, s) -> torch.Tensor:
@@ -32,7 +37,7 @@ class SWResult(NamedTuple):
 
 
 def shortwave(ts, cld_t, sw_solar_t, z_topo, glacier,
-              p: PhysicsParams) -> SWResult:
+              p: PhysicsParams, exp: Experiment = Experiment()) -> SWResult:
     """SW radiation with temperature-dependent ice/snow albedo.
     Reference: SWradiation, src/greb.f90:367-403.  ``sw_solar_t`` is the
     per-latitude insolation, (..., y) or (..., y, 1)."""
@@ -47,6 +52,8 @@ def shortwave(ts, cld_t, sw_solar_t, z_topo, glacier,
     a_surf = torch.where(land, ramp(p.Tl_ice1, p.Tl_ice2),
                          ramp(p.To_ice1, p.To_ice2))
     a_surf = torch.where(glacier > 0.5, p.a_no_ice + p.da_ice, a_surf)
+    if exp.fixed_albedo:  # legacy log_exp <= 5 (greb.original.model.f90:394)
+        a_surf = torch.full_like(a_surf, p.a_no_ice)
     albedo = a_surf + a_atmos - a_surf * a_atmos
     col = (sw_solar_t if sw_solar_t.ndim and sw_solar_t.shape[-1] == 1
            else sw_solar_t[..., :, None])
@@ -67,19 +74,23 @@ def _pow4(t):
     return t2 * t2
 
 
-def longwave(ts, ta, q, co2, cld_t, tclim_t, wz_air,
-             p: PhysicsParams) -> LWResult:
+def longwave(ts, ta, q, co2, cld_t, tclim_t, qclim_t, wz_air,
+             p: PhysicsParams, exp: Experiment = Experiment()) -> LWResult:
     """Empirical log-law greenhouse scheme.
     Reference: LWradiation, src/greb.f90:407-434; dTrad = -0.16*Tclim - 5
     (src/greb.f90:176) from the climatology slice."""
     pe = p.p_emi
     e_co2 = wz_air * co2
     e_vapor = wz_air * p.r_qviwv * q
+    if exp.linear_vapor_lw:  # legacy log_exp == 11 (:423)
+        e_vapor = wz_air * p.r_qviwv * qclim_t
     e_cloud = cld_t
     em = (pe[3] * torch.log(pe[0] * e_co2 + pe[1] * e_vapor + pe[2]) + pe[6]
           + pe[4] * torch.log(pe[0] * e_co2 + pe[2])
           + pe[5] * torch.log(pe[1] * e_vapor + pe[2]))
     em = div(pe[7] - e_cloud, pe[8]) * (em - pe[9]) + pe[9]
+    if exp.linear_vapor_lw:  # legacy log_exp == 11 (:430)
+        em = em + F32(LINEAR_VAPOR_LW_C * p.r_qviwv) * (q - qclim_t)
 
     dtrad_t = F32(-0.16) * tclim_t - 5.0
     lw_surf = -p.sig * _pow4(ts)
@@ -101,9 +112,12 @@ class HydroResult(NamedTuple):
 
 
 def hydrology(ts, q, u_t, v_t, swet_t, z_topo, wz_air,
-              p: PhysicsParams) -> HydroResult:
+              p: PhysicsParams, exp: Experiment = Experiment()) -> HydroResult:
     """Bulk hydrological cycle (evaporation / rain / latent heat).
     Reference: hydro, src/greb.f90:438-469."""
+    if exp.hydro_off:  # legacy log_exp <= 6, 13, 15 (:453)
+        zero = torch.zeros_like(ts)
+        return HydroResult(zero, zero, zero, zero)
     abswind = torch.sqrt(u_t * u_t + v_t * v_t)
     abswind = torch.where(z_topo > 0.0, torch.sqrt(abswind * abswind + 4.0),
                           abswind)
@@ -122,15 +136,21 @@ def hydrology(ts, q, u_t, v_t, swet_t, z_topo, wz_air,
 
 
 def seaice_capacity(ts, cap_surf_prev, mld_t, z_topo, glacier,
-                    d: Derived, p: PhysicsParams) -> torch.Tensor:
+                    d: Derived, p: PhysicsParams,
+                    exp: Experiment = Experiment()) -> torch.Tensor:
     """State-dependent surface heat capacity (sea-ice proxy).
     Reference: seaice, src/greb.f90:472-492.  Land points keep their
     previous value (the Fortran `where` never touches them)."""
     cap_open = d.cap_ocean * mld_t
-    ramp = d.cap_land + div(cap_open - d.cap_land, p.To_ice2 - p.To_ice1) * (ts - p.To_ice1)
-    cap_ocean_pts = torch.where(ts <= p.To_ice1, d.cap_land,
-                                torch.where(ts >= p.To_ice2, cap_open, ramp))
-    cap = torch.where(z_topo < 0.0, cap_ocean_pts, cap_surf_prev)
+    if exp.simple_seaice:  # legacy log_exp <= 5 (greb.original.model.f90:492-496)
+        cap = torch.where(z_topo > 0.0, d.cap_land, cap_open)
+        # z_topo == 0 keeps the previous value (the reference's where-pair)
+        cap = torch.where(z_topo == 0.0, cap_surf_prev, cap)
+    else:
+        ramp = d.cap_land + div(cap_open - d.cap_land, p.To_ice2 - p.To_ice1) * (ts - p.To_ice1)
+        cap_ocean_pts = torch.where(ts <= p.To_ice1, d.cap_land,
+                                    torch.where(ts >= p.To_ice2, cap_open, ramp))
+        cap = torch.where(z_topo < 0.0, cap_ocean_pts, cap_surf_prev)
     return torch.where(glacier > 0.5, d.cap_land, cap)
 
 
@@ -140,12 +160,15 @@ class DeepOceanResult(NamedTuple):
 
 
 def deep_ocean(ts, to, mld_t, mld_tm1, z_topo, dt, d: Derived,
-               p: PhysicsParams) -> DeepOceanResult:
+               p: PhysicsParams,
+               exp: Experiment = Experiment()) -> DeepOceanResult:
     """Two-layer deep-ocean heat uptake.
     Reference: deep_ocean, src/greb.f90:495-525.  Entrainment/detrainment is
     ocean-masked; the turbulent-exchange terms apply everywhere, as in the
     reference."""
     zero = torch.zeros_like(ts)
+    if exp.deep_ocean_off:  # legacy :514-515
+        return DeepOceanResult(zero, zero)
     dmld = mld_t - mld_tm1
     ocean_warm = (z_topo < 0.0) & (ts >= p.To_ice2)
     depth_below = d.z_ocean - mld_t

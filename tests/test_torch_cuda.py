@@ -14,13 +14,15 @@ substeps, on a 10-day calendar; ``chip_smoke.py`` runs the full calendar.
 Every kernel must equal its plain version bit for bit (max |diff| = 0),
 and at M=1 with the base params the member kernels must equal the
 single-run kernels (K3 = K2, K4 = K1): they run the same cluster body and
-per-cell device functions.
+per-cell device functions.  The same holds under the legacy ``log_exp``
+switchboard: K1 and K2 for every log_exp the port runs, K3/K4 against
+K2/K1 under 11 and 15.
 """
 import numpy as np
 import pytest
 import torch
 
-from greb_tpu_torch.config import Numerics, GrebConfig
+from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
 from greb_tpu_torch.model import core
 from greb_tpu_torch.model.driver import GREB
 from greb_tpu_torch.ops.cuda import multiyear as my
@@ -156,3 +158,71 @@ def test_member_kernels_match_plain(model, cluster):
     _equal(m_k, m_p, "K3 monthly means")
     _equal(a_k, a_p, "K3 annual sums")
     assert not torch.equal(m_k[0], m_k[1]), "members do not differ"
+
+
+# the legacy log_exp values the kernels run: every one whose transport is
+# the folded circulation or none (7, 8 and 16 need the strict stencils)
+LEGACY_EXPS = (0, 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14, 15)
+
+
+def _legacy_model(log_exp):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
+    return GREB(GrebConfig(numerics=NUM, experiment=Experiment(log_exp)),
+                verbose=False, device="cuda")
+
+
+@pytest.mark.parametrize("log_exp", LEGACY_EXPS)
+def test_legacy_year_kernels_match_plain(log_exp):
+    """K1 then K2 under the legacy switchboard, each bitwise equal to its
+    plain version on the same inputs: the spin-up at CO2_ctrl, the scenario
+    year at 680 ppm from the spin-up's end."""
+    m = _legacy_model(log_exp)
+    yd, co2 = m.year_data, m.exp.co2_ctrl
+    s0 = m.initial_state()
+    s_k, c_k = yk.fluxcorr_year(s0, co2, yd)
+    s_p, c_p = yk.fluxcorr_year_plain(s0, co2, yd)
+    _equal(s_k.stack(), s_p.stack(), "K1 state")
+    for name in ("tf", "tof", "qf"):
+        _equal(getattr(c_k, name), getattr(c_p, name), f"K1 {name}")
+    s2_k, o_k, a_k = yk.scenario_year(s_p, c_p, 680.0, yd)
+    s2_p, o_p, a_p = yk.scenario_year_plain(s_p, c_p, 680.0, yd)
+    _equal(s2_k.stack(), s2_p.stack(), "K2 state")
+    _equal(o_k, o_p, "K2 outs")
+    _equal(a_k, a_p, "K2 annual sums")
+
+
+@pytest.mark.parametrize("log_exp", (11, 15))
+def test_legacy_member_kernels_equal_the_single_run_kernels(log_exp):
+    """K2 = K3 and K1 = K4 at M=1 under the switchboard, at every size the
+    member kernels offer: the flags word reaches them through the member
+    params unchanged."""
+    m = _legacy_model(log_exp)
+    yd, co2 = m.year_data, m.exp.co2_ctrl
+    s0 = m.initial_state()
+    ppack = my.pack_member_params([m.params], "cuda")
+    s_1, c_1 = yk.fluxcorr_year(s0, co2, yd)
+    for cluster in yk.offered_sizes("fluxcorr"):
+        s_4, c_4 = my.fluxcorr_years(s0.stack()[:, None], ppack, co2, yd,
+                                     cluster=cluster)
+        _equal(s_1.stack(), s_4[:, 0], f"K4 C={cluster} state")
+        for i, name in enumerate(("tf", "tof", "qf")):
+            _equal(getattr(c_1, name), c_4[0, :, i], f"K4 C={cluster} {name}")
+    s_2, _, a_2 = yk.scenario_year(s_1, c_1, 680.0, yd)
+    corrpack = torch.stack([c_1.tf, c_1.tof, c_1.qf], dim=1)[None]
+    for cluster in yk.offered_sizes("scenario_years"):
+        s_3, _, a_3 = my.scenario_years(s_1.stack()[:, None], ppack, corrpack,
+                                        np.asarray([680.0], np.float32), yd,
+                                        cluster=cluster)
+        _equal(s_2.stack(), s_3[:, 0], f"K3 C={cluster} state")
+        _equal(a_2, a_3[0, 0], f"K3 C={cluster} annual sums")
+
+
+def test_kernel_refuses_an_unknown_flag(model, monkeypatch):
+    """A flags word with a bit the kernels do not know raises in the
+    wrapper (the launcher's GREB_ERR_FLAGS); nothing runs."""
+    monkeypatch.setattr(yk, "experiment_flags", lambda exp: 1 << 7)
+    n0 = yk.fluxcorr_year.launches
+    with pytest.raises(RuntimeError, match="do not know"):
+        yk.fluxcorr_year(model.initial_state(), 298.0, model.year_data)
+    assert yk.fluxcorr_year.launches == n0

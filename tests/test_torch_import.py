@@ -59,11 +59,13 @@ def test_unported_options_raise_with_their_roadmap_item():
     from greb_tpu_torch.model.driver import GREB
 
     num = Numerics(xdim=48, ydim=24, ndays_yr=10, jday_mon=(6, 4))
+    # the legacy modes that transport with the strict stencils, and the
+    # strict circulation itself, name the strict-transport slice
     for cfg, item in ((GrebConfig(numerics=num,
-                                  experiment=Experiment(log_exp=10)),
-                       "item 8"),
+                                  experiment=Experiment(log_exp=7)),
+                       "Queue 1 item 2"),
                       (GrebConfig(numerics=num, fast_circulation=False),
-                       "item 8"),
+                       "Queue 1 item 2"),
                       (GrebConfig(numerics=num, fastcirc_version=1),
                        "Not to port")):
         with pytest.raises(NotImplementedError, match=item):

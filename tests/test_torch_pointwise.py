@@ -96,7 +96,8 @@ def test_longwave(case):
                         _j(x["cldclim"]), _j(x["tclim"]), _j(x["qclim"]),
                         _j(a["z_topo"]), _j(wz), case["jp"])
     got = pw.longwave(_t(s["ts"]), _t(s["ta"]), _t(s["q"]), co2,
-                      _t(x["cldclim"]), _t(x["tclim"]), _t(wz), case["p"])
+                      _t(x["cldclim"]), _t(x["tclim"]), _t(x["qclim"]),
+                      _t(wz), case["p"])
     for k in want._fields:
         _close(getattr(got, k), getattr(want, k), k)
 
