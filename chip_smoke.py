@@ -31,9 +31,10 @@
    2 years at CO2 560 and 680, from step 5's output, state, monthly means
    and annual sums bitwise;
 7. times both member kernels at the shapes their paths launch (K3 one
-   member for 10 years, the long run's block; K4 step 5's 3 members, the
-   member chain's year): a warm-up launch, then 3 timed launches, the last
-   of which is held bitwise against the plain version on the same inputs;
+   member for LONG_BLOCK years, the long run's block; K4 step 5's 3
+   members, the member chain's year): a warm-up launch, then 3 timed
+   launches, the last of which is held bitwise against the plain version
+   on the same inputs;
    then the member scaling: one year of each member kernel at M = 1 to
    132 members on each size it offers (one member a cluster, clusters
    beyond the card's capacity in waves; K3 also one block a member),
@@ -44,14 +45,14 @@
    with launch counts around each run, finiteness, the output file read
    back, and the warming under 680 ppm checked;
 9. drives the long-run path: 3 spin-up years, then 50 scenario years
-   through run_long + driver_year_runner in blocks of 10 years of the
-   multi-year kernel, a checkpoint every 10 years and the output file;
+   through run_long + driver_year_runner in blocks of LONG_BLOCK years of
+   the multi-year kernel, a checkpoint after each and the output file;
    then the same run stopped at year 20 and resumed to 50 in a fresh
    process (this script with --resume-long DIR), which must leave a
    bitwise equal final state and output file; its first 10 years are held
    to step 8's at the golden tolerances;
 10. drives the member chain, GREB.run_members: 3 members (one with the
-   base params) through 3 member-batched spin-up years and a 10-year
+   base params) through 3 member-batched spin-up years and a LONG_BLOCK-year
    scenario block; the base member must equal step 9's run bit for bit;
 11. the legacy log_exp switchboard: for every log_exp the kernels run
    (0-6, 9-15), at 96x48 on a 20-step calendar, K1 and K2 bitwise against
@@ -65,9 +66,22 @@
    files read back bitwise against a re-run, the A1B CO2 in the console
    lines, and the path's last spin-up year and first control year held
    bitwise against the plain versions on the same inputs;
-12. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
-   each kernel was held bitwise in) and, last,
-   {"ok": true, "device": {...}}.
+12. the strict transport (each kernel's strict instantiation): the kernel's
+   own layout of it against cluster_layout for each kind and size; K1
+   and K2 bitwise against their plain versions on the 20-step calendar
+   under the strict circulation and log_exp 7, 8, 16; K2 = K3 and K1 = K4
+   at M=1 under the strict circulation and log_exp 16 at every size
+   offered (K3's one-block body must refuse); one full-calendar K1 and K2
+   year of the strict circulation timed (a warm-up, then 3 launches),
+   the last launch of each held bitwise against its plain version, whose
+   year is timed once; then the strict path, GREB.run with
+   fast_circulation=False (3 spin-up + 10 scenario years, STRICT_RUNS
+   times: launch counts, finiteness, the output file read back, the
+   warming), and the CLI's --legacy at log_exp 16 (2 spin-up, 1 control,
+   3 scenario years: launch counts, both files read back);
+13. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+   each kernel was held bitwise in, and for K1/K2 the strict year's ms,
+   plain ms and bound) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no ok line.
 It needs a CUDA card and the repository's greb_tpu_torch package.
@@ -194,9 +208,11 @@ def _bound_of(nbytes, ops):
 # runs of the main path; the first is a process's slowest
 MAIN_RUNS = 5
 # the long run: the reference's 50 scenario years (time_scnr) at 680 ppm,
-# in blocks of 10 years, a checkpoint every 10
+# in blocks of 5 years, a checkpoint after each (10 until PR 7: the K3
+# launch at this shape is held against its plain version, whose years the
+# smoke's time limit pays for)
 LONG_YEARS = 50
-LONG_BLOCK = 10
+LONG_BLOCK = 5
 LONG_STOP = 20
 # member counts of the member scaling (132: one a streaming multiprocessor;
 # 7/8 and 49/56 either side of the default size's crossovers)
@@ -212,6 +228,18 @@ LEGACY_MEMBER_EXPS = (11, 15)
 # hydrology) on the full calendar
 LEGACY_PATH_EXP = 13
 LEGACY_YEARS = dict(time_flux=3, time_ctrl=1, time_scnr=10)
+# the strict transport: the strict circulation (log_exp None, no fold) and
+# the legacy modes that move Ta (and q) with the strict stencils; under
+# the member modes K3/K4 are also held against K2/K1 at M=1
+STRICT_MODES = (None, 7, 8, 16)
+STRICT_MEMBER_MODES = (None, 16)
+# the strict path: GREB.run with fast_circulation=False, 3 spin-up and 10
+# scenario years, STRICT_RUNS times; and the CLI's --legacy at log_exp 16
+# on the full calendar, cut in depth for time
+STRICT_YEARS = dict(time_flux=3, time_scnr=10)
+STRICT_RUNS = 2
+STRICT_CLI_EXP = 16
+STRICT_CLI_YEARS = dict(time_flux=2, time_ctrl=1, time_scnr=3)
 
 
 def _k1_vs_plain(tag, s0, co2, yd, got):
@@ -404,6 +432,218 @@ def _legacy_phase(tmp, reset_counts, read_counts):
         raise AssertionError(f"console CO2 {got}, want the A1B ramp {want}")
     print(f"  console CO2 follows the A1B ramp: {got[0]} .. {got[-1]} ppm")
     return dict(err=err, launches=launches)
+
+
+def _strict_phase(tmp, reset_counts, read_counts):
+    """Step 12: the strict transport in every kernel's strict
+    instantiation, and the paths that run it.  Returns the worst max
+    |diff| per kernel, the full-calendar years' times and work, and the
+    strict path's launches."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch import __main__ as cli
+    from greb_tpu_torch.config import (Diagnostics, Experiment, GrebConfig,
+                                       Numerics)
+    from greb_tpu_torch.io.binio import read_output, read_records
+    from greb_tpu_torch.io.namelist import write_namelist
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+
+    t_phase = time.perf_counter()
+    err = dict.fromkeys(("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                         "scenario_years"), 0.0)
+    short = Numerics(ndays_yr=10, jday_mon=(6, 4))
+    co2_scn = np.float32(680.0)
+
+    # -- the strict instantiation's shared memory: the kernel's own
+    #    reckoning against cluster_layout, for each kind at each size
+    plan = yk.StrictPlan(short.ydim, short.xdim)
+    for kind in yk.KINDS:
+        for c in yk.CLUSTER_SIZES[kind]:
+            lay = yk.cluster_layout(plan, c, kind)
+            parts, threads = yk.kernel_cluster_layout(plan, c, kind)
+            if parts != dict(lay.parts) or threads != lay.threads:
+                raise AssertionError(
+                    f"strict {kind} C={c}: kernel layout {parts}, {threads} "
+                    f"threads; cluster_layout {dict(lay.parts)}, "
+                    f"{lay.threads}")
+            print(f"strict cluster {kind:<14s} C={c:2d}: {lay.nbytes} B "
+                  f"shared memory a block, "
+                  f"{yk.cluster_capacity(plan, c, kind)} clusters at once; "
+                  f"kernel and cluster_layout agree")
+
+    # -- K1 and K2 against their plain versions under each strict mode on
+    #    the 20-step calendar; K3 = K2, K4 = K1 at M=1 under the member
+    #    modes at every size offered (the one-block body must refuse)
+    t0, plain_s = time.perf_counter(), 0.0
+    for e in STRICT_MODES:
+        m = GREB(GrebConfig(numerics=short, experiment=Experiment(e),
+                            fast_circulation=e is not None),
+                 device="cuda", verbose=False)
+        yd = m.year_data
+        if yd.transport != "strict" or m.fold is not None:
+            raise AssertionError(f"log_exp {e}: transport {yd.transport}")
+        co2 = np.float32(m.exp.co2_ctrl if m.exp.active
+                         else m.cfg.co2.co2_flux)
+        tag = (f"strict {'circulation' if e is None else f'log_exp {e:2d}'}"
+               f" (flags {yk.experiment_flags(m.exp, True):#05x})")
+        s0 = m.initial_state()
+        s_k, c_k = yk.fluxcorr_year(s0, co2, yd)
+        s2_k, _, a_k = k2 = yk.scenario_year(s_k, c_k, co2_scn, yd)
+        t1 = time.perf_counter()
+        err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
+            f"K1 {tag}", s0, co2, yd, (s_k, c_k)))
+        err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
+            f"K2 {tag}", s_k, c_k, co2_scn, yd, k2))
+        plain_s += time.perf_counter() - t1
+        if e not in STRICT_MEMBER_MODES:
+            continue
+        pp = my.pack_member_params([m.params], "cuda")
+        corrp = torch.stack([c_k.tf, c_k.tof, c_k.qf], dim=1)[None]
+        for c in yk.offered_sizes("scenario_years"):
+            if c == 1:
+                try:
+                    my.scenario_years(s_k.stack()[:, None], pp, corrp,
+                                      np.asarray([co2_scn]), yd, cluster=c)
+                except NotImplementedError as exc:
+                    print(f"  K3 {tag} C=1 refused: {exc}")
+                    continue
+                raise AssertionError("K3's one-block body ran the strict "
+                                     "transport")
+            s3, _, a3 = my.scenario_years(s_k.stack()[:, None], pp, corrp,
+                                          np.asarray([co2_scn]), yd,
+                                          cluster=c)
+            err["scenario_years"] = max(err["scenario_years"], _bitwise(
+                f"K2 vs K3 {tag} (M=1, C={c})",
+                [("state", s2_k.stack(), s3[:, 0]),
+                 ("annual sums", a_k, a3[0, 0])], quiet=True))
+        for c in yk.offered_sizes("fluxcorr"):
+            s4, c4 = my.fluxcorr_years(s0.stack()[:, None], pp, co2, yd,
+                                       cluster=c)
+            err["fluxcorr_years"] = max(err["fluxcorr_years"], _bitwise(
+                f"K1 vs K4 {tag} (M=1, C={c})",
+                [("state", s_k.stack(), s4[:, 0])]
+                + [(n, getattr(c_k, n), c4[0, :, i])
+                   for i, n in enumerate(("tf", "tof", "qf"))], quiet=True))
+    print(f"strict kernels vs plain, {len(STRICT_MODES)} modes on a "
+          f"{short.nstep_yr}-step calendar: {time.perf_counter() - t0:.1f} s"
+          f" (plain versions {plain_s:.1f} s)")
+
+    # -- one strict K1 and one strict K2 year on the full calendar, timed
+    #    (a warm-up, then 3 launches), the last timed launch of each held
+    #    bitwise against its plain version, whose one year is timed too
+    m = GREB(GrebConfig(fast_circulation=False), device="cuda",
+             verbose=False)
+    yd, num = m.year_data, m.num
+    co2f = np.float32(m.cfg.co2.co2_flux)
+    s0 = m.initial_state()
+    k1_ms, (s_k, c_k) = _launches_ms(
+        lambda: yk.fluxcorr_year(s0, co2f, yd), 3)
+    k2_ms, k2 = _launches_ms(
+        lambda: yk.scenario_year(s_k, c_k, co2_scn, yd), 3)
+    plain_k1, (s_p, c_p) = _time_ms(
+        lambda: yk.fluxcorr_year_plain(s0, co2f, yd), 1)
+    err["fluxcorr_year"] = max(err["fluxcorr_year"], _bitwise(
+        "K1 strict circulation, full calendar (last timed launch)",
+        [(f"state {n}", getattr(s_k, n), getattr(s_p, n))
+         for n in ("ts", "ta", "to", "q", "cap_surf")]
+        + [(n, getattr(c_k, n), getattr(c_p, n)) for n in ("tf", "tof", "qf")],
+        quiet=True))
+    plain_k2, (s2_p, o_p, a_p) = _time_ms(
+        lambda: yk.scenario_year_plain(s_k, c_k, co2_scn, yd), 1)
+    err["scenario_year"] = max(err["scenario_year"], _bitwise(
+        "K2 strict circulation, full calendar (last timed launch)",
+        [(f"state {n}", getattr(k2[0], n), getattr(s2_p, n))
+         for n in ("ts", "ta", "to", "q", "cap_surf")]
+        + [("outs", k2[1], o_p), ("annual sums", k2[2], a_p)], quiet=True))
+    per_sub = 1e3 / (num.nstep_yr * num.nsub_crcl)
+    print(f"strict circulation, {num.nstep_yr} steps: K1 {_runs(k1_ms)}; "
+          f"K2 {_runs(k2_ms)} = {_median(k2_ms) * per_sub:.3f} us per "
+          f"substep (a step's work included); plain K1 {plain_k1:.1f} ms, "
+          f"plain K2 {plain_k2:.1f} ms")
+    work = {"fluxcorr_year": yk.strict_year_work(yd, False),
+            "scenario_year": yk.strict_year_work(yd, True)}
+    del k2, s_p, c_p, s2_p, o_p, a_p
+
+    # -- the strict path: GREB.run at fast_circulation=False
+    snum = Numerics(**STRICT_YEARS)
+    out = os.path.join(tmp, "strict", "scenario")
+    os.makedirs(os.path.dirname(out))
+    model = GREB(GrebConfig(numerics=snum, fast_circulation=False,
+                            diagnostics=Diagnostics(output_file=out)),
+                 device="cuda")
+    walls = []
+    for _ in range(STRICT_RUNS):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, corr, monthly, diags = model.run(output_path=out)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = read_counts("strict path", {
+            "fluxcorr_year": snum.time_flux, "scenario_year": snum.time_scnr,
+            "fluxcorr_years": 0, "scenario_years": 0})
+    years = snum.time_flux + snum.time_scnr
+    print(f"strict path (GREB.run, fast_circulation=False): {years} "
+          f"sim-years, {STRICT_RUNS} runs: "
+          f"{' '.join(f'{years / w:.3f}' for w in walls)} sim-yr/s")
+    for name in ("ts", "ta", "to", "q", "cap_surf"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"strict state {name} not finite")
+    if monthly.shape != (snum.time_scnr, len(snum.jday_mon), 5, snum.ydim,
+                         snum.xdim) \
+            or not np.isfinite(monthly).all():
+        raise AssertionError(f"strict monthly means {monthly.shape}")
+    back = read_output(out, snum.xdim, snum.ydim)
+    if not np.array_equal(back, monthly.reshape(-1, 5, snum.ydim,
+                                                snum.xdim)):
+        raise AssertionError("strict output file does not read back")
+    gm = [float(d.global_mean_ts) for d in diags]
+    print(f"  global mean Ts [K] by scenario year: "
+          f"{' '.join(f'{g:.4f}' for g in gm)}")
+    if not gm[-1] > gm[0]:
+        raise AssertionError(f"strict path: no warming under 680 ppm: {gm}")
+
+    # -- the CLI's --legacy at log_exp 16 (Ta by the strict stencils, q
+    #    not moved; SST + 1) on the full calendar
+    nml = os.path.join(tmp, "strict", "namelist_original")
+    write_namelist({"numerics": STRICT_CLI_YEARS,
+                    "physics": {"log_exp": STRICT_CLI_EXP}}, nml)
+    cli_out = os.path.join(tmp, "strict", "legacy", "scenario")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main([nml, "--legacy", "--synthetic", "--output", cli_out,
+                   "--quiet"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"--legacy at log_exp {STRICT_CLI_EXP}: rc {rc}")
+    y = STRICT_CLI_YEARS
+    read_counts(f"CLI --legacy, log_exp {STRICT_CLI_EXP}", {
+        "fluxcorr_year": y["time_flux"],
+        "scenario_year": y["time_ctrl"] + y["time_scnr"],
+        "fluxcorr_years": 0, "scenario_years": 0})
+    cnum = Numerics(**y)     # the namelist's calendar: the full year
+    ctl = read_records(os.path.join(os.path.dirname(cli_out), "control"),
+                       (cnum.ydim, cnum.xdim))
+    back = read_output(cli_out, cnum.xdim, cnum.ydim)
+    if ctl.shape[0] != cnum.nstep_yr or not np.isfinite(ctl).all() \
+            or back.shape != (cnum.time_scnr * len(cnum.jday_mon), 5,
+                              cnum.ydim, cnum.xdim) \
+            or not np.isfinite(back).all():
+        raise AssertionError(f"--legacy files: control {ctl.shape}, "
+                             f"scenario {back.shape}")
+    print(f"  CLI --legacy at log_exp {STRICT_CLI_EXP}: "
+          f"{sum(y.values())} sim-years in {wall:.3f} s; control file "
+          f"{ctl.shape[0]} records, scenario {back.shape[0]} months, finite")
+    print(f"strict phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(err=err, ms={"fluxcorr_year": _median(k1_ms),
+                             "scenario_year": _median(k2_ms)},
+                plain_ms={"fluxcorr_year": plain_k1,
+                          "scenario_year": plain_k2},
+                work=work, launches=launches)
 
 
 def _long_runner(model, tmp, tag):
@@ -883,7 +1123,8 @@ def main(argv) -> int:
                 raise AssertionError("resumed output file differs")
         print("  resumed run: final state and output file bitwise equal")
 
-        # -- the member chain: 3 spin-up years + a 10-year block, 3 members --
+        # -- the member chain: 3 spin-up years + a LONG_BLOCK-year block,
+        #    3 members
         members3 = ens.perturbed_params(
             model.params, {"ct_sens": np.linspace(22.05, 22.95, 3)})
         reset_counts()
@@ -914,13 +1155,22 @@ def main(argv) -> int:
         # -- the legacy switchboard in every kernel, and the legacy path ---
         legacy = _legacy_phase(tmp, reset_counts, read_counts)
 
+        # -- the strict transport in every kernel, and the strict paths ----
+        strict = _strict_phase(tmp, reset_counts, read_counts)
+
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
-    # (K3 one member for 10 years, K4 3 members: the median of member_ms's
-    # 3 launches, on the size the wrapper picks for that member count);
+    # (K3 one member for LONG_BLOCK years, K4 3 members: the median of
+    # member_ms's 3 launches, on the size the wrapper picks for that
+    # member count);
     # max_abs_err over that shape and every comparison above, the legacy
-    # modes' included; "modes" the variants each kernel was held bitwise in
-    single = ["modern"] + [f"log_exp {e}" for e in LEGACY_EXPS]
-    member = ["modern"] + [f"log_exp {e}" for e in LEGACY_MEMBER_EXPS]
+    # and strict modes' included; "modes" the variants each kernel was held
+    # bitwise in
+    strict_name = lambda e: ("strict circulation" if e is None
+                             else f"strict log_exp {e}")
+    single = (["modern"] + [f"log_exp {e}" for e in LEGACY_EXPS]
+              + [strict_name(e) for e in STRICT_MODES])
+    member = (["modern"] + [f"log_exp {e}" for e in LEGACY_MEMBER_EXPS]
+              + [strict_name(e) for e in STRICT_MEMBER_MODES])
     k3_ms, k4_ms = (_median(member_ms[k])
                     for k in ("scenario_years", "fluxcorr_years"))
     kernels = []
@@ -943,15 +1193,26 @@ def main(argv) -> int:
              my.default_cluster("fluxcorr", 3, capacity["fluxcorr", C]),
              member)):
         bound_ms, bound_by = _bound_of(*work)
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "greb_tpu_torch/csrc/year_kernel.cu",
             "replaces": f"greb_tpu/ops/pallas/{src}:{line}",
-            "launches": count, "max_abs_err": max(err, legacy["err"][name]),
+            "launches": count,
+            "max_abs_err": max(err, legacy["err"][name],
+                               strict["err"][name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "cluster": c,
             "shape": shape, "modes": modes,
-            "launches_legacy_path": legacy["launches"][name]})
+            "launches_legacy_path": legacy["launches"][name],
+            "launches_strict_path": strict["launches"][name]}
+        if name in strict["ms"]:
+            # the strict circulation's full-calendar year (its own
+            # instantiation), its plain version and its bound
+            s_bound, s_by = _bound_of(*strict["work"][name])
+            entry.update(strict_ms=strict["ms"][name],
+                         strict_plain_ms=strict["plain_ms"][name],
+                         strict_bound_ms=s_bound, strict_bound_by=s_by)
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,10 @@ at the checkpoint's record.
 ``--legacy`` runs the original variant's experiment workflow for the
 namelist's ``log_exp`` (src/greb.original.model.f90:199-231): the spin-up,
 the TF_correct dump to ``<output dir>/control``, the control phase
-(``time_ctrl`` years, rewinding that file) and the scenario.  It takes
-``log_exp`` 0-6 and 9-15; 7, 8 and 16 transport with the strict stencils
-and raise, as ``--strict-circulation`` does.
+(``time_ctrl`` years, rewinding that file) and the scenario, for every
+``log_exp`` 0-16; under 7, 8 and 16 the kernels move Ta (and under 8 q)
+with the strict term-by-term stencils.  ``--strict-circulation`` moves Ta
+and q with those stencils instead of the coefficient-folded circulation.
 """
 from __future__ import annotations
 
@@ -47,12 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the card the fused kernels always run")
     p.add_argument("--legacy", action="store_true",
                    help="legacy experiment workflow for the namelist's "
-                        "log_exp (0-6, 9-15): spin-up, TF_correct dump and "
+                        "log_exp (0-16): spin-up, TF_correct dump and "
                         "control phase into <output dir>/control, scenario")
     p.add_argument("--strict-circulation", action="store_true",
-                   help="strict term-by-term stencils: they come with the "
-                        "strict-transport slice (ROADMAP Queue 1 item 2) "
-                        "and raise until then")
+                   help="move Ta and q with the strict term-by-term "
+                        "stencils instead of the coefficient-folded "
+                        "circulation (the reference's own operator)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="checkpoint the scenario into this directory")
     p.add_argument("--checkpoint-every", type=int, default=10,

@@ -10,10 +10,10 @@ Mirrors ``greb_tpu.config`` (reference src/greb.f90:32-158):
 - ``CO2Params``    : CO2 pathway (flux-correction level + scenario series).
 - ``Experiment``   : the legacy ``log_exp`` switchboard of the original
                      variant (reference src/greb.original.model.f90), with
-                     the same derived flags as ``greb_tpu.config``.  The port
-                     runs ``log_exp`` 0-6 and 9-15 and the modern variant
-                     (``log_exp=None``); 7, 8 and 16 transport Ta or q with
-                     the strict stencils, which the port does not have yet.
+                     the same derived flags as ``greb_tpu.config``: every
+                     ``log_exp`` 0-16 and the modern variant
+                     (``log_exp=None``); 7, 8 and 16 transport Ta (and
+                     under 8 q) with the strict stencils.
 """
 from __future__ import annotations
 
@@ -235,10 +235,13 @@ class GrebConfig:
     diagnostics: Diagnostics = field(default_factory=Diagnostics)
     co2: CO2Params = field(default_factory=CO2Params)
     experiment: Experiment = field(default_factory=Experiment)
-    # The coefficient-folded circulation (ops/fastcirc2.py) is the only
-    # circulation this port has; False (the strict stencils) raises.
+    # True: the coefficient-folded circulation (ops/fastcirc2.py); False:
+    # the strict term-by-term stencils (ops/stencils.py), the CLI's
+    # --strict-circulation.  The port's default is the fold, which the
+    # main path runs.
     fast_circulation: bool = True
     fastcirc_version: int = 2
+    fidelity_jp2_quirk: bool = True   # reproduce src/greb.f90:881 index quirk
 
 
 def config_from_namelist(path: str) -> Tuple[GrebConfig, PhysicsParams]:

@@ -90,19 +90,52 @@
 // (fastcirc2._row_dot), which differs from the JAX package's library dot.
 //
 // The legacy log_exp switchboard (reference src/greb.original.model.f90;
-// greb_tpu/config.py Experiment) comes in GrebParams::flags, one bit per
-// switch of the step body (enum Flag; ops/cuda/year_kernel.py FLAGS):
+// greb_tpu/config.py Experiment) and the transport come in
+// GrebParams::flags, one bit per switch of the step body (enum Flag;
+// ops/cuda/year_kernel.py FLAGS):
 // fixed albedo, the simple sea-ice capacity, no hydrology, no deep-ocean
 // exchange and the linearised vapour feedback in the pointwise physics,
-// SST = Tclim + 1 over the ocean at the start of a scenario step, and no
-// circulation (no coefficient build, no substeps; the step takes Ta and q
-// uncirculated).  Each branch repeats the plain version's float32
-// operations.  Every kernel has two instantiations: LEGACY = false, the
-// modern variant, compiles without the branches (flags 0), and
-// LEGACY = true branches on the flags word, which is the same for every
-// thread of a launch.  The launchers pick one by the word and refuse a
-// word with a bit they do not know.  The modes whose transport needs the
-// strict stencils (log_exp 7, 8, 16) have no bit.
+// SST = Tclim + 1 over the ocean at the start of a scenario step, no
+// circulation (no substeps; the step takes Ta and q uncirculated), and
+// the strict transport with its two vapour switches.  Each branch repeats
+// the plain version's float32 operations.  Every kernel has three
+// instantiations: LEGACY = false, the modern variant, compiles without the
+// branches (flags 0); LEGACY = true moves Ta and q with the fold and
+// branches on the flags word, which is the same for every thread of a
+// launch; and the strict one (below) runs the strict transport or none,
+// with the same branches.  The launchers pick one by the word and refuse a
+// word with a bit they do not know or a combination none runs.
+//
+// The strict transport.  Where the JAX package builds no fold (its
+// GREB.fastcirc_tables() is None: --strict-circulation, and legacy
+// log_exp 7, 8, 16), the four Pallas builders trace core.compute_tendencies
+// at fastcirc=None, and every kernel runs the term-by-term stencils of
+// ops/stencils.py circulation in its body: Ta and q, or under log_exp 7
+// and 16 Ta alone, under 8 Ta plus q by diffusion alone.  Here that is the
+// third instantiation of each kernel, run_cluster<KIND, true, true> (suffix
+// _strict), picked by the STRICT_TRANSPORT bit of the flags word; it also
+// runs the words without transport (CIRCULATION_OFF), since neither has a
+// fold.  Its block keeps no fold planes and no pole composites: the state,
+// the same double buffer of (Ta, q) with pushed +-2 halo rows, wz of both
+// fields with +-2 zero halo rows past the poles, the step's winds, the
+// rows' constants and a scratch of four (2, R, X) planes for the polar
+// sub-cycles.  A substep (strict_substep) computes each (field, cell) of a
+// row without a polar sub-cycle at once (strict_value: the 7-point zonal
+// diffusion and 3-point meridional diffusion, weighted by wz, and the
+// 2-point zonal and 5-point meridional upwind advection, in the plain
+// version's float32 order); the sub-cycled rows (at 96x48 rows 0-9 and
+// 38-47: diffusion 8 iterations on rows 0 and 47, 1 on the others;
+// advection 1) iterate both clamped sub-cycles from the substep's state in
+// the scratch, block-uniformly to the block's largest count with a
+// __syncthreads() between iterations, a row adding 0 past its own count as
+// the plain version's masks do, and are finished after them.  What bounds
+// a strict substep: its ~26 shared-memory loads a cell (taps and wz taps
+// of 5 rows), then the pole blocks' sub-cycle iterations (8 dependent
+// rounds of a 7-point stencil and a barrier), which every other block
+// waits for at the cluster barrier, and that barrier.  The design keeps
+// every read in shared memory and the exchange to one cluster barrier a
+// substep, as the fold does; the pole blocks' serial iterations are left
+// as they are (ROADMAP Queue 2: a strict year runs ~3.5x the fold's).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -120,7 +153,7 @@ namespace cg = cooperative_groups;
 // error codes of the launchers beside cudaError_t's (which are >= 0)
 #define GREB_ERR_LAYOUT (-1)      // C does not split the grid, or too big
 #define GREB_ERR_NO_CLUSTER (-2)  // no cluster of this shape fits the card
-#define GREB_ERR_FLAGS (-3)       // a flags word with a bit not in Flag
+#define GREB_ERR_FLAGS (-3)       // a flags word the kernel does not run
 
 struct GrebParams {
   float sig, rho_air, ct_sens, da_ice, a_no_ice, a_cloud;
@@ -142,7 +175,11 @@ enum Flag {
   DEEP_OCEAN_OFF = 16,   // log_exp <= 9, 11, 14-16: no deep-ocean exchange
   LINEAR_VAPOR_LW = 32,  // log_exp 11: linearised vapour feedback
   SST_PLUS_ONE = 64,     // log_exp 14-16: ocean Ts = Tclim + 1 (scenario)
-  KNOWN_FLAGS = 127
+  STRICT_TRANSPORT = 128,        // the strict stencils move Ta and q:
+                                 // --strict-circulation, log_exp 7, 8, 16
+  VAPOR_CIRCULATION_OFF = 256,   // log_exp 7, 16: q does not move
+  VAPOR_DIFFUSION_ONLY = 512,    // log_exp 8: q moves by diffusion alone
+  KNOWN_FLAGS = 1023
 };
 
 // The linearised vapour feedback's coefficient (greb.original.model.f90:
@@ -182,8 +219,18 @@ struct YearArgs {
   float *state_out;       // (5, M, Y, X)
   float *cf;              // one-block body's scratch (M, 12, 2, Y, X):
                           // za 7, mc 4, c0m 1
+  // the strict stencils' constants (ops/stencils.py)
+  const float* st_wz;     // (2, Y, X) wz_air, wz_vapor
+  const float* st_rows;   // (4, Y) dxlat^2, diffusion sub-step dtdff2,
+                          // polar advection coefficient, dt_crcl/dxlat/2
+  const int* st_n;        // (2, Y) diffusion, advection sub-cycles of each
+                          // row; -1: the row takes the vectorised form
   int Y, X, T, nsub, bt, bb, ktc, kbc;
   int M, n_years, nmon, corr_step, n_pack;
+  int quirk;              // the src/greb.f90:881 jp2 quirk
+  // kappa, kappa * dt_crcl, the meridional coefficients of diffusion
+  // (kappa * dt_crcl / dyy^2) and advection (dt_crcl / dyy / 2)
+  float st_kappa, st_kdt, st_ccy_d, st_ccy_a;
 };
 
 // Columns of the member pack (multiyear.pack_member_params) that hold each
@@ -682,7 +729,8 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
 // Parts of a cluster block's shared memory, in layout order
 // (ops/cuda/year_kernel.py CLUSTER_PARTS).
 enum ClusterPart { P_STATE, P_XBUF, P_COEFFS, P_ZD, P_WZ, P_ASUM, P_MONTHLY,
-                   P_PCOMP, P_COMP_ROWS, P_COMP_PARTS, N_PARTS };
+                   P_PCOMP, P_COMP_ROWS, P_COMP_PARTS, P_WINDS, P_ROWC, P_SUB,
+                   N_PARTS };
 
 // Composite rows among the rows [r0, r1): the top ktc and bottom kbc rows.
 __host__ __device__ inline int comp_rows_in(int r0, int r1, int Y, int ktc,
@@ -697,30 +745,37 @@ __host__ __device__ inline int comp_rows_in(int r0, int r1, int Y, int ktc,
 // sums; SCEN_YEARS: with the month's means), and their total; 0 where C
 // does not split the rows into blocks of at least HALO rows, or X is not a
 // multiple of 4 (the composite sums load 16 bytes at a time; every part is
-// then a multiple of 16 bytes).  The same reckoning as
+// then a multiple of 16 bytes).  With the fold: its coefficient, zd and wz
+// planes and the pole composites; `strict` (the strict instantiation): wz
+// with HALO rows, the step's winds, the rows' constants and the polar
+// sub-cycles' scratch instead.  The same reckoning as
 // ops/cuda/year_kernel.py cluster_layout.
 __host__ __device__ inline long long cluster_parts(int Y, int X, int ktc,
                                                    int kbc, int C, int kind,
+                                                   bool strict,
                                                    long long* parts) {
   if (C < 1 || C > MAX_CLUSTER || Y % C != 0 || Y / C < HALO || X % 4 != 0)
     return 0;
   const long long R = Y / C, RX = R * X, f = sizeof(float);
   long long kmax = 0;
-  for (int b = 0; b < C; ++b) {
+  for (int b = 0; b < C && !strict; ++b) {
     const int k = comp_rows_in(b * R, (b + 1) * R, Y, ktc, kbc);
     kmax = k > kmax ? k : kmax;
   }
   const long long nb = (X + COMP_BLOCK - 1) / COMP_BLOCK;
   parts[P_STATE] = f * 5 * RX;
   parts[P_XBUF] = f * 2 * 2 * (R + 2 * HALO) * X;
-  parts[P_COEFFS] = f * 12 * 2 * RX;
-  parts[P_ZD] = f * 7 * 2 * RX;
-  parts[P_WZ] = f * 2 * RX;
+  parts[P_COEFFS] = strict ? 0 : f * 12 * 2 * RX;
+  parts[P_ZD] = strict ? 0 : f * 7 * 2 * RX;
+  parts[P_WZ] = strict ? f * 2 * (R + 2 * HALO) * X : f * 2 * RX;
   parts[P_ASUM] = kind != FLUX ? f * N_SUM * RX : 0;
   parts[P_MONTHLY] = kind == SCEN_YEARS ? f * N_OUT * RX : 0;
   parts[P_PCOMP] = f * 2 * kmax * X * X;
   parts[P_COMP_ROWS] = f * 3 * 2 * kmax * X;
   parts[P_COMP_PARTS] = f * 2 * kmax * nb * X;
+  parts[P_WINDS] = strict ? f * 2 * RX : 0;
+  parts[P_ROWC] = strict ? f * 8 * R : 0;
+  parts[P_SUB] = strict ? f * 4 * 2 * RX : 0;
   long long total = 0;
   for (int k = 0; k < N_PARTS; ++k) total += parts[k];
   return total;
@@ -772,6 +827,172 @@ __device__ __forceinline__ int member_index() {
   return (int)(blockIdx.x / cg::this_cluster().num_blocks());
 }
 
+// ---------------------------------------------------------------------------
+// the strict transport: the term-by-term stencils (ops/stencils.py)
+// ---------------------------------------------------------------------------
+// stencils._diff7 of one cell: t the field's taps, w those of its wz.
+__device__ __forceinline__ float diff7(const Taps& t, const Taps& w,
+                                       float cc) {
+  float s = 10.f * (w.xm1 * (t.xm1 - t.x0) + w.xp1 * (t.xp1 - t.x0));
+  s = s + 4.f * (w.xm2 * (t.xm2 - t.xm1) + w.xm1 * (t.x0 - t.xm1));
+  s = s + 4.f * (w.xp1 * (t.x0 - t.xp1) + w.xp2 * (t.xp2 - t.xp1));
+  s = s + 1.f * (w.xm3 * (t.xm3 - t.xm2) + w.xm2 * (t.xm1 - t.xm2));
+  s = s + 1.f * (w.xp2 * (t.xp1 - t.xp2) + w.xp3 * (t.xp3 - t.xp2));
+  return (cc * s) / 20.f;
+}
+
+// stencils._adv_upwind2: the 2-point upwind zonal advection.
+__device__ __forceinline__ float upwind2(const Taps& t, const Taps& w,
+                                         float um, float up, float cc) {
+  const float a = w.xm1 * (t.x0 - t.xm1) + w.xm2 * (t.x0 - t.xm2);
+  const float b = w.xp1 * (t.x0 - t.xp1) + w.xp2 * (t.x0 - t.xp2);
+  return (cc * ((-um) * a + up * b)) / 3.f;
+}
+
+// stencils._adv_smooth3: the polar sub-cycle's 10/4/1 upwind; tp2, wp2
+// are the j+2 taps with the jp2 quirk applied.
+__device__ __forceinline__ float smooth3(const Taps& t, const Taps& w,
+                                         float tp2, float wp2, float um,
+                                         float up, float cc) {
+  const float a = ((10.f * w.xm1) * (t.x0 - t.xm1)
+                   + (4.f * w.xm2) * (t.xm1 - t.xm2))
+                  + (1.f * w.xm3) * (t.xm2 - t.xm3);
+  const float b = ((10.f * w.xp1) * (t.x0 - t.xp1)
+                   + (4.f * wp2) * (t.xp1 - tp2))
+                  + (1.f * w.xp3) * (tp2 - t.xp3);
+  return (cc * ((-um) * a + up * b)) / 20.f;
+}
+
+// The strict transport's per-block constants and scratch in shared memory.
+struct Strict {
+  const float* wz;  // (2, R + 2*HALO, X) wz of Ta and q, zero past the poles
+  const float* uv;  // (2, R, X) this step's u, v
+  const float* ccx;   // (R,) kappa*dt_crcl/dxlat^2: 7-point diffusion
+  const float* ccx2;  // (R,) kappa*dtdff2/dxlat^2: its polar sub-cycle
+  const float* cax;   // (R,) dt_crcl/dxlat/2: 2-point upwind advection
+  const float* cax2;  // (R,) polar advection coefficient
+  const int* nd;      // (R,) diffusion sub-cycles; -1: vectorised form
+  const int* na;      // (R,) advection sub-cycles; -1: vectorised form
+  float* sub;   // (4, 2, R, X): the diffusion sub-cycle's two buffers,
+                // then the advection sub-cycle's
+  float ccy_d, ccy_a;
+  int nf;       // fields that move: 2, or 1 (Ta) under VAPOR_CIRCULATION_OFF
+  bool q_adv;   // q advects (not under VAPOR_DIFFUSION_ONLY)
+  bool quirk;   // the jp2 quirk (src/greb.f90:881)
+  bool has_sub;  // the block holds a sub-cycled row
+  int nit;       // the largest sub-cycle count among the block's rows
+};
+
+// The new value of one (field, cell) after a strict substep
+// (stencils.circulation's substep, additive form): x and w point at the
+// cell's row of the field and of its wz, HALO rows each side (zero past
+// the poles); td / ta at its row of the finished diffusion / advection
+// sub-cycle where the row is sub-cycled, else null; mfull / pfull: the
+// advection's v_m / v_p part is not divided by 3 (global rows 1, Y-2).
+__device__ __forceinline__ float strict_value(
+    const float* x, const float* w, int j, int X, float cc_d, float cc_a,
+    float ccy_d, float ccy_a, bool adv, float u, float v, bool mfull,
+    bool pfull, const float* td, const float* ta) {
+  Taps t, tw;
+  zonal_taps(x, j, X, t);
+  zonal_taps(w, j, X, tw);
+  const float km1 = x[j - X], kp1 = x[j + X];
+  const float wm1 = w[j - X], wp1 = w[j + X];
+  // diffusion: wz * (dTx + dTy)
+  const float dty = ccy_d * (wm1 * (km1 - t.x0) + wp1 * (kp1 - t.x0));
+  const float dtx = td != nullptr ? td[j] - t.x0 : diff7(t, tw, cc_d);
+  const float dxd = tw.x0 * (dtx + dty);
+  if (!adv) return t.x0 + dxd;
+  // advection: dTx + dTy, meridional upwind over 2 rows each side
+  const float um = u > 0.f ? u : 0.f, up = u < 0.f ? u : 0.f;
+  const float vm = v > 0.f ? v : 0.f, vp = v < 0.f ? v : 0.f;
+  const float km2 = x[j - 2 * X], kp2 = x[j + 2 * X];
+  const float s_m = vm * (wm1 * (t.x0 - km1) + w[j - 2 * X] * (t.x0 - km2));
+  const float s_p = vp * (wp1 * (t.x0 - kp1) + w[j + 2 * X] * (t.x0 - kp2));
+  const float dya = ccy_a * ((-(mfull ? s_m : s_m / 3.f))
+                             + (pfull ? s_p : s_p / 3.f));
+  const float dxa = ta != nullptr ? ta[j] - t.x0 : upwind2(t, tw, um, up, cc_a);
+  return (t.x0 + dxd) + (dxa + dya);
+}
+
+// One strict substep of this block's rows, buffer xa (the block's rows at
+// buffer row HALO) -> buffer nxt: the (field, cell)s of rows without a
+// polar sub-cycle at once; then, where the block holds sub-cycled rows
+// (block-uniform), st.nit iterations of both sub-cycles over the scratch,
+// each from the substep's state, a row adding 0 past its own count, with
+// a __syncthreads() between iterations; then those rows' cells.
+__device__ void strict_substep(const Strict& st, const Bufs& bufs,
+                               const float* xa, int nxt, int r0, int Y) {
+  const int R = bufs.R, X = bufs.X, RX = R * X, P = 2 * RX;
+  const int BX = bufs.field(), WX = (R + 2 * HALO) * X;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_rx(RX), by_x(X);
+  for (int l = tid; l < st.nf * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX;
+    const int i = by_x(li), j = li - i * X;
+    const bool adv = f == 0 || st.q_adv;
+    const bool sd = st.nd[i] >= 0, sa = adv && st.na[i] >= 0;
+    const float* x = xa + f * BX + (i + HALO) * X;
+    if (sd) st.sub[l] = x[j];
+    if (sa) st.sub[2 * P + l] = x[j];
+    if (sd || sa) continue;
+    const int r = r0 + i;
+    bufs.put(nxt, f, i, j,
+             strict_value(x, st.wz + f * WX + (i + HALO) * X, j, X,
+                          st.ccx[i], st.cax[i], st.ccy_d, st.ccy_a, adv,
+                          st.uv[li], st.uv[RX + li], r == 1, r == Y - 2,
+                          nullptr, nullptr));
+  }
+  if (!st.has_sub) return;
+  for (int it = 0; it < st.nit; ++it) {
+    __syncthreads();
+    const int rd = it & 1;   // read buffer; the other is written
+    for (int l = tid; l < st.nf * RX; l += nt) {
+      const int f = by_rx(l), li = l - f * RX;
+      const int i = by_x(li), j = li - i * X;
+      const bool adv = f == 0 || st.q_adv;
+      if (st.nd[i] < 0 && !(adv && st.na[i] >= 0)) continue;
+      const int row = f * RX + i * X;
+      Taps w;
+      zonal_taps(st.wz + f * WX + (i + HALO) * X, j, X, w);
+      if (st.nd[i] >= 0) {
+        Taps t;
+        zonal_taps(st.sub + rd * P + row, j, X, t);
+        const float d = clamp_neg(diff7(t, w, st.ccx2[i]), t.x0);
+        st.sub[(1 - rd) * P + l] = t.x0 + d * (it < st.nd[i] ? 1.f : 0.f);
+      }
+      if (adv && st.na[i] >= 0) {
+        Taps t;
+        zonal_taps(st.sub + (2 + rd) * P + row, j, X, t);
+        const bool q = st.quirk && j == X - 3;
+        const float u = st.uv[li];
+        const float um = u > 0.f ? u : 0.f, up = u < 0.f ? u : 0.f;
+        const float d = clamp_neg(
+            smooth3(t, w, q ? t.xp1 : t.xp2, q ? w.xp1 : w.xp2, um, up,
+                    st.cax2[i]), t.x0);
+        st.sub[(3 - rd) * P + l] = t.x0 + d * (it < st.na[i] ? 1.f : 0.f);
+      }
+    }
+  }
+  __syncthreads();
+  const int fin = st.nit & 1;   // the buffer the last iteration wrote
+  for (int l = tid; l < st.nf * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX;
+    const int i = by_x(li), j = li - i * X;
+    const bool adv = f == 0 || st.q_adv;
+    const bool sd = st.nd[i] >= 0, sa = adv && st.na[i] >= 0;
+    if (!sd && !sa) continue;
+    const int r = r0 + i, row = f * RX + i * X;
+    bufs.put(nxt, f, i, j,
+             strict_value(xa + f * BX + (i + HALO) * X,
+                          st.wz + f * WX + (i + HALO) * X, j, X, st.ccx[i],
+                          st.cax[i], st.ccy_d, st.ccy_a, adv, st.uv[li],
+                          st.uv[RX + li], r == 1, r == Y - 2,
+                          sd ? st.sub + fin * P + row : nullptr,
+                          sa ? st.sub + (2 + fin) * P + row : nullptr));
+  }
+}
+
 // The years of member m = member_index(), this block's rows: FLUX a
 // spin-up year (fluxcorr_year, fluxcorr_years), SCEN a scenario year with
 // per-step outputs and annual sums (scenario_year, one member),
@@ -779,10 +1000,13 @@ __device__ __forceinline__ int member_index() {
 // (scenario_years).  The state stays in shared memory from one year to
 // the next; the annual sums restart from 0 at each year's first step and
 // go out at its last, the month's means restart at each month's first step
-// and go out at its last.  Under CIRCULATION_OFF a step skips the
-// coefficients, the substeps and their barriers and takes Ta and q from
-// the state.
-template <int KIND, bool LEGACY>
+// and go out at its last.  STRICT = false moves Ta and q with the fold
+// (LEGACY: with the switches of the flags word); STRICT = true (with
+// LEGACY) is the strict instantiation: no fold in its shared memory, Ta and
+// q moved by the strict stencils (strict_substep; q per the vapour bits),
+// or under CIRCULATION_OFF not at all: a step then skips the substeps and
+// their barriers and takes Ta and q from the state.
+template <int KIND, bool LEGACY, bool STRICT>
 __device__ void run_cluster(const YearArgs& a, GrebParams p) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -793,7 +1017,7 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
   const int R = Y / C, RX = R * X, r0 = rank * R;
   const int ktc = a.ktc, kbc = a.kbc, K = ktc + kbc;
   long long parts[N_PARTS];
-  cluster_parts(Y, X, ktc, kbc, C, KIND, parts);
+  cluster_parts(Y, X, ktc, kbc, C, KIND, STRICT, parts);
   const int nb = (X + COMP_BLOCK - 1) / COMP_BLOCK;
   const int kmax = (int)(parts[P_PCOMP] / (sizeof(float) * 2 * X * X));
   float* sp[N_PARTS];
@@ -803,7 +1027,7 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
   float* s_state = sp[P_STATE];   // (5, R, X)
   float* s_cf = sp[P_COEFFS];     // (12, 2, R, X)
   float* s_zd = sp[P_ZD];         // (7, 2, R, X)
-  float* s_wz = sp[P_WZ];         // (2, R, X)
+  float* s_wz = sp[P_WZ];         // (2, R, X); STRICT (2, R + 2*HALO, X)
   float* s_asum = sp[P_ASUM];     // (9, R, X), SCEN and SCEN_YEARS
   float* s_mon = sp[P_MONTHLY];   // (5, R, X), SCEN_YEARS: the month's means
   float* s_pc = sp[P_PCOMP];      // (2, kmax, X, X): slot q of field f
@@ -834,10 +1058,59 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 
   for (int i = tid; i < 5 * RX; i += nt)
     s_state[i] = a.state_in[row0 + (size_t)(i / RX) * MYX + i % RX];
-  for (int i = tid; i < 7 * 2 * RX; i += nt)
-    s_zd[i] = a.zd[(size_t)(i / RX) * YX + r0 * X + i % RX];
-  for (int i = tid; i < 2 * RX; i += nt)
-    s_wz[i] = a.wz[(size_t)(i / RX) * YX + r0 * X + i % RX];
+  // Ta and q move: always with the fold, in the strict instantiation
+  // unless CIRCULATION_OFF (whose launch has no stencil constants)
+  const bool circ = !STRICT || !on<LEGACY>(p, CIRCULATION_OFF);
+  Strict st;
+  if (STRICT && circ) {
+    // wz of Ta and q with HALO rows each side, zero past the poles (as
+    // stencils.extend_lat_zero), and the rows' constants (stencils.py)
+    const int WX = (R + 2 * HALO) * X;
+    for (int i = tid; i < 2 * WX; i += nt) {
+      const int f = i / WX, h = i - f * WX, r = r0 - HALO + h / X;
+      s_wz[i] = r >= 0 && r < Y ? a.st_wz[(size_t)f * YX + r * X + h % X]
+                                : 0.f;
+    }
+    float* rc = sp[P_ROWC];
+    int* rn = reinterpret_cast<int*>(rc + 4 * R);
+    for (int i = tid; i < R; i += nt) {
+      const float* rows = a.st_rows + r0 + i;   // (4, Y), this row
+      rc[i] = a.st_kdt / rows[0];
+      rc[R + i] = (a.st_kappa * rows[Y]) / rows[0];
+      rc[2 * R + i] = rows[3 * Y];
+      rc[3 * R + i] = rows[2 * Y];
+      rn[i] = a.st_n[r0 + i];
+      rn[R + i] = a.st_n[Y + r0 + i];
+    }
+    __syncthreads();
+    st.wz = s_wz;
+    st.uv = sp[P_WINDS];
+    st.ccx = rc;
+    st.ccx2 = rc + R;
+    st.cax = rc + 2 * R;
+    st.cax2 = rc + 3 * R;
+    st.nd = rn;
+    st.na = rn + R;
+    st.sub = sp[P_SUB];
+    st.ccy_d = a.st_ccy_d;
+    st.ccy_a = a.st_ccy_a;
+    st.nf = on<LEGACY>(p, VAPOR_CIRCULATION_OFF) ? 1 : 2;
+    st.q_adv = !on<LEGACY>(p, VAPOR_DIFFUSION_ONLY);
+    st.quirk = a.quirk != 0;
+    st.has_sub = false;
+    st.nit = 0;
+    for (int i = 0; i < R; ++i) {
+      const int n = rn[i] > rn[R + i] ? rn[i] : rn[R + i];
+      st.has_sub = st.has_sub || n >= 0;
+      st.nit = n > st.nit ? n : st.nit;
+    }
+  }
+  if (!STRICT) {
+    for (int i = tid; i < 7 * 2 * RX; i += nt)
+      s_zd[i] = a.zd[(size_t)(i / RX) * YX + r0 * X + i % RX];
+    for (int i = tid; i < 2 * RX; i += nt)
+      s_wz[i] = a.wz[(size_t)(i / RX) * YX + r0 * X + i % RX];
+  }
   // halo rows start at zero: those past the poles stay so
   for (int i = tid; i < 2 * 2 * 2 * HALO * X; i += nt) {
     const int fb = i / (2 * HALO * X);          // buffer*2 + field
@@ -845,7 +1118,7 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
     const int row = h < HALO * X ? h / X : R + h / X;
     bufs.mine[fb * BX + row * X + h % X] = 0.f;
   }
-  for (int i = tid; i < 2 * kb * X * X; i += nt) {
+  for (int i = tid; i < 2 * kb * X * X && !STRICT; i += nt) {
     const int fq = i / (X * X);
     const int f = fq / kb, q = fq - f * kb;
     const int r = q < ntop ? r0 + q : r0 + bot0 + (q - ntop);
@@ -860,13 +1133,37 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 
   // step t of year y; each year's CO2 from the table (SCEN_YEARS)
   const int n_years = KIND == SCEN_YEARS ? a.n_years : 1;
-  const bool circ = !on<LEGACY>(p, CIRCULATION_OFF);
+  const int nf = STRICT && circ ? st.nf : 2;   // the fields that move
   for (int yt = 0; yt < n_years * a.T; ++yt) {
     const int y = yt / a.T, t = yt - y * a.T;
     if (KIND == SCEN_YEARS && t == 0) p.co2 = a.co2_years[y];
     const size_t tyx = (size_t)t * YX;
     int cur = 0;
-    if (circ) {
+    if (STRICT && circ) {
+      // -- step start: the moving fields into buffer 0, pushed to the
+      //    neighbours' halos, and this step's winds into shared memory
+      for (int l = tid; l < nf * RX; l += nt) {
+        const int f = by_rx(l), li = l - f * RX;
+        const int i = by_x(li), j = li - i * X;
+        bufs.put(0, f, i, j, s_state[(f == 0 ? 1 : 3) * RX + li]);
+      }
+      float* uv = sp[P_WINDS];
+      for (int li = tid; li < RX; li += nt) {
+        uv[li] = a.u[tyx + r0 * X + li];
+        uv[RX + li] = a.v[tyx + r0 * X + li];
+      }
+      cluster.sync();
+      // -- circulation: nsub strict substeps, buffer cur -> nxt
+      for (int s = 0; s < a.nsub; ++s) {
+        const int nxt = NXT - cur;
+        strict_substep(st, bufs, bufs.mine + cur, nxt, r0, Y);
+        // every block's rows and halos of buffer nxt are written, and no
+        // block reads buffer cur any more
+        cluster.sync();
+        cur = nxt;
+      }
+    }
+    if (!STRICT) {
       // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
       //    halos, and this step's coefficients into shared memory
       for (int l = tid; l < 2 * RX; l += nt) {
@@ -970,8 +1267,9 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
       for (int k = 0; k < 5; ++k) s[k] = s_state[k * RX + li];
       float vals[N_SUM];
       update_cell<KIND, LEGACY>(a, p, t, pix, s, circ ? xc[li] : s[1],
-                                circ ? xc[BX + li] : s[3], tf_m, tof_m, qf_m,
-                                (size_t)t * a.corr_step + pix, vals);
+                                circ && nf == 2 ? xc[BX + li] : s[3], tf_m,
+                                tof_m, qf_m, (size_t)t * a.corr_step + pix,
+                                vals);
       if (KIND == SCEN) {   // one member
         float* out = a.outs + (size_t)t * N_OUT * YX + pix;
         for (int k = 0; k < N_OUT; ++k) out[k * YX] = vals[k];
@@ -1003,24 +1301,26 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
   cluster.sync();
 }
 
-// Each kernel in two instantiations: the modern variant (flags 0) and, with
-// the suffix _legacy, the one that branches on the flags word.
+// Each kernel in three instantiations: the modern variant (flags 0); with
+// the suffix _legacy, the fold with the switches of the flags word; with
+// the suffix _strict, the strict transport or none, with the switches.
 __global__ void __launch_bounds__(NT, 1) fluxcorr_year(YearArgs a, GrebParams p) {
-  run_cluster<FLUX, false>(a, p);
+  run_cluster<FLUX, false, false>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_year(YearArgs a, GrebParams p) {
-  run_cluster<SCEN, false>(a, p);
+  run_cluster<SCEN, false, false>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) fluxcorr_years(YearArgs a, GrebParams p,
                                                         PackCols c) {
-  run_cluster<FLUX, false>(a, member_params(p, a, c, member_index()));
+  run_cluster<FLUX, false, false>(a, member_params(p, a, c, member_index()));
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_years(YearArgs a, GrebParams p,
                                                         PackCols c) {
-  run_cluster<SCEN_YEARS, false>(a, member_params(p, a, c, member_index()));
+  run_cluster<SCEN_YEARS, false, false>(a, member_params(p, a, c,
+                                                         member_index()));
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_years_block(
@@ -1030,27 +1330,49 @@ __global__ void __launch_bounds__(NT, 1) scenario_years_block(
 
 __global__ void __launch_bounds__(NT, 1) fluxcorr_year_legacy(YearArgs a,
                                                               GrebParams p) {
-  run_cluster<FLUX, true>(a, p);
+  run_cluster<FLUX, true, false>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_year_legacy(YearArgs a,
                                                               GrebParams p) {
-  run_cluster<SCEN, true>(a, p);
+  run_cluster<SCEN, true, false>(a, p);
 }
 
 __global__ void __launch_bounds__(NT, 1) fluxcorr_years_legacy(
     YearArgs a, GrebParams p, PackCols c) {
-  run_cluster<FLUX, true>(a, member_params(p, a, c, member_index()));
+  run_cluster<FLUX, true, false>(a, member_params(p, a, c, member_index()));
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_years_legacy(
     YearArgs a, GrebParams p, PackCols c) {
-  run_cluster<SCEN_YEARS, true>(a, member_params(p, a, c, member_index()));
+  run_cluster<SCEN_YEARS, true, false>(a, member_params(p, a, c,
+                                                        member_index()));
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_years_block_legacy(
     YearArgs a, GrebParams p, PackCols c) {
   run_years<true>(a, member_params(p, a, c, blockIdx.x));
+}
+
+__global__ void __launch_bounds__(NT, 1) fluxcorr_year_strict(YearArgs a,
+                                                              GrebParams p) {
+  run_cluster<FLUX, true, true>(a, p);
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_year_strict(YearArgs a,
+                                                              GrebParams p) {
+  run_cluster<SCEN, true, true>(a, p);
+}
+
+__global__ void __launch_bounds__(NT, 1) fluxcorr_years_strict(
+    YearArgs a, GrebParams p, PackCols c) {
+  run_cluster<FLUX, true, true>(a, member_params(p, a, c, member_index()));
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_years_strict(
+    YearArgs a, GrebParams p, PackCols c) {
+  run_cluster<SCEN_YEARS, true, true>(a, member_params(p, a, c,
+                                                       member_index()));
 }
 
 // One block of NT threads per member (a.M blocks).
@@ -1065,16 +1387,18 @@ static int launch(Kernel kernel, const YearArgs& a, void* stream,
   return (int)cudaGetLastError();
 }
 
-// The launch of a.M clusters of C blocks of `kernel` (of `kind`), one
-// member a cluster, into cfg (whose attrs point at attr), and how many such
-// clusters the card runs at once; GREB_ERR_NO_CLUSTER where none.
+// The launch of a.M clusters of C blocks of `kernel` (of `kind`; `strict`:
+// a strict instantiation), one member a cluster, into cfg (whose attrs
+// point at attr), and how many such clusters the card runs at once;
+// GREB_ERR_NO_CLUSTER where none.
 template <typename Kernel>
 static int cluster_config(Kernel kernel, const YearArgs& a, int C, int kind,
-                          void* stream, cudaLaunchAttribute* attr,
-                          cudaLaunchConfig_t* cfg, int* clusters) {
+                          bool strict, void* stream,
+                          cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                          int* clusters) {
   long long parts[N_PARTS];
   const long long smem = cluster_parts(a.Y, a.X, a.ktc, a.kbc, C, kind,
-                                       parts);
+                                       strict, parts);
   if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1106,87 +1430,145 @@ static int cluster_config(Kernel kernel, const YearArgs& a, int C, int kind,
 // takes no other C.  Clusters beyond the card's capacity run in waves.
 template <typename Kernel, typename... Extra>
 static int launch_cluster(Kernel kernel, const YearArgs& a,
-                          const GrebParams& p, int C, int kind, void* stream,
-                          Extra... extra) {
+                          const GrebParams& p, int C, int kind, bool strict,
+                          void* stream, Extra... extra) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters;
-  const int err = cluster_config(kernel, a, C, kind, stream, attr, &cfg,
-                                 &clusters);
+  const int err = cluster_config(kernel, a, C, kind, strict, stream, attr,
+                                 &cfg, &clusters);
   if (err) return err;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, p, extra...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// A flags word with a bit not in Flag.
-static bool unknown_flags(const GrebParams& p) {
-  return (p.flags & ~KNOWN_FLAGS) != 0;
+// The instantiations a flags word launches (variant).
+enum Variant { V_MODERN, V_LEGACY, V_STRICT, V_NONE };
+
+// V_MODERN at flags 0; V_STRICT for the strict transport or none
+// (CIRCULATION_OFF); V_LEGACY for any other word; V_NONE for a word
+// with a bit not in Flag, a vapour bit without STRICT_TRANSPORT, or the
+// strict transport with CIRCULATION_OFF.
+static Variant variant(const GrebParams& p) {
+  const int f = p.flags;
+  const bool strict = (f & STRICT_TRANSPORT) != 0;
+  const bool off = (f & CIRCULATION_OFF) != 0;
+  if ((f & ~KNOWN_FLAGS) != 0 || (strict && off)
+      || (!strict && (f & (VAPOR_CIRCULATION_OFF | VAPOR_DIFFUSION_ONLY))))
+    return V_NONE;
+  if (strict || off) return V_STRICT;
+  return f ? V_LEGACY : V_MODERN;
 }
 
 extern "C" {
 
-// Each launcher runs the modern instantiation at flags 0, the legacy one
-// otherwise, and refuses (GREB_ERR_FLAGS) a word with an unknown bit.
+// Each launcher runs the instantiation of the word's variant and refuses
+// (GREB_ERR_FLAGS) a word that has none.
 int greb_fluxcorr_year(YearArgs a, GrebParams p, int C, void* stream) {
-  if (unknown_flags(p)) return GREB_ERR_FLAGS;
-  if (p.flags)
-    return launch_cluster(fluxcorr_year_legacy, a, p, C, FLUX, stream);
-  return launch_cluster(fluxcorr_year, a, p, C, FLUX, stream);
+  switch (variant(p)) {
+    case V_MODERN:
+      return launch_cluster(fluxcorr_year, a, p, C, FLUX, false, stream);
+    case V_LEGACY:
+      return launch_cluster(fluxcorr_year_legacy, a, p, C, FLUX, false,
+                            stream);
+    case V_STRICT:
+      return launch_cluster(fluxcorr_year_strict, a, p, C, FLUX, true,
+                            stream);
+    default:
+      return GREB_ERR_FLAGS;
+  }
 }
 
 int greb_scenario_year(YearArgs a, GrebParams p, int C, void* stream) {
-  if (unknown_flags(p)) return GREB_ERR_FLAGS;
-  if (p.flags)
-    return launch_cluster(scenario_year_legacy, a, p, C, SCEN, stream);
-  return launch_cluster(scenario_year, a, p, C, SCEN, stream);
+  switch (variant(p)) {
+    case V_MODERN:
+      return launch_cluster(scenario_year, a, p, C, SCEN, false, stream);
+    case V_LEGACY:
+      return launch_cluster(scenario_year_legacy, a, p, C, SCEN, false,
+                            stream);
+    case V_STRICT:
+      return launch_cluster(scenario_year_strict, a, p, C, SCEN, true,
+                            stream);
+    default:
+      return GREB_ERR_FLAGS;
+  }
 }
 
 int greb_fluxcorr_years(YearArgs a, GrebParams p, PackCols c, int C,
                         void* stream) {
-  if (unknown_flags(p)) return GREB_ERR_FLAGS;
-  if (p.flags)
-    return launch_cluster(fluxcorr_years_legacy, a, p, C, FLUX, stream, c);
-  return launch_cluster(fluxcorr_years, a, p, C, FLUX, stream, c);
+  switch (variant(p)) {
+    case V_MODERN:
+      return launch_cluster(fluxcorr_years, a, p, C, FLUX, false, stream, c);
+    case V_LEGACY:
+      return launch_cluster(fluxcorr_years_legacy, a, p, C, FLUX, false,
+                            stream, c);
+    case V_STRICT:
+      return launch_cluster(fluxcorr_years_strict, a, p, C, FLUX, true,
+                            stream, c);
+    default:
+      return GREB_ERR_FLAGS;
+  }
 }
 
-// C = 1: the one-block body, one block per member
+// C = 1: the one-block body, one block per member; it moves Ta and q with
+// the fold or not at all, and refuses the strict transport
 int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, int C,
                         void* stream) {
-  if (unknown_flags(p)) return GREB_ERR_FLAGS;
-  if (C == 1)
+  const Variant v = variant(p);
+  if (C == 1) {
+    if (v == V_NONE || (p.flags & STRICT_TRANSPORT)) return GREB_ERR_FLAGS;
     return p.flags ? launch(scenario_years_block_legacy, a, stream, p, c)
                    : launch(scenario_years_block, a, stream, p, c);
-  if (p.flags)
-    return launch_cluster(scenario_years_legacy, a, p, C, SCEN_YEARS, stream,
-                          c);
-  return launch_cluster(scenario_years, a, p, C, SCEN_YEARS, stream, c);
+  }
+  switch (v) {
+    case V_MODERN:
+      return launch_cluster(scenario_years, a, p, C, SCEN_YEARS, false,
+                            stream, c);
+    case V_LEGACY:
+      return launch_cluster(scenario_years_legacy, a, p, C, SCEN_YEARS,
+                            false, stream, c);
+    case V_STRICT:
+      return launch_cluster(scenario_years_strict, a, p, C, SCEN_YEARS, true,
+                            stream, c);
+    default:
+      return GREB_ERR_FLAGS;
+  }
 }
 
-// The kernel's own reckoning of a cluster block's shared memory: fills
-// parts[N_PARTS] (bytes, layout order), returns the total (0: no layout).
+// The kernel's own reckoning of a cluster block's shared memory (`strict`:
+// the strict instantiation's): fills parts[N_PARTS] (bytes, layout order),
+// returns the total (0: no layout).
 long long greb_cluster_layout(int Y, int X, int ktc, int kbc, int C,
-                              int kind, long long* parts) {
-  return cluster_parts(Y, X, ktc, kbc, C, kind, parts);
+                              int kind, int strict, long long* parts) {
+  return cluster_parts(Y, X, ktc, kbc, C, kind, strict != 0, parts);
 }
 
 // How many clusters of C blocks of the member kernel of `kind` (FLUX:
-// fluxcorr_years, SCEN: scenario_year, SCEN_YEARS: scenario_years) the card
-// runs at once, into *clusters; returns an error code as the launchers do.
+// fluxcorr_years, SCEN: scenario_year, SCEN_YEARS: scenario_years; `strict`:
+// its strict instantiation) the card runs at once, into *clusters; returns
+// an error code as the launchers do.
 int greb_cluster_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
-                          int* clusters) {
+                          int strict, int* clusters) {
   YearArgs a = {};
   a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
+  const bool st = strict != 0;
   if (kind == FLUX)
-    return cluster_config(fluxcorr_years, a, C, kind, nullptr, attr, &cfg,
-                          clusters);
+    return st ? cluster_config(fluxcorr_years_strict, a, C, kind, st, nullptr,
+                               attr, &cfg, clusters)
+              : cluster_config(fluxcorr_years, a, C, kind, st, nullptr, attr,
+                               &cfg, clusters);
   if (kind == SCEN)
-    return cluster_config(scenario_year, a, C, kind, nullptr, attr, &cfg,
-                          clusters);
-  return cluster_config(scenario_years, a, C, kind, nullptr, attr, &cfg,
-                        clusters);
+    return st ? cluster_config(scenario_year_strict, a, C, kind, st, nullptr,
+                               attr, &cfg, clusters)
+              : cluster_config(scenario_year, a, C, kind, st, nullptr, attr,
+                               &cfg, clusters);
+  return st ? cluster_config(scenario_years_strict, a, C, kind, st, nullptr,
+                             attr, &cfg, clusters)
+            : cluster_config(scenario_years, a, C, kind, st, nullptr, attr,
+                             &cfg, clusters);
 }
 
 int greb_cluster_threads(int Y, int X, int C) {
@@ -1202,7 +1584,8 @@ const char* greb_error_string(int err) {
     return "cudaOccupancyMaxActiveClusters is 0: the card cannot schedule "
            "a cluster of this size with this shared memory";
   if (err == GREB_ERR_FLAGS)
-    return "the legacy flags word has a bit the kernels do not know";
+    return "the flags word has a bit the kernels do not know, or a "
+           "combination no instantiation runs";
   return cudaGetErrorString((cudaError_t)err);
 }
 

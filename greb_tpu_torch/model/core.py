@@ -6,14 +6,17 @@ outputs)``; a year is a Python loop over the 730 steps.  These eager year
 runners are the plain PyTorch versions of the two CUDA year kernels
 (ops/cuda/year_kernel.py), which run the same step body on the card.  The
 legacy ``log_exp`` switchboard reaches every function through ``exp``, as
-in the JAX package; the modes whose transport needs the strict stencils
-raise (``check_transport``).
+in the JAX package.  Ta and q move by one of three transports
+(``transport``): the coefficient-folded circulation (ops/fastcirc2.py),
+the strict term-by-term stencils (ops/stencils.py: the strict circulation,
+and legacy log_exp 7, 8, 16) or none (log_exp <= 4).
 Monthly means are one (12, nstep) x (nstep, 5*y*x) product outside the
 year, as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -24,6 +27,7 @@ from ..config import Experiment, Numerics, PhysicsParams
 from ..forcing import ClimForcing, Corrections, Derived, ModelState
 from ..ops import fastcirc2 as fc2
 from ..ops import pointwise as pw
+from ..ops import stencils as stc
 
 F32 = np.float32
 
@@ -96,35 +100,34 @@ class Tendencies(NamedTuple):
 
 @dataclass
 class ModelData:
-    """Everything time-constant the step needs."""
+    """Everything time-constant the step needs; ``st`` and ``sf`` are the
+    strict stencils' constants."""
     params: PhysicsParams
     derived: Derived
     z_topo: torch.Tensor
     glacier: torch.Tensor
+    st: Optional[stc.StencilStatic] = None
+    sf: Optional[stc.StencilFields] = None
 
 
-# where the transport of the legacy modes that need the strict stencils
-# comes (log_exp 7, 8, 16 and the strict circulation)
-STRICT_TRANSPORT_SLICE = "the strict-transport slice (ROADMAP Queue 1 item 2)"
-
-
-def check_transport(exp: Experiment) -> None:
-    """Raise for the legacy modes that transport Ta or q with the strict
-    term-by-term stencils (log_exp 7 and 16: Ta only; 8: q by diffusion
-    alone), which the port does not have."""
-    if exp.vapor_circulation_off or exp.vapor_diffusion_only:
-        raise NotImplementedError(
-            f"legacy log_exp={exp.log_exp} transports Ta and q with the "
-            f"strict stencils: they come with {STRICT_TRANSPORT_SLICE}")
+def transport(exp: Experiment, folded: bool) -> str:
+    """What moves Ta and q: "none" (legacy log_exp <= 4), "strict" (the
+    term-by-term stencils: legacy log_exp 7, 8, 16, or no fold) or "fold"
+    (the coefficient-folded circulation), as the JAX package's
+    compute_tendencies decides it (``folded``: a fold is given)."""
+    if exp.circulation_off:
+        return "none"
+    if exp.vapor_circulation_off or exp.vapor_diffusion_only or not folded:
+        return "strict"
+    return "fold"
 
 
 def compute_tendencies(state: ModelState, fx: StepForcing, co2,
-                       md: ModelData, num: Numerics, fold: Fold,
+                       md: ModelData, num: Numerics, fold: Optional[Fold],
                        exp: Experiment = Experiment()) -> Tendencies:
     """Reference: tendencies, src/greb.f90:277-308, with the circulation
-    of (Ta, q) through the coefficient-folded fold (ops/fastcirc2.py), or
-    none under the legacy ``circulation_off``."""
-    check_transport(exp)
+    of (Ta, q) by ``transport``: the fold, the strict stencils (Ta only
+    under log_exp 7 and 16; under 8 q by diffusion alone) or none."""
     p, d = md.params, md.derived
     swr = pw.shortwave(state.ts, fx.cld, fx.sw_solar, md.z_topo, md.glacier,
                        p, exp)
@@ -134,14 +137,34 @@ def compute_tendencies(state: ModelState, fx: StepForcing, co2,
     hyd = pw.hydrology(state.ts, state.q, fx.u, fx.v, fx.swet, md.z_topo,
                        d.wz_air, p, exp)
 
-    if exp.circulation_off:                      # legacy log_exp <= 4
+    mode = transport(exp, fold is not None)
+    if mode == "none":
         dta_crcl = dq_crcl = torch.zeros_like(state.ta)
-    else:
+    elif mode == "fold":
         plan, const = fold
         x2 = torch.stack([state.ta, state.q], dim=-3)
         cf_t = fc2.step_coeffs(fx.u, fx.v, const, plan)
         dx2 = fc2.circulation(x2, cf_t, const, plan, num.nsub_crcl)
         dta_crcl, dq_crcl = dx2[..., 0, :, :], dx2[..., 1, :, :]
+    else:
+        # wind sign splits (src/greb.f90:203-216)
+        circ = functools.partial(
+            stc.circulation, u_m=torch.clamp(fx.u, min=0.0),
+            u_p=torch.clamp(fx.u, max=0.0), v_m=torch.clamp(fx.v, min=0.0),
+            v_p=torch.clamp(fx.v, max=0.0), st=md.st, sf=md.sf,
+            kappa=p.kappa, nsub=num.nsub_crcl)
+        if exp.vapor_circulation_off:              # legacy log_exp 7, 16
+            dta_crcl = circ(state.ta, d.wz_air)
+            dq_crcl = torch.zeros_like(state.q)
+        elif exp.vapor_diffusion_only:             # legacy log_exp 8
+            dta_crcl = circ(state.ta, d.wz_air)
+            dq_crcl = circ(state.q, d.wz_vapor, include_advection=False)
+        else:
+            # (Ta, q) batched along a leading axis: one circulation
+            x2 = torch.stack([state.ta, state.q], dim=-3)
+            wz2 = torch.stack([d.wz_air, d.wz_vapor], dim=-3)
+            dx2 = circ(x2, wz2)
+            dta_crcl, dq_crcl = dx2[..., 0, :, :], dx2[..., 1, :, :]
 
     doc = pw.deep_ocean(state.ts, state.to, fx.mld, fx.mld_prev, md.z_topo,
                         F32(num.dt), d, p, exp)

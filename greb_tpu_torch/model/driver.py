@@ -16,6 +16,10 @@ kernel: ``apply_experiment`` sets the static field overrides, the spin-up
 and control phases run at the experiment's CO2_ctrl, the scenario's CO2
 follows ``core.co2_series_for_run``, and ``run_control`` is the original
 variant's control phase (reference src/greb.original.model.f90:199-231).
+Ta and q move by the coefficient-folded circulation where the JAX package
+builds its fold, else by the strict stencils (``cfg.fast_circulation``
+False, legacy log_exp 7, 8, 16) or not at all (log_exp <= 4):
+``core.transport``; every kernel runs all three.
 """
 from __future__ import annotations
 
@@ -47,13 +51,6 @@ class GREB:
                  forcing: Optional[ClimForcing] = None,
                  input_dir: Optional[str] = None, verbose: bool = True,
                  device=None):
-        # the legacy modes that transport with the strict stencils (log_exp
-        # 7, 8, 16) and the strict circulation raise before anything runs
-        core.check_transport(cfg.experiment)
-        if not cfg.fast_circulation:
-            raise NotImplementedError(
-                f"strict circulation: the strict stencils come with "
-                f"{core.STRICT_TRANSPORT_SLICE}")
         if cfg.fastcirc_version != 2:
             raise NotImplementedError(
                 f"fastcirc_version={cfg.fastcirc_version}: the port runs the "
@@ -79,23 +76,30 @@ class GREB:
                               pi=float(self.params.pi),
                               max_wind=float(uabs.max()),
                               u_rowmax=uabs.max(axis=(0, 2)))
-        self.st = stc.make_stencil_static(self.grid)
+        self.st, self.sf = stc.make_stencil_arrays(
+            self.grid, cfg.fidelity_jp2_quirk, self.device)
         self.derived = build_derived(self.params, forcing)
         self.md = core.ModelData(params=self.params, derived=self.derived,
-                                 z_topo=forcing.z_topo, glacier=forcing.glacier)
+                                 z_topo=forcing.z_topo, glacier=forcing.glacier,
+                                 st=self.st, sf=self.sf)
         self.sfx = core.step_forcing_from_clim(forcing)
-        self.fold = fc2.build_const(
-            self.derived.wz_air.cpu().numpy(),
-            self.derived.wz_vapor.cpu().numpy(),
-            self.grid, self.st, kappa=float(self.params.kappa),
-            device=self.device)
-        if self.device.type == "cuda":
-            # the kernels' shared-memory fit and plan support, checked
-            # before any year runs
-            yk.check_supported(self.fold[0])
+        # the fold only where the JAX package builds it (its
+        # fastcirc_tables): not for the strict circulation, nor where the
+        # legacy switchboard replaces the transport
+        self.fold = None
+        if core.transport(self.exp, cfg.fast_circulation) == "fold":
+            self.fold = fc2.build_const(
+                self.derived.wz_air.cpu().numpy(),
+                self.derived.wz_vapor.cpu().numpy(),
+                self.grid, self.st, kappa=float(self.params.kappa),
+                device=self.device)
         self.year_data = yk.YearData(md=self.md, sfx=self.sfx,
                                      fold=self.fold, num=self.num,
                                      exp=self.exp)
+        if self.device.type == "cuda":
+            # the kernels' shared-memory fit and plan support, checked
+            # before any year runs
+            yk.check_supported(self.year_data.plan)
         self.month_mat = torch.as_tensor(
             month_average_matrix(self.num.jday_mon, self.num.ndt_days),
             device=self.device)

@@ -26,8 +26,10 @@ kernels.
 Layouts are the JAX package's: state (5, M, Y, X), member pack
 (M, 1, N_PPACK), corrections (M, T, 3, Y, X), monthly means
 (M, 12 * n_years, 5, Y, X), annual sums (M, n_years, 9, Y, X).  The fold
-is built once from the base parameters, so the members may not differ from
-them in a transport parameter (``parallel.ensemble.TRANSPORT_PARAM_KEYS``).
+and the strict stencils' constants are built once from the base
+parameters, so the members may not differ from them in a transport
+parameter (``parallel.ensemble.TRANSPORT_PARAM_KEYS``).  K3's one-block
+body does not run the strict transport (``cluster=1`` raises).
 The TPU kernel's members-per-block ``mb`` has no counterpart: a member
 fills a cluster's shared memory, and members do not interact.
 
@@ -100,21 +102,27 @@ KINDS = ("fluxcorr", "scenario_years")
 _BEYOND_WAVES = {"fluxcorr": (1, 8), "scenario_years": (7, 1)}
 
 
-def default_cluster(kind: str, members: int, capacity: int) -> int:
+def default_cluster(kind: str, members: int, capacity: int,
+                    strict: bool = False) -> int:
     """The cluster size ``kind``'s wrapper launches ``members`` members
     with by default, on a card that runs ``capacity`` clusters of
-    DEFAULT_CLUSTER blocks at once (``_BEYOND_WAVES``)."""
+    DEFAULT_CLUSTER blocks at once (``_BEYOND_WAVES``).  Under the strict
+    transport (``strict``) K3's one-block body is not offered, so K3 stays
+    on DEFAULT_CLUSTER-block clusters at every member count."""
     waves, beyond = _BEYOND_WAVES[kind]
-    return yk.DEFAULT_CLUSTER if members <= waves * capacity else beyond
+    if members <= waves * capacity or (strict and beyond == 1):
+        return yk.DEFAULT_CLUSTER
+    return beyond
 
 
 def _default_cluster_on(yd: yk.YearData, kind: str, members: int) -> int:
     """``default_cluster`` on this card, its capacity asked once per run."""
-    key = ("capacity", kind)
+    key = ("capacity", kind, yd.transport)
     if key not in yd.cache:
-        yd.cache[key] = yk.cluster_capacity(yd.fold[0], yk.DEFAULT_CLUSTER,
+        yd.cache[key] = yk.cluster_capacity(yd.plan, yk.DEFAULT_CLUSTER,
                                             kind)
-    return default_cluster(kind, members, yd.cache[key])
+    return default_cluster(kind, members, yd.cache[key],
+                           yd.transport == "strict")
 
 
 def _pack_cols() -> yk._PackCols:
@@ -189,7 +197,7 @@ def _pack_np(ppack: torch.Tensor, yd: yk.YearData) -> np.ndarray:
 def _check(state5: torch.Tensor, ppack: torch.Tensor,
            yd: yk.YearData) -> int:
     """Raise for what the kernels do not run; return the member count."""
-    yk.check_plan(yd.fold[0])
+    yk.check_plan(yd.plan)
     if state5.device.type not in ("cpu", "cuda"):
         raise ValueError(f"year kernels run on cuda (or plain on cpu), "
                          f"not {state5.device}")
@@ -204,8 +212,8 @@ def _check(state5: torch.Tensor, ppack: torch.Tensor,
         if not (rows[:, i] == F32(getattr(base, k))).all():
             raise ValueError(
                 f"members differ from the base params in {k!r}, a transport "
-                f"parameter: the folded circulation is built once, from the "
-                f"base params")
+                f"parameter: the fold and the stencils' constants are built "
+                f"once, from the base params")
     return M
 
 
@@ -214,8 +222,7 @@ def _member_data(row: np.ndarray, yd: yk.YearData) -> core.ModelData:
     p, (cap_ocean, cap_land, cap_air) = member_params(row)
     derived = dataclasses.replace(yd.md.derived, cap_ocean=cap_ocean,
                                   cap_land=cap_land, cap_air=cap_air)
-    return core.ModelData(params=p, derived=derived, z_topo=yd.md.z_topo,
-                          glacier=yd.md.glacier)
+    return dataclasses.replace(yd.md, params=p, derived=derived)
 
 
 # ---------------------------------------------------------------------------
@@ -284,15 +291,15 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     (M, T, 3, Y, X)).  On the card each member runs on a cluster of
     ``cluster`` blocks (default: ``default_cluster``)."""
     M = _check(state5, ppack, yd)
-    params = yk._params(yd, co2)    # refuses the strict modes, on CPU too
     if cluster is not None:
         yk._check_cluster(cluster, "fluxcorr")
     dev = state5.device
     if dev.type == "cpu":
         return fluxcorr_years_plain(state5, ppack, co2, yd)
+    params = yk._params(yd, co2)
     if cluster is None:
         cluster = _default_cluster_on(yd, "fluxcorr", M)
-    yk.cluster_layout(yd.fold[0], cluster, "fluxcorr")
+    yk.cluster_layout(yd.plan, cluster, "fluxcorr")
     T, Y, X = yd.num.nstep_yr, state5.shape[2], state5.shape[3]
     state_out = torch.empty_like(state5)
     corr = torch.empty((M, T, 3, Y, X), dtype=torch.float32, device=dev)
@@ -318,14 +325,16 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     the card each member runs on a cluster of ``cluster`` blocks, or with
     ``cluster=1`` on one block (default: ``default_cluster``)."""
     M = _check(state5, ppack, yd)
-    # each year's CO2 comes from the table; refuses the strict modes, on
-    # CPU too
-    params = yk._params(yd, 0.0)
     if cluster is not None:
         yk._check_cluster(cluster, "scenario_years")
+        if cluster == 1 and yd.transport == "strict":
+            raise NotImplementedError(
+                f"scenario_years: the one-block body (cluster=1) does not "
+                f"run the strict transport ({yk.STRICT_ONE_BLOCK_ITEM})")
     dev = state5.device
     if dev.type == "cpu":
         return scenario_years_plain(state5, ppack, corrpack, co2_years, yd)
+    params = yk._params(yd, 0.0)    # each year's CO2 comes from the table
     if cluster is None:
         cluster = _default_cluster_on(yd, "scenario_years", M)
     num = yd.num
@@ -335,11 +344,11 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     if cluster == 1:
         # one block a member: the step's coefficient planes (M, 12, 2, Y,
         # X), za 7, mc 4, c0m 1, in a global scratch, a slice per member
-        yk.check_block_fit(yd.fold[0])
+        yk.check_block_fit(yd.plan)
         scratch["cf"] = (torch.empty((M, 12, 2, Y, X), dtype=torch.float32,
                                      device=dev), None)
     else:
-        yk.cluster_layout(yd.fold[0], cluster, "scenario_years")
+        yk.cluster_layout(yd.plan, cluster, "scenario_years")
     co2t = torch.as_tensor(co2_years, dtype=torch.float32, device=dev)
     ny = co2t.numel()
     state_out = torch.empty_like(state5)

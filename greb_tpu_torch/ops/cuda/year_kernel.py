@@ -24,12 +24,16 @@ size is taken.
 ``year_work`` gives the bytes and operations of a year, for the
 whole-card bound.
 
-The legacy ``log_exp`` switchboard (``YearData.exp``) reaches every kernel
-as one flags word in the physics parameters (``experiment_flags``, bits
-``FLAGS``); a non-zero word launches the kernel's legacy instantiation,
-whose step body branches on it uniformly, and a zero word the modern one,
-compiled without the branches.  The modes that transport with the strict
-stencils raise, on the CPU too.
+The legacy ``log_exp`` switchboard (``YearData.exp``) and the transport
+(``YearData.transport``) reach every kernel as one flags word in the
+physics parameters (``experiment_flags``, bits ``FLAGS``).  A zero word
+launches the kernel's modern instantiation, compiled without the branches;
+a word with the fold and any switch the legacy one, whose step body
+branches on it uniformly; a word with the strict transport (the strict
+circulation, legacy log_exp 7, 8, 16) or no transport (log_exp <= 4) the
+strict one, which moves Ta and q with the term-by-term stencils
+(ops/stencils.py) or not at all, and has no fold in its shared memory
+(``StrictPlan``).
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -37,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +50,7 @@ from ...config import Experiment, Numerics
 from ...forcing import Corrections, ModelState
 from ...model import core
 from .. import fastcirc2 as fc2
+from .. import stencils as stc
 
 F32 = np.float32
 
@@ -74,22 +79,43 @@ HALO = 2
 DEFAULT_CLUSTER = 16
 # threads a block may have (csrc/year_kernel.cu NT)
 MAX_THREADS = 1024
-# parts of a cluster block's shared memory, in the kernel's layout order
+# parts of a cluster block's shared memory, in the kernel's layout order;
+# the fold's parts (coeffs, zd, pcomp, comp_*) and the strict transport's
+# (winds, rowc, subcycle) are 0 in the other's layout
 CLUSTER_PARTS = ("state", "transported", "coeffs", "zd", "wz", "asum",
-                 "monthly", "pcomp", "comp_rows", "comp_partials")
-# the bits of the switchboard's flags word (csrc/year_kernel.cu enum Flag),
-# each an Experiment property; a launcher refuses a word with a bit it does
-# not know (GREB_ERR_FLAGS)
+                 "monthly", "pcomp", "comp_rows", "comp_partials", "winds",
+                 "rowc", "subcycle")
+# the bits of the flags word (csrc/year_kernel.cu enum Flag), each an
+# Experiment property but strict_transport (``YearData.transport``); a
+# launcher refuses a word with a bit it does not know, and the vapour bits
+# without the strict one (GREB_ERR_FLAGS)
 FLAGS = ("fixed_albedo", "simple_seaice", "hydro_off", "circulation_off",
-         "deep_ocean_off", "linear_vapor_lw", "sst_plus_one")
+         "deep_ocean_off", "linear_vapor_lw", "sst_plus_one",
+         "strict_transport", "vapor_circulation_off", "vapor_diffusion_only")
+# where K3's one-block body under the strict transport is queued
+STRICT_ONE_BLOCK_ITEM = "ROADMAP Queue 2 item 4"
 
 
-def experiment_flags(exp: Experiment) -> int:
-    """The kernels' flags word of ``exp`` (0 for the modern variant).
-    Raises NotImplementedError for the modes that transport with the strict
-    stencils (``core.check_transport``)."""
-    core.check_transport(exp)
-    return sum(1 << i for i, name in enumerate(FLAGS) if getattr(exp, name))
+def experiment_flags(exp: Experiment, strict: bool = False) -> int:
+    """The kernels' flags word of ``exp`` (0 for the modern variant), with
+    the strict-transport bit where ``strict``."""
+    on = lambda name: strict if name == "strict_transport" else getattr(
+        exp, name)
+    return sum(1 << i for i, name in enumerate(FLAGS) if on(name))
+
+
+@dataclass(frozen=True)
+class StrictPlan:
+    """The layout plan of the strict instantiation, which runs the strict
+    transport or none: the grid's size and no fold (no composite rows);
+    ``seq_zonal`` marks an extension-mode grid, which no kernel runs."""
+    ydim: int
+    xdim: int
+    seq_zonal: bool = False
+    bt: int = 0
+    bb: int = 0
+    comp_kt: int = 0
+    comp_kb: int = 0
 
 
 @dataclass
@@ -100,10 +126,24 @@ class YearData:
     once per run."""
     md: core.ModelData
     sfx: core.StepForcing
-    fold: core.Fold
+    fold: Optional[core.Fold]
     num: Numerics
     exp: Experiment = field(default_factory=Experiment)
     cache: Dict = field(default_factory=dict, repr=False)
+
+    @property
+    def transport(self) -> str:
+        """"fold", "strict" or "none" (``core.transport``)."""
+        return core.transport(self.exp, self.fold is not None)
+
+    @property
+    def plan(self):
+        """The fold's plan, or the ``StrictPlan`` of a year without the
+        fold."""
+        if self.transport == "fold":
+            return self.fold[0]
+        return StrictPlan(self.num.ydim, self.num.xdim,
+                          seq_zonal=bool(self.md.st and self.md.st.seq_zonal))
 
 
 @dataclass(frozen=True)
@@ -131,16 +171,20 @@ def _comp_rows_in(r0: int, r1: int, plan: fc2.FastPlan) -> int:
     return max(top, 0) + max(bot, 0)
 
 
-def cluster_layout(plan: fc2.FastPlan, blocks: int,
-                   kind: str) -> ClusterLayout:
+def cluster_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     """The shared memory of each block of a ``blocks``-block cluster that
     runs a kernel of ``kind`` (one of KINDS; csrc/year_kernel.cu
-    ``cluster_parts``, the same reckoning): the 5-field state of its rows,
-    two buffers of the 2 transported fields with HALO rows each side, the
-    step's 12 coefficient planes, the 7 zonal-diffusion planes and wz for 2
-    fields, the 9 annual sums (the scenario kinds), the month's 5 means
-    (``scenario_years``), the (2, X, X) composite matrices, their t1/da/dy
-    rows and their partial row sums for each pole row a block holds.
+    ``cluster_parts``, the same reckoning).  With a fold's plan: the
+    5-field state of its rows, two buffers of the 2 transported fields with
+    HALO rows each side, the step's 12 coefficient planes, the 7
+    zonal-diffusion planes and wz for 2 fields, the 9 annual sums (the
+    scenario kinds), the month's 5 means (``scenario_years``), the (2, X, X)
+    composite matrices, their t1/da/dy rows and their partial row sums for
+    each pole row a block holds.  With a ``StrictPlan`` (the strict
+    instantiation): the state, the two buffers, wz of 2 fields with HALO
+    rows each side, the sums and means, the step's winds u and v, 8 words
+    of constants a row and the polar sub-cycles' 4 planes of 2 fields
+    (diffusion and advection, two buffers each).
     Raises ValueError where the rows do not split evenly, a block would
     hold fewer rows than the halo depth, the row length is not a multiple
     of 4 (the composite sums load 16 bytes at a time), or a block needs
@@ -157,14 +201,21 @@ def cluster_layout(plan: fc2.FastPlan, blocks: int,
     if R < HALO:
         raise ValueError(f"a cluster of {blocks} blocks gives {R} row(s) per "
                          f"block, under the meridional halo depth {HALO}")
-    kmax = max(_comp_rows_in(b * R, (b + 1) * R, plan) for b in range(blocks))
-    nb = -(-X // fc2.COMP_BLOCK)
-    words = dict(state=5 * R * X, transported=2 * 2 * (R + 2 * HALO) * X,
-                 coeffs=12 * 2 * R * X, zd=7 * 2 * R * X, wz=2 * R * X,
+    words = dict.fromkeys(CLUSTER_PARTS, 0)
+    words.update(state=5 * R * X, transported=2 * 2 * (R + 2 * HALO) * X,
                  asum=N_SUM * R * X if kind != "fluxcorr" else 0,
-                 monthly=core.N_OUT * R * X if kind == "scenario_years" else 0,
-                 pcomp=2 * kmax * X * X, comp_rows=3 * 2 * kmax * X,
-                 comp_partials=2 * kmax * nb * X)
+                 monthly=core.N_OUT * R * X if kind == "scenario_years" else 0)
+    if isinstance(plan, StrictPlan):
+        kmax = 0
+        words.update(wz=2 * (R + 2 * HALO) * X, winds=2 * R * X, rowc=8 * R,
+                     subcycle=4 * 2 * R * X)
+    else:
+        kmax = max(_comp_rows_in(b * R, (b + 1) * R, plan)
+                   for b in range(blocks))
+        nb = -(-X // fc2.COMP_BLOCK)
+        words.update(coeffs=12 * 2 * R * X, zd=7 * 2 * R * X, wz=2 * R * X,
+                     pcomp=2 * kmax * X * X, comp_rows=3 * 2 * kmax * X,
+                     comp_partials=2 * kmax * nb * X)
     lay = ClusterLayout(
         blocks=blocks, rows=R, comp_rows=kmax,
         threads=min(MAX_THREADS, -(-2 * R * X // 32) * 32),
@@ -176,7 +227,7 @@ def cluster_layout(plan: fc2.FastPlan, blocks: int,
     return lay
 
 
-def smem_bytes(plan: fc2.FastPlan) -> int:
+def smem_bytes(plan) -> int:
     """Dynamic shared memory of a block of K3's one-block body
     (``scenario_years`` at cluster=1): the 5-field state, two buffers of
     the 2 transported fields, and 3 slabs of the composite rows (the
@@ -186,23 +237,30 @@ def smem_bytes(plan: fc2.FastPlan) -> int:
     return 4 * (5 * yx + 4 * yx + 6 * kx)
 
 
-def check_plan(plan: fc2.FastPlan) -> None:
-    """Raise for what no year kernel runs: explicit segment iterations,
-    packed composites, sequential zonal splitting (all refined-grid plans;
-    ROADMAP Queue 1 item 3)."""
+def check_plan(plan) -> None:
+    """Raise for what no year kernel runs: extension-mode grids
+    (sequential zonal splitting), and folds with explicit segment
+    iterations or packed composites (all refined-grid plans; ROADMAP
+    Queue 1 item 3)."""
+    if plan.seq_zonal:
+        raise NotImplementedError(
+            f"year kernels: seq_zonal=True (an extension-mode grid) comes "
+            f"with the refined-grid slice (ROADMAP Queue 1 item 3)")
+    if isinstance(plan, StrictPlan):
+        return
     if plan.diff_segs or plan.adv_segs:
         raise NotImplementedError(
             f"year kernels: explicit polar segments (diff_segs="
             f"{plan.diff_segs}, adv_segs={plan.adv_segs}) come with the "
             f"refined-grid slice (ROADMAP Queue 1 item 3)")
-    if plan.comp_mode not in ("dense", "none") or plan.seq_zonal:
+    if plan.comp_mode not in ("dense", "none"):
         raise NotImplementedError(
             f"year kernels: comp_mode={plan.comp_mode!r} / seq_zonal="
             f"{plan.seq_zonal} come with the refined-grid slice (ROADMAP "
             f"Queue 1 item 3)")
 
 
-def check_supported(plan: fc2.FastPlan) -> None:
+def check_supported(plan) -> None:
     """Raise for what the kernels do not run: the plans of ``check_plan``,
     and grids that a cluster of DEFAULT_CLUSTER blocks does not hold for
     every kind (``cluster_layout``)."""
@@ -211,7 +269,7 @@ def check_supported(plan: fc2.FastPlan) -> None:
         cluster_layout(plan, DEFAULT_CLUSTER, kind)
 
 
-def check_block_fit(plan: fc2.FastPlan) -> None:
+def check_block_fit(plan) -> None:
     """Raise where one member's state does not fit one block's shared
     memory (K3's one-block body)."""
     need = smem_bytes(plan)
@@ -245,6 +303,55 @@ def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool):
     return 4 * words, t * per_step
 
 
+# float32 operations of one (field, cell) of a strict substep, counted from
+# csrc/year_kernel.cu strict_value / strict_substep as year_work counts:
+# diffusion (meridional 6, the 7-point stencil 36, wz * (dtx + dty) 2),
+# advection (wind splits 4, meridional 17, the 2-point upwind 16, dtx +
+# dty 1), the combine 2 (1 without advection); a sub-cycled row swaps the
+# zonal stencil for t1h - x (1) plus each of its iterations (diffusion 41,
+# advection 33: the stencil, the clamp, the masked add)
+STRICT_OPS = dict(diff=44, diff7=36, adv=38, upwind2=16, combine=2,
+                  diff_iter=41, adv_iter=33)
+
+
+def strict_year_work(yd: YearData, scenario: bool):
+    """(bytes, operations) one year of the strict transport must move and
+    compute at least, counted as ``year_work``; the polar sub-cycles count
+    each row's own iterations (what this grid needs, not the block's
+    largest count), and a field moves only as the switchboard says (q
+    not under log_exp 7, 16; by diffusion alone under 8)."""
+    num, (nd, na) = yd.num, stc.sub_cycles(yd.md.st, yd.md.sf)
+    nd, na = nd.cpu().numpy(), na.cpu().numpy()
+    Y, X, t = num.ydim, num.xdim, num.nstep_yr
+    yx = Y * X
+    words = (5 * yx + 8 * t * yx + t * Y       # state in, forcing, insolation
+             + 6 * yx + 6 * Y                  # constant fields, wz_vapor, rows
+             + 5 * yx + 3 * t * yx)            # state out, corrections
+    if scenario:
+        words += 5 * t * yx + N_SUM * yx
+    o = STRICT_OPS
+
+    def field_ops(advect: bool) -> int:
+        ops = 0
+        for r in range(Y):
+            ops += o["diff"] + o["combine"] - (0 if advect else 1)
+            if nd[r] >= 0:
+                ops += 1 - o["diff7"] + o["diff_iter"] * int(nd[r])
+            if advect:
+                ops += o["adv"]
+                if na[r] >= 0:
+                    ops += 1 - o["upwind2"] + o["adv_iter"] * int(na[r])
+        return ops * X
+
+    e = yd.exp
+    per_substep = field_ops(True)
+    if not e.vapor_circulation_off:
+        per_substep += field_ops(not e.vapor_diffusion_only)
+    per_step = (num.nsub_crcl * per_substep
+                + yx * (125 + (9 if scenario else 0)))
+    return 4 * words, t * per_step
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -270,9 +377,12 @@ _PTR_NAMES = ("tclim", "qclim", "swet", "u", "v", "mld", "mld_prev", "cld",
               "sw_solar", "z_topo", "glacier", "wz_air", "z_ocean", "toclim",
               "zd", "zam", "mer", "wz", "pcomp", "tf", "tof", "qf", "outs",
               "asum", "monthly", "mon", "mon_w", "co2_years", "ppack",
-              "state_in", "state_out", "cf")
+              "state_in", "state_out", "cf", "st_wz", "st_rows", "st_n")
 _INT_NAMES = ("Y", "X", "T", "nsub", "bt", "bb", "ktc", "kbc", "M", "n_years",
-              "nmon", "corr_step", "n_pack")
+              "nmon", "corr_step", "n_pack", "quirk")
+# the strict transport's scalars: kappa, kappa * dt_crcl, and the
+# meridional coefficients of diffusion and advection
+_STRICT_NAMES = ("st_kappa", "st_kdt", "st_ccy_d", "st_ccy_a")
 
 
 class _Params(ctypes.Structure):
@@ -285,7 +395,8 @@ class _Params(ctypes.Structure):
 
 class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTR_NAMES]
-                + [(n, ctypes.c_int) for n in _INT_NAMES])
+                + [(n, ctypes.c_int) for n in _INT_NAMES]
+                + [(n, ctypes.c_float) for n in _STRICT_NAMES])
 
 
 class _PackCols(ctypes.Structure):
@@ -305,10 +416,10 @@ def _lib():
         fn.argtypes = [_Args, _Params, _PackCols, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.greb_cluster_layout.argtypes = [ctypes.c_int] * 6 + [
+    lib.greb_cluster_layout.argtypes = [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.greb_cluster_layout.restype = ctypes.c_longlong
-    lib.greb_cluster_capacity.argtypes = [ctypes.c_int] * 6 + [
+    lib.greb_cluster_capacity.argtypes = [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.greb_cluster_capacity.restype = ctypes.c_int
     lib.greb_cluster_threads.argtypes = [ctypes.c_int] * 3
@@ -318,29 +429,32 @@ def _lib():
     return lib
 
 
-def kernel_cluster_layout(plan: fc2.FastPlan, blocks: int, kind: str):
+def kernel_cluster_layout(plan, blocks: int, kind: str):
     """The kernel's own reckoning of a cluster block (csrc/year_kernel.cu
     ``greb_cluster_layout``, built on first use): ({part: bytes}, threads),
-    for holding against ``cluster_layout``."""
+    for holding against ``cluster_layout`` (a ``StrictPlan``: the strict
+    instantiation's layout)."""
     lib = _lib()
     parts = (ctypes.c_longlong * len(CLUSTER_PARTS))()
     total = lib.greb_cluster_layout(plan.ydim, plan.xdim, plan.comp_kt,
                                     plan.comp_kb, blocks, KINDS.index(kind),
-                                    parts)
+                                    isinstance(plan, StrictPlan), parts)
     if total <= 0:
         raise ValueError(f"the kernel has no layout for {blocks} blocks")
     return (dict(zip(CLUSTER_PARTS, parts)),
             lib.greb_cluster_threads(plan.ydim, plan.xdim, blocks))
 
 
-def cluster_capacity(plan: fc2.FastPlan, blocks: int, kind: str) -> int:
+def cluster_capacity(plan, blocks: int, kind: str) -> int:
     """How many clusters of ``blocks`` blocks of the kernel of ``kind`` the
-    card runs at once (``cudaOccupancyMaxActiveClusters``); members beyond
-    it run in waves.  Raises where the card runs none."""
+    card runs at once (``cudaOccupancyMaxActiveClusters``; a
+    ``StrictPlan``: of the strict instantiation); members beyond it run in
+    waves.  Raises where the card runs none."""
     lib = _lib()
     n = ctypes.c_int()
     err = lib.greb_cluster_capacity(plan.ydim, plan.xdim, plan.comp_kt,
                                     plan.comp_kb, blocks, KINDS.index(kind),
+                                    isinstance(plan, StrictPlan),
                                     ctypes.byref(n))
     if err:
         raise RuntimeError(f"cluster capacity, {kind} at {blocks} blocks: "
@@ -354,8 +468,32 @@ def _params(yd: YearData, co2) -> _Params:
     out.p_emi[:] = [float(v) for v in np.asarray(p.p_emi, F32)]
     out.cap_ocean, out.cap_land = float(d.cap_ocean), float(d.cap_land)
     out.cap_air, out.dt, out.co2 = float(d.cap_air), float(yd.num.dt), float(F32(co2))
-    out.flags = experiment_flags(yd.exp)
+    out.flags = experiment_flags(yd.exp, yd.transport == "strict")
     return out
+
+
+def _strict_args(yd: YearData, dev: torch.device):
+    """The strict transport's tensors on ``dev`` (wz of Ta and q, the rows'
+    dxlat**2, diffusion sub-step, polar and plain advection coefficients,
+    their sub-cycle counts, ``stencils.sub_cycles``), made once per run, and
+    its scalars, computed as the plain version computes them."""
+    md, key = yd.md, ("strict", str(dev))
+    st, sf, kappa = md.st, md.sf, md.params.kappa
+    if key not in yd.cache:
+        rows = torch.stack([sf.dxlat2, sf.diff_dtdff2, sf.adv_ccx2,
+                            sf.ccx_adv]).reshape(4, -1)
+        yd.cache[key] = dict(
+            st_wz=(torch.stack([md.derived.wz_air, md.derived.wz_vapor]
+                               ).to(dev).contiguous(), None),
+            st_rows=(rows.to(dev).contiguous(), None),
+            st_n=(torch.stack(stc.sub_cycles(st, sf)).to(dev).contiguous(),
+                  None, torch.int32))
+    scalars = dict(st_kappa=float(F32(kappa)),
+                   st_kdt=float(F32(kappa) * F32(st.dt_crcl)),
+                   st_ccy_d=float(stc.diffusion_ccy(st, kappa)),
+                   st_ccy_a=float(stc.advection_ccy(st)),
+                   quirk=int(st.quirk_jp2))
+    return yd.cache[key], scalars
 
 
 def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
@@ -363,8 +501,10 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
     device, dtype, shape and contiguity.  ``extra`` maps a field to
     ``(tensor, shape)`` or ``(tensor, shape, dtype)`` (float32 unless
     given; shape None skips the shape check); ``ints`` overrides the
-    single-run sizes (M=1, one year, corrections step by step)."""
-    plan, const = yd.fold
+    single-run sizes (M=1, one year, corrections step by step).  The fold's
+    planes go in under the fold, the strict stencils' constants under the
+    strict transport, neither without transport."""
+    plan = yd.plan
     check_plan(plan)
     num, sfx, md = yd.num, yd.sfx, yd.md
     Y, X, T = plan.ydim, plan.xdim, num.nstep_yr
@@ -380,10 +520,16 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
         wz_air=(md.derived.wz_air, (Y, X)),
         z_ocean=(md.derived.z_ocean, (Y, X)),
         toclim=(md.derived.toclim, (Y, X)),
-        zd=(const.zd, (7, 2, Y, X)), zam=(const.zam, (8, 2, Y, X)),
-        mer=(const.mer, (9, 2, Y, X)), wz=(const.wz, (2, Y, X)),
-        pcomp=(const.pcomp, (2, K, X, X) if K else None),
         state_in=(state5, (5, Y, X)))
+    scalars = {}
+    if yd.transport == "fold":
+        const = yd.fold[1]
+        t.update(zd=(const.zd, (7, 2, Y, X)), zam=(const.zam, (8, 2, Y, X)),
+                 mer=(const.mer, (9, 2, Y, X)), wz=(const.wz, (2, Y, X)),
+                 pcomp=(const.pcomp, (2, K, X, X) if K else None))
+    elif yd.transport == "strict":
+        tensors, scalars = _strict_args(yd, dev)
+        t.update(tensors)
     t.update(extra)
     ptrs = {}
     for name, (ten, shape, *dtype) in t.items():
@@ -400,6 +546,7 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
     sizes = dict(Y=Y, X=X, T=T, nsub=num.nsub_crcl, bt=plan.bt, bb=plan.bb,
                  ktc=plan.comp_kt, kbc=plan.comp_kb, M=1, n_years=1,
                  nmon=len(num.jday_mon), corr_step=Y * X, n_pack=0)
+    sizes.update(scalars)
     sizes.update(ints or {})
     return _Args(**ptrs, **sizes)
 
@@ -444,11 +591,11 @@ def fluxcorr_year(state: ModelState, co2, yd: YearData,
     """One spin-up year: (end state, correction tables).  On the card the
     year runs on a cluster of ``cluster`` blocks."""
     _check_cluster(cluster, "fluxcorr")
-    params = _params(yd, co2)       # refuses the strict modes, on CPU too
     dev = _check_device(state)
     if dev.type == "cpu":
         return fluxcorr_year_plain(state, co2, yd)
-    cluster_layout(yd.fold[0], cluster, "fluxcorr")
+    params = _params(yd, co2)
+    cluster_layout(yd.plan, cluster, "fluxcorr")
     T, (Y, X) = yd.num.nstep_yr, tuple(state.ts.shape)
     state5 = state.stack()
     state_out = torch.empty_like(state5)
@@ -466,11 +613,11 @@ def scenario_year(state: ModelState, corr: Corrections, co2, yd: YearData,
     """One scenario year: (end state, outs (T, 5, Y, X), asum (9, Y, X)).
     On the card the year runs on a cluster of ``cluster`` blocks."""
     _check_cluster(cluster, "scenario")
-    params = _params(yd, co2)       # refuses the strict modes, on CPU too
     dev = _check_device(state)
     if dev.type == "cpu":
         return scenario_year_plain(state, corr, co2, yd)
-    cluster_layout(yd.fold[0], cluster, "scenario")
+    params = _params(yd, co2)
+    cluster_layout(yd.plan, cluster, "scenario")
     T, (Y, X) = yd.num.nstep_yr, tuple(state.ts.shape)
     state5 = state.stack()
     state_out = torch.empty_like(state5)

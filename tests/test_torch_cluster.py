@@ -83,6 +83,31 @@ def test_layout_parts_add_up(kind, blocks):
         [kind] * plane)
 
 
+@pytest.mark.parametrize("kind,blocks", OFFERED)
+def test_strict_layout_has_no_fold(kind, blocks):
+    """The strict instantiation's block (``StrictPlan``): the state, the
+    transported fields and wz with HALO rows each side, the sums, the
+    step's winds, 8 words a row and the 4 sub-cycle planes of 2 fields;
+    none of the fold's planes or composites, so it fits every offered
+    size in less than the fold's block."""
+    lay = yk.cluster_layout(yk.StrictPlan(48, 96), blocks, kind)
+    parts = dict(lay.parts)
+    assert tuple(parts) == yk.CLUSTER_PARTS
+    assert sum(parts.values()) == lay.nbytes
+    R, X = lay.rows, 96
+    plane, halo = 4 * R * X, 4 * (R + 2 * yk.HALO) * X
+    assert parts["state"] == 5 * plane
+    assert parts["transported"] == 2 * 2 * halo
+    assert parts["wz"] == 2 * halo
+    assert parts["winds"] == 2 * plane
+    assert parts["rowc"] == 4 * 8 * R
+    assert parts["subcycle"] == 4 * 2 * plane
+    for name in ("coeffs", "zd", "pcomp", "comp_rows", "comp_partials"):
+        assert parts[name] == 0, name
+    assert lay.comp_rows == 0 and lay.threads == min(1024, 2 * R * X)
+    assert lay.nbytes < yk.cluster_layout(PLAN, blocks, kind).nbytes
+
+
 @pytest.mark.parametrize("kind,at_8,planes", (("fluxcorr", 204288, 195072),
                                               ("scenario", 225024, 215808)))
 def test_layout_at_8_blocks_is_the_tightest(kind, at_8, planes):

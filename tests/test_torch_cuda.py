@@ -15,8 +15,10 @@ Every kernel must equal its plain version bit for bit (max |diff| = 0),
 and at M=1 with the base params the member kernels must equal the
 single-run kernels (K3 = K2, K4 = K1): they run the same cluster body and
 per-cell device functions.  The same holds under the legacy ``log_exp``
-switchboard: K1 and K2 for every log_exp the port runs, K3/K4 against
-K2/K1 under 11 and 15.
+switchboard: K1 and K2 for every log_exp, K3/K4 against K2/K1 under 11
+and 15, and under the strict transport (the strict circulation, log_exp
+7, 8, 16: the kernels' strict instantiation), whose shared-memory layout
+the kernel reckons as ``cluster_layout`` does at every offered size.
 """
 import numpy as np
 import pytest
@@ -160,15 +162,18 @@ def test_member_kernels_match_plain(model, cluster):
     assert not torch.equal(m_k[0], m_k[1]), "members do not differ"
 
 
-# the legacy log_exp values the kernels run: every one whose transport is
-# the folded circulation or none (7, 8 and 16 need the strict stencils)
+# the legacy log_exp values whose transport is the folded circulation or
+# none; 7, 8 and 16 transport with the strict stencils (STRICT_MODES)
 LEGACY_EXPS = (0, 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14, 15)
+# the strict transport: log_exp 7, 8, 16 and the strict circulation (None)
+STRICT_MODES = (7, 8, 16, None)
 
 
-def _legacy_model(log_exp):
+def _legacy_model(log_exp, fast_circulation=True):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
-    return GREB(GrebConfig(numerics=NUM, experiment=Experiment(log_exp)),
+    return GREB(GrebConfig(numerics=NUM, experiment=Experiment(log_exp),
+                           fast_circulation=fast_circulation),
                 verbose=False, device="cuda")
 
 
@@ -218,10 +223,51 @@ def test_legacy_member_kernels_equal_the_single_run_kernels(log_exp):
         _equal(a_2, a_3[0, 0], f"K3 C={cluster} annual sums")
 
 
+@pytest.mark.parametrize("log_exp", STRICT_MODES,
+                         ids=["log_exp7", "log_exp8", "log_exp16", "strict"])
+def test_strict_year_kernels_match_plain(log_exp):
+    """K1 then K2 under the strict transport (the strict instantiation),
+    each bitwise equal to its plain version on the same inputs, at every
+    offered size."""
+    m = _legacy_model(log_exp, fast_circulation=log_exp is not None)
+    yd = m.year_data
+    assert yd.transport == "strict" and m.fold is None
+    co2 = m.exp.co2_ctrl if m.exp.active else 298.0
+    s0 = m.initial_state()
+    s_p, c_p = yk.fluxcorr_year_plain(s0, co2, yd)
+    s2_p, o_p, a_p = yk.scenario_year_plain(s_p, c_p, 680.0, yd)
+    for cluster in yk.CLUSTER_SIZES["fluxcorr"]:
+        s_k, c_k = yk.fluxcorr_year(s0, co2, yd, cluster=cluster)
+        _equal(s_k.stack(), s_p.stack(), f"K1 C={cluster} state")
+        for name in ("tf", "tof", "qf"):
+            _equal(getattr(c_k, name), getattr(c_p, name),
+                   f"K1 C={cluster} {name}")
+        s2_k, o_k, a_k = yk.scenario_year(s_p, c_p, 680.0, yd,
+                                          cluster=cluster)
+        _equal(s2_k.stack(), s2_p.stack(), f"K2 C={cluster} state")
+        _equal(o_k, o_p, f"K2 C={cluster} outs")
+        _equal(a_k, a_p, f"K2 C={cluster} annual sums")
+
+
+@pytest.mark.parametrize("kind,cluster", [
+    (kind, c) for kind in yk.KINDS for c in yk.CLUSTER_SIZES[kind]])
+def test_strict_cluster_layout_matches_the_kernel(kind, cluster):
+    """The strict instantiation's layout (``StrictPlan``): the kernel's
+    own reckoning equals ``cluster_layout``, part for part."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the layout is the built kernel's")
+    plan = yk.StrictPlan(NUM.ydim, NUM.xdim)
+    lay = yk.cluster_layout(plan, cluster, kind)
+    parts, threads = yk.kernel_cluster_layout(plan, cluster, kind)
+    assert parts == dict(lay.parts) and threads == lay.threads
+    assert yk.cluster_capacity(plan, cluster, kind) >= 1
+
+
 def test_kernel_refuses_an_unknown_flag(model, monkeypatch):
     """A flags word with a bit the kernels do not know raises in the
     wrapper (the launcher's GREB_ERR_FLAGS); nothing runs."""
-    monkeypatch.setattr(yk, "experiment_flags", lambda exp: 1 << 7)
+    monkeypatch.setattr(yk, "experiment_flags",
+                        lambda exp, strict=False: 1 << len(yk.FLAGS))
     n0 = yk.fluxcorr_year.launches
     with pytest.raises(RuntimeError, match="do not know"):
         yk.fluxcorr_year(model.initial_state(), 298.0, model.year_data)

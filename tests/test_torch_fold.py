@@ -60,7 +60,7 @@ def fold(request):
     jplan, jconst = jm.fastcirc_tables()
     grid = make_grid(num.xdim, num.ydim, num.dt_crcl,
                      kappa=float(jm.params.kappa), pi=float(jm.params.pi))
-    st = stc.make_stencil_static(grid)
+    st, _ = stc.make_stencil_arrays(grid)
     plan, const = fc2.build_const(wz_air, wz_vapor, grid, st,
                                   kappa=float(jm.params.kappa), device="cpu")
     return dict(jm=jm, jplan=jplan, jconst=jconst, grid=grid, plan=plan,
@@ -159,7 +159,7 @@ def test_refined_grid_fold_matches():
                          u_rowmax=uabs.max(axis=(0, 2)))
         plan, const = fc2.build_const(np.asarray(jm.derived.wz_air),
                                       np.asarray(jm.derived.wz_vapor), grid,
-                                      stc.make_stencil_static(grid),
+                                      stc.make_stencil_arrays(grid)[0],
                                       kappa=float(jm.params.kappa),
                                       device="cpu")
     assert plan.seq_zonal and plan.comp_mode == "packed"

@@ -5,7 +5,9 @@ calendar, 24 substeps) runs one flux-correction year at 298 ppm and one
 scenario year at 680 ppm on the synthetic forcing, and reproduces
 tests/golden/golden_year_96x48.npz — the NumPy oracle's line-by-line
 transliteration of the reference — at the tolerances of
-tests/test_golden_year.py:29, all rows, poles included.
+tests/test_golden_year.py:29, all rows, poles included: with the folded
+circulation (the main path) and with the strict term-by-term stencils
+(``fast_circulation=False``, tests/test_golden_year.py's "strict" id).
 """
 import os
 
@@ -25,10 +27,9 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
 TOL = {"ts": 2e-2, "ta": 2e-2, "to": 2e-2, "q": 3e-6, "albedo": 5e-4}
 
 
-@pytest.fixture(scope="module")
-def run():
-    m = GREB(GrebConfig(numerics=Numerics(time_flux=1, time_scnr=1)),
-             verbose=False, device="cpu")
+def _run(**cfg_kw):
+    m = GREB(GrebConfig(numerics=Numerics(time_flux=1, time_scnr=1),
+                        **cfg_kw), verbose=False, device="cpu")
     state_fc, corr = m.flux_correction(co2=298.0)
     state, monthly, _ = m.run_scenario(
         corr, state=state_fc, co2_series=np.full(1, 680.0, np.float32))
@@ -36,11 +37,21 @@ def run():
 
 
 @pytest.fixture(scope="module")
+def run():
+    return _run()
+
+
+@pytest.fixture(scope="module")
+def strict_run():
+    return _run(fast_circulation=False)
+
+
+@pytest.fixture(scope="module")
 def golden():
     return np.load(GOLDEN)
 
 
-def test_spinup_year_matches_golden(run, golden):
+def _check_spinup(run, golden):
     state_fc, corr, _, _ = run
     for k, g in (("ts", "fc_ts"), ("ta", "fc_ta"), ("to", "fc_to")):
         np.testing.assert_allclose(getattr(state_fc, k).numpy(), golden[g],
@@ -55,7 +66,7 @@ def test_spinup_year_matches_golden(run, golden):
                                golden["corr_qf_mean"], rtol=0, atol=1e-7)
 
 
-def test_scenario_year_matches_golden(run, golden):
+def _check_scenario(run, golden):
     _, _, state, monthly = run
     want = golden["monthly"]                         # (12, 5, 48, 96)
     for v, name in enumerate(("ts", "ta", "to", "q", "albedo")):
@@ -66,3 +77,19 @@ def test_scenario_year_matches_golden(run, golden):
                                    rtol=0, atol=3e-2, err_msg=g)
     np.testing.assert_allclose(state.q.numpy(), golden["end_q"], rtol=0,
                                atol=5e-6, err_msg="end_q")
+
+
+def test_spinup_year_matches_golden(run, golden):
+    _check_spinup(run, golden)
+
+
+def test_scenario_year_matches_golden(run, golden):
+    _check_scenario(run, golden)
+
+
+def test_strict_spinup_year_matches_golden(strict_run, golden):
+    _check_spinup(strict_run, golden)
+
+
+def test_strict_scenario_year_matches_golden(strict_run, golden):
+    _check_scenario(strict_run, golden)

@@ -55,18 +55,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_unported_options_raise_with_their_roadmap_item():
+    """The strict circulation and the legacy modes that transport with the
+    strict stencils construct, with no fold; the banded v1 fold still
+    raises, naming where the ROADMAP leaves it."""
     from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
     from greb_tpu_torch.model.driver import GREB
 
     num = Numerics(xdim=48, ydim=24, ndays_yr=10, jday_mon=(6, 4))
-    # the legacy modes that transport with the strict stencils, and the
-    # strict circulation itself, name the strict-transport slice
-    for cfg, item in ((GrebConfig(numerics=num,
-                                  experiment=Experiment(log_exp=7)),
-                       "Queue 1 item 2"),
-                      (GrebConfig(numerics=num, fast_circulation=False),
-                       "Queue 1 item 2"),
-                      (GrebConfig(numerics=num, fastcirc_version=1),
-                       "Not to port")):
-        with pytest.raises(NotImplementedError, match=item):
-            GREB(cfg, verbose=False, device="cpu")
+    for cfg in (GrebConfig(numerics=num, experiment=Experiment(log_exp=7)),
+                GrebConfig(numerics=num, fast_circulation=False)):
+        m = GREB(cfg, verbose=False, device="cpu")
+        assert m.fold is None and m.year_data.transport == "strict"
+    with pytest.raises(NotImplementedError, match="Not to port"):
+        GREB(GrebConfig(numerics=num, fastcirc_version=1), verbose=False,
+             device="cpu")

@@ -15,14 +15,16 @@ branches as the JAX package, on the same inputs:
   and the control file's mixed layout;
 * the Pallas scenario kernel (interpret mode) at log_exp 15 against the
   port's plain ``scenario_year``;
-* the refusals of the modes that transport with the strict stencils;
+* the modes that transport with the strict stencils (log_exp 7, 8, 16 and
+  the strict circulation): a spin-up and a scenario year against
+  greb_tpu, the four kernel wrappers' plain versions (K2 = K3 and K1 = K4
+  at M=1), and K3's one-block body, which refuses them;
 * the CLI's ``--legacy``, which reads log_exp and time_ctrl from the
   namelist as greb_tpu does.
 
 The kernels themselves run these modes on the card only
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -87,13 +89,15 @@ def _raw(num_kw):
 
 
 def _pair(log_exp, num_kw, **cfg_kw):
-    """greb_tpu's GREB (folded circulation) and the port's, on the same
-    synthetic forcing, with the switchboard at ``log_exp``."""
+    """greb_tpu's GREB (folded circulation unless ``cfg_kw`` says
+    otherwise) and the port's, on the same synthetic forcing, with the
+    switchboard at ``log_exp``; ``cfg_kw`` maps a config field to its
+    (greb_tpu, port) values."""
     raw = _raw(num_kw)
+    jkw = dict(fast_circulation=True)
+    jkw.update({k: v[0] for k, v in cfg_kw.items()})
     jm = JGREB(JConfig(numerics=JNumerics(**num_kw),
-                       experiment=JExperiment(log_exp=log_exp),
-                       fast_circulation=True,
-                       **{k: v[0] for k, v in cfg_kw.items()}),
+                       experiment=JExperiment(log_exp=log_exp), **jkw),
                forcing=j_forcing(raw), verbose=False)
     m = GREB(GrebConfig(numerics=Numerics(**num_kw),
                         experiment=Experiment(log_exp=log_exp),
@@ -307,42 +311,103 @@ def test_scenario_plain_matches_pallas_kernel_at_log_exp_15():
     np.testing.assert_allclose(_np(asum), _np(asum_p), rtol=1e-4, atol=1e-2)
 
 
-@pytest.mark.parametrize("cfg_kw", [dict(experiment=Experiment(7)),
-                                    dict(experiment=Experiment(8)),
-                                    dict(experiment=Experiment(16)),
-                                    dict(fast_circulation=False)],
+# the modes that transport with the strict stencils: (log_exp, the fold
+# asked for), the strict circulation the modern variant without it
+STRICT_MODES = [(7, True), (8, True), (16, True), (None, False)]
+# monthly-mean atols of test_run_legacy_matches_greb_tpu (ts, ta, to, q,
+# albedo), also for the end states
+YEAR_ATOLS = dict(ts=5e-3, ta=5e-3, to=5e-3, q=2e-6)
+
+
+@pytest.mark.parametrize("log_exp,fast", STRICT_MODES,
                          ids=["log_exp7", "log_exp8", "log_exp16", "strict"])
-def test_strict_transport_modes_raise_on_the_cpu(cfg_kw):
-    cfg = GrebConfig(numerics=Numerics(**TEN_DAY), **cfg_kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        GREB(cfg, verbose=False, device="cpu")
+def test_strict_transport_modes_raise_on_the_cpu(log_exp, fast):
+    """The strict transport against greb_tpu (its jitted path at
+    fastcirc=None): a spin-up year, then a scenario year at 680 ppm from
+    its end, on the 10-day calendar.  End states, the tf table and the
+    monthly means at the tolerances of test_run_legacy_matches_greb_tpu
+    (tf rtol 1e-5 / atol 0.5 W/m^2); neither side builds a fold."""
+    jm, m = _pair(log_exp, dict(TEN_DAY, time_flux=1),
+                  fast_circulation=(fast, fast))
+    assert jm.fastcirc_tables() is None and m.fold is None
+    assert m.year_data.transport == "strict"
+    js, jc = jm.flux_correction()
+    s, c = m.flux_correction()
+    for name, atol in YEAR_ATOLS.items():
+        np.testing.assert_allclose(_np(getattr(s, name)),
+                                   np.asarray(getattr(js, name)), rtol=0,
+                                   atol=atol, err_msg=f"spin-up {name}")
+    np.testing.assert_allclose(_np(c.tf), np.asarray(jc.tf), rtol=1e-5,
+                               atol=0.5, err_msg="tf")
+    co2 = np.full(1, 680.0, np.float32)
+    _, jmon, _ = jm.run_scenario(jc, state=js, years=1, co2_series=co2)
+    s2, mon, _ = m.run_scenario(c, state=s, years=1, co2_series=co2)
+    jmon = np.asarray(jmon)
+    for v, atol in enumerate((5e-3, 5e-3, 5e-3, 2e-6, 2e-4)):
+        np.testing.assert_allclose(mon[:, :, v], jmon[:, :, v], rtol=0,
+                                   atol=atol, err_msg=f"monthly variable {v}")
+
+
+@pytest.fixture(scope="module")
+def strict_models():
+    return {e: GREB(GrebConfig(numerics=Numerics(**TEN_DAY),
+                               experiment=Experiment(e)),
+                    verbose=False, device="cpu") for e in (7, 8, 16)}
 
 
 @pytest.mark.parametrize("log_exp", [7, 8, 16])
-def test_kernel_wrappers_refuse_strict_transport_modes(presets, log_exp):
-    """Every kernel wrapper raises for these modes before anything runs,
-    on CPU tensors too (no plain version stands in)."""
-    _, m = presets[9]
-    yd = dataclasses.replace(m.year_data, exp=Experiment(log_exp))
-    s = m.initial_state()
-    corr = Corrections.zeros(m.num.nstep_yr, m.num.ydim, m.num.xdim)
-    s5 = s.stack()[:, None]
+def test_kernel_wrappers_refuse_strict_transport_modes(strict_models,
+                                                       log_exp):
+    """All four kernel wrappers run these modes on CPU tensors through
+    their plain versions, which are the eager year runners; at M=1 with
+    the base params the member wrappers equal the single-run ones bit for
+    bit (K1 = K4: state and tables; K2 = K3: state and annual sums)."""
+    m = strict_models[log_exp]
+    yd, co2 = m.year_data, np.float32(m.exp.co2_ctrl)
+    s0 = m.initial_state()
+    s1, c1 = yk.fluxcorr_year(s0, co2, yd)
+    want = core.run_year_fluxcorr(s0, m.sfx, co2, m.md, m.num, None, m.exp)
+    assert torch.equal(s1.stack(), want[0].stack())
+    pp = my.pack_member_params([m.params])
+    s4, c4 = my.fluxcorr_years(s0.stack()[:, None], pp, co2, yd)
+    assert torch.equal(s1.stack(), s4[:, 0])
+    for i, name in enumerate(("tf", "tof", "qf")):
+        assert torch.equal(getattr(c1, name), c4[0, :, i]), name
+    s2, _, a2 = yk.scenario_year(s1, c1, 680.0, yd)
+    s3, _, a3 = my.scenario_years(s1.stack()[:, None], pp, c4, [680.0], yd)
+    assert torch.equal(s2.stack(), s3[:, 0])
+    assert torch.equal(a2, a3[0, 0])
+    assert bool(torch.isfinite(s2.stack()).all())
+
+
+def test_one_block_body_refuses_the_strict_transport(strict_models):
+    """K3's one-block body (cluster=1) does not run the strict transport:
+    it raises before anything runs, on CPU tensors too, naming its ROADMAP
+    item; the clusters run it."""
+    m = strict_models[16]
+    s5 = m.initial_state().stack()[:, None]
     pp = my.pack_member_params([m.params])
     cp = torch.zeros((1, m.num.nstep_yr, 3, m.num.ydim, m.num.xdim))
-    for call in (lambda: yk.fluxcorr_year(s, 298.0, yd),
-                 lambda: yk.scenario_year(s, corr, 680.0, yd),
-                 lambda: my.fluxcorr_years(s5, pp, 298.0, yd),
-                 lambda: my.scenario_years(s5, pp, cp, [680.0], yd)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            call()
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+        my.scenario_years(s5, pp, cp, [680.0], m.year_data, cluster=1)
+    assert my.default_cluster("scenario_years", 10_000, 7,
+                              strict=True) == yk.DEFAULT_CLUSTER
+    assert my.default_cluster("scenario_years", 10_000, 7) == 1
 
 
 def test_flags_word():
     """One bit per switch of the step body, 0 for the modern variant and
-    for the modes whose step body is the modern one (10, 12)."""
+    for the modes whose step body is the modern one (10, 12); the strict
+    transport's bit comes from the year's transport, with the vapour
+    bits of log_exp 7, 8, 16."""
     for e in (None, 10, 12):
         assert yk.experiment_flags(Experiment(e)) == 0
     bit = {name: 1 << i for i, name in enumerate(yk.FLAGS)}
+    assert yk.experiment_flags(Experiment(None), strict=True) == bit[
+        "strict_transport"]
+    assert yk.experiment_flags(Experiment(8), strict=True) == (
+        bit["deep_ocean_off"] | bit["strict_transport"]
+        | bit["vapor_diffusion_only"])
     assert yk.experiment_flags(Experiment(4)) == (
         bit["fixed_albedo"] | bit["simple_seaice"] | bit["hydro_off"]
         | bit["circulation_off"] | bit["deep_ocean_off"])
