@@ -79,9 +79,22 @@
    times: launch counts, finiteness, the output file read back, the
    warming), and the CLI's --legacy at log_exp 16 (2 spin-up, 1 control,
    3 scenario years: launch counts, both files read back);
-13. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
-   each kernel was held bitwise in, and for K1/K2 the strict year's ms,
-   plain ms and bound) and, last, {"ok": true, "device": {...}}.
+13. the refined grid (K1 and K2's refined instantiation, 384x192 at
+   dt_crcl=1800: sequential zonal splitting, packed pole composites,
+   explicit polar segments), on forcing regridded from the 96x48 synthetic
+   forcing by greb_tpu_torch/regrid.py: the kernel's own layout of the
+   refined block against refined_layout, with how many such clusters the
+   card runs at once; K1 from the initial state and K2 from K1's end state
+   with its corrections on a 20-step calendar, bitwise against their plain
+   versions (state, tables, outs, annual sums); one full-calendar K1 and
+   K2 year timed (a warm-up, then 3 launches; ms, us a substep, the bound
+   from year_work with the packed ranks); then the refined path, GREB.run
+   at 384x192 (1 spin-up + 3 scenario years, full calendar: launch counts,
+   finiteness, the output file read back, the warming, sim-yr/s);
+14. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+   each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
+   ms and bound, and the refined year's) and, last,
+   {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no ok line.
 It needs a CUDA card and the repository's greb_tpu_torch package.
@@ -215,8 +228,9 @@ LONG_YEARS = 50
 LONG_BLOCK = 5
 LONG_STOP = 20
 # member counts of the member scaling (132: one a streaming multiprocessor;
-# 7/8 and 49/56 either side of the default size's crossovers)
-SCALING_M = (1, 7, 8, 16, 49, 56, 64, 100, 132)
+# 7/8 and 49/56 either side of the default size's crossovers; no more, to
+# leave the refined phase room in the smoke's time limit)
+SCALING_M = (1, 7, 8, 49, 56, 132)
 
 
 # the legacy log_exp values the kernels run (7, 8 and 16 transport with the
@@ -240,6 +254,12 @@ STRICT_YEARS = dict(time_flux=3, time_scnr=10)
 STRICT_RUNS = 2
 STRICT_CLI_EXP = 16
 STRICT_CLI_YEARS = dict(time_flux=2, time_ctrl=1, time_scnr=3)
+# the refined grid: 384x192 at dt_crcl=1800 (24 substeps a step), its
+# kernels held to plain on a 20-step calendar (a plain full-calendar year
+# would take minutes), the refined path 1 + 3 years on the full calendar
+REFINED_GRID = dict(xdim=384, ydim=192, dt_crcl=1800)
+REFINED_SHORT = dict(ndays_yr=10, jday_mon=(10,))
+REFINED_YEARS = dict(time_flux=1, time_scnr=3)
 
 
 def _k1_vs_plain(tag, s0, co2, yd, got):
@@ -644,6 +664,187 @@ def _strict_phase(tmp, reset_counts, read_counts):
                 plain_ms={"fluxcorr_year": plain_k1,
                           "scenario_year": plain_k2},
                 work=work, launches=launches)
+
+
+def _refined_model(num, out_path=None, verbose=False):
+    """GREB at a refined grid on the card, on forcing regridded by the
+    port's regrid.py from the 96x48 synthetic forcing of num's calendar;
+    (model, seconds of the regrid)."""
+    import numpy as np
+    from greb_tpu_torch.config import Diagnostics, GrebConfig
+    from greb_tpu_torch.forcing import forcing_from_arrays
+    from greb_tpu_torch.io.synthetic import make_synthetic_forcing
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.regrid import regrid_forcing_arrays
+    t0 = time.perf_counter()
+    arrs = regrid_forcing_arrays(
+        make_synthetic_forcing(96, 48, num.nstep_yr, num.ndays_yr), num)
+    regrid_s = time.perf_counter() - t0
+    if not all(np.isfinite(a).all() for a in arrs.values()):
+        raise AssertionError("regridded forcing not finite")
+    diag = Diagnostics(output_file=out_path) if out_path else Diagnostics()
+    model = GREB(GrebConfig(numerics=num, diagnostics=diag),
+                 forcing=forcing_from_arrays(arrs, "cuda"), device="cuda",
+                 verbose=verbose)
+    return model, regrid_s
+
+
+def _refined_phase(tmp, reset_counts, read_counts):
+    """Step 13: K1 and K2's refined instantiation at 384x192, and the
+    refined path.  Returns the worst max |diff| per kernel, the timed
+    full-calendar years, their plain versions' times on the 20-step
+    calendar, the work of a year, and the refined path's launches."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.forcing import ModelState
+    from greb_tpu_torch.io.binio import read_output
+    from greb_tpu_torch.ops import fastcirc2 as fc2
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+
+    t_phase = time.perf_counter()
+    short = Numerics(**REFINED_GRID, **REFINED_SHORT)
+    m, regrid_s = _refined_model(short)
+    yd, plan = m.year_data, m.fold[0]
+    _, ranks = yk.packed_ranks(m.fold[1])
+    print(f"refined {short.xdim}x{short.ydim}: {short.nstep_yr}-step "
+          f"calendar, {short.nsub_crcl} substeps, plan {plan}; {len(ranks)} "
+          f"composite rows, ranks {int(ranks.min())}..{int(ranks.max())}, "
+          f"Rtot {int(ranks.sum())}; regrid {regrid_s:.2f} s")
+
+    # -- the refined block's shared memory: the kernel's own reckoning
+    #    against refined_layout, and how many such clusters fit at once
+    capacity = {}
+    for kind in yk.REFINED_KINDS:
+        for c in yk.REFINED_CLUSTER_SIZES:
+            lay = yk.refined_layout(plan, c, kind)
+            parts, threads = yk.kernel_cluster_layout(plan, c, kind)
+            if parts != dict(lay.parts) or threads != lay.threads:
+                raise AssertionError(
+                    f"refined {kind} C={c}: kernel layout {parts}, {threads} "
+                    f"threads; refined_layout {dict(lay.parts)}, "
+                    f"{lay.threads}")
+            capacity[kind] = yk.cluster_capacity(plan, c, kind)
+            print(f"refined cluster {kind:<9s} C={c:2d}: {lay.rows} "
+                  f"rows/block, {lay.threads} threads, {lay.nbytes} B shared "
+                  f"memory a block, {capacity[kind]} clusters at once; kernel "
+                  f"and refined_layout agree: {dict(lay.parts)}")
+
+    # -- K1 from the initial state, K2 from K1's end state with its
+    #    corrections, on the 20-step calendar, bitwise against plain
+    err = {}
+    co2f, co2s = np.float32(340.0), np.float32(680.0)
+    s0 = m.initial_state()
+    s_k, c_k = yk.fluxcorr_year(s0, co2f, yd)
+    k2 = yk.scenario_year(s_k, c_k, co2s, yd)
+    plain_ms = {}
+    plain_ms["fluxcorr_year"], _ = _time_ms(
+        lambda: yk.fluxcorr_year_plain(s0, co2f, yd), 1)
+    err["fluxcorr_year"] = _k1_vs_plain(
+        f"K1 refined, {short.nstep_yr} steps", s0, co2f, yd, (s_k, c_k))
+    plain_ms["scenario_year"], _ = _time_ms(
+        lambda: yk.scenario_year_plain(s_k, c_k, co2s, yd), 1)
+    err["scenario_year"] = _k2_vs_plain(
+        f"K2 refined, {short.nstep_yr} steps", s_k, c_k, co2s, yd, k2)
+    for name, ten in (("K1 state", s_k.stack()), ("K1 tf", c_k.tf),
+                      ("K2 state", k2[0].stack()), ("K2 outs", k2[1])):
+        if not bool(torch.isfinite(ten).all()):
+            raise AssertionError(f"refined {name} not finite")
+    print(f"  plain versions on the card, {short.nstep_yr} steps: K1 "
+          f"{plain_ms['fluxcorr_year']:.1f} ms, K2 "
+          f"{plain_ms['scenario_year']:.1f} ms")
+    del m, yd, s_k, c_k, k2
+
+    # -- the refined path: GREB.run at 384x192, 1 + 3 years on the full
+    #    calendar; then one K1 and one K2 year of its model timed
+    num = Numerics(**REFINED_GRID, **REFINED_YEARS)
+    out = os.path.join(tmp, "refined", "scenario")
+    os.makedirs(os.path.dirname(out))
+    model, regrid_s = _refined_model(num, out, verbose=True)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, corr, monthly, diags = model.run(output_path=out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts("refined path", {
+        "fluxcorr_year": num.time_flux, "scenario_year": num.time_scnr,
+        "fluxcorr_years": 0, "scenario_years": 0})
+    years = num.time_flux + num.time_scnr
+    print(f"refined path (GREB.run at {num.xdim}x{num.ydim}): {years} "
+          f"sim-years in {wall:.3f} s = {years / wall:.4f} sim-yr/s "
+          f"({num.time_flux} spin-up + {num.time_scnr} scenario, "
+          f"{num.nstep_yr} steps, {num.nsub_crcl} substeps); forcing regrid "
+          f"{regrid_s:.2f} s")
+    for name in ModelState.FIELDS:
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"refined state {name} not finite")
+    for name in ("tf", "tof", "qf"):
+        if not bool(torch.isfinite(getattr(corr, name)).all()):
+            raise AssertionError(f"refined corr {name} not finite")
+    shape = (num.time_scnr, len(num.jday_mon), 5, num.ydim, num.xdim)
+    if monthly.shape != shape or not np.isfinite(monthly).all():
+        raise AssertionError(f"refined monthly means {monthly.shape}")
+    back = read_output(out, num.xdim, num.ydim)
+    if not np.array_equal(back, monthly.reshape(-1, 5, num.ydim,
+                                                num.xdim)):
+        raise AssertionError("refined output file does not read back")
+    gm = [float(d.global_mean_ts) for d in diags]
+    print(f"  output file {os.path.getsize(out)} B read back; global mean Ts "
+          f"[K] by scenario year: {' '.join(f'{g:.4f}' for g in gm)}")
+    if not gm[-1] > gm[0]:
+        raise AssertionError(f"refined path: no warming under 680 ppm: {gm}")
+
+    yd, plan = model.year_data, model.fold[0]
+    _, ranks = yk.packed_ranks(model.fold[1])
+    s0 = model.initial_state()
+    k1_ms, (s_k, c_k) = _launches_ms(
+        lambda: yk.fluxcorr_year(s0, co2f, yd), 3)
+    k2_ms, _ = _launches_ms(lambda: yk.scenario_year(s_k, c_k, co2s, yd), 3)
+    per_sub = 1e3 / (num.nstep_yr * num.nsub_crcl)
+    work = {"fluxcorr_year": yk.year_work(plan, num, False, ranks),
+            "scenario_year": yk.year_work(plan, num, True, ranks)}
+    for name, ms in (("fluxcorr_year", k1_ms), ("scenario_year", k2_ms)):
+        b_ms, b_by = _bound_of(*work[name])
+        print(f"refined {name}, {num.nstep_yr} steps: {_runs(ms)} = "
+              f"{_median(ms) * per_sub:.3f} us a substep (a step's work "
+              f"included); bound {b_ms:.3f} ms by {b_by}")
+    # timing probes, not the model: the same K2 year at one substep a step
+    # splits substep time from per-step time; with rank-1 composites (the
+    # pole blocks' reads of the packed factors gone) and without the
+    # explicit segments it shows what each adds to a substep
+    const = model.fold[1]
+    rows = const.pmask.shape[0]
+    eye = np.eye(rows, dtype=np.float32)
+    rank1 = dataclasses.replace(
+        const, pcu=const.pcu[:, :rows].contiguous(),
+        pcw=const.pcw[:rows].contiguous(),
+        pmask=torch.as_tensor(eye, device="cuda"),
+        pidx=fc2.packed_index(eye, "cuda"))
+    one = dataclasses.replace(num, dt_crcl=num.dt)
+    for label, fold in (
+            ("as run", (plan, const)), ("rank-1 composites", (plan, rank1)),
+            ("no segments", (dataclasses.replace(plan, diff_segs=(),
+                                                 adv_segs=()), const))):
+        ms = []
+        for n in (num, one):
+            if n is num and label == "as run":
+                ms.append(_median(k2_ms))
+                continue
+            ydp = yk.YearData(md=yd.md, sfx=yd.sfx, fold=fold, num=n)
+            yk.scenario_year(s_k, c_k, co2s, ydp)
+            ms.append(_time_ms(
+                lambda: yk.scenario_year(s_k, c_k, co2s, ydp), 1)[0])
+        us = (ms[0] - ms[1]) * 1e3 / (num.nstep_yr * (num.nsub_crcl - 1))
+        print(f"refined K2 probe, {label}: {ms[0]:.3f} ms a year, "
+              f"{ms[1]:.3f} ms at 1 substep a step -> {us:.3f} us a "
+              f"substep, {ms[1] * 1e3 / num.nstep_yr - us:.3f} us a step "
+              f"outside the substeps")
+    print(f"refined phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(err=err, ms={"fluxcorr_year": _median(k1_ms),
+                             "scenario_year": _median(k2_ms)},
+                plain_ms=plain_ms, work=work, launches=launches,
+                capacity=capacity)
 
 
 def _long_runner(model, tmp, tag):
@@ -1158,17 +1359,22 @@ def main(argv) -> int:
         # -- the strict transport in every kernel, and the strict paths ----
         strict = _strict_phase(tmp, reset_counts, read_counts)
 
+        # -- the refined grid: K1/K2's refined instantiation, the refined
+        #    path -----------------------------------------------------------
+        refined = _refined_phase(tmp, reset_counts, read_counts)
+
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for LONG_BLOCK years, K4 3 members: the median of
     # member_ms's 3 launches, on the size the wrapper picks for that
     # member count);
-    # max_abs_err over that shape and every comparison above, the legacy
-    # and strict modes' included; "modes" the variants each kernel was held
-    # bitwise in
+    # max_abs_err over that shape and every comparison above, the legacy,
+    # strict and refined modes' included; "modes" the variants each kernel
+    # was held bitwise in
     strict_name = lambda e: ("strict circulation" if e is None
                              else f"strict log_exp {e}")
     single = (["modern"] + [f"log_exp {e}" for e in LEGACY_EXPS]
-              + [strict_name(e) for e in STRICT_MODES])
+              + [strict_name(e) for e in STRICT_MODES]
+              + [f"refined {REFINED_GRID['xdim']}x{REFINED_GRID['ydim']}"])
     member = (["modern"] + [f"log_exp {e}" for e in LEGACY_MEMBER_EXPS]
               + [strict_name(e) for e in STRICT_MEMBER_MODES])
     k3_ms, k4_ms = (_median(member_ms[k])
@@ -1199,7 +1405,8 @@ def main(argv) -> int:
             "replaces": f"greb_tpu/ops/pallas/{src}:{line}",
             "launches": count,
             "max_abs_err": max(err, legacy["err"][name],
-                               strict["err"][name]),
+                               strict["err"][name],
+                               refined["err"].get(name, 0.0)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "cluster": c,
             "shape": shape, "modes": modes,
@@ -1212,6 +1419,16 @@ def main(argv) -> int:
             entry.update(strict_ms=strict["ms"][name],
                          strict_plain_ms=strict["plain_ms"][name],
                          strict_bound_ms=s_bound, strict_bound_by=s_by)
+        if name in refined["ms"]:
+            # the refined instantiation: its full-calendar year at 384x192,
+            # the plain version's 20-step year, the bound and the refined
+            # path's launches
+            r_bound, r_by = _bound_of(*refined["work"][name])
+            entry.update(refined_ms=refined["ms"][name],
+                         refined_plain_ms_20_steps=refined["plain_ms"][name],
+                         refined_bound_ms=r_bound, refined_bound_by=r_by,
+                         launches_refined_path=refined["launches"][name],
+                         refined_cluster=yk.REFINED_CLUSTER_SIZES[0])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

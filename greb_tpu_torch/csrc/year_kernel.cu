@@ -106,6 +106,9 @@
 // with the same branches.  The launchers pick one by the word and refuse a
 // word with a bit they do not know or a combination none runs.
 //
+// The refined instantiation (run_refined, suffix _refined; K1 and K2,
+// modern variant only) runs extension-mode grids: see its section below.
+//
 // The strict transport.  Where the JAX package builds no fold (its
 // GREB.fastcirc_tables() is None: --strict-circulation, and legacy
 // log_exp 7, 8, 16), the four Pallas builders trace core.compute_tendencies
@@ -1301,6 +1304,556 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
   cluster.sync();
 }
 
+// ---------------------------------------------------------------------------
+// the refined instantiation: K1 and K2 at an extension-mode grid
+// ---------------------------------------------------------------------------
+// At 384x192 (dt_crcl 1800 s: 24 substeps a step) the fold runs with
+// sequential zonal splitting (zonal advection reads the zonally diffused
+// state xa = x + wz*dd), explicit polar segment iterations of both zonal
+// sub-cycles, and packed SVD pole composites: for composite row (f, k) of
+// rank r, t2 = (t1 U_all[:, off:off+r]) W_all[off:off+r, :]
+// (fastcirc2.substep, _extra_diffusion, _extra_advection, _packed_comp).
+// A block of a 16-block cluster owns 12 rows of 384 columns, 4.5x the
+// cells of a 96x48 block, and the cluster body's planes no longer fit its
+// shared memory.  This instantiation keeps there only what a substep reads
+// from its neighbours' cells: the (Ta, q) double buffer with +-2 halo rows
+// (pushed as in run_cluster), wz, xa (first dd) and a scratch that the
+// diffusion segments, the composite rows and the advection segments use in
+// turn (refined_parts).  What a cell reads once a substep stays in global
+// memory and L2: the zd planes, this step's 12 coefficient planes (written
+// at each step start into a per-run scratch, a.cf, as run_years does), the
+// packed factors (U_all and W_all, 4.8 MB each at 384x192), the 5-field
+// state (a.state_out, read and written once a step) and the annual sums
+// (read-modified-written each step): ~30 MB in all, within the 50 MB L2.
+// Every phase of a substep is row-local (the segments, the composites and
+// the sequential splitting are zonal), so a substep still ends at one
+// cluster.sync(); the blocks that hold segment or composite rows run them
+// block-uniformly, a __syncthreads() between phases and iterations, as
+// strict_substep does (at 384x192 the diffusion segments reach rows 7-20
+// and 171-184, in blocks 0, 1, 14 and 15; the composites rows 0-6 and
+// 185-191, in blocks 0 and 15).  A composite row works on its own columns
+// [off, off + r) of Rtot alone: the plain version's masked product holds
+// exact zeros elsewhere, and its blocked sums of COMP_BLOCK terms (aligned
+// to 0 in Rtot) do not change by adding them, so the kernel sums the same
+// blocks over the row's columns only, ~1/28 of the plain version's
+// products.  What bounds it: the two pole blocks' composite rows, one SM
+// each (block 0 reads ~6.5 MB of factors a substep at 384x192, block 15
+// ~3.2 MB), which every block waits for at the cluster barrier.  On an
+// H100 (700 W, chip_smoke.py's probes) a substep takes ~132 us: ~75 us of
+// it the composite rows, ~25 us the segments; the composite loops take
+// whole blocks of terms without guards and load t1 16 bytes at a time,
+// since their first form was bound by its instruction count.  Spreading
+// the composite rows over the cluster is a later redesign (ROADMAP Queue
+// 2, redesign e).  Modern variant only: the launchers refuse a flags word
+// other than 0.
+
+#define MAX_SEGS 8        // = year_kernel.MAX_SEGS
+
+struct RefinedArgs {
+  const float* pcu;        // (X, rtot) U_all
+  const float* pcw;        // (rtot, X) W_all
+  const int* comp_off;     // (2K,) offset in rtot of composite row f*K + k
+  const int* comp_rank;    // (2K,) its rank
+  int rtot, n_dseg, n_aseg;
+  int dseg[3 * MAX_SEGS];  // the diffusion segments (kt, kb, iters), in order
+  int aseg[3 * MAX_SEGS];  // the advection segments
+};
+
+// Parts of a refined block's shared memory, in layout order
+// (ops/cuda/year_kernel.py REFINED_PARTS).
+enum RefinedPart { Q_XBUF, Q_WZ, Q_XA, Q_SCRATCH, Q_INDEX, N_QPARTS };
+
+// Rows of [r0, r1) in [a, b).
+__host__ __device__ inline int rows_in(int r0, int r1, int a, int b) {
+  const int lo = r0 > a ? r0 : a, hi = r1 < b ? r1 : b;
+  return hi > lo ? hi - lo : 0;
+}
+
+// The rows from each pole that any of n segments reaches: segments are
+// nested, so their union is (max kt, max kb).
+__host__ __device__ inline void seg_reach(const int* seg, int n, int* kt,
+                                          int* kb) {
+  *kt = 0;
+  *kb = 0;
+  for (int s = 0; s < n; ++s) {
+    *kt = seg[3 * s] > *kt ? seg[3 * s] : *kt;
+    *kb = seg[3 * s + 1] > *kb ? seg[3 * s + 1] : *kb;
+  }
+}
+
+// The most rows of [a0, a1) and [b0, b1) together that one of C blocks of
+// R rows holds.
+__host__ __device__ inline long long most_rows(int C, int R, int a0, int a1,
+                                               int b0, int b1) {
+  long long m = 0;
+  for (int b = 0; b < C; ++b) {
+    const long long k = rows_in(b * R, (b + 1) * R, a0, a1)
+                        + rows_in(b * R, (b + 1) * R, b0, b1);
+    m = k > m ? k : m;
+  }
+  return m;
+}
+
+// Bytes of each part of a refined block's shared memory for a Y x X grid
+// on C blocks, and their total; 0 where C does not split the rows into
+// blocks of at least HALO rows, X is not a multiple of COMP_BLOCK (the
+// composite sums take whole blocks of a row) or a segment table is longer
+// than MAX_SEGS.  The scratch holds, in turn, the
+// diffusion segments' two buffers (both fields of the block's rows in any
+// diffusion segment), the composite rows' t1 and z (both fields of its
+// composite rows, z at most X a row) and the advection segments' two
+// buffers.  The same reckoning as ops/cuda/year_kernel.py refined_layout.
+__host__ __device__ inline long long refined_parts(int Y, int X, int ktc,
+                                                   int kbc, int C,
+                                                   const RefinedArgs& g,
+                                                   long long* parts) {
+  if (C < 1 || C > MAX_CLUSTER || Y % C != 0 || Y / C < HALO
+      || X % COMP_BLOCK != 0 || g.n_dseg < 0 || g.n_dseg > MAX_SEGS
+      || g.n_aseg < 0
+      || g.n_aseg > MAX_SEGS)
+    return 0;
+  const int R = Y / C;
+  int dkt, dkb, akt, akb;
+  seg_reach(g.dseg, g.n_dseg, &dkt, &dkb);
+  seg_reach(g.aseg, g.n_aseg, &akt, &akb);
+  long long rows = most_rows(C, R, 0, ktc, Y - kbc, Y);   // composite rows
+  const long long kmax = rows;
+  const long long nsd = most_rows(C, R, ktc, ktc + dkt, Y - kbc - dkb,
+                                  Y - kbc);
+  const long long nsa = most_rows(C, R, 0, akt, Y - akb, Y);
+  rows = nsd > rows ? nsd : rows;
+  rows = nsa > rows ? nsa : rows;
+  const long long f = sizeof(float), RX = (long long)R * X;
+  parts[Q_XBUF] = f * 2 * 2 * (R + 2 * HALO) * X;
+  parts[Q_WZ] = f * 2 * RX;
+  parts[Q_XA] = f * 2 * RX;
+  parts[Q_SCRATCH] = f * 2 * 2 * rows * X;
+  parts[Q_INDEX] = f * ((2 * kmax + 1 + 3) / 4 * 4);
+  long long total = 0;
+  for (int k = 0; k < N_QPARTS; ++k) total += parts[k];
+  return total;
+}
+
+// A block's local rows (0..R-1 from global row r0) in the global rows
+// [a0, a1) and [c0, c1), as slots 0, 1, ... in row order.
+struct RowSlots {
+  int t0, nt, b0, nb;
+  __device__ RowSlots(int r0, int R, int a0, int a1, int c0, int c1)
+      : t0((a0 > r0 ? a0 : r0) - r0), nt(rows_in(r0, r0 + R, a0, a1)),
+        b0((c0 > r0 ? c0 : r0) - r0), nb(rows_in(r0, r0 + R, c0, c1)) {}
+  __device__ __forceinline__ int n() const { return nt + nb; }
+  __device__ __forceinline__ int slot(int i) const {
+    if (i >= t0 && i < t0 + nt) return i - t0;
+    if (i >= b0 && i < b0 + nb) return nt + (i - b0);
+    return -1;
+  }
+  __device__ __forceinline__ int row(int s) const {
+    return s < nt ? t0 + s : b0 + (s - nt);
+  }
+};
+
+// Field f, local row i of a block plane: f * fs + (i + r0) * X from p.
+struct Plane {
+  float* p;
+  int fs, r0;
+  __device__ __forceinline__ float* at(int f, int i, int X) const {
+    return p + f * fs + (i + r0) * X;
+  }
+};
+
+// sum_s co[s * cs] * taps in sequence, centre first (fastcirc._apply7):
+// the explicit segment iterations' form.
+__device__ __forceinline__ float apply7_seq(const float* co, int cs,
+                                            const Taps& t) {
+  float d = co[3 * cs] * t.x0;
+  d = d + co[0] * t.xm3;
+  d = d + co[cs] * t.xm2;
+  d = d + co[2 * cs] * t.xm1;
+  d = d + co[4 * cs] * t.xp1;
+  d = d + co[5 * cs] * t.xp2;
+  d = d + co[6 * cs] * t.xp3;
+  return d;
+}
+
+// The merged meridional increment of one (field, cell) from its row of a
+// buffer with HALO rows each side: mc 7..10, c0m 11 (fastcirc2.substep).
+__device__ __forceinline__ float merid(const float* cf, int cs,
+                                       const float* row, int j, int X) {
+  float dy = cf[11 * cs] * row[j];
+  dy = dy + cf[7 * cs] * row[j - 2 * X];
+  dy = dy + cf[8 * cs] * row[j - X];
+  dy = dy + cf[9 * cs] * row[j + X];
+  dy = dy + cf[10 * cs] * row[j + 2 * X];
+  return dy;
+}
+
+// One explicit segment (fastcirc._iterate) on the block's rows `in`, which
+// lie in `band`, the rows the scratch holds (slot s of field f at
+// (f * band.n() + s) * X): t1 = base + d, `iters` iterations
+// t1 = t1 + clamp(apply7(t1)) between the scratch's two buffers, then
+// d = t1 - base.  Coefficient s of global cell c is co[c + s * P].
+// Block-uniform; ends at a __syncthreads().
+__device__ void seg_iterate(const RowSlots& band, const RowSlots& in,
+                            int iters, const Plane& base, const Plane& d,
+                            const float* co, float* scr, int r0, int X,
+                            int YX) {
+  const int NB = band.n() * X, NI = in.n() * X, P = 2 * YX;
+  float* const buf0 = scr;
+  float* const buf1 = scr + 2 * NB;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_ni(NI), by_x(X);
+  // (field, cell) l of the segment's own rows: local row i, column j, and
+  // its offset in a scratch buffer
+  auto cell = [&](int l, int& f, int& i, int& j) {
+    f = by_ni(l);
+    const int rest = l - f * NI, s = by_x(rest);
+    j = rest - s * X;
+    i = in.row(s);
+    return (f * band.n() + band.slot(i)) * X + j;
+  };
+  for (int l = tid; l < 2 * NI; l += nt) {
+    int f, i, j;
+    const int o = cell(l, f, i, j);
+    buf0[o] = base.at(f, i, X)[j] + d.at(f, i, X)[j];
+  }
+  for (int it = 0; it < iters; ++it) {
+    __syncthreads();
+    const float* src = it & 1 ? buf1 : buf0;
+    float* dst = it & 1 ? buf0 : buf1;
+    for (int l = tid; l < 2 * NI; l += nt) {
+      int f, i, j;
+      const int o = cell(l, f, i, j);
+      Taps t;
+      zonal_taps(src + (o - j), j, X, t);
+      const float v = apply7_seq(
+          co + (size_t)f * YX + (size_t)(r0 + i) * X + j, P, t);
+      dst[o] = t.x0 + clamp_neg(v, t.x0);
+    }
+  }
+  __syncthreads();
+  const float* fin = iters & 1 ? buf1 : buf0;
+  for (int l = tid; l < 2 * NI; l += nt) {
+    int f, i, j;
+    const int o = cell(l, f, i, j);
+    d.at(f, i, X)[j] = fin[o] - base.at(f, i, X)[j];
+  }
+  __syncthreads();
+}
+
+// Composite index k of global row r: the top ktc rows, then the bottom.
+__device__ __forceinline__ int comp_k(int r, int Y, int ktc, int kbc) {
+  return r < ktc ? r : ktc + (r - (Y - kbc));
+}
+
+// The packed composites (fastcirc2._packed_comp) of the block's composite
+// rows (slots q of `comp`, field-major fq = f * nq + q): t1 = x + dd;
+// z = t1 U_all[:, off:off+r]; t2 = z W_all[off:off+r, :], each sum in
+// blocks of COMP_BLOCK terms aligned to 0 in X and in Rtot as _row_dot
+// sums; then dd = (t1 + clamp(t2 - t1, t1)) - x.  zpre: the slots' prefix
+// sums of ranks (z of slot fq at zpre[fq]).  Each block of COMP_BLOCK
+// terms is summed in sequence with zeros outside the row, as _row_dot
+// sums its masked terms (a zero term changes no sum but the sign of a
+// zero), from the block that holds the row's first column.  Block-uniform;
+// ends at a __syncthreads().
+__device__ void packed_comp(const RefinedArgs& g, const RowSlots& comp,
+                            const int* zpre, const Plane& x, float* dd,
+                            float* scr, int r0, int R, int Y, int X, int ktc,
+                            int kbc) {
+  const int nq = comp.n(), K = ktc + kbc, RX = R * X;
+  float* t1 = scr;               // (2, nq, X)
+  float* z = scr + 2 * nq * X;   // zpre[2 nq] values
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_x(X), by_nq(nq);
+  for (int o = tid; o < 2 * nq * X; o += nt) {
+    const int fq = by_x(o), j = o - fq * X;
+    const int f = by_nq(fq), i = comp.row(fq - f * nq);
+    t1[o] = x.at(f, i, X)[j] + dd[f * RX + i * X + j];
+  }
+  __syncthreads();
+  for (int o = tid; o < zpre[2 * nq]; o += nt) {
+    int fq = 0;
+    while (zpre[fq + 1] <= o) ++fq;
+    const int f = by_nq(fq), r = r0 + comp.row(fq - f * nq);
+    const int col = g.comp_off[f * K + comp_k(r, Y, ktc, kbc)]
+                    + (o - zpre[fq]);
+    // t1's row 16 bytes at a time (X is a multiple of COMP_BLOCK)
+    const float4* tr = reinterpret_cast<const float4*>(t1 + fq * X);
+    const float* u = g.pcu + col;
+    float zv = 0.f;
+#pragma unroll 2
+    for (int b = 0; b < X; b += COMP_BLOCK, u += (size_t)COMP_BLOCK * g.rtot) {
+      float uv[COMP_BLOCK];
+#pragma unroll
+      for (int k = 0; k < COMP_BLOCK; ++k) uv[k] = u[(size_t)k * g.rtot];
+      const float4 ta = tr[b / 4], tb = tr[b / 4 + 1];
+      float part = ta.x * uv[0];
+      part = part + ta.y * uv[1];
+      part = part + ta.z * uv[2];
+      part = part + ta.w * uv[3];
+      part = part + tb.x * uv[4];
+      part = part + tb.y * uv[5];
+      part = part + tb.z * uv[6];
+      part = part + tb.w * uv[7];
+      zv = b == 0 ? part : zv + part;
+    }
+    z[o] = zv;
+  }
+  __syncthreads();
+  for (int o = tid; o < 2 * nq * X; o += nt) {
+    const int fq = by_x(o), j = o - fq * X;
+    const int f = by_nq(fq), i = comp.row(fq - f * nq);
+    const int kk = f * K + comp_k(r0 + i, Y, ktc, kbc);
+    const int off = g.comp_off[kk], end = off + g.comp_rank[kk];
+    const float* zr = z + zpre[fq] - off;   // zr[c], c in [off, end)
+    const float* w = g.pcw + j;
+    const int b0 = off - off % COMP_BLOCK;
+    float t2 = 0.f;
+    for (int bs = b0; bs < end; bs += COMP_BLOCK) {
+      // whole blocks load without guards; the branch is uniform where a
+      // warp's threads share the row (X a multiple of 32, as 384)
+      const float* wb = w + (size_t)bs * X;
+      float wv[COMP_BLOCK], zc[COMP_BLOCK];
+      if (bs >= off && bs + COMP_BLOCK <= end) {
+#pragma unroll
+        for (int k = 0; k < COMP_BLOCK; ++k) {
+          wv[k] = wb[k * X];
+          zc[k] = zr[bs + k];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < COMP_BLOCK; ++k) {
+          const bool in = bs + k >= off && bs + k < end;
+          wv[k] = in ? wb[k * X] : 0.f;
+          zc[k] = in ? zr[bs + k] : 0.f;
+        }
+      }
+      float part = zc[0] * wv[0];
+#pragma unroll
+      for (int k = 1; k < COMP_BLOCK; ++k) part = part + zc[k] * wv[k];
+      t2 = bs == b0 ? part : t2 + part;
+    }
+    const float tv = t1[o];
+    dd[f * RX + i * X + j] = (tv + clamp_neg(t2 - tv, tv)) - x.at(f, i, X)[j];
+  }
+  __syncthreads();
+}
+
+// What a refined block holds besides its buffers: its rows' sets and
+// shared-memory parts.
+struct RefinedBlock {
+  RowSlots comp, dband, aband;  // composite rows; rows of any diffusion /
+                                // advection segment
+  const int* zpre;              // the composite slots' prefix sums of ranks
+  const float* wz;              // (2, R, X)
+  float* xa;                    // (2, R, X): dd, then xa
+  float* scr;                   // the scratch
+};
+
+// One refined substep of this block's rows, buffer cur -> nxt
+// (fastcirc2.substep at seq_zonal): the zonal diffusion dd of every
+// (field, cell), clamped on the band rows, and xa = x + wz * dd at once on
+// rows without segments or composites; the diffusion segments, the
+// composites and xa of their rows; the zonal advection da of xa, clamped;
+// the advection segments (da of their rows parked in the next buffer's own
+// rows, which the block alone writes); xa + da + dy into buffer nxt,
+// pushed to the neighbours' halos.
+__device__ void refined_substep(const YearArgs& a, const RefinedArgs& g,
+                                const RefinedBlock& bk, const Bufs& bufs,
+                                int cur, int nxt, int r0) {
+  const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
+  const int R = bufs.R, RX = R * X, BX = bufs.field();
+  const int ktc = a.ktc, kbc = a.kbc;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_rx(RX), by_x(X);
+  const float* xb = bufs.mine + cur;
+  const Plane x{bufs.mine + cur, BX, HALO};
+  const Plane xa{bk.xa, RX, 0};
+  for (int l = tid; l < 2 * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX;
+    const int i = by_x(li), j = li - i * X, r = r0 + i;
+    Taps tp;
+    zonal_taps(xb + f * BX + (i + HALO) * X, j, X, tp);
+    const float* zd = a.zd + (size_t)f * YX + (size_t)r0 * X + li;
+    float dd = tree7(zd[3 * P] * tp.x0, zd[0] * tp.xm3, zd[P] * tp.xm2,
+                     zd[2 * P] * tp.xm1, zd[4 * P] * tp.xp1,
+                     zd[5 * P] * tp.xp2, zd[6 * P] * tp.xp3);
+    if (r < a.bt || r >= Y - a.bb) dd = clamp_neg(dd, tp.x0);
+    const bool later = bk.comp.slot(i) >= 0 || bk.dband.slot(i) >= 0;
+    bk.xa[l] = later ? dd : tp.x0 + bk.wz[l] * dd;
+  }
+  __syncthreads();
+  if (bk.comp.n() + bk.dband.n() > 0) {   // block-uniform
+    for (int k = 0; k < g.n_dseg; ++k) {
+      const int kt = g.dseg[3 * k], kb = g.dseg[3 * k + 1];
+      const RowSlots in(r0, R, ktc, ktc + kt, Y - kbc - kb, Y - kbc);
+      if (in.n() > 0)
+        seg_iterate(bk.dband, in, g.dseg[3 * k + 2], x, xa, a.zd, bk.scr, r0,
+                    X, YX);
+    }
+    if (bk.comp.n() > 0)
+      packed_comp(g, bk.comp, bk.zpre, x, bk.xa, bk.scr, r0, R, Y, X, ktc,
+                  kbc);
+    for (int l = tid; l < 2 * RX; l += nt) {
+      const int f = by_rx(l), li = l - f * RX, i = by_x(li);
+      if (bk.comp.slot(i) >= 0 || bk.dband.slot(i) >= 0)
+        bk.xa[l] = xb[f * BX + HALO * X + li] + bk.wz[l] * bk.xa[l];
+    }
+    __syncthreads();
+  }
+  const Plane da{bufs.mine + nxt, BX, HALO};
+  for (int l = tid; l < 2 * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX;
+    const int i = by_x(li), j = li - i * X, r = r0 + i;
+    Taps ta;
+    zonal_taps(bk.xa + f * RX + i * X, j, X, ta);
+    const float* cf = a.cf + (size_t)f * YX + (size_t)r0 * X + li;
+    float dv = tree7(cf[3 * P] * ta.x0, cf[0] * ta.xm3, cf[P] * ta.xm2,
+                     cf[2 * P] * ta.xm1, cf[4 * P] * ta.xp1,
+                     cf[5 * P] * ta.xp2, cf[6 * P] * ta.xp3);
+    if (r < a.bt || r >= Y - a.bb) dv = clamp_neg(dv, ta.x0);
+    if (bk.aband.slot(i) >= 0) {
+      da.at(f, i, X)[j] = dv;
+      continue;
+    }
+    bufs.put(nxt, f, i, j,
+             (ta.x0 + dv) + merid(cf, P, xb + f * BX + (i + HALO) * X, j, X));
+  }
+  if (bk.aband.n() == 0) return;   // block-uniform
+  __syncthreads();
+  for (int k = 0; k < g.n_aseg; ++k) {
+    const int kt = g.aseg[3 * k], kb = g.aseg[3 * k + 1];
+    const RowSlots in(r0, R, 0, kt, Y - kb, Y);
+    if (in.n() > 0)
+      seg_iterate(bk.aband, in, g.aseg[3 * k + 2], xa, da, a.cf, bk.scr, r0,
+                  X, YX);
+  }
+  for (int l = tid; l < 2 * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX;
+    const int i = by_x(li), j = li - i * X;
+    if (bk.aband.slot(i) < 0) continue;
+    const float* cf = a.cf + (size_t)f * YX + (size_t)r0 * X + li;
+    bufs.put(nxt, f, i, j,
+             (bk.xa[l] + da.at(f, i, X)[j])
+                 + merid(cf, P, xb + f * BX + (i + HALO) * X, j, X));
+  }
+}
+
+// One year of the single run (K1: FLUX, K2: SCEN) at an extension-mode
+// grid on a cluster of C blocks, this block's rows: the state in
+// a.state_out (copied from a.state_in first), the step's coefficient
+// planes in a.cf, K2's annual sums in a.asum, from 0 at the first step.
+template <int KIND>
+__device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
+                            const GrebParams& p) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
+  const int R = Y / C, RX = R * X, r0 = rank * R;
+  const int ktc = a.ktc, kbc = a.kbc, K = ktc + kbc;
+  long long parts[N_QPARTS];
+  refined_parts(Y, X, ktc, kbc, C, g, parts);
+  float* sp[N_QPARTS];
+  sp[0] = smem;
+  for (int k = 1; k < N_QPARTS; ++k)
+    sp[k] = sp[k - 1] + parts[k - 1] / sizeof(float);
+  Bufs bufs{sp[Q_XBUF], nullptr, nullptr, R, X};
+  const int BX = bufs.field(), NXT = 2 * BX;
+  int dkt, dkb, akt, akb;
+  seg_reach(g.dseg, g.n_dseg, &dkt, &dkb);
+  seg_reach(g.aseg, g.n_aseg, &akt, &akb);
+  int* zpre = reinterpret_cast<int*>(sp[Q_INDEX]);
+  const RefinedBlock bk{
+      RowSlots(r0, R, 0, ktc, Y - kbc, Y),
+      RowSlots(r0, R, ktc, ktc + dkt, Y - kbc - dkb, Y - kbc),
+      RowSlots(r0, R, 0, akt, Y - akb, Y),
+      zpre, sp[Q_WZ], sp[Q_XA], sp[Q_SCRATCH]};
+  float* wz = sp[Q_WZ];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_rx(RX), by_x(X);
+  float* st = a.state_out + (size_t)r0 * X;   // field k at k * YX
+  const float* st_in = a.state_in + (size_t)r0 * X;
+
+  for (int i = tid; i < 5 * RX; i += nt) {
+    const int k = i / RX;
+    st[(size_t)k * YX + (i - k * RX)] = st_in[(size_t)k * YX + (i - k * RX)];
+  }
+  for (int i = tid; i < 2 * RX; i += nt)
+    wz[i] = a.wz[(size_t)(i / RX) * YX + r0 * X + i % RX];
+  // halo rows start at zero: those past the poles stay so
+  for (int i = tid; i < 2 * 2 * 2 * HALO * X; i += nt) {
+    const int fb = i / (2 * HALO * X);          // buffer*2 + field
+    const int h = i - fb * 2 * HALO * X;
+    const int row = h < HALO * X ? h / X : R + h / X;
+    bufs.mine[fb * BX + row * X + h % X] = 0.f;
+  }
+  if (tid == 0) {
+    const int nq = bk.comp.n();
+    int acc = 0;
+    for (int fq = 0; fq < 2 * nq; ++fq) {
+      zpre[fq] = acc;
+      const int f = fq / nq, r = r0 + bk.comp.row(fq - f * nq);
+      acc += g.comp_rank[f * K + comp_k(r, Y, ktc, kbc)];
+    }
+    zpre[2 * nq] = acc;
+  }
+  // every block's shared memory is live before any remote write; the
+  // state copy is visible to the block
+  cluster.sync();
+  if (rank > 0) bufs.up = cluster.map_shared_rank(bufs.mine, rank - 1);
+  if (rank < C - 1) bufs.dn = cluster.map_shared_rank(bufs.mine, rank + 1);
+
+  for (int t = 0; t < a.T; ++t) {
+    const size_t tyx = (size_t)t * YX;
+    // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
+    //    halos, and this step's coefficients into the global scratch
+    for (int l = tid; l < 2 * RX; l += nt) {
+      const int f = by_rx(l), li = l - f * RX;
+      const int i = by_x(li), j = li - i * X;
+      const size_t c = (size_t)f * YX + (size_t)r0 * X + li;
+      bufs.put(0, f, i, j, st[(size_t)(f == 0 ? 1 : 3) * YX + li]);
+      step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + r0 * X + li],
+                  a.v[tyx + r0 * X + li], a.cf + c, P);
+    }
+    cluster.sync();
+    // -- circulation: nsub substeps, buffer cur -> nxt
+    int cur = 0;
+    for (int s = 0; s < a.nsub; ++s) {
+      const int nxt = NXT - cur;
+      refined_substep(a, g, bk, bufs, cur, nxt, r0);
+      // every block's rows and halos of buffer nxt are written, and no
+      // block reads buffer cur any more
+      cluster.sync();
+      cur = nxt;
+    }
+    // -- pointwise physics and the state update of this block's cells
+    const float* xc = bufs.mine + cur + HALO * X;   // circulated, row 0
+    for (int li = tid; li < RX; li += nt) {
+      const int pix = r0 * X + li;
+      float s[5];
+      for (int k = 0; k < 5; ++k) s[k] = st[(size_t)k * YX + li];
+      float vals[N_SUM];
+      update_cell<KIND, false>(a, p, t, pix, s, xc[li], xc[BX + li], a.tf,
+                               a.tof, a.qf, (size_t)t * a.corr_step + pix,
+                               vals);
+      if (KIND == SCEN) {
+        float* out = a.outs + tyx * N_OUT + pix;
+        for (int k = 0; k < N_OUT; ++k) out[(size_t)k * YX] = vals[k];
+        // annual sums in sequence, from 0 at the year's first step
+        for (int k = 0; k < N_SUM; ++k) {
+          float* sum = a.asum + (size_t)k * YX + pix;
+          *sum = (t == 0 ? 0.f : *sum) + vals[k];
+        }
+      }
+      for (int k = 0; k < 5; ++k) st[(size_t)k * YX + li] = s[k];
+    }
+    __syncthreads();
+  }
+  // no block leaves while another may still write into its shared memory
+  cluster.sync();
+}
+
 // Each kernel in three instantiations: the modern variant (flags 0); with
 // the suffix _legacy, the fold with the switches of the flags word; with
 // the suffix _strict, the strict transport or none, with the switches.
@@ -1375,6 +1928,17 @@ __global__ void __launch_bounds__(NT, 1) scenario_years_strict(
                                                        member_index()));
 }
 
+// The refined instantiation of K1 and K2 (modern variant only).
+__global__ void __launch_bounds__(NT, 1) fluxcorr_year_refined(
+    YearArgs a, GrebParams p, RefinedArgs g) {
+  run_refined<FLUX>(a, g, p);
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_year_refined(
+    YearArgs a, GrebParams p, RefinedArgs g) {
+  run_refined<SCEN>(a, g, p);
+}
+
 // One block of NT threads per member (a.M blocks).
 template <typename Kernel, typename... Extra>
 static int launch(Kernel kernel, const YearArgs& a, void* stream,
@@ -1387,19 +1951,14 @@ static int launch(Kernel kernel, const YearArgs& a, void* stream,
   return (int)cudaGetLastError();
 }
 
-// The launch of a.M clusters of C blocks of `kernel` (of `kind`; `strict`:
-// a strict instantiation), one member a cluster, into cfg (whose attrs
-// point at attr), and how many such clusters the card runs at once;
-// GREB_ERR_NO_CLUSTER where none.
+// The launch of a.M clusters of C blocks of `kernel` with `smem` bytes of
+// dynamic shared memory a block into cfg, and how many such clusters the
+// card runs at once (cluster_config, refined_config).
 template <typename Kernel>
-static int cluster_config(Kernel kernel, const YearArgs& a, int C, int kind,
-                          bool strict, void* stream,
-                          cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
-                          int* clusters) {
-  long long parts[N_PARTS];
-  const long long smem = cluster_parts(a.Y, a.X, a.ktc, a.kbc, C, kind,
-                                       strict, parts);
-  if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
+static int config_with(Kernel kernel, const YearArgs& a, int C,
+                       long long smem, void* stream,
+                       cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                       int* clusters) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -1425,6 +1984,35 @@ static int cluster_config(Kernel kernel, const YearArgs& a, int C, int kind,
   return *clusters == 0 ? GREB_ERR_NO_CLUSTER : 0;
 }
 
+// The launch of a.M clusters of C blocks of `kernel` (of `kind`; `strict`:
+// a strict instantiation), one member a cluster, into cfg (whose attrs
+// point at attr), and how many such clusters the card runs at once;
+// GREB_ERR_NO_CLUSTER where none.
+template <typename Kernel>
+static int cluster_config(Kernel kernel, const YearArgs& a, int C, int kind,
+                          bool strict, void* stream,
+                          cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                          int* clusters) {
+  long long parts[N_PARTS];
+  const long long smem = cluster_parts(a.Y, a.X, a.ktc, a.kbc, C, kind,
+                                       strict, parts);
+  if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
+  return config_with(kernel, a, C, smem, stream, attr, cfg, clusters);
+}
+
+// The refined instantiation's launch (one member: a.M = 1) as
+// cluster_config's.
+template <typename Kernel>
+static int refined_config(Kernel kernel, const YearArgs& a,
+                          const RefinedArgs& g, int C, void* stream,
+                          cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                          int* clusters) {
+  long long parts[N_QPARTS];
+  const long long smem = refined_parts(a.Y, a.X, a.ktc, a.kbc, C, g, parts);
+  if (smem == 0 || smem > MAX_SMEM || a.M != 1) return GREB_ERR_LAYOUT;
+  return config_with(kernel, a, C, smem, stream, attr, cfg, clusters);
+}
+
 // a.M members on a.M clusters of C blocks; raises (returns
 // GREB_ERR_NO_CLUSTER) where the card cannot schedule such a cluster, and
 // takes no other C.  Clusters beyond the card's capacity run in waves.
@@ -1439,6 +2027,24 @@ static int launch_cluster(Kernel kernel, const YearArgs& a,
                                  &cfg, &clusters);
   if (err) return err;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, p, extra...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The refined instantiation of K1 or K2 for one member (a.M = 1) on one
+// cluster of C blocks, as launch_cluster.
+template <typename Kernel>
+static int launch_refined(Kernel kernel, const YearArgs& a,
+                          const GrebParams& p, const RefinedArgs& g, int C,
+                          void* stream) {
+  if (p.flags != 0) return GREB_ERR_FLAGS;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  int clusters;
+  const int err = refined_config(kernel, a, g, C, stream, attr, &cfg,
+                                 &clusters);
+  if (err) return err;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, p, g);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1536,6 +2142,40 @@ int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, int C,
   }
 }
 
+// K1 and K2 at an extension-mode grid: the refined instantiation, modern
+// variant only (any other flags word: GREB_ERR_FLAGS).
+int greb_fluxcorr_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
+                               void* stream) {
+  return launch_refined(fluxcorr_year_refined, a, p, g, C, stream);
+}
+
+int greb_scenario_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
+                               void* stream) {
+  return launch_refined(scenario_year_refined, a, p, g, C, stream);
+}
+
+// The kernel's own reckoning of a refined block's shared memory: fills
+// parts[N_QPARTS] (bytes, layout order), returns the total (0: no layout).
+long long greb_refined_layout(int Y, int X, int ktc, int kbc, int C,
+                              RefinedArgs g, long long* parts) {
+  return refined_parts(Y, X, ktc, kbc, C, g, parts);
+}
+
+// How many clusters of C blocks of the refined K1 (kind FLUX) or K2 (SCEN)
+// the card runs at once, into *clusters; an error code as the launchers.
+int greb_refined_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
+                          RefinedArgs g, int* clusters) {
+  YearArgs a = {};
+  a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  return kind == FLUX
+             ? refined_config(fluxcorr_year_refined, a, g, C, nullptr, attr,
+                              &cfg, clusters)
+             : refined_config(scenario_year_refined, a, g, C, nullptr, attr,
+                              &cfg, clusters);
+}
+
 // The kernel's own reckoning of a cluster block's shared memory (`strict`:
 // the strict instantiation's): fills parts[N_PARTS] (bytes, layout order),
 // returns the total (0: no layout).
@@ -1579,7 +2219,8 @@ const char* greb_error_string(int err) {
   if (err == GREB_ERR_LAYOUT)
     return "no cluster layout: C does not split the latitude rows into "
            "blocks of at least 2 rows, or a block's shared memory exceeds "
-           "227 KB";
+           "227 KB (refined: or a row is not whole composite blocks, a "
+           "segment table is too long, or there is more than one member)";
   if (err == GREB_ERR_NO_CLUSTER)
     return "cudaOccupancyMaxActiveClusters is 0: the card cannot schedule "
            "a cluster of this size with this shared memory";

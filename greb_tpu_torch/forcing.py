@@ -91,8 +91,10 @@ class Corrections:
 
 
 def forcing_from_arrays(arrs: Dict[str, np.ndarray], device) -> ClimForcing:
+    """Contiguous float32 tensors on ``device`` (the kernels take row-major
+    fields; a regridded array's strides are not)."""
     return ClimForcing(**{
-        k: torch.tensor(np.asarray(arrs[k], F32), device=device)
+        k: torch.tensor(np.ascontiguousarray(arrs[k], F32), device=device)
         for k in ClimForcing.__dataclass_fields__ if k in arrs})
 
 

@@ -98,12 +98,23 @@ class GREB:
                                      exp=self.exp)
         if self.device.type == "cuda":
             # the kernels' shared-memory fit and plan support, checked
-            # before any year runs
-            yk.check_supported(self.year_data.plan)
+            # before any year runs: at an extension-mode grid only K1 and
+            # K2, which run launches (the member kernels raise when called)
+            plan = self.year_data.plan
+            yk.check_supported(
+                plan, yk.REFINED_KINDS if yk.is_refined(plan) else yk.KINDS,
+                self.year_data.flags)
         self.month_mat = torch.as_tensor(
             month_average_matrix(self.num.jday_mon, self.num.ndt_days),
             device=self.device)
         self._ppack = None   # the base params' member pack, made on first use
+
+    def _check_member_kernels(self) -> None:
+        """Raise before any launch where the member kernels (K3, K4) do not
+        run this model's plan (an extension-mode grid), on any device."""
+        yd = self.year_data
+        for kind in ("fluxcorr", "scenario_years"):
+            yk.check_plan(yd.plan, kind, yd.flags, members=True)
 
     def _multiyear_args(self, corr: Corrections):
         """(member pack (1, 1, N_PPACK), corrections (1, T, 3, Y, X)) of the
@@ -181,6 +192,8 @@ class GREB:
             raise ValueError(f"co2 series has {len(co2_series)} years, "
                              f"the run {years}")
 
+        if years_per_call > 1:
+            self._check_member_kernels()
         if state is None:
             state = self.initial_state()
 
@@ -316,6 +329,7 @@ class GREB:
         means (M, years*12, 5, y, x) and annual sums (M, years, 9, y, x) as
         host numpy arrays)."""
         num, yd = self.num, self.year_data
+        self._check_member_kernels()
         years = years if years is not None else num.time_scnr
         if co2_series is None:
             co2_series = self._co2_series()

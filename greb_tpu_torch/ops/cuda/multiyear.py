@@ -194,10 +194,11 @@ def _pack_np(ppack: torch.Tensor, yd: yk.YearData) -> np.ndarray:
     return hit[1]
 
 
-def _check(state5: torch.Tensor, ppack: torch.Tensor,
-           yd: yk.YearData) -> int:
-    """Raise for what the kernels do not run; return the member count."""
-    yk.check_plan(yd.plan)
+def _check(state5: torch.Tensor, ppack: torch.Tensor, yd: yk.YearData,
+           kind: str) -> int:
+    """Raise for what the kernel of ``kind`` does not run (on CPU tensors
+    too); return the member count."""
+    yk.check_plan(yd.plan, kind, yd.flags, members=True)
     if state5.device.type not in ("cpu", "cuda"):
         raise ValueError(f"year kernels run on cuda (or plain on cpu), "
                          f"not {state5.device}")
@@ -290,7 +291,7 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     """One spin-up year for each member: (state5 (5, M, Y, X), corr
     (M, T, 3, Y, X)).  On the card each member runs on a cluster of
     ``cluster`` blocks (default: ``default_cluster``)."""
-    M = _check(state5, ppack, yd)
+    M = _check(state5, ppack, yd, "fluxcorr")
     if cluster is not None:
         yk._check_cluster(cluster, "fluxcorr")
     dev = state5.device
@@ -324,7 +325,7 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     monthly (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X)).  On
     the card each member runs on a cluster of ``cluster`` blocks, or with
     ``cluster=1`` on one block (default: ``default_cluster``)."""
-    M = _check(state5, ppack, yd)
+    M = _check(state5, ppack, yd, "scenario_years")
     if cluster is not None:
         yk._check_cluster(cluster, "scenario_years")
         if cluster == 1 and yd.transport == "strict":

@@ -35,6 +35,19 @@ strict one, which moves Ta and q with the term-by-term stencils
 (ops/stencils.py) or not at all, and has no fold in its shared memory
 (``StrictPlan``).
 
+An extension-mode plan (a refined grid: 384x192 at dt_crcl=1800, with
+sequential zonal splitting, packed pole composites and explicit polar
+segment iterations) launches K1 and K2's refined instantiation
+(``*_refined``, csrc/year_kernel.cu ``run_refined``), modern variant only.
+Its block keeps in shared memory only what a substep reads many times:
+the (Ta, q) double buffer with its halo rows, wz, the zonally diffused
+state xa and a scratch for the segment iterations and composite rows
+(``refined_layout``); the state, the annual sums, the step's coefficient
+planes (a per-run global scratch), the zd planes and the packed factors
+stay in global memory and L2.  The member kernels, the legacy and strict
+words and the plans that layout does not hold raise NotImplementedError
+at such a plan (``check_plan``), each naming its ROADMAP item.
+
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
@@ -95,6 +108,22 @@ FLAGS = ("fixed_albedo", "simple_seaice", "hydro_off", "circulation_off",
 # where K3's one-block body under the strict transport is queued
 STRICT_ONE_BLOCK_ITEM = "ROADMAP Queue 2 item 4"
 
+# the kinds with a refined instantiation (an extension-mode plan), the
+# cluster size it launches with (12 rows of 384 columns a block at
+# 384x192; 8 and 12 blocks need more than MAX_SMEM_BYTES), the parts of its
+# block's shared memory in the kernel's layout order (csrc/year_kernel.cu
+# enum RefinedPart), and the most segments of either kind it takes
+REFINED_KINDS = ("fluxcorr", "scenario")
+REFINED_CLUSTER_SIZES = (16,)
+REFINED_PARTS = ("transported", "wz", "xa", "scratch", "comp_index")
+MAX_SEGS = 8
+# where what the refined instantiation does not run is queued
+REFINED_ITEMS = dict(
+    members="ROADMAP Queue 1 item 3c",   # K3/K4 at an extension-mode plan
+    layout="ROADMAP Queue 1 item 3d",    # grids its layout does not hold
+    dense="ROADMAP Queue 1 item 3e",     # dense composites (192x96)
+    words="ROADMAP Queue 1 item 3f")     # legacy and strict words
+
 
 def experiment_flags(exp: Experiment, strict: bool = False) -> int:
     """The kernels' flags word of ``exp`` (0 for the modern variant), with
@@ -135,6 +164,11 @@ class YearData:
     def transport(self) -> str:
         """"fold", "strict" or "none" (``core.transport``)."""
         return core.transport(self.exp, self.fold is not None)
+
+    @property
+    def flags(self) -> int:
+        """The kernels' flags word of this run (``experiment_flags``)."""
+        return experiment_flags(self.exp, self.transport == "strict")
 
     @property
     def plan(self):
@@ -227,6 +261,98 @@ def cluster_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     return lay
 
 
+def _rows_in(r0: int, r1: int, a: int, b: int) -> int:
+    """Rows of [r0, r1) in [a, b)."""
+    return max(0, min(r1, b) - max(r0, a))
+
+
+def _reach(segs) -> Tuple[int, int]:
+    """The rows from each pole that any of ``segs`` (kt, kb, iters)
+    reaches: segments are nested, so their union is (max kt, max kb)."""
+    return (max((s[0] for s in segs), default=0),
+            max((s[1] for s in segs), default=0))
+
+
+def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
+    """The shared memory of each block of a ``blocks``-block cluster that
+    runs the refined instantiation of ``kind`` (one of REFINED_KINDS) on an
+    extension-mode plan with packed composites (csrc/year_kernel.cu
+    ``refined_parts``, the same reckoning): two buffers of the 2
+    transported fields with HALO rows each side, wz of its rows, their
+    zonally diffused state xa (first their zonal diffusion dd), a scratch
+    and the composite rows' index.  The scratch holds, one after the other
+    in a substep, the diffusion segments' two buffers (2 fields of the
+    block's rows in any diffusion segment), the packed composites' t1 rows
+    and z (each 2 fields of its composite rows, z at most X a row) and the
+    advection segments' two buffers (their da waits in the next (Ta, q)
+    buffer's own rows).  What the refined
+    instantiation keeps in global memory (state, annual sums, the step's
+    coefficient planes, zd, the packed factors) is not part of it.
+    Raises ValueError where ``cluster_layout`` does, where the row length
+    is not a multiple of fastcirc2.COMP_BLOCK (the composite sums take
+    whole blocks of a row), for a plan without sequential zonal splitting
+    and packed composites, for more than MAX_SEGS segments, and where a
+    block needs more than MAX_SMEM_BYTES."""
+    if kind not in REFINED_KINDS:
+        raise ValueError(f"kind {kind!r}: the refined instantiation runs "
+                         f"{REFINED_KINDS}")
+    if not is_refined(plan) or plan.comp_mode != "packed":
+        raise ValueError(f"the refined layout holds extension-mode plans "
+                         f"with packed composites, not {plan}")
+    if max(len(plan.diff_segs), len(plan.adv_segs)) > MAX_SEGS:
+        raise ValueError(f"more than {MAX_SEGS} segments: {plan}")
+    Y, X = plan.ydim, plan.xdim
+    if X % fc2.COMP_BLOCK:
+        raise ValueError(f"refined kernels: {X} columns, not a multiple of "
+                         f"{fc2.COMP_BLOCK}")
+    if not 1 <= blocks <= MAX_CLUSTER or Y % blocks:
+        raise ValueError(f"a cluster of {blocks} blocks: {Y} latitude rows "
+                         f"do not split evenly over 1..{MAX_CLUSTER} blocks")
+    R = Y // blocks
+    if R < HALO:
+        raise ValueError(f"a cluster of {blocks} blocks gives {R} row(s) per "
+                         f"block, under the meridional halo depth {HALO}")
+    ktc, kbc = plan.comp_kt, plan.comp_kb
+    (dkt, dkb), (akt, akb) = _reach(plan.diff_segs), _reach(plan.adv_segs)
+
+    def most(a0, a1, b0, b1):
+        return max(_rows_in(b * R, (b + 1) * R, a0, a1)
+                   + _rows_in(b * R, (b + 1) * R, b0, b1)
+                   for b in range(blocks))
+
+    kmax = most(0, ktc, Y - kbc, Y)
+    nsd = most(ktc, ktc + dkt, Y - kbc - dkb, Y - kbc)
+    nsa = most(0, akt, Y - akb, Y)
+    words = dict(transported=2 * 2 * (R + 2 * HALO) * X, wz=2 * R * X,
+                 xa=2 * R * X,
+                 scratch=2 * 2 * max(nsd, kmax, nsa) * X,
+                 comp_index=-(-(2 * kmax + 1) // 4) * 4)
+    lay = ClusterLayout(
+        blocks=blocks, rows=R, comp_rows=kmax,
+        threads=min(MAX_THREADS, -(-2 * R * X // 32) * 32),
+        parts=tuple((n, 4 * words[n]) for n in REFINED_PARTS))
+    if lay.nbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"refined {kind}: a cluster of {blocks} blocks at "
+                         f"{X}x{Y} needs {lay.nbytes} B of shared memory a "
+                         f"block, over {MAX_SMEM_BYTES} B")
+    return lay
+
+
+def is_refined(plan) -> bool:
+    """An extension-mode fold (sequential zonal splitting: a refined grid),
+    which K1 and K2 run in their refined instantiation."""
+    return bool(plan.seq_zonal) and not isinstance(plan, StrictPlan)
+
+
+def block_layout(plan, blocks: int, kind: str) -> ClusterLayout:
+    """The layout of the instantiation that runs ``plan``:
+    ``refined_layout`` for an extension-mode fold, else
+    ``cluster_layout``."""
+    if is_refined(plan):
+        return refined_layout(plan, blocks, kind)
+    return cluster_layout(plan, blocks, kind)
+
+
 def smem_bytes(plan) -> int:
     """Dynamic shared memory of a block of K3's one-block body
     (``scenario_years`` at cluster=1): the 5-field state, two buffers of
@@ -237,36 +363,61 @@ def smem_bytes(plan) -> int:
     return 4 * (5 * yx + 4 * yx + 6 * kx)
 
 
-def check_plan(plan) -> None:
-    """Raise for what no year kernel runs: extension-mode grids
-    (sequential zonal splitting), and folds with explicit segment
-    iterations or packed composites (all refined-grid plans; ROADMAP
-    Queue 1 item 3)."""
+def check_plan(plan, kind: str, flags: int = 0,
+               members: bool = False) -> None:
+    """Raise NotImplementedError for what the kernel of ``kind`` (one of
+    KINDS; ``members``: the member kernel K4 or K3) does not run with the
+    flags word ``flags``.  An extension-mode plan runs only in K1 and K2's
+    refined instantiation: the modern word with the fold (legacy and strict
+    words: REFINED_ITEMS["words"]), K1/K2 only (K3/K4: "members"), packed
+    composites only (dense ones, 192x96: "dense"); ``refined_layout``
+    holds the rest.  Any other plan runs without explicit segment
+    iterations or packed composites."""
     if plan.seq_zonal:
-        raise NotImplementedError(
-            f"year kernels: seq_zonal=True (an extension-mode grid) comes "
-            f"with the refined-grid slice (ROADMAP Queue 1 item 3)")
+        if isinstance(plan, StrictPlan) or flags:
+            raise NotImplementedError(
+                f"year kernels: the legacy and strict words (flags "
+                f"{flags:#x}, {type(plan).__name__}) at an extension-mode "
+                f"grid ({REFINED_ITEMS['words']})")
+        if members or kind not in REFINED_KINDS:
+            raise NotImplementedError(
+                f"{kind}: the member kernels K3/K4 at an extension-mode "
+                f"grid ({REFINED_ITEMS['members']})")
+        if plan.comp_mode != "packed":
+            raise NotImplementedError(
+                f"year kernels: comp_mode={plan.comp_mode!r} at an "
+                f"extension-mode grid: the refined instantiation runs packed "
+                f"composites ({REFINED_ITEMS['dense']})")
+        return
     if isinstance(plan, StrictPlan):
         return
     if plan.diff_segs or plan.adv_segs:
         raise NotImplementedError(
             f"year kernels: explicit polar segments (diff_segs="
-            f"{plan.diff_segs}, adv_segs={plan.adv_segs}) come with the "
-            f"refined-grid slice (ROADMAP Queue 1 item 3)")
+            f"{plan.diff_segs}, adv_segs={plan.adv_segs}) run only at an "
+            f"extension-mode grid (refined instantiation)")
     if plan.comp_mode not in ("dense", "none"):
         raise NotImplementedError(
-            f"year kernels: comp_mode={plan.comp_mode!r} / seq_zonal="
-            f"{plan.seq_zonal} come with the refined-grid slice (ROADMAP "
-            f"Queue 1 item 3)")
+            f"year kernels: comp_mode={plan.comp_mode!r} runs only at an "
+            f"extension-mode grid (refined instantiation)")
 
 
-def check_supported(plan) -> None:
-    """Raise for what the kernels do not run: the plans of ``check_plan``,
-    and grids that a cluster of DEFAULT_CLUSTER blocks does not hold for
-    every kind (``cluster_layout``)."""
-    check_plan(plan)
-    for kind in KINDS:
-        cluster_layout(plan, DEFAULT_CLUSTER, kind)
+def check_supported(plan, kinds: Tuple[str, ...] = KINDS,
+                    flags: int = 0) -> None:
+    """Raise for what the kernels of ``kinds`` do not run: the plans and
+    words of ``check_plan``, and grids that a cluster of DEFAULT_CLUSTER
+    blocks does not hold (``block_layout``; at an extension-mode grid
+    NotImplementedError, naming REFINED_ITEMS["layout"])."""
+    for kind in kinds:
+        check_plan(plan, kind, flags)
+        if not is_refined(plan):
+            cluster_layout(plan, DEFAULT_CLUSTER, kind)
+            continue
+        try:
+            refined_layout(plan, DEFAULT_CLUSTER, kind)
+        except ValueError as e:
+            raise NotImplementedError(
+                f"{e} ({REFINED_ITEMS['layout']})") from None
 
 
 def check_block_fit(plan) -> None:
@@ -279,24 +430,60 @@ def check_block_fit(plan) -> None:
             f"{need} B of shared memory, over one block's {MAX_SMEM_BYTES} B")
 
 
-def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool):
+def packed_ranks(const: fc2.Fast2Const) -> Tuple[np.ndarray, np.ndarray]:
+    """(offsets, ranks) in Rtot of the packed composite rows f*K + k
+    (``fastcirc2.PackedIndex``): row i's factors are
+    U_all[:, off:off+r] and W_all[off:off+r, :]."""
+    if const.pidx is None:
+        raise ValueError("not a packed fold: no composite ranks")
+    return const.pidx.offs, const.pidx.ranks
+
+
+# float32 operations of one (field, cell) of one explicit segment
+# iteration (fastcirc._iterate: the 7-point sum in sequence 13, the clamp's
+# compare 1, the add 1), and of entering and leaving a segment (t1 = x +
+# d, then d = t1 - x)
+SEG_ITER_OPS = 15
+SEG_EDGE_OPS = 2
+
+
+def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool,
+              ranks: Optional[np.ndarray] = None):
     """(bytes, operations) one year must move and compute at least: each
     input read once and each output written once; operations counted from
     the step body's source (adds, multiplies, divides, compares,
-    transcendentals each 1)."""
-    yx, t = plan.ydim * plan.xdim, num.nstep_yr
+    transcendentals each 1).  Dense composites count one (X, X) matrix a
+    pole row; packed ones (``ranks``, ``packed_ranks``, required) count
+    U_all and W_all at their ranks (and each row's offset and rank) and
+    their two products at the rows' ranks, z = t1 U (2 X r a row) and
+    t2 = z W (2 X r); the explicit segments count each row's iterations.
+    With sequential zonal splitting (extension-mode plans) the combine's 4
+    operations a cell are xa = x + wz dd (2) and xa + da + dy (2)."""
+    yx, t, X = plan.ydim * plan.xdim, num.nstep_yr, plan.xdim
     kk = plan.comp_kt + plan.comp_kb
+    if plan.comp_mode == "packed":
+        if ranks is None:
+            raise ValueError("packed composites: year_work needs their ranks "
+                             "(packed_ranks)")
+        rtot = int(np.sum(ranks))
+        comp_words = 2 * X * rtot + 2 * len(ranks)
+        comp_ops = 4 * X * rtot + 2 * kk * X * 4
+    else:
+        comp_words = 2 * kk * X ** 2
+        comp_ops = 2 * kk * X * (2 * X + 4)
+    seg_ops = sum(2 * (kt + kb) * X * (iters * SEG_ITER_OPS + SEG_EDGE_OPS)
+                  for kt, kb, iters in plan.diff_segs + plan.adv_segs)
     words = (5 * yx                      # state in
              + 8 * t * yx + t * plan.ydim  # forcing, insolation
              + 5 * yx                    # z_topo, glacier, wz_air, z_ocean, toclim
              + (7 + 8 + 9 + 1) * 2 * yx  # fold planes
-             + 2 * kk * plan.xdim ** 2   # composites
+             + comp_words                # composites
              + 5 * yx                    # state out
              + 3 * t * yx)               # corrections in (scenario) / out
     if scenario:
         words += 5 * t * yx + N_SUM * yx  # outs, annual sums
-    per_substep = (2 * yx * (2 * 13 + 2 + 9 + 4)       # zonal x2, clamps,
-                   + 2 * kk * plan.xdim * (2 * plan.xdim + 4))  # merid, combine
+    per_substep = (2 * yx * (2 * 13 + 2 + 9 + 4)     # zonal x2, clamps,
+                   + comp_ops + seg_ops)             # merid, combine
     per_step = (num.nsub_crcl * per_substep
                 + 2 * yx * 21                          # step coefficients
                 + yx * (125 + (9 if scenario else 0)))  # physics, update, sums
@@ -399,6 +586,27 @@ class _Args(ctypes.Structure):
                 + [(n, ctypes.c_float) for n in _STRICT_NAMES])
 
 
+class _Refined(ctypes.Structure):
+    """The refined instantiation's arguments (csrc/year_kernel.cu
+    RefinedArgs): the packed factors, each composite row's offset and rank
+    in Rtot, and the segment tables, (kt, kb, iters) each."""
+    _fields_ = ([(n, ctypes.c_void_p)
+                 for n in ("pcu", "pcw", "comp_off", "comp_rank")]
+                + [(n, ctypes.c_int) for n in ("rtot", "n_dseg", "n_aseg")]
+                + [(n, ctypes.c_int * (3 * MAX_SEGS))
+                   for n in ("dseg", "aseg")])
+
+
+def _refined_struct(plan, **ptrs) -> _Refined:
+    """``_Refined`` of ``plan``'s segment tables, with ``ptrs``."""
+    g = _Refined(n_dseg=len(plan.diff_segs), n_aseg=len(plan.adv_segs),
+                 **ptrs)
+    for name, segs in (("dseg", plan.diff_segs), ("aseg", plan.adv_segs)):
+        flat = [int(v) for seg in segs for v in seg]
+        getattr(g, name)[:len(flat)] = flat
+    return g
+
+
 class _PackCols(ctypes.Structure):
     """Columns of the member pack holding each kernel parameter
     (csrc/year_kernel.cu PackCols)."""
@@ -412,6 +620,17 @@ def _lib():
     for fn in (lib.greb_fluxcorr_year, lib.greb_scenario_year):
         fn.argtypes = [_Args, _Params, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for fn in (lib.greb_fluxcorr_year_refined,
+               lib.greb_scenario_year_refined):
+        fn.argtypes = [_Args, _Params, _Refined, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.greb_refined_layout.argtypes = [ctypes.c_int] * 5 + [
+        _Refined, ctypes.POINTER(ctypes.c_longlong)]
+    lib.greb_refined_layout.restype = ctypes.c_longlong
+    lib.greb_refined_capacity.argtypes = [ctypes.c_int] * 6 + [
+        _Refined, ctypes.POINTER(ctypes.c_int)]
+    lib.greb_refined_capacity.restype = ctypes.c_int
     for fn in (lib.greb_fluxcorr_years, lib.greb_scenario_years):
         fn.argtypes = [_Args, _Params, _PackCols, ctypes.c_int,
                        ctypes.c_void_p]
@@ -433,8 +652,19 @@ def kernel_cluster_layout(plan, blocks: int, kind: str):
     """The kernel's own reckoning of a cluster block (csrc/year_kernel.cu
     ``greb_cluster_layout``, built on first use): ({part: bytes}, threads),
     for holding against ``cluster_layout`` (a ``StrictPlan``: the strict
-    instantiation's layout)."""
+    instantiation's layout; an extension-mode fold: the refined one's,
+    ``greb_refined_layout``, against ``refined_layout``)."""
     lib = _lib()
+    if is_refined(plan):
+        parts = (ctypes.c_longlong * len(REFINED_PARTS))()
+        total = lib.greb_refined_layout(plan.ydim, plan.xdim, plan.comp_kt,
+                                        plan.comp_kb, blocks,
+                                        _refined_struct(plan), parts)
+        if total <= 0:
+            raise ValueError(f"the kernel has no refined layout for {blocks} "
+                             f"blocks")
+        return (dict(zip(REFINED_PARTS, parts)),
+                lib.greb_cluster_threads(plan.ydim, plan.xdim, blocks))
     parts = (ctypes.c_longlong * len(CLUSTER_PARTS))()
     total = lib.greb_cluster_layout(plan.ydim, plan.xdim, plan.comp_kt,
                                     plan.comp_kb, blocks, KINDS.index(kind),
@@ -452,6 +682,16 @@ def cluster_capacity(plan, blocks: int, kind: str) -> int:
     waves.  Raises where the card runs none."""
     lib = _lib()
     n = ctypes.c_int()
+    if is_refined(plan):
+        err = lib.greb_refined_capacity(plan.ydim, plan.xdim, plan.comp_kt,
+                                        plan.comp_kb, blocks,
+                                        KINDS.index(kind),
+                                        _refined_struct(plan),
+                                        ctypes.byref(n))
+        if err:
+            raise RuntimeError(f"refined cluster capacity at {blocks} "
+                               f"blocks: {lib.greb_error_string(err).decode()}")
+        return n.value
     err = lib.greb_cluster_capacity(plan.ydim, plan.xdim, plan.comp_kt,
                                     plan.comp_kb, blocks, KINDS.index(kind),
                                     isinstance(plan, StrictPlan),
@@ -468,7 +708,7 @@ def _params(yd: YearData, co2) -> _Params:
     out.p_emi[:] = [float(v) for v in np.asarray(p.p_emi, F32)]
     out.cap_ocean, out.cap_land = float(d.cap_ocean), float(d.cap_land)
     out.cap_air, out.dt, out.co2 = float(d.cap_air), float(yd.num.dt), float(F32(co2))
-    out.flags = experiment_flags(yd.exp, yd.transport == "strict")
+    out.flags = yd.flags
     return out
 
 
@@ -502,10 +742,11 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
     ``(tensor, shape)`` or ``(tensor, shape, dtype)`` (float32 unless
     given; shape None skips the shape check); ``ints`` overrides the
     single-run sizes (M=1, one year, corrections step by step).  The fold's
-    planes go in under the fold, the strict stencils' constants under the
-    strict transport, neither without transport."""
+    planes go in under the fold (the dense composites but at an
+    extension-mode plan, whose packed ones go in ``_refined_args``), the
+    strict stencils' constants under the strict transport, neither without
+    transport.  The caller has checked the plan (``check_plan``)."""
     plan = yd.plan
-    check_plan(plan)
     num, sfx, md = yd.num, yd.sfx, yd.md
     Y, X, T = plan.ydim, plan.xdim, num.nstep_yr
     K = plan.comp_kt + plan.comp_kb
@@ -525,8 +766,9 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
     if yd.transport == "fold":
         const = yd.fold[1]
         t.update(zd=(const.zd, (7, 2, Y, X)), zam=(const.zam, (8, 2, Y, X)),
-                 mer=(const.mer, (9, 2, Y, X)), wz=(const.wz, (2, Y, X)),
-                 pcomp=(const.pcomp, (2, K, X, X) if K else None))
+                 mer=(const.mer, (9, 2, Y, X)), wz=(const.wz, (2, Y, X)))
+        if not is_refined(plan):
+            t.update(pcomp=(const.pcomp, (2, K, X, X) if K else None))
     elif yd.transport == "strict":
         tensors, scalars = _strict_args(yd, dev)
         t.update(tensors)
@@ -551,6 +793,50 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
     return _Args(**ptrs, **sizes)
 
 
+def _refined_args(yd: YearData, dev: torch.device) -> _Refined:
+    """The refined instantiation's arguments: the packed factors U_all
+    (X, Rtot) and W_all (Rtot, X), each composite row's offset and rank
+    (int32 on ``dev``, made once per run) and the plan's segments."""
+    plan, const = yd.fold
+    key = ("refined", str(dev))
+    if key not in yd.cache:
+        offs, ranks = packed_ranks(const)
+        yd.cache[key] = tuple(torch.as_tensor(a, dtype=torch.int32,
+                                              device=dev)
+                              for a in (offs, ranks))
+    offs, ranks = yd.cache[key]
+    X, rtot, rows = plan.xdim, const.pmask.shape[1], const.pmask.shape[0]
+    t = dict(pcu=(const.pcu, (X, rtot), torch.float32),
+             pcw=(const.pcw, (rtot, X), torch.float32),
+             comp_off=(offs, (rows,), torch.int32),
+             comp_rank=(ranks, (rows,), torch.int32))
+    for name, (ten, shape, dtype) in t.items():
+        if ten.device != dev or ten.dtype != dtype \
+                or tuple(ten.shape) != shape or not ten.is_contiguous():
+            raise ValueError(f"{name}: want contiguous {dtype} {shape} on "
+                             f"{dev}, got {ten.dtype} {tuple(ten.shape)} on "
+                             f"{ten.device}")
+    return _refined_struct(plan, rtot=rtot,
+                           **{n: ten.data_ptr() for n, (ten, _, _) in
+                              t.items()})
+
+
+def _launch_year(fn_name: str, yd: YearData, state5: torch.Tensor,
+                 params: _Params, cluster: int, **extra) -> None:
+    """Launch K1 or K2 (``fn_name``) on the instantiation of the plan: the
+    refined one, with a global scratch for the step's coefficient planes
+    (12, 2, Y, X), at an extension-mode plan."""
+    dev = state5.device
+    if not is_refined(yd.plan):
+        _launch(fn_name, _args(yd, state5, **extra), params, dev,
+                ctypes.c_int(cluster))
+        return
+    Y, X = state5.shape[1:]
+    cf = torch.empty((12, 2, Y, X), dtype=torch.float32, device=dev)
+    _launch(fn_name + "_refined", _args(yd, state5, cf=(cf, None), **extra),
+            params, dev, _refined_args(yd, dev), ctypes.c_int(cluster))
+
+
 def _launch(fn_name: str, args: _Args, params: _Params, dev: torch.device,
             *extra) -> None:
     lib = _lib()
@@ -570,16 +856,19 @@ def _check_device(state: ModelState) -> torch.device:
     return dev
 
 
-def offered_sizes(kind: str) -> Tuple[int, ...]:
+def offered_sizes(kind: str, plan=None) -> Tuple[int, ...]:
     """The ``cluster=`` sizes a kernel of ``kind`` launches with: its
-    CLUSTER_SIZES, and 1 for the ONE_BLOCK_KINDS."""
+    CLUSTER_SIZES, and 1 for the ONE_BLOCK_KINDS; at an extension-mode
+    ``plan`` REFINED_CLUSTER_SIZES (none for the member kinds)."""
+    if plan is not None and is_refined(plan):
+        return REFINED_CLUSTER_SIZES if kind in REFINED_KINDS else ()
     return (1,) * (kind in ONE_BLOCK_KINDS) + CLUSTER_SIZES[kind]
 
 
-def _check_cluster(cluster: int, kind: str) -> None:
-    if cluster not in offered_sizes(kind):
+def _check_cluster(cluster: int, kind: str, plan=None) -> None:
+    if cluster not in offered_sizes(kind, plan):
         raise ValueError(f"cluster={cluster}: {kind} launches on clusters of "
-                         f"{offered_sizes(kind)} blocks")
+                         f"{offered_sizes(kind, plan)} blocks")
 
 
 # ---------------------------------------------------------------------------
@@ -589,21 +878,22 @@ def fluxcorr_year(state: ModelState, co2, yd: YearData,
                   cluster: int = DEFAULT_CLUSTER
                   ) -> Tuple[ModelState, Corrections]:
     """One spin-up year: (end state, correction tables).  On the card the
-    year runs on a cluster of ``cluster`` blocks."""
-    _check_cluster(cluster, "fluxcorr")
+    year runs on a cluster of ``cluster`` blocks (at an extension-mode
+    plan in the refined instantiation)."""
+    _check_cluster(cluster, "fluxcorr", yd.plan)
     dev = _check_device(state)
     if dev.type == "cpu":
         return fluxcorr_year_plain(state, co2, yd)
+    check_plan(yd.plan, "fluxcorr", yd.flags)
     params = _params(yd, co2)
-    cluster_layout(yd.plan, cluster, "fluxcorr")
+    block_layout(yd.plan, cluster, "fluxcorr")
     T, (Y, X) = yd.num.nstep_yr, tuple(state.ts.shape)
     state5 = state.stack()
     state_out = torch.empty_like(state5)
     tabs = torch.empty((3, T, Y, X), dtype=torch.float32, device=dev)
-    args = _args(yd, state5, state_out=(state_out, None),
-                 tf=(tabs[0], None), tof=(tabs[1], None), qf=(tabs[2], None))
-    _launch("greb_fluxcorr_year", args, params, dev,
-            ctypes.c_int(cluster))
+    _launch_year("greb_fluxcorr_year", yd, state5, params, cluster,
+                 state_out=(state_out, None), tf=(tabs[0], None),
+                 tof=(tabs[1], None), qf=(tabs[2], None))
     fluxcorr_year.launches += 1
     return ModelState.unstack(state_out), Corrections(*tabs.unbind(0))
 
@@ -611,24 +901,24 @@ def fluxcorr_year(state: ModelState, co2, yd: YearData,
 def scenario_year(state: ModelState, corr: Corrections, co2, yd: YearData,
                   cluster: int = DEFAULT_CLUSTER):
     """One scenario year: (end state, outs (T, 5, Y, X), asum (9, Y, X)).
-    On the card the year runs on a cluster of ``cluster`` blocks."""
-    _check_cluster(cluster, "scenario")
+    On the card the year runs on a cluster of ``cluster`` blocks (at an
+    extension-mode plan in the refined instantiation)."""
+    _check_cluster(cluster, "scenario", yd.plan)
     dev = _check_device(state)
     if dev.type == "cpu":
         return scenario_year_plain(state, corr, co2, yd)
+    check_plan(yd.plan, "scenario", yd.flags)
     params = _params(yd, co2)
-    cluster_layout(yd.plan, cluster, "scenario")
+    block_layout(yd.plan, cluster, "scenario")
     T, (Y, X) = yd.num.nstep_yr, tuple(state.ts.shape)
     state5 = state.stack()
     state_out = torch.empty_like(state5)
     outs = torch.empty((T, core.N_OUT, Y, X), dtype=torch.float32, device=dev)
     asum = torch.empty((N_SUM, Y, X), dtype=torch.float32, device=dev)
-    args = _args(yd, state5, state_out=(state_out, None),
-                 tf=(corr.tf, (T, Y, X)), tof=(corr.tof, (T, Y, X)),
-                 qf=(corr.qf, (T, Y, X)), outs=(outs, None),
-                 asum=(asum, None))
-    _launch("greb_scenario_year", args, params, dev,
-            ctypes.c_int(cluster))
+    _launch_year("greb_scenario_year", yd, state5, params, cluster,
+                 state_out=(state_out, None), tf=(corr.tf, (T, Y, X)),
+                 tof=(corr.tof, (T, Y, X)), qf=(corr.qf, (T, Y, X)),
+                 outs=(outs, None), asum=(asum, None))
     scenario_year.launches += 1
     return ModelState.unstack(state_out), outs, asum
 

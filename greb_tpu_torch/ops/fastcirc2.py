@@ -15,7 +15,9 @@ src/greb.f90:556-915):
 
 Rows with more diffusion sub-cycles than one collapse into composite
 operators (dense, or packed SVD factors on refined grids); rows with a few
-iterate explicitly (``diff_segs`` / ``adv_segs``).
+iterate explicitly (``diff_segs`` / ``adv_segs``).  A packed composite row
+works on its own rank's columns of the factors (``PackedIndex``): the
+masked full product's other terms are exact zeros.
 
 The eager ``substep`` / ``circulation`` here are the plain PyTorch versions
 the CUDA year kernels (ops/cuda/year_kernel.py) are held against.  Their
@@ -41,6 +43,9 @@ from . import stencils as stc
 F32 = np.float32
 F64 = np.float64
 
+# composite row sums run over blocks of this many consecutive terms
+COMP_BLOCK = 8
+
 FastPlan = v1.FastPlan
 _LON_IDX_SHIFT = v1._LON_IDX_SHIFT
 
@@ -50,6 +55,56 @@ _ZA_CP, _ZA_P1, _ZA_P2, _ZA_P3 = 4, 5, 6, 7
 # mer index map
 _MD_KM1, _MD_KP1, _C0_MD = 0, 1, 2
 _MAM2, _MAM1, _MAP1, _MAP2, _MA0M, _MA0P = 3, 4, 5, 6, 7, 8
+
+
+@dataclass
+class PackedIndex:
+    """Where each packed composite row's factors lie, for working on its
+    own columns alone.  Row i (of F*K, field-major) owns the columns
+    [offs[i], offs[i] + ranks[i]) of U_all and the same rows of W_all; its
+    t2 sum runs over the COMP_BLOCK-aligned blocks that cover them: slots
+    [first[i] * COMP_BLOCK, (first[i] + nblk[i]) * COMP_BLOCK) of ``cols``
+    (the column of each slot, ``valid`` where it is the row's own)."""
+    offs: np.ndarray          # (F*K,) int64
+    ranks: np.ndarray         # (F*K,) int64
+    row_of_col: torch.Tensor  # (Rtot,) the row owning each column
+    cols: torch.Tensor        # (S,) a column for each slot (0 where not valid)
+    valid: torch.Tensor       # (S,) bool
+    first: torch.Tensor       # (F*K,) the row's first block of slots
+    nblk: torch.Tensor        # (F*K, 1) its number of blocks
+    nb_max: int
+
+
+def packed_index(pmask: np.ndarray, device=None) -> PackedIndex:
+    """The PackedIndex of a block-diagonal 0/1 mask in row order
+    (``build_packed_composites``); raises ValueError for another form."""
+    mask = np.asarray(pmask)
+    ranks = (mask != 0).sum(axis=1).astype(np.int64)
+    offs = np.concatenate([[0], np.cumsum(ranks)[:-1]]).astype(np.int64)
+    want = np.zeros_like(mask)
+    cols, valid, first, nblk = [], [], [], []
+    for i, (o, r) in enumerate(zip(offs, ranks)):
+        want[i, o:o + r] = 1
+        b0 = o - o % COMP_BLOCK
+        b1 = -(-(o + r) // COMP_BLOCK) * COMP_BLOCK
+        c = np.arange(b0, b1)
+        first.append(sum(nblk))
+        nblk.append((b1 - b0) // COMP_BLOCK)
+        ok = (c >= o) & (c < o + r)
+        cols.append(np.where(ok, c, 0))
+        valid.append(ok)
+    if not np.array_equal(mask, want) or offs[-1] + ranks[-1] != mask.shape[1]:
+        raise ValueError("packed composite mask is not block-diagonal in "
+                         "row order")
+    t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+    return PackedIndex(
+        offs=offs, ranks=ranks,
+        row_of_col=t(np.repeat(np.arange(len(ranks)), ranks), torch.int64),
+        cols=t(np.concatenate(cols), torch.int64),
+        valid=t(np.concatenate(valid), torch.bool),
+        first=t(first, torch.int64), nblk=t(np.reshape(nblk, (-1, 1)),
+                                            torch.int64),
+        nb_max=int(max(nblk)))
 
 
 @dataclass
@@ -64,6 +119,7 @@ class Fast2Const:
     pcu: torch.Tensor      # packed: (X, Rtot) U_all; placeholder else
     pcw: torch.Tensor      # packed: (Rtot, X) W_all; placeholder else
     pmask: torch.Tensor    # packed: (F*K, Rtot) 0/1 block mask
+    pidx: Optional[PackedIndex] = None   # packed: pmask's blocks
 
 
 @dataclass
@@ -246,7 +302,9 @@ def build_const(wz_air: np.ndarray, wz_vapor: np.ndarray, grid: Grid,
     const = Fast2Const(
         zd=t(zd.astype(F32)), zam=t(zam.astype(F32)), mer=t(mer.astype(F32)),
         wz=t(wz2.astype(F32)), band=t(band), pcomp=t(pcomp), pcu=t(pcu),
-        pcw=t(pcw), pmask=t(pmask))
+        pcw=t(pcw), pmask=t(pmask),
+        pidx=(packed_index(pmask, device) if plan.comp_mode == "packed"
+              else None))
     return plan, const
 
 
@@ -272,18 +330,19 @@ def _masked_clamp(d, x, band):
     return torch.where(band & (d <= -x), F32(-0.9) * x, d)
 
 
-# composite row sums run over blocks of this many consecutive terms
-COMP_BLOCK = 8
-
-
 def _row_dot(t_row: torch.Tensor, pmat: torch.Tensor) -> torch.Tensor:
     """(..., N) x (N, Z): out[j] = sum_i t[i] * P[i, j], with no library
     matmul on the state path.  The sum runs in a fixed order that the CUDA
     year kernel repeats: in sequence within each block of COMP_BLOCK
     consecutive i, then over the blocks in sequence (the last block padded
     with exact zeros)."""
-    n = t_row.shape[-1]
-    prod = t_row.unsqueeze(-1) * pmat                    # (..., N, Z)
+    return _blocked_sum(t_row.unsqueeze(-1) * pmat)
+
+
+def _block_partials(prod: torch.Tensor) -> torch.Tensor:
+    """(..., N, Z) -> (..., nb, Z): the sums of each block of COMP_BLOCK
+    consecutive n, in sequence (the last block padded with exact zeros)."""
+    n = prod.shape[-2]
     nb = -(-n // COMP_BLOCK)
     if nb * COMP_BLOCK != n:
         prod = tnf.pad(prod, (0, 0, 0, nb * COMP_BLOCK - n))
@@ -291,8 +350,14 @@ def _row_dot(t_row: torch.Tensor, pmat: torch.Tensor) -> torch.Tensor:
     part = prod[..., 0, :]
     for i in range(1, COMP_BLOCK):
         part = part + prod[..., i, :]
+    return part
+
+
+def _blocked_sum(prod: torch.Tensor) -> torch.Tensor:
+    """(..., N, Z) -> (..., Z): the sum over N in _row_dot's order."""
+    part = _block_partials(prod)
     out = part[..., 0, :]
-    for b in range(1, nb):
+    for b in range(1, part.shape[-2]):
         out = out + part[..., b, :]
     return out
 
@@ -300,7 +365,12 @@ def _row_dot(t_row: torch.Tensor, pmat: torch.Tensor) -> torch.Tensor:
 def _packed_comp(x, dd, const: Fast2Const, plan: FastPlan):
     """Packed block-diagonal composites (comp_mode "packed"):
     t2 = ((T @ U_all) * mask) @ W_all, clamped once against the composite
-    result (src/greb.f90:715 semantics)."""
+    result (src/greb.f90:715 semantics).  Each row works on its own
+    columns (``PackedIndex``): z = t1 U_all[:, own] in _row_dot's order,
+    then t2 = z W_all[own, :] over the COMP_BLOCK-aligned blocks that hold
+    them, in _row_dot's order with zeros in the blocks' other slots.  The
+    full masked products' other terms are exact zeros, and adding a zero
+    changes no sum but the sign of a zero, so the result is theirs."""
     Y = plan.ydim
     ktc, kbc = plan.comp_kt, plan.comp_kb
     X = x.shape[-1]
@@ -310,8 +380,19 @@ def _packed_comp(x, dd, const: Fast2Const, plan: FastPlan):
     lead = t1.shape[:-3]
     fk = t1.shape[-3] * t1.shape[-2]
     flat = t1.reshape(lead + (fk, X))
-    z = _row_dot(flat, const.pcu) * const.pmask
-    t2 = _row_dot(z, const.pcw).reshape(t1.shape)
+    pi = const.pidx
+    # z[c] = sum_i t1[row(c), i] * U_all[i, c], blocked over i
+    z = _blocked_sum(flat[..., pi.row_of_col, :].transpose(-1, -2)
+                     * const.pcu)                         # (..., Rtot)
+    zs = torch.where(pi.valid, z[..., pi.cols], 0.0)      # (..., S)
+    part = _block_partials(zs.unsqueeze(-1) * const.pcw[pi.cols])
+    # each row's block sums in sequence, from its first block
+    t2 = part[..., pi.first, :]
+    last = part.shape[-2] - 1
+    for b in range(1, pi.nb_max):
+        nxt = part[..., (pi.first + b).clamp(max=last), :]
+        t2 = torch.where(pi.nblk > b, t2 + nxt, t2)
+    t2 = t2.reshape(t1.shape)
     t1 = t1 + v1._clamped(t2 - t1, t1)
     dcomp = t1 - x_slab
     return torch.cat([dcomp[..., :ktc, :], dd[..., ktc:Y - kbc, :],

@@ -18,18 +18,25 @@ per-cell device functions.  The same holds under the legacy ``log_exp``
 switchboard: K1 and K2 for every log_exp, K3/K4 against K2/K1 under 11
 and 15, and under the strict transport (the strict circulation, log_exp
 7, 8, 16: the kernels' strict instantiation), whose shared-memory layout
-the kernel reckons as ``cluster_layout`` does at every offered size.
+the kernel reckons as ``cluster_layout`` does at every offered size.  At
+the refined 384x192 grid (an extension-mode plan, on forcing regridded
+from the 96x48 synthetic forcing, the 4-step calendar) K1 and K2's refined
+instantiation equals its plain version, and the kernel reckons its block
+as ``refined_layout`` does.
 """
 import numpy as np
 import pytest
 import torch
 
 from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
+from greb_tpu_torch.forcing import Corrections, forcing_from_arrays
+from greb_tpu_torch.io.synthetic import make_synthetic_forcing
 from greb_tpu_torch.model import core
 from greb_tpu_torch.model.driver import GREB
 from greb_tpu_torch.ops.cuda import multiyear as my
 from greb_tpu_torch.ops.cuda import year_kernel as yk
 from greb_tpu_torch.parallel import ensemble as ens
+from greb_tpu_torch.regrid import regrid_forcing_arrays
 
 pytestmark = pytest.mark.cuda
 
@@ -272,3 +279,50 @@ def test_kernel_refuses_an_unknown_flag(model, monkeypatch):
     with pytest.raises(RuntimeError, match="do not know"):
         yk.fluxcorr_year(model.initial_state(), 298.0, model.year_data)
     assert yk.fluxcorr_year.launches == n0
+
+
+REFINED = Numerics(xdim=384, ydim=192, dt_crcl=1800, ndays_yr=2,
+                   jday_mon=(2,), time_flux=1, time_scnr=1)
+
+
+@pytest.fixture(scope="module")
+def refined_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
+    arrs = regrid_forcing_arrays(make_synthetic_forcing(
+        96, 48, REFINED.nstep_yr, REFINED.ndays_yr), REFINED)
+    return GREB(GrebConfig(numerics=REFINED),
+                forcing=forcing_from_arrays(arrs, "cuda"), verbose=False,
+                device="cuda")
+
+
+def test_refined_year_kernels_match_plain(refined_model):
+    """K1 from the initial state at 340 ppm, K2 from it with zero
+    corrections at 680 ppm (finite on this calendar), bit for bit."""
+    m = refined_model
+    yd, s0 = m.year_data, m.initial_state()
+    n1, n2 = yk.fluxcorr_year.launches, yk.scenario_year.launches
+    s_k, c_k = yk.fluxcorr_year(s0, 340.0, yd)
+    s_p, c_p = yk.fluxcorr_year_plain(s0, 340.0, yd)
+    _equal(s_k.stack(), s_p.stack(), "K1 state")
+    for name in ("tf", "tof", "qf"):
+        _equal(getattr(c_k, name), getattr(c_p, name), f"K1 {name}")
+    zero = Corrections.zeros(REFINED.nstep_yr, REFINED.ydim, REFINED.xdim,
+                             device="cuda")
+    s_k, o_k, a_k = yk.scenario_year(s0, zero, 680.0, yd)
+    s_p, o_p, a_p = yk.scenario_year_plain(s0, zero, 680.0, yd)
+    assert torch.isfinite(s_k.stack()).all() and torch.isfinite(o_k).all()
+    _equal(s_k.stack(), s_p.stack(), "K2 state")
+    _equal(o_k, o_p, "K2 outs")
+    _equal(a_k, a_p, "K2 annual sums")
+    assert (yk.fluxcorr_year.launches, yk.scenario_year.launches) == (
+        n1 + 1, n2 + 1)
+
+
+@pytest.mark.parametrize("kind", yk.REFINED_KINDS)
+def test_refined_layout_matches_the_kernel(refined_model, kind):
+    plan = refined_model.fold[0]
+    lay = yk.refined_layout(plan, yk.DEFAULT_CLUSTER, kind)
+    parts, threads = yk.kernel_cluster_layout(plan, yk.DEFAULT_CLUSTER, kind)
+    assert parts == dict(lay.parts) and threads == lay.threads
+    assert yk.cluster_capacity(plan, yk.DEFAULT_CLUSTER, kind) >= 1
