@@ -91,9 +91,21 @@
    from year_work with the packed ranks); then the refined path, GREB.run
    at 384x192 (1 spin-up + 3 scenario years, full calendar: launch counts,
    finiteness, the output file read back, the warming, sim-yr/s);
-14. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+14. the ensemble path: K3 with one correction table that every member
+   reads (1, T, 3, Y, X), M=3 over 2 years on the 20-step calendar at every
+   size it offers, bitwise equal to the table copied M times and to the
+   plain version, also under the strict circulation at C=16; the CLI's
+   run_ensemble (--ensemble 65, the default ct_sens sweep, 3 K4 spin-up
+   years and 10 scenario years through K3, 65 files): wall, member-yr/s,
+   launch counts, the files read back, and member 33 (ct_sens 22.5, the
+   base) byte-equal to step 9's first 120 months; --ensemble 256
+   --shared-spinup (3 K1 years, 3 scenario years): launch counts, the files
+   and the peak device memory, below a per-member table set's 10.3 GB; one
+   K3 year at M=65 timed with a table per member and with the shared table;
+15. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
-   ms and bound, and the refined year's) and, last,
+   ms and bound, and the refined year's, for K3 the ensemble year's, and
+   each kernel's launches on every path) and, last,
    {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no ok line.
@@ -260,6 +272,14 @@ STRICT_CLI_YEARS = dict(time_flux=2, time_ctrl=1, time_scnr=3)
 REFINED_GRID = dict(xdim=384, ydim=192, dt_crcl=1800)
 REFINED_SHORT = dict(ndays_yr=10, jday_mon=(10,))
 REFINED_YEARS = dict(time_flux=1, time_scnr=3)
+# the ensemble path: the CLI's --ensemble with the default sweep (ct_sens
+# 22.05..22.95), 65 members (the middle one, 33, has ct_sens 22.5, the
+# base) for the main path's years; --shared-spinup with 256 members (a
+# per-member table set would be 10.3 GB) for 3 + 3 years
+ENS_M = 65
+ENS_YEARS = dict(time_flux=3, time_scnr=10)
+ENS_SHARED_M = 256
+ENS_SHARED_YEARS = dict(time_flux=3, time_scnr=3)
 
 
 def _k1_vs_plain(tag, s0, co2, yd, got):
@@ -847,6 +867,198 @@ def _refined_phase(tmp, reset_counts, read_counts):
                 capacity=capacity)
 
 
+def _ensemble_run(tmp, tag, argv, num):
+    """The CLI's run_ensemble on the card as ``python -m greb_tpu_torch``
+    runs it (the flags ``argv`` through its own parser), on the synthetic
+    forcing at ``num``'s grid and years; returns (members' file prefix,
+    wall s, run_ensemble's spin-up and scenario seconds)."""
+    import torch
+    from greb_tpu_torch import __main__ as cli
+    from greb_tpu_torch.config import GrebConfig
+    from greb_tpu_torch.model.driver import GREB
+    args = cli.build_parser().parse_args(argv + ["--quiet"])
+    model = GREB(GrebConfig(numerics=num), device="cuda", verbose=False)
+    out = os.path.join(tmp, tag, "member")
+    os.makedirs(os.path.dirname(out))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    secs = cli.run_ensemble(model, out, args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, secs
+
+
+def _read_members(out, M, num):
+    """Each member's output file read back: the right shape, finite; the
+    first and last members must differ.  Returns the byte count."""
+    import numpy as np
+    from greb_tpu_torch.io.binio import read_output
+    shape = (num.time_scnr * len(num.jday_mon), 5, num.ydim, num.xdim)
+    first = nbytes = None
+    for i in range(1, M + 1):
+        back = read_output(f"{out}_{i:03d}", num.xdim, num.ydim)
+        if back.shape != shape or not np.isfinite(back).all():
+            raise AssertionError(f"member {i}: output {back.shape}, want "
+                                 f"{shape}, finite")
+        if i == 1:
+            first, nbytes = back, back.nbytes
+        elif i == M and np.array_equal(back, first):
+            raise AssertionError(f"members 1 and {M} do not differ")
+    return nbytes * M
+
+
+def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
+    """Step 14: K3's shared correction table, and the ensemble path (the
+    CLI's --ensemble with and without --shared-spinup).  Returns the worst
+    max |diff| of K3, the K3 year at M=ENS_M timed with a table per member
+    and with the shared table, the work of each, and the launches of the
+    two ensemble runs."""
+    import gc
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch import __main__ as cli
+    from greb_tpu_torch.config import GrebConfig, Numerics
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    from greb_tpu_torch.parallel import ensemble as ens
+
+    t_phase = time.perf_counter()
+    short = Numerics(ndays_yr=10, jday_mon=(6, 4))
+    co2y = np.asarray([560.0, 680.0], np.float32)
+
+    # -- K3 with one table (1, T, 3, Y, X) for M=3 members, at every size
+    #    it offers, against the same table copied M times and against the
+    #    plain version; then under the strict circulation at C=16
+    err = 0.0
+    for fast, sizes in ((True, yk.offered_sizes("scenario_years")),
+                        (False, (yk.DEFAULT_CLUSTER,))):
+        m = GREB(GrebConfig(numerics=short, fast_circulation=fast),
+                 device="cuda", verbose=False)
+        yd = m.year_data
+        pp = my.pack_member_params(ens.perturbed_params(
+            m.params, {"ct_sens": np.linspace(22.05, 22.95, 3)}), "cuda")
+        s0, corr = yk.fluxcorr_year(m.initial_state(),
+                                    np.float32(m.cfg.co2.co2_flux), yd)
+        s5 = s0.stack()[:, None].repeat(1, 3, 1, 1)
+        shared = torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None]
+        copies = shared.expand(3, -1, -1, -1, -1).contiguous()
+        t1 = time.perf_counter()
+        plain = my.scenario_years_plain(s5, pp, shared, co2y, yd)
+        plain_s = time.perf_counter() - t1
+        names = ("state", "monthly means", "annual sums")
+        for c in sizes:
+            got = my.scenario_years(s5, pp, shared, co2y, yd, cluster=c)
+            want = my.scenario_years(s5, pp, copies, co2y, yd, cluster=c)
+            if torch.equal(got[1][0], got[1][2]):
+                raise AssertionError("K3 shared table: members do not differ")
+            err = max(err, _bitwise(
+                f"K3 shared table, {'modern' if fast else 'strict'} (M=3, "
+                f"2 years, {short.nstep_yr} steps, C={c})",
+                [(f"{n} vs copied", g, w) for n, g, w in zip(names, got, want)]
+                + [(f"{n} vs plain", g, p) for n, g, p in zip(names, got,
+                                                              plain)],
+                quiet=True))
+        print(f"  plain K3 with the shared table: {plain_s:.1f} s")
+        del m, yd, s5, shared, copies, plain, got, want
+
+    # -- the CLI's --ensemble: ENS_M members of the default sweep, a
+    #    spin-up each (K4), ENS_YEARS; the middle member has the base
+    #    ct_sens (22.5 exactly), so its file is the long run's first years
+    num = Numerics(**ENS_YEARS)
+    reset_counts()
+    out, wall, secs = _ensemble_run(tmp, "ensemble",
+                                    ["--ensemble", str(ENS_M)], num)
+    block = cli.ensemble_block_years(ENS_M, num)
+    launches = read_counts(f"ensemble path (M={ENS_M})", {
+        "fluxcorr_year": 0, "scenario_year": 0,
+        "fluxcorr_years": num.time_flux,
+        "scenario_years": -(-num.time_scnr // block)})
+    years = num.time_flux + num.time_scnr
+    print(f"ensemble path (--ensemble {ENS_M}, {num.time_flux} spin-up + "
+          f"{num.time_scnr} scenario years): {wall:.3f} s = "
+          f"{ENS_M * years / wall:.3f} member-yr/s; spin-up "
+          f"{secs['spinup_s']:.3f} s, scenario with its files "
+          f"{secs['scenario_s']:.3f} s = "
+          f"{ENS_M * num.time_scnr / secs['scenario_s']:.3f} member-yr/s")
+    nbytes = _read_members(out, ENS_M, num)
+    mid = (ENS_M + 1) // 2
+    if np.linspace(22.05, 22.95, ENS_M).astype(np.float32)[mid - 1] \
+            != np.float32(22.5):
+        raise AssertionError(f"member {mid}'s ct_sens is not the base's")
+    with open(f"{out}_{mid:03d}", "rb") as f, open(long_path, "rb") as g:
+        mine = f.read()
+        if mine != g.read(len(mine)):
+            raise AssertionError(f"member {mid}'s file is not the long run's "
+                                 f"first {num.time_scnr} years")
+    print(f"  {ENS_M} files, {nbytes} B, read back finite; member {mid} "
+          f"(ct_sens 22.5) byte-equal to the long run's first "
+          f"{num.time_scnr * 12} months")
+
+    # -- --shared-spinup: ENS_SHARED_M members read one K1 spin-up's
+    #    tables; the peak device memory must stay below a per-member table
+    #    set's size
+    snum = Numerics(**ENS_SHARED_YEARS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, wall, secs = _ensemble_run(
+        tmp, "shared", ["--ensemble", str(ENS_SHARED_M), "--shared-spinup"],
+        snum)
+    peak = torch.cuda.max_memory_allocated()
+    block = cli.ensemble_block_years(ENS_SHARED_M, snum)
+    launches_shared = read_counts(
+        f"shared spin-up ensemble path (M={ENS_SHARED_M})", {
+            "fluxcorr_year": snum.time_flux, "scenario_year": 0,
+            "fluxcorr_years": 0,
+            "scenario_years": -(-snum.time_scnr // block)})
+    tables = ENS_SHARED_M * snum.nstep_yr * 3 * snum.ydim * snum.xdim * 4
+    years = snum.time_flux + snum.time_scnr
+    print(f"shared spin-up ensemble path (--ensemble {ENS_SHARED_M} "
+          f"--shared-spinup, {snum.time_flux} + {snum.time_scnr} years): "
+          f"{wall:.3f} s = {ENS_SHARED_M * years / wall:.3f} member-yr/s "
+          f"(spin-up years counted a member each); spin-up "
+          f"{secs['spinup_s']:.3f} s, scenario with its files "
+          f"{secs['scenario_s']:.3f} s = "
+          f"{ENS_SHARED_M * snum.time_scnr / secs['scenario_s']:.3f} "
+          f"member-yr/s; peak device memory {peak} B ({base} B held "
+          f"before), a per-member table set {tables} B")
+    if peak >= tables:
+        raise AssertionError(f"shared spin-up peak {peak} B >= {tables} B")
+    nbytes = _read_members(out, ENS_SHARED_M, snum)
+    print(f"  {ENS_SHARED_M} files, {nbytes} B, read back finite")
+
+    # -- one K3 year at M=ENS_M, a table per member against the shared
+    #    table (a reading, not a gate): a warm-up, then 3 launches each
+    m = GREB(GrebConfig(numerics=num), device="cuda", verbose=False)
+    yd = m.year_data
+    members = ens.perturbed_params(
+        m.params, {"ct_sens": np.linspace(22.05, 22.95, ENS_M)})
+    pp = my.pack_member_params(members, "cuda")
+    s5 = ens.ensemble_initial_state(members, m.forcing)
+    _, corr = yk.fluxcorr_year(m.initial_state(),
+                               np.float32(m.cfg.co2.co2_flux), yd)
+    shared = torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None]
+    co2 = np.asarray([680.0], np.float32)
+    c = my.default_cluster("scenario_years", ENS_M, yk.cluster_capacity(
+        yd.plan, yk.DEFAULT_CLUSTER, "scenario_years"))
+    ms, work = {}, {}
+    for label, tab in (("per-member tables", shared.expand(
+            ENS_M, -1, -1, -1, -1).contiguous()), ("shared table", shared)):
+        ms[label], _ = _launches_ms(
+            lambda: my.scenario_years(s5, pp, tab, co2, yd), 3)
+        work[label] = my.years_work(m.fold[0], m.num, 1, ENS_M, "scenario",
+                                    shared_corr=tab is shared)
+        b_ms, b_by = _bound_of(*work[label])
+        print(f"K3 one year at M={ENS_M} (C={c}, the default), {label}: "
+              f"{_runs(ms[label])}; bound {b_ms:.3f} ms by {b_by}")
+    print(f"ensemble phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(err=err, ms={k: _median(v) for k, v in ms.items()},
+                work=work, launches=launches, launches_shared=launches_shared)
+
+
 def _long_runner(model, tmp, tag):
     from greb_tpu_torch.io.checkpoint import Checkpointer
     from greb_tpu_torch.model import longrun
@@ -1363,6 +1575,10 @@ def main(argv) -> int:
         #    path -----------------------------------------------------------
         refined = _refined_phase(tmp, reset_counts, read_counts)
 
+        # -- K3's shared table, and the ensemble path ----------------------
+        ensemble = _ensemble_phase(tmp, os.path.join(tmp, "long_full"),
+                                   reset_counts, read_counts)
+
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for LONG_BLOCK years, K4 3 members: the median of
     # member_ms's 3 launches, on the size the wrapper picks for that
@@ -1388,11 +1604,12 @@ def main(argv) -> int:
              launches["scenario_year"], ms_k2, plain_k2, err_k2,
              yk.year_work(plan, num, True), "1 year", C, single),
             ("scenario_years", "multiyear.py", 107,
-             launches_long["scenario_years"], k3_ms, plain_k3, err_k3,
+             launches_long["scenario_years"], k3_ms, plain_k3,
+             max(err_k3, ensemble["err"]),
              my.years_work(plan, num, LONG_BLOCK, 1, "scenario"),
              f"M=1 x {LONG_BLOCK} years", my.default_cluster(
                  "scenario_years", 1, capacity["scenario_years", C]),
-             member),
+             member + ["shared table", "strict shared table"]),
             ("fluxcorr_years", "multiyear.py", 253,
              launches_m["fluxcorr_years"], k4_ms, plain_k4, err_k4,
              my.years_work(plan, num, 1, 3, "fluxcorr"), "M=3 x 1 year",
@@ -1411,7 +1628,17 @@ def main(argv) -> int:
             "bound_by": bound_by, "library_ms": None, "cluster": c,
             "shape": shape, "modes": modes,
             "launches_legacy_path": legacy["launches"][name],
-            "launches_strict_path": strict["launches"][name]}
+            "launches_strict_path": strict["launches"][name],
+            "launches_ensemble_path": ensemble["launches"][name],
+            "launches_shared_ensemble_path": ensemble["launches_shared"][name]}
+        if name == "scenario_years":
+            # one year at M=ENS_M, a table per member and the shared table
+            for key, label in (("per_member", "per-member tables"),
+                               ("shared", "shared table")):
+                e_bound, e_by = _bound_of(*ensemble["work"][label])
+                entry.update({f"ensemble_{key}_ms": ensemble["ms"][label],
+                              f"ensemble_{key}_bound_ms": e_bound,
+                              f"ensemble_{key}_bound_by": e_by})
         if name in strict["ms"]:
             # the strict circulation's full-calendar year (its own
             # instantiation), its plain version and its bound

@@ -13,6 +13,13 @@ years with a checkpoint after each (the reference has none); ``--resume``
 continues from the newest checkpoint in D, with the output stream placed
 at the checkpoint's record.
 
+``--ensemble M`` runs M perturbed-physics members batched on the card
+(the reference runs one process per member, ``ens_id``, src/greb.f90:
+1064-1068): ``--perturb P=LO:HI`` sweeps one physics parameter linearly
+across the members, each member spins up under its own params (or, with
+``--shared-spinup``, all read the base params' tables) and writes its
+monthly records to ``<output>_<i>``.
+
 ``--legacy`` runs the original variant's experiment workflow for the
 namelist's ``log_exp`` (src/greb.original.model.f90:199-231): the spin-up,
 the TF_correct dump to ``<output dir>/control``, the control phase
@@ -61,6 +68,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in "
                         "--checkpoint-dir")
+    p.add_argument("--ensemble", type=int, default=0, metavar="M",
+                   help="run an M-member perturbed-physics ensemble batched "
+                        "on one card (the reference runs one process per "
+                        "member via ens_id, src/greb.f90:1064-1068); each "
+                        "member's monthly records go to output_file_<i>")
+    p.add_argument("--perturb", default="ct_sens=22.05:22.95",
+                   metavar="PARAM=LO:HI",
+                   help="ensemble perturbation: PhysicsParams field swept "
+                        "linearly across members (default ct_sens, +-2%%)")
+    p.add_argument("--shared-spinup", action="store_true",
+                   help="ensemble mode: one base-params flux-correction "
+                        "spin-up whose tables every member reads, instead "
+                        "of per-member spin-ups (per-member tables take "
+                        "40 MB a member at 96x48)")
+    p.add_argument("--mxu-precision", choices=("high", "highest"),
+                   default="high",
+                   help="accepted for compatibility with python -m greb_tpu "
+                        "(its matmul precision of the ensemble circulation); "
+                        "on the card both values run the member kernels' "
+                        "exact float32 fold")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -98,7 +125,9 @@ def main(argv=None) -> int:
         os.makedirs(out_dir, exist_ok=True)
 
     t0 = time.perf_counter()
-    if args.legacy:
+    if args.ensemble > 0:
+        run_ensemble(model, out_path, args)
+    elif args.legacy:
         run_legacy(model, out_path)
     elif args.checkpoint_dir:
         run_checkpointed(model, out_path, args)
@@ -107,6 +136,110 @@ def main(argv=None) -> int:
     if not args.quiet:
         print(f"% total wall time {time.perf_counter() - t0:.2f}s")
     return 0
+
+
+# the most bytes of monthly means a block of ensemble years holds on the
+# card and, twice, in pinned host memory: the block is as many years as fit,
+# at most ENSEMBLE_BLOCK_YEARS
+ENSEMBLE_BLOCK_BYTES = 1 << 30
+ENSEMBLE_BLOCK_YEARS = 10
+
+
+def ensemble_block_years(members: int, num) -> int:
+    """The years of one K3 block of an ensemble of ``members`` members."""
+    year = members * len(num.jday_mon) * 5 * num.ydim * num.xdim * 4
+    return max(1, min(ENSEMBLE_BLOCK_YEARS, ENSEMBLE_BLOCK_BYTES // year))
+
+
+def run_ensemble(model, out_path: str, args) -> dict:
+    """M-member perturbed-physics ensemble (``greb_tpu.__main__
+    .run_ensemble``, with its semantics): ``args.perturb`` "P=LO:HI" gives
+    member i the value ``np.linspace(LO, HI, M)[i]`` of parameter P, in
+    float32.  Each member spins up ``time_flux`` years under its own params
+    at ``co2_flux`` (the member spin-up kernel, K4) and starts the scenario
+    from its end state; with ``args.shared_spinup`` the model's own
+    spin-up (``flux_correction``, K1) gives one table set that every member
+    reads, and the members start the scenario from their initial states
+    with the spin-up end's cap_surf, as greb_tpu does.  The scenario runs
+    at ``cfg.co2.series(time_scnr)`` through the multi-year kernel (K3) in
+    blocks (``ENSEMBLE_BLOCK_BYTES``); each block's months go to member
+    i's file ``<out_path>_<i+1:03d>`` as the block drains, each file
+    opened for the block and closed after it, so M is not bounded by the
+    open-file limit.  One console line a year: CO2 and the members'
+    range of the global-mean annual-mean Ts.
+
+    ``args.mxu_precision`` is printed only: the member kernels run the
+    exact float32 fold at either value.  Raises SystemExit for a bad
+    ``--perturb``, and NotImplementedError (before any launch) where the
+    member kernels do not run the model's plan.  Returns the seconds of
+    the spin-up and of the scenario (the card synchronised at each end)."""
+    import numpy as np
+    import torch
+
+    from .io.binio import OutputWriter
+    from .model import core
+    from .parallel import ensemble as ens
+
+    M = args.ensemble
+    name, _, rng = args.perturb.partition("=")
+    lo, _, hi = rng.partition(":")
+    try:
+        sweep = np.linspace(float(lo), float(hi), M).astype(np.float32)
+    except ValueError:
+        raise SystemExit(f"bad --perturb spec: {args.perturb!r} "
+                         f"(want PARAM=LO:HI)")
+    if not hasattr(model.params, name):
+        raise SystemExit(f"unknown physics parameter: {name!r}")
+    if not ens.fastcirc_shareable([name]):
+        raise SystemExit(f"{name!r} perturbs the transport operator; "
+                         f"batched ensembles share the folded circulation "
+                         f"tables (see parallel.ensemble)")
+    model._check_member_kernels()
+    if not args.quiet:
+        print(f"% ENSEMBLE RUN; members = {M} perturb {name} in "
+              f"[{sweep[0]}, {sweep[-1]}] mxu={args.mxu_precision}")
+    members = ens.perturbed_params(model.params, {name: sweep})
+    num = model.num
+    cuda = model.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(model.device)
+        return time.perf_counter()
+
+    t0 = sync()
+    if getattr(args, "shared_spinup", False):
+        state_fc, corr = model.flux_correction()
+        state5 = ens.ensemble_initial_state(members, model.forcing)
+        state5[4] = state_fc.cap_surf
+    else:
+        state5, corr, _, _ = model.run_members(
+            members, years=0, spinup_co2=model.cfg.co2.co2_flux)
+    t1 = sync()
+
+    nmon = len(num.jday_mon)
+    co2_series = model.cfg.co2.series(num.time_scnr)
+
+    def write(done, monthly, asum):
+        recs = done * nmon * OutputWriter.NVAR
+        for i in range(M):
+            with OutputWriter(f"{out_path}_{i + 1:03d}", num.xdim, num.ydim,
+                              start_record=recs) as w:
+                w.write_months(monthly[i].numpy())
+        if args.quiet:
+            return
+        for iy in range(asum.shape[1]):
+            ts = core.annual_means(asum[:, iy].transpose(0, 1), num).ts
+            gm = ts.numpy().mean(axis=(1, 2)) - 273.15
+            print(f" {num.year0 + done + iy + 1} "
+                  f"{float(co2_series[done + iy]):10.4f} members "
+                  f"[{gm.min():.4f} .. {gm.max():.4f}] degC")
+
+    model.run_members(members, years=num.time_scnr,
+                      years_per_call=ensemble_block_years(M, num),
+                      co2_series=co2_series, corr=corr, state5=state5,
+                      on_block=write)
+    return {"spinup_s": t1 - t0, "scenario_s": sync() - t1}
 
 
 def run_legacy(model, out_path: str) -> None:

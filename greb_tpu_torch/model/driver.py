@@ -39,6 +39,7 @@ from ..ops import fastcirc2 as fc2
 from ..ops import stencils as stc
 from ..ops.cuda import multiyear as my
 from ..ops.cuda import year_kernel as yk
+from ..parallel import ensemble as ens
 from . import core
 
 F32 = np.float32
@@ -249,13 +250,8 @@ class GREB:
     def _run_scenario_multiyear(self, corr, state, years, co2_series,
                                 writer, years_per_call, first_year):
         """Scenario phase in blocks of ``years_per_call`` years, one call of
-        the multi-year kernel each (see run_scenario).
-
-        Dispatch, then drain: block N's monthly means and sums go to pinned
-        host buffers by copies queued behind it on the stream, an event
-        marks them, and block N+1 is launched before the host waits on that
-        event to write N's months and print its lines.  So the host's
-        file writes overlap the card's next block."""
+        the multi-year kernel each (see run_scenario), through
+        ``_member_blocks`` at M=1."""
         num = self.num
         nmon = len(num.jday_mon)
         shape = (num.ydim, num.xdim)
@@ -266,22 +262,11 @@ class GREB:
                   f"(fused blocks of {years_per_call})")
             print("console output: year, co2, global avg temp, "
                   "avg temp for ipx/ipy")
-        cuda = self.device.type == "cuda"
-        co2_dev = torch.as_tensor(co2_series[:years], device=self.device)
-        if cuda:
-            ypc = min(years_per_call, years)
-            host = [(torch.empty((1, ypc * nmon, core.N_OUT) + shape,
-                                 pin_memory=True),
-                     torch.empty((1, ypc, yk.N_SUM) + shape, pin_memory=True))
-                    for _ in range(2)]
-        state5 = state.stack()[:, None]
         monthly_all, diags = [], []
 
-        def drain(block):
-            done, ny, mon, asum, event = block
-            if event is not None:
-                event.synchronize()
-            mon_np = mon[0, :ny * nmon].numpy().reshape(
+        def sink(done, mon, asum):
+            ny = asum.shape[1]
+            mon_np = mon[0].numpy().reshape(
                 (ny, nmon, core.N_OUT) + shape).copy()
             for iy in range(ny):
                 monthly_all.append(mon_np[iy])
@@ -290,6 +275,47 @@ class GREB:
                 diags.append(self._year_line(
                     first_year + done + iy, co2_series[done + iy],
                     asum[0, iy].clone(), ft_mean, fq_mean))
+
+        state5 = self._member_blocks(state.stack()[:, None], ppack, corrpack,
+                                     co2_series[:years], years_per_call, sink)
+        final = ModelState.unstack(state5[:, 0])
+        return final, np.stack(monthly_all), diags
+
+    def _member_blocks(self, state5: torch.Tensor, ppack: torch.Tensor,
+                       corrpack: torch.Tensor, co2_series: np.ndarray,
+                       years_per_call: int, sink) -> torch.Tensor:
+        """``len(co2_series)`` scenario years of the multi-year kernel (K3)
+        for the members of ``state5`` (5, M, y, x), in blocks of
+        ``years_per_call`` years; returns the end state.  ``sink(done,
+        monthly, asum)`` takes each block as it drains: ``done`` years
+        before it, its monthly means (M, ny * 12, 5, y, x) and annual sums
+        (M, ny, 9, y, x) as host tensors, which on the card are pinned
+        buffers reused two blocks later (copy what must outlive the call).
+
+        Dispatch, then drain: block N's monthly means and sums go to pinned
+        host buffers by copies queued behind it on the stream, an event
+        marks them, and block N+1 is launched before the host waits on that
+        event to hand N to the sink.  So the host's file writes overlap the
+        card's next block."""
+        num = self.num
+        nmon = len(num.jday_mon)
+        years, M = len(co2_series), state5.shape[1]
+        shape = (num.ydim, num.xdim)
+        cuda = self.device.type == "cuda"
+        co2_dev = torch.as_tensor(np.asarray(co2_series, F32),
+                                  device=self.device)
+        if cuda and years:
+            ypc = min(years_per_call, years)
+            host = [(torch.empty((M, ypc * nmon, core.N_OUT) + shape,
+                                 pin_memory=True),
+                     torch.empty((M, ypc, yk.N_SUM) + shape, pin_memory=True))
+                    for _ in range(2)]
+
+        def drain(block):
+            done, ny, mon, asum, event = block
+            if event is not None:
+                event.synchronize()
+            sink(done, mon[:, :ny * nmon], asum[:, :ny])
 
         pending, done, k = None, 0, 0
         while done < years:
@@ -312,22 +338,37 @@ class GREB:
             k += 1
         if pending is not None:
             drain(pending)
-        final = ModelState.unstack(state5[:, 0])
-        return final, np.stack(monthly_all), diags
+        return state5
 
     def run_members(self, members: Sequence[PhysicsParams],
                     years: Optional[int] = None, years_per_call: int = 10,
-                    co2_series: Optional[np.ndarray] = None):
-        """Member-batched chain: ``time_flux`` spin-up years of the
-        member-batched spin-up kernel (each member learns its own correction
-        tables under its own params), then ``years`` scenario years in
-        blocks of ``years_per_call`` through the multi-year kernel.  The
-        members share forcing and fold, so they may not differ from the
-        model's params in a transport parameter.
+                    co2_series: Optional[np.ndarray] = None,
+                    corr=None, state5: Optional[torch.Tensor] = None,
+                    spinup_co2: Optional[float] = None, on_block=None):
+        """Member-batched chain, the ensemble path: a spin-up, then
+        ``years`` scenario years in blocks of ``years_per_call`` through the
+        multi-year kernel (K3).  The members share forcing and fold, so they
+        may not differ from the model's params in a transport parameter.
 
-        Returns (state5 (5, M, y, x), corrections (M, T, 3, y, x), monthly
-        means (M, years*12, 5, y, x) and annual sums (M, years, 9, y, x) as
-        host numpy arrays)."""
+        The members start from ``state5`` (5, M, y, x), by default their
+        own initial states (``parallel.ensemble.ensemble_initial_state``).
+        With ``corr`` None, ``time_flux`` years of the member spin-up kernel
+        (K4) at ``spinup_co2`` (default: the spin-up's CO2,
+        ``_spinup_co2``) give each member its own correction tables under
+        its own params, and the scenario starts from the spin-up's end
+        state.  Else no spin-up runs: ``corr`` is the tables K3 reads, the
+        model's ``Corrections`` or a (T, 3, y, x) tensor (one table every
+        member reads) or a (M or 1, T, 3, y, x) pack, and the scenario
+        starts from ``state5``.
+
+        ``on_block(done, monthly, asum)`` takes each K3 block as it drains
+        (see ``_member_blocks``), so a long run of many members keeps one
+        block on the host; then nothing is collected.
+
+        Returns (state5 (5, M, y, x), the corrections K3 read (M or 1, T,
+        3, y, x), and without ``on_block`` the monthly means (M, years*12,
+        5, y, x) and annual sums (M, years, 9, y, x) as host numpy arrays,
+        with it None, None)."""
         num, yd = self.num, self.year_data
         self._check_member_kernels()
         years = years if years is not None else num.time_scnr
@@ -335,24 +376,28 @@ class GREB:
             co2_series = self._co2_series()
         co2_series = np.asarray(co2_series, F32)[:years]
         ppack = my.pack_member_params(members, self.device)
-        state5 = torch.stack([
-            initial_state(p, self.forcing,
-                          build_derived(p, self.forcing)).stack()
-            for p in members], dim=1)
-        corrpack = torch.zeros((len(members), num.nstep_yr, 3, num.ydim,
-                                num.xdim), dtype=torch.float32,
-                               device=self.device)
-        for _ in range(num.time_flux):
-            state5, corrpack = my.fluxcorr_years(
-                state5, ppack, self._spinup_co2(), yd)
-        co2_dev = torch.as_tensor(co2_series, device=self.device)
+        if state5 is None:
+            state5 = ens.ensemble_initial_state(members, self.forcing)
+        if isinstance(corr, Corrections):
+            corrpack = torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None]
+        elif corr is not None:
+            corrpack = corr[None] if corr.dim() == 4 else corr
+        else:
+            co2 = self._spinup_co2() if spinup_co2 is None else F32(spinup_co2)
+            corrpack = torch.zeros((1, num.nstep_yr, 3, num.ydim, num.xdim),
+                                   dtype=torch.float32, device=self.device)
+            for _ in range(num.time_flux):
+                state5, corrpack = my.fluxcorr_years(state5, ppack, co2, yd)
         monthly, asums = [], []
-        for done in range(0, years, years_per_call):
-            state5, mon, asum = my.scenario_years(
-                state5, ppack, corrpack,
-                co2_dev[done:done + years_per_call], yd)
-            monthly.append(mon.cpu().numpy())
-            asums.append(asum.cpu().numpy())
+
+        def collect(done, mon, asum):
+            monthly.append(mon.numpy().copy())
+            asums.append(asum.numpy().copy())
+
+        state5 = self._member_blocks(state5, ppack, corrpack, co2_series,
+                                     years_per_call, on_block or collect)
+        if on_block is not None or not years:
+            return state5, corrpack, None, None
         return (state5, corrpack, np.concatenate(monthly, axis=1),
                 np.concatenate(asums, axis=1))
 

@@ -25,8 +25,11 @@ kernels.
 
 Layouts are the JAX package's: state (5, M, Y, X), member pack
 (M, 1, N_PPACK), corrections (M, T, 3, Y, X), monthly means
-(M, 12 * n_years, 5, Y, X), annual sums (M, n_years, 9, Y, X).  The fold
-and the strict stencils' constants are built once from the base
+(M, 12 * n_years, 5, Y, X), annual sums (M, n_years, 9, Y, X).
+``scenario_years`` also takes one correction table (1, T, 3, Y, X) that
+every member reads (an ensemble's shared spin-up; the JAX CLI broadcasts a
+member axis of 1): the kernel's member stride of the tables is then 0.
+The fold and the strict stencils' constants are built once from the base
 parameters, so the members may not differ from them in a transport
 parameter (``parallel.ensemble.TRANSPORT_PARAM_KEYS``).  K3's one-block
 body does not run the strict transport (``cluster=1`` raises).
@@ -152,17 +155,20 @@ def _maps_on(yd: yk.YearData, dev: torch.device):
 
 
 def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
-               kind: str):
+               kind: str, shared_corr: bool = False):
     """(bytes, operations) a launch of ``kind`` ("fluxcorr": K4, one year;
     "scenario": K3) must move and compute at least for ``members`` members
     over ``n_years`` years, counted as ``year_kernel.year_work``: the shared
     inputs (forcing, constants, fold) read once, each member's state, pack,
     monthly means and annual sums once.  The correction tables count once
     per member and year: a year streams them step by step, and from one
-    year to the next 40 MB a member (at 96x48) cannot stay on chip."""
+    year to the next 40 MB a member (at 96x48) cannot stay on chip.  K3's
+    shared table (``shared_corr``) counts once a year: members that step
+    together could all read one step's slice from L2."""
     scen = kind == "scenario"
-    if not scen and n_years != 1:
-        raise ValueError("a spin-up launch runs one year")
+    if not scen and (n_years != 1 or shared_corr):
+        raise ValueError("a spin-up launch runs one year and writes a "
+                         "table per member")
     yx, t = plan.ydim * plan.xdim, num.nstep_yr
     kk = plan.comp_kt + plan.comp_kb
     nmon = len(num.jday_mon)
@@ -171,7 +177,8 @@ def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
              + (7 + 8 + 9 + 1) * 2 * yx          # fold planes
              + 2 * kk * plan.xdim ** 2           # composites
              + members * (10 * yx + N_PPACK)     # state in and out, pack
-             + members * n_years * 3 * t * yx)   # corrections in / out
+             + (1 if shared_corr else members)   # corrections in / out
+             * n_years * 3 * t * yx)
     if scen:
         words += (n_years + 2 * t                # CO2 table, month maps
                   + members * n_years * (nmon * core.N_OUT + yk.N_SUM) * yx)
@@ -218,6 +225,21 @@ def _check(state5: torch.Tensor, ppack: torch.Tensor, yd: yk.YearData,
     return M
 
 
+def _corr_member(corrpack: torch.Tensor, state5: torch.Tensor,
+                 yd: yk.YearData) -> int:
+    """The member stride (elements) of K3's corrections: a table per member
+    (M, T, 3, Y, X), or 0 for one table that every member reads
+    (1, T, 3, Y, X).  Raises for any other shape."""
+    M, Y, X = state5.shape[1:]
+    T = yd.num.nstep_yr
+    k = corrpack.shape[0] if corrpack.dim() == 5 else -1
+    if k not in (1, M) or tuple(corrpack.shape[1:]) != (T, 3, Y, X):
+        raise ValueError(f"corrpack: want shape {(M, T, 3, Y, X)} (a table "
+                         f"per member) or {(1, T, 3, Y, X)} (one shared "
+                         f"table), got {tuple(corrpack.shape)}")
+    return 0 if k == 1 else T * 3 * Y * X
+
+
 def _member_data(row: np.ndarray, yd: yk.YearData) -> core.ModelData:
     """The model data of one member: its params and the pack's caps."""
     p, (cap_ocean, cap_land, cap_air) = member_params(row)
@@ -250,8 +272,9 @@ def scenario_years_plain(state5: torch.Tensor, ppack: torch.Tensor,
     (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X)).  Monthly
     means add w * fields step by step from 0 at each month's first step,
     and the annual sums add the 9 outputs from 0 at each year's start, as
-    the kernel does."""
+    the kernel does.  A (1, T, 3, Y, X) ``corrpack`` is every member's."""
     num, dev = yd.num, state5.device
+    shared = _corr_member(corrpack, state5, yd) == 0
     co2s = np.asarray(torch.as_tensor(co2_years).cpu(), F32).reshape(-1)
     M, ny, nmon = state5.shape[1], len(co2s), len(num.jday_mon)
     mon_idx, _ = month_maps(num)
@@ -265,7 +288,7 @@ def scenario_years_plain(state5: torch.Tensor, ppack: torch.Tensor,
     for m, row in enumerate(_pack_np(ppack, yd)[:, 0]):
         md = _member_data(row, yd)
         state = ModelState.unstack(state5[:, m])
-        corr = corrpack[m]
+        corr = corrpack[0 if shared else m]
         for y, co2 in enumerate(co2s):
             acc = torch.zeros((yk.N_SUM,) + shape, dtype=torch.float32,
                               device=dev)
@@ -305,7 +328,8 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     state_out = torch.empty_like(state5)
     corr = torch.empty((M, T, 3, Y, X), dtype=torch.float32, device=dev)
     args = yk._args(
-        yd, state5, ints=dict(M=M, corr_step=3 * Y * X, n_pack=N_PPACK),
+        yd, state5, ints=dict(M=M, corr_step=3 * Y * X,
+                              corr_member=T * 3 * Y * X, n_pack=N_PPACK),
         state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
         tf=(corr, None), ppack=(ppack, (M, 1, N_PPACK)))
     args.tof = args.tf + 4 * Y * X
@@ -322,10 +346,13 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
                    cluster: Optional[int] = None):
     """``n_years`` scenario years for each member, one CO2 value per year
     (an array, or a float32 tensor on the state's device): (state5,
-    monthly (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X)).  On
-    the card each member runs on a cluster of ``cluster`` blocks, or with
-    ``cluster=1`` on one block (default: ``default_cluster``)."""
+    monthly (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X)).
+    ``corrpack`` is a table per member (M, T, 3, Y, X) or one table for all
+    (1, T, 3, Y, X).  On the card each member runs on a cluster of
+    ``cluster`` blocks, or with ``cluster=1`` on one block (default:
+    ``default_cluster``)."""
     M = _check(state5, ppack, yd, "scenario_years")
+    corr_member = _corr_member(corrpack, state5, yd)
     if cluster is not None:
         yk._check_cluster(cluster, "scenario_years")
         if cluster == 1 and yd.transport == "strict":
@@ -360,9 +387,10 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     mon, w = _maps_on(yd, dev)
     args = yk._args(
         yd, state5,
-        ints=dict(M=M, n_years=ny, corr_step=3 * Y * X, n_pack=N_PPACK),
+        ints=dict(M=M, n_years=ny, corr_step=3 * Y * X,
+                  corr_member=corr_member, n_pack=N_PPACK),
         state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
-        tf=(corrpack, (M, T, 3, Y, X)),
+        tf=(corrpack, None),
         ppack=(ppack, (M, 1, N_PPACK)), co2_years=(co2t, (ny,)),
         mon=(mon, (T,), torch.int32), mon_w=(w, (T,)),
         monthly=(monthly, None), asum=(asum, None), **scratch)

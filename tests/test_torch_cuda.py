@@ -1,7 +1,8 @@
 """The CUDA year kernels against their plain PyTorch versions, on the card:
 the single-run kernels (spin-up and scenario year) and the member-batched
 ones (spin-up years of M members, multi-year scenario blocks, at M=2), on
-a thread-block cluster of each offered size.
+a thread-block cluster of each offered size; K3 also with one correction
+table that every member reads (an ensemble's shared spin-up).
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one.  They import no JAX; run them on the card with
@@ -167,6 +168,32 @@ def test_member_kernels_match_plain(model, cluster):
     _equal(m_k, m_p, "K3 monthly means")
     _equal(a_k, a_p, "K3 annual sums")
     assert not torch.equal(m_k[0], m_k[1]), "members do not differ"
+
+
+@pytest.mark.parametrize("cluster", yk.offered_sizes("scenario_years"))
+def test_scenario_years_kernel_reads_one_shared_table(model, cluster):
+    """K3 at M=3 (ct_sens -2%, base, +2%) over 2 years with one correction
+    table (1, T, 3, Y, X) that every member reads: bitwise equal to its
+    plain version and to the kernel given the table copied M times."""
+    yd = model.year_data
+    members = ens.perturbed_params(model.params,
+                                   {"ct_sens": [22.05, 22.5, 22.95]})
+    ppack = my.pack_member_params(members, "cuda")
+    s0, corr = yk.fluxcorr_year_plain(model.initial_state(), 298.0, yd)
+    s5 = s0.stack()[:, None].repeat(1, 3, 1, 1)
+    shared = torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None]
+    copies = shared.expand(3, -1, -1, -1, -1).contiguous()
+    co2 = np.asarray([560.0, 680.0], np.float32)
+    n3 = my.scenario_years.launches
+    got = my.scenario_years(s5, ppack, shared, co2, yd, cluster=cluster)
+    assert my.scenario_years.launches == n3 + 1
+    want = my.scenario_years(s5, ppack, copies, co2, yd, cluster=cluster)
+    plain = my.scenario_years_plain(s5, ppack, shared, co2, yd)
+    for name, g, w, p in zip(("state", "monthly means", "annual sums"),
+                             got, want, plain):
+        _equal(g, w, f"K3 shared vs copied table, {name}")
+        _equal(g, p, f"K3 shared table vs plain, {name}")
+    assert not torch.equal(got[1][0], got[1][2]), "members do not differ"
 
 
 # the legacy log_exp values whose transport is the folded circulation or

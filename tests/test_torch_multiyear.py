@@ -9,8 +9,12 @@ package's Pallas kernels (interpret mode) and against the single-year path.
   members-per-block ``mb`` of 1 and 2 (the port has no ``mb``: members do
   not interact).  Tolerances are tests/test_pallas.py's.
 * K3 at M=1 against K2 run year by year, on a 10-day calendar.
-* The wrappers refuse members that perturb the transport, and plans the
-  kernels do not run.
+* K3 with one correction table that every member reads (1, T, 3, Y, X):
+  bitwise equal to the same table copied M times, and against the Pallas
+  kernel given those copies (interpret mode, tests/test_pallas.py's
+  tolerances).
+* The wrappers refuse members that perturb the transport, plans the
+  kernels do not run, and a table pack of any leading size but M or 1.
 """
 import numpy as np
 import pytest
@@ -150,6 +154,49 @@ def test_scenario_years_plain_matches_pallas_kernel(pallas_pair, mb):
     assert not np.array_equal(_np(s[0, 0]), _np(s[0, 1]))
 
 
+def _seeded_corrpack(num, members, seed=2):
+    """Correction tables (members, T, 3, 24, 48) from a seed, small: the
+    spin-up's own tables make the 2-step calendar run away in the
+    scenario."""
+    rng = np.random.default_rng(seed)
+    shape = (members, num.nstep_yr, 1, 24, 48)
+    return np.concatenate([
+        rng.normal(0.0, 2.0, shape),       # tf [W/m^2]
+        rng.normal(0.0, 1e-3, shape),      # tof [K/step]
+        rng.normal(0.0, 1e-7, shape)],     # qf [kg/kg/step]
+        axis=2).astype(np.float32)
+
+
+@pytest.mark.parametrize("mb", [1, 2])
+def test_scenario_years_plain_shared_table_matches_pallas_kernel(
+        pallas_pair, mb):
+    """K3's plain version with one table (1, T, 3, Y, X) for both members
+    against the Pallas kernel given that table twice (the JAX CLI's
+    --shared-spinup broadcasts a member axis of 1), at the tolerances of
+    test_scenario_years_plain_matches_pallas_kernel."""
+    jm, m, (state5, ppack, fpack, sw, cpack) = pallas_pair
+    shared = _seeded_corrpack(jm.num, 1)
+    run = jmy.build_scenario_years(jm.md, jm.st, jm._sf_np, jm.num, jm.exp,
+                                   n_years=2, n_members=2, mb=mb,
+                                   interpret=True,
+                                   fastcirc=jm.fastcirc_tables())
+    s_j, mon_j, asum_j = run(state5, ppack, fpack, sw, cpack,
+                             jnp.asarray(np.repeat(shared, 2, axis=0)),
+                             jnp.asarray(CO2_YEARS), *jm._pallas_fast_args())
+    s, mon, asum = my.scenario_years_plain(
+        torch.as_tensor(np.array(state5)), torch.as_tensor(np.array(ppack)),
+        torch.as_tensor(shared), CO2_YEARS, m.year_data)
+    for i, name in enumerate(("ts", "ta", "to", "q")):
+        np.testing.assert_allclose(_np(s[i]), _np(s_j[i]), rtol=2e-6,
+                                   atol=1e-4, err_msg=name)
+    np.testing.assert_allclose(_np(s[4]), _np(s_j[4]), rtol=1e-3,
+                               err_msg="cap_surf")
+    np.testing.assert_allclose(_np(asum), _np(asum_j), rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(_np(mon), _np(mon_j), rtol=2e-6, atol=1e-4)
+    assert np.isfinite(_np(s)).all()
+    assert not np.array_equal(_np(s[0, 0]), _np(s[0, 1]))
+
+
 @pytest.fixture(scope="module")
 def ten_day_model():
     return GREB(GrebConfig(numerics=Numerics(**TEN_DAY)), verbose=False,
@@ -249,3 +296,87 @@ def test_years_work_counts_members_and_years(ten_day_model):
     assert b3x - b3 == 5 * per_member_year + per_member + 4 * 2
     with pytest.raises(ValueError):
         my.years_work(plan, num, 2, 1, "fluxcorr")
+
+
+def _three_members(m):
+    members = ens.perturbed_params(m.params,
+                                   {"ct_sens": [22.05, 22.5, 22.95]})
+    s0, corr = yk.fluxcorr_year_plain(m.initial_state(), 298.0, m.year_data)
+    shared = torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None]
+    return (my.pack_member_params(members), s0.stack()[:, None].repeat(
+        1, 3, 1, 1), shared)
+
+
+def test_scenario_years_plain_shared_table_equals_copies(ten_day_model):
+    """K3's plain version with one table (1, T, 3, Y, X) that all 3 members
+    read is bitwise equal to it with the table copied to each member, over
+    2 years from a spin-up year."""
+    m = ten_day_model
+    ppack, s5, shared = _three_members(m)
+    copies = shared.expand(3, -1, -1, -1, -1).contiguous()
+    got = my.scenario_years(s5, ppack, shared, CO2_YEARS, m.year_data)
+    want = my.scenario_years_plain(s5, ppack, copies, CO2_YEARS, m.year_data)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), _np(w))
+    assert not np.array_equal(_np(got[1][0]), _np(got[1][2]))
+
+
+def test_scenario_years_refuses_other_table_counts(ten_day_model):
+    """The wrapper takes a table per member or one for all: a leading size
+    1 < k < M, or tables of another shape, raise before any step runs."""
+    m = ten_day_model
+    ppack, s5, shared = _three_members(m)
+    for bad in (shared.expand(2, -1, -1, -1, -1).contiguous(), shared[0],
+                shared[:, :-1]):
+        with pytest.raises(ValueError, match="corrpack"):
+            my.scenario_years(s5, ppack, bad, CO2_YEARS, m.year_data)
+        with pytest.raises(ValueError, match="corrpack"):
+            my.scenario_years_plain(s5, ppack, bad, CO2_YEARS, m.year_data)
+
+
+def test_years_work_counts_a_shared_table_once(ten_day_model):
+    """K3's bound with one shared table reads it once a year, not once a
+    member and year; K4 always writes a table per member."""
+    m = ten_day_model
+    plan, num = m.fold[0], m.num
+    table = 4 * 3 * num.nstep_yr * plan.ydim * plan.xdim
+    b, o = my.years_work(plan, num, 2, 5, "scenario")
+    bs, os_ = my.years_work(plan, num, 2, 5, "scenario", shared_corr=True)
+    assert (b - bs, o) == (2 * 4 * table, os_)
+    with pytest.raises(ValueError):
+        my.years_work(plan, num, 1, 5, "fluxcorr", shared_corr=True)
+
+
+def test_run_members_streams_blocks_from_given_tables(ten_day_model):
+    """run_members with given corrections and member states runs no
+    spin-up; ``on_block`` takes each K3 block as it drains (nothing is
+    collected); the blocks equal a collected run of one block with the
+    table given as a (T, 3, Y, X) tensor; the base member equals the
+    single-run multi-year scenario from the same state bit for bit."""
+    m = ten_day_model
+    members = ens.perturbed_params(m.params, {"ct_sens": [22.5, 22.95]})
+    _, corr = m.flux_correction()
+    s5 = ens.ensemble_initial_state(members, m.forcing)
+    co2 = np.full(3, 680.0, np.float32)
+    n4 = my.fluxcorr_years.launches
+    blocks = []
+    s_a, cp_a, mon_a, asum_a = m.run_members(
+        members, years=3, years_per_call=2, co2_series=co2, corr=corr,
+        state5=s5, on_block=lambda done, mon, asum: blocks.append(
+            (done, _np(mon).copy(), _np(asum).copy())))
+    assert my.fluxcorr_years.launches == n4
+    assert mon_a is None and asum_a is None
+    assert [b[0] for b in blocks] == [0, 2]
+    assert tuple(cp_a.shape) == (1, m.num.nstep_yr, 3, 24, 48)
+    s_b, _, mon_b, asum_b = m.run_members(
+        members, years=3, years_per_call=3, co2_series=co2,
+        corr=torch.stack([corr.tf, corr.tof, corr.qf], dim=1), state5=s5)
+    np.testing.assert_array_equal(
+        np.concatenate([b[1] for b in blocks], axis=1), mon_b)
+    np.testing.assert_array_equal(
+        np.concatenate([b[2] for b in blocks], axis=1), asum_b)
+    np.testing.assert_array_equal(_np(s_a), _np(s_b))
+    _, monthly, _ = m.run_scenario(corr, state=m.initial_state(), years=3,
+                                   co2_series=co2, years_per_call=2)
+    np.testing.assert_array_equal(mon_b[0], monthly.reshape(6, 5, 24, 48))
+    assert not np.array_equal(mon_b[0], mon_b[1])
