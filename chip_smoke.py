@@ -100,8 +100,11 @@
    launch counts, the files read back, and member 33 (ct_sens 22.5, the
    base) byte-equal to step 9's first 120 months; --ensemble 256
    --shared-spinup (3 K1 years, 3 scenario years): launch counts, the files
-   and the peak device memory, below a per-member table set's 10.3 GB; one
-   K3 year at M=65 timed with a table per member and with the shared table;
+   and the peak device memory, below a per-member table set's 10.3 GB, and
+   the first and last members' first year (one block each, in the first
+   and the second wave of K3's one-block body) byte-equal to the plain
+   version on the same inputs; one K3 year at M=65 timed with a table per
+   member and with the shared table;
 15. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
    ms and bound, and the refined year's, for K3 the ensemble year's, and
@@ -275,11 +278,14 @@ REFINED_YEARS = dict(time_flux=1, time_scnr=3)
 # the ensemble path: the CLI's --ensemble with the default sweep (ct_sens
 # 22.05..22.95), 65 members (the middle one, 33, has ct_sens 22.5, the
 # base) for the main path's years; --shared-spinup with 256 members (a
-# per-member table set would be 10.3 GB) for 3 + 3 years
+# per-member table set would be 10.3 GB) for 3 + 3 years, members 1 and
+# 256 (block 0 of K3's first wave, the last block of its second) held to
+# the plain version over the first scenario year
 ENS_M = 65
 ENS_YEARS = dict(time_flux=3, time_scnr=10)
 ENS_SHARED_M = 256
 ENS_SHARED_YEARS = dict(time_flux=3, time_scnr=3)
+ENS_SHARED_PLAIN = (1, ENS_SHARED_M)
 
 
 def _k1_vs_plain(tag, s0, co2, yd, got):
@@ -871,7 +877,7 @@ def _ensemble_run(tmp, tag, argv, num):
     """The CLI's run_ensemble on the card as ``python -m greb_tpu_torch``
     runs it (the flags ``argv`` through its own parser), on the synthetic
     forcing at ``num``'s grid and years; returns (members' file prefix,
-    wall s, run_ensemble's spin-up and scenario seconds)."""
+    wall s, the model)."""
     import torch
     from greb_tpu_torch import __main__ as cli
     from greb_tpu_torch.config import GrebConfig
@@ -882,9 +888,28 @@ def _ensemble_run(tmp, tag, argv, num):
     os.makedirs(os.path.dirname(out))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    secs = cli.run_ensemble(model, out, args)
+    cli.run_ensemble(model, out, args)
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, secs
+    return out, time.perf_counter() - t0, model
+
+
+def _sweep_members(model, M):
+    """The params of run_ensemble's M members under the default
+    --perturb, ct_sens=22.05:22.95."""
+    import numpy as np
+    from greb_tpu_torch.parallel import ensemble as ens
+    return ens.perturbed_params(model.params, {
+        "ct_sens": np.linspace(22.05, 22.95, M).astype(np.float32)})
+
+
+def _synced_s(fn):
+    """fn() and its seconds, the card synchronised at each end."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def _read_members(out, M, num):
@@ -918,6 +943,7 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
     import torch
     from greb_tpu_torch import __main__ as cli
     from greb_tpu_torch.config import GrebConfig, Numerics
+    from greb_tpu_torch.io.binio import read_output
     from greb_tpu_torch.model.driver import GREB
     from greb_tpu_torch.ops.cuda import multiyear as my
     from greb_tpu_torch.ops.cuda import year_kernel as yk
@@ -967,20 +993,30 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
     #    ct_sens (22.5 exactly), so its file is the long run's first years
     num = Numerics(**ENS_YEARS)
     reset_counts()
-    out, wall, secs = _ensemble_run(tmp, "ensemble",
-                                    ["--ensemble", str(ENS_M)], num)
+    out, wall, m = _ensemble_run(tmp, "ensemble",
+                                 ["--ensemble", str(ENS_M)], num)
     block = cli.ensemble_block_years(ENS_M, num)
     launches = read_counts(f"ensemble path (M={ENS_M})", {
         "fluxcorr_year": 0, "scenario_year": 0,
         "fluxcorr_years": num.time_flux,
         "scenario_years": -(-num.time_scnr // block)})
+    # the spin-up alone: the run's time_flux K4 years again
+    members = _sweep_members(m, ENS_M)
+    pp = my.pack_member_params(members, "cuda")
+    s5 = ens.ensemble_initial_state(members, m.forcing)
+    co2 = np.float32(m.cfg.co2.co2_flux)
+
+    def spin_up(s5=s5):
+        for _ in range(num.time_flux):
+            s5, _ = my.fluxcorr_years(s5, pp, co2, m.year_data)
+
+    _, spin = _synced_s(spin_up)
     years = num.time_flux + num.time_scnr
     print(f"ensemble path (--ensemble {ENS_M}, {num.time_flux} spin-up + "
           f"{num.time_scnr} scenario years): {wall:.3f} s = "
-          f"{ENS_M * years / wall:.3f} member-yr/s; spin-up "
-          f"{secs['spinup_s']:.3f} s, scenario with its files "
-          f"{secs['scenario_s']:.3f} s = "
-          f"{ENS_M * num.time_scnr / secs['scenario_s']:.3f} member-yr/s")
+          f"{ENS_M * years / wall:.3f} member-yr/s; the spin-up alone "
+          f"{spin:.3f} s, so the scenario with its files {wall - spin:.3f} s "
+          f"= {ENS_M * num.time_scnr / (wall - spin):.3f} member-yr/s")
     nbytes = _read_members(out, ENS_M, num)
     mid = (ENS_M + 1) // 2
     if np.linspace(22.05, 22.95, ENS_M).astype(np.float32)[mid - 1] \
@@ -994,6 +1030,7 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
     print(f"  {ENS_M} files, {nbytes} B, read back finite; member {mid} "
           f"(ct_sens 22.5) byte-equal to the long run's first "
           f"{num.time_scnr * 12} months")
+    del m, members, pp, s5
 
     # -- --shared-spinup: ENS_SHARED_M members read one K1 spin-up's
     #    tables; the peak device memory must stay below a per-member table
@@ -1004,7 +1041,7 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out, wall, secs = _ensemble_run(
+    out, wall, m = _ensemble_run(
         tmp, "shared", ["--ensemble", str(ENS_SHARED_M), "--shared-spinup"],
         snum)
     peak = torch.cuda.max_memory_allocated()
@@ -1014,21 +1051,42 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
             "fluxcorr_year": snum.time_flux, "scenario_year": 0,
             "fluxcorr_years": 0,
             "scenario_years": -(-snum.time_scnr // block)})
+    # the spin-up alone (the run's K1 years again), whose tables and end
+    # state rebuild the inputs of the plain check below
+    (state_fc, corr), spin = _synced_s(m.flux_correction)
     tables = ENS_SHARED_M * snum.nstep_yr * 3 * snum.ydim * snum.xdim * 4
     years = snum.time_flux + snum.time_scnr
     print(f"shared spin-up ensemble path (--ensemble {ENS_SHARED_M} "
           f"--shared-spinup, {snum.time_flux} + {snum.time_scnr} years): "
           f"{wall:.3f} s = {ENS_SHARED_M * years / wall:.3f} member-yr/s "
-          f"(spin-up years counted a member each); spin-up "
-          f"{secs['spinup_s']:.3f} s, scenario with its files "
-          f"{secs['scenario_s']:.3f} s = "
-          f"{ENS_SHARED_M * snum.time_scnr / secs['scenario_s']:.3f} "
+          f"(spin-up years counted a member each); the spin-up alone "
+          f"{spin:.3f} s, so the scenario with its files {wall - spin:.3f} s "
+          f"= {ENS_SHARED_M * snum.time_scnr / (wall - spin):.3f} "
           f"member-yr/s; peak device memory {peak} B ({base} B held "
           f"before), a per-member table set {tables} B")
     if peak >= tables:
         raise AssertionError(f"shared spin-up peak {peak} B >= {tables} B")
     nbytes = _read_members(out, ENS_SHARED_M, snum)
     print(f"  {ENS_SHARED_M} files, {nbytes} B, read back finite")
+    # members ENS_SHARED_PLAIN's first scenario year from the plain
+    # version, on the inputs run_ensemble gave K3: the shared tables, each
+    # member's initial state with the spun-up cap_surf, its pack row
+    pick = [_sweep_members(m, ENS_SHARED_M)[i - 1] for i in ENS_SHARED_PLAIN]
+    s5 = ens.ensemble_initial_state(pick, m.forcing)
+    s5[4] = state_fc.cap_surf
+    (_, plain, _), plain_s = _synced_s(lambda: my.scenario_years_plain(
+        s5, my.pack_member_params(pick, "cuda"),
+        torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None],
+        m.cfg.co2.series(snum.time_scnr)[:1], m.year_data))
+    nmon = len(snum.jday_mon)
+    for k, i in enumerate(ENS_SHARED_PLAIN):
+        back = read_output(f"{out}_{i:03d}", snum.xdim, snum.ydim)[:nmon]
+        err = max(err, _bitwise(
+            f"shared spin-up member {i} of {ENS_SHARED_M}, first year",
+            [("file vs plain", torch.from_numpy(back), plain[k].cpu())]))
+    print(f"  plain first year of members "
+          f"{' and '.join(map(str, ENS_SHARED_PLAIN))}: {plain_s:.1f} s")
+    del m, pick, s5, plain, state_fc, corr
 
     # -- one K3 year at M=ENS_M, a table per member against the shared
     #    table (a reading, not a gate): a warm-up, then 3 launches each

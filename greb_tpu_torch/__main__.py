@@ -151,7 +151,7 @@ def ensemble_block_years(members: int, num) -> int:
     return max(1, min(ENSEMBLE_BLOCK_YEARS, ENSEMBLE_BLOCK_BYTES // year))
 
 
-def run_ensemble(model, out_path: str, args) -> dict:
+def run_ensemble(model, out_path: str, args) -> None:
     """M-member perturbed-physics ensemble (``greb_tpu.__main__
     .run_ensemble``, with its semantics): ``args.perturb`` "P=LO:HI" gives
     member i the value ``np.linspace(LO, HI, M)[i]`` of parameter P, in
@@ -171,10 +171,8 @@ def run_ensemble(model, out_path: str, args) -> dict:
     ``args.mxu_precision`` is printed only: the member kernels run the
     exact float32 fold at either value.  Raises SystemExit for a bad
     ``--perturb``, and NotImplementedError (before any launch) where the
-    member kernels do not run the model's plan.  Returns the seconds of
-    the spin-up and of the scenario (the card synchronised at each end)."""
+    member kernels do not run the model's plan."""
     import numpy as np
-    import torch
 
     from .io.binio import OutputWriter
     from .model import core
@@ -200,23 +198,6 @@ def run_ensemble(model, out_path: str, args) -> dict:
               f"[{sweep[0]}, {sweep[-1]}] mxu={args.mxu_precision}")
     members = ens.perturbed_params(model.params, {name: sweep})
     num = model.num
-    cuda = model.device.type == "cuda"
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize(model.device)
-        return time.perf_counter()
-
-    t0 = sync()
-    if getattr(args, "shared_spinup", False):
-        state_fc, corr = model.flux_correction()
-        state5 = ens.ensemble_initial_state(members, model.forcing)
-        state5[4] = state_fc.cap_surf
-    else:
-        state5, corr, _, _ = model.run_members(
-            members, years=0, spinup_co2=model.cfg.co2.co2_flux)
-    t1 = sync()
-
     nmon = len(num.jday_mon)
     co2_series = model.cfg.co2.series(num.time_scnr)
 
@@ -235,11 +216,15 @@ def run_ensemble(model, out_path: str, args) -> dict:
                   f"{float(co2_series[done + iy]):10.4f} members "
                   f"[{gm.min():.4f} .. {gm.max():.4f}] degC")
 
-    model.run_members(members, years=num.time_scnr,
-                      years_per_call=ensemble_block_years(M, num),
-                      co2_series=co2_series, corr=corr, state5=state5,
-                      on_block=write)
-    return {"spinup_s": t1 - t0, "scenario_s": sync() - t1}
+    run = dict(years=num.time_scnr, co2_series=co2_series, on_block=write,
+               years_per_call=ensemble_block_years(M, num))
+    if getattr(args, "shared_spinup", False):
+        state_fc, corr = model.flux_correction()
+        state5 = ens.ensemble_initial_state(members, model.forcing)
+        state5[4] = state_fc.cap_surf
+        model.run_members(members, corr=corr, state5=state5, **run)
+    else:
+        model.run_members(members, spinup_co2=model.cfg.co2.co2_flux, **run)
 
 
 def run_legacy(model, out_path: str) -> None:

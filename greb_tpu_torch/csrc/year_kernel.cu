@@ -13,7 +13,7 @@
 //                     year; monthly means (weight 1/steps-in-month) and the 9
 //                     annual sums add up in the kernel, with no per-step
 //                     outputs.  Each member reads its own correction
-//                     table, or all read one shared table (corr_member 0:
+//                     table, or all read one shared table (corr_shared:
 //                     an ensemble's shared spin-up, which the JAX CLI
 //                     broadcasts as a member axis of 1).
 // All four run the same per-cell __device__ functions, so they round alike:
@@ -210,10 +210,10 @@ struct YearArgs {
   const float *mer;    // (9, 2, Y, X)
   const float *wz;     // (2, Y, X)
   const float *pcomp;  // (2, K, X, X), K = ktc + kbc
-  // correction tables: step t of member m at m*corr_member + t*corr_step;
-  // read by the scenario kernels, written by the spin-up kernels.
-  // corr_member is T*corr_step for a table per member, 0 for one table
-  // that every member reads (K3 only: an ensemble's shared spin-up)
+  // correction tables: step t of member m at (m*T + t)*corr_step, or at
+  // t*corr_step for every member where corr_shared is set (K3 only: one
+  // table that every member reads, an ensemble's shared spin-up); read by
+  // the scenario kernels, written by the spin-up kernels
   float *tf, *tof, *qf;
   float *outs;         // scenario_year: (T, 5, Y, X)
   float *asum;         // scenario_year: (9, Y, X); scenario_years:
@@ -234,7 +234,7 @@ struct YearArgs {
   const int* st_n;        // (2, Y) diffusion, advection sub-cycles of each
                           // row; -1: the row takes the vectorised form
   int Y, X, T, nsub, bt, bb, ktc, kbc;
-  int M, n_years, nmon, corr_step, corr_member, n_pack;
+  int M, n_years, nmon, corr_step, corr_shared, n_pack;
   int quirk;              // the src/greb.f90:881 jp2 quirk
   // kappa, kappa * dt_crcl, the meridional coefficients of diffusion
   // (kappa * dt_crcl / dyy^2) and advection (dt_crcl / dyy / 2)
@@ -663,7 +663,10 @@ __device__ void run_years(const YearArgs& a, GrebParams p) {
   const float* state_in = a.state_in + (size_t)m * YX;
   float* state_out = a.state_out + (size_t)m * YX;
   float* cf = a.cf + (size_t)m * 12 * P;
-  const size_t corr_m = (size_t)m * a.corr_member;
+  // member m's table at m * T * corr_step, a shared one (corr_shared) at
+  // 0: the select stays outside the product, where it costs no spills (a
+  // select of the member inside the product spills more)
+  const size_t corr_m = a.corr_shared ? 0 : (size_t)m * a.T * a.corr_step;
   float* tf_m = a.tf + corr_m;
   float* tof_m = a.tof + corr_m;
   float* qf_m = a.qf + corr_m;
@@ -1056,15 +1059,14 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
   const Div by_rx(RX), by_x(X), by_x4(X4), by_nbx4(nb * X4), by_kb(kb);
   // this member's slice of every buffer it reads or writes, from this
   // block's first row: field f of the state at f * M * YX, step t of its
-  // corrections at corr_m + t * corr_step.  Only K3 reads a shared table
-  // (corr_member 0); a table per member starts at m * T * corr_step (=
-  // m * corr_member).  Written so, every instantiation keeps the registers
-  // and spills it had before the shared table: m * corr_member spills
-  // more in K2, K3 and K4
+  // corrections at corr_m + t * corr_step: member m's table starts at
+  // m * T * corr_step, a shared table (corr_shared, K3 only) at 0.  Tested
+  // for K3 alone, so the other kinds keep the plain product (a test in
+  // every kind spills more in K2)
   const size_t MYX = (size_t)a.M * YX;
   const size_t row0 = (size_t)m * YX + r0 * X;
   const size_t corr_m =
-      (size_t)(KIND != SCEN_YEARS || a.corr_member ? m : 0) * a.T *
+      (size_t)(KIND == SCEN_YEARS && a.corr_shared ? 0 : m) * a.T *
       a.corr_step;
   float* tf_m = a.tf + corr_m;
   float* tof_m = a.tof + corr_m;

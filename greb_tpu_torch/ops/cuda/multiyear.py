@@ -225,11 +225,11 @@ def _check(state5: torch.Tensor, ppack: torch.Tensor, yd: yk.YearData,
     return M
 
 
-def _corr_member(corrpack: torch.Tensor, state5: torch.Tensor,
-                 yd: yk.YearData) -> int:
-    """The member stride (elements) of K3's corrections: a table per member
-    (M, T, 3, Y, X), or 0 for one table that every member reads
-    (1, T, 3, Y, X).  Raises for any other shape."""
+def _shared_table(corrpack: torch.Tensor, state5: torch.Tensor,
+                  yd: yk.YearData) -> bool:
+    """Whether K3's corrections are one table that every member reads
+    (1, T, 3, Y, X), not a table per member (M, T, 3, Y, X).  Raises for
+    any other shape."""
     M, Y, X = state5.shape[1:]
     T = yd.num.nstep_yr
     k = corrpack.shape[0] if corrpack.dim() == 5 else -1
@@ -237,7 +237,7 @@ def _corr_member(corrpack: torch.Tensor, state5: torch.Tensor,
         raise ValueError(f"corrpack: want shape {(M, T, 3, Y, X)} (a table "
                          f"per member) or {(1, T, 3, Y, X)} (one shared "
                          f"table), got {tuple(corrpack.shape)}")
-    return 0 if k == 1 else T * 3 * Y * X
+    return k == 1
 
 
 def _member_data(row: np.ndarray, yd: yk.YearData) -> core.ModelData:
@@ -274,7 +274,7 @@ def scenario_years_plain(state5: torch.Tensor, ppack: torch.Tensor,
     and the annual sums add the 9 outputs from 0 at each year's start, as
     the kernel does.  A (1, T, 3, Y, X) ``corrpack`` is every member's."""
     num, dev = yd.num, state5.device
-    shared = _corr_member(corrpack, state5, yd) == 0
+    shared = _shared_table(corrpack, state5, yd)
     co2s = np.asarray(torch.as_tensor(co2_years).cpu(), F32).reshape(-1)
     M, ny, nmon = state5.shape[1], len(co2s), len(num.jday_mon)
     mon_idx, _ = month_maps(num)
@@ -328,8 +328,7 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     state_out = torch.empty_like(state5)
     corr = torch.empty((M, T, 3, Y, X), dtype=torch.float32, device=dev)
     args = yk._args(
-        yd, state5, ints=dict(M=M, corr_step=3 * Y * X,
-                              corr_member=T * 3 * Y * X, n_pack=N_PPACK),
+        yd, state5, ints=dict(M=M, corr_step=3 * Y * X, n_pack=N_PPACK),
         state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
         tf=(corr, None), ppack=(ppack, (M, 1, N_PPACK)))
     args.tof = args.tf + 4 * Y * X
@@ -352,7 +351,7 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     ``cluster`` blocks, or with ``cluster=1`` on one block (default:
     ``default_cluster``)."""
     M = _check(state5, ppack, yd, "scenario_years")
-    corr_member = _corr_member(corrpack, state5, yd)
+    shared = _shared_table(corrpack, state5, yd)
     if cluster is not None:
         yk._check_cluster(cluster, "scenario_years")
         if cluster == 1 and yd.transport == "strict":
@@ -388,7 +387,7 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     args = yk._args(
         yd, state5,
         ints=dict(M=M, n_years=ny, corr_step=3 * Y * X,
-                  corr_member=corr_member, n_pack=N_PPACK),
+                  corr_shared=int(shared), n_pack=N_PPACK),
         state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
         tf=(corrpack, None),
         ppack=(ppack, (M, 1, N_PPACK)), co2_years=(co2t, (ny,)),

@@ -566,7 +566,7 @@ _PTR_NAMES = ("tclim", "qclim", "swet", "u", "v", "mld", "mld_prev", "cld",
               "asum", "monthly", "mon", "mon_w", "co2_years", "ppack",
               "state_in", "state_out", "cf", "st_wz", "st_rows", "st_n")
 _INT_NAMES = ("Y", "X", "T", "nsub", "bt", "bb", "ktc", "kbc", "M", "n_years",
-              "nmon", "corr_step", "corr_member", "n_pack", "quirk")
+              "nmon", "corr_step", "corr_shared", "n_pack", "quirk")
 # the strict transport's scalars: kappa, kappa * dt_crcl, and the
 # meridional coefficients of diffusion and advection
 _STRICT_NAMES = ("st_kappa", "st_kdt", "st_ccy_d", "st_ccy_a")
@@ -787,8 +787,8 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
         ptrs[name] = ten.data_ptr()
     sizes = dict(Y=Y, X=X, T=T, nsub=num.nsub_crcl, bt=plan.bt, bb=plan.bb,
                  ktc=plan.comp_kt, kbc=plan.comp_kb, M=1, n_years=1,
-                 nmon=len(num.jday_mon), corr_step=Y * X,
-                 corr_member=T * Y * X, n_pack=0)
+                 nmon=len(num.jday_mon), corr_step=Y * X, corr_shared=0,
+                 n_pack=0)
     sizes.update(scalars)
     sizes.update(ints or {})
     return _Args(**ptrs, **sizes)
