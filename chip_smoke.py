@@ -28,8 +28,9 @@
    per-step tables bitwise;
 6. holds the multi-year scenario kernel (scenario_years) against its plain
    version at every size it offers: M=2 (step 5's two perturbed members),
-   2 years at CO2 560 and 680, from step 5's output, state, monthly means
-   and annual sums bitwise;
+   one year at CO2 680 (the year boundary at M > 1 is crossed in steps 13
+   and 14), from step 5's output, state, monthly means and annual sums
+   bitwise;
 7. times both member kernels at the shapes their paths launch (K3 one
    member for LONG_BLOCK years, the long run's block; K4 step 5's 3
    members, the member chain's year): a warm-up launch, then 3 timed
@@ -79,18 +80,29 @@
    times: launch counts, finiteness, the output file read back, the
    warming), and the CLI's --legacy at log_exp 16 (2 spin-up, 1 control,
    3 scenario years: launch counts, both files read back);
-13. the refined grid (K1 and K2's refined instantiation, 384x192 at
+13. the refined grid (the four kernels' refined instantiation, 384x192 at
    dt_crcl=1800: sequential zonal splitting, packed pole composites,
    explicit polar segments), on forcing regridded from the 96x48 synthetic
    forcing by greb_tpu_torch/regrid.py: the kernel's own layout of the
    refined block against refined_layout, with how many such clusters the
-   card runs at once; K1 from the initial state and K2 from K1's end state
-   with its corrections on a 20-step calendar, bitwise against their plain
-   versions (state, tables, outs, annual sums); one full-calendar K1 and
-   K2 year timed (a warm-up, then 3 launches; ms, us a substep, the bound
-   from year_work with the packed ranks); then the refined path, GREB.run
+   card runs at once; on a 20-step calendar of two months, K1 from the
+   initial state and K2 from K1's end state with its corrections, bitwise
+   against their plain versions (state, tables, outs, annual sums); K4 at
+   M=2 (ct_sens 22.05, 22.95) and K3 at M=2 over 2 years from K4's end
+   (with K4's tables, and with K1's as one shared table) bitwise against
+   theirs; K4 = K1 and K3 = K2 at M=1 (K3's monthly means against K2's
+   outs at the golden tolerances); the first and last of capacity + 1
+   members (two waves) against plain; then the refined path, GREB.run
    at 384x192 (1 spin-up + 3 scenario years, full calendar: launch counts,
-   finiteness, the output file read back, the warming, sim-yr/s);
+   finiteness, the output file read back, the warming, sim-yr/s), the
+   same years through run_long in one K3 block (state bitwise, monthly
+   means at the golden tolerances), the CLI's --ensemble 4 (1 + 1 years,
+   K4 spin-ups) and --ensemble 8 --shared-spinup (1 + 2, two waves of
+   K3): launch counts, files, member-yr/s, peak device memory; one
+   full-calendar K1 and K2 year, K4 at M=1 and K3 at M=1 x 2 years timed
+   (a warm-up, then 3 launches, 2 for K3/K4; ms, us a substep, the bound
+   from year_work / years_work with the packed ranks), one K3 year at M =
+   capacity (one wave), and three K2 probes;
 14. the ensemble path: K3 with one correction table that every member
    reads (1, T, 3, Y, X), M=3 over 2 years on the 20-step calendar at every
    size it offers, bitwise equal to the table copied M times and to the
@@ -107,8 +119,9 @@
    member and with the shared table;
 15. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
-   ms and bound, and the refined year's, for K3 the ensemble year's, and
-   each kernel's launches on every path) and, last,
+   ms and bound, for all four the refined launch's, for K3 the ensemble
+   year's and the refined wave's, and each kernel's launches on every
+   path) and, last,
    {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no ok line.
@@ -116,6 +129,7 @@ It needs a CUDA card and the repository's greb_tpu_torch package.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -270,11 +284,19 @@ STRICT_RUNS = 2
 STRICT_CLI_EXP = 16
 STRICT_CLI_YEARS = dict(time_flux=2, time_ctrl=1, time_scnr=3)
 # the refined grid: 384x192 at dt_crcl=1800 (24 substeps a step), its
-# kernels held to plain on a 20-step calendar (a plain full-calendar year
-# would take minutes), the refined path 1 + 3 years on the full calendar
+# kernels held to plain on a 20-step calendar of two months (a plain
+# full-calendar year would take minutes), the refined path 1 + 3 years on
+# the full calendar, per year and in one K3 block; the member kernels'
+# refined paths: --ensemble REFINED_ENS_M (per-member spin-ups) and
+# --ensemble REFINED_SHARED_M --shared-spinup (two waves of K3), cut in
+# years for time
 REFINED_GRID = dict(xdim=384, ydim=192, dt_crcl=1800)
-REFINED_SHORT = dict(ndays_yr=10, jday_mon=(10,))
+REFINED_SHORT = dict(ndays_yr=10, jday_mon=(6, 4))
 REFINED_YEARS = dict(time_flux=1, time_scnr=3)
+REFINED_ENS_M = 4
+REFINED_ENS_YEARS = dict(time_flux=1, time_scnr=1)
+REFINED_SHARED_M = 8
+REFINED_SHARED_YEARS = dict(time_flux=1, time_scnr=2)
 # the ensemble path: the CLI's --ensemble with the default sweep (ct_sens
 # 22.05..22.95), 65 members (the middle one, 33, has ct_sens 22.5, the
 # base) for the main path's years; --shared-spinup with 256 members (a
@@ -715,17 +737,208 @@ def _refined_model(num, out_path=None, verbose=False):
     return model, regrid_s
 
 
+def _with_years(model, **years):
+    """``model`` with other spin-up and scenario years (a shallow copy:
+    the years reach no kernel)."""
+    other = copy.copy(model)
+    other.num = dataclasses.replace(model.num, **years)
+    other.cfg = dataclasses.replace(model.cfg, numerics=other.num)
+    return other
+
+
+def _months_close(tag, got, want):
+    """Monthly means (..., 5, y, x) at the golden tolerances."""
+    import numpy as np
+    for v, (name, tol) in enumerate((("ts", TOL_T), ("ta", TOL_T),
+                                     ("to", TOL_T), ("q", TOL_Q),
+                                     ("albedo", TOL_ALBEDO))):
+        _check(f"{tag} {name}", float(np.abs(
+            np.asarray(got)[..., v, :, :]
+            - np.asarray(want)[..., v, :, :]).max()), tol)
+
+
+def _refined_member_checks(m, k1, k2, co2f, co2s, capacity):
+    """K4 and K3's refined instantiation on the 20-step calendar of ``m``,
+    bitwise against their plain versions: K4 at M=2 (ct_sens 22.05 and
+    22.95) from the initial state; K3 at M=2 over 2 years from K4's end,
+    with K4's tables (one a member) and with K1's (one shared); at M=1
+    K4 = K1 and K3 = K2 (``k1``, ``k2``: the single-run years; state,
+    annual sums bitwise, monthly means against core.monthly_means of K2's
+    outs at the golden tolerances); at M = capacity + 1 (two waves) the
+    first and last members.  Returns the worst max |diff| per kernel and
+    the plain versions' ms (K4 M=2, K3 M=2 x 2 years)."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.model import core
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.parallel import ensemble as ens
+    yd, n = m.year_data, m.num.nstep_yr
+    err, plain_ms = {}, {}
+    two = _sweep_members(m, 2)
+    pp2 = my.pack_member_params(two, "cuda")
+    s5 = ens.ensemble_initial_state(two, m.forcing)
+    s4, c4 = my.fluxcorr_years(s5, pp2, co2f, yd)
+    plain_ms["fluxcorr_years"], (s4p, c4p) = _time_ms(
+        lambda: my.fluxcorr_years_plain(s5, pp2, co2f, yd), 1)
+    if torch.equal(c4[0], c4[1]):
+        raise AssertionError("refined K4: the members do not differ")
+    err["fluxcorr_years"] = _bitwise(
+        f"K4 refined (M=2, {n} steps)", [("state", s4, s4p),
+                                         ("tables", c4, c4p)], quiet=True)
+    co2y = np.asarray([560.0, 680.0], np.float32)
+    k1_tab = torch.stack([k1[1].tf, k1[1].tof, k1[1].qf], dim=1)[None]
+    err["scenario_years"] = 0.0
+    names = ("state", "monthly means", "annual sums")
+    for label, tab in (("a table per member", c4), ("one shared table",
+                                                     k1_tab)):
+        got = my.scenario_years(s4, pp2, tab, co2y, yd)
+        ms, want = _time_ms(
+            lambda: my.scenario_years_plain(s4, pp2, tab, co2y, yd), 1)
+        plain_ms.setdefault("scenario_years", ms)
+        if torch.equal(got[1][0], got[1][1]):
+            raise AssertionError("refined K3: the members do not differ")
+        err["scenario_years"] = max(err["scenario_years"], _bitwise(
+            f"K3 refined (M=2, 2 years, {n} steps, {label})",
+            zip(names, got, want), quiet=True))
+    print(f"  plain versions on the card, {n} steps: K4 M=2 "
+          f"{plain_ms['fluxcorr_years']:.1f} ms, K3 M=2 x 2 years "
+          f"{plain_ms['scenario_years']:.1f} ms")
+    # M=1 with the base params: K4 = K1, K3 = K2
+    base = my.pack_member_params([m.params], "cuda")
+    s41, c41 = my.fluxcorr_years(m.initial_state().stack()[:, None], base,
+                                 co2f, yd)
+    _bitwise("K4 = K1 refined (M=1)", [("state", s41[:, 0], k1[0].stack()),
+                                       ("tables", c41[0], k1_tab[0])],
+             quiet=True)
+    s31, m31, a31 = my.scenario_years(k1[0].stack()[:, None], base, k1_tab,
+                                      np.asarray([co2s]), yd)
+    _bitwise("K3 = K2 refined (M=1)", [("state", s31[:, 0], k2[0].stack()),
+                                       ("annual sums", a31[0, 0], k2[2])],
+             quiet=True)
+    _months_close("K3 vs K2 refined monthly",
+                  m31[0].cpu().numpy(),
+                  core.monthly_means(m.month_mat, k2[1]).cpu().numpy())
+    # two waves: the first and the last member against plain
+    M = capacity + 1
+    many = _sweep_members(m, M)
+    ppm = my.pack_member_params(many, "cuda")
+    s5m = ens.ensemble_initial_state(many, m.forcing)
+    s4m, c4m = my.fluxcorr_years(s5m, ppm, co2f, yd)
+    s3m, m3m, a3m = my.scenario_years(s4m, ppm, c4m, co2y[1:], yd)
+    pick = [0, M - 1]
+    s4p, c4p = my.fluxcorr_years_plain(s5m[:, pick], ppm[pick], co2f, yd)
+    err["fluxcorr_years"] = max(err["fluxcorr_years"], _bitwise(
+        f"K4 refined, members 1 and {M} of {M} (2 waves)",
+        [("state", s4m[:, pick], s4p), ("tables", c4m[pick], c4p)],
+        quiet=True))
+    want = my.scenario_years_plain(s4m[:, pick], ppm[pick], c4m[pick],
+                                   co2y[1:], yd)
+    err["scenario_years"] = max(err["scenario_years"], _bitwise(
+        f"K3 refined, members 1 and {M} of {M} (2 waves)",
+        zip(names, (s3m[:, pick], m3m[pick], a3m[pick]), want), quiet=True))
+    return err, plain_ms
+
+
+def _refined_member_paths(model, tmp, state, monthly, corr, reset_counts,
+                          read_counts):
+    """The member kernels' paths at 384x192 on the full calendar, on
+    ``model`` (1 + 3 years), after its per-year run (``state``,
+    ``monthly``, ``corr``): the long run in one K3 block of the scenario
+    years (run_long + driver_year_runner, years_per_call = the years),
+    held to the per-year run (state bitwise, monthly means at the golden
+    tolerances); the CLI's --ensemble REFINED_ENS_M (K4 spin-ups) and
+    --ensemble REFINED_SHARED_M --shared-spinup (K1, K3 in two waves),
+    each with launch counts, its files read back and its peak device
+    memory.  Returns each path's wall, launches and peak memory."""
+    import gc
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch import __main__ as cli
+    from greb_tpu_torch.forcing import ModelState
+    from greb_tpu_torch.io.binio import read_output
+    from greb_tpu_torch.model import longrun
+    num = model.num
+    out = {}
+    # -- the long run in one K3 block: run_scenario(years_per_call > 1)
+    path = os.path.join(tmp, "refined", "blocks")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_fc, c_fc = model.flux_correction()
+    runner = longrun.driver_year_runner(model, path,
+                                        years_per_call=num.time_scnr)
+    try:
+        s_b, _, _ = longrun.run_long(
+            num.time_scnr, s_fc, c_fc, model.cfg.co2.series(num.time_scnr),
+            runner, chunk_years=num.time_scnr)
+    finally:
+        runner.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    years = num.time_flux + num.time_scnr
+    out["block"] = dict(wall=wall, launches=read_counts(
+        "refined block path", {"fluxcorr_year": num.time_flux,
+                               "scenario_year": 0, "fluxcorr_years": 0,
+                               "scenario_years": 1}))
+    print(f"refined block path (run_long, one K3 block of {num.time_scnr} "
+          f"years): {years} sim-years in {wall:.3f} s = "
+          f"{years / wall:.4f} sim-yr/s")
+    if not torch.equal(c_fc.tf, corr.tf):
+        raise AssertionError("refined block path: spin-up differs")
+    _bitwise("refined block path vs per year", [
+        (f"state {n}", getattr(s_b, n), getattr(state, n))
+        for n in ModelState.FIELDS], quiet=True)
+    back = read_output(path, num.xdim, num.ydim)
+    if not np.isfinite(back).all():
+        raise AssertionError("refined block path: output not finite")
+    _months_close("refined blocks vs per-year monthly",
+                  back.reshape(monthly.shape), monthly)
+    # -- the CLI's ensembles at 384x192
+    for tag, M, years_kw, flags, want in (
+            ("ensemble", REFINED_ENS_M, REFINED_ENS_YEARS, [],
+             dict(fluxcorr_year=0, fluxcorr_years=1)),
+            ("shared", REFINED_SHARED_M, REFINED_SHARED_YEARS,
+             ["--shared-spinup"], dict(fluxcorr_year=1, fluxcorr_years=0))):
+        m = _with_years(model, **years_kw)
+        path = os.path.join(tmp, f"refined_{tag}", "member")
+        os.makedirs(os.path.dirname(path))
+        args = cli.build_parser().parse_args(
+            ["--ensemble", str(M), "--quiet"] + flags)
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        _, wall = _synced_s(lambda: cli.run_ensemble(m, path, args))
+        peak = torch.cuda.max_memory_allocated()
+        blocks = -(-m.num.time_scnr // cli.ensemble_block_years(M, m.num))
+        launches = read_counts(f"refined {tag} path (M={M})", dict(
+            want, scenario_year=0, scenario_years=blocks))
+        years = m.num.time_flux + m.num.time_scnr
+        nbytes = _read_members(path, M, m.num)
+        cmd = " ".join(["--ensemble", str(M)] + flags)
+        print(f"refined {tag} path ({cmd}, "
+              f"{m.num.time_flux} + {m.num.time_scnr} years): {wall:.3f} s "
+              f"= {M * years / wall:.4f} member-yr/s; {M} files, {nbytes} "
+              f"B, read back finite; peak device memory {peak} B ({held} B "
+              f"held before)")
+        out[tag] = dict(wall=wall, launches=launches, peak=peak)
+    return out
+
+
 def _refined_phase(tmp, reset_counts, read_counts):
-    """Step 13: K1 and K2's refined instantiation at 384x192, and the
-    refined path.  Returns the worst max |diff| per kernel, the timed
-    full-calendar years, their plain versions' times on the 20-step
-    calendar, the work of a year, and the refined path's launches."""
+    """Step 13: the four kernels' refined instantiation at 384x192, and
+    the refined paths.  Returns the worst max |diff| per kernel, the timed
+    full-calendar launches, their plain versions' times on the 20-step
+    calendar, their work, and each refined path's launches."""
     import numpy as np
     import torch
     from greb_tpu_torch.config import Numerics
     from greb_tpu_torch.forcing import ModelState
     from greb_tpu_torch.io.binio import read_output
     from greb_tpu_torch.ops import fastcirc2 as fc2
+    from greb_tpu_torch.ops.cuda import multiyear as my
     from greb_tpu_torch.ops.cuda import year_kernel as yk
 
     t_phase = time.perf_counter()
@@ -741,7 +954,7 @@ def _refined_phase(tmp, reset_counts, read_counts):
     # -- the refined block's shared memory: the kernel's own reckoning
     #    against refined_layout, and how many such clusters fit at once
     capacity = {}
-    for kind in yk.REFINED_KINDS:
+    for kind in yk.KINDS:
         for c in yk.REFINED_CLUSTER_SIZES:
             lay = yk.refined_layout(plan, c, kind)
             parts, threads = yk.kernel_cluster_layout(plan, c, kind)
@@ -751,7 +964,7 @@ def _refined_phase(tmp, reset_counts, read_counts):
                     f"threads; refined_layout {dict(lay.parts)}, "
                     f"{lay.threads}")
             capacity[kind] = yk.cluster_capacity(plan, c, kind)
-            print(f"refined cluster {kind:<9s} C={c:2d}: {lay.rows} "
+            print(f"refined cluster {kind:<14s} C={c:2d}: {lay.rows} "
                   f"rows/block, {lay.threads} threads, {lay.nbytes} B shared "
                   f"memory a block, {capacity[kind]} clusters at once; kernel "
                   f"and refined_layout agree: {dict(lay.parts)}")
@@ -779,6 +992,13 @@ def _refined_phase(tmp, reset_counts, read_counts):
     print(f"  plain versions on the card, {short.nstep_yr} steps: K1 "
           f"{plain_ms['fluxcorr_year']:.1f} ms, K2 "
           f"{plain_ms['scenario_year']:.1f} ms")
+    t_members = time.perf_counter()
+    member_err, member_plain = _refined_member_checks(
+        m, (s_k, c_k), k2, co2f, co2s, capacity["scenario_years"])
+    err.update(member_err)
+    plain_ms.update(member_plain)
+    print(f"  member kernel checks: "
+          f"{time.perf_counter() - t_members:.1f} s")
     del m, yd, s_k, c_k, k2
 
     # -- the refined path: GREB.run at 384x192, 1 + 3 years on the full
@@ -820,6 +1040,8 @@ def _refined_phase(tmp, reset_counts, read_counts):
           f"[K] by scenario year: {' '.join(f'{g:.4f}' for g in gm)}")
     if not gm[-1] > gm[0]:
         raise AssertionError(f"refined path: no warming under 680 ppm: {gm}")
+    paths = _refined_member_paths(model, tmp, state, monthly, corr,
+                                  reset_counts, read_counts)
 
     yd, plan = model.year_data, model.fold[0]
     _, ranks = yk.packed_ranks(model.fold[1])
@@ -828,13 +1050,42 @@ def _refined_phase(tmp, reset_counts, read_counts):
         lambda: yk.fluxcorr_year(s0, co2f, yd), 3)
     k2_ms, _ = _launches_ms(lambda: yk.scenario_year(s_k, c_k, co2s, yd), 3)
     per_sub = 1e3 / (num.nstep_yr * num.nsub_crcl)
+    # the member kernels at M=1 (K3 two years from K1's end state with
+    # its tables), then one K3 year at M = capacity (one wave)
+    base = my.pack_member_params([model.params], "cuda")
+    k1_tab = torch.stack([c_k.tf, c_k.tof, c_k.qf], dim=1)[None]
+    co2y = np.full(2, co2s, np.float32)
+    k4_ms, _ = _launches_ms(lambda: my.fluxcorr_years(
+        s0.stack()[:, None], base, co2f, yd), 2)
+    k3_ms, _ = _launches_ms(lambda: my.scenario_years(
+        s_k.stack()[:, None], base, k1_tab, co2y, yd), 2)
+    wave = capacity["scenario_years"]
+    ppw = my.pack_member_params(_sweep_members(model, wave), "cuda")
+    s5w = s_k.stack()[:, None].repeat(1, wave, 1, 1)
+    wave_ms, _ = _time_ms(lambda: my.scenario_years(
+        s5w, ppw, k1_tab, co2y[:1], yd), 1)
+    del ppw, s5w
     work = {"fluxcorr_year": yk.year_work(plan, num, False, ranks),
-            "scenario_year": yk.year_work(plan, num, True, ranks)}
-    for name, ms in (("fluxcorr_year", k1_ms), ("scenario_year", k2_ms)):
+            "scenario_year": yk.year_work(plan, num, True, ranks),
+            "fluxcorr_years": my.years_work(plan, num, 1, 1, "fluxcorr",
+                                            ranks=ranks),
+            "scenario_years": my.years_work(plan, num, 2, 1, "scenario",
+                                            shared_corr=True, ranks=ranks)}
+    wave_work = my.years_work(plan, num, 1, wave, "scenario",
+                              shared_corr=True, ranks=ranks)
+    for name, ms, shape in (("fluxcorr_year", k1_ms, "1 year"),
+                            ("scenario_year", k2_ms, "1 year"),
+                            ("fluxcorr_years", k4_ms, "M=1 x 1 year"),
+                            ("scenario_years", k3_ms, "M=1 x 2 years")):
         b_ms, b_by = _bound_of(*work[name])
-        print(f"refined {name}, {num.nstep_yr} steps: {_runs(ms)} = "
-              f"{_median(ms) * per_sub:.3f} us a substep (a step's work "
-              f"included); bound {b_ms:.3f} ms by {b_by}")
+        years = 2 if name == "scenario_years" else 1
+        print(f"refined {name} ({shape}), {num.nstep_yr} steps: {_runs(ms)}"
+              f" = {_median(ms) * per_sub / years:.3f} us a substep (a "
+              f"step's work included); bound {b_ms:.3f} ms by {b_by}")
+    b_ms, b_by = _bound_of(*wave_work)
+    print(f"refined scenario_years one year at M={wave} (one wave, the "
+          f"shared table): {wave_ms:.3f} ms = {wave / wave_ms * 1e3:.4f} "
+          f"member-yr/s; bound {b_ms:.3f} ms by {b_by}")
     # timing probes, not the model: the same K2 year at one substep a step
     # splits substep time from per-step time; with rank-1 composites (the
     # pole blocks' reads of the packed factors gone) and without the
@@ -868,9 +1119,12 @@ def _refined_phase(tmp, reset_counts, read_counts):
               f"outside the substeps")
     print(f"refined phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(err=err, ms={"fluxcorr_year": _median(k1_ms),
-                             "scenario_year": _median(k2_ms)},
+                             "scenario_year": _median(k2_ms),
+                             "fluxcorr_years": _median(k4_ms),
+                             "scenario_years": _median(k3_ms)},
                 plain_ms=plain_ms, work=work, launches=launches,
-                capacity=capacity)
+                capacity=capacity, paths=paths, wave=(wave, wave_ms,
+                                                      wave_work))
 
 
 def _ensemble_run(tmp, tag, argv, num):
@@ -1404,18 +1658,21 @@ def main(argv) -> int:
         del s4_k, c4_k
 
         # -- K3: multi-year scenario block vs its plain version, at every
-        #    size it offers; M=2, K4's two perturbed members, for 2 years,
-        #    so both the month and the year boundaries are crossed
+        #    size it offers; M=2, K4's two perturbed members, for one year
+        #    (its month boundaries; the year boundary at M > 1 is crossed in
+        #    the refined and ensemble phases, whose plain years are cheaper:
+        #    two plain years here took 133 s of the time limit)
         two = [0, 2]
         pp2, s3_in, c3_in = pp3[two], s4_p[:, two], c4_p[two]
         co2y = np.asarray([560.0, 680.0], np.float32)
         plain_k3_m2, (s3_p, m3_p, a3_p) = _time_ms(
-            lambda: my.scenario_years_plain(s3_in, pp2, c3_in, co2y, yd), 1)
-        print(f"K3 scenario_years plain (M=2, 2 years): {plain_k3_m2:.1f} ms")
+            lambda: my.scenario_years_plain(s3_in, pp2, c3_in, co2y[1:], yd),
+            1)
+        print(f"K3 scenario_years plain (M=2, 1 year): {plain_k3_m2:.1f} ms")
         err_k3 = 0.0
         for c in yk.offered_sizes("scenario_years"):
-            s3_k, m3_k, a3_k = my.scenario_years(s3_in, pp2, c3_in, co2y, yd,
-                                                 cluster=c)
+            s3_k, m3_k, a3_k = my.scenario_years(s3_in, pp2, c3_in, co2y[1:],
+                                                 yd, cluster=c)
             if torch.equal(m3_k[0], m3_k[1]):
                 raise AssertionError("K3: the two members did not differ")
             err_k3 = max(err_k3, _bitwise(f"K3 C={c}", [
@@ -1646,11 +1903,12 @@ def main(argv) -> int:
     # was held bitwise in
     strict_name = lambda e: ("strict circulation" if e is None
                              else f"strict log_exp {e}")
+    refined_mode = f"refined {REFINED_GRID['xdim']}x{REFINED_GRID['ydim']}"
     single = (["modern"] + [f"log_exp {e}" for e in LEGACY_EXPS]
-              + [strict_name(e) for e in STRICT_MODES]
-              + [f"refined {REFINED_GRID['xdim']}x{REFINED_GRID['ydim']}"])
+              + [strict_name(e) for e in STRICT_MODES] + [refined_mode])
     member = (["modern"] + [f"log_exp {e}" for e in LEGACY_MEMBER_EXPS]
-              + [strict_name(e) for e in STRICT_MEMBER_MODES])
+              + [strict_name(e) for e in STRICT_MEMBER_MODES]
+              + [refined_mode])
     k3_ms, k4_ms = (_median(member_ms[k])
                     for k in ("scenario_years", "fluxcorr_years"))
     kernels = []
@@ -1704,16 +1962,30 @@ def main(argv) -> int:
             entry.update(strict_ms=strict["ms"][name],
                          strict_plain_ms=strict["plain_ms"][name],
                          strict_bound_ms=s_bound, strict_bound_by=s_by)
-        if name in refined["ms"]:
-            # the refined instantiation: its full-calendar year at 384x192,
-            # the plain version's 20-step year, the bound and the refined
-            # path's launches
-            r_bound, r_by = _bound_of(*refined["work"][name])
-            entry.update(refined_ms=refined["ms"][name],
-                         refined_plain_ms_20_steps=refined["plain_ms"][name],
-                         refined_bound_ms=r_bound, refined_bound_by=r_by,
-                         launches_refined_path=refined["launches"][name],
-                         refined_cluster=yk.REFINED_CLUSTER_SIZES[0])
+        # the refined instantiation: its full-calendar launch at 384x192
+        # (K1/K2 a year, K4 M=1, K3 M=1 x 2 years), the plain version on
+        # the 20-step calendar (K1/K2 a year, K4 M=2, K3 M=2 x 2 years),
+        # the bound and each refined path's launches
+        r_bound, r_by = _bound_of(*refined["work"][name])
+        paths = refined["paths"]
+        entry.update(refined_ms=refined["ms"][name],
+                     refined_plain_ms_20_steps=refined["plain_ms"][name],
+                     refined_bound_ms=r_bound, refined_bound_by=r_by,
+                     launches_refined_path=refined["launches"][name],
+                     launches_refined_block_path=paths["block"]["launches"][
+                         name],
+                     launches_refined_ensemble_path=paths["ensemble"][
+                         "launches"][name],
+                     launches_refined_shared_ensemble_path=paths["shared"][
+                         "launches"][name],
+                     refined_cluster=yk.REFINED_CLUSTER_SIZES[0])
+        if name == "scenario_years":
+            # one year of a wave of members (M = the card's capacity)
+            M, w_ms, w_work = refined["wave"]
+            w_bound, w_by = _bound_of(*w_work)
+            entry.update(refined_wave_members=M, refined_wave_ms=w_ms,
+                         refined_wave_bound_ms=w_bound,
+                         refined_wave_bound_by=w_by)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -109,8 +109,9 @@
 // with the same branches.  The launchers pick one by the word and refuse a
 // word with a bit they do not know or a combination none runs.
 //
-// The refined instantiation (run_refined, suffix _refined; K1 and K2,
-// modern variant only) runs extension-mode grids: see its section below.
+// The refined instantiation (run_refined, suffix _refined; all four
+// kernels, modern variant only) runs extension-mode grids: see its section
+// below.
 //
 // The strict transport.  Where the JAX package builds no fold (its
 // GREB.fastcirc_tables() is None: --strict-circulation, and legacy
@@ -1318,7 +1319,7 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// the refined instantiation: K1 and K2 at an extension-mode grid
+// the refined instantiation: the four kernels at an extension-mode grid
 // ---------------------------------------------------------------------------
 // At 384x192 (dt_crcl 1800 s: 24 substeps a step) the fold runs with
 // sequential zonal splitting (zonal advection reads the zonally diffused
@@ -1359,6 +1360,22 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // the composite rows over the cluster is a later redesign (ROADMAP Queue
 // 2, redesign e).  Modern variant only: the launchers refuse a flags word
 // other than 0.
+//
+// The member kernels (K4 fluxcorr_years_refined, K3 scenario_years_refined)
+// run the same body with MEMBERS: cluster m = member_index() runs member m
+// with its own params (member_params, kept in 128 B of static shared
+// memory: held in registers across the year they spilled into the
+// substeps, and a member's year took ~13% longer than K1's on an H100)
+// and its own slice of every buffer:
+// field k of its state at (k*M + m)*Y*X, its coefficient scratch at
+// m*12*2*Y*X, its correction tables at m*T*corr_step (K3's one shared
+// table, corr_shared, at 0), and K3's annual sums of year y at (m, y) and
+// monthly means at (m, y*nmon + mon[t]), read-modified-written in global
+// memory each step as K2's annual sums are (the month's five planes of 12
+// rows would need 92 KB more shared memory than the block has left).  K3
+// loops over its n_years years inside the kernel, each year's CO2 from
+// co2_years.  Members beyond the card's capacity of 16-block clusters run
+// in waves.
 
 #define MAX_SEGS 8        // = year_kernel.MAX_SEGS
 
@@ -1669,11 +1686,15 @@ struct RefinedBlock {
 // composites and xa of their rows; the zonal advection da of xa, clamped;
 // the advection segments (da of their rows parked in the next buffer's own
 // rows, which the block alone writes); xa + da + dy into buffer nxt,
-// pushed to the neighbours' halos.
+// pushed to the neighbours' halos.  MEMBERS: this cluster's member's
+// coefficient scratch (run_refined).
+template <bool MEMBERS>
 __device__ void refined_substep(const YearArgs& a, const RefinedArgs& g,
                                 const RefinedBlock& bk, const Bufs& bufs,
                                 int cur, int nxt, int r0) {
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
+  const float* const cfm =
+      a.cf + (MEMBERS ? (size_t)member_index() * 12 * P : 0);
   const int R = bufs.R, RX = R * X, BX = bufs.field();
   const int ktc = a.ktc, kbc = a.kbc;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -1719,7 +1740,7 @@ __device__ void refined_substep(const YearArgs& a, const RefinedArgs& g,
     const int i = by_x(li), j = li - i * X, r = r0 + i;
     Taps ta;
     zonal_taps(bk.xa + f * RX + i * X, j, X, ta);
-    const float* cf = a.cf + (size_t)f * YX + (size_t)r0 * X + li;
+    const float* cf = cfm + (size_t)f * YX + (size_t)r0 * X + li;
     float dv = tree7(cf[3 * P] * ta.x0, cf[0] * ta.xm3, cf[P] * ta.xm2,
                      cf[2 * P] * ta.xm1, cf[4 * P] * ta.xp1,
                      cf[5 * P] * ta.xp2, cf[6 * P] * ta.xp3);
@@ -1737,27 +1758,33 @@ __device__ void refined_substep(const YearArgs& a, const RefinedArgs& g,
     const int kt = g.aseg[3 * k], kb = g.aseg[3 * k + 1];
     const RowSlots in(r0, R, 0, kt, Y - kb, Y);
     if (in.n() > 0)
-      seg_iterate(bk.aband, in, g.aseg[3 * k + 2], xa, da, a.cf, bk.scr, r0,
+      seg_iterate(bk.aband, in, g.aseg[3 * k + 2], xa, da, cfm, bk.scr, r0,
                   X, YX);
   }
   for (int l = tid; l < 2 * RX; l += nt) {
     const int f = by_rx(l), li = l - f * RX;
     const int i = by_x(li), j = li - i * X;
     if (bk.aband.slot(i) < 0) continue;
-    const float* cf = a.cf + (size_t)f * YX + (size_t)r0 * X + li;
+    const float* cf = cfm + (size_t)f * YX + (size_t)r0 * X + li;
     bufs.put(nxt, f, i, j,
              (bk.xa[l] + da.at(f, i, X)[j])
                  + merid(cf, P, xb + f * BX + (i + HALO) * X, j, X));
   }
 }
 
-// One year of the single run (K1: FLUX, K2: SCEN) at an extension-mode
-// grid on a cluster of C blocks, this block's rows: the state in
-// a.state_out (copied from a.state_in first), the step's coefficient
-// planes in a.cf, K2's annual sums in a.asum, from 0 at the first step.
-template <int KIND>
+// The years of one member at an extension-mode grid on a cluster of C
+// blocks, this block's rows: one year of the single run (K1: FLUX, K2:
+// SCEN; MEMBERS false, physics p) or of member m = member_index() (K4:
+// FLUX, K3: SCEN_YEARS, n_years years; MEMBERS true, physics p with the
+// pack's columns cols, kept in shared memory: held in registers across
+// the substeps they spill).  The state in the member's
+// slice of a.state_out (copied from a.state_in first), the step's
+// coefficient planes in its slice of a.cf, the annual sums in a.asum
+// (K2; K3 at (m, y)) from 0 at each year's first step, K3's monthly means
+// at (m, y*nmon + month) from 0 at each month's first step.
+template <int KIND, bool MEMBERS>
 __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
-                            const GrebParams& p) {
+                            const GrebParams& p, const PackCols& cols) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -1785,12 +1812,34 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
   float* wz = sp[Q_WZ];
   const int tid = threadIdx.x, nt = blockDim.x;
   const Div by_rx(RX), by_x(X);
-  float* st = a.state_out + (size_t)r0 * X;   // field k at k * YX
-  const float* st_in = a.state_in + (size_t)r0 * X;
+  // member m's slice: field k of its state at k * FS, its coefficient
+  // scratch, and step t of its corrections at corr_m + t * corr_step
+  const int m = MEMBERS ? member_index() : 0;
+  const size_t FS = MEMBERS ? (size_t)a.M * YX : (size_t)YX;
+  const size_t m0 = MEMBERS ? (size_t)m * YX : 0;
+  float* st = a.state_out + m0 + (size_t)r0 * X;
+  const float* st_in = a.state_in + m0 + (size_t)r0 * X;
+  float* const cfm = a.cf + (MEMBERS ? (size_t)m * 12 * P : 0);
+  const size_t corr_m =
+      MEMBERS ? (size_t)(KIND == SCEN_YEARS && a.corr_shared ? 0 : m) * a.T *
+                    a.corr_step
+              : 0;
+  float* const tf_m = a.tf + corr_m;
+  float* const tof_m = a.tof + corr_m;
+  float* const qf_m = a.qf + corr_m;
+  // the member's physics, written by one thread before the first
+  // cluster.sync(); K3 sets each year's CO2 there
+  GrebParams* pm = nullptr;
+  if constexpr (MEMBERS) {
+    __shared__ GrebParams s_pm;
+    pm = &s_pm;
+    if (tid == 0) s_pm = member_params(p, a, cols, m);
+  }
+  const GrebParams& pt = MEMBERS ? *pm : p;
 
   for (int i = tid; i < 5 * RX; i += nt) {
     const int k = i / RX;
-    st[(size_t)k * YX + (i - k * RX)] = st_in[(size_t)k * YX + (i - k * RX)];
+    st[k * FS + (i - k * RX)] = st_in[k * FS + (i - k * RX)];
   }
   for (int i = tid; i < 2 * RX; i += nt)
     wz[i] = a.wz[(size_t)(i / RX) * YX + r0 * X + i % RX];
@@ -1817,51 +1866,83 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
   if (rank > 0) bufs.up = cluster.map_shared_rank(bufs.mine, rank - 1);
   if (rank < C - 1) bufs.dn = cluster.map_shared_rank(bufs.mine, rank + 1);
 
-  for (int t = 0; t < a.T; ++t) {
-    const size_t tyx = (size_t)t * YX;
-    // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
-    //    halos, and this step's coefficients into the global scratch
-    for (int l = tid; l < 2 * RX; l += nt) {
-      const int f = by_rx(l), li = l - f * RX;
-      const int i = by_x(li), j = li - i * X;
-      const size_t c = (size_t)f * YX + (size_t)r0 * X + li;
-      bufs.put(0, f, i, j, st[(size_t)(f == 0 ? 1 : 3) * YX + li]);
-      step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + r0 * X + li],
-                  a.v[tyx + r0 * X + li], a.cf + c, P);
-    }
-    cluster.sync();
-    // -- circulation: nsub substeps, buffer cur -> nxt
-    int cur = 0;
-    for (int s = 0; s < a.nsub; ++s) {
-      const int nxt = NXT - cur;
-      refined_substep(a, g, bk, bufs, cur, nxt, r0);
-      // every block's rows and halos of buffer nxt are written, and no
-      // block reads buffer cur any more
-      cluster.sync();
-      cur = nxt;
-    }
-    // -- pointwise physics and the state update of this block's cells
-    const float* xc = bufs.mine + cur + HALO * X;   // circulated, row 0
-    for (int li = tid; li < RX; li += nt) {
-      const int pix = r0 * X + li;
-      float s[5];
-      for (int k = 0; k < 5; ++k) s[k] = st[(size_t)k * YX + li];
-      float vals[N_SUM];
-      update_cell<KIND, false>(a, p, t, pix, s, xc[li], xc[BX + li], a.tf,
-                               a.tof, a.qf, (size_t)t * a.corr_step + pix,
-                               vals);
-      if (KIND == SCEN) {
-        float* out = a.outs + tyx * N_OUT + pix;
-        for (int k = 0; k < N_OUT; ++k) out[(size_t)k * YX] = vals[k];
-        // annual sums in sequence, from 0 at the year's first step
-        for (int k = 0; k < N_SUM; ++k) {
-          float* sum = a.asum + (size_t)k * YX + pix;
-          *sum = (t == 0 ? 0.f : *sum) + vals[k];
-        }
+  const int n_years = KIND == SCEN_YEARS ? a.n_years : 1;
+  for (int y = 0; y < n_years; ++y) {
+    // K3: this year's CO2 from the table, after the last step's update
+    // (its __syncthreads) and seen after the next step start's
+    // cluster.sync()
+    if (KIND == SCEN_YEARS && tid == 0) pm->co2 = a.co2_years[y];
+    // this year's annual sums: K2's one year, K3's (m, y)
+    float* const asum =
+        a.asum + (KIND == SCEN_YEARS ? ((size_t)m * n_years + y) * N_SUM * YX
+                                     : 0);
+    for (int t = 0; t < a.T; ++t) {
+      const size_t tyx = (size_t)t * YX;
+      // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
+      //    halos, and this step's coefficients into the global scratch
+      for (int l = tid; l < 2 * RX; l += nt) {
+        const int f = by_rx(l), li = l - f * RX;
+        const int i = by_x(li), j = li - i * X;
+        const size_t c = (size_t)f * YX + (size_t)r0 * X + li;
+        bufs.put(0, f, i, j, st[(f == 0 ? 1 : 3) * FS + li]);
+        step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + r0 * X + li],
+                    a.v[tyx + r0 * X + li], cfm + c, P);
       }
-      for (int k = 0; k < 5; ++k) st[(size_t)k * YX + li] = s[k];
+      cluster.sync();
+      // -- circulation: nsub substeps, buffer cur -> nxt
+      int cur = 0;
+      for (int s = 0; s < a.nsub; ++s) {
+        const int nxt = NXT - cur;
+        refined_substep<MEMBERS>(a, g, bk, bufs, cur, nxt, r0);
+        // every block's rows and halos of buffer nxt are written, and no
+        // block reads buffer cur any more
+        cluster.sync();
+        cur = nxt;
+      }
+      // K3: this step's month slot, set at the month's first step
+      float* mon = nullptr;
+      bool mstart = false;
+      float w = 0.f;
+      if (KIND == SCEN_YEARS) {
+        const int mo = a.mon[t];
+        mstart = t == 0 || a.mon[t - 1] != mo;
+        w = a.mon_w[t];
+        mon = a.monthly +
+              (((size_t)m * n_years + y) * a.nmon + mo) * N_OUT * YX;
+      }
+      // -- pointwise physics and the state update of this block's cells
+      const float* xc = bufs.mine + cur + HALO * X;   // circulated, row 0
+      for (int li = tid; li < RX; li += nt) {
+        const int pix = r0 * X + li;
+        float s[5];
+        for (int k = 0; k < 5; ++k) s[k] = st[k * FS + li];
+        float vals[N_SUM];
+        update_cell<KIND, false>(a, pt, t, pix, s, xc[li], xc[BX + li], tf_m,
+                                 tof_m, qf_m, (size_t)t * a.corr_step + pix,
+                                 vals);
+        if (KIND == SCEN) {
+          float* out = a.outs + tyx * N_OUT + pix;
+          for (int k = 0; k < N_OUT; ++k) out[(size_t)k * YX] = vals[k];
+        }
+        if (KIND != FLUX) {
+          // annual sums in sequence, from 0 at the year's first step
+          for (int k = 0; k < N_SUM; ++k) {
+            float* sum = asum + (size_t)k * YX + pix;
+            *sum = (t == 0 ? 0.f : *sum) + vals[k];
+          }
+        }
+        if (KIND == SCEN_YEARS) {
+          // monthly means: w * fields in sequence, from 0 at the month's
+          // first step
+          for (int k = 0; k < N_OUT; ++k) {
+            float* mean = mon + (size_t)k * YX + pix;
+            *mean = (mstart ? 0.f : *mean) + w * vals[k];
+          }
+        }
+        for (int k = 0; k < 5; ++k) st[k * FS + li] = s[k];
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
   // no block leaves while another may still write into its shared memory
   cluster.sync();
@@ -1941,16 +2022,32 @@ __global__ void __launch_bounds__(NT, 1) scenario_years_strict(
                                                        member_index()));
 }
 
-// The refined instantiation of K1 and K2 (modern variant only).
+// The refined instantiation of the four kernels (modern variant only).
 __global__ void __launch_bounds__(NT, 1) fluxcorr_year_refined(
     YearArgs a, GrebParams p, RefinedArgs g) {
-  run_refined<FLUX>(a, g, p);
+  run_refined<FLUX, false>(a, g, p, PackCols{});
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_year_refined(
     YearArgs a, GrebParams p, RefinedArgs g) {
-  run_refined<SCEN>(a, g, p);
+  run_refined<SCEN, false>(a, g, p, PackCols{});
 }
+
+__global__ void __launch_bounds__(NT, 1) fluxcorr_years_refined(
+    YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
+  run_refined<FLUX, true>(a, g, p, c);
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_years_refined(
+    YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
+  run_refined<SCEN_YEARS, true>(a, g, p, c);
+}
+
+// A kernel's parameters are passed by value: the largest set (the refined
+// member kernels') stays under the 4 KB that every toolkit takes.
+static_assert(sizeof(YearArgs) + sizeof(GrebParams) + sizeof(PackCols) +
+                      sizeof(RefinedArgs) <= 4096,
+              "kernel parameters over 4 KB");
 
 // One block of NT threads per member (a.M blocks).
 template <typename Kernel, typename... Extra>
@@ -2013,8 +2110,7 @@ static int cluster_config(Kernel kernel, const YearArgs& a, int C, int kind,
   return config_with(kernel, a, C, smem, stream, attr, cfg, clusters);
 }
 
-// The refined instantiation's launch (one member: a.M = 1) as
-// cluster_config's.
+// The refined instantiation's launch (a.M members) as cluster_config's.
 template <typename Kernel>
 static int refined_config(Kernel kernel, const YearArgs& a,
                           const RefinedArgs& g, int C, void* stream,
@@ -2022,7 +2118,7 @@ static int refined_config(Kernel kernel, const YearArgs& a,
                           int* clusters) {
   long long parts[N_QPARTS];
   const long long smem = refined_parts(a.Y, a.X, a.ktc, a.kbc, C, g, parts);
-  if (smem == 0 || smem > MAX_SMEM || a.M != 1) return GREB_ERR_LAYOUT;
+  if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
   return config_with(kernel, a, C, smem, stream, attr, cfg, clusters);
 }
 
@@ -2044,12 +2140,13 @@ static int launch_cluster(Kernel kernel, const YearArgs& a,
   return (int)cudaGetLastError();
 }
 
-// The refined instantiation of K1 or K2 for one member (a.M = 1) on one
-// cluster of C blocks, as launch_cluster.
-template <typename Kernel>
+// The refined instantiation: a.M members on a.M clusters of C blocks, as
+// launch_cluster; the member kernels take the pack's columns (extra)
+// before g.
+template <typename Kernel, typename... Extra>
 static int launch_refined(Kernel kernel, const YearArgs& a,
                           const GrebParams& p, const RefinedArgs& g, int C,
-                          void* stream) {
+                          void* stream, Extra... extra) {
   if (p.flags != 0) return GREB_ERR_FLAGS;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
@@ -2057,7 +2154,7 @@ static int launch_refined(Kernel kernel, const YearArgs& a,
   const int err = refined_config(kernel, a, g, C, stream, attr, &cfg,
                                  &clusters);
   if (err) return err;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, p, g);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, p, extra..., g);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -2155,8 +2252,8 @@ int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, int C,
   }
 }
 
-// K1 and K2 at an extension-mode grid: the refined instantiation, modern
-// variant only (any other flags word: GREB_ERR_FLAGS).
+// The four kernels at an extension-mode grid: the refined instantiation,
+// modern variant only (any other flags word: GREB_ERR_FLAGS).
 int greb_fluxcorr_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
                                void* stream) {
   return launch_refined(fluxcorr_year_refined, a, p, g, C, stream);
@@ -2167,6 +2264,16 @@ int greb_scenario_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
   return launch_refined(scenario_year_refined, a, p, g, C, stream);
 }
 
+int greb_fluxcorr_years_refined(YearArgs a, GrebParams p, PackCols c,
+                                RefinedArgs g, int C, void* stream) {
+  return launch_refined(fluxcorr_years_refined, a, p, g, C, stream, c);
+}
+
+int greb_scenario_years_refined(YearArgs a, GrebParams p, PackCols c,
+                                RefinedArgs g, int C, void* stream) {
+  return launch_refined(scenario_years_refined, a, p, g, C, stream, c);
+}
+
 // The kernel's own reckoning of a refined block's shared memory: fills
 // parts[N_QPARTS] (bytes, layout order), returns the total (0: no layout).
 long long greb_refined_layout(int Y, int X, int ktc, int kbc, int C,
@@ -2174,19 +2281,23 @@ long long greb_refined_layout(int Y, int X, int ktc, int kbc, int C,
   return refined_parts(Y, X, ktc, kbc, C, g, parts);
 }
 
-// How many clusters of C blocks of the refined K1 (kind FLUX) or K2 (SCEN)
-// the card runs at once, into *clusters; an error code as the launchers.
+// How many clusters of C blocks of the refined kernel of `kind` (FLUX:
+// fluxcorr_years, SCEN: scenario_year, SCEN_YEARS: scenario_years) the card
+// runs at once, into *clusters; an error code as the launchers.
 int greb_refined_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
                           RefinedArgs g, int* clusters) {
   YearArgs a = {};
   a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  return kind == FLUX
-             ? refined_config(fluxcorr_year_refined, a, g, C, nullptr, attr,
-                              &cfg, clusters)
-             : refined_config(scenario_year_refined, a, g, C, nullptr, attr,
-                              &cfg, clusters);
+  if (kind == FLUX)
+    return refined_config(fluxcorr_years_refined, a, g, C, nullptr, attr,
+                          &cfg, clusters);
+  if (kind == SCEN)
+    return refined_config(scenario_year_refined, a, g, C, nullptr, attr,
+                          &cfg, clusters);
+  return refined_config(scenario_years_refined, a, g, C, nullptr, attr, &cfg,
+                        clusters);
 }
 
 // The kernel's own reckoning of a cluster block's shared memory (`strict`:
@@ -2232,8 +2343,8 @@ const char* greb_error_string(int err) {
   if (err == GREB_ERR_LAYOUT)
     return "no cluster layout: C does not split the latitude rows into "
            "blocks of at least 2 rows, or a block's shared memory exceeds "
-           "227 KB (refined: or a row is not whole composite blocks, a "
-           "segment table is too long, or there is more than one member)";
+           "227 KB (refined: or a row is not whole composite blocks, or a "
+           "segment table is too long)";
   if (err == GREB_ERR_NO_CLUSTER)
     return "cudaOccupancyMaxActiveClusters is 0: the card cannot schedule "
            "a cluster of this size with this shared memory";

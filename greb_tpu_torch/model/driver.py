@@ -99,12 +99,9 @@ class GREB:
                                      exp=self.exp)
         if self.device.type == "cuda":
             # the kernels' shared-memory fit and plan support, checked
-            # before any year runs: at an extension-mode grid only K1 and
-            # K2, which run launches (the member kernels raise when called)
-            plan = self.year_data.plan
-            yk.check_supported(
-                plan, yk.REFINED_KINDS if yk.is_refined(plan) else yk.KINDS,
-                self.year_data.flags)
+            # before any year runs
+            yk.check_supported(self.year_data.plan,
+                               flags=self.year_data.flags)
         self.month_mat = torch.as_tensor(
             month_average_matrix(self.num.jday_mon, self.num.ndt_days),
             device=self.device)
@@ -112,10 +109,11 @@ class GREB:
 
     def _check_member_kernels(self) -> None:
         """Raise before any launch where the member kernels (K3, K4) do not
-        run this model's plan (an extension-mode grid), on any device."""
+        run this model's plan and flags word (at an extension-mode grid the
+        legacy and strict words, dense composites), on any device."""
         yd = self.year_data
-        for kind in ("fluxcorr", "scenario_years"):
-            yk.check_plan(yd.plan, kind, yd.flags, members=True)
+        for kind in my.KINDS:
+            yk.check_plan(yd.plan, kind, yd.flags)
 
     def _multiyear_args(self, corr: Corrections):
         """(member pack (1, 1, N_PPACK), corrections (1, T, 3, Y, X)) of the

@@ -15,11 +15,16 @@ memory; M clusters beyond the card's capacity run in waves.  For
 ``scenario_years`` ``cluster=1`` is the one-block body instead: one thread
 block per member, the state in shared memory and the coefficient planes in
 a per-member global scratch.  By default each wrapper picks the size by
-the member count (``default_cluster``).  On a CUDA tensor each wrapper
-launches its kernel or
-raises; on a CPU tensor it runs its plain PyTorch version, ``*_plain``,
-which loops over the members and steps through ``core.fluxcorr_step`` /
-``core.scenario_step`` in the kernel's order of accumulation.  The legacy
+the member count (``default_cluster``).  At an extension-mode plan (a
+refined grid, 384x192) both launch their refined instantiation
+(csrc/year_kernel.cu ``run_refined``, ``year_kernel.refined_layout``) on
+16-block clusters at every member count, each member with its own global
+scratch for the step's coefficient planes (M, 12, 2, Y, X); K3 adds up the
+monthly means and annual sums in global memory.  On a CUDA tensor each
+wrapper launches its kernel or raises; on a CPU tensor it runs its plain
+PyTorch version, ``*_plain``, which loops over the members and steps
+through ``core.fluxcorr_step`` / ``core.scenario_step`` in the kernel's
+order of accumulation.  The legacy
 switchboard reaches both through ``YearData.exp``, as in the single-run
 kernels.
 
@@ -119,7 +124,11 @@ def default_cluster(kind: str, members: int, capacity: int,
 
 
 def _default_cluster_on(yd: yk.YearData, kind: str, members: int) -> int:
-    """``default_cluster`` on this card, its capacity asked once per run."""
+    """``default_cluster`` on this card, its capacity asked once per run;
+    at an extension-mode plan the refined instantiation's one size (K3's
+    one-block body cannot hold a refined member: ``smem_bytes``)."""
+    if yk.is_refined(yd.plan):
+        return yk.REFINED_CLUSTER_SIZES[0]
     key = ("capacity", kind, yd.transport)
     if key not in yd.cache:
         yd.cache[key] = yk.cluster_capacity(yd.plan, yk.DEFAULT_CLUSTER,
@@ -155,12 +164,15 @@ def _maps_on(yd: yk.YearData, dev: torch.device):
 
 
 def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
-               kind: str, shared_corr: bool = False):
+               kind: str, shared_corr: bool = False,
+               ranks: Optional[np.ndarray] = None):
     """(bytes, operations) a launch of ``kind`` ("fluxcorr": K4, one year;
     "scenario": K3) must move and compute at least for ``members`` members
-    over ``n_years`` years, counted as ``year_kernel.year_work``: the shared
-    inputs (forcing, constants, fold) read once, each member's state, pack,
-    monthly means and annual sums once.  The correction tables count once
+    over ``n_years`` years, counted as ``year_kernel.year_work`` (packed
+    composites at their ``ranks``, required for a packed plan, and the
+    explicit segments' iterations): the shared inputs (forcing, constants,
+    fold) read once, each member's state, pack, monthly means and annual
+    sums once.  The correction tables count once
     per member and year: a year streams them step by step, and from one
     year to the next 40 MB a member (at 96x48) cannot stay on chip.  K3's
     shared table (``shared_corr``) counts once a year: members that step
@@ -170,12 +182,11 @@ def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
         raise ValueError("a spin-up launch runs one year and writes a "
                          "table per member")
     yx, t = plan.ydim * plan.xdim, num.nstep_yr
-    kk = plan.comp_kt + plan.comp_kb
     nmon = len(num.jday_mon)
     words = (8 * t * yx + t * plan.ydim          # forcing, insolation
              + 5 * yx                            # constant fields
              + (7 + 8 + 9 + 1) * 2 * yx          # fold planes
-             + 2 * kk * plan.xdim ** 2           # composites
+             + yk.composite_words(plan, ranks)   # composites
              + members * (10 * yx + N_PPACK)     # state in and out, pack
              + (1 if shared_corr else members)   # corrections in / out
              * n_years * 3 * t * yx)
@@ -185,7 +196,8 @@ def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
     # per year and member: the single-year step body (with the annual sums
     # for a scenario year), plus a multiply and an add for each of the 5
     # monthly means
-    ops = yk.year_work(plan, num, scen)[1] + (t * yx * 10 if scen else 0)
+    ops = yk.year_work(plan, num, scen, ranks)[1] + (t * yx * 10 if scen
+                                                      else 0)
     return 4 * words, members * n_years * ops
 
 
@@ -205,7 +217,7 @@ def _check(state5: torch.Tensor, ppack: torch.Tensor, yd: yk.YearData,
            kind: str) -> int:
     """Raise for what the kernel of ``kind`` does not run (on CPU tensors
     too); return the member count."""
-    yk.check_plan(yd.plan, kind, yd.flags, members=True)
+    yk.check_plan(yd.plan, kind, yd.flags)
     if state5.device.type not in ("cpu", "cuda"):
         raise ValueError(f"year kernels run on cuda (or plain on cpu), "
                          f"not {state5.device}")
@@ -306,6 +318,27 @@ def scenario_years_plain(state5: torch.Tensor, ppack: torch.Tensor,
     return out, monthly, asum
 
 
+def _launch_members(fn_name: str, yd: yk.YearData, args: yk._Args,
+                    params: yk._Params, dev: torch.device,
+                    cluster: int) -> None:
+    """Launch K4 or K3 (``fn_name``) on ``cluster``-block clusters: the
+    refined instantiation at an extension-mode plan."""
+    extra = ()
+    if yk.is_refined(yd.plan):
+        fn_name += "_refined"
+        extra = (yk._refined_args(yd, dev),)
+    yk._launch(fn_name, args, params, dev, _pack_cols(), *extra,
+               ctypes.c_int(cluster))
+
+
+def _coeff_scratch(M: int, Y: int, X: int, dev: torch.device):
+    """The step's coefficient planes of each member (M, 12, 2, Y, X), za 7,
+    mc 4, c0m 1, in global memory: K3's one-block body and the refined
+    instantiation."""
+    return (torch.empty((M, 12, 2, Y, X), dtype=torch.float32, device=dev),
+            None)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -316,26 +349,28 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     ``cluster`` blocks (default: ``default_cluster``)."""
     M = _check(state5, ppack, yd, "fluxcorr")
     if cluster is not None:
-        yk._check_cluster(cluster, "fluxcorr")
+        yk._check_cluster(cluster, "fluxcorr", yd.plan)
     dev = state5.device
     if dev.type == "cpu":
         return fluxcorr_years_plain(state5, ppack, co2, yd)
     params = yk._params(yd, co2)
     if cluster is None:
         cluster = _default_cluster_on(yd, "fluxcorr", M)
-    yk.cluster_layout(yd.plan, cluster, "fluxcorr")
+    yk.block_layout(yd.plan, cluster, "fluxcorr")
     T, Y, X = yd.num.nstep_yr, state5.shape[2], state5.shape[3]
     state_out = torch.empty_like(state5)
     corr = torch.empty((M, T, 3, Y, X), dtype=torch.float32, device=dev)
+    scratch = {}
+    if yk.is_refined(yd.plan):
+        scratch["cf"] = _coeff_scratch(M, Y, X, dev)
     args = yk._args(
         yd, state5, ints=dict(M=M, corr_step=3 * Y * X, n_pack=N_PPACK),
         state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
-        tf=(corr, None), ppack=(ppack, (M, 1, N_PPACK)))
+        tf=(corr, None), ppack=(ppack, (M, 1, N_PPACK)), **scratch)
     args.tof = args.tf + 4 * Y * X
     args.qf = args.tf + 8 * Y * X
     # dt and CO2 from the host; the pack overrides the physics per member
-    yk._launch("greb_fluxcorr_years", args, params, dev,
-               _pack_cols(), ctypes.c_int(cluster))
+    _launch_members("greb_fluxcorr_years", yd, args, params, dev, cluster)
     fluxcorr_years.launches += 1
     return state_out, corr
 
@@ -353,7 +388,7 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     M = _check(state5, ppack, yd, "scenario_years")
     shared = _shared_table(corrpack, state5, yd)
     if cluster is not None:
-        yk._check_cluster(cluster, "scenario_years")
+        yk._check_cluster(cluster, "scenario_years", yd.plan)
         if cluster == 1 and yd.transport == "strict":
             raise NotImplementedError(
                 f"scenario_years: the one-block body (cluster=1) does not "
@@ -369,13 +404,11 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
         len(num.jday_mon)
     scratch = {}
     if cluster == 1:
-        # one block a member: the step's coefficient planes (M, 12, 2, Y,
-        # X), za 7, mc 4, c0m 1, in a global scratch, a slice per member
         yk.check_block_fit(yd.plan)
-        scratch["cf"] = (torch.empty((M, 12, 2, Y, X), dtype=torch.float32,
-                                     device=dev), None)
     else:
-        yk.cluster_layout(yd.plan, cluster, "scenario_years")
+        yk.block_layout(yd.plan, cluster, "scenario_years")
+    if cluster == 1 or yk.is_refined(yd.plan):
+        scratch["cf"] = _coeff_scratch(M, Y, X, dev)
     co2t = torch.as_tensor(co2_years, dtype=torch.float32, device=dev)
     ny = co2t.numel()
     state_out = torch.empty_like(state5)
@@ -396,8 +429,7 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     args.tof = args.tf + 4 * Y * X
     args.qf = args.tf + 8 * Y * X
     # the pack overrides the physics per member
-    yk._launch("greb_scenario_years", args, params, dev,
-               _pack_cols(), ctypes.c_int(cluster))
+    _launch_members("greb_scenario_years", yd, args, params, dev, cluster)
     scenario_years.launches += 1
     return state_out, monthly, asum
 

@@ -37,16 +37,18 @@ strict one, which moves Ta and q with the term-by-term stencils
 
 An extension-mode plan (a refined grid: 384x192 at dt_crcl=1800, with
 sequential zonal splitting, packed pole composites and explicit polar
-segment iterations) launches K1 and K2's refined instantiation
-(``*_refined``, csrc/year_kernel.cu ``run_refined``), modern variant only.
-Its block keeps in shared memory only what a substep reads many times:
-the (Ta, q) double buffer with its halo rows, wz, the zonally diffused
-state xa and a scratch for the segment iterations and composite rows
-(``refined_layout``); the state, the annual sums, the step's coefficient
-planes (a per-run global scratch), the zd planes and the packed factors
-stay in global memory and L2.  The member kernels, the legacy and strict
+segment iterations) launches each kernel's refined instantiation
+(``*_refined``, csrc/year_kernel.cu ``run_refined``; the member kernels of
+multiyear.py one member a 16-block cluster), modern variant only.  Its
+block keeps in shared memory only what a substep reads many times: the
+(Ta, q) double buffer with its halo rows, wz, the zonally diffused state
+xa and a scratch for the segment iterations and composite rows
+(``refined_layout``); the state, the annual sums, K3's monthly means, the
+step's coefficient planes (a global scratch a member), the zd planes and
+the packed factors stay in global memory and L2.  The legacy and strict
 words and the plans that layout does not hold raise NotImplementedError
-at such a plan (``check_plan``), each naming its ROADMAP item.
+at such a plan (``check_plan``, ``check_supported``), each naming its
+ROADMAP item.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -108,18 +110,16 @@ FLAGS = ("fixed_albedo", "simple_seaice", "hydro_off", "circulation_off",
 # where K3's one-block body under the strict transport is queued
 STRICT_ONE_BLOCK_ITEM = "ROADMAP Queue 2 item 4"
 
-# the kinds with a refined instantiation (an extension-mode plan), the
-# cluster size it launches with (12 rows of 384 columns a block at
-# 384x192; 8 and 12 blocks need more than MAX_SMEM_BYTES), the parts of its
-# block's shared memory in the kernel's layout order (csrc/year_kernel.cu
-# enum RefinedPart), and the most segments of either kind it takes
-REFINED_KINDS = ("fluxcorr", "scenario")
+# the refined instantiation (an extension-mode plan, every kind): the
+# cluster size it launches with (12 rows of 384 columns a block at 384x192;
+# 8 and 12 blocks need more than MAX_SMEM_BYTES), the parts of its block's
+# shared memory in the kernel's layout order (csrc/year_kernel.cu enum
+# RefinedPart), and the most segments of either kind it takes
 REFINED_CLUSTER_SIZES = (16,)
 REFINED_PARTS = ("transported", "wz", "xa", "scratch", "comp_index")
 MAX_SEGS = 8
 # where what the refined instantiation does not run is queued
 REFINED_ITEMS = dict(
-    members="ROADMAP Queue 1 item 3c",   # K3/K4 at an extension-mode plan
     layout="ROADMAP Queue 1 item 3d",    # grids its layout does not hold
     dense="ROADMAP Queue 1 item 3e",     # dense composites (192x96)
     words="ROADMAP Queue 1 item 3f")     # legacy and strict words
@@ -275,27 +275,26 @@ def _reach(segs) -> Tuple[int, int]:
 
 def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     """The shared memory of each block of a ``blocks``-block cluster that
-    runs the refined instantiation of ``kind`` (one of REFINED_KINDS) on an
-    extension-mode plan with packed composites (csrc/year_kernel.cu
-    ``refined_parts``, the same reckoning): two buffers of the 2
-    transported fields with HALO rows each side, wz of its rows, their
-    zonally diffused state xa (first their zonal diffusion dd), a scratch
-    and the composite rows' index.  The scratch holds, one after the other
-    in a substep, the diffusion segments' two buffers (2 fields of the
-    block's rows in any diffusion segment), the packed composites' t1 rows
-    and z (each 2 fields of its composite rows, z at most X a row) and the
-    advection segments' two buffers (their da waits in the next (Ta, q)
-    buffer's own rows).  What the refined
-    instantiation keeps in global memory (state, annual sums, the step's
+    runs the refined instantiation of ``kind`` (one of KINDS; the same for
+    each) on an extension-mode plan with packed composites
+    (csrc/year_kernel.cu ``refined_parts``, the same reckoning): two
+    buffers of the 2 transported fields with HALO rows each side, wz of its
+    rows, their zonally diffused state xa (first their zonal diffusion dd),
+    a scratch and the composite rows' index.  The scratch holds, one after
+    the other in a substep, the diffusion segments' two buffers (2 fields
+    of the block's rows in any diffusion segment), the packed composites'
+    t1 rows and z (each 2 fields of its composite rows, z at most X a row)
+    and the advection segments' two buffers (their da waits in the next
+    (Ta, q) buffer's own rows).  What the refined instantiation keeps in
+    global memory (state, annual sums, K3's monthly means, the step's
     coefficient planes, zd, the packed factors) is not part of it.
-    Raises ValueError where ``cluster_layout`` does, where the row length
-    is not a multiple of fastcirc2.COMP_BLOCK (the composite sums take
-    whole blocks of a row), for a plan without sequential zonal splitting
-    and packed composites, for more than MAX_SEGS segments, and where a
-    block needs more than MAX_SMEM_BYTES."""
-    if kind not in REFINED_KINDS:
-        raise ValueError(f"kind {kind!r}: the refined instantiation runs "
-                         f"{REFINED_KINDS}")
+    Raises ValueError where ``cluster_layout`` does, where the row length is
+    not a multiple of fastcirc2.COMP_BLOCK (the composite sums take whole
+    blocks of a row), for a plan without sequential zonal splitting and
+    packed composites, for more than MAX_SEGS segments, and where a block
+    needs more than MAX_SMEM_BYTES."""
+    if kind not in KINDS:
+        raise ValueError(f"kind {kind!r}: one of {KINDS}")
     if not is_refined(plan) or plan.comp_mode != "packed":
         raise ValueError(f"the refined layout holds extension-mode plans "
                          f"with packed composites, not {plan}")
@@ -340,7 +339,7 @@ def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
 
 def is_refined(plan) -> bool:
     """An extension-mode fold (sequential zonal splitting: a refined grid),
-    which K1 and K2 run in their refined instantiation."""
+    which the kernels run in their refined instantiation."""
     return bool(plan.seq_zonal) and not isinstance(plan, StrictPlan)
 
 
@@ -363,26 +362,21 @@ def smem_bytes(plan) -> int:
     return 4 * (5 * yx + 4 * yx + 6 * kx)
 
 
-def check_plan(plan, kind: str, flags: int = 0,
-               members: bool = False) -> None:
+def check_plan(plan, kind: str, flags: int = 0) -> None:
     """Raise NotImplementedError for what the kernel of ``kind`` (one of
-    KINDS; ``members``: the member kernel K4 or K3) does not run with the
-    flags word ``flags``.  An extension-mode plan runs only in K1 and K2's
-    refined instantiation: the modern word with the fold (legacy and strict
-    words: REFINED_ITEMS["words"]), K1/K2 only (K3/K4: "members"), packed
+    KINDS; "fluxcorr" and "scenario_years" are also the member kernels K4
+    and K3) does not run with the flags word ``flags``.  An extension-mode
+    plan runs only in the refined instantiation: the modern word with the
+    fold (legacy and strict words: REFINED_ITEMS["words"]), packed
     composites only (dense ones, 192x96: "dense"); ``refined_layout``
     holds the rest.  Any other plan runs without explicit segment
     iterations or packed composites."""
     if plan.seq_zonal:
         if isinstance(plan, StrictPlan) or flags:
             raise NotImplementedError(
-                f"year kernels: the legacy and strict words (flags "
+                f"{kind}: the legacy and strict words (flags "
                 f"{flags:#x}, {type(plan).__name__}) at an extension-mode "
                 f"grid ({REFINED_ITEMS['words']})")
-        if members or kind not in REFINED_KINDS:
-            raise NotImplementedError(
-                f"{kind}: the member kernels K3/K4 at an extension-mode "
-                f"grid ({REFINED_ITEMS['members']})")
         if plan.comp_mode != "packed":
             raise NotImplementedError(
                 f"year kernels: comp_mode={plan.comp_mode!r} at an "
@@ -447,6 +441,19 @@ SEG_ITER_OPS = 15
 SEG_EDGE_OPS = 2
 
 
+def composite_words(plan: fc2.FastPlan,
+                    ranks: Optional[np.ndarray] = None) -> int:
+    """float32 words of the pole composites a year reads once: one (X, X)
+    matrix a dense row; packed (``ranks``, ``packed_ranks``, required),
+    U_all and W_all at their ranks and each row's offset and rank."""
+    if plan.comp_mode == "packed":
+        if ranks is None:
+            raise ValueError("packed composites: the work needs their ranks "
+                             "(packed_ranks)")
+        return 2 * plan.xdim * int(np.sum(ranks)) + 2 * len(ranks)
+    return 2 * (plan.comp_kt + plan.comp_kb) * plan.xdim ** 2
+
+
 def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool,
               ranks: Optional[np.ndarray] = None):
     """(bytes, operations) one year must move and compute at least: each
@@ -461,15 +468,10 @@ def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool,
     operations a cell are xa = x + wz dd (2) and xa + da + dy (2)."""
     yx, t, X = plan.ydim * plan.xdim, num.nstep_yr, plan.xdim
     kk = plan.comp_kt + plan.comp_kb
+    comp_words = composite_words(plan, ranks)
     if plan.comp_mode == "packed":
-        if ranks is None:
-            raise ValueError("packed composites: year_work needs their ranks "
-                             "(packed_ranks)")
-        rtot = int(np.sum(ranks))
-        comp_words = 2 * X * rtot + 2 * len(ranks)
-        comp_ops = 4 * X * rtot + 2 * kk * X * 4
+        comp_ops = 4 * X * int(np.sum(ranks)) + 2 * kk * X * 4
     else:
-        comp_words = 2 * kk * X ** 2
         comp_ops = 2 * kk * X * (2 * X + 4)
     seg_ops = sum(2 * (kt + kb) * X * (iters * SEG_ITER_OPS + SEG_EDGE_OPS)
                   for kt, kb, iters in plan.diff_segs + plan.adv_segs)
@@ -635,6 +637,11 @@ def _lib():
         fn.argtypes = [_Args, _Params, _PackCols, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for fn in (lib.greb_fluxcorr_years_refined,
+               lib.greb_scenario_years_refined):
+        fn.argtypes = [_Args, _Params, _PackCols, _Refined, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.greb_cluster_layout.argtypes = [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.greb_cluster_layout.restype = ctypes.c_longlong
@@ -678,8 +685,9 @@ def kernel_cluster_layout(plan, blocks: int, kind: str):
 def cluster_capacity(plan, blocks: int, kind: str) -> int:
     """How many clusters of ``blocks`` blocks of the kernel of ``kind`` the
     card runs at once (``cudaOccupancyMaxActiveClusters``; a
-    ``StrictPlan``: of the strict instantiation); members beyond it run in
-    waves.  Raises where the card runs none."""
+    ``StrictPlan``: of the strict instantiation; an extension-mode fold: of
+    the refined one); members beyond it run in waves.  Raises where the
+    card runs none."""
     lib = _lib()
     n = ctypes.c_int()
     if is_refined(plan):
@@ -860,9 +868,9 @@ def _check_device(state: ModelState) -> torch.device:
 def offered_sizes(kind: str, plan=None) -> Tuple[int, ...]:
     """The ``cluster=`` sizes a kernel of ``kind`` launches with: its
     CLUSTER_SIZES, and 1 for the ONE_BLOCK_KINDS; at an extension-mode
-    ``plan`` REFINED_CLUSTER_SIZES (none for the member kinds)."""
+    ``plan`` REFINED_CLUSTER_SIZES."""
     if plan is not None and is_refined(plan):
-        return REFINED_CLUSTER_SIZES if kind in REFINED_KINDS else ()
+        return REFINED_CLUSTER_SIZES
     return (1,) * (kind in ONE_BLOCK_KINDS) + CLUSTER_SIZES[kind]
 
 

@@ -21,9 +21,11 @@ and 15, and under the strict transport (the strict circulation, log_exp
 7, 8, 16: the kernels' strict instantiation), whose shared-memory layout
 the kernel reckons as ``cluster_layout`` does at every offered size.  At
 the refined 384x192 grid (an extension-mode plan, on forcing regridded
-from the 96x48 synthetic forcing, the 4-step calendar) K1 and K2's refined
-instantiation equals its plain version, and the kernel reckons its block
-as ``refined_layout`` does.
+from the 96x48 synthetic forcing, the 4-step calendar) the four kernels'
+refined instantiation equals its plain version (K4 and K3 at M=2 with
+members that differ, K3 over two years with a table per member and with
+one shared table), K4 = K1 and K3 = K2 at M=1, and the kernel reckons its
+block as ``refined_layout`` does.
 """
 import numpy as np
 import pytest
@@ -346,10 +348,53 @@ def test_refined_year_kernels_match_plain(refined_model):
         n1 + 1, n2 + 1)
 
 
-@pytest.mark.parametrize("kind", yk.REFINED_KINDS)
+@pytest.mark.parametrize("kind", yk.KINDS)
 def test_refined_layout_matches_the_kernel(refined_model, kind):
     plan = refined_model.fold[0]
     lay = yk.refined_layout(plan, yk.DEFAULT_CLUSTER, kind)
     parts, threads = yk.kernel_cluster_layout(plan, yk.DEFAULT_CLUSTER, kind)
     assert parts == dict(lay.parts) and threads == lay.threads
     assert yk.cluster_capacity(plan, yk.DEFAULT_CLUSTER, kind) >= 1
+
+
+@pytest.mark.parametrize("shared", (False, True))
+def test_refined_member_kernels_match_plain(refined_model, shared):
+    """K4 at M=2 (ct_sens 22.05, 22.95) from the initial state at 340 ppm;
+    K3 at M=2 over two years from the initial state at 680 ppm with zero
+    tables, a table per member or one shared (finite on this calendar);
+    both bit for bit, and at M=1 with the base params equal to K1 and K2."""
+    m = refined_model
+    yd, s0 = m.year_data, m.initial_state()
+    members = ens.perturbed_params(m.params, {"ct_sens": [22.05, 22.95]})
+    pp = my.pack_member_params(members, "cuda")
+    s5 = ens.ensemble_initial_state(members, m.forcing)
+    n4, n3 = my.fluxcorr_years.launches, my.scenario_years.launches
+    s_k, c_k = my.fluxcorr_years(s5, pp, 340.0, yd)
+    s_p, c_p = my.fluxcorr_years_plain(s5, pp, 340.0, yd)
+    assert not torch.equal(c_k[0], c_k[1])
+    _equal(s_k, s_p, "K4 state")
+    _equal(c_k, c_p, "K4 tables")
+    shape = (REFINED.nstep_yr, 3, REFINED.ydim, REFINED.xdim)
+    tab = torch.zeros((1 if shared else 2,) + shape, device="cuda")
+    co2 = np.full(2, 680.0, np.float32)
+    got = my.scenario_years(s5, pp, tab, co2, yd)
+    want = my.scenario_years_plain(s5, pp, tab, co2, yd)
+    assert torch.isfinite(got[1]).all() and not torch.equal(got[1][0],
+                                                             got[1][1])
+    for name, k, p in zip(("state", "monthly means", "annual sums"), got,
+                          want):
+        _equal(k, p, f"K3 {name}")
+    assert (my.fluxcorr_years.launches, my.scenario_years.launches) == (
+        n4 + 1, n3 + 1)
+    base = my.pack_member_params([m.params], "cuda")
+    s4, c4 = my.fluxcorr_years(s0.stack()[:, None], base, 340.0, yd)
+    s1, c1 = yk.fluxcorr_year(s0, 340.0, yd)
+    _equal(s4[:, 0], s1.stack(), "K4 = K1 state")
+    _equal(c4[0], torch.stack([c1.tf, c1.tof, c1.qf], dim=1), "K4 = K1")
+    s3, _, a3 = my.scenario_years(s0.stack()[:, None], base, tab[:1], co2[:1],
+                                  yd)
+    zero = Corrections.zeros(REFINED.nstep_yr, REFINED.ydim, REFINED.xdim,
+                             device="cuda")
+    s2, _, a2 = yk.scenario_year(s0, zero, 680.0, yd)
+    _equal(s3[:, 0], s2.stack(), "K3 = K2 state")
+    _equal(a3[0, 0], a2, "K3 = K2 annual sums")

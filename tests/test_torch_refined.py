@@ -1,6 +1,6 @@
-"""Refined grids: the port's K1/K2 at 384x192 (an extension-mode plan)
-against ``greb_tpu``, the refined layout, the refusals and the long-run
-route.
+"""Refined grids: the port's four kernels at 384x192 (an extension-mode
+plan) against ``greb_tpu``, the refined layout, the refusals and the
+paths through them.
 
 * K1 and K2 through the port's wrappers on CPU tensors (their plain
   versions, which the refined CUDA instantiation is held to bit for bit on
@@ -16,15 +16,32 @@ route.
   correction tables at the differences measured here, ~10x under each
   bound: tf 0.5 W/m^2 (scale ~1e3), tof 1e-5 K, qf 1e-6.  Every compared
   array is checked finite too (assert_allclose counts NaN equal to NaN).
-* ``refined_layout`` and the wrappers' and driver's refusals, which need no
-  card.
-* ``year_work`` at 96x48 (unchanged) and at 384x192 (packed composites at
-  their ranks, the segments), each reckoned by hand.
-* The long-run route at 384x192: ``run_long`` with ``driver_year_runner``
-  (one year a K2 call) writes the per-year path's year; a member-kernel
-  block (``years_per_call=2``) raises.
+* The member kernels K4 and K3 the same way (``TOL``, ``TOL_CORR``), at
+  M=2 with members that differ in ct_sens, each member against
+  ``greb_tpu``'s XLA year under its own params (the fold built once): K4
+  from the initial state at 340 ppm; K3 two years from the initial state
+  at 680 ppm with zero tables, a table per member and one shared table,
+  monthly means included.  After K3's two free-running years cap_surf is
+  held at rtol 5e-3 (``TOL_YEARS``): one cell on the sea-ice ramp differs
+  by 2.2e-3 relative, about 2e-4 K of Ts at the ramp's ~5e7 J/K/m^2 per
+  K.  At M=1 with the base params K4 equals K1 and K3 equals K2 (state,
+  annual sums) bit for bit.
+* ``refined_layout`` and the wrappers' and driver's refusals of what stays
+  queued (the legacy and strict words, dense composites, 768x384, cluster
+  sizes other than 16), which need no card.
+* ``year_work`` and ``years_work`` at 96x48 (unchanged) and at 384x192
+  (packed composites at their ranks, the segments), reckoned by hand.
+* The paths at 384x192: ``run_long`` with ``driver_year_runner``, one year
+  a K2 call and in K3 blocks (``years_per_call=2``, which is
+  ``run_scenario(years_per_call=2)``), from the initial state with zero
+  corrections; and on a 10-step calendar (two months; the 4-step one runs
+  away in a scenario after a spin-up) ``run_members`` (K4 spin-ups, then
+  K3) and the CLI's ``run_ensemble --shared-spinup`` (K1, then K3) with a
+  base member and a perturbed one, the base member against the per-year
+  path (K1, K2) at the golden tolerances.
 """
 import contextlib
+import copy
 import dataclasses
 
 import numpy as np
@@ -40,14 +57,17 @@ from greb_tpu.forcing import forcing_from_arrays as jforcing_from_arrays
 from greb_tpu.model.driver import GREB as JGREB
 from greb_tpu.regrid import regrid_forcing_arrays as jregrid_forcing_arrays
 
+from greb_tpu_torch import __main__ as cli
 from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
-from greb_tpu_torch.forcing import Corrections, forcing_from_arrays
+from greb_tpu_torch.forcing import (Corrections, ModelState,
+                                    forcing_from_arrays)
 from greb_tpu_torch.io.binio import read_output
 from greb_tpu_torch.io.synthetic import make_synthetic_forcing
 from greb_tpu_torch.model import core, longrun
 from greb_tpu_torch.model.driver import GREB
 from greb_tpu_torch.ops.cuda import multiyear as my
 from greb_tpu_torch.ops.cuda import year_kernel as yk
+from greb_tpu_torch.parallel import ensemble as ens
 from greb_tpu_torch.regrid import regrid_forcing_arrays
 
 torch.set_num_threads(1)
@@ -64,6 +84,13 @@ GRID = dict(xdim=384, ydim=192, dt_crcl=1800, ndays_yr=2, jday_mon=(2,),
 TOL = dict(ts=(0, 2e-2), ta=(0, 2e-2), to=(0, 2e-2), q=(0, 3e-6),
            cap_surf=(1e-3, 0))
 TOL_CORR = dict(tf=0.5, tof=1e-5, qf=1e-6)
+# K3's state after two years (see the docstring)
+TOL_YEARS = dict(TOL, cap_surf=(5e-3, 0))
+# the members of the member-kernel tests: ct_sens -2% and +2% (the JAX
+# CLI's default sweep ends)
+CT_SENS = (22.05, 22.95)
+# the 10-step calendar of the member paths (two months)
+MONTHS = dict(GRID, ndays_yr=5, jday_mon=(3, 2))
 
 
 def _np(a):
@@ -84,19 +111,27 @@ def _limits():
         else contextlib.nullcontext()
 
 
+def _refined(grid):
+    """The port's GREB at ``grid`` on the CPU, on the 96x48 synthetic
+    forcing of its calendar regridded."""
+    num = Numerics(**grid)
+    arrs = make_synthetic_forcing(96, 48, num.nstep_yr, num.ndays_yr)
+    with _limits():
+        return GREB(GrebConfig(numerics=num),
+                    forcing=forcing_from_arrays(
+                        regrid_forcing_arrays(arrs, num), "cpu"),
+                    verbose=False, device="cpu")
+
+
 @pytest.fixture(scope="module")
 def pair():
     arrs = make_synthetic_forcing(96, 48, 4, GRID["ndays_yr"])
-    num, jnum = Numerics(**GRID), JNumerics(**GRID)
+    jnum = JNumerics(**GRID)
     with _limits():
         jm = JGREB(JConfig(numerics=jnum, fast_circulation=True),
                    forcing=jforcing_from_arrays(
                        jregrid_forcing_arrays(arrs, jnum)), verbose=False)
-        m = GREB(GrebConfig(numerics=num),
-                 forcing=forcing_from_arrays(regrid_forcing_arrays(arrs, num),
-                                             "cpu"),
-                 verbose=False, device="cpu")
-    return jm, m
+    return jm, _refined(GRID)
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +152,7 @@ def test_refined_plan_is_an_extension_mode_fold(pair):
     assert dataclasses.asdict(plan) == dataclasses.asdict(
         jm.fastcirc_tables()[0])
     assert yk.is_refined(plan) and m.year_data.flags == 0
-    yk.check_supported(plan, yk.REFINED_KINDS)
+    yk.check_supported(plan)
 
 
 def test_k1_refined_matches_xla(pair):
@@ -154,7 +189,7 @@ def test_k2_refined_matches_xla(pair, k2_port):
 
 def test_refined_layout_fits_16_blocks(pair):
     plan = pair[1].fold[0]
-    for kind in yk.REFINED_KINDS:
+    for kind in yk.KINDS:
         lay = yk.refined_layout(plan, 16, kind)
         # 12 rows of 384 columns a block; the (Ta, q) double buffer with its
         # halo rows, wz, xa; the scratch for the 9 rows of a diffusion
@@ -168,7 +203,8 @@ def test_refined_layout_fits_16_blocks(pair):
         assert lay.nbytes == 227392 <= yk.MAX_SMEM_BYTES
     assert yk.block_layout(plan, 16, "scenario") == \
         yk.refined_layout(plan, 16, "scenario")
-    assert yk.offered_sizes("scenario", plan) == yk.REFINED_CLUSTER_SIZES
+    assert all(yk.offered_sizes(kind, plan) == yk.REFINED_CLUSTER_SIZES
+               for kind in yk.KINDS)
 
 
 @pytest.mark.parametrize("blocks", (8, 12))
@@ -190,7 +226,7 @@ def test_refined_layout_refuses_768x384_and_dense_plans(pair):
     with pytest.raises(ValueError, match="over 232448 B"):
         yk.refined_layout(wide, 16, "scenario")
     with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
-        yk.check_supported(wide, yk.REFINED_KINDS)
+        yk.check_supported(wide)
     # 192x96: dense composites (comp_kt=5, 192x192 matrices)
     dense = dataclasses.replace(plan, ydim=96, xdim=192, comp_mode="dense",
                                 comp_kt=5, comp_kb=5)
@@ -198,8 +234,8 @@ def test_refined_layout_refuses_768x384_and_dense_plans(pair):
         yk.refined_layout(dense, 16, "scenario")
     with pytest.raises(NotImplementedError, match="Queue 1 item 3e"):
         yk.check_plan(dense, "scenario")
-    with pytest.raises(ValueError, match="refined instantiation runs"):
-        yk.refined_layout(plan, 16, "scenario_years")
+    with pytest.raises(ValueError, match="one of"):
+        yk.refined_layout(plan, 16, "members")
 
 
 @pytest.mark.parametrize("kind", ("fluxcorr", "scenario"))
@@ -216,32 +252,60 @@ def test_refined_plan_refuses_legacy_and_strict_words(pair, kind):
         yk.check_supported(plan, (kind,), flags)
 
 
-def test_member_kernels_refuse_a_refined_plan(pair):
-    """K3/K4 raise at an extension-mode plan, on CPU tensors too, and
-    check_supported for the member kinds; so do the driver's member paths,
-    before any launch."""
+REFUSALS = ("legacy word", "strict word", "dense composites", "768x384",
+            "cluster=1", "cluster=12")
+
+
+@pytest.mark.parametrize("case", REFUSALS)
+def test_member_kernels_refuse_a_refined_plan(pair, case):
+    """What stays queued at an extension-mode plan raises in K4 and K3
+    before any launch, on CPU tensors too: the legacy and strict words
+    (ROADMAP Queue 1 item 3f; GREB's member paths too), dense
+    composites (3e), a grid the refined layout does not hold (3d, in
+    ``check_supported``, which GREB runs on the card before any year), and
+    a cluster size other than REFINED_CLUSTER_SIZES."""
     m = pair[1]
-    plan, yd, num = m.fold[0], m.year_data, m.num
-    for kind in ("scenario_years",):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-            yk.check_plan(plan, kind)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-            yk.check_supported(plan, (kind,))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-        yk.check_supported(plan)     # every kind, K3 among them
+    plan, const = m.fold
+    yd, num = m.year_data, m.num
+    if case == "768x384":
+        wide = dataclasses.replace(plan, ydim=384, xdim=768)
+        for kind in my.KINDS:
+            with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
+                yk.check_supported(wide, (kind,))
+        return
     s5 = m.initial_state().stack()[:, None]
     pp = my.pack_member_params([m.params])
     cp = torch.zeros((1, num.nstep_yr, 3, num.ydim, num.xdim))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-        my.scenario_years(s5, pp, cp, [680.0], yd)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-        my.fluxcorr_years(s5, pp, 340.0, yd)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-        m.run_members([m.params], years=1)
-    zero = Corrections.zeros(num.nstep_yr, num.ydim, num.xdim)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-        m.run_scenario(zero, years=2, co2_series=np.full(2, 680.0),
-                       years_per_call=2)
+    kw, err, match = {}, NotImplementedError, None
+    if case == "legacy word":
+        yd = dataclasses.replace(yd, exp=Experiment(11), cache={})
+        match = "Queue 1 item 3f"
+    elif case == "strict word":
+        yd = dataclasses.replace(yd, fold=None, cache={})
+        match = "Queue 1 item 3f"
+    elif case == "dense composites":
+        dense = dataclasses.replace(plan, comp_mode="dense")
+        yd = dataclasses.replace(yd, fold=(dense, const), cache={})
+        match = "Queue 1 item 3e"
+    else:
+        kw = dict(cluster=int(case.split("=")[1]))
+        err, match = ValueError, r"clusters of \(16,\)"
+    with pytest.raises(err, match=match):
+        my.fluxcorr_years(s5, pp, 340.0, yd, **kw)
+    with pytest.raises(err, match=match):
+        my.scenario_years(s5, pp, cp, [680.0], yd, **kw)
+    if case.endswith("word"):
+        for kind in my.KINDS:
+            with pytest.raises(err, match=match):
+                yk.check_plan(yd.plan, kind, yd.flags)
+        model = copy.copy(m)
+        model.year_data = yd
+        zero = Corrections.zeros(num.nstep_yr, num.ydim, num.xdim)
+        with pytest.raises(err, match=match):
+            model.run_members([m.params], years=1)
+        with pytest.raises(err, match=match):
+            model.run_scenario(zero, years=2, co2_series=np.full(2, 680.0),
+                               years_per_call=2)
 
 
 def test_year_work_96x48_is_unchanged():
@@ -294,11 +358,40 @@ def test_year_work_384x192_counts_ranks_and_segments(pair):
         yk.year_work(plan, num, False)
 
 
+def test_years_work_384x192_counts_ranks_and_segments(pair):
+    """The member kernels' work at 384x192: the shared inputs with the
+    packed composites at their ranks, each member's state, pack, tables,
+    monthly means and annual sums; operations K1's or K2's (the segments'
+    iterations included) per member and year, K3's with the monthly
+    means' multiply and add.  96x48's dense composites are unchanged."""
+    m = pair[1]
+    plan, const = m.fold
+    _, ranks = yk.packed_ranks(const)
+    num = Numerics(xdim=384, ydim=192, dt_crcl=1800)   # the full calendar
+    yx, t, X = 192 * 384, 730, 384
+    shared = (8 * t * yx + t * 192 + 5 * yx + 25 * 2 * yx
+              + 2 * X * int(ranks.sum()) + 2 * 28)
+    member = 10 * yx + my.N_PPACK
+    assert my.years_work(plan, num, 1, 2, "fluxcorr", ranks=ranks) == (
+        4 * (shared + 2 * member + 2 * 3 * t * yx),
+        2 * yk.year_work(plan, num, False, ranks)[1])
+    k3 = yk.year_work(plan, num, True, ranks)[1] + 10 * t * yx
+    assert my.years_work(plan, num, 3, 2, "scenario", shared_corr=True,
+                         ranks=ranks) == (
+        4 * (shared + 2 * member + 3 * 3 * t * yx + 3 + 2 * t
+             + 2 * 3 * (12 * 5 + 9) * yx), 6 * k3)
+    with pytest.raises(ValueError, match="ranks"):
+        my.years_work(plan, num, 1, 1, "fluxcorr")
+    dense = fc2_plan_96x48()
+    assert yk.composite_words(dense) == 2 * 2 * 96 * 96
+
+
 def test_long_run_route_at_384x192(pair, k2_port, tmp_path):
-    """run_long + driver_year_runner (years_per_call=1, so K2 a year): one
-    scenario year from the initial state with zero corrections writes the
-    per-year path's monthly means; a member-kernel block raises before it
-    writes anything."""
+    """run_long + driver_year_runner from the initial state with zero
+    corrections at 680 ppm: one year a K2 call writes the per-year path's
+    year; K3 blocks of 2 years (``run_scenario(years_per_call=2)``) end
+    in the per-year path's state bit for bit (the plain versions run the
+    same steps) and write its monthly means at the golden tolerances."""
     m = pair[1]
     num = m.num
     zero = Corrections.zeros(num.nstep_yr, num.ydim, num.xdim)
@@ -311,7 +404,7 @@ def test_long_run_route_at_384x192(pair, k2_port, tmp_path):
         run.close()
     assert start == 0
     s, outs, _ = k2_port
-    for name in ("ts", "ta", "to", "q", "cap_surf"):
+    for name in ModelState.FIELDS:
         got = _np(getattr(state, name))
         assert np.isfinite(got).all(), name
         np.testing.assert_array_equal(got, _np(getattr(s, name)), name)
@@ -319,13 +412,196 @@ def test_long_run_route_at_384x192(pair, k2_port, tmp_path):
     back = read_output(out, num.xdim, num.ydim)
     assert np.isfinite(back).all()
     np.testing.assert_array_equal(back, want.reshape(back.shape))
+    # two years, per year and in one K3 block
+    co2 = np.full(2, 680.0, np.float32)
+    s_year, mon_year, _ = m.run_scenario(zero, state=m.initial_state(),
+                                         years=2, co2_series=co2)
     blocks = longrun.driver_year_runner(m, str(tmp_path / "blocks"),
                                         years_per_call=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-        longrun.run_long(2, m.initial_state(), zero,
-                         np.full(2, 680.0, np.float32), blocks,
-                         chunk_years=2)
-    blocks.close()
+    try:
+        s_block, _, _ = longrun.run_long(2, m.initial_state(), zero, co2,
+                                         blocks, chunk_years=2)
+    finally:
+        blocks.close()
+    for name in ModelState.FIELDS:
+        got = _np(getattr(s_block, name))
+        assert np.isfinite(got).all(), name
+        np.testing.assert_array_equal(got, _np(getattr(s_year, name)), name)
+    back = read_output(str(tmp_path / "blocks"), num.xdim, num.ydim)
+    _months_close(back.reshape(mon_year.shape), mon_year, "K3 blocks")
+
+
+def _months_close(got, want, tag):
+    """Monthly means (..., 5, y, x) at the golden tolerances."""
+    for v, (name, atol) in enumerate((("ts", 2e-2), ("ta", 2e-2),
+                                      ("to", 2e-2), ("q", 3e-6),
+                                      ("albedo", 5e-4))):
+        _close(_np(got)[..., v, :, :], _np(want)[..., v, :, :], 0, atol,
+               f"{tag} monthly {name}")
+
+
+# ---------------------------------------------------------------------------
+# the member kernels K4 and K3 at 384x192
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def members(pair):
+    """(the port's members, greb_tpu's ModelData of each): the base params
+    with ct_sens CT_SENS[i]."""
+    jm, m = pair
+    port = ens.perturbed_params(m.params,
+                                {"ct_sens": np.float32(CT_SENS)})
+    jmd = [jm.md.replace(params=jm.params.replace(ct_sens=jnp.float32(v)))
+           for v in CT_SENS]
+    return port, jmd
+
+
+def test_k4_refined_members_match_xla(pair, members):
+    jm, m = pair
+    port, jmd = members
+    _, fcdata = jm._fastcirc_split()
+    s5 = ens.ensemble_initial_state(port, m.forcing)
+    s, corr = my.fluxcorr_years(s5, my.pack_member_params(port), 340.0,
+                                m.year_data)
+    assert tuple(corr.shape) == (2, m.num.nstep_yr, 3, 192, 384)
+    for i, md in enumerate(jmd):
+        js, jcorr = jm._year_fluxcorr()(jm.initial_state(), jm.sfx,
+                                        jnp.float32(340.0), md, fcdata)
+        for k, (name, (rtol, atol)) in enumerate(TOL.items()):
+            _close(s[k, i], getattr(js, name), rtol, atol,
+                   f"K4 member {i} {name}")
+        for k, (name, atol) in enumerate(TOL_CORR.items()):
+            _close(corr[i, :, k], getattr(jcorr, name), 0, atol,
+                   f"K4 member {i} {name}")
+    assert not torch.equal(corr[0], corr[1])
+
+
+@pytest.fixture(scope="module")
+def k3_xla(pair, members):
+    """greb_tpu's two XLA scenario years of each member from the initial
+    state at 680 ppm, for a table per member and for one shared table:
+    {mode: (tables, [(state, monthly (2 * nmon, 5, y, x))] per member)}."""
+    jm, m = pair
+    _, jmd = members
+    _, fcdata = jm._fastcirc_split()
+    shape = (m.num.nstep_yr, 3, m.num.ydim, m.num.xdim)
+    tables = {"per member": np.zeros((2,) + shape, np.float32),
+              "shared": np.zeros((1,) + shape, np.float32)}
+    got = {}
+    for mode, tab in tables.items():
+        runs = []
+        for i, md in enumerate(jmd):
+            t = tab[i % len(tab)]
+            corr = JCorrections(tf=jnp.asarray(t[:, 0]),
+                                tof=jnp.asarray(t[:, 1]),
+                                qf=jnp.asarray(t[:, 2]))
+            js, mons = jm.initial_state(), []
+            for _ in range(2):
+                js, jmon, _ = jm._year_scenario(True)(
+                    js, jm.sfx, corr, jnp.float32(680.0), md, fcdata)
+                mons.append(np.asarray(jmon))
+            runs.append((js, np.concatenate(mons)))
+        got[mode] = (tab, runs)
+    return got
+
+
+@pytest.mark.parametrize("mode", ("per member", "shared"))
+def test_k3_refined_members_match_xla(pair, members, k3_xla, mode):
+    jm, m = pair
+    port, _ = members
+    tab, runs = k3_xla[mode]
+    s5 = ens.ensemble_initial_state(port, m.forcing)
+    s, mon, asum = my.scenario_years(s5, my.pack_member_params(port),
+                                     torch.as_tensor(tab), [680.0, 680.0],
+                                     m.year_data)
+    nmon = len(m.num.jday_mon)
+    assert tuple(mon.shape) == (2, 2 * nmon, 5, 192, 384)
+    assert tuple(asum.shape) == (2, 2, 9, 192, 384)
+    assert np.isfinite(_np(asum)).all()
+    for i, (js, jmon) in enumerate(runs):
+        for k, (name, (rtol, atol)) in enumerate(TOL_YEARS.items()):
+            _close(s[k, i], getattr(js, name), rtol, atol,
+                   f"K3 {mode} member {i} {name}")
+        for v, name in enumerate(("ts", "ta", "to", "q")):
+            _close(mon[i, :, v], jmon[:, v], 0, TOL[name][1],
+                   f"K3 {mode} member {i} monthly {name}")
+    assert not torch.equal(mon[0], mon[1])
+
+
+def test_member_kernels_at_m1_equal_single_run(pair, k2_port):
+    """K4 at M=1 with the base params is K1's year bit for bit, and K3's
+    one year K2's (state, annual sums): the plain versions run the same
+    steps, as the refined instantiations run the same body."""
+    m = pair[1]
+    yd = m.year_data
+    s0 = m.initial_state()
+    pp = my.pack_member_params([m.params])
+    s4, c4 = my.fluxcorr_years(s0.stack()[:, None], pp, 340.0, yd)
+    s1, c1 = yk.fluxcorr_year(s0, 340.0, yd)
+    np.testing.assert_array_equal(_np(s4[:, 0]), _np(s1.stack()))
+    for k, name in enumerate(("tf", "tof", "qf")):
+        np.testing.assert_array_equal(_np(c4[0, :, k]),
+                                      _np(getattr(c1, name)), name)
+    num = m.num
+    zero = torch.zeros((1, num.nstep_yr, 3, num.ydim, num.xdim))
+    s3, _, a3 = my.scenario_years(s0.stack()[:, None], pp, zero, [680.0], yd)
+    s2, _, a2 = k2_port
+    assert np.isfinite(_np(s3)).all()
+    np.testing.assert_array_equal(_np(s3[:, 0]), _np(s2.stack()))
+    np.testing.assert_array_equal(_np(a3[0, 0]), _np(a2))
+
+
+@pytest.fixture(scope="module")
+def months_model():
+    """The 10-step calendar's model and the per-year path of its base
+    params: the spin-up (K1), the scenario year from its end state (K2)
+    and from the initial state with its cap_surf (the shared spin-up's
+    start), at the CLI's CO2."""
+    m = _refined(MONTHS)
+    num = m.num
+    co2 = m.cfg.co2.series(num.time_scnr)
+    s_fc, corr = m.flux_correction()
+    _, mon_chain, _ = m.run_scenario(corr, state=s_fc, co2_series=co2)
+    start = ModelState(**{n: getattr(m.initial_state(), n)
+                          for n in ModelState.FIELDS[:4]},
+                       cap_surf=s_fc.cap_surf)
+    _, mon_shared, _ = m.run_scenario(corr, state=start, co2_series=co2)
+    return m, corr, mon_chain, mon_shared
+
+
+def test_run_members_at_384x192(months_model):
+    """run_members with per-member spin-ups (K4, then K3 from its end
+    state): the base member's tables equal K1's, its months the per-year
+    path's at the golden tolerances; the perturbed member differs."""
+    m, corr, mon_chain, _ = months_model
+    num = m.num
+    port = ens.perturbed_params(m.params,
+                                {"ct_sens": np.float32([22.5, 22.95])})
+    s5, corrpack, mon, asum = m.run_members(
+        port, co2_series=m.cfg.co2.series(num.time_scnr))
+    assert mon.shape == (2, len(num.jday_mon), 5, 192, 384)
+    assert np.isfinite(_np(s5)).all() and np.isfinite(asum).all()
+    np.testing.assert_array_equal(_np(corrpack[0, :, 0]), _np(corr.tf))
+    _months_close(mon[0], mon_chain.reshape(mon[0].shape), "run_members")
+    assert not np.array_equal(mon[0], mon[1])
+
+
+def test_run_ensemble_shared_spinup_at_384x192(months_model, tmp_path):
+    """The CLI's --ensemble 2 --shared-spinup (K1, then K3 reading its one
+    table): the base member's file is the per-year path's year from the
+    initial state with the spin-up's cap_surf, at the golden tolerances."""
+    m, _, _, mon_shared = months_model
+    num = m.num
+    out = str(tmp_path / "member")
+    args = cli.build_parser().parse_args(
+        ["--ensemble", "2", "--perturb", "ct_sens=22.5:22.95",
+         "--shared-spinup", "--quiet"])
+    cli.run_ensemble(m, out, args)
+    files = [read_output(f"{out}_{i:03d}", num.xdim, num.ydim)
+             for i in (1, 2)]
+    _months_close(files[0], mon_shared.reshape(files[0].shape),
+                  "--shared-spinup")
+    assert np.isfinite(files[1]).all()
+    assert not np.array_equal(files[0], files[1])
 
 
 def test_packed_composites_work_on_their_ranks(pair):
