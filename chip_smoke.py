@@ -28,9 +28,8 @@
    per-step tables bitwise;
 6. holds the multi-year scenario kernel (scenario_years) against its plain
    version at every size it offers: M=2 (step 5's two perturbed members),
-   one year at CO2 680 (the year boundary at M > 1 is crossed in steps 13
-   and 14), from step 5's output, state, monthly means and annual sums
-   bitwise;
+   two years at CO2 560 and 680, from step 5's output, state, monthly
+   means and annual sums bitwise;
 7. times both member kernels at the shapes their paths launch (K3 one
    member for LONG_BLOCK years, the long run's block; K4 step 5's 3
    members, the member chain's year): a warm-up launch, then 3 timed
@@ -103,7 +102,27 @@
    (a warm-up, then 3 launches, 2 for K3/K4; ms, us a substep, the bound
    from year_work / years_work with the packed ranks), one K3 year at M =
    capacity (one wave), and three K2 probes;
-14. the ensemble path: K3 with one correction table that every member
+14. 192x96 at dt_crcl=1800 (the refined instantiation's additive form:
+   additive zonal splitting, explicit polar advection segments, dense
+   192x192 pole composites read from L2), on forcing regridded from the
+   96x48 synthetic forcing: the kernel's own layout of the block (and of
+   the strict instantiation's) against Python's for each kind, with how
+   many such clusters the card runs at once; on the 20-step calendar K1
+   and K2 from K1's end, K4 at M=2 and K3 at M=2 over 2 years (a table per
+   member, one shared), K4 = K1 and K3 = K2 at M=1, the first and last of
+   capacity + 1 members, and the strict instantiation's K1 and K2, each
+   bitwise against its plain version; GREB.run (3 + 10 years, full
+   calendar: launch counts, finiteness, the output file read back, the
+   warming, sim-yr/s), the same years through run_long in K3 blocks of
+   G192_BLOCK (state bitwise, monthly means at the golden tolerances) and
+   the CLI's --ensemble G192_SHARED_M --shared-spinup (3 + 3: files,
+   member-yr/s, peak device memory); one full-calendar K1 and K2 year, K4
+   at M=1 and K3 at M=1 x 2 years timed (a warm-up, then 3 launches; ms,
+   us a substep, the bound), the last launches held bitwise: K4 = K1, K3 =
+   K2's two years (a plain full-calendar 192x96 year takes ~68 s on an
+   H100 at 700 W); and three K2 probes (one substep a step, no composite
+   rows, no advection segments);
+15. the ensemble path: K3 with one correction table that every member
    reads (1, T, 3, Y, X), M=3 over 2 years on the 20-step calendar at every
    size it offers, bitwise equal to the table copied M times and to the
    plain version, also under the strict circulation at C=16; the CLI's
@@ -117,12 +136,21 @@
    and the second wave of K3's one-block body) byte-equal to the plain
    version on the same inputs; one K3 year at M=65 timed with a table per
    member and with the shared table;
-15. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+16. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
-   ms and bound, for all four the refined launch's, for K3 the ensemble
-   year's and the refined wave's, and each kernel's launches on every
-   path) and, last,
+   ms and bound, for all four the refined and the 192x96 launch's, for K3
+   the ensemble year's and the refined wave's, and each kernel's launches
+   on every path) and, last,
    {"ok": true, "device": {...}}.
+
+Each phase prints its wall time ("phase ...: s wall"), and the run its
+total before the JSON lines.
+
+The plain versions of the 96x48 checks (steps 3-7, 11, 12 and 15) replay
+each model step from a CUDA graph of the eager step (_GraphedSteps): the
+same kernels on the same values, a graphed step first held bitwise
+against the eager one; their times (plain_ms) are the graphed plain
+versions'.
 
 Any failure raises, so the script exits non-zero and prints no ok line.
 It needs a CUDA card and the repository's greb_tpu_torch package.
@@ -241,6 +269,114 @@ def _barrier_costs(build, threads_of):
               f"with release (the kernels'), {got[1]:.1f} ns relaxed")
 
 
+class _GraphedSteps:
+    """Between start and stop (or inside ``with``), core.fluxcorr_step and
+    core.scenario_step, which every plain version of the year kernels calls
+    once a model step, are replayed from CUDA graphs: one graph of one step for each step kind,
+    model data, fold, numerics, switchboard and CO2, captured on its first
+    call from static copies of that call's tensors; each call copies its
+    state, forcing step and corrections into them, replays and returns
+    copies of the graph's outputs.  A graph launches the kernels the eager
+    step launches, on the same values, so the plain versions' results are
+    bit for bit the eager ones (``check`` holds one step of each kind); it
+    only spares the host the eager step's ~2,500 launches, which make the
+    96x48 plain years host-bound (ROADMAP Queue 1 item 1, the smoke's time
+    budget).  On stop the eager steps are back and the graphs freed."""
+
+    def start(self):
+        from greb_tpu_torch.model import core
+        self.core, self.graphs = core, {}
+        self.eager = {"flux": core.fluxcorr_step, "scen": core.scenario_step}
+        core.fluxcorr_step = lambda *a: self._call("flux", *a)
+        core.scenario_step = lambda *a: self._call("scen", *a)
+        return self
+
+    def stop(self):
+        self.core.fluxcorr_step = self.eager["flux"]
+        self.core.scenario_step = self.eager["scen"]
+        self.graphs.clear()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    @staticmethod
+    def _map(fn, x):
+        """fn over every tensor of a step's arguments or results."""
+        import torch
+        if isinstance(x, torch.Tensor):
+            return fn(x)
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{f.name: _GraphedSteps._map(fn, getattr(x, f.name))
+                              for f in dataclasses.fields(x)})
+        if isinstance(x, tuple):
+            vals = [_GraphedSteps._map(fn, v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        return x
+
+    @staticmethod
+    def _copy_into(dst, src):
+        import torch
+        if isinstance(dst, torch.Tensor):
+            dst.copy_(src)
+        elif dataclasses.is_dataclass(dst):
+            for f in dataclasses.fields(dst):
+                _GraphedSteps._copy_into(getattr(dst, f.name),
+                                         getattr(src, f.name))
+        elif isinstance(dst, tuple):
+            for d, v in zip(dst, src):
+                _GraphedSteps._copy_into(d, v)
+
+    def _call(self, kind, *args):
+        import torch
+        n_in = 3 if kind == "scen" else 2   # state, forcing (, corrections)
+        tensors, rest = args[:n_in], args[n_in:]
+        # the non-tensor arguments: CO2, model data, numerics, fold, exp;
+        # the entry holds them, so no id is reused while it lives
+        key = (kind, float(rest[0])) + tuple(id(a) for a in rest[1:])
+        entry = self.graphs.get(key)
+        if entry is None:
+            static = self._map(torch.clone, tensors)
+            step = self.eager[kind]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    step(*static, *rest)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = step(*static, *rest)
+            entry = self.graphs[key] = (graph, static, out, rest)
+        graph, static, out, _ = entry
+        self._copy_into(static, tensors)
+        graph.replay()
+        return self._map(torch.clone, out)
+
+    def check(self, model, co2):
+        """One graphed step of each kind bitwise against the eager step, on
+        ``model``'s initial state and forcing step 1 (the scenario step
+        with zero corrections)."""
+        import torch
+        yd = model.year_data
+        s0, fx = model.initial_state(), yd.sfx.at(1)
+        corr_t = (torch.zeros_like(s0.ts),) * 3
+        pairs = []
+        for kind, args in (("flux", (s0, fx, co2)),
+                           ("scen", (s0, fx, corr_t, co2))):
+            args = args + (yd.md, yd.num, yd.fold, yd.exp)
+            got = self._call(kind, *args)
+            want = self.eager[kind](*args)
+            got_t, want_t = [], []
+            self._map(got_t.append, got)
+            self._map(want_t.append, want)
+            pairs += [(f"{kind} {i}", a, b)
+                      for i, (a, b) in enumerate(zip(got_t, want_t))]
+        _bitwise("graphed plain step vs eager", pairs, quiet=True)
+
+
 def _bound_of(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OP_PER_S * 1e3
@@ -308,6 +444,21 @@ ENS_YEARS = dict(time_flux=3, time_scnr=10)
 ENS_SHARED_M = 256
 ENS_SHARED_YEARS = dict(time_flux=3, time_scnr=3)
 ENS_SHARED_PLAIN = (1, ENS_SHARED_M)
+# the 192x96 grid at dt_crcl=1800 (24 substeps a step): the refined
+# instantiation's additive form (additive zonal splitting, advection
+# segments, dense 192x192 pole composites read from L2) on forcing
+# regridded from the 96x48 synthetic forcing; its kernels (and the strict
+# instantiation's K1/K2) held to plain on REFINED_SHORT's 20 steps, timed
+# on the full calendar; GREB.run for the main path's years, the same years
+# through run_long in K3 blocks of G192_BLOCK, and the CLI's --ensemble
+# G192_SHARED_M --shared-spinup, cut in years and members for the smoke's
+# time limit
+G192_GRID = dict(xdim=192, ydim=96, dt_crcl=1800)
+G192_YEARS = dict(time_flux=3, time_scnr=10)
+G192_BLOCK = 5
+G192_SHARED_M = 8
+G192_ENSEMBLES = (("shared", G192_SHARED_M, dict(time_flux=3, time_scnr=3),
+                   ["--shared-spinup"]),)
 
 
 def _k1_vs_plain(tag, s0, co2, yd, got):
@@ -360,7 +511,8 @@ def _legacy_phase(tmp, reset_counts, read_counts):
     t0 = time.perf_counter()
     plain_s = 0.0
     for e in LEGACY_EXPS:
-        m = GREB(GrebConfig(numerics=short, experiment=Experiment(e)),
+        m = GREB(GrebConfig(numerics=short, experiment=Experiment(e),
+                            fast_circulation=True),
                  device="cuda", verbose=False)
         yd, co2 = m.year_data, np.float32(m.exp.co2_ctrl)
         tag = f"log_exp {e:2d} (flags {yk.experiment_flags(m.exp):#04x})"
@@ -399,8 +551,8 @@ def _legacy_phase(tmp, reset_counts, read_counts):
 
     # -- one year with no circulation (log_exp 4) on the full calendar
     #    (the last timed launch of each against its plain version)
-    m4 = GREB(GrebConfig(experiment=Experiment(4)), device="cuda",
-              verbose=False)
+    m4 = GREB(GrebConfig(experiment=Experiment(4), fast_circulation=True),
+              device="cuda", verbose=False)
     yd4, co2 = m4.year_data, np.float32(m4.exp.co2_ctrl)
     s0 = m4.initial_state()
     k1_off, (s4_, c4_) = _launches_ms(
@@ -420,7 +572,8 @@ def _legacy_phase(tmp, reset_counts, read_counts):
     out = os.path.join(tmp, "legacy", "scenario")
     m = GREB(GrebConfig(numerics=num,
                         experiment=Experiment(LEGACY_PATH_EXP),
-                        diagnostics=Diagnostics(output_file=out)),
+                        diagnostics=Diagnostics(output_file=out),
+                        fast_circulation=True),
              device="cuda")
     console = io.StringIO()
     reset_counts()
@@ -714,10 +867,11 @@ def _strict_phase(tmp, reset_counts, read_counts):
                 work=work, launches=launches)
 
 
-def _refined_model(num, out_path=None, verbose=False):
+def _refined_model(num, out_path=None, verbose=False, fast=True):
     """GREB at a refined grid on the card, on forcing regridded by the
-    port's regrid.py from the 96x48 synthetic forcing of num's calendar;
-    (model, seconds of the regrid)."""
+    port's regrid.py from the 96x48 synthetic forcing of num's calendar,
+    with the fold (``fast``) or the strict circulation; (model, seconds of
+    the regrid)."""
     import numpy as np
     from greb_tpu_torch.config import Diagnostics, GrebConfig
     from greb_tpu_torch.forcing import forcing_from_arrays
@@ -731,7 +885,8 @@ def _refined_model(num, out_path=None, verbose=False):
     if not all(np.isfinite(a).all() for a in arrs.values()):
         raise AssertionError("regridded forcing not finite")
     diag = Diagnostics(output_file=out_path) if out_path else Diagnostics()
-    model = GREB(GrebConfig(numerics=num, diagnostics=diag),
+    model = GREB(GrebConfig(numerics=num, diagnostics=diag,
+                            fast_circulation=fast),
                  forcing=forcing_from_arrays(arrs, "cuda"), device="cuda",
                  verbose=verbose)
     return model, regrid_s
@@ -757,7 +912,8 @@ def _months_close(tag, got, want):
             - np.asarray(want)[..., v, :, :]).max()), tol)
 
 
-def _refined_member_checks(m, k1, k2, co2f, co2s, capacity):
+def _refined_member_checks(m, k1, k2, co2f, co2s, capacity,
+                           tag="refined"):
     """K4 and K3's refined instantiation on the 20-step calendar of ``m``,
     bitwise against their plain versions: K4 at M=2 (ct_sens 22.05 and
     22.95) from the initial state; K3 at M=2 over 2 years from K4's end,
@@ -765,7 +921,8 @@ def _refined_member_checks(m, k1, k2, co2f, co2s, capacity):
     K4 = K1 and K3 = K2 (``k1``, ``k2``: the single-run years; state,
     annual sums bitwise, monthly means against core.monthly_means of K2's
     outs at the golden tolerances); at M = capacity + 1 (two waves) the
-    first and last members.  Returns the worst max |diff| per kernel and
+    first and last members; ``tag`` names the grid in the lines printed.
+    Returns the worst max |diff| per kernel and
     the plain versions' ms (K4 M=2, K3 M=2 x 2 years)."""
     import numpy as np
     import torch
@@ -781,9 +938,9 @@ def _refined_member_checks(m, k1, k2, co2f, co2s, capacity):
     plain_ms["fluxcorr_years"], (s4p, c4p) = _time_ms(
         lambda: my.fluxcorr_years_plain(s5, pp2, co2f, yd), 1)
     if torch.equal(c4[0], c4[1]):
-        raise AssertionError("refined K4: the members do not differ")
+        raise AssertionError(f"{tag} K4: the members do not differ")
     err["fluxcorr_years"] = _bitwise(
-        f"K4 refined (M=2, {n} steps)", [("state", s4, s4p),
+        f"K4 {tag} (M=2, {n} steps)", [("state", s4, s4p),
                                          ("tables", c4, c4p)], quiet=True)
     co2y = np.asarray([560.0, 680.0], np.float32)
     k1_tab = torch.stack([k1[1].tf, k1[1].tof, k1[1].qf], dim=1)[None]
@@ -796,9 +953,9 @@ def _refined_member_checks(m, k1, k2, co2f, co2s, capacity):
             lambda: my.scenario_years_plain(s4, pp2, tab, co2y, yd), 1)
         plain_ms.setdefault("scenario_years", ms)
         if torch.equal(got[1][0], got[1][1]):
-            raise AssertionError("refined K3: the members do not differ")
+            raise AssertionError(f"{tag} K3: the members do not differ")
         err["scenario_years"] = max(err["scenario_years"], _bitwise(
-            f"K3 refined (M=2, 2 years, {n} steps, {label})",
+            f"K3 {tag} (M=2, 2 years, {n} steps, {label})",
             zip(names, got, want), quiet=True))
     print(f"  plain versions on the card, {n} steps: K4 M=2 "
           f"{plain_ms['fluxcorr_years']:.1f} ms, K3 M=2 x 2 years "
@@ -807,15 +964,15 @@ def _refined_member_checks(m, k1, k2, co2f, co2s, capacity):
     base = my.pack_member_params([m.params], "cuda")
     s41, c41 = my.fluxcorr_years(m.initial_state().stack()[:, None], base,
                                  co2f, yd)
-    _bitwise("K4 = K1 refined (M=1)", [("state", s41[:, 0], k1[0].stack()),
+    _bitwise(f"K4 = K1 {tag} (M=1)", [("state", s41[:, 0], k1[0].stack()),
                                        ("tables", c41[0], k1_tab[0])],
              quiet=True)
     s31, m31, a31 = my.scenario_years(k1[0].stack()[:, None], base, k1_tab,
                                       np.asarray([co2s]), yd)
-    _bitwise("K3 = K2 refined (M=1)", [("state", s31[:, 0], k2[0].stack()),
+    _bitwise(f"K3 = K2 {tag} (M=1)", [("state", s31[:, 0], k2[0].stack()),
                                        ("annual sums", a31[0, 0], k2[2])],
              quiet=True)
-    _months_close("K3 vs K2 refined monthly",
+    _months_close(f"K3 vs K2 {tag} monthly",
                   m31[0].cpu().numpy(),
                   core.monthly_means(m.month_mat, k2[1]).cpu().numpy())
     # two waves: the first and the last member against plain
@@ -828,28 +985,38 @@ def _refined_member_checks(m, k1, k2, co2f, co2s, capacity):
     pick = [0, M - 1]
     s4p, c4p = my.fluxcorr_years_plain(s5m[:, pick], ppm[pick], co2f, yd)
     err["fluxcorr_years"] = max(err["fluxcorr_years"], _bitwise(
-        f"K4 refined, members 1 and {M} of {M} (2 waves)",
+        f"K4 {tag}, members 1 and {M} of {M} (2 waves)",
         [("state", s4m[:, pick], s4p), ("tables", c4m[pick], c4p)],
         quiet=True))
     want = my.scenario_years_plain(s4m[:, pick], ppm[pick], c4m[pick],
                                    co2y[1:], yd)
     err["scenario_years"] = max(err["scenario_years"], _bitwise(
-        f"K3 refined, members 1 and {M} of {M} (2 waves)",
+        f"K3 {tag}, members 1 and {M} of {M} (2 waves)",
         zip(names, (s3m[:, pick], m3m[pick], a3m[pick]), want), quiet=True))
     return err, plain_ms
 
 
+# the CLI's ensembles at 384x192: (kind, members, years, flags)
+REFINED_ENSEMBLES = (("ensemble", REFINED_ENS_M, REFINED_ENS_YEARS, []),
+                     ("shared", REFINED_SHARED_M, REFINED_SHARED_YEARS,
+                      ["--shared-spinup"]))
+
+
 def _refined_member_paths(model, tmp, state, monthly, corr, reset_counts,
-                          read_counts):
-    """The member kernels' paths at 384x192 on the full calendar, on
-    ``model`` (1 + 3 years), after its per-year run (``state``,
-    ``monthly``, ``corr``): the long run in one K3 block of the scenario
-    years (run_long + driver_year_runner, years_per_call = the years),
-    held to the per-year run (state bitwise, monthly means at the golden
-    tolerances); the CLI's --ensemble REFINED_ENS_M (K4 spin-ups) and
-    --ensemble REFINED_SHARED_M --shared-spinup (K1, K3 in two waves),
+                          read_counts, block=None,
+                          ensembles=REFINED_ENSEMBLES, tag="refined"):
+    """The member kernels' paths at a grid of the refined instantiation
+    on the full calendar, on ``model`` (384x192: 1 + 3 years), after its
+    per-year run (``state``, ``monthly``, ``corr``): the long run in K3
+    blocks of ``block`` years (run_long + driver_year_runner,
+    years_per_call = block; by default all the scenario years in one
+    block), held to the per-year run (state bitwise, monthly means at the
+    golden tolerances); the CLI's ensembles (``ensembles``: tag, M, years,
+    flags; at 384x192 --ensemble REFINED_ENS_M with K4 spin-ups and
+    --ensemble REFINED_SHARED_M --shared-spinup, K1 and K3 in two waves),
     each with launch counts, its files read back and its peak device
-    memory.  Returns each path's wall, launches and peak memory."""
+    memory.  ``tag`` names the grid in the lines printed.  Returns each
+    path's wall, launches and peak memory."""
     import gc
 
     import numpy as np
@@ -860,48 +1027,46 @@ def _refined_member_paths(model, tmp, state, monthly, corr, reset_counts,
     from greb_tpu_torch.model import longrun
     num = model.num
     out = {}
-    # -- the long run in one K3 block: run_scenario(years_per_call > 1)
-    path = os.path.join(tmp, "refined", "blocks")
+    # -- the long run in K3 blocks: run_scenario(years_per_call > 1)
+    block = block or num.time_scnr
+    path = os.path.join(tmp, tag, "blocks")
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s_fc, c_fc = model.flux_correction()
-    runner = longrun.driver_year_runner(model, path,
-                                        years_per_call=num.time_scnr)
+    runner = longrun.driver_year_runner(model, path, years_per_call=block)
     try:
         s_b, _, _ = longrun.run_long(
             num.time_scnr, s_fc, c_fc, model.cfg.co2.series(num.time_scnr),
-            runner, chunk_years=num.time_scnr)
+            runner, chunk_years=block)
     finally:
         runner.close()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     years = num.time_flux + num.time_scnr
     out["block"] = dict(wall=wall, launches=read_counts(
-        "refined block path", {"fluxcorr_year": num.time_flux,
-                               "scenario_year": 0, "fluxcorr_years": 0,
-                               "scenario_years": 1}))
-    print(f"refined block path (run_long, one K3 block of {num.time_scnr} "
-          f"years): {years} sim-years in {wall:.3f} s = "
-          f"{years / wall:.4f} sim-yr/s")
+        f"{tag} block path", {"fluxcorr_year": num.time_flux,
+                              "scenario_year": 0, "fluxcorr_years": 0,
+                              "scenario_years": -(-num.time_scnr // block)}))
+    print(f"{tag} block path (run_long, K3 blocks of {block} years): "
+          f"{years} sim-years in {wall:.3f} s = {years / wall:.4f} sim-yr/s")
     if not torch.equal(c_fc.tf, corr.tf):
-        raise AssertionError("refined block path: spin-up differs")
-    _bitwise("refined block path vs per year", [
+        raise AssertionError(f"{tag} block path: spin-up differs")
+    _bitwise(f"{tag} block path vs per year", [
         (f"state {n}", getattr(s_b, n), getattr(state, n))
         for n in ModelState.FIELDS], quiet=True)
     back = read_output(path, num.xdim, num.ydim)
     if not np.isfinite(back).all():
-        raise AssertionError("refined block path: output not finite")
-    _months_close("refined blocks vs per-year monthly",
+        raise AssertionError(f"{tag} block path: output not finite")
+    _months_close(f"{tag} blocks vs per-year monthly",
                   back.reshape(monthly.shape), monthly)
-    # -- the CLI's ensembles at 384x192
-    for tag, M, years_kw, flags, want in (
-            ("ensemble", REFINED_ENS_M, REFINED_ENS_YEARS, [],
-             dict(fluxcorr_year=0, fluxcorr_years=1)),
-            ("shared", REFINED_SHARED_M, REFINED_SHARED_YEARS,
-             ["--shared-spinup"], dict(fluxcorr_year=1, fluxcorr_years=0))):
+    # -- the CLI's ensembles: K4 spin-ups, or one K1 spin-up (shared)
+    for kind, M, years_kw, flags in ensembles:
+        shared = "--shared-spinup" in flags
+        want = dict(fluxcorr_year=years_kw["time_flux"] * shared,
+                    fluxcorr_years=years_kw["time_flux"] * (not shared))
         m = _with_years(model, **years_kw)
-        path = os.path.join(tmp, f"refined_{tag}", "member")
+        path = os.path.join(tmp, f"{tag}_{kind}", "member")
         os.makedirs(os.path.dirname(path))
         args = cli.build_parser().parse_args(
             ["--ensemble", str(M), "--quiet"] + flags)
@@ -913,18 +1078,70 @@ def _refined_member_paths(model, tmp, state, monthly, corr, reset_counts,
         _, wall = _synced_s(lambda: cli.run_ensemble(m, path, args))
         peak = torch.cuda.max_memory_allocated()
         blocks = -(-m.num.time_scnr // cli.ensemble_block_years(M, m.num))
-        launches = read_counts(f"refined {tag} path (M={M})", dict(
+        launches = read_counts(f"{tag} {kind} path (M={M})", dict(
             want, scenario_year=0, scenario_years=blocks))
         years = m.num.time_flux + m.num.time_scnr
         nbytes = _read_members(path, M, m.num)
         cmd = " ".join(["--ensemble", str(M)] + flags)
-        print(f"refined {tag} path ({cmd}, "
+        print(f"{tag} {kind} path ({cmd}, "
               f"{m.num.time_flux} + {m.num.time_scnr} years): {wall:.3f} s "
               f"= {M * years / wall:.4f} member-yr/s; {M} files, {nbytes} "
               f"B, read back finite; peak device memory {peak} B ({held} B "
               f"held before)")
-        out[tag] = dict(wall=wall, launches=launches, peak=peak)
+        out[kind] = dict(wall=wall, launches=launches, peak=peak)
     return out
+
+
+def _refined_path(tag, tmp, grid, years, reset_counts, read_counts):
+    """GREB.run at a grid of the refined instantiation (``grid``) on the
+    full calendar for ``years`` (spin-up, scenario), its output in
+    tmp/tag/scenario: launch counts (K1 and K2 alone), sim-yr/s, the
+    finiteness of state, tables and monthly means, the output file read
+    back, the warming under 680 ppm.  Returns (model, state, corr,
+    monthly, launches)."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.forcing import ModelState
+    from greb_tpu_torch.io.binio import read_output
+    num = Numerics(**grid, **years)
+    out = os.path.join(tmp, tag, "scenario")
+    os.makedirs(os.path.dirname(out))
+    model, regrid_s = _refined_model(num, out, verbose=True)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, corr, monthly, diags = model.run(output_path=out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(f"{tag} path", {
+        "fluxcorr_year": num.time_flux, "scenario_year": num.time_scnr,
+        "fluxcorr_years": 0, "scenario_years": 0})
+    n = num.time_flux + num.time_scnr
+    print(f"{tag} path (GREB.run at {num.xdim}x{num.ydim}): {n} "
+          f"sim-years in {wall:.3f} s = {n / wall:.4f} sim-yr/s "
+          f"({num.time_flux} spin-up + {num.time_scnr} scenario, "
+          f"{num.nstep_yr} steps, {num.nsub_crcl} substeps); forcing regrid "
+          f"{regrid_s:.2f} s")
+    for name in ModelState.FIELDS:
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"{tag} state {name} not finite")
+    for name in ("tf", "tof", "qf"):
+        if not bool(torch.isfinite(getattr(corr, name)).all()):
+            raise AssertionError(f"{tag} corr {name} not finite")
+    shape = (num.time_scnr, len(num.jday_mon), 5, num.ydim, num.xdim)
+    if monthly.shape != shape or not np.isfinite(monthly).all():
+        raise AssertionError(f"{tag} monthly means {monthly.shape}")
+    back = read_output(out, num.xdim, num.ydim)
+    if not np.array_equal(back, monthly.reshape(-1, 5, num.ydim,
+                                                num.xdim)):
+        raise AssertionError(f"{tag} output file does not read back")
+    gm = [float(d.global_mean_ts) for d in diags]
+    print(f"  output file {os.path.getsize(out)} B read back; global mean Ts "
+          f"[K] by scenario year: {' '.join(f'{g:.4f}' for g in gm)}")
+    if not gm[-1] > gm[0]:
+        raise AssertionError(f"{tag} path: no warming under 680 ppm: {gm}")
+    return model, state, corr, monthly, launches
 
 
 def _refined_phase(tmp, reset_counts, read_counts):
@@ -935,8 +1152,6 @@ def _refined_phase(tmp, reset_counts, read_counts):
     import numpy as np
     import torch
     from greb_tpu_torch.config import Numerics
-    from greb_tpu_torch.forcing import ModelState
-    from greb_tpu_torch.io.binio import read_output
     from greb_tpu_torch.ops import fastcirc2 as fc2
     from greb_tpu_torch.ops.cuda import multiyear as my
     from greb_tpu_torch.ops.cuda import year_kernel as yk
@@ -1003,43 +1218,10 @@ def _refined_phase(tmp, reset_counts, read_counts):
 
     # -- the refined path: GREB.run at 384x192, 1 + 3 years on the full
     #    calendar; then one K1 and one K2 year of its model timed
-    num = Numerics(**REFINED_GRID, **REFINED_YEARS)
-    out = os.path.join(tmp, "refined", "scenario")
-    os.makedirs(os.path.dirname(out))
-    model, regrid_s = _refined_model(num, out, verbose=True)
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, corr, monthly, diags = model.run(output_path=out)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts("refined path", {
-        "fluxcorr_year": num.time_flux, "scenario_year": num.time_scnr,
-        "fluxcorr_years": 0, "scenario_years": 0})
-    years = num.time_flux + num.time_scnr
-    print(f"refined path (GREB.run at {num.xdim}x{num.ydim}): {years} "
-          f"sim-years in {wall:.3f} s = {years / wall:.4f} sim-yr/s "
-          f"({num.time_flux} spin-up + {num.time_scnr} scenario, "
-          f"{num.nstep_yr} steps, {num.nsub_crcl} substeps); forcing regrid "
-          f"{regrid_s:.2f} s")
-    for name in ModelState.FIELDS:
-        if not bool(torch.isfinite(getattr(state, name)).all()):
-            raise AssertionError(f"refined state {name} not finite")
-    for name in ("tf", "tof", "qf"):
-        if not bool(torch.isfinite(getattr(corr, name)).all()):
-            raise AssertionError(f"refined corr {name} not finite")
-    shape = (num.time_scnr, len(num.jday_mon), 5, num.ydim, num.xdim)
-    if monthly.shape != shape or not np.isfinite(monthly).all():
-        raise AssertionError(f"refined monthly means {monthly.shape}")
-    back = read_output(out, num.xdim, num.ydim)
-    if not np.array_equal(back, monthly.reshape(-1, 5, num.ydim,
-                                                num.xdim)):
-        raise AssertionError("refined output file does not read back")
-    gm = [float(d.global_mean_ts) for d in diags]
-    print(f"  output file {os.path.getsize(out)} B read back; global mean Ts "
-          f"[K] by scenario year: {' '.join(f'{g:.4f}' for g in gm)}")
-    if not gm[-1] > gm[0]:
-        raise AssertionError(f"refined path: no warming under 680 ppm: {gm}")
+    model, state, corr, monthly, launches = _refined_path(
+        "refined", tmp, REFINED_GRID, REFINED_YEARS, reset_counts,
+        read_counts)
+    num = model.num
     paths = _refined_member_paths(model, tmp, state, monthly, corr,
                                   reset_counts, read_counts)
 
@@ -1127,6 +1309,179 @@ def _refined_phase(tmp, reset_counts, read_counts):
                                                       wave_work))
 
 
+def _grid192_phase(tmp, reset_counts, read_counts):
+    """Step 14: the four kernels at 192x96 (the refined instantiation's
+    additive form), the strict instantiation's K1 and K2 there, and the
+    paths through them.  Returns the worst max |diff| per kernel, the timed
+    full-calendar launches, their plain versions' times on the 20-step
+    calendar, their work and each path's launches."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+
+    t_phase = time.perf_counter()
+    short = Numerics(**G192_GRID, **REFINED_SHORT)
+    m, regrid_s = _refined_model(short)
+    yd, plan = m.year_data, m.fold[0]
+    n = short.nstep_yr
+    if not (yk.is_refined(plan) and not plan.seq_zonal
+            and plan.comp_mode == "dense"):
+        raise AssertionError(f"192x96: not the additive form: {plan}")
+    print(f"grid192 {short.xdim}x{short.ydim}: {n}-step calendar, "
+          f"{short.nsub_crcl} substeps, plan {plan}; regrid {regrid_s:.2f} s")
+
+    # -- the block's shared memory: the kernel's own reckoning against
+    #    refined_layout, the strict instantiation's against cluster_layout,
+    #    and how many such clusters fit at once
+    capacity = {}
+    strict_plan = yk.StrictPlan(short.ydim, short.xdim)
+    c = yk.REFINED_CLUSTER_SIZES[0]
+    for kind in yk.KINDS:
+        lay = yk.refined_layout(plan, c, kind)
+        strict_lay = yk.cluster_layout(strict_plan, c, kind)
+        for p, want in ((plan, lay), (strict_plan, strict_lay)):
+            parts, threads = yk.kernel_cluster_layout(p, c, kind)
+            if parts != dict(want.parts) or threads != want.threads:
+                raise AssertionError(
+                    f"grid192 {kind} {type(p).__name__}: kernel layout "
+                    f"{parts}, {threads} threads; Python {dict(want.parts)}, "
+                    f"{want.threads}")
+        capacity[kind] = yk.cluster_capacity(plan, c, kind)
+        print(f"grid192 cluster {kind:<14s} C={c:2d}: {lay.rows} rows/block, "
+              f"{lay.threads} threads, {lay.nbytes} B shared memory a block "
+              f"(strict {strict_lay.nbytes} B), {capacity[kind]} clusters at "
+              f"once; kernel and Python agree: {dict(lay.parts)}")
+
+    # -- K1 from the initial state, K2 from K1's end state with its
+    #    corrections, on the 20-step calendar, bitwise against plain (the
+    #    plain version's time includes the comparison)
+    err, plain_ms = {}, {}
+    co2f, co2s = np.float32(340.0), np.float32(680.0)
+    s0 = m.initial_state()
+    s_k, c_k = yk.fluxcorr_year(s0, co2f, yd)
+    k2 = yk.scenario_year(s_k, c_k, co2s, yd)
+    plain_ms["fluxcorr_year"], err["fluxcorr_year"] = _time_ms(
+        lambda: _k1_vs_plain(f"K1 grid192, {n} steps", s0, co2f, yd,
+                             (s_k, c_k)), 1)
+    plain_ms["scenario_year"], err["scenario_year"] = _time_ms(
+        lambda: _k2_vs_plain(f"K2 grid192, {n} steps", s_k, c_k, co2s, yd,
+                             k2), 1)
+    for name, ten in (("K1 state", s_k.stack()), ("K1 tf", c_k.tf),
+                      ("K2 state", k2[0].stack()), ("K2 outs", k2[1])):
+        if not bool(torch.isfinite(ten).all()):
+            raise AssertionError(f"grid192 {name} not finite")
+    print(f"  plain versions on the card, {n} steps: K1 "
+          f"{plain_ms['fluxcorr_year']:.1f} ms, K2 "
+          f"{plain_ms['scenario_year']:.1f} ms")
+    member_err, member_plain = _refined_member_checks(
+        m, (s_k, c_k), k2, co2f, co2s, capacity["scenario_years"],
+        tag="grid192")
+    err.update(member_err)
+    plain_ms.update(member_plain)
+    # -- the strict instantiation at 192x96: K1 and K2 bitwise
+    mst, _ = _refined_model(short, fast=False)
+    yds = mst.year_data
+    if yds.transport != "strict":
+        raise AssertionError(f"grid192 strict model: {yds.transport}")
+    s0 = mst.initial_state()
+    s_sk, c_sk = yk.fluxcorr_year(s0, co2f, yds)
+    k2s = yk.scenario_year(s_sk, c_sk, co2s, yds)
+    strict_err = {
+        "fluxcorr_year": _k1_vs_plain(f"K1 grid192 strict, {n} steps", s0,
+                                      co2f, yds, (s_sk, c_sk)),
+        "scenario_year": _k2_vs_plain(f"K2 grid192 strict, {n} steps", s_sk,
+                                      c_sk, co2s, yds, k2s)}
+    del m, yd, mst, yds, s_k, c_k, k2, s_sk, c_sk, k2s
+    print(f"  20-step checks: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- the 192x96 path: GREB.run on the full calendar
+    model, state, corr, monthly, launches = _refined_path(
+        "grid192", tmp, G192_GRID, G192_YEARS, reset_counts, read_counts)
+    num = model.num
+    paths = _refined_member_paths(model, tmp, state, monthly, corr,
+                                  reset_counts, read_counts,
+                                  block=G192_BLOCK, ensembles=G192_ENSEMBLES,
+                                  tag="grid192")
+
+    # -- one K1 and one K2 year, K4 at M=1 and K3 at M=1 x 2 years on the
+    #    full calendar, timed (a warm-up, then 3 launches); the last
+    #    launches held bitwise: K4 = K1, K3 = K2's two years from K1's end
+    yd, plan = model.year_data, model.fold[0]
+    s0 = model.initial_state()
+    k1_ms, (s_k, c_k) = _launches_ms(
+        lambda: yk.fluxcorr_year(s0, co2f, yd), 3)
+    k2_ms, k2 = _launches_ms(lambda: yk.scenario_year(s_k, c_k, co2s, yd), 3)
+    k2b = yk.scenario_year(k2[0], c_k, co2s, yd)
+    base = my.pack_member_params([model.params], "cuda")
+    k1_tab = torch.stack([c_k.tf, c_k.tof, c_k.qf], dim=1)[None]
+    co2y = np.full(2, co2s, np.float32)
+    k4_ms, (s4, c4) = _launches_ms(lambda: my.fluxcorr_years(
+        s0.stack()[:, None], base, co2f, yd), 3)
+    k3_ms, (s3, _, a3) = _launches_ms(lambda: my.scenario_years(
+        s_k.stack()[:, None], base, k1_tab, co2y, yd), 3)
+    err["fluxcorr_years"] = max(err["fluxcorr_years"], _bitwise(
+        "K4 = K1 grid192, full calendar, last timed launches",
+        [("state", s4[:, 0], s_k.stack()), ("tables", c4[0], k1_tab[0])],
+        quiet=True))
+    err["scenario_years"] = max(err["scenario_years"], _bitwise(
+        "K3 (2 years) = K2 twice grid192, full calendar, last timed launches",
+        [("state", s3[:, 0], k2b[0].stack()), ("annual sums 1", a3[0, 0],
+                                              k2[2]),
+         ("annual sums 2", a3[0, 1], k2b[2])], quiet=True))
+    work = {"fluxcorr_year": yk.year_work(plan, num, False),
+            "scenario_year": yk.year_work(plan, num, True),
+            "fluxcorr_years": my.years_work(plan, num, 1, 1, "fluxcorr"),
+            "scenario_years": my.years_work(plan, num, 2, 1, "scenario",
+                                            shared_corr=True)}
+    per_sub = 1e3 / (num.nstep_yr * num.nsub_crcl)
+    for name, ms, shape in (("fluxcorr_year", k1_ms, "1 year"),
+                            ("scenario_year", k2_ms, "1 year"),
+                            ("fluxcorr_years", k4_ms, "M=1 x 1 year"),
+                            ("scenario_years", k3_ms, "M=1 x 2 years")):
+        b_ms, b_by = _bound_of(*work[name])
+        years = 2 if name == "scenario_years" else 1
+        print(f"grid192 {name} ({shape}), {num.nstep_yr} steps: {_runs(ms)}"
+              f" = {_median(ms) * per_sub / years:.3f} us a substep (a "
+              f"step's work included); bound {b_ms:.3f} ms by {b_by}")
+    # timing probes, not the model: the same K2 year at one substep a step
+    # splits substep time from per-step time; without the composite rows
+    # and without the advection segments it shows what each adds to a
+    # substep (both probes still run the additive form)
+    one = dataclasses.replace(num, dt_crcl=num.dt)
+    const = model.fold[1]
+    for label, probe in (
+            ("as run", plan),
+            ("no composites", dataclasses.replace(
+                plan, comp_mode="none", comp_kt=0, comp_kb=0)),
+            ("no segments", dataclasses.replace(plan, adv_segs=()))):
+        ms = []
+        for n in (num, one):
+            if n is num and probe is plan:
+                ms.append(_median(k2_ms))
+                continue
+            ydp = yk.YearData(md=yd.md, sfx=yd.sfx, fold=(probe, const),
+                              num=n)
+            yk.scenario_year(s_k, c_k, co2s, ydp)
+            ms.append(_time_ms(
+                lambda: yk.scenario_year(s_k, c_k, co2s, ydp), 1)[0])
+        us = (ms[0] - ms[1]) * 1e3 / (num.nstep_yr * (num.nsub_crcl - 1))
+        print(f"grid192 K2 probe, {label}: {ms[0]:.3f} ms a year, "
+              f"{ms[1]:.3f} ms at 1 substep a step -> {us:.3f} us a "
+              f"substep, {ms[1] * 1e3 / num.nstep_yr - us:.3f} us a step "
+              f"outside the substeps")
+    seconds = time.perf_counter() - t_phase
+    print(f"grid192 phase: {seconds:.1f} s")
+    return dict(err=err, strict_err=strict_err,
+                ms={"fluxcorr_year": _median(k1_ms),
+                    "scenario_year": _median(k2_ms),
+                    "fluxcorr_years": _median(k4_ms),
+                    "scenario_years": _median(k3_ms)},
+                plain_ms=plain_ms, work=work, launches=launches,
+                capacity=capacity, paths=paths)
+
+
 def _ensemble_run(tmp, tag, argv, num):
     """The CLI's run_ensemble on the card as ``python -m greb_tpu_torch``
     runs it (the flags ``argv`` through its own parser), on the synthetic
@@ -1137,7 +1492,8 @@ def _ensemble_run(tmp, tag, argv, num):
     from greb_tpu_torch.config import GrebConfig
     from greb_tpu_torch.model.driver import GREB
     args = cli.build_parser().parse_args(argv + ["--quiet"])
-    model = GREB(GrebConfig(numerics=num), device="cuda", verbose=False)
+    model = GREB(GrebConfig(numerics=num, fast_circulation=True),
+                 device="cuda", verbose=False)
     out = os.path.join(tmp, tag, "member")
     os.makedirs(os.path.dirname(out))
     torch.cuda.synchronize()
@@ -1186,7 +1542,7 @@ def _read_members(out, M, num):
 
 
 def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
-    """Step 14: K3's shared correction table, and the ensemble path (the
+    """Step 15: K3's shared correction table, and the ensemble path (the
     CLI's --ensemble with and without --shared-spinup).  Returns the worst
     max |diff| of K3, the K3 year at M=ENS_M timed with a table per member
     and with the shared table, the work of each, and the launches of the
@@ -1344,7 +1700,8 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
 
     # -- one K3 year at M=ENS_M, a table per member against the shared
     #    table (a reading, not a gate): a warm-up, then 3 launches each
-    m = GREB(GrebConfig(numerics=num), device="cuda", verbose=False)
+    m = GREB(GrebConfig(numerics=num, fast_circulation=True), device="cuda",
+             verbose=False)
     yd = m.year_data
     members = ens.perturbed_params(
         m.params, {"ct_sens": np.linspace(22.05, 22.95, ENS_M)})
@@ -1391,8 +1748,9 @@ def _resume_long(tmp: str) -> int:
     from greb_tpu_torch.model.driver import GREB
     from greb_tpu_torch.ops.cuda import multiyear as my
 
-    model = GREB(GrebConfig(numerics=Numerics(time_flux=3)), device="cuda",
-                 verbose=False)
+    model = GREB(GrebConfig(numerics=Numerics(time_flux=3),
+                            fast_circulation=True),
+                 device="cuda", verbose=False)
     ck, runner = _long_runner(model, tmp, "resumed")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1485,6 +1843,15 @@ def main(argv) -> int:
             raise AssertionError(f"{path}: launch counts {got}, want {want}")
         return got
 
+    t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(phase):
+        """Print the wall time since the last phase ended."""
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_lap[0]:.1f} s wall")
+        t_lap[0] = now
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1504,12 +1871,14 @@ def main(argv) -> int:
                 print("  ptxas:", line.split("'")[1])
             elif "registers" in line or "spill" in line:
                 print("  ptxas:   ", line.split(":", 1)[-1].strip())
+    lap("build")
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
         out_path = os.path.join(tmp, "scenario")
         num = Numerics(time_flux=3, time_scnr=10)
         cfg = GrebConfig(numerics=num,
-                         diagnostics=Diagnostics(output_file=out_path))
+                         diagnostics=Diagnostics(output_file=out_path),
+                         fast_circulation=True)
         model = GREB(cfg, device="cuda")
         yd, plan = model.year_data, model.fold[0]
         print(f"96x48: {num.nstep_yr} steps/yr, {num.nsub_crcl} substeps, "
@@ -1537,8 +1906,11 @@ def main(argv) -> int:
         print(f"the single-run wrappers' default: clusters of C={C} blocks")
 
         # -- K1: spin-up year kernel vs its plain version --------------------
+        #    (the plain years below replay their steps from CUDA graphs)
         s0 = model.initial_state()
         co2f = np.float32(cfg.co2.co2_flux)
+        graphed = _GraphedSteps().start()
+        graphed.check(model, co2f)
         (s_k, c_k) = yk.fluxcorr_year(s0, co2f, yd)        # first launch
         ms_k1, (s_k, c_k) = _time_ms(lambda: yk.fluxcorr_year(s0, co2f, yd), 2)
         plain_k1, (s_p, c_p) = _time_ms(
@@ -1638,6 +2010,7 @@ def main(argv) -> int:
         _barrier_costs(build, {
             c: yk.cluster_layout(plan, c, "scenario").threads
             for c in yk.CLUSTER_SIZES["scenario"]})
+        lap("96x48 K1, K2, sweep and probes")
 
         # -- K4: member-batched spin-up year vs its plain version at the
         #    member chain's shape, at every size it offers: M=3 members,
@@ -1658,20 +2031,17 @@ def main(argv) -> int:
         del s4_k, c4_k
 
         # -- K3: multi-year scenario block vs its plain version, at every
-        #    size it offers; M=2, K4's two perturbed members, for one year
-        #    (its month boundaries; the year boundary at M > 1 is crossed in
-        #    the refined and ensemble phases, whose plain years are cheaper:
-        #    two plain years here took 133 s of the time limit)
+        #    size it offers; M=2, K4's two perturbed members, for two years
+        #    at CO2 560 and 680 (its month and year boundaries)
         two = [0, 2]
         pp2, s3_in, c3_in = pp3[two], s4_p[:, two], c4_p[two]
         co2y = np.asarray([560.0, 680.0], np.float32)
         plain_k3_m2, (s3_p, m3_p, a3_p) = _time_ms(
-            lambda: my.scenario_years_plain(s3_in, pp2, c3_in, co2y[1:], yd),
-            1)
-        print(f"K3 scenario_years plain (M=2, 1 year): {plain_k3_m2:.1f} ms")
+            lambda: my.scenario_years_plain(s3_in, pp2, c3_in, co2y, yd), 1)
+        print(f"K3 scenario_years plain (M=2, 2 years): {plain_k3_m2:.1f} ms")
         err_k3 = 0.0
         for c in yk.offered_sizes("scenario_years"):
-            s3_k, m3_k, a3_k = my.scenario_years(s3_in, pp2, c3_in, co2y[1:],
+            s3_k, m3_k, a3_k = my.scenario_years(s3_in, pp2, c3_in, co2y,
                                                  yd, cluster=c)
             if torch.equal(m3_k[0], m3_k[1]):
                 raise AssertionError("K3: the two members did not differ")
@@ -1696,6 +2066,8 @@ def main(argv) -> int:
             zip(("state", "monthly means", "annual sums"),
                 member_out["scenario_years"], k3_p)))
         del member_out, k3_p
+        graphed.stop()
+        lap("96x48 K4, K3 and their timed launches")
 
         # -- member scaling: one year of each member kernel at M = 1 .. 132
         #    on each size it offers (clusters beyond the card's capacity run
@@ -1732,6 +2104,7 @@ def main(argv) -> int:
                       f"fastest)")
             del pp, s5m, cpm
         torch.cuda.empty_cache()
+        lap("member scaling")
 
         # -- the main path: GREB.run, 3 spin-up + 10 scenario years, run
         #    MAIN_RUNS times, the counts reset and read around each run ------
@@ -1775,6 +2148,7 @@ def main(argv) -> int:
               f"{' '.join(f'{g:.4f}' for g in gm)}")
         if not gm[-1] > gm[0]:
             raise AssertionError(f"no warming under 680 ppm: {gm}")
+        lap("main path")
 
         # -- the long-run path: 3 spin-up + 50 scenario years, checkpoints ---
         co2_long = np.full(LONG_YEARS, 680.0, np.float32)
@@ -1850,6 +2224,7 @@ def main(argv) -> int:
             if f.read() != g.read():
                 raise AssertionError("resumed output file differs")
         print("  resumed run: final state and output file bitwise equal")
+        lap("long run and resume")
 
         # -- the member chain: 3 spin-up years + a LONG_BLOCK-year block,
         #    3 members
@@ -1879,20 +2254,32 @@ def main(argv) -> int:
         if np.array_equal(mon_m[0], mon_m[2]):
             raise AssertionError("perturbed members do not differ")
         print("  base member bitwise equal to the long run's first block")
+        lap("member chain")
 
         # -- the legacy switchboard in every kernel, and the legacy path ---
-        legacy = _legacy_phase(tmp, reset_counts, read_counts)
+        with _GraphedSteps():
+            legacy = _legacy_phase(tmp, reset_counts, read_counts)
+        lap("legacy")
 
         # -- the strict transport in every kernel, and the strict paths ----
-        strict = _strict_phase(tmp, reset_counts, read_counts)
+        with _GraphedSteps():
+            strict = _strict_phase(tmp, reset_counts, read_counts)
+        lap("strict")
 
         # -- the refined grid: K1/K2's refined instantiation, the refined
         #    path -----------------------------------------------------------
         refined = _refined_phase(tmp, reset_counts, read_counts)
+        lap("refined 384x192")
+
+        # -- 192x96: the refined instantiation's additive form, its paths --
+        grid192 = _grid192_phase(tmp, reset_counts, read_counts)
+        lap("192x96")
 
         # -- K3's shared table, and the ensemble path ----------------------
-        ensemble = _ensemble_phase(tmp, os.path.join(tmp, "long_full"),
-                                   reset_counts, read_counts)
+        with _GraphedSteps():
+            ensemble = _ensemble_phase(tmp, os.path.join(tmp, "long_full"),
+                                       reset_counts, read_counts)
+        lap("ensemble")
 
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for LONG_BLOCK years, K4 3 members: the median of
@@ -1904,11 +2291,15 @@ def main(argv) -> int:
     strict_name = lambda e: ("strict circulation" if e is None
                              else f"strict log_exp {e}")
     refined_mode = f"refined {REFINED_GRID['xdim']}x{REFINED_GRID['ydim']}"
+    g192 = f"{G192_GRID['xdim']}x{G192_GRID['ydim']}"
+    g192_mode = f"refined {g192} (additive splitting, dense composites)"
     single = (["modern"] + [f"log_exp {e}" for e in LEGACY_EXPS]
-              + [strict_name(e) for e in STRICT_MODES] + [refined_mode])
+              + [strict_name(e) for e in STRICT_MODES] + [refined_mode,
+                                                          g192_mode,
+                                                          f"strict {g192}"])
     member = (["modern"] + [f"log_exp {e}" for e in LEGACY_MEMBER_EXPS]
               + [strict_name(e) for e in STRICT_MEMBER_MODES]
-              + [refined_mode])
+              + [refined_mode, g192_mode])
     k3_ms, k4_ms = (_median(member_ms[k])
                     for k in ("scenario_years", "fluxcorr_years"))
     kernels = []
@@ -1939,7 +2330,9 @@ def main(argv) -> int:
             "launches": count,
             "max_abs_err": max(err, legacy["err"][name],
                                strict["err"][name],
-                               refined["err"].get(name, 0.0)),
+                               refined["err"].get(name, 0.0),
+                               grid192["err"][name],
+                               grid192["strict_err"].get(name, 0.0)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "cluster": c,
             "shape": shape, "modes": modes,
@@ -1979,6 +2372,20 @@ def main(argv) -> int:
                      launches_refined_shared_ensemble_path=paths["shared"][
                          "launches"][name],
                      refined_cluster=yk.REFINED_CLUSTER_SIZES[0])
+        # 192x96 (the refined instantiation's additive form): its
+        # full-calendar launch (K1/K2 a year, K4 M=1, K3 M=1 x 2 years),
+        # the plain version on the 20-step calendar (K1/K2 a year, K4 M=2,
+        # K3 M=2 x 2 years), the bound and each 192x96 path's launches
+        g_bound, g_by = _bound_of(*grid192["work"][name])
+        g_paths = grid192["paths"]
+        entry.update(grid192_ms=grid192["ms"][name],
+                     grid192_plain_ms_20_steps=grid192["plain_ms"][name],
+                     grid192_bound_ms=g_bound, grid192_bound_by=g_by,
+                     launches_grid192_path=grid192["launches"][name],
+                     launches_grid192_block_path=g_paths["block"][
+                         "launches"][name],
+                     launches_grid192_shared_ensemble_path=g_paths["shared"][
+                         "launches"][name])
         if name == "scenario_years":
             # one year of a wave of members (M = the card's capacity)
             M, w_ms, w_work = refined["wave"]
@@ -1987,6 +2394,7 @@ def main(argv) -> int:
                          refined_wave_bound_ms=w_bound,
                          refined_wave_bound_by=w_by)
         kernels.append(entry)
+    print(f"smoke total: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

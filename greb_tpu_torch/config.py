@@ -235,11 +235,10 @@ class GrebConfig:
     diagnostics: Diagnostics = field(default_factory=Diagnostics)
     co2: CO2Params = field(default_factory=CO2Params)
     experiment: Experiment = field(default_factory=Experiment)
-    # True: the coefficient-folded circulation (ops/fastcirc2.py); False:
-    # the strict term-by-term stencils (ops/stencils.py), the CLI's
-    # --strict-circulation.  The port's default is the fold, which the
-    # main path runs.
-    fast_circulation: bool = True
+    # True: the coefficient-folded circulation (ops/fastcirc2.py), which
+    # the CLI runs unless --strict-circulation; False: the strict
+    # term-by-term stencils (ops/stencils.py).  The default is greb_tpu's.
+    fast_circulation: bool = False
     fastcirc_version: int = 2
     fidelity_jp2_quirk: bool = True   # reproduce src/greb.f90:881 index quirk
 

@@ -109,9 +109,10 @@
 // with the same branches.  The launchers pick one by the word and refuse a
 // word with a bit they do not know or a combination none runs.
 //
-// The refined instantiation (run_refined, suffix _refined; all four
-// kernels, modern variant only) runs extension-mode grids: see its section
-// below.
+// The refined instantiation (run_refined; all four kernels, modern variant
+// only) runs the folds whose planes a cluster block cannot hold, reading
+// them from L2: extension-mode grids (384x192, suffix _refined) and
+// 192x96's additive form (suffix _additive); see its section below.
 //
 // The strict transport.  Where the JAX package builds no fold (its
 // GREB.fastcirc_tables() is None: --strict-circulation, and legacy
@@ -1361,8 +1362,36 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // 2, redesign e).  Modern variant only: the launchers refuse a flags word
 // other than 0.
 //
-// The member kernels (K4 fluxcorr_years_refined, K3 scenario_years_refined)
-// run the same body with MEMBERS: cluster m = member_index() runs member m
+// The additive form (ADDITIVE, suffix _additive: 192x96 at dt_crcl 1800 s,
+// 24 substeps a step) runs the fold of a grid inside the reference's
+// envelope whose pole composites the cluster body cannot hold: additive
+// zonal splitting (the advection reads x, as at 96x48), explicit polar
+// advection segments ((2, 2, 1), (1, 1, 3): rows 0-1 and 94-95) and dense
+// composites, t2 = t1 pcomp[f, k] over 192x192 matrices at five rows a pole
+// (one row's two matrices alone are 294,912 B, over a block's 232,448)
+// (fastcirc2.substep without seq_zonal, _extra_advection, the dense
+// composite rows of _extra_diffusion).  A block of a 16-block cluster owns
+// 6 rows of 192 columns; its shared memory is refined_parts' (64,560 B at
+// 192x96: dd takes xa's place, the composites' t1 and the advection
+// segments use the scratch in turn).  A substep (additive_substep) computes
+// dd, da and dy of every cell from the same taps as the cluster body
+// (increments) and writes the cells of rows in no segment and no composite
+// at once; blocks 0 and 15, which hold all five composite rows and every
+// advection segment row, then run the segments (seg_iterate, from x) and
+// the composites (dense_comp: one column a thread, its 192 terms read from
+// L2 in _row_dot's blocked order, summed as the plain version sums them)
+// and write those rows last.  What bounds it: the two pole blocks' dense
+// composites, each reading 2 x 5 x 192 x 192 x 4 B = 1.47 MB of matrices
+// from L2 a substep on one SM (2.9 MB for both poles, resident in the 50
+// MB L2), which every block waits for at the cluster barrier.  On an H100
+// (700 W, chip_smoke.py) a 192x96 K2 year takes ~392 ms, ~22 us a
+// substep, ~230x the year's bound (1.675 ms by operations).  Spreading
+// the composite columns over the cluster's 16 blocks is a later redesign
+// (ROADMAP Queue 2, redesign g).
+//
+// The member kernels (K4 fluxcorr_years_refined, K3 scenario_years_refined,
+// and their _additive forms) run the same body with MEMBERS: cluster
+// m = member_index() runs member m
 // with its own params (member_params, kept in 128 B of static shared
 // memory: held in registers across the year they spilled into the
 // substeps, and a member's year took ~13% longer than K1's on an H100)
@@ -1387,6 +1416,9 @@ struct RefinedArgs {
   int rtot, n_dseg, n_aseg;
   int dseg[3 * MAX_SEGS];  // the diffusion segments (kt, kb, iters), in order
   int aseg[3 * MAX_SEGS];  // the advection segments
+  int additive;            // the form: 1 additive splitting with dense
+                           // composites (pcomp in YearArgs; the _additive
+                           // kernels), 0 sequential with packed ones
 };
 
 // Parts of a refined block's shared memory, in layout order
@@ -1675,7 +1707,7 @@ struct RefinedBlock {
                                 // advection segment
   const int* zpre;              // the composite slots' prefix sums of ranks
   const float* wz;              // (2, R, X)
-  float* xa;                    // (2, R, X): dd, then xa
+  float* xa;                    // (2, R, X): dd, then xa (additive: dd)
   float* scr;                   // the scratch
 };
 
@@ -1772,6 +1804,136 @@ __device__ void refined_substep(const YearArgs& a, const RefinedArgs& g,
   }
 }
 
+// The dense composites (fastcirc2._extra_diffusion's composite rows) of
+// the block's composite rows (slots q of `comp`, field-major
+// fq = f * nq + q): t1 = x + dd into the scratch; t2 = t1 pcomp[f, k], one
+// column a thread, its X terms read from global memory (L2) and summed in
+// _row_dot's order: each block of COMP_BLOCK terms in sequence, added to
+// the column's running sum in order; then dd = (t1 + clamp(t2 - t1, t1))
+// - x.  Block-uniform; ends at a __syncthreads().
+__device__ void dense_comp(const YearArgs& a, const RowSlots& comp,
+                           const Plane& x, float* dd, float* scr, int r0,
+                           int R) {
+  const int Y = a.Y, X = a.X, nq = comp.n(), K = a.ktc + a.kbc, RX = R * X;
+  float* t1 = scr;   // (2, nq, X)
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_x(X), by_nq(nq);
+  for (int o = tid; o < 2 * nq * X; o += nt) {
+    const int fq = by_x(o), j = o - fq * X;
+    const int f = by_nq(fq), i = comp.row(fq - f * nq);
+    t1[o] = x.at(f, i, X)[j] + dd[f * RX + i * X + j];
+  }
+  __syncthreads();
+  for (int o = tid; o < 2 * nq * X; o += nt) {
+    const int fq = by_x(o), j = o - fq * X;
+    const int f = by_nq(fq), i = comp.row(fq - f * nq);
+    const int k = comp_k(r0 + i, Y, a.ktc, a.kbc);
+    // t1's row 16 bytes at a time (X is a multiple of COMP_BLOCK)
+    const float4* tr = reinterpret_cast<const float4*>(t1 + fq * X);
+    const float* pc = a.pcomp + (size_t)(f * K + k) * X * X + j;
+    float t2 = 0.f;
+#pragma unroll 2
+    for (int b = 0; b < X; b += COMP_BLOCK, pc += (size_t)COMP_BLOCK * X) {
+      float pv[COMP_BLOCK];
+#pragma unroll
+      for (int kk = 0; kk < COMP_BLOCK; ++kk) pv[kk] = pc[(size_t)kk * X];
+      const float4 ta = tr[b / 4], tb = tr[b / 4 + 1];
+      float part = ta.x * pv[0];
+      part = part + ta.y * pv[1];
+      part = part + ta.z * pv[2];
+      part = part + ta.w * pv[3];
+      part = part + tb.x * pv[4];
+      part = part + tb.y * pv[5];
+      part = part + tb.z * pv[6];
+      part = part + tb.w * pv[7];
+      t2 = b == 0 ? part : t2 + part;
+    }
+    const float tv = t1[o];
+    dd[f * RX + i * X + j] = (tv + clamp_neg(t2 - tv, tv)) - x.at(f, i, X)[j];
+  }
+  __syncthreads();
+}
+
+// One refined substep with additive zonal splitting and dense composites
+// (fastcirc2.substep without seq_zonal: 192x96), buffer cur -> nxt: the
+// zonal diffusion dd and advection da of every (field, cell) from the same
+// taps of x, each clamped on the band rows, and the merged meridional dy
+// (increments, as the cluster body); a cell of a row in no segment and no
+// composite goes out at once, ((x + wz*dd) + da) + dy (combine), pushed to
+// the neighbours' halos.  The other rows (`later`: those of bk.comp,
+// bk.dband and bk.aband) keep dd in bk.xa and
+// park da in the next buffer's own rows, which the block alone writes;
+// the diffusion segments and the dense composites finish dd, the
+// advection segments (from x) da, and those rows go out last, combined
+// the same way.  MEMBERS: this cluster's member's coefficient scratch.
+template <bool MEMBERS>
+__device__ void additive_substep(const YearArgs& a, const RefinedArgs& g,
+                                 const RefinedBlock& bk,
+                                 const RowSlots& later, const Bufs& bufs,
+                                 int cur, int nxt, int r0) {
+  const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
+  const float* const cfm =
+      a.cf + (MEMBERS ? (size_t)member_index() * 12 * P : 0);
+  const int R = bufs.R, RX = R * X, BX = bufs.field();
+  const int ktc = a.ktc, kbc = a.kbc;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_rx(RX), by_x(X);
+  const float* xb = bufs.mine + cur;
+  const Plane x{bufs.mine + cur, BX, HALO};
+  const Plane dd{bk.xa, RX, 0};
+  const Plane da{bufs.mine + nxt, BX, HALO};
+  for (int l = tid; l < 2 * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX;
+    const int i = by_x(li), j = li - i * X, r = r0 + i;
+    const float* row = xb + f * BX + (i + HALO) * X;
+    Taps tp;
+    zonal_taps(row, j, X, tp);
+    tp.km2 = row[j - 2 * X];
+    tp.km1 = row[j - X];
+    tp.kp1 = row[j + X];
+    tp.kp2 = row[j + 2 * X];
+    const size_t c = (size_t)f * YX + (size_t)r0 * X + li;
+    float dv, av, dy;
+    increments(a.zd + c, P, cfm + c, P, tp, r < a.bt || r >= Y - a.bb, dv,
+               av, dy);
+    if (later.slot(i) >= 0) {
+      bk.xa[l] = dv;
+      da.at(f, i, X)[j] = av;
+    } else {
+      bufs.put(nxt, f, i, j, combine(tp.x0, bk.wz[l], dv, av, dy));
+    }
+  }
+  if (later.n() == 0) return;   // block-uniform
+  __syncthreads();
+  for (int k = 0; k < g.n_dseg; ++k) {
+    const int kt = g.dseg[3 * k], kb = g.dseg[3 * k + 1];
+    const RowSlots in(r0, R, ktc, ktc + kt, Y - kbc - kb, Y - kbc);
+    if (in.n() > 0)
+      seg_iterate(bk.dband, in, g.dseg[3 * k + 2], x, dd, a.zd, bk.scr, r0,
+                  X, YX);
+  }
+  if (bk.comp.n() > 0) dense_comp(a, bk.comp, x, bk.xa, bk.scr, r0, R);
+  for (int k = 0; k < g.n_aseg; ++k) {
+    const int kt = g.aseg[3 * k], kb = g.aseg[3 * k + 1];
+    const RowSlots in(r0, R, 0, kt, Y - kb, Y);
+    if (in.n() > 0)
+      seg_iterate(bk.aband, in, g.aseg[3 * k + 2], x, da, cfm, bk.scr, r0,
+                  X, YX);
+  }
+  const int NL = later.n() * X;
+  const Div by_nl(NL);
+  for (int o = tid; o < 2 * NL; o += nt) {
+    const int f = by_nl(o), rest = o - f * NL, s = by_x(rest);
+    const int j = rest - s * X, i = later.row(s);
+    const int l = f * RX + i * X + j;
+    const float* row = xb + f * BX + (i + HALO) * X;
+    const float* cf = cfm + (size_t)f * YX + (size_t)r0 * X + i * X + j;
+    bufs.put(nxt, f, i, j,
+             combine(row[j], bk.wz[l], bk.xa[l], da.at(f, i, X)[j],
+                     merid(cf, P, row, j, X)));
+  }
+}
+
 // The years of one member at an extension-mode grid on a cluster of C
 // blocks, this block's rows: one year of the single run (K1: FLUX, K2:
 // SCEN; MEMBERS false, physics p) or of member m = member_index() (K4:
@@ -1782,7 +1944,7 @@ __device__ void refined_substep(const YearArgs& a, const RefinedArgs& g,
 // coefficient planes in its slice of a.cf, the annual sums in a.asum
 // (K2; K3 at (m, y)) from 0 at each year's first step, K3's monthly means
 // at (m, y*nmon + month) from 0 at each month's first step.
-template <int KIND, bool MEMBERS>
+template <int KIND, bool MEMBERS, bool ADDITIVE>
 __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
                             const GrebParams& p, const PackCols& cols) {
   extern __shared__ float smem[];
@@ -1809,6 +1971,10 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
       RowSlots(r0, R, ktc, ktc + dkt, Y - kbc - dkb, Y - kbc),
       RowSlots(r0, R, 0, akt, Y - akb, Y),
       zpre, sp[Q_WZ], sp[Q_XA], sp[Q_SCRATCH]};
+  // additive: the rows that the segments or composites finish, the nested
+  // rows from each pole that any of them reaches
+  const RowSlots later(r0, R, 0, ktc + dkt > akt ? ktc + dkt : akt,
+                       Y - (kbc + dkb > akb ? kbc + dkb : akb), Y);
   float* wz = sp[Q_WZ];
   const int tid = threadIdx.x, nt = blockDim.x;
   const Div by_rx(RX), by_x(X);
@@ -1850,7 +2016,7 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
     const int row = h < HALO * X ? h / X : R + h / X;
     bufs.mine[fb * BX + row * X + h % X] = 0.f;
   }
-  if (tid == 0) {
+  if (!ADDITIVE && tid == 0) {   // the packed composites' slots
     const int nq = bk.comp.n();
     int acc = 0;
     for (int fq = 0; fq < 2 * nq; ++fq) {
@@ -1893,7 +2059,10 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
       int cur = 0;
       for (int s = 0; s < a.nsub; ++s) {
         const int nxt = NXT - cur;
-        refined_substep<MEMBERS>(a, g, bk, bufs, cur, nxt, r0);
+        if constexpr (ADDITIVE)
+          additive_substep<MEMBERS>(a, g, bk, later, bufs, cur, nxt, r0);
+        else
+          refined_substep<MEMBERS>(a, g, bk, bufs, cur, nxt, r0);
         // every block's rows and halos of buffer nxt are written, and no
         // block reads buffer cur any more
         cluster.sync();
@@ -2022,25 +2191,47 @@ __global__ void __launch_bounds__(NT, 1) scenario_years_strict(
                                                        member_index()));
 }
 
-// The refined instantiation of the four kernels (modern variant only).
+// The refined instantiation of the four kernels (modern variant only), in
+// its two forms: sequential splitting with packed composites (_refined)
+// and additive splitting with dense composites (_additive).
 __global__ void __launch_bounds__(NT, 1) fluxcorr_year_refined(
     YearArgs a, GrebParams p, RefinedArgs g) {
-  run_refined<FLUX, false>(a, g, p, PackCols{});
+  run_refined<FLUX, false, false>(a, g, p, PackCols{});
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_year_refined(
     YearArgs a, GrebParams p, RefinedArgs g) {
-  run_refined<SCEN, false>(a, g, p, PackCols{});
+  run_refined<SCEN, false, false>(a, g, p, PackCols{});
 }
 
 __global__ void __launch_bounds__(NT, 1) fluxcorr_years_refined(
     YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
-  run_refined<FLUX, true>(a, g, p, c);
+  run_refined<FLUX, true, false>(a, g, p, c);
 }
 
 __global__ void __launch_bounds__(NT, 1) scenario_years_refined(
     YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
-  run_refined<SCEN_YEARS, true>(a, g, p, c);
+  run_refined<SCEN_YEARS, true, false>(a, g, p, c);
+}
+
+__global__ void __launch_bounds__(NT, 1) fluxcorr_year_additive(
+    YearArgs a, GrebParams p, RefinedArgs g) {
+  run_refined<FLUX, false, true>(a, g, p, PackCols{});
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_year_additive(
+    YearArgs a, GrebParams p, RefinedArgs g) {
+  run_refined<SCEN, false, true>(a, g, p, PackCols{});
+}
+
+__global__ void __launch_bounds__(NT, 1) fluxcorr_years_additive(
+    YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
+  run_refined<FLUX, true, true>(a, g, p, c);
+}
+
+__global__ void __launch_bounds__(NT, 1) scenario_years_additive(
+    YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
+  run_refined<SCEN_YEARS, true, true>(a, g, p, c);
 }
 
 // A kernel's parameters are passed by value: the largest set (the refined
@@ -2252,26 +2443,34 @@ int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, int C,
   }
 }
 
-// The four kernels at an extension-mode grid: the refined instantiation,
-// modern variant only (any other flags word: GREB_ERR_FLAGS).
+// The four kernels at a grid of the refined instantiation, in the form of
+// g.additive, modern variant only (any other flags word: GREB_ERR_FLAGS).
 int greb_fluxcorr_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
                                void* stream) {
-  return launch_refined(fluxcorr_year_refined, a, p, g, C, stream);
+  return g.additive
+             ? launch_refined(fluxcorr_year_additive, a, p, g, C, stream)
+             : launch_refined(fluxcorr_year_refined, a, p, g, C, stream);
 }
 
 int greb_scenario_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
                                void* stream) {
-  return launch_refined(scenario_year_refined, a, p, g, C, stream);
+  return g.additive
+             ? launch_refined(scenario_year_additive, a, p, g, C, stream)
+             : launch_refined(scenario_year_refined, a, p, g, C, stream);
 }
 
 int greb_fluxcorr_years_refined(YearArgs a, GrebParams p, PackCols c,
                                 RefinedArgs g, int C, void* stream) {
-  return launch_refined(fluxcorr_years_refined, a, p, g, C, stream, c);
+  return g.additive
+             ? launch_refined(fluxcorr_years_additive, a, p, g, C, stream, c)
+             : launch_refined(fluxcorr_years_refined, a, p, g, C, stream, c);
 }
 
 int greb_scenario_years_refined(YearArgs a, GrebParams p, PackCols c,
                                 RefinedArgs g, int C, void* stream) {
-  return launch_refined(scenario_years_refined, a, p, g, C, stream, c);
+  return g.additive
+             ? launch_refined(scenario_years_additive, a, p, g, C, stream, c)
+             : launch_refined(scenario_years_refined, a, p, g, C, stream, c);
 }
 
 // The kernel's own reckoning of a refined block's shared memory: fills
@@ -2282,22 +2481,30 @@ long long greb_refined_layout(int Y, int X, int ktc, int kbc, int C,
 }
 
 // How many clusters of C blocks of the refined kernel of `kind` (FLUX:
-// fluxcorr_years, SCEN: scenario_year, SCEN_YEARS: scenario_years) the card
-// runs at once, into *clusters; an error code as the launchers.
+// fluxcorr_years, SCEN: scenario_year, SCEN_YEARS: scenario_years; in the
+// form of g.additive) the card runs at once, into *clusters; an error code
+// as the launchers.
 int greb_refined_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
                           RefinedArgs g, int* clusters) {
   YearArgs a = {};
   a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
+  const bool add = g.additive != 0;
   if (kind == FLUX)
-    return refined_config(fluxcorr_years_refined, a, g, C, nullptr, attr,
-                          &cfg, clusters);
+    return add ? refined_config(fluxcorr_years_additive, a, g, C, nullptr,
+                                attr, &cfg, clusters)
+               : refined_config(fluxcorr_years_refined, a, g, C, nullptr,
+                                attr, &cfg, clusters);
   if (kind == SCEN)
-    return refined_config(scenario_year_refined, a, g, C, nullptr, attr,
-                          &cfg, clusters);
-  return refined_config(scenario_years_refined, a, g, C, nullptr, attr, &cfg,
-                        clusters);
+    return add ? refined_config(scenario_year_additive, a, g, C, nullptr,
+                                attr, &cfg, clusters)
+               : refined_config(scenario_year_refined, a, g, C, nullptr,
+                                attr, &cfg, clusters);
+  return add ? refined_config(scenario_years_additive, a, g, C, nullptr,
+                              attr, &cfg, clusters)
+             : refined_config(scenario_years_refined, a, g, C, nullptr, attr,
+                              &cfg, clusters);
 }
 
 // The kernel's own reckoning of a cluster block's shared memory (`strict`:

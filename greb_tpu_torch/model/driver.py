@@ -109,8 +109,9 @@ class GREB:
 
     def _check_member_kernels(self) -> None:
         """Raise before any launch where the member kernels (K3, K4) do not
-        run this model's plan and flags word (at an extension-mode grid the
-        legacy and strict words, dense composites), on any device."""
+        run this model's plan and flags word (at a grid of the refined
+        instantiation the legacy words, ``year_kernel.check_plan``), on any
+        device."""
         yd = self.year_data
         for kind in my.KINDS:
             yk.check_plan(yd.plan, kind, yd.flags)

@@ -15,8 +15,8 @@ memory; M clusters beyond the card's capacity run in waves.  For
 ``scenario_years`` ``cluster=1`` is the one-block body instead: one thread
 block per member, the state in shared memory and the coefficient planes in
 a per-member global scratch.  By default each wrapper picks the size by
-the member count (``default_cluster``).  At an extension-mode plan (a
-refined grid, 384x192) both launch their refined instantiation
+the member count (``default_cluster``).  For a fold of the refined
+instantiation (``year_kernel.is_refined``: 384x192, 192x96) both launch it
 (csrc/year_kernel.cu ``run_refined``, ``year_kernel.refined_layout``) on
 16-block clusters at every member count, each member with its own global
 scratch for the step's coefficient planes (M, 12, 2, Y, X); K3 adds up the
@@ -125,8 +125,9 @@ def default_cluster(kind: str, members: int, capacity: int,
 
 def _default_cluster_on(yd: yk.YearData, kind: str, members: int) -> int:
     """``default_cluster`` on this card, its capacity asked once per run;
-    at an extension-mode plan the refined instantiation's one size (K3's
-    one-block body cannot hold a refined member: ``smem_bytes``)."""
+    for a fold of the refined instantiation its one size at every member
+    count (K3's one-block body cannot hold such a member: ``smem_bytes``
+    is 709,632 B at 192x96)."""
     if yk.is_refined(yd.plan):
         return yk.REFINED_CLUSTER_SIZES[0]
     key = ("capacity", kind, yd.transport)
@@ -322,7 +323,7 @@ def _launch_members(fn_name: str, yd: yk.YearData, args: yk._Args,
                     params: yk._Params, dev: torch.device,
                     cluster: int) -> None:
     """Launch K4 or K3 (``fn_name``) on ``cluster``-block clusters: the
-    refined instantiation at an extension-mode plan."""
+    refined instantiation for a fold it runs (``is_refined``)."""
     extra = ()
     if yk.is_refined(yd.plan):
         fn_name += "_refined"

@@ -35,20 +35,24 @@ strict one, which moves Ta and q with the term-by-term stencils
 (ops/stencils.py) or not at all, and has no fold in its shared memory
 (``StrictPlan``).
 
-An extension-mode plan (a refined grid: 384x192 at dt_crcl=1800, with
-sequential zonal splitting, packed pole composites and explicit polar
-segment iterations) launches each kernel's refined instantiation
-(``*_refined``, csrc/year_kernel.cu ``run_refined``; the member kernels of
-multiyear.py one member a 16-block cluster), modern variant only.  Its
-block keeps in shared memory only what a substep reads many times: the
-(Ta, q) double buffer with its halo rows, wz, the zonally diffused state
-xa and a scratch for the segment iterations and composite rows
+A fold the cluster body does not hold (``is_refined``: explicit polar
+segment iterations, packed composites, or dense ones too large for a
+block) launches each kernel's refined instantiation (csrc/year_kernel.cu
+``run_refined``; the member kernels of multiyear.py one member a 16-block
+cluster), modern variant only, in one of two forms: an extension-mode
+plan (384x192 at dt_crcl=1800: sequential zonal splitting, packed pole
+composites, segments; ``*_refined``) or a plan with additive splitting
+and dense composites (192x96 at dt_crcl=1800: advection segments and
+five 192x192 composite rows at each pole; ``*_additive``).  Its block
+keeps in shared memory only what a substep reads many times: the (Ta, q)
+double buffer with its halo rows, wz, the zonally diffused state xa (or
+dd) and a scratch for the segment iterations and composite rows
 (``refined_layout``); the state, the annual sums, K3's monthly means, the
 step's coefficient planes (a global scratch a member), the zd planes and
-the packed factors stay in global memory and L2.  The legacy and strict
-words and the plans that layout does not hold raise NotImplementedError
-at such a plan (``check_plan``, ``check_supported``), each naming its
-ROADMAP item.
+the packed factors or dense composite matrices stay in global memory and
+L2.  The legacy and strict words and the plans that layout does not hold
+raise NotImplementedError at such a plan (``check_plan``,
+``check_supported``), each naming its ROADMAP item.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -110,10 +114,10 @@ FLAGS = ("fixed_albedo", "simple_seaice", "hydro_off", "circulation_off",
 # where K3's one-block body under the strict transport is queued
 STRICT_ONE_BLOCK_ITEM = "ROADMAP Queue 2 item 4"
 
-# the refined instantiation (an extension-mode plan, every kind): the
-# cluster size it launches with (12 rows of 384 columns a block at 384x192;
-# 8 and 12 blocks need more than MAX_SMEM_BYTES), the parts of its block's
-# shared memory in the kernel's layout order (csrc/year_kernel.cu enum
+# the refined instantiation (``is_refined``, every kind): the cluster size
+# it launches with (12 rows of 384 columns a block at 384x192; 8 and 12
+# blocks need more than MAX_SMEM_BYTES), the parts of its block's shared
+# memory in the kernel's layout order (csrc/year_kernel.cu enum
 # RefinedPart), and the most segments of either kind it takes
 REFINED_CLUSTER_SIZES = (16,)
 REFINED_PARTS = ("transported", "wz", "xa", "scratch", "comp_index")
@@ -121,8 +125,9 @@ MAX_SEGS = 8
 # where what the refined instantiation does not run is queued
 REFINED_ITEMS = dict(
     layout="ROADMAP Queue 1 item 3d",    # grids its layout does not hold
-    dense="ROADMAP Queue 1 item 3e",     # dense composites (192x96)
-    words="ROADMAP Queue 1 item 3f")     # legacy and strict words
+    words="ROADMAP Queue 1 item 3f",     # legacy and strict words
+    # additive splitting with packed composites (256x128, 288x144)
+    additive_packed="ROADMAP Queue 1 item 3g")
 
 
 def experiment_flags(exp: Experiment, strict: bool = False) -> int:
@@ -276,28 +281,31 @@ def _reach(segs) -> Tuple[int, int]:
 def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     """The shared memory of each block of a ``blocks``-block cluster that
     runs the refined instantiation of ``kind`` (one of KINDS; the same for
-    each) on an extension-mode plan with packed composites
+    each) on a plan of one of its two forms, sequential zonal splitting
+    with packed composites or additive splitting with dense ones
     (csrc/year_kernel.cu ``refined_parts``, the same reckoning): two
     buffers of the 2 transported fields with HALO rows each side, wz of its
-    rows, their zonally diffused state xa (first their zonal diffusion dd),
-    a scratch and the composite rows' index.  The scratch holds, one after
-    the other in a substep, the diffusion segments' two buffers (2 fields
-    of the block's rows in any diffusion segment), the packed composites'
-    t1 rows and z (each 2 fields of its composite rows, z at most X a row)
-    and the advection segments' two buffers (their da waits in the next
-    (Ta, q) buffer's own rows).  What the refined instantiation keeps in
-    global memory (state, annual sums, K3's monthly means, the step's
-    coefficient planes, zd, the packed factors) is not part of it.
+    rows, their zonally diffused state xa (first their zonal diffusion dd;
+    additive: dd alone), a scratch and the composite rows' index (packed).
+    The scratch holds, one after the other in a substep, the diffusion
+    segments' two buffers (2 fields of the block's rows in any diffusion
+    segment), the composites' t1 rows (packed: and z, at most X a row;
+    each 2 fields of its composite rows) and the advection segments' two
+    buffers (their da waits in the next (Ta, q) buffer's own rows).  What
+    the refined instantiation keeps in global memory (state, annual sums,
+    K3's monthly means, the step's coefficient planes, zd, the packed
+    factors or the dense composite matrices) is not part of it.
     Raises ValueError where ``cluster_layout`` does, where the row length is
     not a multiple of fastcirc2.COMP_BLOCK (the composite sums take whole
-    blocks of a row), for a plan without sequential zonal splitting and
-    packed composites, for more than MAX_SEGS segments, and where a block
-    needs more than MAX_SMEM_BYTES."""
+    blocks of a row), for a plan of neither form, for more than MAX_SEGS
+    segments, and where a block needs more than MAX_SMEM_BYTES."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: one of {KINDS}")
-    if not is_refined(plan) or plan.comp_mode != "packed":
-        raise ValueError(f"the refined layout holds extension-mode plans "
-                         f"with packed composites, not {plan}")
+    form = ("packed",) if plan.seq_zonal else ("dense", "none")
+    if not is_refined(plan) or plan.comp_mode not in form:
+        raise ValueError(f"the refined layout holds sequential splitting "
+                         f"with packed composites or additive splitting "
+                         f"with dense ones, not {plan}")
     if max(len(plan.diff_segs), len(plan.adv_segs)) > MAX_SEGS:
         raise ValueError(f"more than {MAX_SEGS} segments: {plan}")
     Y, X = plan.ydim, plan.xdim
@@ -338,15 +346,23 @@ def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
 
 
 def is_refined(plan) -> bool:
-    """An extension-mode fold (sequential zonal splitting: a refined grid),
-    which the kernels run in their refined instantiation."""
-    return bool(plan.seq_zonal) and not isinstance(plan, StrictPlan)
+    """A fold the kernels run in their refined instantiation, which reads
+    its planes from L2, and not in the cluster body: sequential zonal
+    splitting (an extension-mode grid), explicit polar segments, packed
+    composites, or dense composites of which one pole row's two (X, X)
+    matrices alone exceed a block's shared memory (192x96)."""
+    if isinstance(plan, StrictPlan):
+        return False
+    return bool(plan.seq_zonal or plan.diff_segs or plan.adv_segs
+                or plan.comp_mode == "packed"
+                or (plan.diff_composite
+                    and 2 * 4 * plan.xdim ** 2 > MAX_SMEM_BYTES))
 
 
 def block_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     """The layout of the instantiation that runs ``plan``:
-    ``refined_layout`` for an extension-mode fold, else
-    ``cluster_layout``."""
+    ``refined_layout`` for a fold of the refined instantiation
+    (``is_refined``), else ``cluster_layout``."""
     if is_refined(plan):
         return refined_layout(plan, blocks, kind)
     return cluster_layout(plan, blocks, kind)
@@ -365,53 +381,59 @@ def smem_bytes(plan) -> int:
 def check_plan(plan, kind: str, flags: int = 0) -> None:
     """Raise NotImplementedError for what the kernel of ``kind`` (one of
     KINDS; "fluxcorr" and "scenario_years" are also the member kernels K4
-    and K3) does not run with the flags word ``flags``.  An extension-mode
-    plan runs only in the refined instantiation: the modern word with the
-    fold (legacy and strict words: REFINED_ITEMS["words"]), packed
-    composites only (dense ones, 192x96: "dense"); ``refined_layout``
-    holds the rest.  Any other plan runs without explicit segment
-    iterations or packed composites."""
-    if plan.seq_zonal:
-        if isinstance(plan, StrictPlan) or flags:
-            raise NotImplementedError(
-                f"{kind}: the legacy and strict words (flags "
-                f"{flags:#x}, {type(plan).__name__}) at an extension-mode "
-                f"grid ({REFINED_ITEMS['words']})")
-        if plan.comp_mode != "packed":
-            raise NotImplementedError(
-                f"year kernels: comp_mode={plan.comp_mode!r} at an "
-                f"extension-mode grid: the refined instantiation runs packed "
-                f"composites ({REFINED_ITEMS['dense']})")
-        return
+    and K3) does not run with the flags word ``flags``.  A fold of the
+    refined instantiation (``is_refined``: 384x192, 192x96) runs with the
+    modern word only (legacy words there, and the strict transport at an
+    extension-mode grid: REFINED_ITEMS["words"]), in one of its two forms:
+    sequential zonal splitting with packed composites or additive
+    splitting with dense ones (additive with packed:
+    REFINED_ITEMS["additive_packed"]; sequential with dense composites,
+    which ``make_plan`` never builds, raises ValueError), at a size
+    ``refined_layout`` holds on REFINED_CLUSTER_SIZES (else
+    REFINED_ITEMS["layout"]).  The cluster body runs every other fold and
+    the strict transport at any other grid (``check_supported`` checks its
+    fit)."""
     if isinstance(plan, StrictPlan):
+        if plan.seq_zonal:
+            raise NotImplementedError(
+                f"{kind}: the strict transport (flags {flags:#x}) at an "
+                f"extension-mode grid ({REFINED_ITEMS['words']})")
         return
-    if plan.diff_segs or plan.adv_segs:
+    if plan.seq_zonal and plan.comp_mode != "packed":
+        raise ValueError(f"year kernels: sequential zonal splitting with "
+                         f"comp_mode={plan.comp_mode!r}, a plan make_plan "
+                         f"does not build")
+    if not is_refined(plan):
+        return
+    if flags:
         raise NotImplementedError(
-            f"year kernels: explicit polar segments (diff_segs="
-            f"{plan.diff_segs}, adv_segs={plan.adv_segs}) run only at an "
-            f"extension-mode grid (refined instantiation)")
-    if plan.comp_mode not in ("dense", "none"):
+            f"{kind}: the legacy words (flags {flags:#x}) at a "
+            f"{plan.xdim}x{plan.ydim} fold of the refined instantiation "
+            f"({REFINED_ITEMS['words']})")
+    if not plan.seq_zonal and plan.comp_mode == "packed":
         raise NotImplementedError(
-            f"year kernels: comp_mode={plan.comp_mode!r} runs only at an "
-            f"extension-mode grid (refined instantiation)")
+            f"{kind}: additive zonal splitting with packed composites "
+            f"({plan.xdim}x{plan.ydim}; {REFINED_ITEMS['additive_packed']})")
+    try:
+        refined_layout(plan, REFINED_CLUSTER_SIZES[0], kind)
+    except ValueError as e:
+        raise NotImplementedError(
+            f"{kind}: the refined instantiation, which runs the folds with "
+            f"sequential splitting, explicit polar segments (here "
+            f"{plan.diff_segs}, {plan.adv_segs}) or large composites, does "
+            f"not hold this one: {e} ({REFINED_ITEMS['layout']})") from None
 
 
 def check_supported(plan, kinds: Tuple[str, ...] = KINDS,
                     flags: int = 0) -> None:
-    """Raise for what the kernels of ``kinds`` do not run: the plans and
-    words of ``check_plan``, and grids that a cluster of DEFAULT_CLUSTER
-    blocks does not hold (``block_layout``; at an extension-mode grid
-    NotImplementedError, naming REFINED_ITEMS["layout"])."""
+    """Raise for what the kernels of ``kinds`` do not run: the plans,
+    words and refined layouts of ``check_plan``, and grids that a cluster
+    of DEFAULT_CLUSTER blocks of the cluster body does not hold
+    (``cluster_layout``)."""
     for kind in kinds:
         check_plan(plan, kind, flags)
         if not is_refined(plan):
             cluster_layout(plan, DEFAULT_CLUSTER, kind)
-            continue
-        try:
-            refined_layout(plan, DEFAULT_CLUSTER, kind)
-        except ValueError as e:
-            raise NotImplementedError(
-                f"{e} ({REFINED_ITEMS['layout']})") from None
 
 
 def check_block_fit(plan) -> None:
@@ -591,18 +613,20 @@ class _Args(ctypes.Structure):
 class _Refined(ctypes.Structure):
     """The refined instantiation's arguments (csrc/year_kernel.cu
     RefinedArgs): the packed factors, each composite row's offset and rank
-    in Rtot, and the segment tables, (kt, kb, iters) each."""
+    in Rtot, the segment tables, (kt, kb, iters) each, and the plan's form
+    (``additive``: additive splitting with dense composites)."""
     _fields_ = ([(n, ctypes.c_void_p)
                  for n in ("pcu", "pcw", "comp_off", "comp_rank")]
                 + [(n, ctypes.c_int) for n in ("rtot", "n_dseg", "n_aseg")]
                 + [(n, ctypes.c_int * (3 * MAX_SEGS))
-                   for n in ("dseg", "aseg")])
+                   for n in ("dseg", "aseg")]
+                + [("additive", ctypes.c_int)])
 
 
 def _refined_struct(plan, **ptrs) -> _Refined:
-    """``_Refined`` of ``plan``'s segment tables, with ``ptrs``."""
+    """``_Refined`` of ``plan``'s segment tables and form, with ``ptrs``."""
     g = _Refined(n_dseg=len(plan.diff_segs), n_aseg=len(plan.adv_segs),
-                 **ptrs)
+                 additive=int(not plan.seq_zonal), **ptrs)
     for name, segs in (("dseg", plan.diff_segs), ("aseg", plan.adv_segs)):
         flat = [int(v) for seg in segs for v in seg]
         getattr(g, name)[:len(flat)] = flat
@@ -659,8 +683,8 @@ def kernel_cluster_layout(plan, blocks: int, kind: str):
     """The kernel's own reckoning of a cluster block (csrc/year_kernel.cu
     ``greb_cluster_layout``, built on first use): ({part: bytes}, threads),
     for holding against ``cluster_layout`` (a ``StrictPlan``: the strict
-    instantiation's layout; an extension-mode fold: the refined one's,
-    ``greb_refined_layout``, against ``refined_layout``)."""
+    instantiation's layout; a fold of the refined instantiation: its
+    layout, ``greb_refined_layout``, against ``refined_layout``)."""
     lib = _lib()
     if is_refined(plan):
         parts = (ctypes.c_longlong * len(REFINED_PARTS))()
@@ -685,8 +709,8 @@ def kernel_cluster_layout(plan, blocks: int, kind: str):
 def cluster_capacity(plan, blocks: int, kind: str) -> int:
     """How many clusters of ``blocks`` blocks of the kernel of ``kind`` the
     card runs at once (``cudaOccupancyMaxActiveClusters``; a
-    ``StrictPlan``: of the strict instantiation; an extension-mode fold: of
-    the refined one); members beyond it run in waves.  Raises where the
+    ``StrictPlan``: of the strict instantiation; a fold of the refined
+    one: of that one); members beyond it run in waves.  Raises where the
     card runs none."""
     lib = _lib()
     n = ctypes.c_int()
@@ -750,10 +774,10 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
     ``(tensor, shape)`` or ``(tensor, shape, dtype)`` (float32 unless
     given; shape None skips the shape check); ``ints`` overrides the
     single-run sizes (M=1, one year, corrections step by step).  The fold's
-    planes go in under the fold (the dense composites but at an
-    extension-mode plan, whose packed ones go in ``_refined_args``), the
-    strict stencils' constants under the strict transport, neither without
-    transport.  The caller has checked the plan (``check_plan``)."""
+    planes go in under the fold (the dense composites; packed ones go in
+    ``_refined_args``), the strict stencils' constants under the strict
+    transport, neither without transport.  The caller has checked the plan
+    (``check_plan``)."""
     plan = yd.plan
     num, sfx, md = yd.num, yd.sfx, yd.md
     Y, X, T = plan.ydim, plan.xdim, num.nstep_yr
@@ -775,7 +799,7 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
         const = yd.fold[1]
         t.update(zd=(const.zd, (7, 2, Y, X)), zam=(const.zam, (8, 2, Y, X)),
                  mer=(const.mer, (9, 2, Y, X)), wz=(const.wz, (2, Y, X)))
-        if not is_refined(plan):
+        if plan.comp_mode != "packed":
             t.update(pcomp=(const.pcomp, (2, K, X, X) if K else None))
     elif yd.transport == "strict":
         tensors, scalars = _strict_args(yd, dev)
@@ -805,8 +829,11 @@ def _args(yd: YearData, state5: torch.Tensor, ints=None, **extra) -> _Args:
 def _refined_args(yd: YearData, dev: torch.device) -> _Refined:
     """The refined instantiation's arguments: the packed factors U_all
     (X, Rtot) and W_all (Rtot, X), each composite row's offset and rank
-    (int32 on ``dev``, made once per run) and the plan's segments."""
+    (int32 on ``dev``, made once per run; none for dense composites, which
+    go in ``_args``), the plan's segments and its form."""
     plan, const = yd.fold
+    if plan.comp_mode != "packed":
+        return _refined_struct(plan)
     key = ("refined", str(dev))
     if key not in yd.cache:
         offs, ranks = packed_ranks(const)
@@ -834,7 +861,7 @@ def _launch_year(fn_name: str, yd: YearData, state5: torch.Tensor,
                  params: _Params, cluster: int, **extra) -> None:
     """Launch K1 or K2 (``fn_name``) on the instantiation of the plan: the
     refined one, with a global scratch for the step's coefficient planes
-    (12, 2, Y, X), at an extension-mode plan."""
+    (12, 2, Y, X), for a fold it runs (``is_refined``)."""
     dev = state5.device
     if not is_refined(yd.plan):
         _launch(fn_name, _args(yd, state5, **extra), params, dev,
@@ -867,8 +894,8 @@ def _check_device(state: ModelState) -> torch.device:
 
 def offered_sizes(kind: str, plan=None) -> Tuple[int, ...]:
     """The ``cluster=`` sizes a kernel of ``kind`` launches with: its
-    CLUSTER_SIZES, and 1 for the ONE_BLOCK_KINDS; at an extension-mode
-    ``plan`` REFINED_CLUSTER_SIZES."""
+    CLUSTER_SIZES, and 1 for the ONE_BLOCK_KINDS; for a ``plan`` of the
+    refined instantiation REFINED_CLUSTER_SIZES."""
     if plan is not None and is_refined(plan):
         return REFINED_CLUSTER_SIZES
     return (1,) * (kind in ONE_BLOCK_KINDS) + CLUSTER_SIZES[kind]
@@ -887,8 +914,8 @@ def fluxcorr_year(state: ModelState, co2, yd: YearData,
                   cluster: int = DEFAULT_CLUSTER
                   ) -> Tuple[ModelState, Corrections]:
     """One spin-up year: (end state, correction tables).  On the card the
-    year runs on a cluster of ``cluster`` blocks (at an extension-mode
-    plan in the refined instantiation)."""
+    year runs on a cluster of ``cluster`` blocks (in the refined
+    instantiation for a fold it runs, ``is_refined``)."""
     _check_cluster(cluster, "fluxcorr", yd.plan)
     dev = _check_device(state)
     if dev.type == "cpu":
@@ -910,8 +937,8 @@ def fluxcorr_year(state: ModelState, co2, yd: YearData,
 def scenario_year(state: ModelState, corr: Corrections, co2, yd: YearData,
                   cluster: int = DEFAULT_CLUSTER):
     """One scenario year: (end state, outs (T, 5, Y, X), asum (9, Y, X)).
-    On the card the year runs on a cluster of ``cluster`` blocks (at an
-    extension-mode plan in the refined instantiation)."""
+    On the card the year runs on a cluster of ``cluster`` blocks (in the
+    refined instantiation for a fold it runs, ``is_refined``)."""
     _check_cluster(cluster, "scenario", yd.plan)
     dev = _check_device(state)
     if dev.type == "cpu":

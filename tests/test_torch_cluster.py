@@ -39,7 +39,8 @@ OFFERED = [(kind, c) for kind in yk.KINDS for c in yk.CLUSTER_SIZES[kind]]
 
 def test_main_path_plan_is_the_default_grid():
     m = GREB(GrebConfig(numerics=Numerics(ndays_yr=10, jday_mon=(6, 4),
-                                          time_flux=1, time_scnr=1)),
+                                          time_flux=1, time_scnr=1),
+                        fast_circulation=True),
              verbose=False, device="cpu")
     assert m.fold[0] == PLAN
     yk.check_supported(m.fold[0])
@@ -201,7 +202,8 @@ def test_default_cluster_is_offered(kind):
 def test_wrappers_refuse_a_cluster_size_they_do_not_offer():
     m = GREB(GrebConfig(numerics=Numerics(xdim=48, ydim=24, ndays_yr=10,
                                           jday_mon=(6, 4), time_flux=1,
-                                          time_scnr=1)),
+                                          time_scnr=1),
+                        fast_circulation=True),
              verbose=False, device="cpu")
     s0 = m.initial_state()
     with pytest.raises(ValueError, match="clusters of"):
@@ -219,7 +221,8 @@ def test_member_wrappers_refuse_a_cluster_size_they_do_not_offer(kind,
                                                                  cluster):
     m = GREB(GrebConfig(numerics=Numerics(xdim=48, ydim=24, ndays_yr=10,
                                           jday_mon=(6, 4), time_flux=1,
-                                          time_scnr=1)),
+                                          time_scnr=1),
+                        fast_circulation=True),
              verbose=False, device="cpu")
     s5 = m.initial_state().stack()[:, None]
     ppack = my.pack_member_params([m.params])

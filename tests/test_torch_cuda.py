@@ -50,7 +50,8 @@ NUM = Numerics(ndays_yr=10, jday_mon=(6, 4), time_flux=1, time_scnr=1)
 def model():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
-    return GREB(GrebConfig(numerics=NUM), verbose=False, device="cuda")
+    return GREB(GrebConfig(numerics=NUM, fast_circulation=True), verbose=False,
+                device="cuda")
 
 
 def _equal(a, b, name):
@@ -320,7 +321,7 @@ def refined_model():
         pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
     arrs = regrid_forcing_arrays(make_synthetic_forcing(
         96, 48, REFINED.nstep_yr, REFINED.ndays_yr), REFINED)
-    return GREB(GrebConfig(numerics=REFINED),
+    return GREB(GrebConfig(numerics=REFINED, fast_circulation=True),
                 forcing=forcing_from_arrays(arrs, "cuda"), verbose=False,
                 device="cuda")
 

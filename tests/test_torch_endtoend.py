@@ -63,7 +63,8 @@ def test_run_writes_output_matching_greb_tpu(jax_model, tmp_path):
 
     cfg = GrebConfig(numerics=Numerics(**SMALL),
                      co2=CO2Params(co2_ppm=(680.0,)),
-                     diagnostics=Diagnostics(console=False))
+                     diagnostics=Diagnostics(console=False),
+                     fast_circulation=True)
     m = GREB(cfg, forcing=forcing_from_numpy(_jax_leaves(jax_model.forcing),
                                              "cpu"),
              verbose=False, device="cpu")
@@ -95,7 +96,8 @@ def test_convert_carries_jax_values_into_a_step(jax_model):
 
     jm = JGREB(jax_model.cfg, params=jp,
                forcing=jax_model.forcing, verbose=False)
-    m = GREB(GrebConfig(numerics=Numerics(**SMALL)), params=p,
+    m = GREB(GrebConfig(numerics=Numerics(**SMALL), fast_circulation=True),
+             params=p,
              forcing=forcing_from_numpy(_jax_leaves(jax_model.forcing), "cpu"),
              verbose=False, device="cpu")
     plan, (const,) = jm._fastcirc_split()
@@ -132,8 +134,8 @@ def test_cuda_kernel_request_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         yk._lib()
 
-    m = GREB(GrebConfig(numerics=Numerics(**SMALL)), verbose=False,
-             device="cpu")
+    m = GREB(GrebConfig(numerics=Numerics(**SMALL), fast_circulation=True),
+             verbose=False, device="cpu")
     state = m.initial_state()
     meta = dataclasses.replace(state, ts=state.ts.to("meta"))
     with pytest.raises(ValueError, match="year kernels run on cuda"):
@@ -177,8 +179,8 @@ def test_input_dir_forcing_round_trips(tmp_path):
                                              write_forcing_dir)
     arrs = make_synthetic_forcing(48, 24, 20, 10)
     write_forcing_dir(arrs, str(tmp_path))
-    m = GREB(GrebConfig(numerics=Numerics(**SMALL)), input_dir=str(tmp_path),
-             verbose=False, device="cpu")
+    m = GREB(GrebConfig(numerics=Numerics(**SMALL), fast_circulation=True),
+             input_dir=str(tmp_path), verbose=False, device="cpu")
     for k, want in arrs.items():
         np.testing.assert_array_equal(getattr(m.forcing, k).numpy(), want,
                                       err_msg=k)

@@ -4,10 +4,12 @@
   same wz fields, the plan and every constant plane match exactly.
 * ``step_coeffs``, ``substep`` and ``circulation`` (the plain version the
   CUDA year kernels are held against) match ``fastcirc2`` at 96x48 (dense
-  pole composites, no explicit segments) and at 48x24 with
-  dt_crcl=21600 (composites plus an explicit advection segment); one
-  substep matches at the 384x192 extension grid (packed composites,
-  segments, sequential zonal splitting).  Same
+  pole composites, no explicit segments), at 48x24 with
+  dt_crcl=21600 (composites plus an explicit advection segment) and at
+  192x96 (dense 192x192 composites at five rows a pole, advection
+  segments, additive splitting); one substep matches at the 384x192
+  extension grid (packed composites, segments, sequential zonal
+  splitting).  Same
   constants, same state and winds on both sides.  Tolerance, on the
   increment: rtol 1e-5, and atol 1e-6 of the field's magnitude.  The
   increment is (x + dx) - x, so its rounding is a few ulps of x (one ulp of
@@ -48,6 +50,8 @@ GRIDS = {
     "96x48": dict(),
     "48x24-dt6h": dict(xdim=48, ydim=24, ndays_yr=1, jday_mon=(1,),
                        dt_crcl=6 * 3600),
+    "192x96": dict(xdim=192, ydim=96, ndays_yr=1, jday_mon=(1,),
+                   dt_crcl=1800),
 }
 
 

@@ -27,9 +27,10 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
 TOL = {"ts": 2e-2, "ta": 2e-2, "to": 2e-2, "q": 3e-6, "albedo": 5e-4}
 
 
-def _run(**cfg_kw):
+def _run(fast_circulation=True):
     m = GREB(GrebConfig(numerics=Numerics(time_flux=1, time_scnr=1),
-                        **cfg_kw), verbose=False, device="cpu")
+                        fast_circulation=fast_circulation), verbose=False,
+             device="cpu")
     state_fc, corr = m.flux_correction(co2=298.0)
     state, monthly, _ = m.run_scenario(
         corr, state=state_fc, co2_series=np.full(1, 680.0, np.float32))

@@ -46,7 +46,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from greb_tpu_torch.model.driver import GREB
 
     cfg = GrebConfig(numerics=Numerics(xdim=48, ydim=24, ndays_yr=10,
-                                       jday_mon=(6, 4)))
+                                       jday_mon=(6, 4)), fast_circulation=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GREB(cfg, verbose=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -99,9 +99,10 @@ def _pair(log_exp, num_kw, **cfg_kw):
     jm = JGREB(JConfig(numerics=JNumerics(**num_kw),
                        experiment=JExperiment(log_exp=log_exp), **jkw),
                forcing=j_forcing(raw), verbose=False)
+    kw = dict(fast_circulation=True)
+    kw.update({k: v[1] for k, v in cfg_kw.items()})
     m = GREB(GrebConfig(numerics=Numerics(**num_kw),
-                        experiment=Experiment(log_exp=log_exp),
-                        **{k: v[1] for k, v in cfg_kw.items()}),
+                        experiment=Experiment(log_exp=log_exp), **kw),
              forcing=forcing_from_numpy(raw, "cpu"), verbose=False,
              device="cpu")
     return jm, m
@@ -351,7 +352,8 @@ def test_strict_transport_modes_raise_on_the_cpu(log_exp, fast):
 @pytest.fixture(scope="module")
 def strict_models():
     return {e: GREB(GrebConfig(numerics=Numerics(**TEN_DAY),
-                               experiment=Experiment(e)),
+                               experiment=Experiment(e),
+                               fast_circulation=True),
                     verbose=False, device="cpu") for e in (7, 8, 16)}
 
 

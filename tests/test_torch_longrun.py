@@ -55,7 +55,7 @@ def jax_model():
 def model(jax_model):
     leaves = {k: np.asarray(getattr(jax_model.forcing, k))
               for k in jax_model.forcing.__dataclass_fields__}
-    return GREB(GrebConfig(numerics=Numerics(**SMALL)),
+    return GREB(GrebConfig(numerics=Numerics(**SMALL), fast_circulation=True),
                 forcing=forcing_from_numpy(leaves, "cpu"), verbose=False,
                 device="cpu")
 

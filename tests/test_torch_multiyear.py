@@ -61,7 +61,8 @@ def pallas_pair():
                        fast_circulation=True), verbose=False)
     leaves = {k: np.asarray(getattr(jm.forcing, k))
               for k in jm.forcing.__dataclass_fields__}
-    m = GREB(GrebConfig(numerics=Numerics(**PALLAS_NUM)),
+    m = GREB(GrebConfig(numerics=Numerics(**PALLAS_NUM),
+                        fast_circulation=True),
              forcing=forcing_from_numpy(leaves, "cpu"), verbose=False,
              device="cpu")
     s = jm.initial_state()
@@ -199,8 +200,9 @@ def test_scenario_years_plain_shared_table_matches_pallas_kernel(
 
 @pytest.fixture(scope="module")
 def ten_day_model():
-    return GREB(GrebConfig(numerics=Numerics(**TEN_DAY)), verbose=False,
-                device="cpu")
+    return GREB(GrebConfig(numerics=Numerics(**TEN_DAY),
+                           fast_circulation=True),
+                verbose=False, device="cpu")
 
 
 def test_scenario_years_plain_matches_per_year_path(ten_day_model):

@@ -27,8 +27,10 @@ paths through them.
   K.  At M=1 with the base params K4 equals K1 and K3 equals K2 (state,
   annual sums) bit for bit.
 * ``refined_layout`` and the wrappers' and driver's refusals of what stays
-  queued (the legacy and strict words, dense composites, 768x384, cluster
-  sizes other than 16), which need no card.
+  queued (the legacy and strict words, 768x384, cluster sizes other than
+  16) and of a plan make_plan never builds (sequential splitting with
+  dense composites), which need no card; the real 192x96 plan (dense
+  composites, additive splitting) is accepted.
 * ``year_work`` and ``years_work`` at 96x48 (unchanged) and at 384x192
   (packed composites at their ranks, the segments), reckoned by hand.
 * The paths at 384x192: ``run_long`` with ``driver_year_runner``, one year
@@ -61,10 +63,12 @@ from greb_tpu_torch import __main__ as cli
 from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
 from greb_tpu_torch.forcing import (Corrections, ModelState,
                                     forcing_from_arrays)
+from greb_tpu_torch.grid import make_grid
 from greb_tpu_torch.io.binio import read_output
 from greb_tpu_torch.io.synthetic import make_synthetic_forcing
 from greb_tpu_torch.model import core, longrun
 from greb_tpu_torch.model.driver import GREB
+from greb_tpu_torch.ops import fastcirc as fc
 from greb_tpu_torch.ops.cuda import multiyear as my
 from greb_tpu_torch.ops.cuda import year_kernel as yk
 from greb_tpu_torch.parallel import ensemble as ens
@@ -117,7 +121,7 @@ def _refined(grid):
     num = Numerics(**grid)
     arrs = make_synthetic_forcing(96, 48, num.nstep_yr, num.ndays_yr)
     with _limits():
-        return GREB(GrebConfig(numerics=num),
+        return GREB(GrebConfig(numerics=num, fast_circulation=True),
                     forcing=forcing_from_arrays(
                         regrid_forcing_arrays(arrs, num), "cpu"),
                     verbose=False, device="cpu")
@@ -227,12 +231,21 @@ def test_refined_layout_refuses_768x384_and_dense_plans(pair):
         yk.refined_layout(wide, 16, "scenario")
     with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
         yk.check_supported(wide)
-    # 192x96: dense composites (comp_kt=5, 192x192 matrices)
+    # 192x96 (dense composites at comp_kt=5, 192x192 matrices, additive
+    # splitting, advection segments) runs in the refined instantiation
+    real = fc.make_plan(make_grid(192, 96, 1800))
+    assert real.comp_mode == "dense" and not real.seq_zonal
+    for kind in yk.KINDS:
+        yk.check_plan(real, kind)
+        assert yk.refined_layout(real, 16, kind).nbytes == 64560
+    yk.check_supported(real)
+    # dense composites with sequential splitting, which make_plan never
+    # builds, are refused
     dense = dataclasses.replace(plan, ydim=96, xdim=192, comp_mode="dense",
                                 comp_kt=5, comp_kb=5)
     with pytest.raises(ValueError, match="packed"):
         yk.refined_layout(dense, 16, "scenario")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3e"):
+    with pytest.raises(ValueError, match="make_plan does not build"):
         yk.check_plan(dense, "scenario")
     with pytest.raises(ValueError, match="one of"):
         yk.refined_layout(plan, 16, "members")
@@ -260,10 +273,11 @@ REFUSALS = ("legacy word", "strict word", "dense composites", "768x384",
 def test_member_kernels_refuse_a_refined_plan(pair, case):
     """What stays queued at an extension-mode plan raises in K4 and K3
     before any launch, on CPU tensors too: the legacy and strict words
-    (ROADMAP Queue 1 item 3f; GREB's member paths too), dense
-    composites (3e), a grid the refined layout does not hold (3d, in
-    ``check_supported``, which GREB runs on the card before any year), and
-    a cluster size other than REFINED_CLUSTER_SIZES."""
+    (ROADMAP Queue 1 item 3f; GREB's member paths too), a grid the
+    refined layout does not hold (3d, in ``check_supported``, which GREB
+    runs on the card before any year), and a cluster size other than
+    REFINED_CLUSTER_SIZES; dense composites with sequential splitting,
+    which make_plan never builds, raise ValueError."""
     m = pair[1]
     plan, const = m.fold
     yd, num = m.year_data, m.num
@@ -286,7 +300,7 @@ def test_member_kernels_refuse_a_refined_plan(pair, case):
     elif case == "dense composites":
         dense = dataclasses.replace(plan, comp_mode="dense")
         yd = dataclasses.replace(yd, fold=(dense, const), cache={})
-        match = "Queue 1 item 3e"
+        err, match = ValueError, "make_plan does not build"
     else:
         kw = dict(cluster=int(case.split("=")[1]))
         err, match = ValueError, r"clusters of \(16,\)"

@@ -44,7 +44,7 @@ def _pair(kw):
                verbose=False)
     leaves = {k: np.asarray(getattr(jm.forcing, k))
               for k in jm.forcing.__dataclass_fields__}
-    m = GREB(GrebConfig(numerics=Numerics(**kw)),
+    m = GREB(GrebConfig(numerics=Numerics(**kw), fast_circulation=True),
              forcing=forcing_from_numpy(leaves, "cpu"), verbose=False,
              device="cpu")
     return jm, m
