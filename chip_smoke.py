@@ -136,21 +136,50 @@
    and the second wave of K3's one-block body) byte-equal to the plain
    version on the same inputs; one K3 year at M=65 timed with a table per
    member and with the shared table;
-16. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+16. the legacy fold words at the refined grids (the refined
+   instantiation's legacy variant in both forms): for each of
+   the seven log_exp whose word keeps the fold with a switch (5, 6, 9, 11,
+   13, 14, 15), at 384x192 and at 192x96 on a 4-step calendar, the
+   launchers' pick held against refined_entry, K1 from the initial state
+   and K2 from it with zero corrections bitwise against their plain
+   versions; under 11 and 15 on the 20-step calendar K1, K2 from its end,
+   K4 at M=2 and K3 at M=2 x 2 years bitwise against plain (the plain
+   steps replayed from CUDA graphs), K4 = K1 and K3 = K2 at M=1, each
+   launch timed; the refined legacy path, run_legacy at log_exp 13 at
+   384x192 (1 spin-up, 1 scenario year, full calendar: launch counts, the
+   control and scenario files read back); --ensemble 4 under log_exp 11 at
+   192x96 (1 + 1 years: K4 spin-ups, K3; launch counts, the members' files);
+17. the strict transport at 384x192 (the refined instantiation's strict
+   form): the kernel's own layout against
+   strict_refined_layout for each kind; under the strict circulation,
+   log_exp 7, 8, 16 and the no-transport word of log_exp 4, on a 2-step
+   calendar, the launchers' pick, K1 and K2 (from the initial state, K2
+   with zero corrections), K4 at M=2 and K3 at M=2 x 2 years (from the
+   initial states with zero tables) bitwise against their plain versions
+   (the plain circulation replayed from CUDA graphs, _GraphedCirculation,
+   one graphed call held bitwise to the eager one first) and K4 = K1, K3 =
+   K2 at M=1, each launch and plain version timed; one full-calendar strict K1 and K2 year timed;
+   and the library default's path, GREB.run at 384x192 with GrebConfig's
+   default transport (the strict circulation), 1 + 1 years: launch counts,
+   finiteness, the output file read back, sim-yr/s;
+18. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
-   ms and bound, for all four the refined and the 192x96 launch's, for K3
-   the ensemble year's and the refined wave's, and each kernel's launches
-   on every path) and, last,
+   ms and bound, for all four the refined and the 192x96 launch's, the
+   legacy fold words' and the strict 384x192 modes' launches, plain
+   versions and bounds, for K3 the ensemble year's and the refined wave's,
+   and each kernel's launches on every path) and, last,
    {"ok": true, "device": {...}}.
 
 Each phase prints its wall time ("phase ...: s wall"), and the run its
 total before the JSON lines.
 
-The plain versions of the 96x48 checks (steps 3-7, 11, 12 and 15) replay
-each model step from a CUDA graph of the eager step (_GraphedSteps): the
-same kernels on the same values, a graphed step first held bitwise
-against the eager one; their times (plain_ms) are the graphed plain
-versions'.
+The plain versions of the 96x48 checks (steps 3-7, 11, 12 and 15), of
+the 20-step checks at 384x192 and 192x96 (steps 13 and 14)
+and of step 16's 20-step member checks replay each model step from a CUDA
+graph of the eager step (_GraphedSteps): the same kernels on the same
+values, a graphed step first held bitwise against the eager one; their
+times (plain_ms) are the graphed plain versions'.  Step 17's replay the
+strict circulation alone (_GraphedCirculation) the same way.
 
 Any failure raises, so the script exits non-zero and prints no ok line.
 It needs a CUDA card and the repository's greb_tpu_torch package.
@@ -194,7 +223,12 @@ def _check(label, got, limit):
 
 
 def _max_abs(a, b):
-    return float((a - b).abs().max())
+    """max |a - b|, equal values (infinities, zeros of either sign) and NaN
+    on both sides counting 0, a NaN on one side only inf."""
+    import torch
+    d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d)
+    return float(torch.nan_to_num(d, nan=float("inf")).max())
 
 
 def _time_ms(fn, repeats):
@@ -377,6 +411,106 @@ class _GraphedSteps:
         _bitwise("graphed plain step vs eager", pairs, quiet=True)
 
 
+class _GraphedCirculation:
+    """Between start and stop (or inside ``with``), stencils.circulation,
+    the strict transport's plain version, which core.compute_tendencies
+    calls once a model step (twice under log_exp 8), is replayed from CUDA
+    graphs: one graph for each field shape, stencil constants (by value:
+    models of one grid and forcing share them), kappa, substep count and
+    advection switch, captured on its first call from static copies of
+    that call's state, wz and winds; each call copies its state, wz and
+    winds into them, replays and returns a copy of the graph's increment.  A graph launches the kernels the eager call launches, on
+    the same values, so the plain versions' results are bit for bit the
+    eager ones (``check`` holds one call); it spares the host the eager
+    call's ~700,000 launches at 384x192 (1652 rounds of the polar diffusion
+    sub-cycle in each of 24 substeps), which make a plain strict step there
+    host-bound.  The step's pointwise physics, its CO2 and the members'
+    parameters stay outside the graph, eager, so every year, member and
+    CO2 of a model shares its graphs.  On stop the eager function is back
+    and the graphs freed."""
+
+    def start(self):
+        from greb_tpu_torch.ops import stencils
+        self.stc, self.graphs, self.sf_keys = stencils, {}, {}
+        self.eager = stencils.circulation
+        stencils.circulation = self._call
+        return self
+
+    def stop(self):
+        self.stc.circulation = self.eager
+        self.graphs.clear()
+        self.sf_keys.clear()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    _WINDS = ("u_m", "u_p", "v_m", "v_p")
+
+    def _sf_key(self, sf):
+        """The stencil fields' values, as bytes (made once per object,
+        which the cache holds, so no id is reused)."""
+        import dataclasses as dc
+        hit = self.sf_keys.get(id(sf))
+        if hit is None:
+            hit = self.sf_keys[id(sf)] = (sf, b"".join(
+                getattr(sf, f.name).cpu().numpy().tobytes()
+                for f in dc.fields(sf)))
+        return hit[1]
+
+    def _call(self, x, wz, **kw):
+        import torch
+        key = (tuple(x.shape), kw["st"], self._sf_key(kw["sf"]),
+               float(kw["kappa"]), kw["nsub"], kw.get("include_advection",
+                                                      True))
+        inputs = [x, wz] + [kw[k] for k in self._WINDS]
+        entry = self.graphs.get(key)
+        if entry is None:
+            static = [t.clone() for t in inputs]
+            rest = {k: v for k, v in kw.items() if k not in self._WINDS}
+
+            def run():
+                return self.eager(static[0], static[1], **dict(
+                    zip(self._WINDS, static[2:])), **rest)
+
+            # captured without a warm-up: the circulation's only lazy
+            # state, stencils._d7_table, is made by the eager call that
+            # check() runs first
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = run()
+            # the entry holds the constants the graph reads
+            entry = self.graphs[key] = (graph, static, out, rest)
+        graph, static, out, _ = entry
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        graph.replay()
+        return out.clone()
+
+    def check(self, model):
+        """One strict circulation of ``model``'s initial (Ta, q) under
+        forcing step 1's winds, eager, then graphed (its capture, then a
+        replay), bitwise; returns (graphed ms, eager ms) of one call."""
+        import torch
+        md, fx, s0 = model.md, model.sfx.at(1), model.initial_state()
+        kw = dict(u_m=torch.clamp(fx.u, min=0.0),
+                  u_p=torch.clamp(fx.u, max=0.0),
+                  v_m=torch.clamp(fx.v, min=0.0),
+                  v_p=torch.clamp(fx.v, max=0.0), st=md.st, sf=md.sf,
+                  kappa=md.params.kappa, nsub=model.num.nsub_crcl)
+        x2 = torch.stack([s0.ta, s0.q])
+        wz2 = torch.stack([md.derived.wz_air, md.derived.wz_vapor])
+        eager_ms, want = _time_ms(lambda: self.eager(x2, wz2, **kw), 1)
+        self._call(x2, wz2, **kw)
+        graphed_ms, got = _time_ms(lambda: self._call(x2, wz2, **kw), 1)
+        _bitwise("graphed strict circulation vs eager",
+                 [("increment", got, want)], quiet=True)
+        return graphed_ms, eager_ms
+
+
 def _bound_of(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OP_PER_S * 1e3
@@ -433,6 +567,31 @@ REFINED_ENS_M = 4
 REFINED_ENS_YEARS = dict(time_flux=1, time_scnr=1)
 REFINED_SHARED_M = 8
 REFINED_SHARED_YEARS = dict(time_flux=1, time_scnr=2)
+# the legacy fold words at the refined grids: the seven log_exp whose word
+# keeps the fold with a switch, K1 and K2 held to plain at 384x192 and
+# 192x96 on WORDS_SHORT's 4 steps (a plain 384x192 step takes ~0.3 s on
+# the card); under WORD_MEMBER_EXPS on REFINED_SHORT's 20 steps also K4 at
+# M=2, K3 at M=2 x 2 years and K3 = K2, K4 = K1 at M=1, the plain steps
+# replayed from CUDA graphs; the refined legacy path, run_legacy at
+# WORD_PATH_EXP at 384x192 (1 spin-up + 1 scenario year); and
+# --ensemble WORD_ENS[0] under WORD_ENS_EXP at 192x96
+WORD_EXPS = (5, 6, 9, 11, 13, 14, 15)
+WORD_MEMBER_EXPS = (11, 15)
+WORDS_SHORT = dict(ndays_yr=2, jday_mon=(2,))
+WORD_PATH_EXP = 13
+WORD_PATH_YEARS = dict(time_flux=1, time_ctrl=0, time_scnr=1)
+WORD_ENS_EXP = 11
+WORD_ENS = (4, dict(time_flux=1, time_scnr=1))
+# the strict transport at 384x192 (the refined instantiation's strict
+# form): the strict circulation, log_exp 7, 8, 16 and the no-transport
+# word of log_exp 4, each kernel held to plain on STRICT_REFINED_SHORT's 2
+# steps (a plain strict step there runs 1652 sub-cycle rounds at each pole
+# row in each of its 24 substeps, ~10 s eager on an H100's host; the
+# circulation is replayed from CUDA graphs); the library default's path,
+# GREB.run at 384x192, STRICT_REFINED_YEARS
+STRICT_REFINED_MODES = (None, 7, 8, 16, 4)
+STRICT_REFINED_SHORT = dict(ndays_yr=1, jday_mon=(1,))
+STRICT_REFINED_YEARS = dict(time_flux=1, time_scnr=1)
 # the ensemble path: the CLI's --ensemble with the default sweep (ct_sens
 # 22.05..22.95), 65 members (the middle one, 33, has ct_sens 22.5, the
 # base) for the main path's years; --shared-spinup with 256 members (a
@@ -783,8 +942,9 @@ def _strict_phase(tmp, reset_counts, read_counts):
           f"K2 {_runs(k2_ms)} = {_median(k2_ms) * per_sub:.3f} us per "
           f"substep (a step's work included); plain K1 {plain_k1:.1f} ms, "
           f"plain K2 {plain_k2:.1f} ms")
-    work = {"fluxcorr_year": yk.strict_year_work(yd, False),
-            "scenario_year": yk.strict_year_work(yd, True)}
+    work = {k: yk.year_work(yd.plan, num, k == "scenario_year",
+                            flags=yd.flags)
+            for k in ("fluxcorr_year", "scenario_year")}
     del k2, s_p, c_p, s2_p, o_p, a_p
 
     # -- the strict path: GREB.run at fast_circulation=False
@@ -867,13 +1027,15 @@ def _strict_phase(tmp, reset_counts, read_counts):
                 work=work, launches=launches)
 
 
-def _refined_model(num, out_path=None, verbose=False, fast=True):
+def _refined_model(num, out_path=None, verbose=False, fast=True,
+                   log_exp=None):
     """GREB at a refined grid on the card, on forcing regridded by the
     port's regrid.py from the 96x48 synthetic forcing of num's calendar,
-    with the fold (``fast``) or the strict circulation; (model, seconds of
-    the regrid)."""
+    with the fold (``fast``), the strict circulation (``fast`` False) or
+    the library's default (``fast`` None: the strict circulation), and the
+    switchboard at ``log_exp``; (model, seconds of the regrid)."""
     import numpy as np
-    from greb_tpu_torch.config import Diagnostics, GrebConfig
+    from greb_tpu_torch.config import Diagnostics, Experiment, GrebConfig
     from greb_tpu_torch.forcing import forcing_from_arrays
     from greb_tpu_torch.io.synthetic import make_synthetic_forcing
     from greb_tpu_torch.model.driver import GREB
@@ -885,8 +1047,9 @@ def _refined_model(num, out_path=None, verbose=False, fast=True):
     if not all(np.isfinite(a).all() for a in arrs.values()):
         raise AssertionError("regridded forcing not finite")
     diag = Diagnostics(output_file=out_path) if out_path else Diagnostics()
+    kw = {} if fast is None else dict(fast_circulation=fast)
     model = GREB(GrebConfig(numerics=num, diagnostics=diag,
-                            fast_circulation=fast),
+                            experiment=Experiment(log_exp), **kw),
                  forcing=forcing_from_arrays(arrs, "cuda"), device="cuda",
                  verbose=verbose)
     return model, regrid_s
@@ -1092,13 +1255,15 @@ def _refined_member_paths(model, tmp, state, monthly, corr, reset_counts,
     return out
 
 
-def _refined_path(tag, tmp, grid, years, reset_counts, read_counts):
+def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
+                  fast=True):
     """GREB.run at a grid of the refined instantiation (``grid``) on the
-    full calendar for ``years`` (spin-up, scenario), its output in
+    full calendar for ``years`` (spin-up, scenario), with the fold or the
+    strict circulation (``fast``, as ``_refined_model``), its output in
     tmp/tag/scenario: launch counts (K1 and K2 alone), sim-yr/s, the
     finiteness of state, tables and monthly means, the output file read
-    back, the warming under 680 ppm.  Returns (model, state, corr,
-    monthly, launches)."""
+    back, the warming under 680 ppm (over two scenario years or more).
+    Returns (model, state, corr, monthly, launches, sim-yr/s)."""
     import numpy as np
     import torch
     from greb_tpu_torch.config import Numerics
@@ -1107,7 +1272,7 @@ def _refined_path(tag, tmp, grid, years, reset_counts, read_counts):
     num = Numerics(**grid, **years)
     out = os.path.join(tmp, tag, "scenario")
     os.makedirs(os.path.dirname(out))
-    model, regrid_s = _refined_model(num, out, verbose=True)
+    model, regrid_s = _refined_model(num, out, verbose=True, fast=fast)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1139,9 +1304,9 @@ def _refined_path(tag, tmp, grid, years, reset_counts, read_counts):
     gm = [float(d.global_mean_ts) for d in diags]
     print(f"  output file {os.path.getsize(out)} B read back; global mean Ts "
           f"[K] by scenario year: {' '.join(f'{g:.4f}' for g in gm)}")
-    if not gm[-1] > gm[0]:
+    if len(gm) > 1 and not gm[-1] > gm[0]:
         raise AssertionError(f"{tag} path: no warming under 680 ppm: {gm}")
-    return model, state, corr, monthly, launches
+    return model, state, corr, monthly, launches, n / wall
 
 
 def _refined_phase(tmp, reset_counts, read_counts):
@@ -1185,12 +1350,15 @@ def _refined_phase(tmp, reset_counts, read_counts):
                   f"and refined_layout agree: {dict(lay.parts)}")
 
     # -- K1 from the initial state, K2 from K1's end state with its
-    #    corrections, on the 20-step calendar, bitwise against plain
+    #    corrections, on the 20-step calendar, bitwise against plain (the
+    #    plain steps replayed from CUDA graphs)
     err = {}
     co2f, co2s = np.float32(340.0), np.float32(680.0)
     s0 = m.initial_state()
     s_k, c_k = yk.fluxcorr_year(s0, co2f, yd)
     k2 = yk.scenario_year(s_k, c_k, co2s, yd)
+    graphed = _GraphedSteps().start()
+    graphed.check(m, co2f)
     plain_ms = {}
     plain_ms["fluxcorr_year"], _ = _time_ms(
         lambda: yk.fluxcorr_year_plain(s0, co2f, yd), 1)
@@ -1210,6 +1378,7 @@ def _refined_phase(tmp, reset_counts, read_counts):
     t_members = time.perf_counter()
     member_err, member_plain = _refined_member_checks(
         m, (s_k, c_k), k2, co2f, co2s, capacity["scenario_years"])
+    graphed.stop()
     err.update(member_err)
     plain_ms.update(member_plain)
     print(f"  member kernel checks: "
@@ -1218,7 +1387,7 @@ def _refined_phase(tmp, reset_counts, read_counts):
 
     # -- the refined path: GREB.run at 384x192, 1 + 3 years on the full
     #    calendar; then one K1 and one K2 year of its model timed
-    model, state, corr, monthly, launches = _refined_path(
+    model, state, corr, monthly, launches, _ = _refined_path(
         "refined", tmp, REFINED_GRID, REFINED_YEARS, reset_counts,
         read_counts)
     num = model.num
@@ -1356,12 +1525,15 @@ def _grid192_phase(tmp, reset_counts, read_counts):
 
     # -- K1 from the initial state, K2 from K1's end state with its
     #    corrections, on the 20-step calendar, bitwise against plain (the
-    #    plain version's time includes the comparison)
+    #    plain version's time includes the comparison; its steps replayed
+    #    from CUDA graphs)
     err, plain_ms = {}, {}
     co2f, co2s = np.float32(340.0), np.float32(680.0)
     s0 = m.initial_state()
     s_k, c_k = yk.fluxcorr_year(s0, co2f, yd)
     k2 = yk.scenario_year(s_k, c_k, co2s, yd)
+    graphed = _GraphedSteps().start()
+    graphed.check(m, co2f)
     plain_ms["fluxcorr_year"], err["fluxcorr_year"] = _time_ms(
         lambda: _k1_vs_plain(f"K1 grid192, {n} steps", s0, co2f, yd,
                              (s_k, c_k)), 1)
@@ -1393,11 +1565,12 @@ def _grid192_phase(tmp, reset_counts, read_counts):
                                       co2f, yds, (s_sk, c_sk)),
         "scenario_year": _k2_vs_plain(f"K2 grid192 strict, {n} steps", s_sk,
                                       c_sk, co2s, yds, k2s)}
+    graphed.stop()
     del m, yd, mst, yds, s_k, c_k, k2, s_sk, c_sk, k2s
     print(f"  20-step checks: {time.perf_counter() - t_phase:.1f} s")
 
     # -- the 192x96 path: GREB.run on the full calendar
-    model, state, corr, monthly, launches = _refined_path(
+    model, state, corr, monthly, launches, _ = _refined_path(
         "grid192", tmp, G192_GRID, G192_YEARS, reset_counts, read_counts)
     num = model.num
     paths = _refined_member_paths(model, tmp, state, monthly, corr,
@@ -1480,6 +1653,395 @@ def _grid192_phase(tmp, reset_counts, read_counts):
                     "scenario_years": _median(k3_ms)},
                 plain_ms=plain_ms, work=work, launches=launches,
                 capacity=capacity, paths=paths)
+
+
+def _pick_check(tag, kernel, yd):
+    """The kernel's own pick of a refined launcher for yd's word and form
+    (greb_refined_pick) must be the entry refined_entry names; returns
+    that name."""
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    name = yk.refined_entry(kernel, yd.plan, yd.flags)
+    form = yk.REFINED_FORMS.index(yk.refined_form(yd.plan))
+    got = yk._lib().greb_refined_pick(yd.flags, form)
+    if got < 0 or kernel + yk.REFINED_SUFFIXES[got] != name:
+        raise AssertionError(f"{tag}: the launcher picks {got}, want {name}")
+    return name
+
+
+def _finite(tag, tensors):
+    import torch
+    for name, ten in tensors:
+        if not bool(torch.isfinite(ten).all()):
+            raise AssertionError(f"{tag} {name} not finite")
+
+
+def _short_members(m, tag, co2f, co2s, k1, k2, k2_in, after_k4=True):
+    """K4 at M=2 (ct_sens 22.05, 22.95) from the members' initial states
+    and K3 at M=2 over 2 years (CO2 560, 680) from K4's end with K4's
+    tables (``after_k4``) or from the initial states with zero tables (on
+    a calendar too short for a scenario after a spin-up to stay finite),
+    each bitwise against its plain version on m's calendar; at M=1 with
+    the base params K4 = K1 (``k1``: K1's year from the initial state at
+    ``co2f``) and K3 = K2 (``k2``: K2's year at ``co2s`` from ``k2_in``, a
+    state and its corrections).  Returns the worst max |diff| per kernel,
+    the plain versions' ms and the kernels' launch ms (K4 M=2, K3 M=2 x 2
+    years)."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.parallel import ensemble as ens
+    yd, n = m.year_data, m.num.nstep_yr
+    err, plain_ms, ms = {}, {}, {}
+    two = _sweep_members(m, 2)
+    pp2 = my.pack_member_params(two, "cuda")
+    s5 = ens.ensemble_initial_state(two, m.forcing)
+    ms["fluxcorr_years"], (s4, c4) = _time_ms(
+        lambda: my.fluxcorr_years(s5, pp2, co2f, yd), 1)
+    plain_ms["fluxcorr_years"], (s4p, c4p) = _time_ms(
+        lambda: my.fluxcorr_years_plain(s5, pp2, co2f, yd), 1)
+    if torch.equal(c4[0], c4[1]):
+        raise AssertionError(f"{tag} K4: the members do not differ")
+    _finite(f"{tag} K4", [("state", s4), ("tables", c4)])
+    err["fluxcorr_years"] = _bitwise(
+        f"K4 {tag} (M=2, {n} steps)", [("state", s4, s4p),
+                                         ("tables", c4, c4p)], quiet=True)
+    co2y = np.asarray([560.0, 680.0], np.float32)
+    s3_in, c3_in = (s4, c4) if after_k4 else (s5, torch.zeros_like(c4))
+    ms["scenario_years"], got = _time_ms(
+        lambda: my.scenario_years(s3_in, pp2, c3_in, co2y, yd), 1)
+    plain_ms["scenario_years"], want = _time_ms(
+        lambda: my.scenario_years_plain(s3_in, pp2, c3_in, co2y, yd), 1)
+    if torch.equal(got[1][0], got[1][1]):
+        raise AssertionError(f"{tag} K3: the members do not differ")
+    names = ("state", "monthly means", "annual sums")
+    _finite(f"{tag} K3", zip(names, got))
+    err["scenario_years"] = _bitwise(
+        f"K3 {tag} (M=2, 2 years, {n} steps)", zip(names, got, want),
+        quiet=True)
+    base = my.pack_member_params([m.params], "cuda")
+    k1_tab = torch.stack([k1[1].tf, k1[1].tof, k1[1].qf], dim=1)[None]
+    s41, c41 = my.fluxcorr_years(m.initial_state().stack()[:, None], base,
+                                 co2f, yd)
+    err["fluxcorr_years"] = max(err["fluxcorr_years"], _bitwise(
+        f"K4 = K1 {tag} (M=1)", [("state", s41[:, 0], k1[0].stack()),
+                                  ("tables", c41[0], k1_tab[0])],
+        quiet=True))
+    s_in, tab = k2_in[0], torch.stack([k2_in[1].tf, k2_in[1].tof,
+                                       k2_in[1].qf], dim=1)[None]
+    s31, _, a31 = my.scenario_years(s_in.stack()[:, None], base, tab,
+                                    np.asarray([co2s]), yd)
+    err["scenario_years"] = max(err["scenario_years"], _bitwise(
+        f"K3 = K2 {tag} (M=1)", [("state", s31[:, 0], k2[0].stack()),
+                                  ("annual sums", a31[0, 0], k2[2])],
+        quiet=True))
+    return err, plain_ms, ms
+
+
+def _words_phase(tmp, reset_counts, read_counts):
+    """Step 16: the legacy fold words at the refined grids (the refined
+    instantiation's legacy variant in both forms).  Returns the worst max
+    |diff| per kernel, the plain versions' and the kernels' times and
+    work, and each path's launches."""
+    import contextlib
+    import gc
+    import io
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch import __main__ as cli
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.forcing import Corrections
+    from greb_tpu_torch.io.binio import read_output, read_records
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+
+    t_phase = time.perf_counter()
+    err = dict.fromkeys(("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                         "scenario_years"), 0.0)
+    co2s = np.float32(680.0)
+    out = dict(plain_ms={}, ms={}, work={})
+    # -- K1 from the initial state and K2 from it with zero corrections,
+    #    bitwise against plain, under each fold word at both grids
+    for gtag, grid in (("384x192", REFINED_GRID), ("192x96", G192_GRID)):
+        short = Numerics(**grid, **WORDS_SHORT)
+        t0, plain_s = time.perf_counter(), 0.0
+        for e in WORD_EXPS:
+            m, _ = _refined_model(short, log_exp=e)
+            yd = m.year_data
+            tag = f"{gtag} log_exp {e:2d} (flags {yd.flags:#04x})"
+            names = [_pick_check(tag, k, yd) for k in
+                     ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                      "scenario_years")]
+            co2 = np.float32(m.exp.co2_ctrl)
+            s0 = m.initial_state()
+            zero = Corrections.zeros(short.nstep_yr, short.ydim, short.xdim,
+                                     device="cuda")
+            k1 = yk.fluxcorr_year(s0, co2, yd)
+            k2 = yk.scenario_year(s0, zero, co2s, yd)
+            _finite(f"K1 {tag}", [("state", k1[0].stack()),
+                                  ("tf", k1[1].tf)])
+            _finite(f"K2 {tag}", [("state", k2[0].stack()),
+                                  ("outs", k2[1])])
+            t1 = time.perf_counter()
+            err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
+                f"K1 {tag}", s0, co2, yd, k1))
+            err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
+                f"K2 {tag}", s0, zero, co2s, yd, k2))
+            plain_s += time.perf_counter() - t1
+            print(f"  {tag}: {', '.join(names)}")
+        print(f"legacy words at {gtag}, {len(WORD_EXPS)} words on a "
+              f"{short.nstep_yr}-step calendar: "
+              f"{time.perf_counter() - t0:.1f} s (plain versions "
+              f"{plain_s:.1f} s)")
+
+    # -- under the member words, on the 20-step calendar: K1, K2 from its
+    #    end, K4 (M=2) and K3 (M=2 x 2 years) bitwise against plain, K4 =
+    #    K1 and K3 = K2 at M=1 (the plain steps replayed from CUDA graphs)
+    for gtag, grid in (("384x192", REFINED_GRID), ("192x96", G192_GRID)):
+        short = Numerics(**grid, **REFINED_SHORT)
+        for e in WORD_MEMBER_EXPS:
+            t0 = time.perf_counter()
+            m, _ = _refined_model(short, log_exp=e)
+            yd = m.year_data
+            tag = f"{gtag} log_exp {e}"
+            co2 = np.float32(m.exp.co2_ctrl)
+            s0 = m.initial_state()
+            with _GraphedSteps() as graphed:
+                graphed.check(m, co2)
+                ms1, k1 = _time_ms(lambda: yk.fluxcorr_year(s0, co2, yd), 1)
+                ms2, k2 = _time_ms(
+                    lambda: yk.scenario_year(k1[0], k1[1], co2s, yd), 1)
+                _finite(f"K2 {tag}", [("state", k2[0].stack())])
+                p1, _ = _time_ms(lambda: _k1_vs_plain(
+                    f"K1 {tag}, {short.nstep_yr} steps", s0, co2, yd, k1), 1)
+                p2, _ = _time_ms(lambda: _k2_vs_plain(
+                    f"K2 {tag}, {short.nstep_yr} steps", k1[0], k1[1], co2s,
+                    yd, k2), 1)
+                m_err, m_plain, m_ms = _short_members(m, tag, co2, co2s, k1,
+                                                      k2, k1)
+            for name, v in m_err.items():
+                err[name] = max(err[name], v)
+            if e == WORD_MEMBER_EXPS[0]:
+                key = f"refined_legacy_{gtag}"
+                out["ms"][key] = dict(fluxcorr_year=ms1, scenario_year=ms2,
+                                      **m_ms)
+                out["plain_ms"][key] = dict(fluxcorr_year=p1,
+                                            scenario_year=p2, **m_plain)
+                ranks = (yk.packed_ranks(m.fold[1])[1]
+                         if m.fold[0].comp_mode == "packed" else None)
+                out["work"][key] = _work4(m, ranks)
+            print(f"  {tag}, {short.nstep_yr} steps: kernels K1 {ms1:.1f} "
+                  f"ms, K2 {ms2:.1f} ms, K4 M=2 {m_ms['fluxcorr_years']:.1f}"
+                  f" ms, K3 M=2 x 2 years {m_ms['scenario_years']:.1f} ms; "
+                  f"plain (graphed) K1 {p1:.1f} ms, K2 {p2:.1f} ms, K4 "
+                  f"{m_plain['fluxcorr_years']:.1f} ms, K3 "
+                  f"{m_plain['scenario_years']:.1f} ms; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            del m, yd, k1, k2
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # -- the legacy path at 384x192: run_legacy at log_exp 13, 1 spin-up
+    #    and 1 scenario year on the full calendar, both files written
+    num = Numerics(**REFINED_GRID, **WORD_PATH_YEARS)
+    path = os.path.join(tmp, "words", "scenario")
+    m, _ = _refined_model(num, path, log_exp=WORD_PATH_EXP)
+    console = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(console):
+        cli.run_legacy(m, path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches_path"] = read_counts(
+        f"refined legacy path (384x192, log_exp {WORD_PATH_EXP})", {
+            "fluxcorr_year": num.time_flux,
+            "scenario_year": num.time_ctrl + num.time_scnr,
+            "fluxcorr_years": 0, "scenario_years": 0})
+    Y, X = num.ydim, num.xdim
+    ctl = read_records(os.path.join(tmp, "words", "control"), (Y, X))
+    back = read_output(path, X, Y)
+    if ctl.shape[0] != num.nstep_yr or not np.isfinite(ctl).all() \
+            or back.shape != (num.time_scnr * len(num.jday_mon), 5, Y, X) \
+            or not np.isfinite(back).all():
+        raise AssertionError(f"refined legacy path files: control "
+                             f"{ctl.shape}, scenario {back.shape}")
+    years = num.time_flux + num.time_scnr
+    out["path_rate"] = years / wall
+    print(f"refined legacy path (run_legacy at 384x192, log_exp "
+          f"{WORD_PATH_EXP}): {years} sim-years in {wall:.3f} s = "
+          f"{years / wall:.4f} sim-yr/s; control file {ctl.shape[0]} "
+          f"records, scenario {back.shape[0]} months, finite")
+    del m
+
+    # -- run_ensemble under a legacy fold word at 192x96: K4 spin-ups, K3
+    M, years_kw = WORD_ENS
+    num = Numerics(**G192_GRID, **years_kw)
+    m, _ = _refined_model(num, log_exp=WORD_ENS_EXP)
+    path = os.path.join(tmp, "words_ensemble", "member")
+    os.makedirs(os.path.dirname(path))
+    args = cli.build_parser().parse_args(["--ensemble", str(M), "--quiet"])
+    reset_counts()
+    _, wall = _synced_s(lambda: cli.run_ensemble(m, path, args))
+    out["launches_ensemble"] = read_counts(
+        f"192x96 ensemble path, log_exp {WORD_ENS_EXP} (M={M})", {
+            "fluxcorr_year": 0, "scenario_year": 0,
+            "fluxcorr_years": num.time_flux,
+            "scenario_years": -(-num.time_scnr
+                                // cli.ensemble_block_years(M, num))})
+    nbytes = _read_members(path, M, num)
+    print(f"192x96 ensemble path under log_exp {WORD_ENS_EXP} (--ensemble "
+          f"{M}, {num.time_flux} + {num.time_scnr} years): {wall:.3f} s; {M} "
+          f"files, {nbytes} B, read back finite")
+    out["err"] = err
+    print(f"words phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _work4(m, ranks=None):
+    """year_work / years_work of the four kernels at m's calendar and
+    word, at the shapes _short_members and the single-run checks launch:
+    K1 and K2 a year, K4 M=2, K3 M=2 x 2 years (a table per member)."""
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    yd, num = m.year_data, m.num
+    plan, flags = yd.plan, yd.flags
+    return {"fluxcorr_year": yk.year_work(plan, num, False, ranks, flags),
+            "scenario_year": yk.year_work(plan, num, True, ranks, flags),
+            "fluxcorr_years": my.years_work(plan, num, 1, 2, "fluxcorr",
+                                            ranks=ranks, flags=flags),
+            "scenario_years": my.years_work(plan, num, 2, 2, "scenario",
+                                            ranks=ranks, flags=flags)}
+
+
+def _strict_refined_phase(tmp, reset_counts, read_counts):
+    """Step 17: the strict transport at 384x192 (the refined
+    instantiation's strict form) under every strict and no-transport word,
+    and the library default's path there.  Returns the worst max |diff|
+    per kernel, the launches' and plain versions' times and work, the
+    full-calendar years' times, and the path's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.forcing import Corrections
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+
+    t_phase = time.perf_counter()
+    err = dict.fromkeys(("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                         "scenario_years"), 0.0)
+    co2s = np.float32(680.0)
+    out = dict(plain_ms={}, ms={}, work={})
+    short = Numerics(**REFINED_GRID, **STRICT_REFINED_SHORT)
+    graphed = _GraphedCirculation().start()
+    for e in STRICT_REFINED_MODES:
+        t0 = time.perf_counter()
+        m, _ = _refined_model(short, fast=e is not None, log_exp=e)
+        yd = m.year_data
+        if not (yk.refined_form(yd.plan) == "strict" and yk.is_refined(
+                yd.plan)):
+            raise AssertionError(f"log_exp {e}: plan {yd.plan}")
+        if e == STRICT_REFINED_MODES[0]:
+            plan = yd.plan
+            for kind in yk.KINDS:
+                lay = yk.strict_refined_layout(plan, 16, kind)
+                parts, threads = yk.kernel_cluster_layout(plan, 16, kind)
+                if parts != dict(lay.parts) or threads != lay.threads:
+                    raise AssertionError(
+                        f"strict refined {kind}: kernel layout {parts}, "
+                        f"{threads} threads; Python {dict(lay.parts)}, "
+                        f"{lay.threads}")
+                print(f"strict refined cluster {kind:<14s} C=16: "
+                      f"{lay.rows} rows/block, {lay.threads} threads, "
+                      f"{lay.nbytes} B shared memory a block, "
+                      f"{yk.cluster_capacity(plan, 16, kind)} clusters at "
+                      f"once; kernel and strict_refined_layout agree: "
+                      f"{dict(lay.parts)}")
+            nd, na = plan.sub_cycles
+            print(f"  sub-cycles from each pole: diffusion {nd[:8]}, "
+                  f"advection {na[:8]}; {short.nstep_yr}-step calendar, "
+                  f"{short.nsub_crcl} substeps")
+            t1 = time.perf_counter()
+            out["circulation_ms"] = graphed.check(m)
+            print(f"  plain strict circulation of a step (Ta, q): "
+                  f"{out['circulation_ms'][1]:.1f} ms eager, "
+                  f"{out['circulation_ms'][0]:.1f} ms replayed from its CUDA "
+                  f"graph; capture and check {time.perf_counter() - t1:.1f} s")
+        mode = "strict circulation" if e is None else f"log_exp {e}"
+        tag = f"384x192 {mode} (flags {yd.flags:#05x})"
+        names = [_pick_check(tag, k, yd) for k in
+                 ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                  "scenario_years")]
+        co2 = np.float32(m.exp.co2_ctrl if m.exp.active else 340.0)
+        s0 = m.initial_state()
+        zero = Corrections.zeros(short.nstep_yr, short.ydim, short.xdim,
+                                 device="cuda")
+        ms1, k1 = _time_ms(lambda: yk.fluxcorr_year(s0, co2, yd), 1)
+        ms2, k2 = _time_ms(lambda: yk.scenario_year(s0, zero, co2s, yd), 1)
+        _finite(f"K1 {tag}", [("state", k1[0].stack()), ("tf", k1[1].tf)])
+        _finite(f"K2 {tag}", [("state", k2[0].stack()), ("outs", k2[1])])
+        p1, e1 = _time_ms(lambda: _k1_vs_plain(f"K1 {tag}", s0, co2, yd,
+                                               k1), 1)
+        p2, e2 = _time_ms(lambda: _k2_vs_plain(f"K2 {tag}", s0, zero, co2s,
+                                               yd, k2), 1)
+        err["fluxcorr_year"] = max(err["fluxcorr_year"], e1)
+        err["scenario_year"] = max(err["scenario_year"], e2)
+        m_err, m_plain, m_ms = _short_members(m, tag, co2, co2s, k1, k2,
+                                              (s0, zero), after_k4=False)
+        for name, v in m_err.items():
+            err[name] = max(err[name], v)
+        out["ms"][mode] = dict(fluxcorr_year=ms1, scenario_year=ms2, **m_ms)
+        out["plain_ms"][mode] = dict(fluxcorr_year=p1, scenario_year=p2,
+                                     **m_plain)
+        out["work"][mode] = _work4(m)
+        print(f"  {tag}: {', '.join(names)}; kernels K1 {ms1:.1f} ms, K2 "
+              f"{ms2:.1f} ms, K4 M=2 {m_ms['fluxcorr_years']:.1f} ms, K3 M=2"
+              f" x 2 years {m_ms['scenario_years']:.1f} ms; plain K1 "
+              f"{p1:.1f} ms, K2 {p2:.1f} ms, K4 {m_plain['fluxcorr_years']:.1f}"
+              f" ms, K3 {m_plain['scenario_years']:.1f} ms; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del m, yd, k1, k2
+        graphed.graphs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    graphed.stop()
+
+    # -- one strict K1 and one strict K2 year on the full calendar, timed
+    #    (one launch each: a year takes seconds)
+    num = Numerics(**REFINED_GRID)
+    m, _ = _refined_model(num, fast=False)
+    yd = m.year_data
+    s0 = m.initial_state()
+    co2f = np.float32(m.cfg.co2.co2_flux)
+    k1_ms, k1 = _time_ms(lambda: yk.fluxcorr_year(s0, co2f, yd), 1)
+    k2_ms, k2 = _time_ms(lambda: yk.scenario_year(k1[0], k1[1], co2s, yd), 1)
+    _finite("strict refined full-calendar K2", [("state", k2[0].stack()),
+                                                 ("outs", k2[1])])
+    per_sub = 1e3 / (num.nstep_yr * num.nsub_crcl)
+    out["full_ms"] = {"fluxcorr_year": k1_ms, "scenario_year": k2_ms}
+    out["full_work"] = {k: yk.year_work(yd.plan, num, k == "scenario_year",
+                                        flags=yd.flags)
+                        for k in ("fluxcorr_year", "scenario_year")}
+    for name, ms in out["full_ms"].items():
+        b_ms, b_by = _bound_of(*out["full_work"][name])
+        print(f"strict refined {name} (1 year), {num.nstep_yr} steps: "
+              f"{ms:.3f} ms = {ms * per_sub:.3f} us a substep (a step's work "
+              f"included); {1e3 / ms:.4f} sim-yr/s; bound {b_ms:.3f} ms by "
+              f"{b_by}")
+    del m, yd, k1, k2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the library default at 384x192: GREB.run with the strict
+    #    circulation (GrebConfig's default), 1 + 1 years
+    _, state, corr, monthly, launches, rate = _refined_path(
+        "strict_refined", tmp, REFINED_GRID, STRICT_REFINED_YEARS,
+        reset_counts, read_counts, fast=None)
+    out["launches_path"], out["path_rate"] = launches, rate
+    out["err"] = err
+    print(f"strict refined phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _ensemble_run(tmp, tag, argv, num):
@@ -2275,6 +2837,15 @@ def main(argv) -> int:
         grid192 = _grid192_phase(tmp, reset_counts, read_counts)
         lap("192x96")
 
+        # -- the legacy fold words at the refined grids, their paths -------
+        words = _words_phase(tmp, reset_counts, read_counts)
+        lap("refined legacy words")
+
+        # -- the strict transport at 384x192, the library default's path ---
+        strict_refined = _strict_refined_phase(tmp, reset_counts,
+                                               read_counts)
+        lap("strict 384x192")
+
         # -- K3's shared table, and the ensemble path ----------------------
         with _GraphedSteps():
             ensemble = _ensemble_phase(tmp, os.path.join(tmp, "long_full"),
@@ -2293,13 +2864,21 @@ def main(argv) -> int:
     refined_mode = f"refined {REFINED_GRID['xdim']}x{REFINED_GRID['ydim']}"
     g192 = f"{G192_GRID['xdim']}x{G192_GRID['ydim']}"
     g192_mode = f"refined {g192} (additive splitting, dense composites)"
+    # the strict transport at 384x192 (the refined strict form) in each
+    # mode, the legacy fold words in both refined forms
+    s384 = [f"strict 384x192 {'circulation' if e is None else f'log_exp {e}'}"
+            for e in STRICT_REFINED_MODES]
     single = (["modern"] + [f"log_exp {e}" for e in LEGACY_EXPS]
               + [strict_name(e) for e in STRICT_MODES] + [refined_mode,
                                                           g192_mode,
-                                                          f"strict {g192}"])
+                                                          f"strict {g192}"]
+              + [f"{g} log_exp {e}" for g in (refined_mode, g192_mode)
+                 for e in WORD_EXPS] + s384)
     member = (["modern"] + [f"log_exp {e}" for e in LEGACY_MEMBER_EXPS]
               + [strict_name(e) for e in STRICT_MEMBER_MODES]
-              + [refined_mode, g192_mode])
+              + [refined_mode, g192_mode]
+              + [f"{g} log_exp {e}" for g in (refined_mode, g192_mode)
+                 for e in WORD_MEMBER_EXPS] + s384)
     k3_ms, k4_ms = (_median(member_ms[k])
                     for k in ("scenario_years", "fluxcorr_years"))
     kernels = []
@@ -2332,7 +2911,9 @@ def main(argv) -> int:
                                strict["err"][name],
                                refined["err"].get(name, 0.0),
                                grid192["err"][name],
-                               grid192["strict_err"].get(name, 0.0)),
+                               grid192["strict_err"].get(name, 0.0),
+                               words["err"][name],
+                               strict_refined["err"][name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "cluster": c,
             "shape": shape, "modes": modes,
@@ -2386,6 +2967,42 @@ def main(argv) -> int:
                          "launches"][name],
                      launches_grid192_shared_ensemble_path=g_paths["shared"][
                          "launches"][name])
+        # the legacy fold words at the refined grids (log_exp
+        # WORD_MEMBER_EXPS[0] on REFINED_SHORT's calendar: K1/K2 a year,
+        # K4 M=2, K3 M=2 x 2 years; plain steps from CUDA graphs) and the
+        # strict transport at 384x192 (each mode on STRICT_REFINED_SHORT's
+        # calendar at the same shapes; K1/K2 also a full-calendar year),
+        # with their bounds and the paths' launches
+        e0 = WORD_MEMBER_EXPS[0]
+        for key, gtag in (("refined", "384x192"), ("grid192", "192x96")):
+            wk = f"refined_legacy_{gtag}"
+            b_ms, b_by = _bound_of(*words["work"][wk][name])
+            entry.update({
+                f"{key}_legacy_log_exp_{e0}_ms_20_steps": words["ms"][wk][
+                    name],
+                f"{key}_legacy_log_exp_{e0}_plain_ms_20_steps": words[
+                    "plain_ms"][wk][name],
+                f"{key}_legacy_log_exp_{e0}_bound_ms": b_ms,
+                f"{key}_legacy_log_exp_{e0}_bound_by": b_by})
+        for mode in strict_refined["ms"]:
+            k = "strict_refined_" + mode.replace(" ", "_")
+            b_ms, b_by = _bound_of(*strict_refined["work"][mode][name])
+            entry.update({f"{k}_ms_short": strict_refined["ms"][mode][name],
+                          f"{k}_plain_ms_short": strict_refined["plain_ms"][
+                              mode][name],
+                          f"{k}_bound_ms_short": b_ms,
+                          f"{k}_bound_by_short": b_by})
+        if name in strict_refined["full_ms"]:
+            b_ms, b_by = _bound_of(*strict_refined["full_work"][name])
+            entry.update(strict_refined_ms=strict_refined["full_ms"][name],
+                         strict_refined_bound_ms=b_ms,
+                         strict_refined_bound_by=b_by)
+        entry.update(
+            launches_strict_refined_path=strict_refined["launches_path"][
+                name],
+            launches_refined_legacy_path=words["launches_path"][name],
+            launches_grid192_legacy_ensemble_path=words[
+                "launches_ensemble"][name])
         if name == "scenario_years":
             # one year of a wave of members (M = the card's capacity)
             M, w_ms, w_work = refined["wave"]

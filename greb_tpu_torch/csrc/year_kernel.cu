@@ -109,10 +109,12 @@
 // with the same branches.  The launchers pick one by the word and refuse a
 // word with a bit they do not know or a combination none runs.
 //
-// The refined instantiation (run_refined; all four kernels, modern variant
-// only) runs the folds whose planes a cluster block cannot hold, reading
-// them from L2: extension-mode grids (384x192, suffix _refined) and
-// 192x96's additive form (suffix _additive); see its section below.
+// The refined instantiation (run_refined; all four kernels) runs the folds
+// whose planes a cluster block cannot hold, reading them from L2:
+// extension-mode grids (384x192, suffix _refined) and 192x96's additive
+// form (suffix _additive), each modern and legacy (suffix _legacy); and
+// the strict transport at an extension-mode grid (suffix _strict_refined);
+// see its section below.
 //
 // The strict transport.  Where the JAX package builds no fold (its
 // GREB.fastcirc_tables() is None: --strict-circulation, and legacy
@@ -1359,10 +1361,9 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // whole blocks of terms without guards and load t1 16 bytes at a time,
 // since their first form was bound by its instruction count.  Spreading
 // the composite rows over the cluster is a later redesign (ROADMAP Queue
-// 2, redesign e).  Modern variant only: the launchers refuse a flags word
-// other than 0.
+// 2, redesign e).
 //
-// The additive form (ADDITIVE, suffix _additive: 192x96 at dt_crcl 1800 s,
+// The additive form (R_ADDITIVE, suffix _additive: 192x96 at dt_crcl 1800 s,
 // 24 substeps a step) runs the fold of a grid inside the reference's
 // envelope whose pole composites the cluster body cannot hold: additive
 // zonal splitting (the advection reads x, as at 96x48), explicit polar
@@ -1389,8 +1390,45 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // the composite columns over the cluster's 16 blocks is a later redesign
 // (ROADMAP Queue 2, redesign g).
 //
+// The legacy switchboard in both forms (LEGACY, suffix _legacy: the words
+// of log_exp 5, 6, 9, 11, 13-15, which keep the fold): the fold moves Ta
+// and q as in the modern variant, and the state update branches on the
+// flags word (update_cell<KIND, true>); the substeps do not change.
+//
+// The strict transport at an extension-mode grid (R_STRICT, suffix
+// _strict_refined, with the switches: --strict-circulation, log_exp 7, 8,
+// 16, and the no-transport words of log_exp 0-4, which at 384x192 have no
+// fold either): stencils.circulation's substep with sequential zonal
+// splitting (seq_zonal), in the plain version's float32 order.  Every row
+// of such a grid takes both polar sub-cycles (at 384x192 diffusion 1652,
+// 184, 67, 34, ... iterations from each pole, 1 at the equator; advection
+// 1 to 27 at the pole rows, by the forcing's row winds), and the zonal
+// advection and its sub-cycle start from
+// the zonally diffused state xz = x + wz*dtx, while both meridional terms
+// read x: so a substep (strict_seq_substep) runs the diffusion sub-cycle to
+// each row's count, forms xz, runs the advection sub-cycle from xz, then
+// writes xz + wz*dty + (dtx_a + dty_a).  The block's shared memory
+// (strict_refined_parts, 221,472 B at 384x192) keeps what a substep reads
+// many times: the (Ta, q) double buffer with +-2 halo rows (98,304 B), wz
+// of both fields with +-2 halo rows (49,152 B), one scratch of two (2, R,
+// X) buffers (73,728 B) that the two sub-cycles use in turn, and the rows'
+// constants; xz waits in the next buffer's own rows, which the block alone
+// writes and which take each cell's new value in place, the cell read
+// first (a third (2, R, X) buffer would have made it 258,048 B, over the
+// 232,448 B a block has).  The state, the annual sums, K3's monthly means
+// and the step's winds stay in global memory and L2, as in the fold's
+// forms.  A sub-cycle round takes the rows still within their counts
+// (sub_cycle: the block's rows in order of count), so the pole blocks'
+// deep rounds touch the pole row alone; a row past its count keeps its
+// value, which the plain version's masked add of a finite increment
+// leaves unchanged.  What bounds it: the pole blocks' 1652 dependent
+// rounds a substep, each a 7-point stencil and a __syncthreads(), which
+// every other block waits for at the cluster barrier.  Spreading the pole
+// row is a later redesign (ROADMAP Queue 2, redesign d).
+//
 // The member kernels (K4 fluxcorr_years_refined, K3 scenario_years_refined,
-// and their _additive forms) run the same body with MEMBERS: cluster
+// and their other forms and variants) run the same body with MEMBERS:
+// cluster
 // m = member_index() runs member m
 // with its own params (member_params, kept in 128 B of static shared
 // memory: held in registers across the year they spilled into the
@@ -1408,6 +1446,12 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 
 #define MAX_SEGS 8        // = year_kernel.MAX_SEGS
 
+// The forms of the refined instantiation (RefinedArgs::form): the fold with
+// sequential splitting and packed composites (_refined), the fold with
+// additive splitting and dense composites (pcomp in YearArgs; _additive),
+// the strict transport with sequential splitting (_strict_refined).
+enum RefinedForm { R_SEQ, R_ADDITIVE, R_STRICT };
+
 struct RefinedArgs {
   const float* pcu;        // (X, rtot) U_all
   const float* pcw;        // (rtot, X) W_all
@@ -1416,9 +1460,7 @@ struct RefinedArgs {
   int rtot, n_dseg, n_aseg;
   int dseg[3 * MAX_SEGS];  // the diffusion segments (kt, kb, iters), in order
   int aseg[3 * MAX_SEGS];  // the advection segments
-  int additive;            // the form: 1 additive splitting with dense
-                           // composites (pcomp in YearArgs; the _additive
-                           // kernels), 0 sequential with packed ones
+  int form;                // enum RefinedForm
 };
 
 // Parts of a refined block's shared memory, in layout order
@@ -1494,6 +1536,36 @@ __host__ __device__ inline long long refined_parts(int Y, int X, int ktc,
   long long total = 0;
   for (int k = 0; k < N_QPARTS; ++k) total += parts[k];
   return total;
+}
+
+// The strict form's block (R_STRICT) in refined_parts' terms: the double
+// buffer, wz of both fields with HALO rows each side (Q_WZ), no xa (xz
+// waits in the next buffer's own rows), the sub-cycles' two (2, R, X)
+// buffers (Q_SCRATCH) and 6 words of constants a row (Q_INDEX: the two
+// sub-cycle coefficients and counts, and the block's rows in order of each
+// count); 0 where C does not split the rows into blocks of at least HALO
+// rows or X is not a multiple of 4.  The same reckoning as
+// ops/cuda/year_kernel.py strict_refined_layout.
+__host__ __device__ inline long long strict_refined_parts(int Y, int X, int C,
+                                                          long long* parts) {
+  if (C < 1 || C > MAX_CLUSTER || Y % C != 0 || Y / C < HALO || X % 4 != 0)
+    return 0;
+  const long long R = Y / C, f = sizeof(float);
+  parts[Q_XBUF] = f * 2 * 2 * (R + 2 * HALO) * X;
+  parts[Q_WZ] = f * 2 * (R + 2 * HALO) * X;
+  parts[Q_XA] = 0;
+  parts[Q_SCRATCH] = f * 2 * 2 * R * X;
+  parts[Q_INDEX] = f * ((6 * R + 3) / 4 * 4);
+  long long total = 0;
+  for (int k = 0; k < N_QPARTS; ++k) total += parts[k];
+  return total;
+}
+
+// The block's shared memory in the form of g (host side).
+static long long form_parts(int Y, int X, int ktc, int kbc, int C,
+                            const RefinedArgs& g, long long* parts) {
+  return g.form == R_STRICT ? strict_refined_parts(Y, X, C, parts)
+                            : refined_parts(Y, X, ktc, kbc, C, g, parts);
 }
 
 // A block's local rows (0..R-1 from global row r0) in the global rows
@@ -1934,17 +2006,197 @@ __device__ void additive_substep(const YearArgs& a, const RefinedArgs& g,
   }
 }
 
+// The strict form's per-block constants and scratch (run_refined,
+// R_STRICT), in shared memory (strict_refined_parts).
+struct StrictSeq {
+  const float* wz;    // (2, R + 2*HALO, X) wz of Ta and q, zero past the poles
+  const float* ccx2;  // (R,) kappa*dtdff2/dxlat^2: the diffusion sub-cycle's
+  const float* cax2;  // (R,) the advection sub-cycle's coefficient
+  const int* nd;      // (R,) diffusion sub-cycles of each row
+  const int* na;      // (R,) advection sub-cycles of each row
+  const int* od;      // (R,) the block's rows by diffusion count, most first
+  const int* oa;      // (R,) the block's rows by advection count, most first
+  float* sub;         // (2, 2, R, X): the sub-cycles' two buffers
+  float ccy_d, ccy_a;
+  int nf;    // fields that move: 2, or 1 (Ta) under VAPOR_CIRCULATION_OFF
+  int nfa;   // fields that advect: nf, or 1 under VAPOR_DIFFUSION_ONLY
+  bool quirk;   // the jp2 quirk (src/greb.f90:881)
+};
+
+// A cell's increment in one round of the diffusion sub-cycle
+// (stencils._subcycle of _diff7): its wz taps w and the row's coefficient.
+struct DiffCell {
+  Taps w;
+  float cc;
+  __device__ __forceinline__ float operator()(const Taps& t) const {
+    return clamp_neg(diff7(t, w, cc), t.x0);
+  }
+};
+
+// ... and in one round of the advection sub-cycle (_adv_smooth3), with
+// the cell's wind split and the jp2 quirk (q: the cell reads j+1 for j+2).
+struct AdvCell {
+  Taps w;
+  float cc, um, up;
+  bool q;
+  __device__ __forceinline__ float operator()(const Taps& t) const {
+    return clamp_neg(smooth3(t, w, q ? t.xp1 : t.xp2, q ? w.xp1 : w.xp2, um,
+                             up, cc),
+                     t.x0);
+  }
+};
+
+// Rounds of one clamped zonal sub-cycle (stencils._subcycle) of fields
+// [0, nfl) over the scratch's two buffers (field f, local row i at
+// (f*R + i)*X), round k from buffer k&1 into the other.  A round takes the
+// rows still within their counts n (ord: the rows by count, most first),
+// so a row's last value is in buffer n[i]&1; cell(f, i, j) gives the
+// increment function (DiffCell, AdvCell) of field f, row i, column j.
+// While the rows left have one cell a thread or fewer (the pole row's
+// deep rounds), each thread keeps its cell's function and tap columns
+// across the rounds until the next row leaves.  Block-uniform: a
+// __syncthreads() precedes each round and follows the last.
+template <typename Cell>
+__device__ __forceinline__ void sub_cycle(float* sub, const int* n,
+                                          const int* ord, int nfl, int R,
+                                          int X, Cell cell) {
+  const int P = 2 * R * X;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_x(X);
+  int nact = R;
+  for (int it = 0;;) {
+    while (nact > 0 && n[ord[nact - 1]] <= it) --nact;
+    __syncthreads();
+    if (nact == 0) return;
+    if (nact * nfl * X <= nt) {
+      const int stop = n[ord[nact - 1]];
+      const bool mine = tid < nact * nfl * X;
+      int o = 0, cols[7] = {};
+      decltype(cell(0, 0, 0)) fn{};
+      if (mine) {
+        const int f = tid / (nact * X), rest = tid - f * nact * X;
+        const int s = by_x(rest), j = rest - s * X, i = ord[s];
+        o = (f * R + i) * X;
+        for (int k = 0; k < 7; ++k) {
+          const int c = j + k - 3;
+          cols[k] = c < 0 ? c + X : (c >= X ? c - X : c);
+        }
+        fn = cell(f, i, j);
+      }
+      for (const int first = it; it < stop; ++it) {
+        if (it > first) __syncthreads();
+        if (!mine) continue;
+        const float* row = sub + (it & 1) * P + o;
+        Taps t;
+        t.x0 = row[cols[3]];
+        t.xm3 = row[cols[0]]; t.xm2 = row[cols[1]]; t.xm1 = row[cols[2]];
+        t.xp1 = row[cols[4]]; t.xp2 = row[cols[5]]; t.xp3 = row[cols[6]];
+        sub[(1 - (it & 1)) * P + o + cols[3]] = t.x0 + fn(t);
+      }
+      continue;
+    }
+    const float* src = sub + (it & 1) * P;
+    float* dst = sub + (1 - (it & 1)) * P;
+    for (int c = tid; c < nfl * X; c += nt) {
+      const int f = by_x(c), j = c - f * X;
+      for (int s = 0; s < nact; ++s) {
+        const int i = ord[s], o = (f * R + i) * X;
+        Taps t;
+        zonal_taps(src + o, j, X, t);
+        dst[o + j] = t.x0 + cell(f, i, j)(t);
+      }
+    }
+    ++it;
+  }
+}
+
+// One strict substep with sequential zonal splitting (stencils.circulation
+// at seq_zonal, every row sub-cycled) of this block's rows at step t,
+// buffer cur -> nxt: the diffusion sub-cycle of each moving field from x;
+// xz = x + wz*(t1 - x) into the next buffer's own rows and the scratch's
+// buffer 0; the advection sub-cycle of each advecting field from xz; then
+// each cell's new value, xz + wz*dty + (dtx_a + dty_a) (a field that does
+// not advect: xz + wz*dty), the meridional terms from x (dty of
+// stencils.diffusion and of stencils.advection), written over its xz and
+// pushed to the neighbours' halos.  The winds are read from global memory.
+__device__ void strict_seq_substep(const YearArgs& a, const StrictSeq& st,
+                                   const Bufs& bufs, int cur, int nxt,
+                                   int r0, int t) {
+  const int Y = a.Y, X = a.X, R = bufs.R, RX = R * X, P = 2 * RX;
+  const int BX = bufs.field(), WX = (R + 2 * HALO) * X;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_rx(RX), by_x(X);
+  const float* x = bufs.mine + cur;
+  float* xz = bufs.mine + nxt;
+  const size_t row0 = (size_t)t * Y * X + (size_t)r0 * X;
+  const float* u = a.u + row0;
+  const float* v = a.v + row0;
+  for (int l = tid; l < st.nf * RX; l += nt) {
+    const int f = by_rx(l);
+    st.sub[l] = x[f * BX + HALO * X + (l - f * RX)];
+  }
+  sub_cycle(st.sub, st.nd, st.od, st.nf, R, X, [&](int f, int i, int j) {
+    DiffCell c;
+    zonal_taps(st.wz + f * WX + (i + HALO) * X, j, X, c.w);
+    c.cc = st.ccx2[i];
+    return c;
+  });
+  for (int l = tid; l < st.nf * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX, i = by_x(li);
+    const int o = f * BX + HALO * X + li;
+    const float x0 = x[o];
+    const float z = x0 + st.wz[f * WX + HALO * X + li]
+                             * (st.sub[(st.nd[i] & 1) * P + l] - x0);
+    xz[o] = z;
+    if (f < st.nfa) st.sub[l] = z;
+  }
+  sub_cycle(st.sub, st.na, st.oa, st.nfa, R, X, [&](int f, int i, int j) {
+    AdvCell c;
+    zonal_taps(st.wz + f * WX + (i + HALO) * X, j, X, c.w);
+    const float uu = u[i * X + j];
+    c.um = uu > 0.f ? uu : 0.f;
+    c.up = uu < 0.f ? uu : 0.f;
+    c.cc = st.cax2[i];
+    c.q = st.quirk && j == X - 3;
+    return c;
+  });
+  for (int l = tid; l < st.nf * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX;
+    const int i = by_x(li), j = li - i * X, r = r0 + i;
+    const float* xr = x + f * BX + (i + HALO) * X;
+    const float* w = st.wz + f * WX + (i + HALO) * X;
+    const float x0 = xr[j], km1 = xr[j - X], kp1 = xr[j + X];
+    const float wm1 = w[j - X], wp1 = w[j + X];
+    const float z = xz[f * BX + (i + HALO) * X + j];
+    float val = z + w[j] * (st.ccy_d * (wm1 * (km1 - x0) + wp1 * (kp1 - x0)));
+    if (f < st.nfa) {
+      const float vv = v[li];
+      const float vm = vv > 0.f ? vv : 0.f, vp = vv < 0.f ? vv : 0.f;
+      const float km2 = xr[j - 2 * X], kp2 = xr[j + 2 * X];
+      const float s_m = vm * (wm1 * (x0 - km1) + w[j - 2 * X] * (x0 - km2));
+      const float s_p = vp * (wp1 * (x0 - kp1) + w[j + 2 * X] * (x0 - kp2));
+      const float dya = st.ccy_a * ((-(r == 1 ? s_m : s_m / 3.f))
+                                    + (r == Y - 2 ? s_p : s_p / 3.f));
+      val = val + ((st.sub[(st.na[i] & 1) * P + l] - z) + dya);
+    }
+    bufs.put(nxt, f, i, j, val);
+  }
+}
+
 // The years of one member at an extension-mode grid on a cluster of C
-// blocks, this block's rows: one year of the single run (K1: FLUX, K2:
-// SCEN; MEMBERS false, physics p) or of member m = member_index() (K4:
-// FLUX, K3: SCEN_YEARS, n_years years; MEMBERS true, physics p with the
-// pack's columns cols, kept in shared memory: held in registers across
-// the substeps they spill).  The state in the member's
-// slice of a.state_out (copied from a.state_in first), the step's
+// blocks, this block's rows, in the form FORM (enum RefinedForm): one year
+// of the single run (K1: FLUX, K2: SCEN; MEMBERS false, physics p) or of
+// member m = member_index() (K4: FLUX, K3: SCEN_YEARS, n_years years;
+// MEMBERS true, physics p with the pack's columns cols, kept in shared
+// memory: held in registers across the substeps they spill).  LEGACY: the
+// state update with the switches of the flags word (the strict form always
+// has them; under CIRCULATION_OFF it skips the substeps and their
+// barriers and takes Ta and q from the state).  The state in the member's
+// slice of a.state_out (copied from a.state_in first), the fold's step
 // coefficient planes in its slice of a.cf, the annual sums in a.asum
 // (K2; K3 at (m, y)) from 0 at each year's first step, K3's monthly means
 // at (m, y*nmon + month) from 0 at each month's first step.
-template <int KIND, bool MEMBERS, bool ADDITIVE>
+template <int KIND, bool MEMBERS, int FORM, bool LEGACY>
 __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
                             const GrebParams& p, const PackCols& cols) {
   extern __shared__ float smem[];
@@ -1954,8 +2206,12 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
   const int R = Y / C, RX = R * X, r0 = rank * R;
   const int ktc = a.ktc, kbc = a.kbc, K = ktc + kbc;
+  constexpr bool STRICT = FORM == R_STRICT;
   long long parts[N_QPARTS];
-  refined_parts(Y, X, ktc, kbc, C, g, parts);
+  if constexpr (STRICT)
+    strict_refined_parts(Y, X, C, parts);
+  else
+    refined_parts(Y, X, ktc, kbc, C, g, parts);
   float* sp[N_QPARTS];
   sp[0] = smem;
   for (int k = 1; k < N_QPARTS; ++k)
@@ -2002,13 +2258,56 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
     if (tid == 0) s_pm = member_params(p, a, cols, m);
   }
   const GrebParams& pt = MEMBERS ? *pm : p;
+  // the fold moves Ta and q; the strict form the fields of the flags word
+  // (nf), or none under CIRCULATION_OFF (whose launch has no stencil
+  // constants)
+  const bool circ = !STRICT || !on<true>(p, CIRCULATION_OFF);
+  const int nf = STRICT && on<true>(p, VAPOR_CIRCULATION_OFF) ? 1 : 2;
 
   for (int i = tid; i < 5 * RX; i += nt) {
     const int k = i / RX;
     st[k * FS + (i - k * RX)] = st_in[k * FS + (i - k * RX)];
   }
-  for (int i = tid; i < 2 * RX; i += nt)
-    wz[i] = a.wz[(size_t)(i / RX) * YX + r0 * X + i % RX];
+  StrictSeq ss;
+  if constexpr (STRICT) {
+    if (circ) {
+      // wz of Ta and q with HALO rows each side, zero past the poles, and
+      // the rows' constants (ops/stencils.py), the rows in order of each
+      // count (the sub-cycle rounds take a prefix)
+      const int WX = (R + 2 * HALO) * X;
+      for (int i = tid; i < 2 * WX; i += nt) {
+        const int f = i / WX, h = i - f * WX, r = r0 - HALO + h / X;
+        wz[i] = r >= 0 && r < Y ? a.st_wz[(size_t)f * YX + r * X + h % X]
+                                : 0.f;
+      }
+      float* rc = sp[Q_INDEX];
+      int* rn = reinterpret_cast<int*>(rc + 2 * R);
+      for (int i = tid; i < R; i += nt) {
+        const float* rows = a.st_rows + r0 + i;   // (4, Y), this row
+        rc[i] = (a.st_kappa * rows[Y]) / rows[0];
+        rc[R + i] = rows[2 * Y];
+        rn[i] = a.st_n[r0 + i];
+        rn[R + i] = a.st_n[Y + r0 + i];
+      }
+      __syncthreads();
+      if (tid < 2) {   // insertion sort by count, most first; stable
+        const int* cnt = rn + tid * R;
+        int* ord = rn + (2 + tid) * R;
+        for (int i = 0; i < R; ++i) {
+          int k = i;
+          for (; k > 0 && cnt[ord[k - 1]] < cnt[i]; --k) ord[k] = ord[k - 1];
+          ord[k] = i;
+        }
+      }
+      ss = StrictSeq{wz, rc, rc + R, rn, rn + R, rn + 2 * R, rn + 3 * R,
+                     sp[Q_SCRATCH], a.st_ccy_d, a.st_ccy_a, nf,
+                     on<true>(p, VAPOR_DIFFUSION_ONLY) ? 1 : nf,
+                     a.quirk != 0};
+    }
+  } else {
+    for (int i = tid; i < 2 * RX; i += nt)
+      wz[i] = a.wz[(size_t)(i / RX) * YX + r0 * X + i % RX];
+  }
   // halo rows start at zero: those past the poles stay so
   for (int i = tid; i < 2 * 2 * 2 * HALO * X; i += nt) {
     const int fb = i / (2 * HALO * X);          // buffer*2 + field
@@ -2016,7 +2315,7 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
     const int row = h < HALO * X ? h / X : R + h / X;
     bufs.mine[fb * BX + row * X + h % X] = 0.f;
   }
-  if (!ADDITIVE && tid == 0) {   // the packed composites' slots
+  if (FORM == R_SEQ && tid == 0) {   // the packed composites' slots
     const int nq = bk.comp.n();
     int acc = 0;
     for (int fq = 0; fq < 2 * nq; ++fq) {
@@ -2036,37 +2335,59 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
   for (int y = 0; y < n_years; ++y) {
     // K3: this year's CO2 from the table, after the last step's update
     // (its __syncthreads) and seen after the next step start's
-    // cluster.sync()
+    // cluster.sync() (the strict form's, which may have none: after its
+    // own __syncthreads())
     if (KIND == SCEN_YEARS && tid == 0) pm->co2 = a.co2_years[y];
+    if (KIND == SCEN_YEARS && STRICT) __syncthreads();
     // this year's annual sums: K2's one year, K3's (m, y)
     float* const asum =
         a.asum + (KIND == SCEN_YEARS ? ((size_t)m * n_years + y) * N_SUM * YX
                                      : 0);
     for (int t = 0; t < a.T; ++t) {
       const size_t tyx = (size_t)t * YX;
-      // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
-      //    halos, and this step's coefficients into the global scratch
-      for (int l = tid; l < 2 * RX; l += nt) {
-        const int f = by_rx(l), li = l - f * RX;
-        const int i = by_x(li), j = li - i * X;
-        const size_t c = (size_t)f * YX + (size_t)r0 * X + li;
-        bufs.put(0, f, i, j, st[(f == 0 ? 1 : 3) * FS + li]);
-        step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + r0 * X + li],
-                    a.v[tyx + r0 * X + li], cfm + c, P);
-      }
-      cluster.sync();
-      // -- circulation: nsub substeps, buffer cur -> nxt
       int cur = 0;
-      for (int s = 0; s < a.nsub; ++s) {
-        const int nxt = NXT - cur;
-        if constexpr (ADDITIVE)
-          additive_substep<MEMBERS>(a, g, bk, later, bufs, cur, nxt, r0);
-        else
-          refined_substep<MEMBERS>(a, g, bk, bufs, cur, nxt, r0);
-        // every block's rows and halos of buffer nxt are written, and no
-        // block reads buffer cur any more
+      if constexpr (STRICT) {
+        if (circ) {
+          // -- step start: the moving fields into buffer 0, pushed to the
+          //    neighbours' halos
+          for (int l = tid; l < nf * RX; l += nt) {
+            const int f = by_rx(l), li = l - f * RX;
+            const int i = by_x(li), j = li - i * X;
+            bufs.put(0, f, i, j, st[(f == 0 ? 1 : 3) * FS + li]);
+          }
+          cluster.sync();
+          // -- circulation: nsub strict substeps, buffer cur -> nxt
+          for (int s = 0; s < a.nsub; ++s) {
+            const int nxt = NXT - cur;
+            strict_seq_substep(a, ss, bufs, cur, nxt, r0, t);
+            cluster.sync();
+            cur = nxt;
+          }
+        }
+      } else {
+        // -- step start: (Ta, q) into buffer 0, pushed to the neighbours'
+        //    halos, and this step's coefficients into the global scratch
+        for (int l = tid; l < 2 * RX; l += nt) {
+          const int f = by_rx(l), li = l - f * RX;
+          const int i = by_x(li), j = li - i * X;
+          const size_t c = (size_t)f * YX + (size_t)r0 * X + li;
+          bufs.put(0, f, i, j, st[(f == 0 ? 1 : 3) * FS + li]);
+          step_coeffs(a.zam + c, a.mer + c, P, a.u[tyx + r0 * X + li],
+                      a.v[tyx + r0 * X + li], cfm + c, P);
+        }
         cluster.sync();
-        cur = nxt;
+        // -- circulation: nsub substeps, buffer cur -> nxt
+        for (int s = 0; s < a.nsub; ++s) {
+          const int nxt = NXT - cur;
+          if constexpr (FORM == R_ADDITIVE)
+            additive_substep<MEMBERS>(a, g, bk, later, bufs, cur, nxt, r0);
+          else
+            refined_substep<MEMBERS>(a, g, bk, bufs, cur, nxt, r0);
+          // every block's rows and halos of buffer nxt are written, and no
+          // block reads buffer cur any more
+          cluster.sync();
+          cur = nxt;
+        }
       }
       // K3: this step's month slot, set at the month's first step
       float* mon = nullptr;
@@ -2086,9 +2407,10 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
         float s[5];
         for (int k = 0; k < 5; ++k) s[k] = st[k * FS + li];
         float vals[N_SUM];
-        update_cell<KIND, false>(a, pt, t, pix, s, xc[li], xc[BX + li], tf_m,
-                                 tof_m, qf_m, (size_t)t * a.corr_step + pix,
-                                 vals);
+        update_cell<KIND, LEGACY>(a, pt, t, pix, s, circ ? xc[li] : s[1],
+                                  circ && nf == 2 ? xc[BX + li] : s[3], tf_m,
+                                  tof_m, qf_m, (size_t)t * a.corr_step + pix,
+                                  vals);
         if (KIND == SCEN) {
           float* out = a.outs + tyx * N_OUT + pix;
           for (int k = 0; k < N_OUT; ++k) out[(size_t)k * YX] = vals[k];
@@ -2191,54 +2513,71 @@ __global__ void __launch_bounds__(NT, 1) scenario_years_strict(
                                                        member_index()));
 }
 
-// The refined instantiation of the four kernels (modern variant only), in
-// its two forms: sequential splitting with packed composites (_refined)
-// and additive splitting with dense composites (_additive).
-__global__ void __launch_bounds__(NT, 1) fluxcorr_year_refined(
-    YearArgs a, GrebParams p, RefinedArgs g) {
-  run_refined<FLUX, false, false>(a, g, p, PackCols{});
-}
+// The refined instantiation of the four kernels: in each form and variant,
+// <kernel><suffix> runs run_refined<kind, members, form, legacy>.
+#define REFINED_KERNELS(SUFFIX, FORM, LEGACY)                                \
+  __global__ void __launch_bounds__(NT, 1) fluxcorr_year##SUFFIX(            \
+      YearArgs a, GrebParams p, RefinedArgs g) {                             \
+    run_refined<FLUX, false, FORM, LEGACY>(a, g, p, PackCols{});             \
+  }                                                                          \
+  __global__ void __launch_bounds__(NT, 1) scenario_year##SUFFIX(            \
+      YearArgs a, GrebParams p, RefinedArgs g) {                             \
+    run_refined<SCEN, false, FORM, LEGACY>(a, g, p, PackCols{});             \
+  }                                                                          \
+  __global__ void __launch_bounds__(NT, 1) fluxcorr_years##SUFFIX(           \
+      YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {                 \
+    run_refined<FLUX, true, FORM, LEGACY>(a, g, p, c);                       \
+  }                                                                          \
+  __global__ void __launch_bounds__(NT, 1) scenario_years##SUFFIX(           \
+      YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {                 \
+    run_refined<SCEN_YEARS, true, FORM, LEGACY>(a, g, p, c);                 \
+  }
 
-__global__ void __launch_bounds__(NT, 1) scenario_year_refined(
-    YearArgs a, GrebParams p, RefinedArgs g) {
-  run_refined<SCEN, false, false>(a, g, p, PackCols{});
-}
+REFINED_KERNELS(_refined, R_SEQ, false)
+REFINED_KERNELS(_additive, R_ADDITIVE, false)
+REFINED_KERNELS(_refined_legacy, R_SEQ, true)
+REFINED_KERNELS(_additive_legacy, R_ADDITIVE, true)
+REFINED_KERNELS(_strict_refined, R_STRICT, true)
 
-__global__ void __launch_bounds__(NT, 1) fluxcorr_years_refined(
-    YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
-  run_refined<FLUX, true, false>(a, g, p, c);
-}
-
-__global__ void __launch_bounds__(NT, 1) scenario_years_refined(
-    YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
-  run_refined<SCEN_YEARS, true, false>(a, g, p, c);
-}
-
-__global__ void __launch_bounds__(NT, 1) fluxcorr_year_additive(
-    YearArgs a, GrebParams p, RefinedArgs g) {
-  run_refined<FLUX, false, true>(a, g, p, PackCols{});
-}
-
-__global__ void __launch_bounds__(NT, 1) scenario_year_additive(
-    YearArgs a, GrebParams p, RefinedArgs g) {
-  run_refined<SCEN, false, true>(a, g, p, PackCols{});
-}
-
-__global__ void __launch_bounds__(NT, 1) fluxcorr_years_additive(
-    YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
-  run_refined<FLUX, true, true>(a, g, p, c);
-}
-
-__global__ void __launch_bounds__(NT, 1) scenario_years_additive(
-    YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {
-  run_refined<SCEN_YEARS, true, true>(a, g, p, c);
-}
+// A launcher's refined kernels in the order refined_pick numbers them.
+#define REFINED_TABLE(K)                                                     \
+  { K##_refined, K##_additive, K##_refined_legacy, K##_additive_legacy,     \
+    K##_strict_refined }
 
 // A kernel's parameters are passed by value: the largest set (the refined
 // member kernels') stays under the 4 KB that every toolkit takes.
 static_assert(sizeof(YearArgs) + sizeof(GrebParams) + sizeof(PackCols) +
                       sizeof(RefinedArgs) <= 4096,
               "kernel parameters over 4 KB");
+
+// The instantiations a flags word launches (variant).
+enum Variant { V_MODERN, V_LEGACY, V_STRICT, V_NONE };
+
+// V_MODERN at flags 0; V_STRICT for the strict transport or none
+// (CIRCULATION_OFF); V_LEGACY for any other word; V_NONE for a word
+// with a bit not in Flag, a vapour bit without STRICT_TRANSPORT, or the
+// strict transport with CIRCULATION_OFF.
+static Variant variant(const GrebParams& p) {
+  const int f = p.flags;
+  const bool strict = (f & STRICT_TRANSPORT) != 0;
+  const bool off = (f & CIRCULATION_OFF) != 0;
+  if ((f & ~KNOWN_FLAGS) != 0 || (strict && off)
+      || (!strict && (f & (VAPOR_CIRCULATION_OFF | VAPOR_DIFFUSION_ONLY))))
+    return V_NONE;
+  if (strict || off) return V_STRICT;
+  return f ? V_LEGACY : V_MODERN;
+}
+
+// The refined kernel (REFINED_TABLE's index) that runs g.form under the
+// variant of p's flags word: the fold's forms modern or legacy, the strict
+// form for the strict transport or none; -1 where none runs it.
+static int refined_pick(const GrebParams& p, const RefinedArgs& g) {
+  const Variant v = variant(p);
+  if (g.form == R_STRICT) return v == V_STRICT ? 4 : -1;
+  if (g.form != R_SEQ && g.form != R_ADDITIVE) return -1;
+  if (v == V_MODERN) return g.form;
+  return v == V_LEGACY ? 2 + g.form : -1;
+}
 
 // One block of NT threads per member (a.M blocks).
 template <typename Kernel, typename... Extra>
@@ -2308,7 +2647,7 @@ static int refined_config(Kernel kernel, const YearArgs& a,
                           cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
                           int* clusters) {
   long long parts[N_QPARTS];
-  const long long smem = refined_parts(a.Y, a.X, a.ktc, a.kbc, C, g, parts);
+  const long long smem = form_parts(a.Y, a.X, a.ktc, a.kbc, C, g, parts);
   if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
   return config_with(kernel, a, C, smem, stream, attr, cfg, clusters);
 }
@@ -2331,41 +2670,26 @@ static int launch_cluster(Kernel kernel, const YearArgs& a,
   return (int)cudaGetLastError();
 }
 
-// The refined instantiation: a.M members on a.M clusters of C blocks, as
-// launch_cluster; the member kernels take the pack's columns (extra)
-// before g.
+// The refined instantiation: a.M members on a.M clusters of C blocks of
+// the kernel of `table` that refined_pick picks, as launch_cluster
+// (GREB_ERR_FLAGS where none); the member kernels take the pack's columns
+// (extra) before g.
 template <typename Kernel, typename... Extra>
-static int launch_refined(Kernel kernel, const YearArgs& a,
+static int launch_refined(Kernel const (&table)[5], const YearArgs& a,
                           const GrebParams& p, const RefinedArgs& g, int C,
                           void* stream, Extra... extra) {
-  if (p.flags != 0) return GREB_ERR_FLAGS;
+  const int k = refined_pick(p, g);
+  if (k < 0) return GREB_ERR_FLAGS;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters;
-  const int err = refined_config(kernel, a, g, C, stream, attr, &cfg,
+  const int err = refined_config(table[k], a, g, C, stream, attr, &cfg,
                                  &clusters);
   if (err) return err;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, p, extra..., g);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, table[k], a, p, extra...,
+                                           g);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-// The instantiations a flags word launches (variant).
-enum Variant { V_MODERN, V_LEGACY, V_STRICT, V_NONE };
-
-// V_MODERN at flags 0; V_STRICT for the strict transport or none
-// (CIRCULATION_OFF); V_LEGACY for any other word; V_NONE for a word
-// with a bit not in Flag, a vapour bit without STRICT_TRANSPORT, or the
-// strict transport with CIRCULATION_OFF.
-static Variant variant(const GrebParams& p) {
-  const int f = p.flags;
-  const bool strict = (f & STRICT_TRANSPORT) != 0;
-  const bool off = (f & CIRCULATION_OFF) != 0;
-  if ((f & ~KNOWN_FLAGS) != 0 || (strict && off)
-      || (!strict && (f & (VAPOR_CIRCULATION_OFF | VAPOR_DIFFUSION_ONLY))))
-    return V_NONE;
-  if (strict || off) return V_STRICT;
-  return f ? V_LEGACY : V_MODERN;
 }
 
 extern "C" {
@@ -2443,68 +2767,75 @@ int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, int C,
   }
 }
 
-// The four kernels at a grid of the refined instantiation, in the form of
-// g.additive, modern variant only (any other flags word: GREB_ERR_FLAGS).
+// The four kernels at a grid of the refined instantiation, in the form
+// g.form, under the variant of the flags word (refined_pick; any other
+// word: GREB_ERR_FLAGS).
 int greb_fluxcorr_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
                                void* stream) {
-  return g.additive
-             ? launch_refined(fluxcorr_year_additive, a, p, g, C, stream)
-             : launch_refined(fluxcorr_year_refined, a, p, g, C, stream);
+  decltype(&fluxcorr_year_refined) const t[] = REFINED_TABLE(fluxcorr_year);
+  return launch_refined(t, a, p, g, C, stream);
 }
 
 int greb_scenario_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
                                void* stream) {
-  return g.additive
-             ? launch_refined(scenario_year_additive, a, p, g, C, stream)
-             : launch_refined(scenario_year_refined, a, p, g, C, stream);
+  decltype(&scenario_year_refined) const t[] = REFINED_TABLE(scenario_year);
+  return launch_refined(t, a, p, g, C, stream);
 }
 
 int greb_fluxcorr_years_refined(YearArgs a, GrebParams p, PackCols c,
                                 RefinedArgs g, int C, void* stream) {
-  return g.additive
-             ? launch_refined(fluxcorr_years_additive, a, p, g, C, stream, c)
-             : launch_refined(fluxcorr_years_refined, a, p, g, C, stream, c);
+  decltype(&fluxcorr_years_refined) const t[] = REFINED_TABLE(fluxcorr_years);
+  return launch_refined(t, a, p, g, C, stream, c);
 }
 
 int greb_scenario_years_refined(YearArgs a, GrebParams p, PackCols c,
                                 RefinedArgs g, int C, void* stream) {
-  return g.additive
-             ? launch_refined(scenario_years_additive, a, p, g, C, stream, c)
-             : launch_refined(scenario_years_refined, a, p, g, C, stream, c);
+  decltype(&scenario_years_refined) const t[] =
+      REFINED_TABLE(scenario_years);
+  return launch_refined(t, a, p, g, C, stream, c);
 }
 
-// The kernel's own reckoning of a refined block's shared memory: fills
-// parts[N_QPARTS] (bytes, layout order), returns the total (0: no layout).
+// The kernel's own reckoning of a refined block's shared memory in the
+// form g.form: fills parts[N_QPARTS] (bytes, layout order), returns the
+// total (0: no layout).
 long long greb_refined_layout(int Y, int X, int ktc, int kbc, int C,
                               RefinedArgs g, long long* parts) {
-  return refined_parts(Y, X, ktc, kbc, C, g, parts);
+  return form_parts(Y, X, ktc, kbc, C, g, parts);
 }
 
 // How many clusters of C blocks of the refined kernel of `kind` (FLUX:
 // fluxcorr_years, SCEN: scenario_year, SCEN_YEARS: scenario_years; in the
-// form of g.additive) the card runs at once, into *clusters; an error code
-// as the launchers.
+// form g.form, its modern variant or the strict form's) the card runs at
+// once, into *clusters; an error code as the launchers.
 int greb_refined_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
                           RefinedArgs g, int* clusters) {
   YearArgs a = {};
   a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  const bool add = g.additive != 0;
-  if (kind == FLUX)
-    return add ? refined_config(fluxcorr_years_additive, a, g, C, nullptr,
-                                attr, &cfg, clusters)
-               : refined_config(fluxcorr_years_refined, a, g, C, nullptr,
-                                attr, &cfg, clusters);
-  if (kind == SCEN)
-    return add ? refined_config(scenario_year_additive, a, g, C, nullptr,
-                                attr, &cfg, clusters)
-               : refined_config(scenario_year_refined, a, g, C, nullptr,
-                                attr, &cfg, clusters);
-  return add ? refined_config(scenario_years_additive, a, g, C, nullptr,
-                              attr, &cfg, clusters)
-             : refined_config(scenario_years_refined, a, g, C, nullptr, attr,
-                              &cfg, clusters);
+  const int k = g.form == R_STRICT ? 4 : g.form;
+  if (k < 0 || k > 4) return GREB_ERR_LAYOUT;
+  if (kind == FLUX) {
+    decltype(&fluxcorr_years_refined) const t[] =
+        REFINED_TABLE(fluxcorr_years);
+    return refined_config(t[k], a, g, C, nullptr, attr, &cfg, clusters);
+  }
+  if (kind == SCEN) {
+    decltype(&scenario_year_refined) const t[] = REFINED_TABLE(scenario_year);
+    return refined_config(t[k], a, g, C, nullptr, attr, &cfg, clusters);
+  }
+  decltype(&scenario_years_refined) const t[] = REFINED_TABLE(scenario_years);
+  return refined_config(t[k], a, g, C, nullptr, attr, &cfg, clusters);
+}
+
+// The refined kernel (REFINED_TABLE's index) that a launcher runs for a
+// flags word in a form; -1: none (GREB_ERR_FLAGS).
+int greb_refined_pick(int flags, int form) {
+  GrebParams p = {};
+  p.flags = flags;
+  RefinedArgs g = {};
+  g.form = form;
+  return refined_pick(p, g);
 }
 
 // The kernel's own reckoning of a cluster block's shared memory (`strict`:

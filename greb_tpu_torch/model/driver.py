@@ -109,9 +109,8 @@ class GREB:
 
     def _check_member_kernels(self) -> None:
         """Raise before any launch where the member kernels (K3, K4) do not
-        run this model's plan and flags word (at a grid of the refined
-        instantiation the legacy words, ``year_kernel.check_plan``), on any
-        device."""
+        run this model's plan and flags word (``year_kernel.check_plan``),
+        on any device."""
         yd = self.year_data
         for kind in my.KINDS:
             yk.check_plan(yd.plan, kind, yd.flags)

@@ -15,12 +15,14 @@ memory; M clusters beyond the card's capacity run in waves.  For
 ``scenario_years`` ``cluster=1`` is the one-block body instead: one thread
 block per member, the state in shared memory and the coefficient planes in
 a per-member global scratch.  By default each wrapper picks the size by
-the member count (``default_cluster``).  For a fold of the refined
-instantiation (``year_kernel.is_refined``: 384x192, 192x96) both launch it
-(csrc/year_kernel.cu ``run_refined``, ``year_kernel.refined_layout``) on
-16-block clusters at every member count, each member with its own global
-scratch for the step's coefficient planes (M, 12, 2, Y, X); K3 adds up the
-monthly means and annual sums in global memory.  On a CUDA tensor each
+the member count (``default_cluster``).  For a plan of the refined
+instantiation (``year_kernel.is_refined``: the folds at 384x192 and
+192x96, modern and legacy, and the strict transport at 384x192) both
+launch it (csrc/year_kernel.cu ``run_refined``,
+``year_kernel.refined_layout``) on 16-block clusters at every member
+count, under the fold each member with its own global scratch for the
+step's coefficient planes (M, 12, 2, Y, X); K3 adds up the monthly means
+and annual sums in global memory.  On a CUDA tensor each
 wrapper launches its kernel or raises; on a CPU tensor it runs its plain
 PyTorch version, ``*_plain``, which loops over the members and steps
 through ``core.fluxcorr_step`` / ``core.scenario_step`` in the kernel's
@@ -57,7 +59,6 @@ from ...forcing import ModelState
 from ...grid import month_average_matrix
 from ...model import core
 from ...parallel.ensemble import TRANSPORT_PARAM_KEYS
-from .. import fastcirc2 as fc2
 from . import year_kernel as yk
 
 F32 = np.float32
@@ -125,9 +126,9 @@ def default_cluster(kind: str, members: int, capacity: int,
 
 def _default_cluster_on(yd: yk.YearData, kind: str, members: int) -> int:
     """``default_cluster`` on this card, its capacity asked once per run;
-    for a fold of the refined instantiation its one size at every member
+    for a plan of the refined instantiation its one size at every member
     count (K3's one-block body cannot hold such a member: ``smem_bytes``
-    is 709,632 B at 192x96)."""
+    is 709,632 B at 192x96, and it does not run the strict transport)."""
     if yk.is_refined(yd.plan):
         return yk.REFINED_CLUSTER_SIZES[0]
     key = ("capacity", kind, yd.transport)
@@ -164,16 +165,18 @@ def _maps_on(yd: yk.YearData, dev: torch.device):
     return yd.cache[key]
 
 
-def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
+def years_work(plan, num: Numerics, n_years: int, members: int,
                kind: str, shared_corr: bool = False,
-               ranks: Optional[np.ndarray] = None):
+               ranks: Optional[np.ndarray] = None, flags: int = 0):
     """(bytes, operations) a launch of ``kind`` ("fluxcorr": K4, one year;
     "scenario": K3) must move and compute at least for ``members`` members
     over ``n_years`` years, counted as ``year_kernel.year_work`` (packed
     composites at their ``ranks``, required for a packed plan, and the
-    explicit segments' iterations): the shared inputs (forcing, constants,
-    fold) read once, each member's state, pack, monthly means and annual
-    sums once.  The correction tables count once
+    explicit segments' iterations; a ``StrictPlan`` the strict transport
+    under ``flags``, each row's sub-cycles at its own count): the shared
+    inputs (forcing, constants, fold or the stencils' constants) read
+    once, each member's state, pack, monthly means and annual sums once.
+    The correction tables count once
     per member and year: a year streams them step by step, and from one
     year to the next 40 MB a member (at 96x48) cannot stay on chip.  K3's
     shared table (``shared_corr``) counts once a year: members that step
@@ -184,10 +187,17 @@ def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
                          "table per member")
     yx, t = plan.ydim * plan.xdim, num.nstep_yr
     nmon = len(num.jday_mon)
+    if isinstance(plan, yk.StrictPlan):
+        # the constant fields, wz_vapor and the rows' constants: the
+        # single year's words less its state, forcing and tables
+        shared = (yk.year_work(plan, num, False, flags=flags)[0] // 4
+                  - 10 * yx - 8 * t * yx - t * plan.ydim - 3 * t * yx)
+    else:
+        shared = (5 * yx                         # constant fields
+                  + (7 + 8 + 9 + 1) * 2 * yx     # fold planes
+                  + yk.composite_words(plan, ranks))   # composites
     words = (8 * t * yx + t * plan.ydim          # forcing, insolation
-             + 5 * yx                            # constant fields
-             + (7 + 8 + 9 + 1) * 2 * yx          # fold planes
-             + yk.composite_words(plan, ranks)   # composites
+             + shared
              + members * (10 * yx + N_PPACK)     # state in and out, pack
              + (1 if shared_corr else members)   # corrections in / out
              * n_years * 3 * t * yx)
@@ -197,8 +207,8 @@ def years_work(plan: fc2.FastPlan, num: Numerics, n_years: int, members: int,
     # per year and member: the single-year step body (with the annual sums
     # for a scenario year), plus a multiply and an add for each of the 5
     # monthly means
-    ops = yk.year_work(plan, num, scen, ranks)[1] + (t * yx * 10 if scen
-                                                      else 0)
+    ops = yk.year_work(plan, num, scen, ranks, flags)[1] + (
+        t * yx * 10 if scen else 0)
     return 4 * words, members * n_years * ops
 
 
@@ -323,7 +333,7 @@ def _launch_members(fn_name: str, yd: yk.YearData, args: yk._Args,
                     params: yk._Params, dev: torch.device,
                     cluster: int) -> None:
     """Launch K4 or K3 (``fn_name``) on ``cluster``-block clusters: the
-    refined instantiation for a fold it runs (``is_refined``)."""
+    refined instantiation for a plan it runs (``is_refined``)."""
     extra = ()
     if yk.is_refined(yd.plan):
         fn_name += "_refined"
@@ -362,7 +372,7 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     state_out = torch.empty_like(state5)
     corr = torch.empty((M, T, 3, Y, X), dtype=torch.float32, device=dev)
     scratch = {}
-    if yk.is_refined(yd.plan):
+    if yk.is_refined(yd.plan) and yd.fold is not None:
         scratch["cf"] = _coeff_scratch(M, Y, X, dev)
     args = yk._args(
         yd, state5, ints=dict(M=M, corr_step=3 * Y * X, n_pack=N_PPACK),
@@ -389,11 +399,11 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     M = _check(state5, ppack, yd, "scenario_years")
     shared = _shared_table(corrpack, state5, yd)
     if cluster is not None:
-        yk._check_cluster(cluster, "scenario_years", yd.plan)
         if cluster == 1 and yd.transport == "strict":
             raise NotImplementedError(
                 f"scenario_years: the one-block body (cluster=1) does not "
                 f"run the strict transport ({yk.STRICT_ONE_BLOCK_ITEM})")
+        yk._check_cluster(cluster, "scenario_years", yd.plan)
     dev = state5.device
     if dev.type == "cpu":
         return scenario_years_plain(state5, ppack, corrpack, co2_years, yd)
@@ -408,7 +418,7 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
         yk.check_block_fit(yd.plan)
     else:
         yk.block_layout(yd.plan, cluster, "scenario_years")
-    if cluster == 1 or yk.is_refined(yd.plan):
+    if cluster == 1 or (yk.is_refined(yd.plan) and yd.fold is not None):
         scratch["cf"] = _coeff_scratch(M, Y, X, dev)
     co2t = torch.as_tensor(co2_years, dtype=torch.float32, device=dev)
     ny = co2t.numel()

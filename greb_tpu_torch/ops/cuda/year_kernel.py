@@ -39,20 +39,25 @@ A fold the cluster body does not hold (``is_refined``: explicit polar
 segment iterations, packed composites, or dense ones too large for a
 block) launches each kernel's refined instantiation (csrc/year_kernel.cu
 ``run_refined``; the member kernels of multiyear.py one member a 16-block
-cluster), modern variant only, in one of two forms: an extension-mode
-plan (384x192 at dt_crcl=1800: sequential zonal splitting, packed pole
-composites, segments; ``*_refined``) or a plan with additive splitting
-and dense composites (192x96 at dt_crcl=1800: advection segments and
-five 192x192 composite rows at each pole; ``*_additive``).  Its block
-keeps in shared memory only what a substep reads many times: the (Ta, q)
-double buffer with its halo rows, wz, the zonally diffused state xa (or
-dd) and a scratch for the segment iterations and composite rows
-(``refined_layout``); the state, the annual sums, K3's monthly means, the
-step's coefficient planes (a global scratch a member), the zd planes and
-the packed factors or dense composite matrices stay in global memory and
-L2.  The legacy and strict words and the plans that layout does not hold
-raise NotImplementedError at such a plan (``check_plan``,
-``check_supported``), each naming its ROADMAP item.
+cluster), modern or legacy (suffix ``_legacy``), in one of two forms: an
+extension-mode plan (384x192 at dt_crcl=1800: sequential zonal
+splitting, packed pole composites, segments; ``*_refined``) or a plan
+with additive splitting and dense composites (192x96 at dt_crcl=1800:
+advection segments and five 192x192 composite rows at each pole;
+``*_additive``).  Its block keeps in shared memory only what a substep
+reads many times: the (Ta, q) double buffer with its halo rows, wz, the
+zonally diffused state xa (or dd) and a scratch for the segment
+iterations and composite rows (``refined_layout``); the state, the annual
+sums, K3's monthly means, the step's coefficient planes (a global scratch
+a member), the zd planes and the packed factors or dense composite
+matrices stay in global memory and L2.  The strict transport (and no
+transport) at an extension-mode grid runs in the refined instantiation's
+third form (``*_strict_refined``, a ``StrictPlan`` with ``seq_zonal``):
+the strict stencils with sequential zonal splitting, both polar
+sub-cycles in every row, its block's shared memory the double buffer, wz
+with halo rows and one sub-cycle scratch (``strict_refined_layout``).
+Grids that these layouts do not hold raise NotImplementedError
+(``check_plan``, ``check_supported``), naming their ROADMAP item.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -118,14 +123,21 @@ STRICT_ONE_BLOCK_ITEM = "ROADMAP Queue 2 item 4"
 # it launches with (12 rows of 384 columns a block at 384x192; 8 and 12
 # blocks need more than MAX_SMEM_BYTES), the parts of its block's shared
 # memory in the kernel's layout order (csrc/year_kernel.cu enum
-# RefinedPart), and the most segments of either kind it takes
+# RefinedPart; the strict form's names for the same slots: no xz, which
+# waits in the next buffer's own rows, the sub-cycles' two buffers, the
+# rows' constants), and the most segments of either kind it takes
 REFINED_CLUSTER_SIZES = (16,)
 REFINED_PARTS = ("transported", "wz", "xa", "scratch", "comp_index")
+STRICT_REFINED_PARTS = ("transported", "wz", "xz", "subcycle", "rowc")
 MAX_SEGS = 8
+# the forms of the refined instantiation (csrc/year_kernel.cu enum
+# RefinedForm): the fold with sequential splitting and packed composites,
+# the fold with additive splitting and dense composites, the strict
+# transport with sequential splitting
+REFINED_FORMS = ("sequential", "additive", "strict")
 # where what the refined instantiation does not run is queued
 REFINED_ITEMS = dict(
     layout="ROADMAP Queue 1 item 3d",    # grids its layout does not hold
-    words="ROADMAP Queue 1 item 3f",     # legacy and strict words
     # additive splitting with packed composites (256x128, 288x144)
     additive_packed="ROADMAP Queue 1 item 3g")
 
@@ -140,9 +152,13 @@ def experiment_flags(exp: Experiment, strict: bool = False) -> int:
 
 @dataclass(frozen=True)
 class StrictPlan:
-    """The layout plan of the strict instantiation, which runs the strict
-    transport or none: the grid's size and no fold (no composite rows);
-    ``seq_zonal`` marks an extension-mode grid, which no kernel runs."""
+    """The layout plan of a year without the fold, the strict transport or
+    none: the grid's size and no fold (no composite rows).  ``seq_zonal``
+    marks an extension-mode grid, which the refined instantiation's strict
+    form runs (sequential zonal splitting, every row sub-cycled);
+    ``sub_cycles``, where known, the (diffusion, advection) sub-cycles of
+    each row (``stencils.sub_cycles``; -1: the row takes the vectorised
+    form), which ``year_work`` counts."""
     ydim: int
     xdim: int
     seq_zonal: bool = False
@@ -150,6 +166,8 @@ class StrictPlan:
     bb: int = 0
     comp_kt: int = 0
     comp_kb: int = 0
+    sub_cycles: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = field(
+        default=None, repr=False, compare=False)
 
 
 @dataclass
@@ -178,11 +196,21 @@ class YearData:
     @property
     def plan(self):
         """The fold's plan, or the ``StrictPlan`` of a year without the
-        fold."""
+        fold (under the strict transport with each row's sub-cycles; made
+        once per run)."""
         if self.transport == "fold":
             return self.fold[0]
-        return StrictPlan(self.num.ydim, self.num.xdim,
-                          seq_zonal=bool(self.md.st and self.md.st.seq_zonal))
+        key = ("plan", self.transport)
+        if key not in self.cache:
+            st = self.md.st
+            counts = None
+            if self.transport == "strict":
+                counts = tuple(tuple(int(n) for n in c.cpu())
+                               for c in stc.sub_cycles(st, self.md.sf))
+            self.cache[key] = StrictPlan(
+                self.num.ydim, self.num.xdim,
+                seq_zonal=bool(st and st.seq_zonal), sub_cycles=counts)
+        return self.cache[key]
 
 
 @dataclass(frozen=True)
@@ -298,7 +326,10 @@ def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     Raises ValueError where ``cluster_layout`` does, where the row length is
     not a multiple of fastcirc2.COMP_BLOCK (the composite sums take whole
     blocks of a row), for a plan of neither form, for more than MAX_SEGS
-    segments, and where a block needs more than MAX_SMEM_BYTES."""
+    segments, and where a block needs more than MAX_SMEM_BYTES.  A
+    ``StrictPlan`` of the refined instantiation: ``strict_refined_layout``."""
+    if isinstance(plan, StrictPlan) and plan.seq_zonal:
+        return strict_refined_layout(plan, blocks, kind)
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: one of {KINDS}")
     form = ("packed",) if plan.seq_zonal else ("dense", "none")
@@ -345,14 +376,59 @@ def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     return lay
 
 
+def strict_refined_layout(plan: StrictPlan, blocks: int,
+                          kind: str) -> ClusterLayout:
+    """The shared memory of each block of a ``blocks``-block cluster that
+    runs the refined instantiation's strict form of ``kind`` (one of KINDS;
+    the same for each) at an extension-mode grid (csrc/year_kernel.cu
+    ``strict_refined_parts``, the same reckoning; ``STRICT_REFINED_PARTS``
+    order): two buffers of the 2 transported fields with HALO rows each
+    side, wz of both fields with HALO rows each side, no xz (it waits in
+    the next buffer's own rows), the polar sub-cycles' two buffers of 2
+    fields (the diffusion's, then the advection's) and 6 words a row (the
+    two sub-cycle coefficients and counts, the rows in order of each
+    count).  The state, the annual sums, K3's monthly means and the step's
+    winds stay in global memory.  Raises ValueError where the rows do not
+    split evenly, a block would hold fewer rows than the halo depth, the
+    row length is not a multiple of 4, or a block needs more than
+    MAX_SMEM_BYTES."""
+    if kind not in KINDS:
+        raise ValueError(f"kind {kind!r}: one of {KINDS}")
+    Y, X = plan.ydim, plan.xdim
+    if X % 4:
+        raise ValueError(f"strict refined kernels: {X} columns, not a "
+                         f"multiple of 4")
+    if not 1 <= blocks <= MAX_CLUSTER or Y % blocks:
+        raise ValueError(f"a cluster of {blocks} blocks: {Y} latitude rows "
+                         f"do not split evenly over 1..{MAX_CLUSTER} blocks")
+    R = Y // blocks
+    if R < HALO:
+        raise ValueError(f"a cluster of {blocks} blocks gives {R} row(s) per "
+                         f"block, under the meridional halo depth {HALO}")
+    words = dict(transported=2 * 2 * (R + 2 * HALO) * X,
+                 wz=2 * (R + 2 * HALO) * X, xz=0, subcycle=2 * 2 * R * X,
+                 rowc=-(-6 * R // 4) * 4)
+    lay = ClusterLayout(
+        blocks=blocks, rows=R, comp_rows=0,
+        threads=min(MAX_THREADS, -(-2 * R * X // 32) * 32),
+        parts=tuple((n, 4 * words[n]) for n in STRICT_REFINED_PARTS))
+    if lay.nbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"strict refined {kind}: a cluster of {blocks} "
+                         f"blocks at {X}x{Y} needs {lay.nbytes} B of shared "
+                         f"memory a block, over {MAX_SMEM_BYTES} B")
+    return lay
+
+
 def is_refined(plan) -> bool:
-    """A fold the kernels run in their refined instantiation, which reads
-    its planes from L2, and not in the cluster body: sequential zonal
-    splitting (an extension-mode grid), explicit polar segments, packed
-    composites, or dense composites of which one pole row's two (X, X)
-    matrices alone exceed a block's shared memory (192x96)."""
+    """A plan the kernels run in their refined instantiation, which reads
+    the state and its planes from L2, and not in the cluster body: a fold
+    with sequential zonal splitting (an extension-mode grid), explicit
+    polar segments, packed composites, or dense composites of which one
+    pole row's two (X, X) matrices alone exceed a block's shared memory
+    (192x96); or the ``StrictPlan`` of an extension-mode grid (the strict
+    form)."""
     if isinstance(plan, StrictPlan):
-        return False
+        return plan.seq_zonal
     return bool(plan.seq_zonal or plan.diff_segs or plan.adv_segs
                 or plan.comp_mode == "packed"
                 or (plan.diff_composite
@@ -381,23 +457,36 @@ def smem_bytes(plan) -> int:
 def check_plan(plan, kind: str, flags: int = 0) -> None:
     """Raise NotImplementedError for what the kernel of ``kind`` (one of
     KINDS; "fluxcorr" and "scenario_years" are also the member kernels K4
-    and K3) does not run with the flags word ``flags``.  A fold of the
-    refined instantiation (``is_refined``: 384x192, 192x96) runs with the
-    modern word only (legacy words there, and the strict transport at an
-    extension-mode grid: REFINED_ITEMS["words"]), in one of its two forms:
-    sequential zonal splitting with packed composites or additive
+    and K3) does not run with the flags word ``flags`` (every word runs;
+    ``flags`` names the word in the message).  A fold of the refined
+    instantiation (``is_refined``: 384x192, 192x96) runs in one of its two
+    forms: sequential zonal splitting with packed composites or additive
     splitting with dense ones (additive with packed:
     REFINED_ITEMS["additive_packed"]; sequential with dense composites,
     which ``make_plan`` never builds, raises ValueError), at a size
     ``refined_layout`` holds on REFINED_CLUSTER_SIZES (else
-    REFINED_ITEMS["layout"]).  The cluster body runs every other fold and
-    the strict transport at any other grid (``check_supported`` checks its
-    fit)."""
+    REFINED_ITEMS["layout"]).  A ``StrictPlan`` at an extension-mode grid
+    runs in its strict form where every row takes both polar sub-cycles
+    (as at every extension-mode grid the reference's polar criterion
+    gives) and ``strict_refined_layout`` holds it on
+    REFINED_CLUSTER_SIZES (else REFINED_ITEMS["layout"]).  The cluster
+    body runs every other fold and the strict transport at any other grid
+    (``check_supported`` checks its fit)."""
     if isinstance(plan, StrictPlan):
-        if plan.seq_zonal:
+        if not plan.seq_zonal:
+            return
+        if plan.sub_cycles is not None and min(map(min, plan.sub_cycles)) < 0:
             raise NotImplementedError(
                 f"{kind}: the strict transport (flags {flags:#x}) at an "
-                f"extension-mode grid ({REFINED_ITEMS['words']})")
+                f"extension-mode grid with rows outside the polar "
+                f"sub-cycles ({REFINED_ITEMS['layout']})")
+        try:
+            strict_refined_layout(plan, REFINED_CLUSTER_SIZES[0], kind)
+        except ValueError as e:
+            raise NotImplementedError(
+                f"{kind}: the refined instantiation's strict form (flags "
+                f"{flags:#x}) does not hold this grid: {e} "
+                f"({REFINED_ITEMS['layout']})") from None
         return
     if plan.seq_zonal and plan.comp_mode != "packed":
         raise ValueError(f"year kernels: sequential zonal splitting with "
@@ -405,11 +494,6 @@ def check_plan(plan, kind: str, flags: int = 0) -> None:
                          f"does not build")
     if not is_refined(plan):
         return
-    if flags:
-        raise NotImplementedError(
-            f"{kind}: the legacy words (flags {flags:#x}) at a "
-            f"{plan.xdim}x{plan.ydim} fold of the refined instantiation "
-            f"({REFINED_ITEMS['words']})")
     if not plan.seq_zonal and plan.comp_mode == "packed":
         raise NotImplementedError(
             f"{kind}: additive zonal splitting with packed composites "
@@ -476,8 +560,8 @@ def composite_words(plan: fc2.FastPlan,
     return 2 * (plan.comp_kt + plan.comp_kb) * plan.xdim ** 2
 
 
-def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool,
-              ranks: Optional[np.ndarray] = None):
+def year_work(plan, num: Numerics, scenario: bool,
+              ranks: Optional[np.ndarray] = None, flags: int = 0):
     """(bytes, operations) one year must move and compute at least: each
     input read once and each output written once; operations counted from
     the step body's source (adds, multiplies, divides, compares,
@@ -487,7 +571,11 @@ def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool,
     their two products at the rows' ranks, z = t1 U (2 X r a row) and
     t2 = z W (2 X r); the explicit segments count each row's iterations.
     With sequential zonal splitting (extension-mode plans) the combine's 4
-    operations a cell are xa = x + wz dd (2) and xa + da + dy (2)."""
+    operations a cell are xa = x + wz dd (2) and xa + da + dy (2).  A
+    ``StrictPlan`` counts the strict transport under the flags word
+    ``flags`` (``strict_work``)."""
+    if isinstance(plan, StrictPlan):
+        return strict_work(plan, num, scenario, flags)
     yx, t, X = plan.ydim * plan.xdim, num.nstep_yr, plan.xdim
     kk = plan.comp_kt + plan.comp_kb
     comp_words = composite_words(plan, ranks)
@@ -515,52 +603,64 @@ def year_work(plan: fc2.FastPlan, num: Numerics, scenario: bool,
 
 
 # float32 operations of one (field, cell) of a strict substep, counted from
-# csrc/year_kernel.cu strict_value / strict_substep as year_work counts:
-# diffusion (meridional 6, the 7-point stencil 36, wz * (dtx + dty) 2),
-# advection (wind splits 4, meridional 17, the 2-point upwind 16, dtx +
-# dty 1), the combine 2 (1 without advection); a sub-cycled row swaps the
-# zonal stencil for t1h - x (1) plus each of its iterations (diffusion 41,
-# advection 33: the stencil, the clamp, the masked add)
+# csrc/year_kernel.cu strict_value / strict_substep (additive splitting)
+# and strict_seq_substep (sequential) as year_work counts: diffusion
+# (meridional 6, the 7-point stencil 36, wz * (dtx + dty) 2; sequential:
+# xz = x + wz * dtx 2 and xz + wz * dty 2), advection (wind splits 4,
+# meridional 17, the 2-point upwind 16, dtx + dty 1), the combine 2 (1
+# without advection; sequential: the one add of dxa); a sub-cycled row
+# swaps the zonal stencil for t1h - x (1) plus each of its iterations
+# (diffusion 41, advection 33: the stencil, the clamp, the add)
 STRICT_OPS = dict(diff=44, diff7=36, adv=38, upwind2=16, combine=2,
                   diff_iter=41, adv_iter=33)
 
 
-def strict_year_work(yd: YearData, scenario: bool):
-    """(bytes, operations) one year of the strict transport must move and
-    compute at least, counted as ``year_work``; the polar sub-cycles count
-    each row's own iterations (what this grid needs, not the block's
-    largest count), and a field moves only as the switchboard says (q
-    not under log_exp 7, 16; by diffusion alone under 8)."""
-    num, (nd, na) = yd.num, stc.sub_cycles(yd.md.st, yd.md.sf)
-    nd, na = nd.cpu().numpy(), na.cpu().numpy()
-    Y, X, t = num.ydim, num.xdim, num.nstep_yr
+def strict_work(plan: StrictPlan, num: Numerics, scenario: bool,
+                flags: int = 0):
+    """(bytes, operations) one year of the strict transport (or none) must
+    move and compute at least under the flags word ``flags``, counted as
+    ``year_work``: the polar sub-cycles count each row's own iterations
+    (``plan.sub_cycles``: what this grid needs, not the block's largest
+    count), and a field moves only as the switchboard says (none under
+    circulation_off; q not under log_exp 7, 16; by diffusion alone under
+    8).  With sequential zonal splitting (``plan.seq_zonal``) a moving
+    (field, cell) takes one add more than with additive splitting."""
+    on = lambda name: bool(flags >> FLAGS.index(name) & 1)
+    Y, X, t = plan.ydim, plan.xdim, num.nstep_yr
     yx = Y * X
     words = (5 * yx + 8 * t * yx + t * Y       # state in, forcing, insolation
-             + 6 * yx + 6 * Y                  # constant fields, wz_vapor, rows
-             + 5 * yx + 3 * t * yx)            # state out, corrections
+             + 5 * yx + 5 * yx + 3 * t * yx)   # constant fields, state out,
+                                               # corrections
+    if not on("circulation_off"):
+        words += yx + 6 * Y                    # wz_vapor, the rows' constants
     if scenario:
         words += 5 * t * yx + N_SUM * yx
-    o = STRICT_OPS
+    per_step = yx * (125 + (9 if scenario else 0))
+    if not on("circulation_off"):
+        if plan.sub_cycles is None:
+            raise ValueError("the strict transport's work needs each row's "
+                             "sub-cycles (StrictPlan.sub_cycles)")
+        nd, na = plan.sub_cycles
+        o, seq = STRICT_OPS, int(plan.seq_zonal)
 
-    def field_ops(advect: bool) -> int:
-        ops = 0
-        for r in range(Y):
-            ops += o["diff"] + o["combine"] - (0 if advect else 1)
-            if nd[r] >= 0:
-                ops += 1 - o["diff7"] + o["diff_iter"] * int(nd[r])
-            if advect:
-                ops += o["adv"]
-                if na[r] >= 0:
-                    ops += 1 - o["upwind2"] + o["adv_iter"] * int(na[r])
-        return ops * X
+        def field_ops(advect: bool) -> int:
+            ops = 0
+            for r in range(Y):
+                ops += o["diff"] + o["combine"] + seq - (0 if advect else 1)
+                if nd[r] >= 0:
+                    ops += 1 - o["diff7"] + o["diff_iter"] * nd[r]
+                if advect:
+                    ops += o["adv"]
+                    if na[r] >= 0:
+                        ops += 1 - o["upwind2"] + o["adv_iter"] * na[r]
+            return ops * X
 
-    e = yd.exp
-    per_substep = field_ops(True)
-    if not e.vapor_circulation_off:
-        per_substep += field_ops(not e.vapor_diffusion_only)
-    per_step = (num.nsub_crcl * per_substep
-                + yx * (125 + (9 if scenario else 0)))
+        per_substep = field_ops(True)
+        if not on("vapor_circulation_off"):
+            per_substep += field_ops(not on("vapor_diffusion_only"))
+        per_step += num.nsub_crcl * per_substep
     return 4 * words, t * per_step
+
 
 
 # ---------------------------------------------------------------------------
@@ -614,19 +714,56 @@ class _Refined(ctypes.Structure):
     """The refined instantiation's arguments (csrc/year_kernel.cu
     RefinedArgs): the packed factors, each composite row's offset and rank
     in Rtot, the segment tables, (kt, kb, iters) each, and the plan's form
-    (``additive``: additive splitting with dense composites)."""
+    (an index of REFINED_FORMS)."""
     _fields_ = ([(n, ctypes.c_void_p)
                  for n in ("pcu", "pcw", "comp_off", "comp_rank")]
                 + [(n, ctypes.c_int) for n in ("rtot", "n_dseg", "n_aseg")]
                 + [(n, ctypes.c_int * (3 * MAX_SEGS))
                    for n in ("dseg", "aseg")]
-                + [("additive", ctypes.c_int)])
+                + [("form", ctypes.c_int)])
+
+
+# the refined kernels' entry suffixes in the order the launchers number
+# them (csrc/year_kernel.cu REFINED_TABLE, refined_pick)
+REFINED_SUFFIXES = ("_refined", "_additive", "_refined_legacy",
+                    "_additive_legacy", "_strict_refined")
+
+
+def refined_entry(kernel: str, plan, flags: int) -> str:
+    """The entry function that the refined launcher of ``kernel`` (one of
+    "fluxcorr_year", "scenario_year", "fluxcorr_years", "scenario_years")
+    runs for ``plan`` under the flags word ``flags`` (csrc/year_kernel.cu
+    refined_pick): the fold's forms modern at word 0, legacy at any other
+    word with the fold; the strict form for the strict transport or none.
+    Raises ValueError for a word that no refined kernel runs in the plan's
+    form."""
+    bit = lambda name: bool(flags >> FLAGS.index(name) & 1)
+    strict, off = bit("strict_transport"), bit("circulation_off")
+    vapor = bit("vapor_circulation_off") or bit("vapor_diffusion_only")
+    form = refined_form(plan)
+    if (flags >> len(FLAGS) or (strict and off) or (vapor and not strict)
+            or (form == "strict") != (strict or off)):
+        raise ValueError(f"{kernel}: no refined kernel runs flags "
+                         f"{flags:#x} in the {form} form")
+    k = (4 if form == "strict" else REFINED_FORMS.index(form)
+         + 2 * (flags != 0))
+    return kernel + REFINED_SUFFIXES[k]
+
+
+def refined_form(plan) -> str:
+    """The form of the refined instantiation that runs ``plan`` (one of
+    REFINED_FORMS)."""
+    if isinstance(plan, StrictPlan):
+        return "strict"
+    return "sequential" if plan.seq_zonal else "additive"
 
 
 def _refined_struct(plan, **ptrs) -> _Refined:
     """``_Refined`` of ``plan``'s segment tables and form, with ``ptrs``."""
+    if isinstance(plan, StrictPlan):
+        return _Refined(form=REFINED_FORMS.index("strict"), **ptrs)
     g = _Refined(n_dseg=len(plan.diff_segs), n_aseg=len(plan.adv_segs),
-                 additive=int(not plan.seq_zonal), **ptrs)
+                 form=REFINED_FORMS.index(refined_form(plan)), **ptrs)
     for name, segs in (("dseg", plan.diff_segs), ("aseg", plan.adv_segs)):
         flat = [int(v) for seg in segs for v in seg]
         getattr(g, name)[:len(flat)] = flat
@@ -672,6 +809,8 @@ def _lib():
     lib.greb_cluster_capacity.argtypes = [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.greb_cluster_capacity.restype = ctypes.c_int
+    lib.greb_refined_pick.argtypes = [ctypes.c_int] * 2
+    lib.greb_refined_pick.restype = ctypes.c_int
     lib.greb_cluster_threads.argtypes = [ctypes.c_int] * 3
     lib.greb_cluster_threads.restype = ctypes.c_int
     lib.greb_error_string.argtypes = [ctypes.c_int]
@@ -687,14 +826,16 @@ def kernel_cluster_layout(plan, blocks: int, kind: str):
     layout, ``greb_refined_layout``, against ``refined_layout``)."""
     lib = _lib()
     if is_refined(plan):
-        parts = (ctypes.c_longlong * len(REFINED_PARTS))()
+        names = (STRICT_REFINED_PARTS if isinstance(plan, StrictPlan)
+                 else REFINED_PARTS)
+        parts = (ctypes.c_longlong * len(names))()
         total = lib.greb_refined_layout(plan.ydim, plan.xdim, plan.comp_kt,
                                         plan.comp_kb, blocks,
                                         _refined_struct(plan), parts)
         if total <= 0:
             raise ValueError(f"the kernel has no refined layout for {blocks} "
                              f"blocks")
-        return (dict(zip(REFINED_PARTS, parts)),
+        return (dict(zip(names, parts)),
                 lib.greb_cluster_threads(plan.ydim, plan.xdim, blocks))
     parts = (ctypes.c_longlong * len(CLUSTER_PARTS))()
     total = lib.greb_cluster_layout(plan.ydim, plan.xdim, plan.comp_kt,
@@ -830,7 +971,10 @@ def _refined_args(yd: YearData, dev: torch.device) -> _Refined:
     """The refined instantiation's arguments: the packed factors U_all
     (X, Rtot) and W_all (Rtot, X), each composite row's offset and rank
     (int32 on ``dev``, made once per run; none for dense composites, which
-    go in ``_args``), the plan's segments and its form."""
+    go in ``_args``, nor for the strict form), the plan's segments and its
+    form."""
+    if yd.fold is None:
+        return _refined_struct(yd.plan)
     plan, const = yd.fold
     if plan.comp_mode != "packed":
         return _refined_struct(plan)
@@ -860,17 +1004,19 @@ def _refined_args(yd: YearData, dev: torch.device) -> _Refined:
 def _launch_year(fn_name: str, yd: YearData, state5: torch.Tensor,
                  params: _Params, cluster: int, **extra) -> None:
     """Launch K1 or K2 (``fn_name``) on the instantiation of the plan: the
-    refined one, with a global scratch for the step's coefficient planes
-    (12, 2, Y, X), for a fold it runs (``is_refined``)."""
+    refined one for a plan it runs (``is_refined``), the fold's forms with
+    a global scratch for the step's coefficient planes (12, 2, Y, X)."""
     dev = state5.device
     if not is_refined(yd.plan):
         _launch(fn_name, _args(yd, state5, **extra), params, dev,
                 ctypes.c_int(cluster))
         return
-    Y, X = state5.shape[1:]
-    cf = torch.empty((12, 2, Y, X), dtype=torch.float32, device=dev)
-    _launch(fn_name + "_refined", _args(yd, state5, cf=(cf, None), **extra),
-            params, dev, _refined_args(yd, dev), ctypes.c_int(cluster))
+    if yd.fold is not None:
+        Y, X = state5.shape[1:]
+        extra["cf"] = (torch.empty((12, 2, Y, X), dtype=torch.float32,
+                                   device=dev), None)
+    _launch(fn_name + "_refined", _args(yd, state5, **extra), params, dev,
+            _refined_args(yd, dev), ctypes.c_int(cluster))
 
 
 def _launch(fn_name: str, args: _Args, params: _Params, dev: torch.device,

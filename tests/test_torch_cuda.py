@@ -25,7 +25,12 @@ from the 96x48 synthetic forcing, the 4-step calendar) the four kernels'
 refined instantiation equals its plain version (K4 and K3 at M=2 with
 members that differ, K3 over two years with a table per member and with
 one shared table), K4 = K1 and K3 = K2 at M=1, and the kernel reckons its
-block as ``refined_layout`` does.
+block as ``refined_layout`` does.  There K1 and K2 also equal their plain
+versions under the legacy fold words 5, 11 and 15 (the refined legacy
+variant) and under the strict circulation and the no-transport word
+(the refined instantiation's strict form, whose block the kernel reckons
+as ``strict_refined_layout`` does); the launchers pick the kernel that
+``refined_entry`` names for every word in every form.
 """
 import numpy as np
 import pytest
@@ -33,9 +38,11 @@ import torch
 
 from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
 from greb_tpu_torch.forcing import Corrections, forcing_from_arrays
+from greb_tpu_torch.grid import make_grid
 from greb_tpu_torch.io.synthetic import make_synthetic_forcing
 from greb_tpu_torch.model import core
 from greb_tpu_torch.model.driver import GREB
+from greb_tpu_torch.ops import fastcirc as fc
 from greb_tpu_torch.ops.cuda import multiyear as my
 from greb_tpu_torch.ops.cuda import year_kernel as yk
 from greb_tpu_torch.parallel import ensemble as ens
@@ -399,3 +406,80 @@ def test_refined_member_kernels_match_plain(refined_model, shared):
     s2, _, a2 = yk.scenario_year(s0, zero, 680.0, yd)
     _equal(s3[:, 0], s2.stack(), "K3 = K2 state")
     _equal(a3[0, 0], a2, "K3 = K2 annual sums")
+
+
+@pytest.mark.parametrize("log_exp", (5, 11, 15))
+def test_refined_legacy_year_kernels_match_plain(log_exp):
+    """K1 and K2 of the refined legacy variant at 384x192 (K2 from the
+    initial state with zero corrections), bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
+    _refined_pair_matches_plain(Experiment(log_exp), True)
+
+
+@pytest.mark.parametrize("log_exp", (None, 4),
+                         ids=("strict circulation", "log_exp 4"))
+def test_strict_refined_year_kernels_match_plain(log_exp):
+    """K1 and K2 of the refined instantiation's strict form at 384x192:
+    the strict circulation, and the no-transport word, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
+    _refined_pair_matches_plain(Experiment(log_exp), log_exp is not None)
+
+
+def _refined_pair_matches_plain(exp, fast):
+    arrs = regrid_forcing_arrays(make_synthetic_forcing(
+        96, 48, REFINED.nstep_yr, REFINED.ndays_yr), REFINED)
+    m = GREB(GrebConfig(numerics=REFINED, experiment=exp,
+                        fast_circulation=fast),
+             forcing=forcing_from_arrays(arrs, "cuda"), verbose=False,
+             device="cuda")
+    yd, s0 = m.year_data, m.initial_state()
+    assert yk.is_refined(yd.plan) and yd.flags
+    co2 = np.float32(exp.co2_ctrl if exp.active else 340.0)
+    s_k, c_k = yk.fluxcorr_year(s0, co2, yd)
+    s_p, c_p = yk.fluxcorr_year_plain(s0, co2, yd)
+    _equal(s_k.stack(), s_p.stack(), "K1 state")
+    for name in ("tf", "tof", "qf"):
+        _equal(getattr(c_k, name), getattr(c_p, name), f"K1 {name}")
+    zero = Corrections.zeros(REFINED.nstep_yr, REFINED.ydim, REFINED.xdim,
+                             device="cuda")
+    s_k, o_k, a_k = yk.scenario_year(s0, zero, 680.0, yd)
+    s_p, o_p, a_p = yk.scenario_year_plain(s0, zero, 680.0, yd)
+    assert torch.isfinite(s_k.stack()).all()
+    _equal(s_k.stack(), s_p.stack(), "K2 state")
+    _equal(o_k, o_p, "K2 outs")
+    _equal(a_k, a_p, "K2 annual sums")
+
+
+@pytest.mark.parametrize("kind", yk.KINDS)
+def test_strict_refined_layout_matches_the_kernel(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the layout is the built kernel's")
+    plan = yk.StrictPlan(REFINED.ydim, REFINED.xdim, seq_zonal=True)
+    lay = yk.strict_refined_layout(plan, yk.DEFAULT_CLUSTER, kind)
+    parts, threads = yk.kernel_cluster_layout(plan, yk.DEFAULT_CLUSTER, kind)
+    assert parts == dict(lay.parts) and threads == lay.threads
+    assert yk.cluster_capacity(plan, yk.DEFAULT_CLUSTER, kind) >= 1
+
+
+def test_refined_launchers_pick_the_named_kernel(refined_model):
+    """For every log_exp word (and the strict circulation's) in each form,
+    the launchers' pick (csrc/year_kernel.cu refined_pick) is the kernel
+    ``refined_entry`` names, or none where it raises."""
+    lib = yk._lib()
+    plans = (refined_model.fold[0], fc.make_plan(make_grid(192, 96, 1800)),
+             yk.StrictPlan(REFINED.ydim, REFINED.xdim, seq_zonal=True))
+    words = {yk.experiment_flags(Experiment(e), e in (7, 8, 16))
+             for e in range(17)} | {0, yk.experiment_flags(Experiment(),
+                                                           True)}
+    for plan in plans:
+        form = yk.REFINED_FORMS.index(yk.refined_form(plan))
+        for flags in words:
+            got = lib.greb_refined_pick(flags, form)
+            try:
+                want = yk.REFINED_SUFFIXES.index(yk.refined_entry(
+                    "fluxcorr_year", plan, flags)[len("fluxcorr_year"):])
+            except ValueError:
+                want = -1
+            assert got == want, (plan, hex(flags))

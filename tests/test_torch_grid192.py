@@ -34,8 +34,9 @@ scenario year after a spin-up is not finite at 192x96.)
   cap_surf 8.9e-3 relative after two years (one cell).
 * ``GREB.run`` end to end (1 + 1 years), its output file read back.
 * What the wrappers run and refuse at 192x96 (no card needed): every kind
-  accepts the plan, a legacy word is refused naming ROADMAP Queue 1 item
-  3f, the refined layout's bytes, the member wrappers' size at every M.
+  accepts the plan, a legacy fold word routes to the additive form's
+  legacy variant (refused until ROADMAP Queue 1 item 3f), the refined
+  layout's bytes, the member wrappers' size at every M.
 """
 import contextlib
 import dataclasses
@@ -324,13 +325,19 @@ def test_every_kind_runs_the_plan():
 
 @pytest.mark.parametrize("log_exp", (11, 13, 15))
 def test_a_legacy_word_is_refused(log_exp):
+    """Refused until ROADMAP Queue 1 item 3f: a legacy fold word at 192x96
+    is accepted by every kind and routed to the additive form's legacy
+    variant (``*_additive_legacy``)."""
     flags = yk.experiment_flags(Experiment(log_exp))
     assert flags
     for kind in yk.KINDS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3f"):
-            yk.check_plan(PLAN, kind, flags)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3f"):
-        yk.check_supported(PLAN, flags=flags)
+        yk.check_plan(PLAN, kind, flags)
+    yk.check_supported(PLAN, flags=flags)
+    for kernel in ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                   "scenario_years"):
+        assert yk.refined_entry(kernel, PLAN, flags) == \
+            kernel + "_additive_legacy"
+        assert yk.refined_entry(kernel, PLAN, 0) == kernel + "_additive"
 
 
 def test_refined_layout_bytes():

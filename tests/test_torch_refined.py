@@ -27,10 +27,11 @@ paths through them.
   K.  At M=1 with the base params K4 equals K1 and K3 equals K2 (state,
   annual sums) bit for bit.
 * ``refined_layout`` and the wrappers' and driver's refusals of what stays
-  queued (the legacy and strict words, 768x384, cluster sizes other than
-  16) and of a plan make_plan never builds (sequential splitting with
-  dense composites), which need no card; the real 192x96 plan (dense
-  composites, additive splitting) is accepted.
+  queued (768x384, cluster sizes other than 16) and of a plan make_plan
+  never builds (sequential splitting with dense composites), which need
+  no card; the real 192x96 plan (dense composites, additive splitting) is
+  accepted, and so are the legacy and strict words (ROADMAP Queue 1 item
+  3f, closed), each routed to its refined kernel.
 * ``year_work`` and ``years_work`` at 96x48 (unchanged) and at 384x192
   (packed composites at their ranks, the segments), reckoned by hand.
 * The paths at 384x192: ``run_long`` with ``driver_year_runner``, one year
@@ -253,16 +254,26 @@ def test_refined_layout_refuses_768x384_and_dense_plans(pair):
 
 @pytest.mark.parametrize("kind", ("fluxcorr", "scenario"))
 def test_refined_plan_refuses_legacy_and_strict_words(pair, kind):
+    """Refused until ROADMAP Queue 1 item 3f: a legacy fold word and the
+    strict transport at 384x192 are accepted and routed to the refined
+    instantiation's legacy variant and its strict form."""
     plan = pair[1].fold[0]
     flags = yk.experiment_flags(Experiment(11))
     assert flags
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3f"):
-        yk.check_plan(plan, kind, flags)
+    yk.check_plan(plan, kind, flags)
+    yk.check_supported(plan, (kind,), flags)
     strict = yk.StrictPlan(192, 384, seq_zonal=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3f"):
-        yk.check_plan(strict, kind, yk.experiment_flags(Experiment(), True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3f"):
-        yk.check_supported(plan, (kind,), flags)
+    strict_flags = yk.experiment_flags(Experiment(), True)
+    yk.check_plan(strict, kind, strict_flags)
+    yk.check_supported(strict, (kind,), strict_flags)
+    kernel = "fluxcorr_year" if kind == "fluxcorr" else "scenario_year"
+    assert yk.refined_entry(kernel, plan, flags) == \
+        kernel + "_refined_legacy"
+    assert yk.refined_entry(kernel, plan, 0) == kernel + "_refined"
+    assert yk.refined_entry(kernel, strict, strict_flags) == \
+        kernel + "_strict_refined"
+    with pytest.raises(ValueError, match="no refined kernel"):
+        yk.refined_entry(kernel, plan, strict_flags)
 
 
 REFUSALS = ("legacy word", "strict word", "dense composites", "768x384",
@@ -272,12 +283,17 @@ REFUSALS = ("legacy word", "strict word", "dense composites", "768x384",
 @pytest.mark.parametrize("case", REFUSALS)
 def test_member_kernels_refuse_a_refined_plan(pair, case):
     """What stays queued at an extension-mode plan raises in K4 and K3
-    before any launch, on CPU tensors too: the legacy and strict words
-    (ROADMAP Queue 1 item 3f; GREB's member paths too), a grid the
-    refined layout does not hold (3d, in ``check_supported``, which GREB
-    runs on the card before any year), and a cluster size other than
+    before any launch, on CPU tensors too: a grid the refined layout does
+    not hold (3d, in ``check_supported``, which GREB runs on the card
+    before any year), and a cluster size other than
     REFINED_CLUSTER_SIZES; dense composites with sequential splitting,
-    which make_plan never builds, raise ValueError."""
+    which make_plan never builds, raise ValueError.  The legacy and strict
+    words, refused until ROADMAP Queue 1 item 3f, are accepted: the legacy
+    fold word's K4 and K3 run (their plain versions here; K4 at M=1 is K1
+    bit for bit) and route to the ``*_refined_legacy`` kernels, the strict
+    word passes every check of the wrappers and GREB's member paths and
+    routes to ``*_strict_refined`` (its plain year at 384x192 is minutes on
+    the CPU)."""
     m = pair[1]
     plan, const = m.fold
     yd, num = m.year_data, m.num
@@ -290,14 +306,34 @@ def test_member_kernels_refuse_a_refined_plan(pair, case):
     s5 = m.initial_state().stack()[:, None]
     pp = my.pack_member_params([m.params])
     cp = torch.zeros((1, num.nstep_yr, 3, num.ydim, num.xdim))
+    if case.endswith("word"):
+        if case == "legacy word":
+            yd = dataclasses.replace(yd, exp=Experiment(11), cache={})
+            suffix = "_refined_legacy"
+        else:
+            yd = dataclasses.replace(yd, fold=None, cache={})
+            suffix = "_strict_refined"
+        assert yd.flags != 0
+        for kind in my.KINDS:
+            yk.check_plan(yd.plan, kind, yd.flags)
+            assert my._check(s5, pp, yd, kind) == 1
+        for kernel in ("fluxcorr_years", "scenario_years"):
+            assert yk.refined_entry(kernel, yd.plan, yd.flags) == \
+                kernel + suffix
+        model = copy.copy(m)
+        model.year_data = yd
+        model._check_member_kernels()
+        if case == "legacy word":
+            s4, c4 = my.fluxcorr_years(s5, pp, 340.0, yd)
+            s1, c1 = yk.fluxcorr_year(m.initial_state(), 340.0, yd)
+            assert torch.equal(s4[:, 0], s1.stack())
+            assert torch.equal(c4[0, :, 0], c1.tf)
+            s3, mon, asum = my.scenario_years(s5, pp, cp, [680.0], yd)
+            assert tuple(mon.shape) == (1, 1, 5, num.ydim, num.xdim)
+            assert np.isfinite(_np(asum)).all()
+        return
     kw, err, match = {}, NotImplementedError, None
-    if case == "legacy word":
-        yd = dataclasses.replace(yd, exp=Experiment(11), cache={})
-        match = "Queue 1 item 3f"
-    elif case == "strict word":
-        yd = dataclasses.replace(yd, fold=None, cache={})
-        match = "Queue 1 item 3f"
-    elif case == "dense composites":
+    if case == "dense composites":
         dense = dataclasses.replace(plan, comp_mode="dense")
         yd = dataclasses.replace(yd, fold=(dense, const), cache={})
         err, match = ValueError, "make_plan does not build"
@@ -308,18 +344,6 @@ def test_member_kernels_refuse_a_refined_plan(pair, case):
         my.fluxcorr_years(s5, pp, 340.0, yd, **kw)
     with pytest.raises(err, match=match):
         my.scenario_years(s5, pp, cp, [680.0], yd, **kw)
-    if case.endswith("word"):
-        for kind in my.KINDS:
-            with pytest.raises(err, match=match):
-                yk.check_plan(yd.plan, kind, yd.flags)
-        model = copy.copy(m)
-        model.year_data = yd
-        zero = Corrections.zeros(num.nstep_yr, num.ydim, num.xdim)
-        with pytest.raises(err, match=match):
-            model.run_members([m.params], years=1)
-        with pytest.raises(err, match=match):
-            model.run_scenario(zero, years=2, co2_series=np.full(2, 680.0),
-                               years_per_call=2)
 
 
 def test_year_work_96x48_is_unchanged():
