@@ -97,11 +97,14 @@
    same years through run_long in one K3 block (state bitwise, monthly
    means at the golden tolerances), the CLI's --ensemble 4 (1 + 1 years,
    K4 spin-ups) and --ensemble 8 --shared-spinup (1 + 2, two waves of
-   K3): launch counts, files, member-yr/s, peak device memory; one
-   full-calendar K1 and K2 year, K4 at M=1 and K3 at M=1 x 2 years timed
-   (a warm-up, then 3 launches, 2 for K3/K4; ms, us a substep, the bound
-   from year_work / years_work with the packed ranks), one K3 year at M =
-   capacity (one wave), and three K2 probes;
+   K3): launch counts, files, member-yr/s, peak device memory; the
+   path's own full-calendar K1 and K2 launches timed (CUDA events,
+   _TimedLaunches: one cold launch each, not comparable with a median of
+   3 after a warm-up), K4 at M=1 and K3 at M=1 x 2 years (a warm-up, then
+   one launch;
+   ms, us a substep, the bound from year_work / years_work with the
+   packed ranks), one K3 year at M = capacity (one wave), and three K2
+   probes;
 14. 192x96 at dt_crcl=1800 (the refined instantiation's additive form:
    additive zonal splitting, explicit polar advection segments, dense
    192x192 pole composites read from L2), on forcing regridded from the
@@ -154,20 +157,54 @@
    strict_refined_layout for each kind; under the strict circulation,
    log_exp 7, 8, 16 and the no-transport word of log_exp 4, on a 2-step
    calendar, the launchers' pick, K1 and K2 (from the initial state, K2
-   with zero corrections), K4 at M=2 and K3 at M=2 x 2 years (from the
-   initial states with zero tables) bitwise against their plain versions
+   with zero corrections), K4 at M=2 and K3 at M=2 x 2 years under the
+   strict circulation and log_exp 4, x 1 year under log_exp 7, 8 and 16
+   (their year boundary is the step-start cluster.sync()
+   the strict circulation's two years cover; from the initial states with
+   zero tables) bitwise against their plain
+   versions
    (the plain circulation replayed from CUDA graphs, _GraphedCirculation,
    one graphed call held bitwise to the eager one first) and K4 = K1, K3 =
-   K2 at M=1, each launch and plain version timed; one full-calendar strict K1 and K2 year timed;
-   and the library default's path, GREB.run at 384x192 with GrebConfig's
-   default transport (the strict circulation), 1 + 1 years: launch counts,
-   finiteness, the output file read back, sim-yr/s;
-18. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+   K2 at M=1, each launch and plain version timed; and the library
+   default's path, GREB.run at 384x192 with GrebConfig's default transport
+   (the strict circulation), 1 + 1 years: launch counts, finiteness, the
+   output file read back, sim-yr/s, its own full-calendar strict K1 and K2
+   launches timed (CUDA events around each launch of the path,
+   _TimedLaunches);
+18. 768x384 at dt_crcl=450 (config 5, 96 substeps a step; the refined
+   instantiation's wide form: one run or member on 6 clusters of 16
+   blocks, the halo rows across the clusters' edges through global memory
+   at a grid barrier), on forcing regridded from the 96x48 synthetic
+   forcing: the kernel's own layout of the wide block against
+   refined_layout for each kind, with the clusters a run spans and how
+   many the card runs at once; on a 2-step calendar (where a scenario after
+   a spin-up with its tables is not finite) the
+   launchers' pick, K1 from the initial state, K2 from it with zero
+   corrections, K4 at M=2 and K3 at M=2 x 2 years from the initial states
+   with zero tables (one member a launch), K4 = K1 and K3 = K2 at M=1, K3
+   at M=2 reading K1's tables as one shared table, and K1 and K2 under
+   log_exp 11, each bitwise against its plain version (eager) and finite;
+   config 5's long run there (run_long in K3 blocks of G768_BLOCK years, a
+   checkpoint after each) stopped at G768_STOP and resumed in a fresh
+   process (this script with --resume-long768 DIR): final state and output
+   file bitwise equal; on a 10-step calendar (where a scenario year after
+   a spin-up stays finite) K1 and then K2 from K1's end with K1's tables,
+   bitwise and finite, and the CLI's --ensemble G768_ENS_M (1 + 1: launch
+   counts, the members' files read back finite);
+   the strict circulation refused before any launch
+   (ROADMAP Queue 1 item 3h); then GREB.run at 768x384, 1 + 1 years on the
+   full calendar (the regrid and the model build timed apart; launch
+   counts, finiteness, the output file read back, the warming, sim-yr/s,
+   peak device memory with what earlier phases held, the path's own K1 and
+   K2 launches timed with their
+   bounds);
+19. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
    ms and bound, for all four the refined and the 192x96 launch's, the
    legacy fold words' and the strict 384x192 modes' launches, plain
    versions and bounds, for K3 the ensemble year's and the refined wave's,
-   and each kernel's launches on every path) and, last,
+   for all four the 768x384 wide entries, launches, plain versions and
+   bounds, and each kernel's launches on every path) and, last,
    {"ok": true, "device": {...}}.
 
 Each phase prints its wall time ("phase ...: s wall"), and the run its
@@ -179,7 +216,9 @@ and of step 16's 20-step member checks replay each model step from a CUDA
 graph of the eager step (_GraphedSteps): the same kernels on the same
 values, a graphed step first held bitwise against the eager one; their
 times (plain_ms) are the graphed plain versions'.  Step 17's replay the
-strict circulation alone (_GraphedCirculation) the same way.
+strict circulation alone (_GraphedCirculation) the same way.  Step 18's
+run eager: on its 2-step calendar a graph would be replayed once or twice
+after a capture that costs more than the eager step.
 
 Any failure raises, so the script exits non-zero and prints no ok line.
 It needs a CUDA card and the repository's greb_tpu_torch package.
@@ -259,8 +298,8 @@ def _launches_ms(fn, repeats):
     return got, out
 
 
-def _runs(ms):
-    return (f"median {_median(ms):.3f} ms of {len(ms)} after a warm-up ("
+def _runs(ms, after="after a warm-up"):
+    return (f"median {_median(ms):.3f} ms of {len(ms)} {after} ("
             f"{' '.join(f'{v:.3f}' for v in ms)}; spread "
             f"{max(ms) - min(ms):.3f})")
 
@@ -511,6 +550,85 @@ class _GraphedCirculation:
         return graphed_ms, eager_ms
 
 
+class _SharedFolds:
+    """Between start and stop (or inside ``with``),
+    fastcirc2.build_const (which GREB calls to build its
+    fold) returns the fold it built before from the same inputs (wz of
+    both fields, grid, stencil statics, kappa, device): models of one grid
+    and topography on other calendars or words share it, read-only,
+    instead of each repeating its float64 SVDs (~13 s at 768x384 on the
+    card's host)."""
+
+    def start(self):
+        import hashlib
+        import pickle
+        from greb_tpu_torch.ops import fastcirc2
+        self.mod, self.build, self.folds = fastcirc2, fastcirc2.build_const, {}
+
+        def shared(wz_air, wz_vapor, grid, st, kappa, device=None,
+                   plan=None):
+            key = hashlib.sha256(pickle.dumps(
+                (wz_air, wz_vapor, grid, st, float(kappa), str(device),
+                 plan))).hexdigest()
+            if key not in self.folds:
+                self.folds[key] = self.build(wz_air, wz_vapor, grid, st,
+                                             kappa, device=device, plan=plan)
+            return self.folds[key]
+
+        fastcirc2.build_const = shared
+        return self
+
+    def stop(self):
+        self.mod.build_const = self.build
+        self.folds.clear()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+class _TimedLaunches:
+    """Between start and stop (or inside ``with``), every kernel launch of
+    the wrappers (year_kernel._launch, which both kernel modules call) is
+    bracketed by CUDA events on its stream, so a path's own launches are
+    timed as it runs them; ``ms(entry)`` gives the milliseconds of each
+    launch of the launchers whose name starts with ``entry`` (e.g.
+    "greb_scenario_year_"), in launch order."""
+
+    def start(self):
+        import torch
+        from greb_tpu_torch.ops.cuda import year_kernel as yk
+        self.yk, self.launch, self.marks = yk, yk._launch, []
+
+        def timed(fn_name, *args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            self.launch(fn_name, *args)
+            e1.record()
+            self.marks.append((fn_name, e0, e1))
+
+        yk._launch = timed
+        return self
+
+    def stop(self):
+        self.yk._launch = self.launch
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def ms(self, entry):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for name, a, b in self.marks
+                if name.startswith(entry)]
+
+
 def _bound_of(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OP_PER_S * 1e3
@@ -618,6 +736,27 @@ G192_BLOCK = 5
 G192_SHARED_M = 8
 G192_ENSEMBLES = (("shared", G192_SHARED_M, dict(time_flux=3, time_scnr=3),
                    ["--shared-spinup"]),)
+# 768x384 at dt_crcl=450 (the repository's BASELINE config 5, 96 substeps
+# a step): the refined instantiation's wide form (one run on 6 clusters of
+# 16 blocks, the halo rows across their edges exchanged at a grid barrier)
+# on forcing regridded from the 96x48 synthetic forcing; its kernels held
+# to plain on G768_SHORT's 2 steps (the plain steps replayed from CUDA
+# graphs), config 5's long run with checkpoints there (G768_LONG years in
+# K3 blocks of G768_BLOCK, stopped at G768_STOP and resumed in a fresh
+# process), GREB.run G768_YEARS on the full calendar and its four kernels'
+# years timed there (the full calendar's forcing is 6.9 GB and its regrid
+# ~50 s, so the path is cut to one year each)
+G768_GRID = dict(xdim=768, ydim=384, dt_crcl=450)
+G768_SHORT = dict(ndays_yr=1, jday_mon=(1,))
+G768_YEARS = dict(time_flux=1, time_scnr=1)
+G768_LONG = 4
+G768_BLOCK = 2
+G768_STOP = 2
+# the CLI's --ensemble G768_ENS_M at 768x384 (a spin-up each, then K3) on a
+# 10-step calendar of two months, where a scenario year after a spin-up
+# with its tables stays finite
+G768_ENS_M = 2
+G768_ENS = dict(ndays_yr=5, jday_mon=(3, 2), time_flux=1, time_scnr=1)
 
 
 def _k1_vs_plain(tag, s0, co2, yd, got):
@@ -1263,7 +1402,10 @@ def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
     tmp/tag/scenario: launch counts (K1 and K2 alone), sim-yr/s, the
     finiteness of state, tables and monthly means, the output file read
     back, the warming under 680 ppm (over two scenario years or more).
-    Returns (model, state, corr, monthly, launches, sim-yr/s)."""
+    Returns (model, state, corr, monthly, launches, sim-yr/s, timing):
+    timing holds the ms of the path's own K1 and K2 launches (CUDA events
+    around each, _TimedLaunches), the spin-up's end state, and the
+    seconds of the forcing's regrid and of the model's build."""
     import numpy as np
     import torch
     from greb_tpu_torch.config import Numerics
@@ -1272,13 +1414,24 @@ def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
     num = Numerics(**grid, **years)
     out = os.path.join(tmp, tag, "scenario")
     os.makedirs(os.path.dirname(out))
+    t0 = time.perf_counter()
     model, regrid_s = _refined_model(num, out, verbose=True, fast=fast)
+    build_s = time.perf_counter() - t0 - regrid_s
+    spin = model.flux_correction
+    kept = []
+    model.flux_correction = lambda *a, **k: kept.append(spin(*a, **k)) \
+        or kept[-1]
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, corr, monthly, diags = model.run(output_path=out)
+    with _TimedLaunches() as timer:
+        state, corr, monthly, diags = model.run(output_path=out)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    del model.flux_correction
+    timing = dict(regrid_s=regrid_s, build_s=build_s, spin_state=kept[0][0],
+                  fluxcorr_year=timer.ms("greb_fluxcorr_year_"),
+                  scenario_year=timer.ms("greb_scenario_year_"))
     launches = read_counts(f"{tag} path", {
         "fluxcorr_year": num.time_flux, "scenario_year": num.time_scnr,
         "fluxcorr_years": 0, "scenario_years": 0})
@@ -1287,7 +1440,10 @@ def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
           f"sim-years in {wall:.3f} s = {n / wall:.4f} sim-yr/s "
           f"({num.time_flux} spin-up + {num.time_scnr} scenario, "
           f"{num.nstep_yr} steps, {num.nsub_crcl} substeps); forcing regrid "
-          f"{regrid_s:.2f} s")
+          f"{regrid_s:.2f} s, model build {build_s:.2f} s; the path's "
+          f"kernel launches K1 "
+          f"{' '.join(f'{v:.3f}' for v in timing['fluxcorr_year'])} ms, K2 "
+          f"{' '.join(f'{v:.3f}' for v in timing['scenario_year'])} ms")
     for name in ModelState.FIELDS:
         if not bool(torch.isfinite(getattr(state, name)).all()):
             raise AssertionError(f"{tag} state {name} not finite")
@@ -1306,7 +1462,7 @@ def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
           f"[K] by scenario year: {' '.join(f'{g:.4f}' for g in gm)}")
     if len(gm) > 1 and not gm[-1] > gm[0]:
         raise AssertionError(f"{tag} path: no warming under 680 ppm: {gm}")
-    return model, state, corr, monthly, launches, n / wall
+    return model, state, corr, monthly, launches, n / wall, timing
 
 
 def _refined_phase(tmp, reset_counts, read_counts):
@@ -1387,7 +1543,7 @@ def _refined_phase(tmp, reset_counts, read_counts):
 
     # -- the refined path: GREB.run at 384x192, 1 + 3 years on the full
     #    calendar; then one K1 and one K2 year of its model timed
-    model, state, corr, monthly, launches, _ = _refined_path(
+    model, state, corr, monthly, launches, _, timing = _refined_path(
         "refined", tmp, REFINED_GRID, REFINED_YEARS, reset_counts,
         read_counts)
     num = model.num
@@ -1397,19 +1553,21 @@ def _refined_phase(tmp, reset_counts, read_counts):
     yd, plan = model.year_data, model.fold[0]
     _, ranks = yk.packed_ranks(model.fold[1])
     s0 = model.initial_state()
-    k1_ms, (s_k, c_k) = _launches_ms(
-        lambda: yk.fluxcorr_year(s0, co2f, yd), 3)
-    k2_ms, _ = _launches_ms(lambda: yk.scenario_year(s_k, c_k, co2s, yd), 3)
+    # K1's and K2's full-calendar years timed: the path's own launches
+    # (CUDA events; one launch each, not a median of 3 after a warm-up)
+    k1_ms, k2_ms = timing["fluxcorr_year"], timing["scenario_year"]
+    s_k, c_k = timing["spin_state"], corr
     per_sub = 1e3 / (num.nstep_yr * num.nsub_crcl)
     # the member kernels at M=1 (K3 two years from K1's end state with
-    # its tables), then one K3 year at M = capacity (one wave)
+    # its tables; a warm-up, then one timed launch), then one K3 year at
+    # M = capacity (one wave)
     base = my.pack_member_params([model.params], "cuda")
     k1_tab = torch.stack([c_k.tf, c_k.tof, c_k.qf], dim=1)[None]
     co2y = np.full(2, co2s, np.float32)
     k4_ms, _ = _launches_ms(lambda: my.fluxcorr_years(
-        s0.stack()[:, None], base, co2f, yd), 2)
+        s0.stack()[:, None], base, co2f, yd), 1)
     k3_ms, _ = _launches_ms(lambda: my.scenario_years(
-        s_k.stack()[:, None], base, k1_tab, co2y, yd), 2)
+        s_k.stack()[:, None], base, k1_tab, co2y, yd), 1)
     wave = capacity["scenario_years"]
     ppw = my.pack_member_params(_sweep_members(model, wave), "cuda")
     s5w = s_k.stack()[:, None].repeat(1, wave, 1, 1)
@@ -1430,7 +1588,10 @@ def _refined_phase(tmp, reset_counts, read_counts):
                             ("scenario_years", k3_ms, "M=1 x 2 years")):
         b_ms, b_by = _bound_of(*work[name])
         years = 2 if name == "scenario_years" else 1
-        print(f"refined {name} ({shape}), {num.nstep_yr} steps: {_runs(ms)}"
+        after = ("in the path" if name in ("fluxcorr_year", "scenario_year")
+                 else "after a warm-up")
+        print(f"refined {name} ({shape}), {num.nstep_yr} steps: "
+              f"{_runs(ms, after)}"
               f" = {_median(ms) * per_sub / years:.3f} us a substep (a "
               f"step's work included); bound {b_ms:.3f} ms by {b_by}")
     b_ms, b_by = _bound_of(*wave_work)
@@ -1570,7 +1731,7 @@ def _grid192_phase(tmp, reset_counts, read_counts):
     print(f"  20-step checks: {time.perf_counter() - t_phase:.1f} s")
 
     # -- the 192x96 path: GREB.run on the full calendar
-    model, state, corr, monthly, launches, _ = _refined_path(
+    model, state, corr, monthly, launches, _, _ = _refined_path(
         "grid192", tmp, G192_GRID, G192_YEARS, reset_counts, read_counts)
     num = model.num
     paths = _refined_member_paths(model, tmp, state, monthly, corr,
@@ -1662,7 +1823,8 @@ def _pick_check(tag, kernel, yd):
     from greb_tpu_torch.ops.cuda import year_kernel as yk
     name = yk.refined_entry(kernel, yd.plan, yd.flags)
     form = yk.REFINED_FORMS.index(yk.refined_form(yd.plan))
-    got = yk._lib().greb_refined_pick(yd.flags, form)
+    got = yk._lib().greb_refined_pick(yd.flags, form,
+                                      yk._refined_struct(yd.plan).groups)
     if got < 0 or kernel + yk.REFINED_SUFFIXES[got] != name:
         raise AssertionError(f"{tag}: the launcher picks {got}, want {name}")
     return name
@@ -1675,17 +1837,18 @@ def _finite(tag, tensors):
             raise AssertionError(f"{tag} {name} not finite")
 
 
-def _short_members(m, tag, co2f, co2s, k1, k2, k2_in, after_k4=True):
+def _short_members(m, tag, co2f, co2s, k1, k2, k2_in, after_k4=True,
+                   k3_years=2):
     """K4 at M=2 (ct_sens 22.05, 22.95) from the members' initial states
-    and K3 at M=2 over 2 years (CO2 560, 680) from K4's end with K4's
+    and K3 at M=2 over ``k3_years`` years (CO2 560, 680) from K4's end with K4's
     tables (``after_k4``) or from the initial states with zero tables (on
     a calendar too short for a scenario after a spin-up to stay finite),
     each bitwise against its plain version on m's calendar; at M=1 with
     the base params K4 = K1 (``k1``: K1's year from the initial state at
     ``co2f``) and K3 = K2 (``k2``: K2's year at ``co2s`` from ``k2_in``, a
     state and its corrections).  Returns the worst max |diff| per kernel,
-    the plain versions' ms and the kernels' launch ms (K4 M=2, K3 M=2 x 2
-    years)."""
+    the plain versions' ms and the kernels' launch ms (K4 M=2, K3 M=2 x
+    k3_years years)."""
     import numpy as np
     import torch
     from greb_tpu_torch.ops.cuda import multiyear as my
@@ -1705,7 +1868,7 @@ def _short_members(m, tag, co2f, co2s, k1, k2, k2_in, after_k4=True):
     err["fluxcorr_years"] = _bitwise(
         f"K4 {tag} (M=2, {n} steps)", [("state", s4, s4p),
                                          ("tables", c4, c4p)], quiet=True)
-    co2y = np.asarray([560.0, 680.0], np.float32)
+    co2y = np.asarray([560.0, 680.0][:k3_years], np.float32)
     s3_in, c3_in = (s4, c4) if after_k4 else (s5, torch.zeros_like(c4))
     ms["scenario_years"], got = _time_ms(
         lambda: my.scenario_years(s3_in, pp2, c3_in, co2y, yd), 1)
@@ -1716,7 +1879,7 @@ def _short_members(m, tag, co2f, co2s, k1, k2, k2_in, after_k4=True):
     names = ("state", "monthly means", "annual sums")
     _finite(f"{tag} K3", zip(names, got))
     err["scenario_years"] = _bitwise(
-        f"K3 {tag} (M=2, 2 years, {n} steps)", zip(names, got, want),
+        f"K3 {tag} (M=2, {k3_years} years, {n} steps)", zip(names, got, want),
         quiet=True)
     base = my.pack_member_params([m.params], "cuda")
     k1_tab = torch.stack([k1[1].tf, k1[1].tof, k1[1].qf], dim=1)[None]
@@ -1759,6 +1922,9 @@ def _words_phase(tmp, reset_counts, read_counts):
                          "scenario_years"), 0.0)
     co2s = np.float32(680.0)
     out = dict(plain_ms={}, ms={}, work={})
+    # the words' models of a grid and calendar share one fold (none of
+    # these words changes the topography)
+    folds = _SharedFolds().start()
     # -- K1 from the initial state and K2 from it with zero corrections,
     #    bitwise against plain, under each fold word at both grids
     for gtag, grid in (("384x192", REFINED_GRID), ("192x96", G192_GRID)):
@@ -1893,15 +2059,17 @@ def _words_phase(tmp, reset_counts, read_counts):
     print(f"192x96 ensemble path under log_exp {WORD_ENS_EXP} (--ensemble "
           f"{M}, {num.time_flux} + {num.time_scnr} years): {wall:.3f} s; {M} "
           f"files, {nbytes} B, read back finite")
+    folds.stop()
     out["err"] = err
     print(f"words phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
-def _work4(m, ranks=None):
+def _work4(m, ranks=None, k3_years=2):
     """year_work / years_work of the four kernels at m's calendar and
     word, at the shapes _short_members and the single-run checks launch:
-    K1 and K2 a year, K4 M=2, K3 M=2 x 2 years (a table per member)."""
+    K1 and K2 a year, K4 M=2, K3 M=2 x k3_years years (a table per
+    member)."""
     from greb_tpu_torch.ops.cuda import multiyear as my
     from greb_tpu_torch.ops.cuda import year_kernel as yk
     yd, num = m.year_data, m.num
@@ -1910,8 +2078,9 @@ def _work4(m, ranks=None):
             "scenario_year": yk.year_work(plan, num, True, ranks, flags),
             "fluxcorr_years": my.years_work(plan, num, 1, 2, "fluxcorr",
                                             ranks=ranks, flags=flags),
-            "scenario_years": my.years_work(plan, num, 2, 2, "scenario",
-                                            ranks=ranks, flags=flags)}
+            "scenario_years": my.years_work(plan, num, k3_years, 2,
+                                            "scenario", ranks=ranks,
+                                            flags=flags)}
 
 
 def _strict_refined_phase(tmp, reset_counts, read_counts):
@@ -1987,17 +2156,25 @@ def _strict_refined_phase(tmp, reset_counts, read_counts):
                                                yd, k2), 1)
         err["fluxcorr_year"] = max(err["fluxcorr_year"], e1)
         err["scenario_year"] = max(err["scenario_year"], e2)
+        # K3 over two years (its year loop) under the strict circulation
+        # and under log_exp 4, whose year boundary is ordered by the
+        # __syncthreads() of the strict form without a step-start barrier;
+        # one under log_exp 7, 8 and 16, whose boundary is the step-start
+        # cluster.sync() the strict circulation's two years cover (a plain
+        # strict step replays in ~2 s)
+        ny = 2 if e in (None, 4) else 1
         m_err, m_plain, m_ms = _short_members(m, tag, co2, co2s, k1, k2,
-                                              (s0, zero), after_k4=False)
+                                              (s0, zero), after_k4=False,
+                                              k3_years=ny)
         for name, v in m_err.items():
             err[name] = max(err[name], v)
         out["ms"][mode] = dict(fluxcorr_year=ms1, scenario_year=ms2, **m_ms)
         out["plain_ms"][mode] = dict(fluxcorr_year=p1, scenario_year=p2,
                                      **m_plain)
-        out["work"][mode] = _work4(m)
+        out["work"][mode] = _work4(m, k3_years=ny)
         print(f"  {tag}: {', '.join(names)}; kernels K1 {ms1:.1f} ms, K2 "
               f"{ms2:.1f} ms, K4 M=2 {m_ms['fluxcorr_years']:.1f} ms, K3 M=2"
-              f" x 2 years {m_ms['scenario_years']:.1f} ms; plain K1 "
+              f" x {ny} years {m_ms['scenario_years']:.1f} ms; plain K1 "
               f"{p1:.1f} ms, K2 {p2:.1f} ms, K4 {m_plain['fluxcorr_years']:.1f}"
               f" ms, K3 {m_plain['scenario_years']:.1f} ms; "
               f"{time.perf_counter() - t0:.1f} s")
@@ -2007,40 +2184,393 @@ def _strict_refined_phase(tmp, reset_counts, read_counts):
         torch.cuda.empty_cache()
     graphed.stop()
 
-    # -- one strict K1 and one strict K2 year on the full calendar, timed
-    #    (one launch each: a year takes seconds)
-    num = Numerics(**REFINED_GRID)
-    m, _ = _refined_model(num, fast=False)
-    yd = m.year_data
-    s0 = m.initial_state()
-    co2f = np.float32(m.cfg.co2.co2_flux)
-    k1_ms, k1 = _time_ms(lambda: yk.fluxcorr_year(s0, co2f, yd), 1)
-    k2_ms, k2 = _time_ms(lambda: yk.scenario_year(k1[0], k1[1], co2s, yd), 1)
-    _finite("strict refined full-calendar K2", [("state", k2[0].stack()),
-                                                 ("outs", k2[1])])
+    # -- the library default at 384x192: GREB.run with the strict
+    #    circulation (GrebConfig's default), 1 + 1 years; its own K1 and K2
+    #    launches are the full-calendar strict years timed (CUDA events)
+    model, state, corr, monthly, launches, rate, timing = _refined_path(
+        "strict_refined", tmp, REFINED_GRID, STRICT_REFINED_YEARS,
+        reset_counts, read_counts, fast=None)
+    out["launches_path"], out["path_rate"] = launches, rate
+    num, yd = model.num, model.year_data
     per_sub = 1e3 / (num.nstep_yr * num.nsub_crcl)
-    out["full_ms"] = {"fluxcorr_year": k1_ms, "scenario_year": k2_ms}
+    out["full_ms"] = {k: timing[k][0] for k in ("fluxcorr_year",
+                                                "scenario_year")}
     out["full_work"] = {k: yk.year_work(yd.plan, num, k == "scenario_year",
                                         flags=yd.flags)
                         for k in ("fluxcorr_year", "scenario_year")}
     for name, ms in out["full_ms"].items():
         b_ms, b_by = _bound_of(*out["full_work"][name])
-        print(f"strict refined {name} (1 year), {num.nstep_yr} steps: "
-              f"{ms:.3f} ms = {ms * per_sub:.3f} us a substep (a step's work "
-              f"included); {1e3 / ms:.4f} sim-yr/s; bound {b_ms:.3f} ms by "
-              f"{b_by}")
-    del m, yd, k1, k2
+        print(f"strict refined {name} (1 year, the path's), "
+              f"{num.nstep_yr} steps: {ms:.3f} ms = {ms * per_sub:.3f} us a "
+              f"substep (a step's work included); {1e3 / ms:.4f} sim-yr/s; "
+              f"bound {b_ms:.3f} ms by {b_by}")
+    del model, yd, state, corr, monthly
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["err"] = err
+    print(f"strict refined phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _grid768_model(num, **kw):
+    """_refined_model at 768x384 with its host set-up timed: (model,
+    seconds of the regrid, seconds of the model build)."""
+    t0 = time.perf_counter()
+    m, regrid_s = _refined_model(num, **kw)
+    return m, regrid_s, time.perf_counter() - t0 - regrid_s
+
+
+def _grid768_runner(model, tmp, tag):
+    """Config 5's long run on G768_SHORT's calendar: a checkpoint every
+    G768_BLOCK years, K3 blocks of G768_BLOCK years, the output file."""
+    from greb_tpu_torch.io.checkpoint import Checkpointer
+    from greb_tpu_torch.model import longrun
+    ck = Checkpointer(os.path.join(tmp, f"ck768_{tag}"),
+                      every_years=G768_BLOCK)
+    runner = longrun.driver_year_runner(
+        model, os.path.join(tmp, f"long768_{tag}"), years_per_call=G768_BLOCK)
+    return ck, runner
+
+
+def _resume_long768(tmp: str) -> int:
+    """The fresh process of step 18: rebuild the 768x384 model on the
+    short calendar, resume config 5's stopped long run from its newest
+    checkpoint and run it to G768_LONG years."""
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.model import longrun
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    model, _, _ = _grid768_model(Numerics(**G768_GRID, **G768_SHORT))
+    ck, runner = _grid768_runner(model, tmp, "resumed")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, _, start = longrun.run_long(
+        G768_LONG, None, None, np.full(G768_LONG, 680.0, np.float32), runner,
+        checkpointer=ck, chunk_years=G768_BLOCK, device=model.device)
+    torch.cuda.synchronize()
+    runner.close()
+    print(json.dumps({"start": start, "setup_s": t1 - t0,
+                      "run_s": time.perf_counter() - t1,
+                      "scenario_years_launches": my.scenario_years.launches}))
+    return 0
+
+
+def _grid768_phase(tmp, reset_counts, read_counts):
+    """Step 18: 768x384 at dt_crcl=450 (config 5) in the refined
+    instantiation's wide form, and the paths through it.  Returns the worst
+    max |diff| per kernel, the short-calendar launches and plain versions,
+    the full-calendar launches, their work, and each path's launches."""
+    import gc
+    import subprocess
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch import __main__ as cli
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.forcing import Corrections, ModelState
+    from greb_tpu_torch.model import longrun
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    from greb_tpu_torch.parallel import ensemble as ens
+
+    t_phase = time.perf_counter()
+    out = dict(plain_ms={}, short_ms={}, ms={}, work={}, err={})
+    short = Numerics(**G768_GRID, **G768_SHORT)
+    # the short-calendar models (modern, log_exp 11, the ensemble's 10
+    # steps) share one fold; the path's model builds its own, timed
+    folds = _SharedFolds().start()
+    m, regrid_s, build_s = _grid768_model(short)
+    yd, plan = m.year_data, m.fold[0]
+    n = short.nstep_yr
+    groups = yk.refined_groups(plan)
+    _, ranks = yk.packed_ranks(m.fold[1])
+    if not (plan.seq_zonal and plan.comp_mode == "packed" and groups > 1):
+        raise AssertionError(f"768x384: not the wide form: {plan}")
+    print(f"grid768 {short.xdim}x{short.ydim}: {n}-step calendar, "
+          f"{short.nsub_crcl} substeps, plan {plan}; {len(ranks)} composite "
+          f"rows, ranks {int(ranks.min())}..{int(ranks.max())}, Rtot "
+          f"{int(ranks.sum())}; regrid {regrid_s:.2f} s, build {build_s:.2f} s")
+
+    # -- the wide block's shared memory: the kernel's own reckoning against
+    #    refined_layout on `groups` clusters, and how many clusters fit
+    c = yk.REFINED_CLUSTER_SIZES[0]
+    capacity = {}
+    for kind in yk.KINDS:
+        lay = yk.block_layout(plan, c, kind)
+        parts, threads = yk.kernel_cluster_layout(plan, c, kind)
+        if parts != dict(lay.parts) or threads != lay.threads \
+                or lay.groups != groups:
+            raise AssertionError(
+                f"grid768 {kind}: kernel layout {parts}, {threads} threads; "
+                f"refined_layout {dict(lay.parts)}, {lay.threads}, "
+                f"{lay.groups} clusters")
+        capacity[kind] = yk.cluster_capacity(plan, c, kind)
+        print(f"grid768 {kind:<14s}: {groups} clusters of {c} blocks a run, "
+              f"{lay.rows} rows/block, {lay.threads} threads, {lay.nbytes} B "
+              f"shared memory a block, {capacity[kind]} clusters at once "
+              f"({yk.check_resident(groups, capacity[kind], 99)} member(s) a "
+              f"launch); kernel and refined_layout agree: {dict(lay.parts)}")
+
+    # -- on the short calendar (where a scenario after a spin-up with its
+    #    tables, or a second year on them, is not finite):
+    #    K1 from the initial state, K2 from it with zero corrections, K4 at
+    #    M=2, K3 at M=2 x 2 years from the initial states with zero tables
+    #    (a table per member), K4 = K1 and K3 = K2 at M=1, and K3 at M=2
+    #    reading K1's tables as one shared table for a year, each bitwise
+    #    against its plain version, eager (on a 2-step calendar a step's
+    #    CUDA graph would be replayed once or twice after a capture that
+    #    costs more than the eager step); then K1 and K2 under log_exp 11
+    err = dict.fromkeys(("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                         "scenario_years"), 0.0)
+    co2f, co2s = np.float32(340.0), np.float32(680.0)
+    s0 = m.initial_state()
+    zero = Corrections.zeros(n, short.ydim, short.xdim, device="cuda")
+    names = [_pick_check("grid768", k, yd) for k in
+             ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+              "scenario_years")]
+    reset_counts()
+    ms1, k1 = _time_ms(lambda: yk.fluxcorr_year(s0, co2f, yd), 1)
+    ms2, k2 = _time_ms(lambda: yk.scenario_year(s0, zero, co2s, yd), 1)
+    _finite("grid768 K1", [("state", k1[0].stack()), ("tf", k1[1].tf)])
+    _finite("grid768 K2", [("state", k2[0].stack()), ("outs", k2[1])])
+    p1, err["fluxcorr_year"] = _time_ms(lambda: _k1_vs_plain(
+        f"K1 grid768, {n} steps", s0, co2f, yd, k1), 1)
+    p2, err["scenario_year"] = _time_ms(lambda: _k2_vs_plain(
+        f"K2 grid768, {n} steps", s0, zero, co2s, yd, k2), 1)
+    m_err, m_plain, m_ms = _short_members(m, "grid768", co2f, co2s, k1,
+                                          k2, (s0, zero), after_k4=False)
+    err.update(m_err)
+    two = _sweep_members(m, 2)
+    pp2 = my.pack_member_params(two, "cuda")
+    s5 = ens.ensemble_initial_state(two, m.forcing)
+    k1_tab = torch.stack([k1[1].tf, k1[1].tof, k1[1].qf], dim=1)[None]
+    co2y = np.asarray([560.0], np.float32)
+    got = my.scenario_years(s5, pp2, k1_tab, co2y, yd)
+    want = my.scenario_years_plain(s5, pp2, k1_tab, co2y, yd)
+    if torch.equal(got[1][0], got[1][1]):
+        raise AssertionError("grid768 K3 shared: members do not differ")
+    _finite("grid768 K3 shared", zip(("state", "monthly"), got))
+    err["scenario_years"] = max(err["scenario_years"], _bitwise(
+        f"K3 grid768 (M=2, 1 year, {n} steps, K1's tables shared)",
+        zip(("state", "monthly means", "annual sums"), got, want),
+        quiet=True))
+    # the member kernels launch as many members at a time as the card
+    # holds all clusters of (one on an H100, which runs 7 of 16
+    # blocks): K4 at M=2 and M=1, K3 at M=2 twice and M=1
+    per = {k: yk.check_resident(groups, capacity[k], 2)
+           for k in ("fluxcorr", "scenario_years")}
+    want_k4 = -(-2 // per["fluxcorr"]) + 1
+    want_k3 = 2 * -(-2 // per["scenario_years"]) + 1
+    read_counts("grid768 short checks", {
+        "fluxcorr_year": 1, "scenario_year": 1,
+        "fluxcorr_years": want_k4, "scenario_years": want_k3})
+    del got, want, s5
+    # log_exp 11: the wide form's legacy variant
+    m11, _, _ = _grid768_model(short, log_exp=11)
+    y11 = m11.year_data
+    names += [_pick_check("grid768 log_exp 11", k, y11) for k in
+              ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+               "scenario_years")]
+    co2c = np.float32(m11.exp.co2_ctrl)
+    s011 = m11.initial_state()
+    k1l = yk.fluxcorr_year(s011, co2c, y11)
+    k2l = yk.scenario_year(s011, zero, co2s, y11)
+    _finite("grid768 log_exp 11 K2", [("state", k2l[0].stack()),
+                                      ("outs", k2l[1])])
+    err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
+        f"K1 grid768 log_exp 11, {n} steps", s011, co2c, y11, k1l))
+    err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
+        f"K2 grid768 log_exp 11, {n} steps", s011, zero, co2s, y11,
+        k2l))
+    del m11, y11, k1l, k2l
+    print(f"  {', '.join(sorted(set(names)))}")
+    out["short_ms"] = dict(fluxcorr_year=ms1, scenario_year=ms2, **m_ms)
+    out["plain_ms"] = dict(fluxcorr_year=p1, scenario_year=p2, **m_plain)
+    print(f"  {n} steps: kernels K1 {ms1:.1f} ms, K2 {ms2:.1f} ms, K4 M=2 "
+          f"{m_ms['fluxcorr_years']:.1f} ms, K3 M=2 x 2 years "
+          f"{m_ms['scenario_years']:.1f} ms; plain (eager) K1 {p1:.1f} ms, "
+          f"K2 {p2:.1f} ms, K4 {m_plain['fluxcorr_years']:.1f} ms, K3 "
+          f"{m_plain['scenario_years']:.1f} ms; short checks "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- config 5's checkpoint and resume on the short calendar: run_long
+    #    in K3 blocks from the initial state with zero tables (finite
+    #    there), a checkpoint after each; the same run stopped at G768_STOP
+    #    and resumed in a fresh process; the final state and the output
+    #    file bitwise equal
+    t0 = time.perf_counter()
+    co2_long = np.full(G768_LONG, 680.0, np.float32)
+    ck_full, run_full = _grid768_runner(m, tmp, "full")
+    reset_counts()
+    s_full, _, _ = longrun.run_long(G768_LONG, s0, zero, co2_long,
+                                    run_full, checkpointer=ck_full,
+                                    chunk_years=G768_BLOCK)
+    run_full.close()
+    long_blocks = G768_LONG // G768_BLOCK
+    out["launches_long"] = read_counts("grid768 long run", {
+        "fluxcorr_year": 0, "scenario_year": 0, "fluxcorr_years": 0,
+        "scenario_years": long_blocks})
+    _finite("grid768 long run", [(f"state {k}", getattr(s_full, k))
+                                 for k in ModelState.FIELDS])
+    ck_res, run_res = _grid768_runner(m, tmp, "resumed")
+    longrun.run_long(G768_STOP, s0, zero, co2_long, run_res,
+                     checkpointer=ck_res, chunk_years=G768_BLOCK)
+    run_res.close()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--resume-long768", tmp],
+        capture_output=True, text=True, timeout=600)
+    wall_resume = time.perf_counter() - t1
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"768x384 resume exited {proc.returncode}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["start"] != G768_STOP:
+        raise AssertionError(f"768x384 resumed at {child['start']}")
+    s_res, _, cursor = type(ck_res)(ck_res.dir).restore(device="cuda")
+    if cursor.year_index != G768_LONG:
+        raise AssertionError(f"768x384 last checkpoint {cursor.year_index}")
+    _bitwise("grid768 resumed vs uninterrupted", [
+        (f"state {k}", getattr(s_res, k), getattr(s_full, k))
+        for k in ModelState.FIELDS], quiet=True)
+    with open(os.path.join(tmp, "long768_full"), "rb") as f, \
+            open(os.path.join(tmp, "long768_resumed"), "rb") as g:
+        full_bytes = f.read()
+        if full_bytes != g.read():
+            raise AssertionError("768x384 resumed output file differs")
+    print(f"grid768 long run ({G768_LONG} years in K3 blocks of {G768_BLOCK},"
+          f" checkpoints every {G768_BLOCK}, {n}-step calendar): stopped at "
+          f"{G768_STOP}, resumed in a fresh process ({wall_resume:.1f} s wall:"
+          f" set-up {child['setup_s']:.1f} s, years {child['start']}.."
+          f"{G768_LONG} {child['run_s']:.3f} s, "
+          f"{child['scenario_years_launches']} K3 launches); final state and "
+          f"output file ({len(full_bytes)} B) bitwise equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del m, yd, k1, k2, s0, zero, s_full, s_res
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- the library default at 384x192: GREB.run with the strict
-    #    circulation (GrebConfig's default), 1 + 1 years
-    _, state, corr, monthly, launches, rate = _refined_path(
-        "strict_refined", tmp, REFINED_GRID, STRICT_REFINED_YEARS,
-        reset_counts, read_counts, fast=None)
+    # -- the CLI's --ensemble G768_ENS_M on G768_ENS's calendar: a spin-up
+    #    each (K4), then K3, as many members a launch as the card holds
+    M, enum = G768_ENS_M, Numerics(**G768_GRID, **G768_ENS)
+    me, _, _ = _grid768_model(enum)
+    # -- first, on this calendar (where a scenario year after a spin-up
+    #    stays finite): K1 from the initial state, then K2 from K1's end
+    #    with K1's tables, each bitwise and finite against its plain
+    #    version (eager)
+    ye, ne = me.year_data, enum.nstep_yr
+    s0e = me.initial_state()
+    k1e = yk.fluxcorr_year(s0e, co2f, ye)
+    k2e = yk.scenario_year(k1e[0], k1e[1], co2s, ye)
+    _finite("grid768 K1 (10 steps)", [("state", k1e[0].stack()),
+                                      ("tf", k1e[1].tf)])
+    _finite("grid768 K2 after K1 (10 steps)", [("state", k2e[0].stack()),
+                                               ("outs", k2e[1])])
+    err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
+        f"K1 grid768, {ne} steps", s0e, co2f, ye, k1e))
+    err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
+        f"K2 grid768 from K1's end with K1's tables, {ne} steps", k1e[0],
+        k1e[1], co2s, ye, k2e))
+    del s0e, k1e, k2e
+    path = os.path.join(tmp, "ensemble768", "member")
+    os.makedirs(os.path.dirname(path))
+    args = cli.build_parser().parse_args(["--ensemble", str(M), "--quiet"])
+    reset_counts()
+    _, wall = _synced_s(lambda: cli.run_ensemble(me, path, args))
+    chunks = {k: -(-M // yk.check_resident(groups, capacity[k], M))
+              for k in ("fluxcorr", "scenario_years")}
+    out["launches_ensemble"] = read_counts(
+        f"grid768 ensemble path (M={M})", {
+            "fluxcorr_year": 0, "scenario_year": 0,
+            "fluxcorr_years": enum.time_flux * chunks["fluxcorr"],
+            "scenario_years": -(-enum.time_scnr // cli.ensemble_block_years(
+                M, enum)) * chunks["scenario_years"]})
+    nbytes = _read_members(path, M, enum)
+    print(f"grid768 ensemble path (--ensemble {M}, {enum.nstep_yr}-step "
+          f"calendar, {enum.time_flux} + {enum.time_scnr} years): "
+          f"{wall:.3f} s; {M} files, {nbytes} B, read back finite, the "
+          f"members differ")
+    del me
+    folds.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the strict circulation refuses before any launch (item 3h)
+    reset_counts()
+    try:
+        _refined_model(short, fast=False)
+    except NotImplementedError as e:
+        if "Queue 1 item 3h" not in str(e):
+            raise
+        print(f"grid768 strict circulation refused: "
+              f"...{str(e)[-60:]}")
+    else:
+        raise AssertionError("768x384 strict circulation was not refused")
+    read_counts("grid768 strict refusal", dict.fromkeys(
+        ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+         "scenario_years"), 0))
+
+    # -- the path: GREB.run at 768x384 on the full calendar, the regrid
+    #    and the model build timed apart, its peak device memory, its own
+    #    K1 and K2 launches timed (CUDA events); the warming: the scenario
+    #    year's end state against the spin-up's, area-weighted.  K3 and K4
+    #    are timed on the short calendar above (M=2), where each member's
+    #    launch is held to plain and K4 = K1, K3 = K2 at M=1.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model, state, corr, monthly, launches, rate, timing = _refined_path(
+        "grid768", tmp, G768_GRID, G768_YEARS, reset_counts, read_counts)
+    out["peak"] = torch.cuda.max_memory_allocated()
     out["launches_path"], out["path_rate"] = launches, rate
-    out["err"] = err
-    print(f"strict refined phase: {time.perf_counter() - t_phase:.1f} s")
+    out["setup_s"] = (timing["regrid_s"], timing["build_s"])
+    num = model.num
+    plan = model.fold[0]
+    co2p = float(model.cfg.co2.series(num.time_scnr)[0])
+    s_fc = timing["spin_state"]
+    lat = torch.cos(torch.deg2rad(torch.linspace(-90 + 90 / num.ydim,
+                                                 90 - 90 / num.ydim,
+                                                 num.ydim, device="cuda")))
+    gm = lambda ts: float((ts.mean(1) * lat).sum() / lat.sum())
+    warm = gm(state.ts) - gm(s_fc.ts)
+    print(f"  warming under {co2p:.0f} ppm: the scenario year's end state "
+          f"{gm(state.ts):.4f} K against the spin-up's {gm(s_fc.ts):.4f} K "
+          f"(+{warm:.4f} K, area-weighted)")
+    if not warm > 0:
+        raise AssertionError(f"grid768 path: no warming ({warm} K)")
+    out["ms"] = {"fluxcorr_year": timing["fluxcorr_year"][0],
+                 "scenario_year": timing["scenario_year"][0],
+                 "fluxcorr_years": m_ms["fluxcorr_years"],
+                 "scenario_years": m_ms["scenario_years"]}
+    out["shape"] = {"fluxcorr_year": "1 year", "scenario_year": "1 year",
+                    "fluxcorr_years": f"M=2 x 1 year, {n} steps",
+                    "scenario_years": f"M=2 x 2 years, {n} steps"}
+    out["work"] = {
+        "fluxcorr_year": yk.year_work(plan, num, False, ranks),
+        "scenario_year": yk.year_work(plan, num, True, ranks),
+        "fluxcorr_years": my.years_work(plan, short, 1, 2, "fluxcorr",
+                                        ranks=ranks),
+        "scenario_years": my.years_work(plan, short, 2, 2, "scenario",
+                                        ranks=ranks)}
+    for name, ms in out["ms"].items():
+        b_ms, b_by = _bound_of(*out["work"][name])
+        # substeps of the launch: a year's, or each member-year's
+        subs = {"fluxcorr_years": 2 * n, "scenario_years": 4 * n}.get(
+            name, num.nstep_yr) * num.nsub_crcl
+        print(f"grid768 {name} ({out['shape'][name]}): {ms:.3f} ms = "
+              f"{ms * 1e3 / subs:.3f} us a substep (a step's work "
+              f"included); bound {b_ms:.3f} ms by {b_by}, {ms / b_ms:.1f}x")
+    print(f"  peak device memory of the path {out['peak']} B ({held} B held "
+          f"before it, so {out['peak'] - held} B its own)")
+    out["err"], out["capacity"], out["groups"] = err, capacity, groups
+    del model, state, corr, monthly, s_fc, timing
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"grid768 phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2374,6 +2904,8 @@ def main(argv) -> int:
         return 1
     if argv[:1] == ["--resume-long"]:
         return _resume_long(argv[1])
+    if argv[:1] == ["--resume-long768"]:
+        return _resume_long768(argv[1])
     import math
 
     import numpy as np
@@ -2852,6 +3384,10 @@ def main(argv) -> int:
                                        reset_counts, read_counts)
         lap("ensemble")
 
+        # -- 768x384 (config 5): the wide form, its paths -----------------
+        grid768 = _grid768_phase(tmp, reset_counts, read_counts)
+        lap("768x384")
+
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for LONG_BLOCK years, K4 3 members: the median of
     # member_ms's 3 launches, on the size the wrapper picks for that
@@ -2868,17 +3404,20 @@ def main(argv) -> int:
     # mode, the legacy fold words in both refined forms
     s384 = [f"strict 384x192 {'circulation' if e is None else f'log_exp {e}'}"
             for e in STRICT_REFINED_MODES]
+    # 768x384 in the wide form: modern, and K1/K2 under log_exp 11
+    wide_mode = "wide 768x384"
     single = (["modern"] + [f"log_exp {e}" for e in LEGACY_EXPS]
               + [strict_name(e) for e in STRICT_MODES] + [refined_mode,
                                                           g192_mode,
                                                           f"strict {g192}"]
               + [f"{g} log_exp {e}" for g in (refined_mode, g192_mode)
-                 for e in WORD_EXPS] + s384)
+                 for e in WORD_EXPS] + s384
+              + [wide_mode, f"{wide_mode} log_exp 11"])
     member = (["modern"] + [f"log_exp {e}" for e in LEGACY_MEMBER_EXPS]
               + [strict_name(e) for e in STRICT_MEMBER_MODES]
               + [refined_mode, g192_mode]
               + [f"{g} log_exp {e}" for g in (refined_mode, g192_mode)
-                 for e in WORD_MEMBER_EXPS] + s384)
+                 for e in WORD_MEMBER_EXPS] + s384 + [wide_mode])
     k3_ms, k4_ms = (_median(member_ms[k])
                     for k in ("scenario_years", "fluxcorr_years"))
     kernels = []
@@ -2913,7 +3452,8 @@ def main(argv) -> int:
                                grid192["err"][name],
                                grid192["strict_err"].get(name, 0.0),
                                words["err"][name],
-                               strict_refined["err"][name]),
+                               strict_refined["err"][name],
+                               grid768["err"][name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "cluster": c,
             "shape": shape, "modes": modes,
@@ -3003,6 +3543,24 @@ def main(argv) -> int:
             launches_refined_legacy_path=words["launches_path"][name],
             launches_grid192_legacy_ensemble_path=words[
                 "launches_ensemble"][name])
+        # 768x384 (the wide form): its entries, the launch timed (K1/K2:
+        # the path's full-calendar year; K4 M=2 and K3 M=2 x 2 years on the
+        # short calendar), its bound, the launch and the plain version on
+        # the short calendar (K1/K2 a year, K4 M=2, K3 M=2 x 2 years) and
+        # each 768x384 path's launches
+        g7_bound, g7_by = _bound_of(*grid768["work"][name])
+        entry.update(
+            grid768_entries=[name + "_wide", name + "_wide_legacy"],
+            grid768_clusters_a_run=grid768["groups"],
+            grid768_ms=grid768["ms"][name],
+            grid768_shape=grid768["shape"][name],
+            grid768_bound_ms=g7_bound, grid768_bound_by=g7_by,
+            grid768_ms_short=grid768["short_ms"][name],
+            grid768_plain_ms_short=grid768["plain_ms"][name],
+            launches_grid768_path=grid768["launches_path"][name],
+            launches_grid768_long_path=grid768["launches_long"][name],
+            launches_grid768_ensemble_path=grid768["launches_ensemble"][
+                name])
         if name == "scenario_years":
             # one year of a wave of members (M = the card's capacity)
             M, w_ms, w_work = refined["wave"]

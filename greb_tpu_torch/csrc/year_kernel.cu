@@ -164,6 +164,7 @@ namespace cg = cooperative_groups;
 #define GREB_ERR_LAYOUT (-1)      // C does not split the grid, or too big
 #define GREB_ERR_NO_CLUSTER (-2)  // no cluster of this shape fits the card
 #define GREB_ERR_FLAGS (-3)       // a flags word the kernel does not run
+#define GREB_ERR_RESIDENT (-4)    // the wide form's clusters not all resident
 
 struct GrebParams {
   float sig, rho_air, ct_sens, da_ice, a_no_ice, a_cloud;
@@ -1443,8 +1444,42 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // loops over its n_years years inside the kernel, each year's CO2 from
 // co2_years.  Members beyond the card's capacity of 16-block clusters run
 // in waves.
+//
+// The wide form (WIDE, suffixes _wide and _wide_legacy: 768x384 at dt_crcl
+// 450 s, 96 substeps a step) runs the sequential form's body for a grid
+// whose rows one 16-block cluster cannot hold (24 rows of 768 columns a
+// block: the double buffer alone is 344,064 B).  One run, or one member,
+// spreads over G = RefinedArgs::groups clusters of 16 blocks (G = 6 at
+// 768x384: 96 blocks of R = 4 rows, 196,656 B of shared memory a block);
+// cluster k of a run holds rows [16 k R, 16 (k + 1) R), block b = 16 k +
+// rank rows [b R, (b + 1) R), and the member is the cluster index / G.
+// Every phase of a substep stays row-local, so only the halo rows cross
+// blocks: inside a cluster through distributed shared memory as before;
+// across the G - 1 edges between a run's clusters the edge blocks post
+// their two edge rows of both fields to a small global array
+// (RefinedArgs::ghalo, two slots used in turn, so a slot is written again
+// only two barriers after its last read) and read their neighbour's into
+// their halo rows after a grid barrier (wide_exchange).  That barrier
+// follows each step start and each substep, where the cluster body has
+// its cluster.sync(): cg::this_grid().sync() of a cooperative launch
+// (cudaLaunchAttributeCooperative beside the cluster dimension), after
+// the cluster.sync() that orders the distributed shared memory pushes.
+// It spans the launch, all of its members, which pass the same barriers.
+// The first barrier (after the state copy) and the last stay
+// cluster-wide: they order only the blocks' shared memory lifetimes, and
+// no global data crosses a cluster there.  A grid barrier over clusters
+// that are not all resident never ends, so the launcher refuses a launch
+// whose M * G clusters the card does not run at once
+// (GREB_ERR_RESIDENT); K3 and K4 launch floor(capacity / G) members at a
+// time (ops/cuda/multiyear.py).  What bounds it: the
+// composite rows (rows 0-13 and 370-383 in blocks 0-3 and 92-95) read
+// U_all and W_all, 39.6 MB each at 768x384, every substep; together
+// they exceed the 50 MB L2, so those eight blocks stream them from HBM
+// while the other 88 wait at the barrier (ROADMAP Queue 2, redesign e).
 
 #define MAX_SEGS 8        // = year_kernel.MAX_SEGS
+#define MAX_GROUPS 8      // = year_kernel.MAX_GROUPS: clusters a wide run
+                          // may span (132 SMs hold 8 clusters of 16)
 
 // The forms of the refined instantiation (RefinedArgs::form): the fold with
 // sequential splitting and packed composites (_refined), the fold with
@@ -1461,6 +1496,11 @@ struct RefinedArgs {
   int dseg[3 * MAX_SEGS];  // the diffusion segments (kt, kb, iters), in order
   int aseg[3 * MAX_SEGS];  // the advection segments
   int form;                // enum RefinedForm
+  // the wide form: clusters a run spans (1 or 0 elsewhere) and the halo
+  // rows across its cluster edges (M, 2 slots, groups - 1 edges, 2 sides,
+  // 2 fields, HALO, X)
+  int groups;
+  float* ghalo;
 };
 
 // Parts of a refined block's shared memory, in layout order
@@ -1507,11 +1547,14 @@ __host__ __device__ inline long long most_rows(int C, int R, int a0, int a1,
 // diffusion segment), the composite rows' t1 and z (both fields of its
 // composite rows, z at most X a row) and the advection segments' two
 // buffers.  The same reckoning as ops/cuda/year_kernel.py refined_layout.
+// C counts every block of a run: up to max_blocks (the wide form's 16 G).
 __host__ __device__ inline long long refined_parts(int Y, int X, int ktc,
                                                    int kbc, int C,
                                                    const RefinedArgs& g,
-                                                   long long* parts) {
-  if (C < 1 || C > MAX_CLUSTER || Y % C != 0 || Y / C < HALO
+                                                   long long* parts,
+                                                   int max_blocks =
+                                                       MAX_CLUSTER) {
+  if (C < 1 || C > max_blocks || Y % C != 0 || Y / C < HALO
       || X % COMP_BLOCK != 0 || g.n_dseg < 0 || g.n_dseg > MAX_SEGS
       || g.n_aseg < 0
       || g.n_aseg > MAX_SEGS)
@@ -1561,9 +1604,15 @@ __host__ __device__ inline long long strict_refined_parts(int Y, int X, int C,
   return total;
 }
 
-// The block's shared memory in the form of g (host side).
+// The block's shared memory in the form of g (host side); the wide form
+// (g.groups > 1, the sequential form only) on g.groups clusters of C.
 static long long form_parts(int Y, int X, int ktc, int kbc, int C,
                             const RefinedArgs& g, long long* parts) {
+  if (g.groups > 1)
+    return g.form == R_SEQ && g.groups <= MAX_GROUPS
+               ? refined_parts(Y, X, ktc, kbc, C * g.groups, g, parts,
+                               MAX_CLUSTER * MAX_GROUPS)
+               : 0;
   return g.form == R_STRICT ? strict_refined_parts(Y, X, C, parts)
                             : refined_parts(Y, X, ktc, kbc, C, g, parts);
 }
@@ -1791,14 +1840,16 @@ struct RefinedBlock {
 // the advection segments (da of their rows parked in the next buffer's own
 // rows, which the block alone writes); xa + da + dy into buffer nxt,
 // pushed to the neighbours' halos.  MEMBERS: this cluster's member's
-// coefficient scratch (run_refined).
-template <bool MEMBERS>
+// coefficient scratch (run_refined; WIDE: the member of g.groups clusters).
+template <bool MEMBERS, bool WIDE = false>
 __device__ void refined_substep(const YearArgs& a, const RefinedArgs& g,
                                 const RefinedBlock& bk, const Bufs& bufs,
                                 int cur, int nxt, int r0) {
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
   const float* const cfm =
-      a.cf + (MEMBERS ? (size_t)member_index() * 12 * P : 0);
+      a.cf + (MEMBERS ? (size_t)(member_index() / (WIDE ? g.groups : 1)) *
+                            12 * P
+                      : 0);
   const int R = bufs.R, RX = R * X, BX = bufs.field();
   const int ktc = a.ktc, kbc = a.kbc;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -2183,6 +2234,61 @@ __device__ void strict_seq_substep(const YearArgs& a, const StrictSeq& st,
   }
 }
 
+// A wide block's halo slots across its run's cluster edges: block 0 of
+// cluster k > 0 posts its two top rows for the block above and takes that
+// block's two bottom rows (edge k - 1, `top`); block C - 1 of cluster
+// k < G - 1 the other way round (edge k, `bot`); -1: no such edge.  Edge e
+// of slot s, side d (0: the rows above the edge, 1: the rows below) holds
+// both fields' HALO rows at base + ((s (G - 1) + e) 2 + d) 2 HALO X.
+struct WideEdge {
+  float* base;   // this member's slots in RefinedArgs::ghalo
+  int G, top, bot;
+};
+
+// Buffer `off`'s rows across the cluster edges (WIDE), after the
+// cluster.sync() that ends a phase: the edge rows posted to slot `slot`,
+// the launch's grid barrier, then the neighbours' rows read into this
+// block's halo rows.  Every block of the launch calls it, in the same
+// order.
+__device__ void wide_exchange(const WideEdge& w, const Bufs& bufs, int off,
+                              int slot) {
+  const int X = bufs.X, R = bufs.R, BX = bufs.field(), HX = HALO * X;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  auto at = [&](int e, int d) {
+    return w.base + (((size_t)slot * (w.G - 1) + e) * 2 + d) * 2 * HX;
+  };
+  if (w.top >= 0) {
+    float* dst = at(w.top, 1);
+    for (int l = tid; l < 2 * HX; l += nt) {
+      const int f = l >= HX, h = l - f * HX;
+      dst[l] = bufs.mine[off + f * BX + HX + h];         // rows 0, 1
+    }
+  }
+  if (w.bot >= 0) {
+    float* dst = at(w.bot, 0);
+    for (int l = tid; l < 2 * HX; l += nt) {
+      const int f = l >= HX, h = l - f * HX;
+      dst[l] = bufs.mine[off + f * BX + R * X + h];      // rows R-2, R-1
+    }
+  }
+  cg::this_grid().sync();
+  if (w.top >= 0) {
+    const float* src = at(w.top, 0);
+    for (int l = tid; l < 2 * HX; l += nt) {
+      const int f = l >= HX, h = l - f * HX;
+      bufs.mine[off + f * BX + h] = src[l];              // halo above
+    }
+  }
+  if (w.bot >= 0) {
+    const float* src = at(w.bot, 1);
+    for (int l = tid; l < 2 * HX; l += nt) {
+      const int f = l >= HX, h = l - f * HX;
+      bufs.mine[off + f * BX + (R + HALO) * X + h] = src[l];   // below
+    }
+  }
+  __syncthreads();
+}
+
 // The years of one member at an extension-mode grid on a cluster of C
 // blocks, this block's rows, in the form FORM (enum RefinedForm): one year
 // of the single run (K1: FLUX, K2: SCEN; MEMBERS false, physics p) or of
@@ -2195,21 +2301,30 @@ __device__ void strict_seq_substep(const YearArgs& a, const StrictSeq& st,
 // slice of a.state_out (copied from a.state_in first), the fold's step
 // coefficient planes in its slice of a.cf, the annual sums in a.asum
 // (K2; K3 at (m, y)) from 0 at each year's first step, K3's monthly means
-// at (m, y*nmon + month) from 0 at each month's first step.
-template <int KIND, bool MEMBERS, int FORM, bool LEGACY>
+// at (m, y*nmon + month) from 0 at each month's first step.  WIDE (the
+// sequential form only): the run spans g.groups clusters, this block's
+// rows and member follow its cluster's place in them, and the step start
+// and each substep end at wide_exchange after their cluster.sync().
+template <int KIND, bool MEMBERS, int FORM, bool LEGACY, bool WIDE = false>
 __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
                             const GrebParams& p, const PackCols& cols) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  // WIDE: G clusters a run, this cluster the run's grp-th
+  const int G = WIDE ? g.groups : 1;
+  const int grp = WIDE ? (int)(blockIdx.x / C) % G : 0;
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
-  const int R = Y / C, RX = R * X, r0 = rank * R;
+  const int R = Y / (C * G), RX = R * X, r0 = (grp * C + rank) * R;
   const int ktc = a.ktc, kbc = a.kbc, K = ktc + kbc;
   constexpr bool STRICT = FORM == R_STRICT;
+  static_assert(!WIDE || FORM == R_SEQ, "the wide form is sequential");
   long long parts[N_QPARTS];
   if constexpr (STRICT)
     strict_refined_parts(Y, X, C, parts);
+  else if constexpr (WIDE)
+    refined_parts(Y, X, ktc, kbc, C * G, g, parts, MAX_CLUSTER * MAX_GROUPS);
   else
     refined_parts(Y, X, ktc, kbc, C, g, parts);
   float* sp[N_QPARTS];
@@ -2236,7 +2351,7 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
   const Div by_rx(RX), by_x(X);
   // member m's slice: field k of its state at k * FS, its coefficient
   // scratch, and step t of its corrections at corr_m + t * corr_step
-  const int m = MEMBERS ? member_index() : 0;
+  const int m = MEMBERS ? member_index() / G : 0;
   const size_t FS = MEMBERS ? (size_t)a.M * YX : (size_t)YX;
   const size_t m0 = MEMBERS ? (size_t)m * YX : 0;
   float* st = a.state_out + m0 + (size_t)r0 * X;
@@ -2326,10 +2441,18 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
     zpre[2 * nq] = acc;
   }
   // every block's shared memory is live before any remote write; the
-  // state copy is visible to the block
+  // state copy is visible to the block (WIDE: no global data crosses a
+  // cluster before the first step start's exchange)
   cluster.sync();
   if (rank > 0) bufs.up = cluster.map_shared_rank(bufs.mine, rank - 1);
   if (rank < C - 1) bufs.dn = cluster.map_shared_rank(bufs.mine, rank + 1);
+  // WIDE: this block's edges and the exchanges made
+  WideEdge we{};
+  int ep = 0;
+  if constexpr (WIDE)
+    we = WideEdge{g.ghalo + (size_t)m * 8 * (G - 1) * HALO * X, G,
+                  rank == 0 && grp > 0 ? grp - 1 : -1,
+                  rank == C - 1 && grp < G - 1 ? grp : -1};
 
   const int n_years = KIND == SCEN_YEARS ? a.n_years : 1;
   for (int y = 0; y < n_years; ++y) {
@@ -2376,16 +2499,20 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
                       a.v[tyx + r0 * X + li], cfm + c, P);
         }
         cluster.sync();
+        if constexpr (WIDE)
+          wide_exchange(we, bufs, 0, ep++ & 1);
         // -- circulation: nsub substeps, buffer cur -> nxt
         for (int s = 0; s < a.nsub; ++s) {
           const int nxt = NXT - cur;
           if constexpr (FORM == R_ADDITIVE)
             additive_substep<MEMBERS>(a, g, bk, later, bufs, cur, nxt, r0);
           else
-            refined_substep<MEMBERS>(a, g, bk, bufs, cur, nxt, r0);
+            refined_substep<MEMBERS, WIDE>(a, g, bk, bufs, cur, nxt, r0);
           // every block's rows and halos of buffer nxt are written, and no
           // block reads buffer cur any more
           cluster.sync();
+          if constexpr (WIDE)
+            wide_exchange(we, bufs, nxt, ep++ & 1);
           cur = nxt;
         }
       }
@@ -2515,34 +2642,37 @@ __global__ void __launch_bounds__(NT, 1) scenario_years_strict(
 
 // The refined instantiation of the four kernels: in each form and variant,
 // <kernel><suffix> runs run_refined<kind, members, form, legacy>.
-#define REFINED_KERNELS(SUFFIX, FORM, LEGACY)                                \
+#define REFINED_KERNELS(SUFFIX, FORM, LEGACY, WIDE)                          \
   __global__ void __launch_bounds__(NT, 1) fluxcorr_year##SUFFIX(            \
       YearArgs a, GrebParams p, RefinedArgs g) {                             \
-    run_refined<FLUX, false, FORM, LEGACY>(a, g, p, PackCols{});             \
+    run_refined<FLUX, false, FORM, LEGACY, WIDE>(a, g, p, PackCols{});       \
   }                                                                          \
   __global__ void __launch_bounds__(NT, 1) scenario_year##SUFFIX(            \
       YearArgs a, GrebParams p, RefinedArgs g) {                             \
-    run_refined<SCEN, false, FORM, LEGACY>(a, g, p, PackCols{});             \
+    run_refined<SCEN, false, FORM, LEGACY, WIDE>(a, g, p, PackCols{});       \
   }                                                                          \
   __global__ void __launch_bounds__(NT, 1) fluxcorr_years##SUFFIX(           \
       YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {                 \
-    run_refined<FLUX, true, FORM, LEGACY>(a, g, p, c);                       \
+    run_refined<FLUX, true, FORM, LEGACY, WIDE>(a, g, p, c);                 \
   }                                                                          \
   __global__ void __launch_bounds__(NT, 1) scenario_years##SUFFIX(           \
       YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {                 \
-    run_refined<SCEN_YEARS, true, FORM, LEGACY>(a, g, p, c);                 \
+    run_refined<SCEN_YEARS, true, FORM, LEGACY, WIDE>(a, g, p, c);           \
   }
 
-REFINED_KERNELS(_refined, R_SEQ, false)
-REFINED_KERNELS(_additive, R_ADDITIVE, false)
-REFINED_KERNELS(_refined_legacy, R_SEQ, true)
-REFINED_KERNELS(_additive_legacy, R_ADDITIVE, true)
-REFINED_KERNELS(_strict_refined, R_STRICT, true)
+REFINED_KERNELS(_refined, R_SEQ, false, false)
+REFINED_KERNELS(_additive, R_ADDITIVE, false, false)
+REFINED_KERNELS(_refined_legacy, R_SEQ, true, false)
+REFINED_KERNELS(_additive_legacy, R_ADDITIVE, true, false)
+REFINED_KERNELS(_strict_refined, R_STRICT, true, false)
+REFINED_KERNELS(_wide, R_SEQ, false, true)
+REFINED_KERNELS(_wide_legacy, R_SEQ, true, true)
 
 // A launcher's refined kernels in the order refined_pick numbers them.
+#define N_REFINED 7
 #define REFINED_TABLE(K)                                                     \
   { K##_refined, K##_additive, K##_refined_legacy, K##_additive_legacy,     \
-    K##_strict_refined }
+    K##_strict_refined, K##_wide, K##_wide_legacy }
 
 // A kernel's parameters are passed by value: the largest set (the refined
 // member kernels') stays under the 4 KB that every toolkit takes.
@@ -2570,9 +2700,15 @@ static Variant variant(const GrebParams& p) {
 
 // The refined kernel (REFINED_TABLE's index) that runs g.form under the
 // variant of p's flags word: the fold's forms modern or legacy, the strict
-// form for the strict transport or none; -1 where none runs it.
+// form for the strict transport or none, the wide form (g.groups > 1: the
+// sequential form on several clusters) modern or legacy; -1 where none
+// runs it.
 static int refined_pick(const GrebParams& p, const RefinedArgs& g) {
   const Variant v = variant(p);
+  if (g.groups > 1) {
+    if (g.form != R_SEQ) return -1;
+    return v == V_MODERN ? 5 : v == V_LEGACY ? 6 : -1;
+  }
   if (g.form == R_STRICT) return v == V_STRICT ? 4 : -1;
   if (g.form != R_SEQ && g.form != R_ADDITIVE) return -1;
   if (v == V_MODERN) return g.form;
@@ -2592,13 +2728,15 @@ static int launch(Kernel kernel, const YearArgs& a, void* stream,
 }
 
 // The launch of a.M clusters of C blocks of `kernel` with `smem` bytes of
-// dynamic shared memory a block into cfg, and how many such clusters the
-// card runs at once (cluster_config, refined_config).
+// dynamic shared memory a block into cfg (attrs: room for 2), and how many
+// such clusters the card runs at once (cluster_config, refined_config).
+// G clusters a member is the wide form: a cooperative launch, for its
+// grid barrier.
 template <typename Kernel>
 static int config_with(Kernel kernel, const YearArgs& a, int C,
                        long long smem, void* stream,
                        cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
-                       int* clusters) {
+                       int* clusters, int G = 1) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -2612,12 +2750,17 @@ static int config_with(Kernel kernel, const YearArgs& a, int C,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   *cfg = {};
-  cfg->gridDim = dim3(a.M * C, 1, 1);
-  cfg->blockDim = dim3(cluster_threads(a.Y / C, a.X), 1, 1);
+  cfg->gridDim = dim3(a.M * C * G, 1, 1);
+  cfg->blockDim = dim3(cluster_threads(a.Y / (C * G), a.X), 1, 1);
   cfg->dynamicSmemBytes = (size_t)smem;
   cfg->stream = (cudaStream_t)stream;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
+  if (G > 1) {
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg->numAttrs = 2;
+  }
   *clusters = 0;
   e = cudaOccupancyMaxActiveClusters(clusters, (void*)kernel, cfg);
   if (e != cudaSuccess) return (int)e;
@@ -2649,7 +2792,8 @@ static int refined_config(Kernel kernel, const YearArgs& a,
   long long parts[N_QPARTS];
   const long long smem = form_parts(a.Y, a.X, a.ktc, a.kbc, C, g, parts);
   if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
-  return config_with(kernel, a, C, smem, stream, attr, cfg, clusters);
+  return config_with(kernel, a, C, smem, stream, attr, cfg, clusters,
+                     g.groups > 1 ? g.groups : 1);
 }
 
 // a.M members on a.M clusters of C blocks; raises (returns
@@ -2659,7 +2803,7 @@ template <typename Kernel, typename... Extra>
 static int launch_cluster(Kernel kernel, const YearArgs& a,
                           const GrebParams& p, int C, int kind, bool strict,
                           void* stream, Extra... extra) {
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg;
   int clusters;
   const int err = cluster_config(kernel, a, C, kind, strict, stream, attr,
@@ -2673,19 +2817,23 @@ static int launch_cluster(Kernel kernel, const YearArgs& a,
 // The refined instantiation: a.M members on a.M clusters of C blocks of
 // the kernel of `table` that refined_pick picks, as launch_cluster
 // (GREB_ERR_FLAGS where none); the member kernels take the pack's columns
-// (extra) before g.
+// (extra) before g.  The wide form (g.groups clusters a member) launches
+// only where the card runs all a.M * g.groups clusters at once
+// (GREB_ERR_RESIDENT: its grid barrier would never end).
 template <typename Kernel, typename... Extra>
-static int launch_refined(Kernel const (&table)[5], const YearArgs& a,
-                          const GrebParams& p, const RefinedArgs& g, int C,
-                          void* stream, Extra... extra) {
+static int launch_refined(Kernel const (&table)[N_REFINED],
+                          const YearArgs& a, const GrebParams& p,
+                          const RefinedArgs& g, int C, void* stream,
+                          Extra... extra) {
   const int k = refined_pick(p, g);
   if (k < 0) return GREB_ERR_FLAGS;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg;
   int clusters;
   const int err = refined_config(table[k], a, g, C, stream, attr, &cfg,
                                  &clusters);
   if (err) return err;
+  if (g.groups > 1 && clusters < a.M * g.groups) return GREB_ERR_RESIDENT;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, table[k], a, p, extra...,
                                            g);
   if (e != cudaSuccess) return (int)e;
@@ -2811,10 +2959,10 @@ int greb_refined_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
                           RefinedArgs g, int* clusters) {
   YearArgs a = {};
   a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg;
-  const int k = g.form == R_STRICT ? 4 : g.form;
-  if (k < 0 || k > 4) return GREB_ERR_LAYOUT;
+  const int k = g.groups > 1 ? 5 : g.form == R_STRICT ? 4 : g.form;
+  if (k < 0 || k > 5) return GREB_ERR_LAYOUT;
   if (kind == FLUX) {
     decltype(&fluxcorr_years_refined) const t[] =
         REFINED_TABLE(fluxcorr_years);
@@ -2829,12 +2977,14 @@ int greb_refined_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
 }
 
 // The refined kernel (REFINED_TABLE's index) that a launcher runs for a
-// flags word in a form; -1: none (GREB_ERR_FLAGS).
-int greb_refined_pick(int flags, int form) {
+// flags word in a form on `groups` clusters a run; -1: none
+// (GREB_ERR_FLAGS).
+int greb_refined_pick(int flags, int form, int groups) {
   GrebParams p = {};
   p.flags = flags;
   RefinedArgs g = {};
   g.form = form;
+  g.groups = groups;
   return refined_pick(p, g);
 }
 
@@ -2854,7 +3004,7 @@ int greb_cluster_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
                           int strict, int* clusters) {
   YearArgs a = {};
   a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg;
   const bool st = strict != 0;
   if (kind == FLUX)
@@ -2889,6 +3039,9 @@ const char* greb_error_string(int err) {
   if (err == GREB_ERR_FLAGS)
     return "the flags word has a bit the kernels do not know, or a "
            "combination no instantiation runs";
+  if (err == GREB_ERR_RESIDENT)
+    return "the wide form's clusters are not all resident at once: its "
+           "grid barrier would never end";
   return cudaGetErrorString((cudaError_t)err);
 }
 

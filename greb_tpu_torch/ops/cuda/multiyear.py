@@ -22,7 +22,11 @@ launch it (csrc/year_kernel.cu ``run_refined``,
 ``year_kernel.refined_layout``) on 16-block clusters at every member
 count, under the fold each member with its own global scratch for the
 step's coefficient planes (M, 12, 2, Y, X); K3 adds up the monthly means
-and annual sums in global memory.  On a CUDA tensor each
+and annual sums in global memory.  A plan of the wide form (768x384:
+``year_kernel.refined_groups`` clusters a member) launches
+floor(capacity / groups) members at a time, one launch after another
+(``year_kernel.check_resident``: its grid barrier needs every cluster of
+a launch resident, so members never run in waves there).  On a CUDA tensor each
 wrapper launches its kernel or raises; on a CPU tensor it runs its plain
 PyTorch version, ``*_plain``, which loops over the members and steps
 through ``core.fluxcorr_step`` / ``core.scenario_step`` in the kernel's
@@ -332,14 +336,44 @@ def scenario_years_plain(state5: torch.Tensor, ppack: torch.Tensor,
 def _launch_members(fn_name: str, yd: yk.YearData, args: yk._Args,
                     params: yk._Params, dev: torch.device,
                     cluster: int) -> None:
-    """Launch K4 or K3 (``fn_name``) on ``cluster``-block clusters: the
-    refined instantiation for a plan it runs (``is_refined``)."""
-    extra = ()
+    """Launch K4 or K3 (``fn_name``) on ``cluster``-block clusters for
+    ``args.M`` members: the refined instantiation for a plan it runs
+    (``is_refined``; the wide form with its halo slots)."""
+    extra, scratch = (), ()
     if yk.is_refined(yd.plan):
         fn_name += "_refined"
-        extra = (yk._refined_args(yd, dev),)
+        g = yk._refined_args(yd, dev)
+        if g.groups > 1:
+            scratch = yk._wide_args(g, args.M, args.X, dev)
+        extra = (g,)
     yk._launch(fn_name, args, params, dev, _pack_cols(), *extra,
                ctypes.c_int(cluster))
+    del scratch     # held through the enqueue: g has only their pointers
+
+
+def _member_launches(yd: yk.YearData, kind: str, M: int):
+    """The member ranges [m0, m1) that the launches of ``kind`` take: all
+    M members in one launch, or for the wide form as many as the card runs
+    at once (``year_kernel.check_resident``, which refuses where not even
+    one fits), one launch after another."""
+    if not yk.is_refined(yd.plan):
+        return [(0, M)]
+    groups = yk.refined_groups(yd.plan)
+    if groups == 1:
+        return [(0, M)]
+    k = yk.check_resident(groups, yk.wide_capacity(yd, kind), M)
+    return [(m0, min(M, m0 + k)) for m0 in range(0, M, k)]
+
+
+def _member_slice(state5: torch.Tensor, state_out: torch.Tensor, m0: int,
+                  m1: int):
+    """(input, output) state of members [m0, m1) for one launch: the
+    whole tensors for all members, else a contiguous copy of their input
+    and an output that the caller copies back into ``state_out``."""
+    if (m0, m1) == (0, state5.shape[1]):
+        return state5, state_out
+    s_in = state5[:, m0:m1].contiguous()
+    return s_in, torch.empty_like(s_in)
 
 
 def _coeff_scratch(M: int, Y: int, X: int, dev: torch.device):
@@ -371,18 +405,26 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
     T, Y, X = yd.num.nstep_yr, state5.shape[2], state5.shape[3]
     state_out = torch.empty_like(state5)
     corr = torch.empty((M, T, 3, Y, X), dtype=torch.float32, device=dev)
-    scratch = {}
-    if yk.is_refined(yd.plan) and yd.fold is not None:
-        scratch["cf"] = _coeff_scratch(M, Y, X, dev)
-    args = yk._args(
-        yd, state5, ints=dict(M=M, corr_step=3 * Y * X, n_pack=N_PPACK),
-        state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
-        tf=(corr, None), ppack=(ppack, (M, 1, N_PPACK)), **scratch)
-    args.tof = args.tf + 4 * Y * X
-    args.qf = args.tf + 8 * Y * X
-    # dt and CO2 from the host; the pack overrides the physics per member
-    _launch_members("greb_fluxcorr_years", yd, args, params, dev, cluster)
-    fluxcorr_years.launches += 1
+    for m0, m1 in _member_launches(yd, "fluxcorr", M):
+        n = m1 - m0
+        s_in, s_out = _member_slice(state5, state_out, m0, m1)
+        scratch = {}
+        if yk.is_refined(yd.plan) and yd.fold is not None:
+            scratch["cf"] = _coeff_scratch(n, Y, X, dev)
+        args = yk._args(
+            yd, s_in, ints=dict(M=n, corr_step=3 * Y * X, n_pack=N_PPACK),
+            state_in=(s_in, (5, n, Y, X)), state_out=(s_out, None),
+            tf=(corr[m0:m1], None), ppack=(ppack[m0:m1], (n, 1, N_PPACK)),
+            **scratch)
+        args.tof = args.tf + 4 * Y * X
+        args.qf = args.tf + 8 * Y * X
+        # dt and CO2 from the host; the pack overrides the physics per
+        # member
+        _launch_members("greb_fluxcorr_years", yd, args, params, dev,
+                        cluster)
+        fluxcorr_years.launches += 1
+        if s_out is not state_out:
+            state_out[:, m0:m1] = s_out
     return state_out, corr
 
 
@@ -418,8 +460,6 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
         yk.check_block_fit(yd.plan)
     else:
         yk.block_layout(yd.plan, cluster, "scenario_years")
-    if cluster == 1 or (yk.is_refined(yd.plan) and yd.fold is not None):
-        scratch["cf"] = _coeff_scratch(M, Y, X, dev)
     co2t = torch.as_tensor(co2_years, dtype=torch.float32, device=dev)
     ny = co2t.numel()
     state_out = torch.empty_like(state5)
@@ -428,20 +468,29 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     asum = torch.empty((M, ny, yk.N_SUM, Y, X), dtype=torch.float32,
                        device=dev)
     mon, w = _maps_on(yd, dev)
-    args = yk._args(
-        yd, state5,
-        ints=dict(M=M, n_years=ny, corr_step=3 * Y * X,
-                  corr_shared=int(shared), n_pack=N_PPACK),
-        state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
-        tf=(corrpack, None),
-        ppack=(ppack, (M, 1, N_PPACK)), co2_years=(co2t, (ny,)),
-        mon=(mon, (T,), torch.int32), mon_w=(w, (T,)),
-        monthly=(monthly, None), asum=(asum, None), **scratch)
-    args.tof = args.tf + 4 * Y * X
-    args.qf = args.tf + 8 * Y * X
-    # the pack overrides the physics per member
-    _launch_members("greb_scenario_years", yd, args, params, dev, cluster)
-    scenario_years.launches += 1
+    for m0, m1 in _member_launches(yd, "scenario_years", M):
+        n = m1 - m0
+        s_in, s_out = _member_slice(state5, state_out, m0, m1)
+        if cluster == 1 or (yk.is_refined(yd.plan) and yd.fold is not None):
+            scratch["cf"] = _coeff_scratch(n, Y, X, dev)
+        args = yk._args(
+            yd, s_in,
+            ints=dict(M=n, n_years=ny, corr_step=3 * Y * X,
+                      corr_shared=int(shared), n_pack=N_PPACK),
+            state_in=(s_in, (5, n, Y, X)), state_out=(s_out, None),
+            tf=(corrpack if shared else corrpack[m0:m1], None),
+            ppack=(ppack[m0:m1], (n, 1, N_PPACK)), co2_years=(co2t, (ny,)),
+            mon=(mon, (T,), torch.int32), mon_w=(w, (T,)),
+            monthly=(monthly[m0:m1], None), asum=(asum[m0:m1], None),
+            **scratch)
+        args.tof = args.tf + 4 * Y * X
+        args.qf = args.tf + 8 * Y * X
+        # the pack overrides the physics per member
+        _launch_members("greb_scenario_years", yd, args, params, dev,
+                        cluster)
+        scenario_years.launches += 1
+        if s_out is not state_out:
+            state_out[:, m0:m1] = s_out
     return state_out, monthly, asum
 
 

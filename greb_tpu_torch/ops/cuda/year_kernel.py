@@ -44,8 +44,14 @@ extension-mode plan (384x192 at dt_crcl=1800: sequential zonal
 splitting, packed pole composites, segments; ``*_refined``) or a plan
 with additive splitting and dense composites (192x96 at dt_crcl=1800:
 advection segments and five 192x192 composite rows at each pole;
-``*_additive``).  Its block keeps in shared memory only what a substep
-reads many times: the (Ta, q) double buffer with its halo rows, wz, the
+``*_additive``).  A sequential plan whose rows one 16-block cluster
+cannot hold (768x384 at dt_crcl=450) runs in the wide form
+(``*_wide``, ``*_wide_legacy``): one run or member spread over
+``refined_groups(plan)`` clusters of 16 blocks (6 at 768x384), the halo
+rows across the clusters' edges exchanged in global memory at a grid
+barrier, launched only where the card runs all of a launch's clusters at
+once (``check_resident``; K3 and K4 launch that many members at a time).
+Its block keeps in shared memory only what a substep reads many times: the (Ta, q) double buffer with its halo rows, wz, the
 zonally diffused state xa (or dd) and a scratch for the segment
 iterations and composite rows (``refined_layout``); the state, the annual
 sums, K3's monthly means, the step's coefficient planes (a global scratch
@@ -57,7 +63,9 @@ the strict stencils with sequential zonal splitting, both polar
 sub-cycles in every row, its block's shared memory the double buffer, wz
 with halo rows and one sub-cycle scratch (``strict_refined_layout``).
 Grids that these layouts do not hold raise NotImplementedError
-(``check_plan``, ``check_supported``), naming their ROADMAP item.
+(``check_plan``, ``check_supported``), naming their ROADMAP item; so does
+the strict transport (and no transport) where one cluster does not hold
+its strict form (768x384: ``REFINED_ITEMS["strict_wide"]``).
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -127,6 +135,9 @@ STRICT_ONE_BLOCK_ITEM = "ROADMAP Queue 2 item 4"
 # waits in the next buffer's own rows, the sub-cycles' two buffers, the
 # rows' constants), and the most segments of either kind it takes
 REFINED_CLUSTER_SIZES = (16,)
+# the most clusters one run of the wide form spans (csrc/year_kernel.cu
+# MAX_GROUPS: 132 SMs hold 8 clusters of 16 blocks)
+MAX_GROUPS = 8
 REFINED_PARTS = ("transported", "wz", "xa", "scratch", "comp_index")
 STRICT_REFINED_PARTS = ("transported", "wz", "xz", "subcycle", "rowc")
 MAX_SEGS = 8
@@ -139,7 +150,10 @@ REFINED_FORMS = ("sequential", "additive", "strict")
 REFINED_ITEMS = dict(
     layout="ROADMAP Queue 1 item 3d",    # grids its layout does not hold
     # additive splitting with packed composites (256x128, 288x144)
-    additive_packed="ROADMAP Queue 1 item 3g")
+    additive_packed="ROADMAP Queue 1 item 3g",
+    # the strict transport and the no-transport words where one cluster
+    # does not hold the strict form (768x384; after Queue 2 redesign d)
+    strict_wide="ROADMAP Queue 1 item 3h")
 
 
 def experiment_flags(exp: Experiment, strict: bool = False) -> int:
@@ -216,14 +230,16 @@ class YearData:
 @dataclass(frozen=True)
 class ClusterLayout:
     """One block's share of a member's years on a cluster: its latitude
-    rows, the most pole composite rows any block holds, its threads, and
-    the bytes of each part of its shared memory (``CLUSTER_PARTS``
-    order)."""
+    rows, the most pole composite rows any block holds, its threads, the
+    bytes of each part of its shared memory (``CLUSTER_PARTS`` order), and
+    the clusters of ``blocks`` blocks a member spans (``groups``: the
+    refined instantiation's wide form, else 1)."""
     blocks: int
     rows: int
     comp_rows: int
     threads: int
     parts: Tuple[Tuple[str, int], ...]
+    groups: int = 1
 
     @property
     def nbytes(self) -> int:
@@ -306,12 +322,15 @@ def _reach(segs) -> Tuple[int, int]:
             max((s[1] for s in segs), default=0))
 
 
-def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
+def refined_layout(plan, blocks: int, kind: str,
+                   groups: int = 1) -> ClusterLayout:
     """The shared memory of each block of a ``blocks``-block cluster that
     runs the refined instantiation of ``kind`` (one of KINDS; the same for
     each) on a plan of one of its two forms, sequential zonal splitting
     with packed composites or additive splitting with dense ones
-    (csrc/year_kernel.cu ``refined_parts``, the same reckoning): two
+    (csrc/year_kernel.cu ``refined_parts``, the same reckoning), one run
+    on ``groups`` such clusters (more than 1: the wide form, sequential
+    splitting only, the rows split over groups * blocks blocks): two
     buffers of the 2 transported fields with HALO rows each side, wz of its
     rows, their zonally diffused state xa (first their zonal diffusion dd;
     additive: dd alone), a scratch and the composite rows' index (packed).
@@ -326,9 +345,11 @@ def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     Raises ValueError where ``cluster_layout`` does, where the row length is
     not a multiple of fastcirc2.COMP_BLOCK (the composite sums take whole
     blocks of a row), for a plan of neither form, for more than MAX_SEGS
-    segments, and where a block needs more than MAX_SMEM_BYTES.  A
-    ``StrictPlan`` of the refined instantiation: ``strict_refined_layout``."""
-    if isinstance(plan, StrictPlan) and plan.seq_zonal:
+    segments, for ``groups`` outside 1..MAX_GROUPS or above 1 with
+    additive splitting, and where a block needs more than MAX_SMEM_BYTES.
+    A ``StrictPlan`` of the refined instantiation (one cluster):
+    ``strict_refined_layout``."""
+    if isinstance(plan, StrictPlan) and plan.seq_zonal and groups == 1:
         return strict_refined_layout(plan, blocks, kind)
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: one of {KINDS}")
@@ -339,24 +360,29 @@ def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
                          f"with dense ones, not {plan}")
     if max(len(plan.diff_segs), len(plan.adv_segs)) > MAX_SEGS:
         raise ValueError(f"more than {MAX_SEGS} segments: {plan}")
+    if not 1 <= groups <= MAX_GROUPS or (groups > 1 and not plan.seq_zonal):
+        raise ValueError(f"{groups} clusters a run: the wide form takes "
+                         f"1..{MAX_GROUPS}, with sequential splitting")
     Y, X = plan.ydim, plan.xdim
     if X % fc2.COMP_BLOCK:
         raise ValueError(f"refined kernels: {X} columns, not a multiple of "
                          f"{fc2.COMP_BLOCK}")
-    if not 1 <= blocks <= MAX_CLUSTER or Y % blocks:
-        raise ValueError(f"a cluster of {blocks} blocks: {Y} latitude rows "
-                         f"do not split evenly over 1..{MAX_CLUSTER} blocks")
-    R = Y // blocks
+    if not 1 <= blocks <= MAX_CLUSTER or Y % (blocks * groups):
+        raise ValueError(f"{groups} cluster(s) of {blocks} blocks: {Y} "
+                         f"latitude rows do not split evenly over them")
+    n = blocks * groups      # the run's blocks
+    R = Y // n
     if R < HALO:
-        raise ValueError(f"a cluster of {blocks} blocks gives {R} row(s) per "
-                         f"block, under the meridional halo depth {HALO}")
+        raise ValueError(f"{groups} cluster(s) of {blocks} blocks give {R} "
+                         f"row(s) per block, under the meridional halo depth "
+                         f"{HALO}")
     ktc, kbc = plan.comp_kt, plan.comp_kb
     (dkt, dkb), (akt, akb) = _reach(plan.diff_segs), _reach(plan.adv_segs)
 
     def most(a0, a1, b0, b1):
         return max(_rows_in(b * R, (b + 1) * R, a0, a1)
                    + _rows_in(b * R, (b + 1) * R, b0, b1)
-                   for b in range(blocks))
+                   for b in range(n))
 
     kmax = most(0, ktc, Y - kbc, Y)
     nsd = most(ktc, ktc + dkt, Y - kbc - dkb, Y - kbc)
@@ -368,12 +394,51 @@ def refined_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     lay = ClusterLayout(
         blocks=blocks, rows=R, comp_rows=kmax,
         threads=min(MAX_THREADS, -(-2 * R * X // 32) * 32),
-        parts=tuple((n, 4 * words[n]) for n in REFINED_PARTS))
+        parts=tuple((p, 4 * words[p]) for p in REFINED_PARTS), groups=groups)
     if lay.nbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"refined {kind}: a cluster of {blocks} blocks at "
-                         f"{X}x{Y} needs {lay.nbytes} B of shared memory a "
-                         f"block, over {MAX_SMEM_BYTES} B")
+        raise ValueError(f"refined {kind}: {groups} cluster(s) of {blocks} "
+                         f"blocks at {X}x{Y} need {lay.nbytes} B of shared "
+                         f"memory a block, over {MAX_SMEM_BYTES} B")
     return lay
+
+
+def refined_groups(plan, blocks: int = REFINED_CLUSTER_SIZES[0]) -> int:
+    """The clusters of ``blocks`` blocks that one run (or member) of
+    ``plan`` spans in the refined instantiation: 1 where one cluster holds
+    it, else, for sequential splitting, the smallest G in 2..MAX_GROUPS
+    whose wide layout (``refined_layout(plan, blocks, kind, G)``, the same
+    for every kind) fits.  Raises ValueError where none does (the card's
+    capacity is ``check_resident``'s)."""
+    try:
+        refined_layout(plan, blocks, KINDS[0])
+        return 1
+    except ValueError as e:
+        if isinstance(plan, StrictPlan) or not plan.seq_zonal:
+            raise
+        first = e
+    for g in range(2, MAX_GROUPS + 1):
+        try:
+            refined_layout(plan, blocks, KINDS[0], g)
+            return g
+        except ValueError:
+            continue
+    raise ValueError(f"no run of 1..{MAX_GROUPS} clusters of {blocks} "
+                     f"blocks holds {plan.xdim}x{plan.ydim}: {first}")
+
+
+def check_resident(groups: int, capacity: int, members: int = 1) -> int:
+    """How many members (at most ``members``) one launch of the wide form
+    takes, each on ``groups`` clusters, where the card runs ``capacity``
+    such clusters at once (``cluster_capacity``): its grid barrier waits
+    for every block of the launch, so all of a launch's clusters must be
+    resident together, never in waves.  Raises RuntimeError where not even
+    one member's fit, naming the capacity found."""
+    if capacity < groups:
+        raise RuntimeError(
+            f"the wide form spans {groups} clusters of 16 blocks a run, and "
+            f"the card runs {capacity} at once: its grid barrier would "
+            f"never end, so nothing is launched")
+    return max(1, min(members, capacity // groups))
 
 
 def strict_refined_layout(plan: StrictPlan, blocks: int,
@@ -438,9 +503,11 @@ def is_refined(plan) -> bool:
 def block_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     """The layout of the instantiation that runs ``plan``:
     ``refined_layout`` for a fold of the refined instantiation
-    (``is_refined``), else ``cluster_layout``."""
+    (``is_refined``; on ``refined_groups`` clusters), else
+    ``cluster_layout``."""
     if is_refined(plan):
-        return refined_layout(plan, blocks, kind)
+        return refined_layout(plan, blocks, kind,
+                              refined_groups(plan, blocks))
     return cluster_layout(plan, blocks, kind)
 
 
@@ -464,29 +531,34 @@ def check_plan(plan, kind: str, flags: int = 0) -> None:
     splitting with dense ones (additive with packed:
     REFINED_ITEMS["additive_packed"]; sequential with dense composites,
     which ``make_plan`` never builds, raises ValueError), at a size
-    ``refined_layout`` holds on REFINED_CLUSTER_SIZES (else
-    REFINED_ITEMS["layout"]).  A ``StrictPlan`` at an extension-mode grid
-    runs in its strict form where every row takes both polar sub-cycles
-    (as at every extension-mode grid the reference's polar criterion
-    gives) and ``strict_refined_layout`` holds it on
-    REFINED_CLUSTER_SIZES (else REFINED_ITEMS["layout"]).  The cluster
-    body runs every other fold and the strict transport at any other grid
+    ``refined_layout`` holds on REFINED_CLUSTER_SIZES, sequential splitting
+    also on several such clusters (the wide form, ``refined_groups``;
+    else REFINED_ITEMS["layout"]).  A ``StrictPlan`` at an extension-mode
+    grid runs in its strict form where every row takes both polar
+    sub-cycles (as at every extension-mode grid the reference's polar
+    criterion gives; else REFINED_ITEMS["layout"]) and
+    ``strict_refined_layout`` holds it on one cluster of
+    REFINED_CLUSTER_SIZES (else, as at 768x384, REFINED_ITEMS["strict_wide"]:
+    the strict form has no wide variant).  The cluster body runs every
+    other fold and the strict transport at any other grid
     (``check_supported`` checks its fit)."""
     if isinstance(plan, StrictPlan):
         if not plan.seq_zonal:
             return
+        try:
+            strict_refined_layout(plan, REFINED_CLUSTER_SIZES[0], kind)
+        except ValueError as e:
+            raise NotImplementedError(
+                f"{kind}: the strict transport or no transport (flags "
+                f"{flags:#x}) at {plan.xdim}x{plan.ydim}: the refined "
+                f"instantiation's strict form does not hold this grid on one "
+                f"cluster and has no wide form: {e} "
+                f"({REFINED_ITEMS['strict_wide']})") from None
         if plan.sub_cycles is not None and min(map(min, plan.sub_cycles)) < 0:
             raise NotImplementedError(
                 f"{kind}: the strict transport (flags {flags:#x}) at an "
                 f"extension-mode grid with rows outside the polar "
                 f"sub-cycles ({REFINED_ITEMS['layout']})")
-        try:
-            strict_refined_layout(plan, REFINED_CLUSTER_SIZES[0], kind)
-        except ValueError as e:
-            raise NotImplementedError(
-                f"{kind}: the refined instantiation's strict form (flags "
-                f"{flags:#x}) does not hold this grid: {e} "
-                f"({REFINED_ITEMS['layout']})") from None
         return
     if plan.seq_zonal and plan.comp_mode != "packed":
         raise ValueError(f"year kernels: sequential zonal splitting with "
@@ -499,7 +571,7 @@ def check_plan(plan, kind: str, flags: int = 0) -> None:
             f"{kind}: additive zonal splitting with packed composites "
             f"({plan.xdim}x{plan.ydim}; {REFINED_ITEMS['additive_packed']})")
     try:
-        refined_layout(plan, REFINED_CLUSTER_SIZES[0], kind)
+        refined_groups(plan, REFINED_CLUSTER_SIZES[0])
     except ValueError as e:
         raise NotImplementedError(
             f"{kind}: the refined instantiation, which runs the folds with "
@@ -713,20 +785,23 @@ class _Args(ctypes.Structure):
 class _Refined(ctypes.Structure):
     """The refined instantiation's arguments (csrc/year_kernel.cu
     RefinedArgs): the packed factors, each composite row's offset and rank
-    in Rtot, the segment tables, (kt, kb, iters) each, and the plan's form
-    (an index of REFINED_FORMS)."""
+    in Rtot, the segment tables, (kt, kb, iters) each, the plan's form (an
+    index of REFINED_FORMS), and the wide form's clusters a run
+    (``refined_groups``) and halo slots."""
     _fields_ = ([(n, ctypes.c_void_p)
                  for n in ("pcu", "pcw", "comp_off", "comp_rank")]
                 + [(n, ctypes.c_int) for n in ("rtot", "n_dseg", "n_aseg")]
                 + [(n, ctypes.c_int * (3 * MAX_SEGS))
                    for n in ("dseg", "aseg")]
-                + [("form", ctypes.c_int)])
+                + [("form", ctypes.c_int), ("groups", ctypes.c_int),
+                   ("ghalo", ctypes.c_void_p)])
 
 
 # the refined kernels' entry suffixes in the order the launchers number
 # them (csrc/year_kernel.cu REFINED_TABLE, refined_pick)
 REFINED_SUFFIXES = ("_refined", "_additive", "_refined_legacy",
-                    "_additive_legacy", "_strict_refined")
+                    "_additive_legacy", "_strict_refined", "_wide",
+                    "_wide_legacy")
 
 
 def refined_entry(kernel: str, plan, flags: int) -> str:
@@ -734,9 +809,10 @@ def refined_entry(kernel: str, plan, flags: int) -> str:
     "fluxcorr_year", "scenario_year", "fluxcorr_years", "scenario_years")
     runs for ``plan`` under the flags word ``flags`` (csrc/year_kernel.cu
     refined_pick): the fold's forms modern at word 0, legacy at any other
-    word with the fold; the strict form for the strict transport or none.
-    Raises ValueError for a word that no refined kernel runs in the plan's
-    form."""
+    word with the fold, each on several clusters a run (``refined_groups``
+    above 1) in the wide form; the strict form for the strict transport or
+    none.  Raises ValueError for a word that no refined kernel runs in the
+    plan's form."""
     bit = lambda name: bool(flags >> FLAGS.index(name) & 1)
     strict, off = bit("strict_transport"), bit("circulation_off")
     vapor = bit("vapor_circulation_off") or bit("vapor_diffusion_only")
@@ -745,8 +821,11 @@ def refined_entry(kernel: str, plan, flags: int) -> str:
             or (form == "strict") != (strict or off)):
         raise ValueError(f"{kernel}: no refined kernel runs flags "
                          f"{flags:#x} in the {form} form")
-    k = (4 if form == "strict" else REFINED_FORMS.index(form)
-         + 2 * (flags != 0))
+    if form != "strict" and refined_groups(plan) > 1:
+        k = 5 + (flags != 0)
+    else:
+        k = (4 if form == "strict" else REFINED_FORMS.index(form)
+             + 2 * (flags != 0))
     return kernel + REFINED_SUFFIXES[k]
 
 
@@ -759,11 +838,13 @@ def refined_form(plan) -> str:
 
 
 def _refined_struct(plan, **ptrs) -> _Refined:
-    """``_Refined`` of ``plan``'s segment tables and form, with ``ptrs``."""
+    """``_Refined`` of ``plan``'s segment tables, form and clusters a run
+    (``refined_groups``), with ``ptrs``."""
     if isinstance(plan, StrictPlan):
-        return _Refined(form=REFINED_FORMS.index("strict"), **ptrs)
+        return _Refined(form=REFINED_FORMS.index("strict"), groups=1, **ptrs)
     g = _Refined(n_dseg=len(plan.diff_segs), n_aseg=len(plan.adv_segs),
-                 form=REFINED_FORMS.index(refined_form(plan)), **ptrs)
+                 form=REFINED_FORMS.index(refined_form(plan)),
+                 groups=refined_groups(plan), **ptrs)
     for name, segs in (("dseg", plan.diff_segs), ("aseg", plan.adv_segs)):
         flat = [int(v) for seg in segs for v in seg]
         getattr(g, name)[:len(flat)] = flat
@@ -809,7 +890,7 @@ def _lib():
     lib.greb_cluster_capacity.argtypes = [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.greb_cluster_capacity.restype = ctypes.c_int
-    lib.greb_refined_pick.argtypes = [ctypes.c_int] * 2
+    lib.greb_refined_pick.argtypes = [ctypes.c_int] * 3
     lib.greb_refined_pick.restype = ctypes.c_int
     lib.greb_cluster_threads.argtypes = [ctypes.c_int] * 3
     lib.greb_cluster_threads.restype = ctypes.c_int
@@ -823,20 +904,22 @@ def kernel_cluster_layout(plan, blocks: int, kind: str):
     ``greb_cluster_layout``, built on first use): ({part: bytes}, threads),
     for holding against ``cluster_layout`` (a ``StrictPlan``: the strict
     instantiation's layout; a fold of the refined instantiation: its
-    layout, ``greb_refined_layout``, against ``refined_layout``)."""
+    layout, ``greb_refined_layout``, against ``refined_layout``, on
+    ``refined_groups`` clusters of ``blocks``)."""
     lib = _lib()
     if is_refined(plan):
         names = (STRICT_REFINED_PARTS if isinstance(plan, StrictPlan)
                  else REFINED_PARTS)
         parts = (ctypes.c_longlong * len(names))()
+        g = _refined_struct(plan)
         total = lib.greb_refined_layout(plan.ydim, plan.xdim, plan.comp_kt,
-                                        plan.comp_kb, blocks,
-                                        _refined_struct(plan), parts)
+                                        plan.comp_kb, blocks, g, parts)
         if total <= 0:
             raise ValueError(f"the kernel has no refined layout for {blocks} "
                              f"blocks")
         return (dict(zip(names, parts)),
-                lib.greb_cluster_threads(plan.ydim, plan.xdim, blocks))
+                lib.greb_cluster_threads(plan.ydim, plan.xdim,
+                                         blocks * g.groups))
     parts = (ctypes.c_longlong * len(CLUSTER_PARTS))()
     total = lib.greb_cluster_layout(plan.ydim, plan.xdim, plan.comp_kt,
                                     plan.comp_kb, blocks, KINDS.index(kind),
@@ -851,8 +934,9 @@ def cluster_capacity(plan, blocks: int, kind: str) -> int:
     """How many clusters of ``blocks`` blocks of the kernel of ``kind`` the
     card runs at once (``cudaOccupancyMaxActiveClusters``; a
     ``StrictPlan``: of the strict instantiation; a fold of the refined
-    one: of that one); members beyond it run in waves.  Raises where the
-    card runs none."""
+    one: of that one, the wide form's for a plan it runs); members beyond
+    it run in waves (the wide form's never: ``check_resident``).  Raises
+    where the card runs none."""
     lib = _lib()
     n = ctypes.c_int()
     if is_refined(plan):
@@ -1001,22 +1085,50 @@ def _refined_args(yd: YearData, dev: torch.device) -> _Refined:
                               t.items()})
 
 
+def wide_capacity(yd: YearData, kind: str) -> int:
+    """``cluster_capacity`` of the wide kernel of ``kind`` on this card,
+    asked once per run."""
+    key = ("wide capacity", kind)
+    if key not in yd.cache:
+        yd.cache[key] = cluster_capacity(yd.plan, REFINED_CLUSTER_SIZES[0],
+                                         kind)
+    return yd.cache[key]
+
+
+def _wide_args(g: _Refined, members: int, X: int, dev: torch.device):
+    """The wide form's halo slots for a launch of ``members`` members into
+    ``g``, (members, 2, groups - 1, 2, 2, HALO, X); returns the tensor,
+    which must outlive the launch's enqueue."""
+    ghalo = torch.empty((members, 2, g.groups - 1, 2, 2, HALO, X),
+                        dtype=torch.float32, device=dev)
+    g.ghalo = ghalo.data_ptr()
+    return ghalo
+
+
 def _launch_year(fn_name: str, yd: YearData, state5: torch.Tensor,
                  params: _Params, cluster: int, **extra) -> None:
     """Launch K1 or K2 (``fn_name``) on the instantiation of the plan: the
     refined one for a plan it runs (``is_refined``), the fold's forms with
-    a global scratch for the step's coefficient planes (12, 2, Y, X)."""
+    a global scratch for the step's coefficient planes (12, 2, Y, X); the
+    wide form after ``check_resident`` with its halo slots."""
     dev = state5.device
     if not is_refined(yd.plan):
         _launch(fn_name, _args(yd, state5, **extra), params, dev,
                 ctypes.c_int(cluster))
         return
+    Y, X = state5.shape[1:]
     if yd.fold is not None:
-        Y, X = state5.shape[1:]
         extra["cf"] = (torch.empty((12, 2, Y, X), dtype=torch.float32,
                                    device=dev), None)
+    g = _refined_args(yd, dev)
+    scratch = ()
+    if g.groups > 1:
+        kind = "fluxcorr" if fn_name == "greb_fluxcorr_year" else "scenario"
+        check_resident(g.groups, wide_capacity(yd, kind))
+        scratch = _wide_args(g, 1, X, dev)
     _launch(fn_name + "_refined", _args(yd, state5, **extra), params, dev,
-            _refined_args(yd, dev), ctypes.c_int(cluster))
+            g, ctypes.c_int(cluster))
+    del scratch     # held through the enqueue: g has only their pointers
 
 
 def _launch(fn_name: str, args: _Args, params: _Params, dev: torch.device,

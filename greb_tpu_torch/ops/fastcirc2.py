@@ -381,11 +381,15 @@ def _packed_comp(x, dd, const: Fast2Const, plan: FastPlan):
     fk = t1.shape[-3] * t1.shape[-2]
     flat = t1.reshape(lead + (fk, X))
     pi = const.pidx
-    # z[c] = sum_i t1[row(c), i] * U_all[i, c], blocked over i
-    z = _blocked_sum(flat[..., pi.row_of_col, :].transpose(-1, -2)
-                     * const.pcu)                         # (..., Rtot)
+    # z[c] = sum_i t1[row(c), i] * U_all[i, c], blocked over i; the
+    # products laid out as U_all (X, Rtot), so the multiply and the sums
+    # read memory in order (at 768x384 Rtot is ~12,900)
+    rows = torch.index_select(flat.transpose(-1, -2).contiguous(), -1,
+                              pi.row_of_col)              # (..., X, Rtot)
+    z = _blocked_sum(rows * const.pcu)                    # (..., Rtot)
     zs = torch.where(pi.valid, z[..., pi.cols], 0.0)      # (..., S)
-    part = _block_partials(zs.unsqueeze(-1) * const.pcw[pi.cols])
+    part = _block_partials(zs.unsqueeze(-1)
+                           * torch.index_select(const.pcw, 0, pi.cols))
     # each row's block sums in sequence, from its first block
     t2 = part[..., pi.first, :]
     last = part.shape[-2] - 1

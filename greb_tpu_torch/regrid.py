@@ -74,17 +74,21 @@ def regrid_field(a: np.ndarray, x_dst: int, y_dst: int,
         return a[..., jy[:, None], jx[None, :]].astype(F32)
     if not np.issubdtype(a.dtype, np.floating):
         a = a.astype(F32)
-    a00 = a[..., jy0[:, None], jx0[None, :]]
-    a01 = a[..., jy0[:, None], jx1[None, :]]
-    a10 = a[..., jy1[:, None], jx0[None, :]]
-    a11 = a[..., jy1[:, None], jx1[None, :]]
     # blend in the source's float dtype: float64 weights would promote the
     # (t, y, x) temporaries of a float32 field to float64
     wy_ = wy.astype(a.dtype)[:, None]
     wx_ = wx.astype(a.dtype)[None, :]
-    out = ((1 - wy_) * ((1 - wx_) * a00 + wx_ * a01)
-           + wy_ * ((1 - wx_) * a10 + wx_ * a11))
-    return out.astype(F32)
+    # ((1 - wy) ((1 - wx) a00 + wx a01) + wy ((1 - wx) a10 + wx a11)): the
+    # longitude blend on the source rows first, then its rows jy0 and jy1
+    # (the same operations on the same values as blending the four
+    # corners, at the source's row count)
+    ax = (1 - wx_) * a[..., jx0] + wx_ * a[..., jx1]
+    out = ax[..., jy0, :]
+    out *= 1 - wy_
+    below = ax[..., jy1, :]
+    below *= wy_
+    out += below
+    return out.astype(F32, copy=False)
 
 
 def coarsen_field(a: np.ndarray, x_dst: int, y_dst: int) -> np.ndarray:

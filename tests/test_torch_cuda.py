@@ -30,8 +30,17 @@ versions under the legacy fold words 5, 11 and 15 (the refined legacy
 variant) and under the strict circulation and the no-transport word
 (the refined instantiation's strict form, whose block the kernel reckons
 as ``strict_refined_layout`` does); the launchers pick the kernel that
-``refined_entry`` names for every word in every form.
+``refined_entry`` names for every word in every form.  At 768x384 (config
+5's grid at dt_crcl=450, a 2-step calendar) the four kernels' wide form
+(``*_wide``, ``*_wide_legacy``: one run or member on 6 clusters of 16
+blocks, a grid barrier each substep) equals its plain version: K1, K2
+from the initial state with zero corrections, modern and under log_exp
+11; K4 and K3 at M=2 (one member a launch), K3 with a table per member and
+one shared; K4 = K1 and K3 = K2 at M=1; and the kernel reckons its block as
+``refined_layout`` does on 6 clusters.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -469,17 +478,126 @@ def test_refined_launchers_pick_the_named_kernel(refined_model):
     ``refined_entry`` names, or none where it raises."""
     lib = yk._lib()
     plans = (refined_model.fold[0], fc.make_plan(make_grid(192, 96, 1800)),
-             yk.StrictPlan(REFINED.ydim, REFINED.xdim, seq_zonal=True))
+             yk.StrictPlan(REFINED.ydim, REFINED.xdim, seq_zonal=True),
+             dataclasses.replace(refined_model.fold[0], ydim=384, xdim=768))
     words = {yk.experiment_flags(Experiment(e), e in (7, 8, 16))
              for e in range(17)} | {0, yk.experiment_flags(Experiment(),
                                                            True)}
     for plan in plans:
         form = yk.REFINED_FORMS.index(yk.refined_form(plan))
+        groups = yk._refined_struct(plan).groups
         for flags in words:
-            got = lib.greb_refined_pick(flags, form)
+            got = lib.greb_refined_pick(flags, form, groups)
             try:
                 want = yk.REFINED_SUFFIXES.index(yk.refined_entry(
                     "fluxcorr_year", plan, flags)[len("fluxcorr_year"):])
             except ValueError:
                 want = -1
             assert got == want, (plan, hex(flags))
+
+
+GRID768 = Numerics(xdim=768, ydim=384, dt_crcl=450, ndays_yr=1,
+                   jday_mon=(1,), time_flux=1, time_scnr=1)
+
+
+def _grid768(log_exp=None):
+    arrs = regrid_forcing_arrays(make_synthetic_forcing(
+        96, 48, GRID768.nstep_yr, GRID768.ndays_yr), GRID768)
+    return GREB(GrebConfig(numerics=GRID768, fast_circulation=True,
+                           experiment=Experiment(log_exp)),
+                forcing=forcing_from_arrays(arrs, "cuda"), verbose=False,
+                device="cuda")
+
+
+@pytest.fixture(scope="module")
+def grid768_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
+    return _grid768()
+
+
+@pytest.mark.parametrize("log_exp", (None, 11), ids=("modern", "log_exp 11"))
+def test_wide_year_kernels_match_plain(grid768_model, log_exp):
+    """K1 (``fluxcorr_year_wide``, ``_wide_legacy``) from the initial
+    state, K2 from it with zero corrections (finite on this calendar), bit
+    for bit; the launchers pick the entries ``refined_entry`` names."""
+    m = grid768_model if log_exp is None else _grid768(log_exp)
+    yd, s0 = m.year_data, m.initial_state()
+    assert yk.refined_groups(yd.plan) == 6
+    suffix = "_wide" if log_exp is None else "_wide_legacy"
+    lib = yk._lib()
+    for kernel in ("fluxcorr_year", "scenario_year"):
+        assert yk.refined_entry(kernel, yd.plan, yd.flags) == kernel + suffix
+        got = lib.greb_refined_pick(yd.flags, 0, 6)
+        assert yk.REFINED_SUFFIXES[got] == suffix
+    co2 = np.float32(m.exp.co2_ctrl if m.exp.active else 340.0)
+    n1 = yk.fluxcorr_year.launches
+    s_k, c_k = yk.fluxcorr_year(s0, co2, yd)
+    s_p, c_p = yk.fluxcorr_year_plain(s0, co2, yd)
+    assert yk.fluxcorr_year.launches == n1 + 1
+    _equal(s_k.stack(), s_p.stack(), "K1 state")
+    for name in ("tf", "tof", "qf"):
+        _equal(getattr(c_k, name), getattr(c_p, name), f"K1 {name}")
+    zero = Corrections.zeros(GRID768.nstep_yr, GRID768.ydim, GRID768.xdim,
+                             device="cuda")
+    s_k, o_k, a_k = yk.scenario_year(s0, zero, 680.0, yd)
+    s_p, o_p, a_p = yk.scenario_year_plain(s0, zero, 680.0, yd)
+    assert torch.isfinite(s_k.stack()).all() and torch.isfinite(o_k).all()
+    _equal(s_k.stack(), s_p.stack(), "K2 state")
+    _equal(o_k, o_p, "K2 outs")
+    _equal(a_k, a_p, "K2 annual sums")
+
+
+@pytest.mark.parametrize("kind", yk.KINDS)
+def test_wide_layout_matches_the_kernel(grid768_model, kind):
+    plan = grid768_model.fold[0]
+    lay = yk.block_layout(plan, yk.DEFAULT_CLUSTER, kind)
+    assert lay.groups == 6 and lay.nbytes == 196656
+    parts, threads = yk.kernel_cluster_layout(plan, yk.DEFAULT_CLUSTER, kind)
+    assert parts == dict(lay.parts) and threads == lay.threads
+    assert yk.cluster_capacity(plan, yk.DEFAULT_CLUSTER, kind) >= 6
+
+
+@pytest.mark.parametrize("shared", (False, True))
+def test_wide_member_kernels_match_plain(grid768_model, shared):
+    """K4 at M=2 (ct_sens 22.05, 22.95) from the initial state at 340 ppm
+    and K3 at M=2 over two years from the initial state at 680 ppm with
+    zero tables (a table per member or one shared), one launch a member on
+    a card that runs fewer than 12 clusters at once; both bit for bit, and
+    at M=1 with the base params equal to K1 and K2."""
+    m = grid768_model
+    yd, s0 = m.year_data, m.initial_state()
+    members = ens.perturbed_params(m.params, {"ct_sens": [22.05, 22.95]})
+    pp = my.pack_member_params(members, "cuda")
+    s5 = ens.ensemble_initial_state(members, m.forcing)
+    per = yk.check_resident(6, yk.cluster_capacity(yd.plan, 16, "fluxcorr"),
+                            2)
+    n4, n3 = my.fluxcorr_years.launches, my.scenario_years.launches
+    s_k, c_k = my.fluxcorr_years(s5, pp, 340.0, yd)
+    s_p, c_p = my.fluxcorr_years_plain(s5, pp, 340.0, yd)
+    assert my.fluxcorr_years.launches == n4 + -(-2 // per)
+    assert not torch.equal(c_k[0], c_k[1])
+    _equal(s_k, s_p, "K4 state")
+    _equal(c_k, c_p, "K4 tables")
+    shape = (GRID768.nstep_yr, 3, GRID768.ydim, GRID768.xdim)
+    tab = torch.zeros((1 if shared else 2,) + shape, device="cuda")
+    co2 = np.full(2, 680.0, np.float32)
+    got = my.scenario_years(s5, pp, tab, co2, yd)
+    want = my.scenario_years_plain(s5, pp, tab, co2, yd)
+    assert torch.isfinite(got[1]).all() and not torch.equal(got[1][0],
+                                                             got[1][1])
+    for name, k, p in zip(("state", "monthly means", "annual sums"), got,
+                          want):
+        _equal(k, p, f"K3 {name}")
+    base = my.pack_member_params([m.params], "cuda")
+    s4, c4 = my.fluxcorr_years(s0.stack()[:, None], base, 340.0, yd)
+    s1, c1 = yk.fluxcorr_year(s0, 340.0, yd)
+    _equal(s4[:, 0], s1.stack(), "K4 = K1 state")
+    _equal(c4[0], torch.stack([c1.tf, c1.tof, c1.qf], dim=1), "K4 = K1")
+    s3, _, a3 = my.scenario_years(s0.stack()[:, None], base, tab[:1], co2[:1],
+                                  yd)
+    zero = Corrections.zeros(GRID768.nstep_yr, GRID768.ydim, GRID768.xdim,
+                             device="cuda")
+    s2, _, a2 = yk.scenario_year(s0, zero, 680.0, yd)
+    _equal(s3[:, 0], s2.stack(), "K3 = K2 state")
+    _equal(a3[0, 0], a2, "K3 = K2 annual sums")

@@ -289,12 +289,13 @@ def test_strict_refined_layout_bytes():
                                        subcycle=73728, rowc=288)
         assert lay.nbytes == 221472 <= yk.MAX_SMEM_BYTES
         assert yk.refined_layout(STRICT, 16, kind) == lay
-    # 8 and 12 blocks do not fit; 768x384 (3d) does not either
+    # 8 and 12 blocks do not fit; 768x384 does not either, and the strict
+    # form has no wide variant (3h)
     for blocks in (8, 12):
         with pytest.raises(ValueError, match="over 232448 B"):
             yk.strict_refined_layout(STRICT, blocks, "scenario")
     wide = yk.StrictPlan(384, 768, seq_zonal=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3h"):
         yk.check_supported(wide, flags=0x80)
 
 

@@ -225,13 +225,17 @@ def test_refined_layout_refuses_smaller_clusters(pair, blocks):
 
 def test_refined_layout_refuses_768x384_and_dense_plans(pair):
     plan = pair[1].fold[0]
-    # 768x384 at dt_crcl=450: 24 rows a block, the double buffer alone
-    # 2*2*28*768*4 = 344,064 B
+    # 768x384: 24 rows a block on one 16-block cluster, the double buffer
+    # alone 2*2*28*768*4 = 344,064 B; the grid runs in the wide form, on
+    # 6 clusters of 16 blocks (4 rows a block; tests/test_torch_grid768.py
+    # holds the real 768x384 plan)
     wide = dataclasses.replace(plan, ydim=384, xdim=768)
     with pytest.raises(ValueError, match="over 232448 B"):
         yk.refined_layout(wide, 16, "scenario")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
-        yk.check_supported(wide)
+    yk.check_supported(wide)
+    assert yk.refined_groups(wide) == 6
+    assert yk.block_layout(wide, 16, "scenario") == \
+        yk.refined_layout(wide, 16, "scenario", 6)
     # 192x96 (dense composites at comp_kt=5, 192x192 matrices, additive
     # splitting, advection segments) runs in the refined instantiation
     real = fc.make_plan(make_grid(192, 96, 1800))
@@ -285,8 +289,10 @@ def test_member_kernels_refuse_a_refined_plan(pair, case):
     """What stays queued at an extension-mode plan raises in K4 and K3
     before any launch, on CPU tensors too: a grid the refined layout does
     not hold (3d, in ``check_supported``, which GREB runs on the card
-    before any year), and a cluster size other than
-    REFINED_CLUSTER_SIZES; dense composites with sequential splitting,
+    before any year; 768x384 runs since in the wide form, which a card
+    that cannot hold all of a member's clusters at once refuses), and a
+    cluster size other than REFINED_CLUSTER_SIZES; dense composites with
+    sequential splitting,
     which make_plan never builds, raise ValueError.  The legacy and strict
     words, refused until ROADMAP Queue 1 item 3f, are accepted: the legacy
     fold word's K4 and K3 run (their plain versions here; K4 at M=1 is K1
@@ -300,8 +306,11 @@ def test_member_kernels_refuse_a_refined_plan(pair, case):
     if case == "768x384":
         wide = dataclasses.replace(plan, ydim=384, xdim=768)
         for kind in my.KINDS:
-            with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
-                yk.check_supported(wide, (kind,))
+            yk.check_supported(wide, (kind,))
+        for kernel in ("fluxcorr_years", "scenario_years"):
+            assert yk.refined_entry(kernel, wide, 0) == kernel + "_wide"
+        with pytest.raises(RuntimeError, match="runs 5 at once"):
+            yk.check_resident(yk.refined_groups(wide), 5)
         return
     s5 = m.initial_state().stack()[:, None]
     pp = my.pack_member_params([m.params])
