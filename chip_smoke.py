@@ -198,13 +198,33 @@
    peak device memory with what earlier phases held, the path's own K1 and
    K2 launches timed with their
    bounds);
-19. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+19. latitude x member sharding in the slab kernels (csrc/slab_kernel.cu:
+   a shard's step as slab_start, nsub slab_substep, slab_finish, the halo
+   rows copied between launches, a step replayed from one CUDA graph): at
+   96x48 on the full calendar on 2 and 4 shards of the card against K1 ->
+   K2 (state, tables, monthly and annual means bitwise; the monthly
+   means taken a shard's rows at a time on both sides), the 4-shard path
+   (1 + 1 years) timed on its second run and its launches counted; on a
+   20-step calendar the graphed run against the eager one, each entry's
+   launch timed (a graph of 50 launches of it on each shard) and its
+   plain version's on one shard, 2 members (ct_sens) x 2 shards against
+   K4 -> K3 at M=2, and two processes sharing the card over gloo (this
+   script with --shard-worker RANK PORT PATH) against one process; on 10
+   steps from the initial state the 4-shard path against its plain sharded
+   version (each shard's plain step in a thread, eager: host-bound);
+   384x192 and 192x96 on 4 shards against K1 -> K2 on 20 steps and the
+   plain sharded version on 4; 768x384 on 4 shards on step 18's 2-step
+   model against the wide form (eager and graphed) and, for the spin-up,
+   the plain sharded version, each entry's launch on each shard and a
+   step timed;
+20. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
    ms and bound, for all four the refined and the 192x96 launch's, the
    legacy fold words' and the strict 384x192 modes' launches, plain
    versions and bounds, for K3 the ensemble year's and the refined wave's,
    for all four the 768x384 wide entries, launches, plain versions and
-   bounds, and each kernel's launches on every path) and, last,
+   bounds, and each kernel's launches on every path; the three slab
+   entries with their 768x384 launches) and, last,
    {"ok": true, "device": {...}}.
 
 Each phase prints its wall time ("phase ...: s wall"), and the run its
@@ -2449,6 +2469,8 @@ def _grid768_phase(tmp, reset_counts, read_counts):
           f"{child['scenario_years_launches']} K3 launches); final state and "
           f"output file ({len(full_bytes)} B) bitwise equal; "
           f"{time.perf_counter() - t0:.1f} s")
+    # step 19 shards this short-calendar model and its fold
+    out["short_model"] = m
     del m, yd, k1, k2, s0, zero, s_full, s_res
     gc.collect()
     torch.cuda.empty_cache()
@@ -2571,6 +2593,453 @@ def _grid768_phase(tmp, reset_counts, read_counts):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"grid768 phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# step 19: latitude x member sharding in the slab kernels
+# (csrc/slab_kernel.cu, ops/cuda/slab.py; parallel/sharded.py)
+SHARD_NY = (2, 4)          # 96x48 on n_y shards of the one card
+SHARD_PATH_NY = 4          # the sharded path whose launches are counted
+SHARD_SHORT = dict(ndays_yr=10, jday_mon=(6, 4), time_flux=1, time_scnr=1)
+# the plain sharded version's calendars (eager, each shard's step in a
+# thread: host-bound), from the initial state (the scenario with zero
+# tables): 96x48 on 10 steps, the refined grids on 4
+SHARD_PLAIN_96 = dict(ndays_yr=5, jday_mon=(3, 2), time_flux=1, time_scnr=1)
+SHARD_PLAIN_REFINED = dict(ndays_yr=2, jday_mon=(2,), time_flux=1,
+                           time_scnr=1)
+SHARD_REFINED_NY = 4       # 384x192 and 192x96 on 20 steps, 768x384 on 2
+SHARD_CT_SENS = (22.05, 22.95)
+SHARD_PROCS = 2            # processes sharing the card over gloo
+SLAB_ENTRIES = ("slab_start", "slab_substep", "slab_finish")
+
+
+def _slab_launches():
+    from greb_tpu_torch.ops.cuda import slab
+    return dict(zip(SLAB_ENTRIES, (slab.start.launches,
+                                   slab.substep.launches,
+                                   slab.finish.launches)))
+
+
+def _sharded_run(model, n_y, plain=False, members=None, n_ens=1,
+                 from0=False, mesh=None, graphs=True, repeat=1,
+                 scenario=True):
+    """``model``'s spin-up year, then a scenario year from its end with its
+    tables (``from0``: both from the initial state, the scenario with zero
+    tables), sharded over an (n_ens, n_y) mesh of the card (or ``mesh``) in
+    the slab kernels, or in the plain sharded runners (``plain``), the two
+    years ``repeat`` times on the same runners (the first captures their
+    graphs): ((state after each, tables, monthly means, annual means)
+    gathered to the host, seconds of the last two years (host clock, the
+    card synchronized at both ends), the slab launches of the last); not
+    ``scenario``: the spin-up year alone (None for the scenario's)."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.ops import fastcirc2 as fc2
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.parallel import ensemble as ens
+    from greb_tpu_torch.parallel import sharded as sh
+    mesh = mesh if mesh is not None else sh.make_mesh(n_ens, n_y)
+    splan, sconst = fc2.build_sharded(None, None, model.grid, model.st, 0,
+                                      mesh.n_y, fold=model.fold)
+    fcc = sh.shard_fastcirc(mesh, sconst)
+    make = sh.make_plain_year_runners if plain else \
+        sh.make_sharded_year_runners
+    batched = members is not None
+    flux, scnr = make(mesh, model.st, model.num, model.exp, model.month_mat,
+                      batched=batched, fast_plan=splan)
+    if not (plain or graphs):
+        flux.runner.graphs = False     # every launch eager, to be timed
+    state, ppack = model.initial_state(), None
+    if batched:
+        state = ens.ensemble_initial_state(members, model.forcing)
+        ppack = my.pack_member_params(members, "cuda")
+    st_s, sfx_s, c0_s, md_s = sh.shard_inputs(mesh, batched, state,
+                                              model.sfx, None, model.md,
+                                              ppack)
+    co2 = np.float32(680.0)
+    from greb_tpu_torch.ops.cuda import slab
+    for _ in range(repeat):
+        # the slab counts from 0 just before the path, read just after
+        slab.start.launches = slab.substep.launches = slab.finish.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s1, c1 = flux(st_s, sfx_s, co2, md_s, fcc)
+        if scenario:
+            s2, mon, mean = scnr(st_s if from0 else s1, sfx_s,
+                                 c0_s if from0 else c1, co2, md_s, fcc)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = _slab_launches()
+    if not scenario:
+        return (s1.gather(), c1.gather(), None, None, None), secs, n
+    return ((s1.gather(), c1.gather(), s2.gather(), mon.gather(),
+             mean.gather()), secs, n)
+
+
+def _unsharded_run(model, n_y, from0=False):
+    """K1, then K2 (from0 as ``_sharded_run``), unsharded: (state after
+    each, tables, monthly means, annual means) on the host, the monthly
+    means taken as a run on n_y shards takes them, one product a shard's
+    rows (cuBLAS picks a product's reduction order by its shape)."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.forcing import Corrections
+    from greb_tpu_torch.model import core
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    yd, num, co2 = model.year_data, model.num, np.float32(680.0)
+    s0 = model.initial_state()
+    s1, c1 = yk.fluxcorr_year(s0, co2, yd)
+    if from0:
+        zero = Corrections.zeros(num.nstep_yr, num.ydim, num.xdim,
+                                 device="cuda")
+        s2, outs, asum = yk.scenario_year(s0, zero, co2, yd)
+    else:
+        s2, outs, asum = yk.scenario_year(s1, c1, co2, yd)
+    R = num.ydim // n_y
+    mon = torch.cat([core.monthly_means(model.month_mat,
+                                        outs[..., i * R:(i + 1) * R, :])
+                     for i in range(n_y)], dim=-2)
+    cpu = lambda v: type(v)(*[getattr(v, f.name).cpu()
+                             for f in dataclasses.fields(v)])
+    return (cpu(s1), cpu(c1), cpu(s2), mon.cpu(),
+            core.StepOutputs(*[a.cpu() for a in core.annual_means(asum,
+                                                                  num)]))
+
+
+def _years_pairs(got, want, mon=True):
+    """(name, got, want) of every field of two ``_sharded_run`` results."""
+    from greb_tpu_torch.forcing import ModelState
+    pairs = []
+    for tag, a, b in (("spin-up", got[0], want[0]),
+                      ("scenario", got[2], want[2])):
+        if a is not None and b is not None:
+            pairs += [(f"{tag} {n}", getattr(a, n), getattr(b, n))
+                      for n in ModelState.FIELDS]
+    pairs += [(f"table {n}", getattr(got[1], n), getattr(want[1], n))
+              for n in ("tf", "tof", "qf")]
+    if got[4] is not None and want[4] is not None:
+        pairs += [(f"annual mean {i}", a, b)
+                  for i, (a, b) in enumerate(zip(got[4], want[4]))]
+        if mon:
+            pairs.append(("monthly means", got[3], want[3]))
+    return pairs
+
+
+def _slab_ms(model, n_y, reps=50):
+    """ms of one launch of each slab entry on each shard of ``model`` on
+    n_y shards of the card: ``reps`` launches of the entry on the shard
+    captured in a CUDA graph, the graph replayed once, then timed by CUDA
+    events around a replay (the card's time, not the host's launches):
+    {entry: [ms of shard 0, 1, ...]}.  On a runner of its own, after a
+    spin-up year: the timing launches change its state, and count no
+    launch of a path (a capture launches nothing, the replays are not
+    counted)."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.ops import fastcirc2 as fc2
+    from greb_tpu_torch.ops.cuda import slab
+    from greb_tpu_torch.parallel import sharded as sh
+    mesh = sh.make_mesh(1, n_y)
+    splan, sconst = fc2.build_sharded(None, None, model.grid, model.st, 0,
+                                      n_y, fold=model.fold)
+    fcc = sh.shard_fastcirc(mesh, sconst)
+    flux, _ = sh.make_sharded_year_runners(mesh, model.st, model.num,
+                                           model.exp, model.month_mat,
+                                           fast_plan=splan)
+    st_s, sfx_s, _, md_s = sh.shard_inputs(mesh, False, model.initial_state(),
+                                           model.sfx, None, model.md)
+    flux(st_s, sfx_s, np.float32(680.0), md_s, fcc)
+    runner = flux.runner
+    for step, _ in runner._counters.values():
+        step.zero_()      # the launches read step 0's forcing
+    launch = {"slab_start": lambda s: slab.start(s, False),
+              "slab_substep": lambda s: slab.substep(s, 0, False),
+              "slab_finish": lambda s: slab.finish(s, "fluxcorr", 0, False)}
+    out = {}
+    for entry, fn in launch.items():
+        out[entry] = []
+        for k in sorted(runner.shards):
+            shard = runner.shards[k]
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, capture_error_mode="relaxed"):
+                for _ in range(reps):
+                    fn(shard)
+            g.replay()
+            out[entry].append(_time_ms(g.replay, 3)[0] / reps)
+            del g
+    return out
+
+
+def _slab_plain_ms(model, n_y, shard=1):
+    """ms of the plain version of each slab entry on one shard of
+    ``model`` on n_y shards (the card, eager, 20 calls after a warm-up):
+    slab_start (Ta, q stacked and fastcirc2.step_coeffs of the shard's
+    rows), slab_substep (fastcirc2.substep of its rows with 2 halo rows
+    each side), slab_finish (core.fluxcorr_step with the circulation's
+    increment zero: the pointwise physics and update alone)."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.model import core
+    from greb_tpu_torch.ops import fastcirc2 as fc2
+    from greb_tpu_torch.parallel import sharded as sh
+    splan, sconst = fc2.build_sharded(None, None, model.grid, model.st, 0,
+                                      n_y, fold=model.fold)
+    plan, const = splan.plans[shard], sconst.shards[shard]
+    lo, hi = splan.rows(shard)
+    fx = sh._cut_sfx(model.sfx, lo, hi, "cuda").at(0)
+    md = sh._cut_md(model.md, lo, hi, "cuda")
+    s0 = model.initial_state()
+    state = type(s0)(*[getattr(s0, f.name)[lo:hi].contiguous()
+                       for f in dataclasses.fields(s0)])
+    halo = torch.zeros((2, 2, model.num.xdim), device="cuda")
+    ext = lambda x, w: torch.cat([halo, x, halo], dim=-2)
+    x = torch.stack([state.ta, state.q], dim=-3)
+    cf = fc2.step_coeffs(fx.u, fx.v, const, plan)
+    fns = {"slab_start": lambda: (torch.stack([state.ta, state.q], dim=-3),
+                                  fc2.step_coeffs(fx.u, fx.v, const, plan)),
+           "slab_substep": lambda: fc2.substep(x, cf, const, plan, ext),
+           "slab_finish": lambda: core.fluxcorr_step(
+               state, fx, np.float32(680.0), md, model.num, (plan, const))}
+    out = {}
+    circ = fc2.circulation
+    try:
+        fc2.circulation = lambda x, *a, **k: torch.zeros_like(x)
+        for name, fn in fns.items():
+            fn()
+            out[name] = _time_ms(fn, 20)[0]
+    finally:
+        fc2.circulation = circ
+    return out, splan
+
+
+def _shard_worker(argv) -> int:
+    """One of SHARD_PROCS processes sharing the card over gloo: its shards
+    of step 19's 96x48 mesh in the slab kernels (the exchange across the
+    processes through pinned host memory); rank 0 saves the gathered
+    years to ``argv[2]``.  ``python3 chip_smoke.py --shard-worker RANK
+    PORT PATH``."""
+    import torch
+    from greb_tpu_torch.config import GrebConfig, Numerics
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.parallel import multihost as mh
+    rank, port, path = int(argv[0]), int(argv[1]), argv[2]
+    mh.initialize(f"localhost:{port}", SHARD_PROCS, rank, backend="gloo")
+    try:
+        mesh = mh.global_mesh(1, SHARD_PATH_NY, local_devices=["cuda"])
+        model = GREB(GrebConfig(numerics=Numerics(**SHARD_SHORT),
+                                fast_circulation=True), device="cuda",
+                     verbose=False)
+        res, secs, n = _sharded_run(model, SHARD_PATH_NY, mesh=mesh)
+        if rank == 0:
+            torch.save(res, path)
+        print(json.dumps({"rank": rank, "shards": mesh.local(), "s": secs,
+                          "launches": n}))
+    finally:
+        mh.shutdown()
+    return 0
+
+
+def _sharded_phase(tmp, model, m768):
+    """Step 19: the slab kernels against the unsharded kernels and the
+    plain sharded version, at 96x48 (the full calendar on 2 and 4 shards of
+    the card, the sharded path's years timed and its launches counted; 2
+    members x 2 shards against K4 -> K3; two processes against one), 384x192
+    and 192x96 on 20 steps, 768x384 (step 18's short model and fold) on
+    2 steps; each entry's launch timed and its plain version's."""
+    import socket
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import GrebConfig, Numerics
+    from greb_tpu_torch.model import core
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.ops import fastcirc2 as fc2
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import slab
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    from greb_tpu_torch.parallel import ensemble as ens
+
+    out = dict(err=0.0)
+    num = model.num
+    T, nsub = num.nstep_yr, num.nsub_crcl
+    ticks = [time.perf_counter()]
+
+    def tick(what):
+        ticks.append(time.perf_counter())
+        print(f"  [{what}: {ticks[-1] - ticks[-2]:.1f} s]")
+
+    def against_plain(tag, m, n_y, **kw):
+        """The slab kernels against the plain sharded version (eager,
+        each shard's step in a thread) on ``m``."""
+        got, _, _ = _sharded_run(m, n_y, **kw)
+        t0 = time.perf_counter()
+        plain, _, n = _sharded_run(m, n_y, plain=True, **kw)
+        if any(n.values()):
+            raise AssertionError(f"the plain sharded version launched {n}")
+        check(f"{tag} {n_y} shards vs its plain sharded version "
+              f"({m.num.nstep_yr} steps)", _years_pairs(got, plain))
+        return time.perf_counter() - t0
+
+    def check(tag, pairs):
+        out["err"] = max(out["err"], _bitwise(tag, pairs, quiet=True))
+
+    # -- 96x48, full calendar: the slab kernels on n_y shards against K1
+    #    -> K2; the sharded path (SHARD_PATH_NY shards) timed after a run
+    #    that captures its graphs, its launches counted
+    for n_y in SHARD_NY:
+        want = _unsharded_run(model, n_y)
+        got, secs, n = _sharded_run(model, n_y, repeat=2)
+        check(f"96x48 {n_y} shards vs K1 -> K2 (full calendar)",
+              _years_pairs(got, want))
+        _finite("96x48 sharded", [("scenario ts", got[2].ts), ("monthly means", got[3])])
+        if n != dict(slab_start=2 * T * n_y, slab_substep=2 * T * n_y * nsub,
+                     slab_finish=2 * T * n_y):
+            raise AssertionError(f"96x48 {n_y} shards: launches {n}")
+        secs2 = secs
+        print(f"sharded 96x48 on {n_y} shards of the card (1 + 1 years, "
+              f"a step replayed from one CUDA graph, the second run on the "
+              f"same runners): {secs2:.3f} s = {2 / secs2:.3f} sim-yr/s; "
+              f"launches {n}")
+        if n_y == SHARD_PATH_NY:
+            out["rate"], out["launches"] = 2 / secs2, n
+    tick("96x48 full calendar")
+    # -- each entry's launch timed (eager) at the path's shape, on a
+    #    20-step calendar; the plain sharded version there (eager, each
+    #    shard's step in a thread of its own); members x shards against K4
+    #    -> K3
+    short = GREB(GrebConfig(numerics=Numerics(**SHARD_SHORT),
+                            fast_circulation=True), device="cuda",
+                 verbose=False)
+    got4, _, _ = _sharded_run(short, SHARD_PATH_NY)
+    got, secs_eager, _ = _sharded_run(short, SHARD_PATH_NY, graphs=False)
+    check("96x48 eager vs graphed (20 steps)", _years_pairs(got, got4))
+    ms = _slab_ms(short, SHARD_PATH_NY)
+    out["ms"] = {e: _median(v) for e, v in ms.items()}
+    print(f"sharded 96x48 on {SHARD_PATH_NY} shards eager: {secs_eager:.3f} s"
+          f" for 1 + 1 years of 20 steps; a launch (graphed, median of the "
+          f"shards): " + ", ".join(f"{e} {v * 1e3:.2f} us"
+                                   for e, v in out["ms"].items())
+          + f"; each shard's: {ms}")
+    out["plain_ms"], splan = _slab_plain_ms(model, SHARD_PATH_NY)
+    out["work"] = {e: slab.slab_work(splan.plans[1], num, e)
+                   for e in SLAB_ENTRIES}
+    out["copies_a_year"] = 2 * T * (nsub + 1) * 2 * (SHARD_PATH_NY - 1)
+    tick("launches timed")
+    m10 = GREB(GrebConfig(numerics=Numerics(**SHARD_PLAIN_96),
+                          fast_circulation=True), device="cuda",
+               verbose=False)
+    secs_plain = against_plain("96x48", m10, SHARD_PATH_NY, from0=True)
+    print(f"  the plain sharded version (eager): {secs_plain:.1f} s for 1 + 1"
+          f" years of {m10.num.nstep_yr} steps")
+    tick("plain sharded 96x48")
+    members = ens.perturbed_params(short.params,
+                                   {"ct_sens": np.float32(SHARD_CT_SENS)})
+    gotm, _, _ = _sharded_run(short, 2, members=members, n_ens=2)
+    s5 = ens.ensemble_initial_state(members, short.forcing)
+    pp = my.pack_member_params(members, "cuda")
+    k4, corr = my.fluxcorr_years(s5, pp, 680.0, short.year_data)
+    k3, _, asum = my.scenario_years(k4, pp, corr, np.float32([680.0]),
+                                    short.year_data)
+    check("2 members x 2 shards vs K4 -> K3 (M=2)",
+          [("spin-up", gotm[0].stack(), k4.cpu()),
+           ("scenario", gotm[2].stack(), k3.cpu())]
+          + [(f"table {n}", getattr(gotm[1], n), corr[:, :, i].cpu())
+             for i, n in enumerate(("tf", "tof", "qf"))]
+          + [(f"annual mean {i}", a, b.cpu()) for i, (a, b) in enumerate(zip(
+              gotm[4], core.annual_means(asum[:, 0].transpose(0, 1),
+                                         short.num)))])
+
+    # -- two processes on the card over gloo against one process
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    path = os.path.join(tmp, "shard_worker.pt")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-worker",
+         str(r), str(port), path], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for r in range(SHARD_PROCS)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (o, e) in zip(procs, res):
+        if p.returncode != 0:
+            print(o[-4000:], e[-4000:], file=sys.stderr)
+            raise AssertionError(f"shard worker exited {p.returncode}")
+    child = [json.loads(o.strip().splitlines()[-1]) for o, _ in res]
+    check(f"{SHARD_PROCS} processes x {SHARD_PATH_NY // SHARD_PROCS} shards "
+          f"(gloo, one card) vs one process x {SHARD_PATH_NY}",
+          _years_pairs(torch.load(path, weights_only=False), got4))
+    years_s = ", ".join("%.2f" % c["s"] for c in child)
+    print(f"  {SHARD_PROCS} processes: {time.perf_counter() - t0:.1f} s wall"
+          f" (the years {years_s} s; launches "
+          f"{[c['launches'] for c in child]})")
+    tick("members, two processes")
+
+    # -- 384x192 and 192x96: against K1 -> K2 on 20 steps, against the
+    #    plain sharded version on 4 (the two models share their fold)
+    for grid in (REFINED_GRID, G192_GRID):
+        with _SharedFolds():
+            mg, _ = _refined_model(Numerics(**grid, **SHARD_SHORT))
+            mg4, _ = _refined_model(Numerics(**grid, **SHARD_PLAIN_REFINED))
+        tag = f"{mg.num.xdim}x{mg.num.ydim}"
+        tick(f"{tag} models")
+        want = _unsharded_run(mg, SHARD_REFINED_NY)
+        got, _, _ = _sharded_run(mg, SHARD_REFINED_NY)
+        check(f"{tag} {SHARD_REFINED_NY} shards vs K1 -> K2 (20 steps)",
+              _years_pairs(got, want))
+        _finite(f"{tag} sharded", [("scenario ts", got[2].ts),
+                                   ("monthly means", got[3])])
+        against_plain(tag, mg4, SHARD_REFINED_NY, from0=True)
+        del mg, mg4
+        tick(tag)
+
+    # -- 768x384 on step 18's 2-step model: against the wide form and the
+    #    plain sharded version, from the initial state (the scenario with
+    #    zero tables); each entry's launch on each shard timed (a graph of
+    #    its launches), a step timed from the runner's graph
+    n7 = SHARD_REFINED_NY
+    want = _unsharded_run(m768, n7, from0=True)
+    got, _, _ = _sharded_run(m768, n7, from0=True, graphs=False)
+    check(f"768x384 {n7} shards vs the wide form (2 steps, eager)",
+          _years_pairs(got, want))
+    ms7 = _slab_ms(m768, n7, reps=10)
+    got, secs7, _ = _sharded_run(m768, n7, from0=True, repeat=2)
+    check(f"768x384 {n7} shards graphed vs the wide form",
+          _years_pairs(got, want))
+    t0 = time.perf_counter()
+    plain, _, _ = _sharded_run(m768, n7, from0=True, plain=True,
+                               scenario=False)
+    check(f"768x384 {n7} shards vs its plain sharded version (the spin-up, "
+          f"2 steps, eager)", _years_pairs(got, plain))
+    _finite("768x384 sharded", [("scenario ts", got[2].ts), ("monthly means", got[3])])
+    n_step = 2 * m768.num.nstep_yr
+    sub = ms7["slab_substep"]
+    out["grid768"] = dict(
+        ms={e: max(v) for e, v in ms7.items()},
+        us_substep=sum(sub) * 1e3,
+        ms_step=secs7 * 1e3 / n_step,
+        plain_s=time.perf_counter() - t0)
+    splan7, sconst7 = fc2.build_sharded(None, None, m768.grid, m768.st, 0,
+                                        n7, fold=m768.fold)
+    ranks = yk.packed_ranks(sconst7.shards[0])[1]
+    out["grid768"]["work"] = {
+        e: slab.slab_work(splan7.plans[0], m768.num, e, ranks=ranks)
+        for e in SLAB_ENTRIES}
+    g = out["grid768"]
+    tick("768x384")
+    print(f"768x384 on {n7} shards of the card: a step {g['ms_step']:.3f} ms "
+          f"(graphed, 1 + 1 years of {m768.num.nstep_yr} steps), a substep "
+          f"{g['us_substep']:.1f} us (the {n7} shards' substep launches, "
+          f"graphed), a launch (the slowest shard's): "
+          + ", ".join(f"{e} {v:.3f} ms" for e, v in g["ms"].items())
+          + f"; each shard's: {ms7}; the plain sharded version "
+          f"{g['plain_s']:.1f} s")
     return out
 
 
@@ -2906,6 +3375,8 @@ def main(argv) -> int:
         return _resume_long(argv[1])
     if argv[:1] == ["--resume-long768"]:
         return _resume_long768(argv[1])
+    if argv[:1] == ["--shard-worker"]:
+        return _shard_worker(argv[1:])
     import math
 
     import numpy as np
@@ -3388,6 +3859,10 @@ def main(argv) -> int:
         grid768 = _grid768_phase(tmp, reset_counts, read_counts)
         lap("768x384")
 
+        # -- latitude x member sharding: the slab kernels, their paths ----
+        sharded = _sharded_phase(tmp, model, grid768.pop("short_model"))
+        lap("sharded")
+
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for LONG_BLOCK years, K4 3 members: the median of
     # member_ms's 3 launches, on the size the wrapper picks for that
@@ -3569,6 +4044,32 @@ def main(argv) -> int:
                          refined_wave_bound_ms=w_bound,
                          refined_wave_bound_by=w_by)
         kernels.append(entry)
+    # the slab kernels (no TPU counterpart: greb_tpu's sharded fold runs on
+    # XLA): ms a launch on the sharded path's shape (96x48, SHARD_PATH_NY
+    # shards of the card, one shard's launch, eager), its plain version on
+    # one shard, the bound of one launch, launches on the sharded path
+    # (1 + 1 years); at 768x384 the same on SHARD_REFINED_NY shards
+    for name in SLAB_ENTRIES:
+        bound_ms, bound_by = _bound_of(*sharded["work"][name])
+        g7 = sharded["grid768"]
+        b7_ms, b7_by = _bound_of(*g7["work"][name])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "greb_tpu_torch/csrc/slab_kernel.cu",
+            "replaces": "none: greb_tpu/ops/fastcirc2.py:1184 "
+                        "sharded_substep runs on XLA, no pallas_call",
+            "launches": sharded["launches"][name],
+            "max_abs_err": sharded["err"], "ms": sharded["ms"][name],
+            "plain_ms": sharded["plain_ms"][name], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": f"96x48 on {SHARD_PATH_NY} shards of the card, one "
+                     f"shard's launch",
+            "grid768_ms": g7["ms"][name], "grid768_bound_ms": b7_ms,
+            "grid768_bound_by": b7_by,
+            "grid768_shards": SHARD_REFINED_NY,
+            "grid768_us_substep": g7["us_substep"],
+            "grid768_ms_step": g7["ms_step"],
+            "sharded_sim_yr_per_s": sharded["rate"]})
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

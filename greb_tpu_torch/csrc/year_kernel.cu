@@ -2566,6 +2566,11 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
   cluster.sync();
 }
 
+// The entry functions and their launchers; a source that builds its own
+// entries on these device functions (slab_kernel.cu) defines
+// GREB_DEVICE_ONLY before including this file.
+#ifndef GREB_DEVICE_ONLY
+
 // Each kernel in three instantiations: the modern variant (flags 0); with
 // the suffix _legacy, the fold with the switches of the flags word; with
 // the suffix _strict, the strict transport or none, with the switches.
@@ -3046,3 +3051,5 @@ const char* greb_error_string(int err) {
 }
 
 }  // extern "C"
+
+#endif  // GREB_DEVICE_ONLY

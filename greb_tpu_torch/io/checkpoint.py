@@ -59,6 +59,13 @@ def _arrays(state: ModelState, corr_np: Dict[str, np.ndarray]):
     return out
 
 
+def _gathered(v):
+    """A sharded value (parallel/sharded.py ``Sharded``: the rows of a
+    mesh's shards) as the whole value on the host; anything else as it
+    is."""
+    return v.gather() if hasattr(v, "gather") else v
+
+
 def _corr_np(corr: Corrections) -> Dict[str, np.ndarray]:
     return {k: _host(getattr(corr, k)) for k in ("tf", "tof", "qf")}
 
@@ -112,9 +119,9 @@ class Checkpointer:
     def save(self, step: int, state: ModelState, corr: Corrections,
              cursor: RunCursor) -> None:
         if corr is not self._corr_ref:   # identity, not id(): holds a ref
-            self._corr_np = _corr_np(corr)
+            self._corr_np = _corr_np(_gathered(corr))
             self._corr_ref = corr
-        arrays = _arrays(state, self._corr_np)
+        arrays = _arrays(_gathered(state), self._corr_np)
         self.wait_until_finished()
         self._thread = threading.Thread(
             target=self._commit, args=(step, arrays, cursor), daemon=False)
@@ -154,6 +161,15 @@ class Checkpointer:
         self.wait_until_finished()
         steps = self._steps()
         return steps[-1] if steps else None
+
+    def restore_sharded(self, mesh, step: Optional[int] = None,
+                        batched: bool = False):
+        """``restore`` onto a mesh (parallel/sharded.py): (state, corr) as
+        each local shard's rows on its device, and the cursor."""
+        from ..parallel import sharded
+        state, corr, cursor = self.restore(step)
+        return (sharded.shard_state(mesh, state, batched),
+                sharded.shard_corr(mesh, corr, batched), cursor)
 
     def restore(self, step: Optional[int] = None, device="cpu"
                 ) -> Tuple[ModelState, Corrections, RunCursor]:

@@ -124,10 +124,13 @@ def transport(exp: Experiment, folded: bool) -> str:
 
 def compute_tendencies(state: ModelState, fx: StepForcing, co2,
                        md: ModelData, num: Numerics, fold: Optional[Fold],
-                       exp: Experiment = Experiment()) -> Tendencies:
+                       exp: Experiment = Experiment(),
+                       extend=fc2.extend_lat_zero) -> Tendencies:
     """Reference: tendencies, src/greb.f90:277-308, with the circulation
     of (Ta, q) by ``transport``: the fold, the strict stencils (Ta only
-    under log_exp 7 and 16; under 8 q by diffusion alone) or none."""
+    under log_exp 7 and 16; under 8 q by diffusion alone) or none.
+    ``extend(x, 2)``: the meridional halo rows, zeros past the poles or a
+    latitude shard's neighbour rows (parallel/halo.py)."""
     p, d = md.params, md.derived
     swr = pw.shortwave(state.ts, fx.cld, fx.sw_solar, md.z_topo, md.glacier,
                        p, exp)
@@ -144,7 +147,7 @@ def compute_tendencies(state: ModelState, fx: StepForcing, co2,
         plan, const = fold
         x2 = torch.stack([state.ta, state.q], dim=-3)
         cf_t = fc2.step_coeffs(fx.u, fx.v, const, plan)
-        dx2 = fc2.circulation(x2, cf_t, const, plan, num.nsub_crcl)
+        dx2 = fc2.circulation(x2, cf_t, const, plan, num.nsub_crcl, extend)
         dta_crcl, dq_crcl = dx2[..., 0, :, :], dx2[..., 1, :, :]
     else:
         # wind sign splits (src/greb.f90:203-216)
@@ -152,7 +155,7 @@ def compute_tendencies(state: ModelState, fx: StepForcing, co2,
             stc.circulation, u_m=torch.clamp(fx.u, min=0.0),
             u_p=torch.clamp(fx.u, max=0.0), v_m=torch.clamp(fx.v, min=0.0),
             v_p=torch.clamp(fx.v, max=0.0), st=md.st, sf=md.sf,
-            kappa=p.kappa, nsub=num.nsub_crcl)
+            kappa=p.kappa, nsub=num.nsub_crcl, extend=extend)
         if exp.vapor_circulation_off:              # legacy log_exp 7, 16
             dta_crcl = circ(state.ta, d.wz_air)
             dq_crcl = torch.zeros_like(state.q)
@@ -181,12 +184,12 @@ def compute_tendencies(state: ModelState, fx: StepForcing, co2,
 # ---------------------------------------------------------------------------
 def scenario_step(state: ModelState, fx: StepForcing, corr_t, co2,
                   md: ModelData, num: Numerics, fold: Fold,
-                  exp: Experiment = Experiment()
+                  exp: Experiment = Experiment(), extend=fc2.extend_lat_zero
                   ) -> Tuple[ModelState, StepOutputs]:
     if exp.sst_plus_one:  # legacy exp 14-16 (greb.original.model.f90:225-226)
         state = state.replace(ts=torch.where(md.z_topo < 0.0,
                                              fx.tclim + 1.0, state.ts))
-    ten = compute_tendencies(state, fx, co2, md, num, fold, exp)
+    ten = compute_tendencies(state, fx, co2, md, num, fold, exp, extend)
     tf_t, tof_t, qf_t = corr_t
     dt = F32(num.dt)
 
@@ -213,8 +216,9 @@ def scenario_step(state: ModelState, fx: StepForcing, corr_t, co2,
 # Flux-correction step (reference: qflux_correction, src/greb.f90:311-364)
 # ---------------------------------------------------------------------------
 def fluxcorr_step(state: ModelState, fx: StepForcing, co2, md: ModelData,
-                  num: Numerics, fold: Fold, exp: Experiment = Experiment()):
-    ten = compute_tendencies(state, fx, co2, md, num, fold, exp)
+                  num: Numerics, fold: Fold, exp: Experiment = Experiment(),
+                  extend=fc2.extend_lat_zero):
+    ten = compute_tendencies(state, fx, co2, md, num, fold, exp, extend)
     dt = F32(num.dt)
     cap = state.cap_surf
     dts = dt * (ten.sw + ten.lw_surf - ten.lwair_down + ten.q_lat
@@ -247,15 +251,17 @@ def fluxcorr_step(state: ModelState, fx: StepForcing, co2, md: ModelData,
 # ---------------------------------------------------------------------------
 def run_year_fluxcorr(state: ModelState, sfx: StepForcing, co2,
                       md: ModelData, num: Numerics, fold: Fold,
-                      exp: Experiment = Experiment()):
+                      exp: Experiment = Experiment(),
+                      extend=fc2.extend_lat_zero):
     """One spin-up year; returns the end state and the nstep-slot
-    correction tables (each year overwrites them; src/greb.f90:325-362)."""
+    correction tables (each year overwrites them; src/greb.f90:325-362).
+    ``extend``: the meridional halo (``compute_tendencies``)."""
     nstep = sfx.tclim.shape[0]
     tabs = torch.empty((3, nstep) + tuple(state.ts.shape),
                        dtype=torch.float32, device=state.ts.device)
     for t in range(nstep):
         state, corr_t = fluxcorr_step(state, sfx.at(t), co2, md, num, fold,
-                                      exp)
+                                      exp, extend)
         for i in range(3):
             tabs[i, t] = corr_t[i]
     return state, Corrections(tf=tabs[0], tof=tabs[1], qf=tabs[2])
@@ -263,10 +269,12 @@ def run_year_fluxcorr(state: ModelState, sfx: StepForcing, co2,
 
 def run_year_scenario(state: ModelState, sfx: StepForcing, corr: Corrections,
                       co2, md: ModelData, num: Numerics, fold: Fold,
-                      exp: Experiment = Experiment()):
+                      exp: Experiment = Experiment(),
+                      extend=fc2.extend_lat_zero):
     """One scenario year.  Returns (state, outs (nstep, 5, y, x) — the 5
     written variables per step — and asum (9, y, x), the annual sums of
-    all StepOutputs fields in sequential float32, src/greb.f90:944-948)."""
+    all StepOutputs fields in sequential float32, src/greb.f90:944-948).
+    ``extend``: the meridional halo (``compute_tendencies``)."""
     nstep = sfx.tclim.shape[0]
     shape = tuple(state.ts.shape)
     dev = state.ts.device
@@ -276,7 +284,7 @@ def run_year_scenario(state: ModelState, sfx: StepForcing, corr: Corrections,
     for t in range(nstep):
         corr_t = (corr.tf[t], corr.tof[t], corr.qf[t])
         state, out = scenario_step(state, sfx.at(t), corr_t, co2, md, num,
-                                   fold, exp)
+                                   fold, exp, extend)
         outs[t] = torch.stack(out[:N_OUT])
         asum += torch.stack(out)
     return state, outs, asum

@@ -127,3 +127,42 @@ def driver_year_runner(model, output_path: Optional[str] = None,
     run_years.on_resume = on_resume
     run_years.close = close
     return run_years
+
+
+def sharded_year_runner(mesh, scnr_sh, sfx_s, md_s, fcconst=None,
+                        shard_state: Optional[Callable] = None,
+                        on_year: Optional[Callable[[np.ndarray], None]]
+                        = None,
+                        shard_corr: Optional[Callable] = None) -> YearRunner:
+    """A chunk body over a sharded scenario-year runner
+    (parallel/sharded.py ``make_sharded_year_runners``): one call a year,
+    the state carried on the mesh.  ``shard_state`` (state -> sharded
+    state) is applied once a chunk, so a host state restored from a
+    checkpoint lands back on the mesh (``run_long`` saves a sharded state
+    by gathering its rows, io/checkpoint.py); ``shard_corr`` does the same
+    for the correction tables.
+
+    ``on_year(monthly)`` takes each year's (months, 5, Y, X) array (the
+    rows gathered to the host) as it comes and the chunk returns
+    ``monthly=None``: the host never holds more than one year (at 768x384
+    a 50-year chunk would otherwise stage ~3.4 GB).  Without it the chunk
+    returns its years stacked, (years, months, 5, Y, X)."""
+    def run_years(state, corr, co2_chunk):
+        if shard_state is not None:
+            state = shard_state(state)
+        if shard_corr is not None:
+            corr = shard_corr(corr)
+        months = []
+        for co2 in np.asarray(co2_chunk, F32):
+            args = (state, sfx_s, corr, co2, md_s)
+            if fcconst is not None:
+                args += (fcconst,)
+            state, monthly, _ = scnr_sh(*args)
+            monthly = monthly.gather().numpy()
+            if on_year is not None:
+                on_year(monthly)
+            else:
+                months.append(monthly)
+        return state, (np.stack(months) if months else None)
+
+    return run_years

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,9 +23,10 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-# the year kernels, and a probe of the cluster barrier's cost that
+# the year kernels, the sharded runners' slab kernels (built on the year
+# kernels' device functions) and a probe of the cluster barrier's cost that
 # chip_smoke.py reads beside them
-SOURCES = ("year_kernel", "cluster_probe")
+SOURCES = ("year_kernel", "slab_kernel", "cluster_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC")
@@ -41,9 +43,21 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library of ``csrc/<name>.cu``, named by the hash of the source
+    and of the sources it includes from ``csrc/`` (``#include "..."``)."""
+    h = hashlib.sha256()
+    todo, seen = [name + ".cu"], set()
+    while todo:
+        src = todo.pop(0)
+        if src in seen:
+            continue
+        seen.add(src)
+        with open(os.path.join(SRC_DIR, src), "rb") as f:
+            text = f.read()
+        h.update(text)
+        todo += re.findall(rb'^#include "([^"]+)"', text, re.M)
+        todo = [t.decode() if isinstance(t, bytes) else t for t in todo]
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all() -> Dict[str, float]:

@@ -67,7 +67,7 @@ class PackedIndex:
     (the column of each slot, ``valid`` where it is the row's own)."""
     offs: np.ndarray          # (F*K,) int64
     ranks: np.ndarray         # (F*K,) int64
-    row_of_col: torch.Tensor  # (Rtot,) the row owning each column
+    row_of_col: torch.Tensor  # (Rtot,) the row owning each column (0: none)
     cols: torch.Tensor        # (S,) a column for each slot (0 where not valid)
     valid: torch.Tensor       # (S,) bool
     first: torch.Tensor       # (F*K,) the row's first block of slots
@@ -77,10 +77,12 @@ class PackedIndex:
 
 def packed_index(pmask: np.ndarray, device=None) -> PackedIndex:
     """The PackedIndex of a block-diagonal 0/1 mask in row order
-    (``build_packed_composites``); raises ValueError for another form."""
+    (``build_packed_composites``; a shard's cut, ``build_sharded``, may
+    leave columns of no row between two rows' blocks); raises ValueError
+    for another form."""
     mask = np.asarray(pmask)
     ranks = (mask != 0).sum(axis=1).astype(np.int64)
-    offs = np.concatenate([[0], np.cumsum(ranks)[:-1]]).astype(np.int64)
+    offs = np.argmax(mask != 0, axis=1).astype(np.int64)
     want = np.zeros_like(mask)
     cols, valid, first, nblk = [], [], [], []
     for i, (o, r) in enumerate(zip(offs, ranks)):
@@ -93,13 +95,18 @@ def packed_index(pmask: np.ndarray, device=None) -> PackedIndex:
         ok = (c >= o) & (c < o + r)
         cols.append(np.where(ok, c, 0))
         valid.append(ok)
-    if not np.array_equal(mask, want) or offs[-1] + ranks[-1] != mask.shape[1]:
+    if (not np.array_equal(mask, want) or (ranks < 1).any()
+            or (offs[1:] < offs[:-1] + ranks[:-1]).any()):
         raise ValueError("packed composite mask is not block-diagonal in "
                          "row order")
+    # the row owning each column (0 for a column of none: its z is unused)
+    row_of_col = np.zeros(mask.shape[1], np.int64)
+    for i, (o, r) in enumerate(zip(offs, ranks)):
+        row_of_col[o:o + r] = i
     t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
     return PackedIndex(
         offs=offs, ranks=ranks,
-        row_of_col=t(np.repeat(np.arange(len(ranks)), ranks), torch.int64),
+        row_of_col=t(row_of_col, torch.int64),
         cols=t(np.concatenate(cols), torch.int64),
         valid=t(np.concatenate(valid), torch.bool),
         first=t(first, torch.int64), nblk=t(np.reshape(nblk, (-1, 1)),
@@ -467,8 +474,10 @@ def extend_lat_zero(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def substep(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
-            plan: FastPlan) -> torch.Tensor:
-    """One dt_crcl circulation substep on the (..., F, Y, X) stacked field."""
+            plan: FastPlan, extend=extend_lat_zero) -> torch.Tensor:
+    """One dt_crcl circulation substep on the (..., F, Y, X) stacked field.
+    ``extend(x, 2)`` gives the meridional halo: zeros past the poles, or a
+    shard's neighbour rows (parallel/halo.py)."""
     Y = x.shape[-2]
     rolls = [torch.roll(x, s, dims=-1) for _, s in _LON_IDX_SHIFT]
     band = const.band
@@ -491,7 +500,7 @@ def substep(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
 
     # meridional diffusion+advection, merged (never clamped; reads the
     # substep's initial state)
-    xe = extend_lat_zero(x, 2)
+    xe = extend(x, 2)
     dy = cf.c0m * x
     dy = dy + cf.mc[0] * xe[..., 0:Y, :]        # km2
     dy = dy + cf.mc[1] * xe[..., 1:Y + 1, :]    # km1
@@ -504,9 +513,225 @@ def substep(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
 
 
 def circulation(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
-                plan: FastPlan, nsub: int) -> torch.Tensor:
+                plan: FastPlan, nsub: int,
+                extend=extend_lat_zero) -> torch.Tensor:
     """Sub-cycled circulation increment over one 12-h step."""
     xc = x
     for _ in range(nsub):
-        xc = substep(xc, cf, const, plan)
+        xc = substep(xc, cf, const, plan, extend)
     return xc - x
+
+
+# ---------------------------------------------------------------------------
+# latitude sharding (``greb_tpu.ops.fastcirc2`` ShardPlan, build_sharded,
+# sharded_circulation)
+# ---------------------------------------------------------------------------
+# Every zonal part of a substep is row-local: the applies, the band clamps,
+# each composite row, the segments and the sequential splitting; only the
+# meridional term reads +-2 rows.  So the unsharded fold, cut into row
+# ranges, is each shard's fold: shard i's rows of zd, zam, mer, wz and band,
+# the composites of the rows it owns, and a plan whose bands, composite rows
+# and segments are its share of the global ones (still a top prefix and a
+# bottom suffix of its rows).  Given its 2 halo rows a substep, a shard does
+# the unsharded fold's arithmetic row for row, so a sharded run equals the
+# unsharded one bit for bit.  greb_tpu's per-shard slot layout (identity-
+# padded composite slots, masked advection levels, one SPMD plan for every
+# shard) is not ported: it was built for shard_map's one program.
+
+def _rows_in(r0: int, r1: int, a: int, b: int) -> int:
+    """Rows of [r0, r1) in [a, b)."""
+    return max(0, min(r1, b) - max(r0, a))
+
+
+@dataclass(frozen=True)
+class ShardGeometry:
+    """Which of the global plan's rows each of ``n_shards`` shards of
+    ``rloc`` rows owns: its composite rows (top ``kct[i]``, bottom
+    ``kcb[i]``) and its band rows; from the grid's schedules alone."""
+    rloc: int
+    kt_g: int                 # global composite rows (top / bottom)
+    kb_g: int
+    kct: Tuple[int, ...]
+    kcb: Tuple[int, ...]
+    comp_mode: str            # the global plan's: "dense", "lowrank", "none"
+
+    @property
+    def K(self) -> int:
+        """The most composite rows one shard owns."""
+        return max(t + b for t, b in zip(self.kct, self.kcb))
+
+
+def _check_shards(Y: int, n_shards: int) -> int:
+    """Rows a shard; ValueError where ``n_shards`` does not divide ``Y`` or
+    leaves a shard under the 2-row meridional halo."""
+    if n_shards < 1 or Y % n_shards or Y // n_shards < 2:
+        raise ValueError(f"{n_shards} latitude shards: {Y} rows must split "
+                         f"evenly into shards of at least 2 rows")
+    return Y // n_shards
+
+
+def sharded_geometry(grid: Grid, n_shards: int,
+                     plan: Optional[FastPlan] = None) -> ShardGeometry:
+    """The composite rows of each of ``n_shards`` latitude shards of
+    ``grid`` (``plan``: the grid's fold plan, ``fastcirc.make_plan``)."""
+    plan = plan if plan is not None else v1.make_plan(grid)
+    Y = plan.ydim
+    R = _check_shards(Y, n_shards)
+    ktc, kbc = plan.comp_kt, plan.comp_kb
+    return ShardGeometry(
+        rloc=R, kt_g=ktc, kb_g=kbc,
+        kct=tuple(_rows_in(i * R, (i + 1) * R, 0, ktc)
+                  for i in range(n_shards)),
+        kcb=tuple(_rows_in(i * R, (i + 1) * R, Y - kbc, Y)
+                  for i in range(n_shards)),
+        comp_mode=plan.comp_mode)
+
+
+def cut_plan(plan: FastPlan, lo: int, hi: int) -> FastPlan:
+    """The plan of rows [lo, hi) of ``plan``: its band rows, composite
+    rows and segment rows among them (each still a top prefix or a bottom
+    suffix of the cut: the composite rows are the outermost, the diffusion
+    segments follow them, the advection segments start at the poles)."""
+    Y = plan.ydim
+    ktc, kbc = plan.comp_kt, plan.comp_kb
+    kt = _rows_in(lo, hi, 0, ktc)
+    kb = _rows_in(lo, hi, Y - kbc, Y)
+    dsegs = tuple(
+        (_rows_in(lo, hi, ktc, ktc + a), _rows_in(lo, hi, Y - kbc - b, Y - kbc),
+         n) for a, b, n in plan.diff_segs)
+    asegs = tuple((_rows_in(lo, hi, 0, a), _rows_in(lo, hi, Y - b, Y), n)
+                  for a, b, n in plan.adv_segs)
+    return dataclasses.replace(
+        plan, ydim=hi - lo, bt=_rows_in(lo, hi, 0, plan.bt),
+        bb=_rows_in(lo, hi, Y - plan.bb, Y),
+        diff_segs=tuple(s for s in dsegs if s[0] or s[1]),
+        adv_segs=tuple(s for s in asegs if s[0] or s[1]),
+        comp_mode=plan.comp_mode if kt + kb else "none",
+        comp_kt=kt if kt + kb else 0, comp_kb=kb if kt + kb else 0)
+
+
+def _comp_ks(plan: FastPlan, lo: int, hi: int) -> list:
+    """The global composite indices k of rows [lo, hi), in the cut's order
+    (its top rows, then its bottom rows)."""
+    Y, ktc, kbc = plan.ydim, plan.comp_kt, plan.comp_kb
+    return ([r for r in range(lo, min(hi, ktc))]
+            + [ktc + r - (Y - kbc) for r in range(max(lo, Y - kbc), hi)])
+
+
+def cut_const(plan: FastPlan, const: Fast2Const, lo: int, hi: int,
+              device=None) -> Fast2Const:
+    """Rows [lo, hi) of the fold's tensors, on ``device``: the planes and
+    band rows, and the composites of the cut's composite rows (dense: their
+    matrices; packed: their factors' columns, each row's at an offset that
+    keeps its place in the blocks of COMP_BLOCK terms, so its sums take the
+    unsharded order, with columns of no row between discontiguous rows)."""
+    dev = device if device is not None else const.zd.device
+    rows = lambda a: a[..., lo:hi, :].contiguous().to(dev)
+    ks = _comp_ks(plan, lo, hi)
+    pcomp, pcu, pcw, pmask, pidx = (const.pcomp, const.pcu, const.pcw,
+                                    const.pmask, None)
+    if not ks:
+        pcomp = torch.zeros((1, 1, 1, 1), dtype=torch.float32)
+        pcu = pcw = pmask = torch.zeros((1, 1), dtype=torch.float32)
+    elif plan.comp_mode == "packed":
+        K = plan.comp_kt + plan.comp_kb
+        X = plan.xdim
+        offs, ranks = const.pidx.offs, const.pidx.ranks
+        gi = [f * K + k for f in range(2) for k in ks]
+        loff, pos = [], 0
+        for i in gi:
+            pos += (int(offs[i]) - pos) % COMP_BLOCK
+            loff.append(pos)
+            pos += int(ranks[i])
+        u = torch.zeros((X, pos), dtype=torch.float32)
+        w = torch.zeros((pos, X), dtype=torch.float32)
+        mask = np.zeros((len(gi), pos), F32)
+        gu, gw = const.pcu.cpu(), const.pcw.cpu()
+        for q, (i, o) in enumerate(zip(gi, loff)):
+            g0, r = int(offs[i]), int(ranks[i])
+            u[:, o:o + r] = gu[:, g0:g0 + r]
+            w[o:o + r] = gw[g0:g0 + r]
+            mask[q, o:o + r] = 1.0
+        pcu, pcw, pmask = u, w, torch.as_tensor(mask)
+        pidx = packed_index(mask, dev)
+    elif plan.comp_mode != "none":
+        pcomp = const.pcomp[:, ks].contiguous()
+    return Fast2Const(
+        zd=rows(const.zd), zam=rows(const.zam), mer=rows(const.mer),
+        wz=rows(const.wz), band=const.band[lo:hi].contiguous().to(dev),
+        pcomp=pcomp.to(dev), pcu=pcu.to(dev), pcw=pcw.to(dev),
+        pmask=pmask.to(dev), pidx=pidx)
+
+
+@dataclass(frozen=True)
+class ShardPlan:
+    """The fold of a ``ydim`` x ``xdim`` grid cut into ``n_shards`` row
+    ranges of ``rloc`` rows: ``plans[i]`` is shard i's plan (``cut_plan``);
+    ``plan`` the unsharded one."""
+    ydim: int
+    xdim: int
+    n_shards: int
+    plan: FastPlan
+    plans: Tuple[FastPlan, ...]
+
+    @property
+    def rloc(self) -> int:
+        return self.ydim // self.n_shards
+
+    @property
+    def comp_mode(self) -> str:
+        return self.plan.comp_mode
+
+    @property
+    def seq_zonal(self) -> bool:
+        return self.plan.seq_zonal
+
+    def rows(self, i: int) -> Tuple[int, int]:
+        """Shard i's global rows [lo, hi)."""
+        return i * self.rloc, (i + 1) * self.rloc
+
+
+@dataclass
+class Fast2ShardConst:
+    """Each shard's rows of the fold (``cut_const``), shard i's at
+    ``shards[i]``."""
+    shards: Tuple[Fast2Const, ...]
+
+
+def shard_fold(plan: FastPlan, const: Fast2Const, n_shards: int,
+               devices=None) -> Tuple[ShardPlan, Fast2ShardConst]:
+    """The unsharded fold ``(plan, const)`` cut into ``n_shards`` latitude
+    shards, shard i's tensors on ``devices[i]`` (default: const's device).
+    Raises ValueError where ``n_shards`` does not divide the rows or leaves
+    a shard under 2 rows."""
+    R = _check_shards(plan.ydim, n_shards)
+    devs = list(devices) if devices is not None else [None] * n_shards
+    plans = tuple(cut_plan(plan, i * R, (i + 1) * R) for i in range(n_shards))
+    consts = tuple(cut_const(plan, const, i * R, (i + 1) * R, devs[i])
+                   for i in range(n_shards))
+    return (ShardPlan(ydim=plan.ydim, xdim=plan.xdim, n_shards=n_shards,
+                      plan=plan, plans=plans), Fast2ShardConst(consts))
+
+
+def build_sharded(wz_air: np.ndarray, wz_vapor: np.ndarray, grid: Grid,
+                  st: stc.StencilStatic, kappa: float, n_shards: int,
+                  device=None, fold: Optional[Tuple[FastPlan, Fast2Const]]
+                  = None) -> Tuple[ShardPlan, Fast2ShardConst]:
+    """The sharded plan and each shard's tensors for an ``n_shards``
+    latitude decomposition: the unsharded fold (``build_const``, or
+    ``fold`` where the caller has built it) cut into row ranges
+    (``shard_fold``).  ValueError where ``n_shards`` does not divide the
+    rows or leaves a shard under 2 rows."""
+    _check_shards(grid.ydim, n_shards)
+    if fold is None:
+        fold = build_const(wz_air, wz_vapor, grid, st, kappa, device=device)
+    return shard_fold(*fold, n_shards)
+
+
+def sharded_circulation(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
+                        splan: ShardPlan, nsub: int, extend,
+                        shard: int) -> torch.Tensor:
+    """The sub-cycled circulation increment of shard ``shard``'s rows
+    (``const``: its rows of the fold); ``extend`` supplies the neighbour
+    shards' 2 halo rows a substep (parallel/halo.py)."""
+    return circulation(x, cf, const, splan.plans[shard], nsub, extend)

@@ -601,3 +601,102 @@ def test_wide_member_kernels_match_plain(grid768_model, shared):
     s2, _, a2 = yk.scenario_year(s0, zero, 680.0, yd)
     _equal(s3[:, 0], s2.stack(), "K3 = K2 state")
     _equal(a3[0, 0], a2, "K3 = K2 annual sums")
+
+
+# ---------------------------------------------------------------------------
+# latitude x member sharding: the slab kernels (csrc/slab_kernel.cu)
+# ---------------------------------------------------------------------------
+def _sharded_years(model, n_y, plain=False, members=None, n_ens=1):
+    """The sharded spin-up and scenario year of ``model`` on an
+    (n_ens, n_y) mesh of shards sharing the card, in the slab kernels (or
+    the plain sharded runners), gathered: (state after each, corrections,
+    monthly means, launches of slab_start, slab_substep, slab_finish)."""
+    from greb_tpu_torch.ops import fastcirc2 as fc2
+    from greb_tpu_torch.ops.cuda import slab
+    from greb_tpu_torch.parallel import sharded as sh
+    mesh = sh.make_mesh(n_ens, n_y)
+    splan, sconst = fc2.build_sharded(None, None, model.grid, model.st, 0,
+                                      n_y, fold=model.fold)
+    fcc = sh.shard_fastcirc(mesh, sconst)
+    make = sh.make_plain_year_runners if plain else \
+        sh.make_sharded_year_runners
+    batched = members is not None
+    flux, scnr = make(mesh, model.st, model.num, model.exp,
+                      model.month_mat, batched=batched, fast_plan=splan)
+    state, ppack = model.initial_state(), None
+    if batched:
+        state = ens.ensemble_initial_state(members, model.forcing)
+        ppack = my.pack_member_params(members, "cuda")
+    st_s, sfx_s, _, md_s = sh.shard_inputs(mesh, batched, state, model.sfx,
+                                           None, model.md, ppack)
+    n0 = (slab.start.launches, slab.substep.launches, slab.finish.launches)
+    s1, c1 = flux(st_s, sfx_s, 680.0, md_s, fcc)
+    s2, mon, _ = scnr(s1, sfx_s, c1, 680.0, md_s, fcc)
+    n1 = (slab.start.launches, slab.substep.launches, slab.finish.launches)
+    return (s1.gather(), c1.gather(), s2.gather(), mon.gather(),
+            tuple(b - a for a, b in zip(n0, n1)))
+
+
+@pytest.mark.parametrize("n_y", (2, 4))
+def test_slab_years_equal_the_unsharded_kernels(model, n_y):
+    """K1 -> K2 on the card against the slab kernels on n_y shards of the
+    same card: state, corrections and monthly means bit for bit; each
+    shard launches 2 + nsub kernels a step."""
+    yd = model.year_data
+    s1, c1 = yk.fluxcorr_year(model.initial_state(), 680.0, yd)
+    s2, outs, _ = yk.scenario_year(s1, c1, 680.0, yd)
+    g1, gc, g2, gmon, n = _sharded_years(model, n_y)
+    T, nsub = NUM.nstep_yr, NUM.nsub_crcl
+    assert n == (2 * T * n_y, 2 * T * n_y * nsub, 2 * T * n_y)
+    _equal(g1.stack().cpu(), s1.stack().cpu(), "spin-up state")
+    _equal(g2.stack().cpu(), s2.stack().cpu(), "scenario state")
+    for name in ("tf", "tof", "qf"):
+        _equal(getattr(gc, name).cpu(), getattr(c1, name).cpu(), name)
+    # a sharded run takes the monthly means one product a shard's rows:
+    # cuBLAS picks a product's reduction order by its shape
+    R = NUM.ydim // n_y
+    mon = torch.cat([core.monthly_means(model.month_mat,
+                                        outs[..., i * R:(i + 1) * R, :])
+                     for i in range(n_y)], dim=-2)
+    _equal(gmon.cpu(), mon.cpu(), "monthly")
+    assert torch.isfinite(g2.ts).all()
+
+
+def test_slab_years_equal_the_plain_sharded_version(model):
+    got = _sharded_years(model, 4)
+    want = _sharded_years(model, 4, plain=True)
+    assert want[4] == (0, 0, 0)
+    for a, b, name in zip(got[:4], want[:4], ("spin-up", "corrections",
+                                               "scenario", "monthly")):
+        for f in dataclasses.fields(a) if dataclasses.is_dataclass(a) else ():
+            _equal(getattr(a, f.name).cpu(), getattr(b, f.name).cpu(),
+                   f"{name} {f.name}")
+        if not dataclasses.is_dataclass(a):
+            _equal(a.cpu(), b.cpu(), name)
+
+
+def test_slab_members_equal_the_member_kernels(model):
+    """2 members (ct_sens 22.05, 22.95) on the ens rows x 2 shards against
+    K4 -> K3 at M=2: state and corrections bit for bit."""
+    members = ens.perturbed_params(model.params,
+                                   {"ct_sens": np.float32([22.05, 22.95])})
+    yd = model.year_data
+    s5 = ens.ensemble_initial_state(members, model.forcing)
+    ppack = my.pack_member_params(members, "cuda")
+    k4, corr = my.fluxcorr_years(s5, ppack, 680.0, yd)
+    k3, _, _ = my.scenario_years(k4, ppack, corr, np.float32([680.0]), yd)
+    g1, gc, g2, _, _ = _sharded_years(model, 2, members=members, n_ens=2)
+    _equal(g1.stack().cpu(), k4.cpu(), "spin-up state")
+    _equal(g2.stack().cpu(), k3.cpu(), "scenario state")
+    for i, name in enumerate(("tf", "tof", "qf")):
+        _equal(getattr(gc, name).cpu(), corr[:, :, i].cpu(), name)
+
+
+def test_slab_layout_matches_the_kernel(model):
+    from greb_tpu_torch.ops import fastcirc2 as fc2
+    from greb_tpu_torch.ops.cuda import slab
+    splan, _ = fc2.build_sharded(None, None, model.grid, model.st, 0, 4,
+                                 fold=model.fold)
+    for plan in splan.plans:
+        n = slab.slab_blocks(plan)
+        assert slab.kernel_slab_layout(plan, n) == slab.slab_layout(plan, n)
