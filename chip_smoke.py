@@ -217,13 +217,44 @@
    model against the wide form (eager and graphed) and, for the spin-up,
    the plain sharded version, each entry's launch on each shard and a
    step timed;
-20. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+20. the grids between 192x96 and 384x192 at dt_crcl=1800 (additive zonal
+   splitting with packed pole composites and explicit polar segments: the
+   refined instantiation's additive packed form; the strict transport,
+   whose K3 block the cluster body does not hold there: its strict
+   additive form; both built in csrc/band_kernel.cu), on forcing regridded
+   from the 96x48 synthetic forcing: at 256x128 the kernel's own layouts of
+   both forms against Python's for each kind, with how many such clusters
+   the card runs at once; on a 20-step calendar the launchers' pick, K1,
+   K2 from K1's end, K4 at M=2 and K3 at M=2 x 2 years from K4's end
+   bitwise against their plain versions (the plain steps replayed from
+   CUDA graphs), K4 = K1 and K3 = K2 at M=1, K3 reading K1's tables as one
+   shared table equal to the table copied a member; K1 and K2 under
+   log_exp 11 against plain, K4 = K1 and K3 = K2 at M=1; on a 2-step
+   calendar the strict circulation's K1, K2, K4 at M=2 and K3 at M=2 x 2
+   years from the initial states with zero tables against plain (the
+   plain circulation replayed from CUDA graphs) and K4 = K1, K3 = K2 at
+   M=1; at 224x112, 288x144, 320x160 and 352x176 the layouts, and K1 and K2
+   (from the initial state with zero tables) under the fold on a 4-step
+   calendar against plain (eager), at 224x112 also under the strict
+   circulation on 2 steps with K4 = K1 and K3 = K2 at M=1; the long run at 256x128 on the 20-step calendar
+   (run_long in K3 blocks of G256_BLOCK years, a checkpoint after each)
+   stopped at G256_STOP and resumed in a fresh process (this script with
+   --resume-long256 DIR): final state and output file bitwise equal; then
+   GREB.run at 256x128, 1 + 1 years on the full calendar under the fold
+   (launch counts, finiteness, the output file read back, sim-yr/s, the
+   path's own K1 and K2 launches timed with their bounds), the same years
+   in one K3 block and the CLI's --ensemble G256_SHARED_M --shared-spinup
+   (the members' files), and GREB.run under GrebConfig's default (the
+   strict circulation) the same way;
+21. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
    ms and bound, for all four the refined and the 192x96 launch's, the
    legacy fold words' and the strict 384x192 modes' launches, plain
    versions and bounds, for K3 the ensemble year's and the refined wave's,
    for all four the 768x384 wide entries, launches, plain versions and
-   bounds, and each kernel's launches on every path; the three slab
+   bounds, the entries of the grids between 192x96 and 384x192 with their
+   modes, their 256x128 launches, plain versions and bounds, and each
+   kernel's launches on every path; the three slab
    entries with their 768x384 launches) and, last,
    {"ok": true, "device": {...}}.
 
@@ -1842,10 +1873,8 @@ def _pick_check(tag, kernel, yd):
     that name."""
     from greb_tpu_torch.ops.cuda import year_kernel as yk
     name = yk.refined_entry(kernel, yd.plan, yd.flags)
-    form = yk.REFINED_FORMS.index(yk.refined_form(yd.plan))
-    got = yk._lib().greb_refined_pick(yd.flags, form,
-                                      yk._refined_struct(yd.plan).groups)
-    if got < 0 or kernel + yk.REFINED_SUFFIXES[got] != name:
+    got = yk.kernel_entry(kernel, yd.plan, yd.flags)
+    if got != name:
         raise AssertionError(f"{tag}: the launcher picks {got}, want {name}")
     return name
 
@@ -2198,8 +2227,10 @@ def _strict_refined_phase(tmp, reset_counts, read_counts):
               f"{p1:.1f} ms, K2 {p2:.1f} ms, K4 {m_plain['fluxcorr_years']:.1f}"
               f" ms, K3 {m_plain['scenario_years']:.1f} ms; "
               f"{time.perf_counter() - t0:.1f} s")
+        # the graphs stay for the next modes: the strict circulation's (2,
+        # Y, X) call, log_exp 7's and 16's Ta and log_exp 8's Ta share the
+        # advection graph of one field (a capture ~19 s on an H100)
         del m, yd, k1, k2
-        graphed.graphs.clear()
         gc.collect()
         torch.cuda.empty_cache()
     graphed.stop()
@@ -3365,6 +3396,470 @@ def _time_member_kernels(inputs, repeats=3):
     return ms, outs
 
 
+# step 20: the grids between 192x96 and 384x192 at dt_crcl=1800, where the
+# fold has additive splitting with packed composites and the cluster body
+# does not hold the strict transport's K3 (csrc/band_kernel.cu: the refined
+# instantiation's additive packed and strict additive forms): 256x128 in
+# full, the fold's kernels held to plain on REFINED_SHORT's 20 steps (the
+# plain steps replayed from CUDA graphs; under log_exp 11 K1 and K2, and
+# K4 = K1, K3 = K2 at M=1), the strict circulation's on
+# STRICT_REFINED_SHORT's 2 (the plain circulation replayed from CUDA
+# graphs), GREB.run under the fold and under GrebConfig's default (the
+# strict circulation) for G256_YEARS on the full calendar, the same years in
+# one K3 block, the CLI's --ensemble G256_SHARED_M --shared-spinup, and on
+# the 20-step calendar the long run in K3 blocks of G256_BLOCK stopped at
+# G256_STOP and resumed in a fresh process; at the band's other grids
+# (BAND_GRIDS: 7, 9, 10, 11 rows a block, segment tables of other depths)
+# K1 and K2 under the fold on WORDS_SHORT's 4 steps (K2 from the initial
+# state with zero tables; eager plain steps: a graph would not repay its
+# capture), and under the strict circulation on
+# 2 at BAND_STRICT (K4 = K1, K3 = K2 at M=1 there), cut to these for the
+# smoke's time limit (the strict checks at 288x144 took 20.5 s on an H100,
+# most of it the eager strict circulation that their CUDA graph is held
+# to; an eager strict step at 352x176 takes seconds)
+G256_GRID = dict(xdim=256, ydim=128, dt_crcl=1800)
+G256_YEARS = dict(time_flux=1, time_scnr=1)
+G256_SHARED_M = 4
+G256_ENSEMBLES = (("shared", G256_SHARED_M, G256_YEARS, ["--shared-spinup"]),)
+G256_LONG = 4
+G256_BLOCK = 2
+G256_STOP = 2
+BAND_GRIDS = ((224, 112), (288, 144), (320, 160), (352, 176))
+BAND_STRICT = ((224, 112),)
+BAND_KERNELS = ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                "scenario_years")
+
+
+class _SharedRegrid:
+    """Between start and stop (or inside ``with``), regrid.py's
+    regrid_forcing_arrays, which _refined_model calls, returns the arrays
+    it made before for the same grid and calendar: models of one grid and
+    calendar under other transports share them, read-only, instead of each
+    repeating the regrid (~6 s for 256x128's full calendar on the card's
+    host)."""
+
+    def start(self):
+        from greb_tpu_torch import regrid
+        self.mod, self.regrid, self.arrays = regrid, \
+            regrid.regrid_forcing_arrays, {}
+
+        def shared(arrays, num):
+            key = (num.xdim, num.ydim, num.nstep_yr, num.ndays_yr)
+            if key not in self.arrays:
+                self.arrays[key] = self.regrid(arrays, num)
+            return self.arrays[key]
+
+        regrid.regrid_forcing_arrays = shared
+        return self
+
+    def stop(self):
+        self.mod.regrid_forcing_arrays = self.regrid
+        self.arrays.clear()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+def _grid256_runner(model, tmp, tag):
+    """The 256x128 long run on REFINED_SHORT's calendar: a checkpoint every
+    G256_BLOCK years, K3 blocks of G256_BLOCK years, the output file."""
+    from greb_tpu_torch.io.checkpoint import Checkpointer
+    from greb_tpu_torch.model import longrun
+    ck = Checkpointer(os.path.join(tmp, f"ck256_{tag}"),
+                      every_years=G256_BLOCK)
+    runner = longrun.driver_year_runner(
+        model, os.path.join(tmp, f"long256_{tag}"), years_per_call=G256_BLOCK)
+    return ck, runner
+
+
+def _resume_long256(tmp: str) -> int:
+    """The fresh process of step 20: rebuild the 256x128 model on the
+    20-step calendar, resume the stopped long run from its newest
+    checkpoint and run it to G256_LONG years."""
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.model import longrun
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    model, _ = _refined_model(Numerics(**G256_GRID, **REFINED_SHORT))
+    ck, runner = _grid256_runner(model, tmp, "resumed")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, _, start = longrun.run_long(
+        G256_LONG, None, None, np.full(G256_LONG, 680.0, np.float32), runner,
+        checkpointer=ck, chunk_years=G256_BLOCK, device=model.device)
+    torch.cuda.synchronize()
+    runner.close()
+    print(json.dumps({"start": start, "setup_s": t1 - t0,
+                      "run_s": time.perf_counter() - t1,
+                      "scenario_years_launches": my.scenario_years.launches}))
+    return 0
+
+
+def _band_layouts(tag, plan, strict_plan):
+    """The kernel's own reckoning of each kind's block for the fold's plan
+    and the strict transport's against Python's (block_layout); returns the
+    fold's capacity of 16-block clusters by kind."""
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    capacity = {}
+    for kind in yk.KINDS:
+        for p in (plan, strict_plan):
+            want = yk.block_layout(p, 16, kind)
+            parts, threads = yk.kernel_cluster_layout(p, 16, kind)
+            if parts != dict(want.parts) or threads != want.threads:
+                raise AssertionError(
+                    f"{tag} {kind} {type(p).__name__}: kernel layout "
+                    f"{parts}, {threads} threads; Python {dict(want.parts)}, "
+                    f"{want.threads}")
+        capacity[kind] = yk.cluster_capacity(plan, 16, kind)
+        print(f"{tag} {kind:<14s} C=16: fold "
+              f"{yk.block_layout(plan, 16, kind).nbytes} B a block "
+              f"({capacity[kind]} clusters at once), strict "
+              f"{yk.block_layout(strict_plan, 16, kind).nbytes} B "
+              f"({yk.cluster_capacity(strict_plan, 16, kind)}); kernel and "
+              f"Python agree")
+    return capacity
+
+
+def _band_entries(tag, yd, entries, mode, members=""):
+    """The entries the launchers pick for yd's plan and word (held against
+    refined_entry); records in ``entries`` ``mode`` for K1's and K2's, and
+    ``mode + members`` for K4's and K3's (None: they were not run);
+    returns their names."""
+    names = [_pick_check(tag, k, yd) for k in BAND_KERNELS]
+    for kernel, name in zip(BAND_KERNELS, names):
+        if kernel.endswith("s"):
+            if members is None:
+                continue
+            entries.setdefault(name, []).append(mode + members)
+        else:
+            entries.setdefault(name, []).append(mode)
+    return names
+
+
+def _band_k1_k2(tag, m, co2f, co2s, zero_tables=False):
+    """K1 from m's initial state and K2 from K1's end with its tables
+    (``zero_tables``: from the initial state with zero tables), bitwise
+    against their plain versions and finite: ({kernel: max |diff|},
+    {kernel: ms}, {kernel: plain ms}, (K1's result, K2's result, K2's
+    input state and tables))."""
+    from greb_tpu_torch.forcing import Corrections
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    yd, num = m.year_data, m.num
+    s0 = m.initial_state()
+    ms1, k1 = _time_ms(lambda: yk.fluxcorr_year(s0, co2f, yd), 1)
+    k2_in = (s0, Corrections.zeros(num.nstep_yr, num.ydim, num.xdim,
+                                   device="cuda")) if zero_tables else k1
+    ms2, k2 = _time_ms(lambda: yk.scenario_year(*k2_in, co2s, yd), 1)
+    _finite(f"K1 {tag}", [("state", k1[0].stack()), ("tf", k1[1].tf)])
+    _finite(f"K2 {tag}", [("state", k2[0].stack()), ("outs", k2[1])])
+    n = num.nstep_yr
+    p1, e1 = _time_ms(lambda: _k1_vs_plain(f"K1 {tag}, {n} steps", s0, co2f,
+                                           yd, k1), 1)
+    p2, e2 = _time_ms(lambda: _k2_vs_plain(f"K2 {tag}, {n} steps", *k2_in,
+                                           co2s, yd, k2), 1)
+    return ({"fluxcorr_year": e1, "scenario_year": e2},
+            {"fluxcorr_year": ms1, "scenario_year": ms2},
+            {"fluxcorr_year": p1, "scenario_year": p2}, (k1, k2, k2_in))
+
+
+def _single_members(m, tag, co2f, co2s, k1, k2, k2_in):
+    """K4 = K1 and K3 = K2 at M=1 with the base params (``k1``: K1's year
+    from m's initial state at ``co2f``; ``k2``: K2's year at ``co2s`` from
+    ``k2_in``, a state and its tables), bitwise; the worst max |diff| per
+    kernel."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    yd = m.year_data
+    base = my.pack_member_params([m.params], "cuda")
+    tab = lambda c: torch.stack([c.tf, c.tof, c.qf], dim=1)[None]
+    s41, c41 = my.fluxcorr_years(m.initial_state().stack()[:, None], base,
+                                 co2f, yd)
+    s31, _, a31 = my.scenario_years(k2_in[0].stack()[:, None], base,
+                                    tab(k2_in[1]), np.asarray([co2s]), yd)
+    return {"fluxcorr_years": _bitwise(
+                f"K4 = K1 {tag} (M=1)", [("state", s41[:, 0], k1[0].stack()),
+                                          ("tables", c41[0], tab(k1[1])[0])],
+                quiet=True),
+            "scenario_years": _bitwise(
+                f"K3 = K2 {tag} (M=1)", [("state", s31[:, 0], k2[0].stack()),
+                                          ("annual sums", a31[0, 0], k2[2])],
+                quiet=True)}
+
+
+def _grid256_phase(tmp, reset_counts, read_counts):
+    """Step 20: the grids between 192x96 and 384x192 (the refined
+    instantiation's additive packed and strict additive forms), 256x128's
+    paths through them.  Returns the worst max |diff| per kernel, each new
+    entry's modes, the launches' and plain versions' ms and work at
+    256x128 by mode, the paths' launches and full-calendar years."""
+    import gc
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.forcing import ModelState
+    from greb_tpu_torch.model import longrun
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+
+    t_phase = time.perf_counter()
+    err = dict.fromkeys(BAND_KERNELS, 0.0)
+    entries = {}
+    out = dict(ms={}, plain_ms={}, work={}, shape={}, band={})
+
+    def worse(e):
+        for k, v in e.items():
+            err[k] = max(err[k], v)
+
+    def report(mode, names, ms, plain, t0):
+        print(f"  {mode}: {', '.join(names)}; kernels "
+              f"{', '.join(f'{k} {v:.1f}' for k, v in ms.items())} ms; plain "
+              f"{', '.join(f'{k} {v:.1f}' for k, v in plain.items())} ms; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    co2f, co2s = np.float32(340.0), np.float32(680.0)
+    regrids = _SharedRegrid().start()
+    # the 20-step models at 256x128 (the fold, log_exp 11, the long run's)
+    # share one fold; the paths' models build their own, timed
+    folds = _SharedFolds().start()
+    # -- 256x128 on the 20-step calendar: the fold (all four kernels against
+    #    plain, K3 also reading one shared table), then log_exp 11 (K1 and
+    #    K2 against plain, K4 = K1 and K3 = K2 at M=1)
+    t0 = time.perf_counter()
+    short = Numerics(**G256_GRID, **REFINED_SHORT)
+    graphed = _GraphedSteps().start()
+    m, regrid_s = _refined_model(short)
+    yd, plan = m.year_data, m.fold[0]
+    if yk.refined_form(plan) != "additive_packed":
+        raise AssertionError(f"256x128: not the additive packed form: {plan}")
+    _, ranks = yk.packed_ranks(m.fold[1])
+    print(f"grid256 {short.xdim}x{short.ydim}: {short.nstep_yr}-step "
+          f"calendar, {short.nsub_crcl} substeps, plan {plan}, composite "
+          f"ranks {ranks.tolist()} (Rtot {int(ranks.sum())}); regrid "
+          f"{regrid_s:.2f} s")
+    out["capacity"] = _band_layouts("grid256", plan,
+                                    yk.StrictPlan(short.ydim, short.xdim))
+    graphed.check(m, co2f)
+    mode = "256x128 fold"
+    names = _band_entries(mode, yd, entries, mode)
+    e12, ms, plain, (k1, k2, _) = _band_k1_k2(mode, m, co2f, co2s)
+    worse(e12)
+    m_err, m_plain, m_ms = _short_members(m, mode, co2f, co2s, k1, k2, k1)
+    worse(m_err)
+    ms.update(m_ms)
+    plain.update(m_plain)
+    # K3 reading K1's tables as one shared table equals K3 reading them
+    # copied a member (held to plain in _short_members' per-member run)
+    two = my.pack_member_params(_sweep_members(m, 2), "cuda")
+    s5 = torch.stack([k1[0].stack()] * 2, dim=1)
+    tab = torch.stack([k1[1].tf, k1[1].tof, k1[1].qf], dim=1)[None]
+    co2y = np.asarray([560.0, 680.0], np.float32)
+    worse({"scenario_years": _bitwise(
+        f"K3 {mode} (M=2, 2 years): one shared table vs the table copied",
+        zip(("state", "monthly means", "annual sums"),
+            my.scenario_years(s5, two, tab, co2y, yd),
+            my.scenario_years(s5, two, tab.expand(2, -1, -1, -1, -1)
+                              .contiguous(), co2y, yd)), quiet=True)})
+    out["ms"][mode], out["plain_ms"][mode] = ms, plain
+    out["work"][mode] = _work4(m, ranks)
+    out["shape"][mode] = dict(fluxcorr_year="1 year, 20 steps",
+                              scenario_year="1 year, 20 steps",
+                              fluxcorr_years="M=2 x 1 year, 20 steps",
+                              scenario_years="M=2 x 2 years, 20 steps")
+    report(mode, names, ms, plain, t0)
+    t0 = time.perf_counter()
+    mode = "256x128 log_exp 11"
+    m11, _ = _refined_model(short, log_exp=11)
+    names = _band_entries(mode, m11.year_data, entries, mode,
+                          " (M=1, = K1, K2)")
+    e12, ms, plain, (k1, k2, _) = _band_k1_k2(mode, m11, co2f, co2s)
+    worse(e12)
+    worse(_single_members(m11, mode, co2f, co2s, k1, k2, k1))
+    out["band"][mode] = dict(ms=ms, plain_ms=plain)
+    report(mode, names, ms, plain, t0)
+    graphed.stop()
+    del m, m11, yd, k1, k2, s5, tab
+    # -- the strict circulation at 256x128 on 2 steps: all four kernels
+    #    against plain, K4 = K1 and K3 = K2 at M=1
+    t0 = time.perf_counter()
+    circ = _GraphedCirculation().start()
+    mode = "256x128 strict circulation"
+    m, _ = _refined_model(Numerics(**G256_GRID, **STRICT_REFINED_SHORT),
+                          fast=False)
+    nd, na = m.year_data.plan.sub_cycles
+    print(f"  strict sub-cycles from the top pole: diffusion {nd[:12]}, "
+          f"advection {na[:12]}; {m.num.nstep_yr}-step calendar")
+    out["circulation_ms"] = circ.check(m)
+    names = _band_entries(mode, m.year_data, entries, mode)
+    e12, ms, plain, (k1, k2, k2_in) = _band_k1_k2(mode, m, co2f, co2s,
+                                                  zero_tables=True)
+    worse(e12)
+    m_err, m_plain, m_ms = _short_members(m, mode, co2f, co2s, k1, k2, k2_in,
+                                          after_k4=False)
+    worse(m_err)
+    ms.update(m_ms)
+    plain.update(m_plain)
+    out["ms"][mode], out["plain_ms"][mode] = ms, plain
+    out["work"][mode] = _work4(m)
+    out["shape"][mode] = dict(fluxcorr_year="1 year, 2 steps",
+                              scenario_year="1 year, 2 steps",
+                              fluxcorr_years="M=2 x 1 year, 2 steps",
+                              scenario_years="M=2 x 2 years, 2 steps")
+    report(mode, names, ms, plain, t0)
+    del m, k1, k2, k2_in
+    print(f"  256x128 short checks: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- the band's other grids
+    for X, Y in BAND_GRIDS:
+        t0 = time.perf_counter()
+        g = dict(G256_GRID, xdim=X, ydim=Y)
+        m, _ = _refined_model(Numerics(**g, **WORDS_SHORT))
+        if yk.refined_form(m.fold[0]) != "additive_packed":
+            raise AssertionError(f"{X}x{Y}: {m.fold[0]}")
+        _band_layouts(f"grid{X}", m.fold[0], yk.StrictPlan(Y, X))
+        mode = f"{X}x{Y} fold"
+        names = _band_entries(mode, m.year_data, entries, mode, None)
+        # K2 from the initial state with zero tables: on 4 steps a scenario
+        # after a spin-up with its tables is not finite
+        e12, ms, plain, _ = _band_k1_k2(mode, m, co2f, co2s,
+                                        zero_tables=True)
+        worse(e12)
+        out["band"][mode] = dict(ms=ms, plain_ms=plain)
+        report(mode, names, ms, plain, t0)
+        del m
+        if (X, Y) not in BAND_STRICT:
+            continue
+        t0 = time.perf_counter()
+        mode = f"{X}x{Y} strict circulation"
+        m, _ = _refined_model(Numerics(**g, **STRICT_REFINED_SHORT),
+                              fast=False)
+        circ.check(m)
+        names = _band_entries(mode, m.year_data, entries, mode,
+                              " (M=1, = K1, K2)")
+        e12, ms, plain, (k1, k2, k2_in) = _band_k1_k2(mode, m, co2f, co2s,
+                                                      zero_tables=True)
+        worse(e12)
+        worse(_single_members(m, mode, co2f, co2s, k1, k2, k2_in))
+        out["band"][mode] = dict(ms=ms, plain_ms=plain)
+        report(mode, names, ms, plain, t0)
+        del m, k1, k2, k2_in
+        circ.graphs.clear()
+    circ.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the 256x128 long run on the 20-step calendar: run_long in K3
+    #    blocks of G256_BLOCK from K1's end with its tables, a checkpoint
+    #    after each; the same run stopped at G256_STOP and resumed in a
+    #    fresh process; the final state and the output file bitwise equal
+    t0 = time.perf_counter()
+    m, _ = _refined_model(short)
+    s1, c1 = yk.fluxcorr_year(m.initial_state(), co2f, m.year_data)
+    co2_long = np.full(G256_LONG, 680.0, np.float32)
+    ck_full, run_full = _grid256_runner(m, tmp, "full")
+    reset_counts()
+    s_full, _, _ = longrun.run_long(G256_LONG, s1, c1, co2_long, run_full,
+                                    checkpointer=ck_full,
+                                    chunk_years=G256_BLOCK)
+    run_full.close()
+    out["launches_long"] = read_counts("grid256 long run", {
+        "fluxcorr_year": 0, "scenario_year": 0, "fluxcorr_years": 0,
+        "scenario_years": G256_LONG // G256_BLOCK})
+    _finite("grid256 long run", [(f"state {k}", getattr(s_full, k))
+                                 for k in ModelState.FIELDS])
+    ck_res, run_res = _grid256_runner(m, tmp, "resumed")
+    longrun.run_long(G256_STOP, s1, c1, co2_long, run_res,
+                     checkpointer=ck_res, chunk_years=G256_BLOCK)
+    run_res.close()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--resume-long256", tmp],
+        capture_output=True, text=True, timeout=600)
+    wall_resume = time.perf_counter() - t1
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"256x128 resume exited {proc.returncode}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["start"] != G256_STOP:
+        raise AssertionError(f"256x128 resumed at {child['start']}")
+    s_res, _, cursor = type(ck_res)(ck_res.dir).restore(device="cuda")
+    if cursor.year_index != G256_LONG:
+        raise AssertionError(f"256x128 last checkpoint {cursor.year_index}")
+    _bitwise("grid256 resumed vs uninterrupted", [
+        (f"state {k}", getattr(s_res, k), getattr(s_full, k))
+        for k in ModelState.FIELDS], quiet=True)
+    with open(os.path.join(tmp, "long256_full"), "rb") as f, \
+            open(os.path.join(tmp, "long256_resumed"), "rb") as g:
+        full_bytes = f.read()
+        if full_bytes != g.read():
+            raise AssertionError("256x128 resumed output file differs")
+    print(f"grid256 long run ({G256_LONG} years in K3 blocks of {G256_BLOCK},"
+          f" checkpoints every {G256_BLOCK}, {short.nstep_yr}-step calendar):"
+          f" stopped at {G256_STOP}, resumed in a fresh process "
+          f"({wall_resume:.1f} s wall: set-up {child['setup_s']:.1f} s, years"
+          f" {child['start']}..{G256_LONG} {child['run_s']:.3f} s, "
+          f"{child['scenario_years_launches']} K3 launches); final state and "
+          f"output file ({len(full_bytes)} B) bitwise equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del m, s1, c1, s_full, s_res
+    folds.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the 256x128 paths on the full calendar: GREB.run under the fold,
+    #    the same years in one K3 block, --ensemble G256_SHARED_M
+    #    --shared-spinup; then GREB.run under GrebConfig's default; each
+    #    path's own K1 and K2 launches timed
+    model, state, corr, monthly, launches, rate, timing = _refined_path(
+        "grid256", tmp, G256_GRID, G256_YEARS, reset_counts, read_counts)
+    out["paths"] = _refined_member_paths(
+        model, tmp, state, monthly, corr, reset_counts, read_counts,
+        block=2, ensembles=G256_ENSEMBLES, tag="grid256")
+    out["launches_path"], out["rate"] = launches, rate
+    num = model.num
+    _, ranks = yk.packed_ranks(model.fold[1])
+    out["full_ms"] = {"fold": {k: timing[k][0] for k in ("fluxcorr_year",
+                                                        "scenario_year")}}
+    out["full_work"] = {"fold": {
+        k: yk.year_work(model.fold[0], num, k == "scenario_year", ranks)
+        for k in ("fluxcorr_year", "scenario_year")}}
+    del model, state, corr, monthly
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, _, _, _, launches, rate, timing = _refined_path(
+        "grid256_strict", tmp, G256_GRID, G256_YEARS, reset_counts,
+        read_counts, fast=None)
+    regrids.stop()
+    out["launches_strict_path"], out["strict_rate"] = launches, rate
+    yd = model.year_data
+    out["full_ms"]["strict"] = {k: timing[k][0] for k in ("fluxcorr_year",
+                                                          "scenario_year")}
+    out["full_work"]["strict"] = {
+        k: yk.year_work(yd.plan, num, k == "scenario_year", flags=yd.flags)
+        for k in ("fluxcorr_year", "scenario_year")}
+    per_sub = 1e3 / (num.nstep_yr * num.nsub_crcl)
+    for transport, mss in out["full_ms"].items():
+        for name, ms in mss.items():
+            b_ms, b_by = _bound_of(*out["full_work"][transport][name])
+            print(f"grid256 {transport} {name} (1 year, the path's), "
+                  f"{num.nstep_yr} steps: {ms:.3f} ms = {ms * per_sub:.3f} "
+                  f"us a substep (a step's work included); bound {b_ms:.3f} "
+                  f"ms by {b_by}")
+    del model, yd
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["err"], out["entries"] = err, entries
+    print(f"grid256 phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3377,6 +3872,8 @@ def main(argv) -> int:
         return _resume_long768(argv[1])
     if argv[:1] == ["--shard-worker"]:
         return _shard_worker(argv[1:])
+    if argv[:1] == ["--resume-long256"]:
+        return _resume_long256(argv[1])
     import math
 
     import numpy as np
@@ -3430,12 +3927,13 @@ def main(argv) -> int:
     built = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k}.cu {v:.1f} s' for k, v in built.items()) or 'cached'})")
-    with open(os.path.join(build.BUILD_DIR, "year_kernel.ptxas.txt")) as f:
-        for line in f:
-            if "Compiling entry function" in line:
-                print("  ptxas:", line.split("'")[1])
-            elif "registers" in line or "spill" in line:
-                print("  ptxas:   ", line.split(":", 1)[-1].strip())
+    for source in ("year_kernel", "band_kernel"):
+        with open(os.path.join(build.BUILD_DIR, f"{source}.ptxas.txt")) as f:
+            for line in f:
+                if "Compiling entry function" in line:
+                    print("  ptxas:", line.split("'")[1])
+                elif "registers" in line or "spill" in line:
+                    print("  ptxas:   ", line.split(":", 1)[-1].strip())
     lap("build")
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
@@ -3863,6 +4361,11 @@ def main(argv) -> int:
         sharded = _sharded_phase(tmp, model, grid768.pop("short_model"))
         lap("sharded")
 
+        # -- the grids between 192x96 and 384x192: the additive packed and
+        #    strict additive forms, 256x128's paths ------------------------
+        band = _grid256_phase(tmp, reset_counts, read_counts)
+        lap("256x128 band")
+
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for LONG_BLOCK years, K4 3 members: the median of
     # member_ms's 3 launches, on the size the wrapper picks for that
@@ -3881,6 +4384,11 @@ def main(argv) -> int:
             for e in STRICT_REFINED_MODES]
     # 768x384 in the wide form: modern, and K1/K2 under log_exp 11
     wide_mode = "wide 768x384"
+    # the grids between 192x96 and 384x192: each kernel's modes there, from
+    # its entries' (step 20)
+    band_modes = {name: sorted({m for e, ms in band["entries"].items()
+                                if e.startswith(name + "_") for m in ms})
+                  for name in BAND_KERNELS}
     single = (["modern"] + [f"log_exp {e}" for e in LEGACY_EXPS]
               + [strict_name(e) for e in STRICT_MODES] + [refined_mode,
                                                           g192_mode,
@@ -3928,10 +4436,10 @@ def main(argv) -> int:
                                grid192["strict_err"].get(name, 0.0),
                                words["err"][name],
                                strict_refined["err"][name],
-                               grid768["err"][name]),
+                               grid768["err"][name], band["err"][name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "cluster": c,
-            "shape": shape, "modes": modes,
+            "shape": shape, "modes": modes + band_modes[name],
             "launches_legacy_path": legacy["launches"][name],
             "launches_strict_path": strict["launches"][name],
             "launches_ensemble_path": ensemble["launches"][name],
@@ -4036,6 +4544,44 @@ def main(argv) -> int:
             launches_grid768_long_path=grid768["launches_long"][name],
             launches_grid768_ensemble_path=grid768["launches_ensemble"][
                 name])
+        # the grids between 192x96 and 384x192: the entries of this kernel
+        # with the modes each was held bitwise in; at 256x128 under the
+        # fold and the strict circulation each launch (K1/K2 a year, K4
+        # M=2, K3 M=2 x 2 years; the fold on 20 steps, the strict
+        # circulation on 2), its plain version, its bound, the paths'
+        # launches; K1/K2's full-calendar years of the two GREB.run paths
+        # with their bounds; K1/K2 under log_exp 11 at 256x128 and at the
+        # band's other grids, each launch and its plain version
+        entry["band_entries"] = {
+            e: modes for e, modes in sorted(band["entries"].items())
+            if e.startswith(name + "_")}
+        for mode in band["ms"]:
+            key = "band_" + mode.replace(" ", "_")
+            b_ms, b_by = _bound_of(*band["work"][mode][name])
+            entry.update({f"{key}_ms": band["ms"][mode][name],
+                          f"{key}_plain_ms": band["plain_ms"][mode][name],
+                          f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+                          f"{key}_shape": band["shape"][mode][name]})
+        for transport, mss in band["full_ms"].items():
+            if name in mss:
+                b_ms, b_by = _bound_of(*band["full_work"][transport][name])
+                entry.update({
+                    f"band_256x128_{transport}_full_ms": mss[name],
+                    f"band_256x128_{transport}_full_bound_ms": b_ms,
+                    f"band_256x128_{transport}_full_bound_by": b_by})
+        for mode, g in band["band"].items():
+            if name in g["ms"]:
+                key = "band_" + mode.replace(" ", "_")
+                entry.update({f"{key}_ms": g["ms"][name],
+                              f"{key}_plain_ms": g["plain_ms"][name]})
+        entry.update(
+            launches_grid256_path=band["launches_path"][name],
+            launches_grid256_strict_path=band["launches_strict_path"][name],
+            launches_grid256_block_path=band["paths"]["block"]["launches"][
+                name],
+            launches_grid256_shared_ensemble_path=band["paths"]["shared"][
+                "launches"][name],
+            launches_grid256_long_path=band["launches_long"][name])
         if name == "scenario_years":
             # one year of a wave of members (M = the card's capacity)
             M, w_ms, w_work = refined["wave"]

@@ -114,7 +114,10 @@
 // extension-mode grids (384x192, suffix _refined) and 192x96's additive
 // form (suffix _additive), each modern and legacy (suffix _legacy); and
 // the strict transport at an extension-mode grid (suffix _strict_refined);
-// see its section below.
+// see its section below.  The forms of the grids between 192x96 and
+// 384x192 (additive splitting with packed composites, and the strict
+// transport where the cluster body does not hold it) are this file's
+// device code too; their entries build in band_kernel.cu.
 //
 // The strict transport.  Where the JAX package builds no fold (its
 // GREB.fastcirc_tables() is None: --strict-circulation, and legacy
@@ -1445,6 +1448,37 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // co2_years.  Members beyond the card's capacity of 16-block clusters run
 // in waves.
 //
+// The additive packed form (R_ADDITIVE_PACKED, suffixes _additive_packed
+// and _additive_packed_legacy, built in band_kernel.cu: 224x112 to 352x176
+// at dt_crcl 1800 s) runs the fold of a grid inside the reference's
+// envelope whose composites are packed: additive splitting, diffusion and
+// advection segments and the packed composite rows (3 to 6 a pole).  It is
+// the additive form with packed_comp, the sequential form's composite rows
+// on their own rank columns in the same blocked order, where dense_comp
+// is (additive_substep<MEMBERS, true>; its block is refined_parts',
+// 102,432 B at 256x128).  What bounds it is what bounds the other forms:
+// blocks 0-1 and 14-15 hold the composite rows and segments, the other
+// twelve wait at the barrier; on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py) a 256x128 K2 year takes ~806 ms, ~46 us a substep.
+//
+// The strict additive form (R_STRICT_ADDITIVE, suffix _strict_additive,
+// built in band_kernel.cu) runs the strict transport (and no transport)
+// where the cluster body's strict block does not hold K3 (224x112 to
+// 352x176), for all four kernels: strict_add_substep repeats the cluster
+// body's strict arithmetic (strict_value, additive splitting, compact
+// polar sub-cycles) with the state, the sums and the winds in global
+// memory and L2, as the sequential strict form keeps them.  Its block
+// (strict_refined_parts with 8 words a row, 106,752 B at 256x128) has the
+// double buffer, wz with halo rows and the sub-cycles' two buffers: the
+// diffusion sub-cycle runs first, its rows' last values park in the next
+// buffer's own rows, then the advection sub-cycle (where strict_substep
+// runs both at once over four buffers, which at 352x176 would need
+// 250,624 B).  A round takes the rows still within their counts
+// (sub_cycle), so the pole block does not sub-cycle its other rows to the
+// pole row's count as the cluster body does.  What bounds it: the pole
+// rows' rounds (450 a substep at 256x128); on an H100 80GB HBM3 at 700 W
+// a 256x128 strict year takes ~3.08 s, ~176 us a substep.
+//
 // The wide form (WIDE, suffixes _wide and _wide_legacy: 768x384 at dt_crcl
 // 450 s, 96 substeps a step) runs the sequential form's body for a grid
 // whose rows one 16-block cluster cannot hold (24 rows of 768 columns a
@@ -1484,8 +1518,11 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // The forms of the refined instantiation (RefinedArgs::form): the fold with
 // sequential splitting and packed composites (_refined), the fold with
 // additive splitting and dense composites (pcomp in YearArgs; _additive),
-// the strict transport with sequential splitting (_strict_refined).
-enum RefinedForm { R_SEQ, R_ADDITIVE, R_STRICT };
+// the strict transport with sequential splitting (_strict_refined), the
+// fold with additive splitting and packed composites (_additive_packed),
+// the strict transport with additive splitting (_strict_additive).
+enum RefinedForm { R_SEQ, R_ADDITIVE, R_STRICT, R_ADDITIVE_PACKED,
+                   R_STRICT_ADDITIVE };
 
 struct RefinedArgs {
   const float* pcu;        // (X, rtot) U_all
@@ -1581,16 +1618,21 @@ __host__ __device__ inline long long refined_parts(int Y, int X, int ktc,
   return total;
 }
 
-// The strict form's block (R_STRICT) in refined_parts' terms: the double
-// buffer, wz of both fields with HALO rows each side (Q_WZ), no xa (xz
-// waits in the next buffer's own rows), the sub-cycles' two (2, R, X)
-// buffers (Q_SCRATCH) and 6 words of constants a row (Q_INDEX: the two
-// sub-cycle coefficients and counts, and the block's rows in order of each
-// count); 0 where C does not split the rows into blocks of at least HALO
-// rows or X is not a multiple of 4.  The same reckoning as
+// The strict forms' block (R_STRICT, R_STRICT_ADDITIVE) in refined_parts'
+// terms: the double buffer, wz of both fields with HALO rows each side
+// (Q_WZ), no xa (R_STRICT's xz and R_STRICT_ADDITIVE's finished diffusion
+// sub-cycle wait in the next buffer's own rows), the sub-cycles' two (2,
+// R, X) buffers (Q_SCRATCH) and the rows' constants (Q_INDEX): 6 words a
+// row (the two sub-cycle coefficients and counts, and the block's rows in
+// order of each count), R_STRICT_ADDITIVE (`additive`) 8, with the 7-point
+// diffusion and 2-point advection coefficients of the rows without a
+// sub-cycle; 0 where C does not split the rows into blocks of at least
+// HALO rows or X is not a multiple of 4.  The same reckoning as
 // ops/cuda/year_kernel.py strict_refined_layout.
 __host__ __device__ inline long long strict_refined_parts(int Y, int X, int C,
-                                                          long long* parts) {
+                                                          long long* parts,
+                                                          bool additive =
+                                                              false) {
   if (C < 1 || C > MAX_CLUSTER || Y % C != 0 || Y / C < HALO || X % 4 != 0)
     return 0;
   const long long R = Y / C, f = sizeof(float);
@@ -1598,7 +1640,7 @@ __host__ __device__ inline long long strict_refined_parts(int Y, int X, int C,
   parts[Q_WZ] = f * 2 * (R + 2 * HALO) * X;
   parts[Q_XA] = 0;
   parts[Q_SCRATCH] = f * 2 * 2 * R * X;
-  parts[Q_INDEX] = f * ((6 * R + 3) / 4 * 4);
+  parts[Q_INDEX] = f * (((additive ? 8 : 6) * R + 3) / 4 * 4);
   long long total = 0;
   for (int k = 0; k < N_QPARTS; ++k) total += parts[k];
   return total;
@@ -1613,8 +1655,9 @@ static long long form_parts(int Y, int X, int ktc, int kbc, int C,
                ? refined_parts(Y, X, ktc, kbc, C * g.groups, g, parts,
                                MAX_CLUSTER * MAX_GROUPS)
                : 0;
-  return g.form == R_STRICT ? strict_refined_parts(Y, X, C, parts)
-                            : refined_parts(Y, X, ktc, kbc, C, g, parts);
+  if (g.form == R_STRICT || g.form == R_STRICT_ADDITIVE)
+    return strict_refined_parts(Y, X, C, parts, g.form == R_STRICT_ADDITIVE);
+  return refined_parts(Y, X, ktc, kbc, C, g, parts);
 }
 
 // A block's local rows (0..R-1 from global row r0) in the global rows
@@ -1978,7 +2021,9 @@ __device__ void dense_comp(const YearArgs& a, const RowSlots& comp,
 }
 
 // One refined substep with additive zonal splitting and dense composites
-// (fastcirc2.substep without seq_zonal: 192x96), buffer cur -> nxt: the
+// (fastcirc2.substep without seq_zonal: 192x96), or packed ones (PACKED:
+// 224x112 to 352x176, packed_comp as the sequential form runs it, its
+// slots' rank sums in bk.zpre), buffer cur -> nxt: the
 // zonal diffusion dd and advection da of every (field, cell) from the same
 // taps of x, each clamped on the band rows, and the merged meridional dy
 // (increments, as the cluster body); a cell of a row in no segment and no
@@ -1986,10 +2031,10 @@ __device__ void dense_comp(const YearArgs& a, const RowSlots& comp,
 // the neighbours' halos.  The other rows (`later`: those of bk.comp,
 // bk.dband and bk.aband) keep dd in bk.xa and
 // park da in the next buffer's own rows, which the block alone writes;
-// the diffusion segments and the dense composites finish dd, the
-// advection segments (from x) da, and those rows go out last, combined
-// the same way.  MEMBERS: this cluster's member's coefficient scratch.
-template <bool MEMBERS>
+// the diffusion segments and the composites finish dd, the advection
+// segments (from x) da, and those rows go out last, combined the same
+// way.  MEMBERS: this cluster's member's coefficient scratch.
+template <bool MEMBERS, bool PACKED = false>
 __device__ void additive_substep(const YearArgs& a, const RefinedArgs& g,
                                  const RefinedBlock& bk,
                                  const RowSlots& later, const Bufs& bufs,
@@ -2035,7 +2080,13 @@ __device__ void additive_substep(const YearArgs& a, const RefinedArgs& g,
       seg_iterate(bk.dband, in, g.dseg[3 * k + 2], x, dd, a.zd, bk.scr, r0,
                   X, YX);
   }
-  if (bk.comp.n() > 0) dense_comp(a, bk.comp, x, bk.xa, bk.scr, r0, R);
+  if (bk.comp.n() > 0) {
+    if constexpr (PACKED)
+      packed_comp(g, bk.comp, bk.zpre, x, bk.xa, bk.scr, r0, R, Y, X, ktc,
+                  kbc);
+    else
+      dense_comp(a, bk.comp, x, bk.xa, bk.scr, r0, R);
+  }
   for (int k = 0; k < g.n_aseg; ++k) {
     const int kt = g.aseg[3 * k], kb = g.aseg[3 * k + 1];
     const RowSlots in(r0, R, 0, kt, Y - kb, Y);
@@ -2234,6 +2285,91 @@ __device__ void strict_seq_substep(const YearArgs& a, const StrictSeq& st,
   }
 }
 
+// The strict form with additive splitting (run_refined, R_STRICT_ADDITIVE):
+// StrictSeq's constants and scratch, and the coefficients of the rows
+// without a polar sub-cycle (strict_value's), in shared memory
+// (strict_refined_parts).
+struct StrictAdd : StrictSeq {
+  const float* ccx;   // (R,) kappa*dt_crcl/dxlat^2: 7-point diffusion
+  const float* cax;   // (R,) dt_crcl/dxlat/2: 2-point upwind advection
+};
+
+// One strict substep with additive zonal splitting (stencils.circulation's
+// compact-polar form: strict_substep's arithmetic, the cluster body's) of
+// this block's rows at step t, buffer cur -> nxt, the winds read from
+// global memory: each (field, cell) of a row without a polar sub-cycle at
+// once (strict_value); the diffusion sub-cycle of the sub-cycled rows from
+// x, each row's last value parked in the next buffer's own rows, which the
+// block alone writes; the advection sub-cycle from x in the scratch; then
+// those rows' cells, strict_value with both sub-cycles' values, written
+// over the parked value (the cell read first) and pushed to the
+// neighbours' halos.  A round takes the rows still within their counts
+// (sub_cycle), where strict_substep adds 0 past a row's count.
+__device__ void strict_add_substep(const YearArgs& a, const StrictAdd& st,
+                                   const Bufs& bufs, int cur, int nxt,
+                                   int r0, int t) {
+  const int Y = a.Y, X = a.X, R = bufs.R, RX = R * X, P = 2 * RX;
+  const int BX = bufs.field(), WX = (R + 2 * HALO) * X;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Div by_rx(RX), by_x(X);
+  const float* xb = bufs.mine + cur;
+  float* park = bufs.mine + nxt;
+  const size_t row0 = (size_t)t * Y * X + (size_t)r0 * X;
+  const float* u = a.u + row0;
+  const float* v = a.v + row0;
+  for (int l = tid; l < st.nf * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX;
+    const int i = by_x(li), j = li - i * X;
+    const bool adv = f < st.nfa;
+    const bool sd = st.nd[i] >= 0, sa = adv && st.na[i] >= 0;
+    const float* x = xb + f * BX + (i + HALO) * X;
+    if (sd) st.sub[l] = x[j];
+    if (sd || sa) continue;
+    const int r = r0 + i;
+    bufs.put(nxt, f, i, j,
+             strict_value(x, st.wz + f * WX + (i + HALO) * X, j, X, st.ccx[i],
+                          st.cax[i], st.ccy_d, st.ccy_a, adv, u[li], v[li],
+                          r == 1, r == Y - 2, nullptr, nullptr));
+  }
+  sub_cycle(st.sub, st.nd, st.od, st.nf, R, X, [&](int f, int i, int j) {
+    DiffCell c;
+    zonal_taps(st.wz + f * WX + (i + HALO) * X, j, X, c.w);
+    c.cc = st.ccx2[i];
+    return c;
+  });
+  for (int l = tid; l < st.nf * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX, i = by_x(li);
+    const int o = f * BX + HALO * X + li;
+    if (st.nd[i] >= 0) park[o] = st.sub[(st.nd[i] & 1) * P + l];
+    if (f < st.nfa && st.na[i] >= 0) st.sub[l] = xb[o];
+  }
+  sub_cycle(st.sub, st.na, st.oa, st.nfa, R, X, [&](int f, int i, int j) {
+    AdvCell c;
+    zonal_taps(st.wz + f * WX + (i + HALO) * X, j, X, c.w);
+    const float uu = u[i * X + j];
+    c.um = uu > 0.f ? uu : 0.f;
+    c.up = uu < 0.f ? uu : 0.f;
+    c.cc = st.cax2[i];
+    c.q = st.quirk && j == X - 3;
+    return c;
+  });
+  for (int l = tid; l < st.nf * RX; l += nt) {
+    const int f = by_rx(l), li = l - f * RX;
+    const int i = by_x(li), j = li - i * X;
+    const bool adv = f < st.nfa;
+    const bool sd = st.nd[i] >= 0, sa = adv && st.na[i] >= 0;
+    if (!sd && !sa) continue;
+    const int r = r0 + i, row = f * BX + (i + HALO) * X;
+    bufs.put(nxt, f, i, j,
+             strict_value(xb + row, st.wz + f * WX + (i + HALO) * X, j, X,
+                          st.ccx[i], st.cax[i], st.ccy_d, st.ccy_a, adv,
+                          u[li], v[li], r == 1, r == Y - 2,
+                          sd ? park + row : nullptr,
+                          sa ? st.sub + (st.na[i] & 1) * P + f * RX + i * X
+                             : nullptr));
+  }
+}
+
 // A wide block's halo slots across its run's cluster edges: block 0 of
 // cluster k > 0 posts its two top rows for the block above and takes that
 // block's two bottom rows (edge k - 1, `top`); block C - 1 of cluster
@@ -2318,11 +2454,12 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
   const int Y = a.Y, X = a.X, YX = Y * X, P = 2 * YX;
   const int R = Y / (C * G), RX = R * X, r0 = (grp * C + rank) * R;
   const int ktc = a.ktc, kbc = a.kbc, K = ktc + kbc;
-  constexpr bool STRICT = FORM == R_STRICT;
+  constexpr bool SADD = FORM == R_STRICT_ADDITIVE;
+  constexpr bool STRICT = FORM == R_STRICT || SADD;
   static_assert(!WIDE || FORM == R_SEQ, "the wide form is sequential");
   long long parts[N_QPARTS];
   if constexpr (STRICT)
-    strict_refined_parts(Y, X, C, parts);
+    strict_refined_parts(Y, X, C, parts, SADD);
   else if constexpr (WIDE)
     refined_parts(Y, X, ktc, kbc, C * G, g, parts, MAX_CLUSTER * MAX_GROUPS);
   else
@@ -2384,6 +2521,7 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
     st[k * FS + (i - k * RX)] = st_in[k * FS + (i - k * RX)];
   }
   StrictSeq ss;
+  StrictAdd sa;
   if constexpr (STRICT) {
     if (circ) {
       // wz of Ta and q with HALO rows each side, zero past the poles, and
@@ -2403,6 +2541,10 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
         rc[R + i] = rows[2 * Y];
         rn[i] = a.st_n[r0 + i];
         rn[R + i] = a.st_n[Y + r0 + i];
+        if constexpr (SADD) {   // after the counts and the orders
+          rc[6 * R + i] = a.st_kdt / rows[0];
+          rc[7 * R + i] = rows[3 * Y];
+        }
       }
       __syncthreads();
       if (tid < 2) {   // insertion sort by count, most first; stable
@@ -2418,6 +2560,7 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
                      sp[Q_SCRATCH], a.st_ccy_d, a.st_ccy_a, nf,
                      on<true>(p, VAPOR_DIFFUSION_ONLY) ? 1 : nf,
                      a.quirk != 0};
+      if constexpr (SADD) sa = StrictAdd{ss, rc + 6 * R, rc + 7 * R};
     }
   } else {
     for (int i = tid; i < 2 * RX; i += nt)
@@ -2430,7 +2573,8 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
     const int row = h < HALO * X ? h / X : R + h / X;
     bufs.mine[fb * BX + row * X + h % X] = 0.f;
   }
-  if (FORM == R_SEQ && tid == 0) {   // the packed composites' slots
+  if ((FORM == R_SEQ || FORM == R_ADDITIVE_PACKED) && tid == 0) {
+    // the packed composites' slots
     const int nq = bk.comp.n();
     int acc = 0;
     for (int fq = 0; fq < 2 * nq; ++fq) {
@@ -2482,7 +2626,10 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
           // -- circulation: nsub strict substeps, buffer cur -> nxt
           for (int s = 0; s < a.nsub; ++s) {
             const int nxt = NXT - cur;
-            strict_seq_substep(a, ss, bufs, cur, nxt, r0, t);
+            if constexpr (SADD)
+              strict_add_substep(a, sa, bufs, cur, nxt, r0, t);
+            else
+              strict_seq_substep(a, ss, bufs, cur, nxt, r0, t);
             cluster.sync();
             cur = nxt;
           }
@@ -2506,6 +2653,9 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
           const int nxt = NXT - cur;
           if constexpr (FORM == R_ADDITIVE)
             additive_substep<MEMBERS>(a, g, bk, later, bufs, cur, nxt, r0);
+          else if constexpr (FORM == R_ADDITIVE_PACKED)
+            additive_substep<MEMBERS, true>(a, g, bk, later, bufs, cur, nxt,
+                                            r0);
           else
             refined_substep<MEMBERS, WIDE>(a, g, bk, bufs, cur, nxt, r0);
           // every block's rows and halos of buffer nxt are written, and no
@@ -2566,9 +2716,103 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
   cluster.sync();
 }
 
-// The entry functions and their launchers; a source that builds its own
-// entries on these device functions (slab_kernel.cu) defines
+// The entry functions and their launchers follow.  What comes before the
+// guard below serves them and the sources that build their own entries on
+// these device functions (slab_kernel.cu; band_kernel.cu, the refined
+// forms of the grids between 192x96 and 384x192), which define
 // GREB_DEVICE_ONLY before including this file.
+
+// The refined instantiation of the four kernels: in each form and variant,
+// <kernel><suffix> runs run_refined<kind, members, form, legacy>.
+#define REFINED_KERNELS(SUFFIX, FORM, LEGACY, WIDE)                          \
+  __global__ void __launch_bounds__(NT, 1) fluxcorr_year##SUFFIX(            \
+      YearArgs a, GrebParams p, RefinedArgs g) {                             \
+    run_refined<FLUX, false, FORM, LEGACY, WIDE>(a, g, p, PackCols{});       \
+  }                                                                          \
+  __global__ void __launch_bounds__(NT, 1) scenario_year##SUFFIX(            \
+      YearArgs a, GrebParams p, RefinedArgs g) {                             \
+    run_refined<SCEN, false, FORM, LEGACY, WIDE>(a, g, p, PackCols{});       \
+  }                                                                          \
+  __global__ void __launch_bounds__(NT, 1) fluxcorr_years##SUFFIX(           \
+      YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {                 \
+    run_refined<FLUX, true, FORM, LEGACY, WIDE>(a, g, p, c);                 \
+  }                                                                          \
+  __global__ void __launch_bounds__(NT, 1) scenario_years##SUFFIX(           \
+      YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {                 \
+    run_refined<SCEN_YEARS, true, FORM, LEGACY, WIDE>(a, g, p, c);           \
+  }
+
+// The instantiations a flags word launches (variant).
+enum Variant { V_MODERN, V_LEGACY, V_STRICT, V_NONE };
+
+// V_MODERN at flags 0; V_STRICT for the strict transport or none
+// (CIRCULATION_OFF); V_LEGACY for any other word; V_NONE for a word
+// with a bit not in Flag, a vapour bit without STRICT_TRANSPORT, or the
+// strict transport with CIRCULATION_OFF.
+static inline Variant variant(const GrebParams& p) {
+  const int f = p.flags;
+  const bool strict = (f & STRICT_TRANSPORT) != 0;
+  const bool off = (f & CIRCULATION_OFF) != 0;
+  if ((f & ~KNOWN_FLAGS) != 0 || (strict && off)
+      || (!strict && (f & (VAPOR_CIRCULATION_OFF | VAPOR_DIFFUSION_ONLY))))
+    return V_NONE;
+  if (strict || off) return V_STRICT;
+  return f ? V_LEGACY : V_MODERN;
+}
+
+// The launch of a.M clusters of C blocks of `kernel` with `smem` bytes of
+// dynamic shared memory a block into cfg (attrs: room for 2), and how many
+// such clusters the card runs at once (cluster_config, refined_config).
+// G clusters a member is the wide form: a cooperative launch, for its
+// grid barrier.
+template <typename Kernel>
+static int config_with(Kernel kernel, const YearArgs& a, int C,
+                       long long smem, void* stream,
+                       cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                       int* clusters, int G = 1) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (C > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  *cfg = {};
+  cfg->gridDim = dim3(a.M * C * G, 1, 1);
+  cfg->blockDim = dim3(cluster_threads(a.Y / (C * G), a.X), 1, 1);
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = (cudaStream_t)stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  if (G > 1) {
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg->numAttrs = 2;
+  }
+  *clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(clusters, (void*)kernel, cfg);
+  if (e != cudaSuccess) return (int)e;
+  return *clusters == 0 ? GREB_ERR_NO_CLUSTER : 0;
+}
+
+// The refined instantiation's launch (a.M members) as cluster_config's.
+template <typename Kernel>
+static int refined_config(Kernel kernel, const YearArgs& a,
+                          const RefinedArgs& g, int C, void* stream,
+                          cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                          int* clusters) {
+  long long parts[N_QPARTS];
+  const long long smem = form_parts(a.Y, a.X, a.ktc, a.kbc, C, g, parts);
+  if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
+  return config_with(kernel, a, C, smem, stream, attr, cfg, clusters,
+                     g.groups > 1 ? g.groups : 1);
+}
+
 #ifndef GREB_DEVICE_ONLY
 
 // Each kernel in three instantiations: the modern variant (flags 0); with
@@ -2645,26 +2889,6 @@ __global__ void __launch_bounds__(NT, 1) scenario_years_strict(
                                                        member_index()));
 }
 
-// The refined instantiation of the four kernels: in each form and variant,
-// <kernel><suffix> runs run_refined<kind, members, form, legacy>.
-#define REFINED_KERNELS(SUFFIX, FORM, LEGACY, WIDE)                          \
-  __global__ void __launch_bounds__(NT, 1) fluxcorr_year##SUFFIX(            \
-      YearArgs a, GrebParams p, RefinedArgs g) {                             \
-    run_refined<FLUX, false, FORM, LEGACY, WIDE>(a, g, p, PackCols{});       \
-  }                                                                          \
-  __global__ void __launch_bounds__(NT, 1) scenario_year##SUFFIX(            \
-      YearArgs a, GrebParams p, RefinedArgs g) {                             \
-    run_refined<SCEN, false, FORM, LEGACY, WIDE>(a, g, p, PackCols{});       \
-  }                                                                          \
-  __global__ void __launch_bounds__(NT, 1) fluxcorr_years##SUFFIX(           \
-      YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {                 \
-    run_refined<FLUX, true, FORM, LEGACY, WIDE>(a, g, p, c);                 \
-  }                                                                          \
-  __global__ void __launch_bounds__(NT, 1) scenario_years##SUFFIX(           \
-      YearArgs a, GrebParams p, PackCols c, RefinedArgs g) {                 \
-    run_refined<SCEN_YEARS, true, FORM, LEGACY, WIDE>(a, g, p, c);           \
-  }
-
 REFINED_KERNELS(_refined, R_SEQ, false, false)
 REFINED_KERNELS(_additive, R_ADDITIVE, false, false)
 REFINED_KERNELS(_refined_legacy, R_SEQ, true, false)
@@ -2685,29 +2909,11 @@ static_assert(sizeof(YearArgs) + sizeof(GrebParams) + sizeof(PackCols) +
                       sizeof(RefinedArgs) <= 4096,
               "kernel parameters over 4 KB");
 
-// The instantiations a flags word launches (variant).
-enum Variant { V_MODERN, V_LEGACY, V_STRICT, V_NONE };
-
-// V_MODERN at flags 0; V_STRICT for the strict transport or none
-// (CIRCULATION_OFF); V_LEGACY for any other word; V_NONE for a word
-// with a bit not in Flag, a vapour bit without STRICT_TRANSPORT, or the
-// strict transport with CIRCULATION_OFF.
-static Variant variant(const GrebParams& p) {
-  const int f = p.flags;
-  const bool strict = (f & STRICT_TRANSPORT) != 0;
-  const bool off = (f & CIRCULATION_OFF) != 0;
-  if ((f & ~KNOWN_FLAGS) != 0 || (strict && off)
-      || (!strict && (f & (VAPOR_CIRCULATION_OFF | VAPOR_DIFFUSION_ONLY))))
-    return V_NONE;
-  if (strict || off) return V_STRICT;
-  return f ? V_LEGACY : V_MODERN;
-}
-
 // The refined kernel (REFINED_TABLE's index) that runs g.form under the
 // variant of p's flags word: the fold's forms modern or legacy, the strict
 // form for the strict transport or none, the wide form (g.groups > 1: the
 // sequential form on several clusters) modern or legacy; -1 where none
-// runs it.
+// runs it (the forms of csrc/band_kernel.cu included).
 static int refined_pick(const GrebParams& p, const RefinedArgs& g) {
   const Variant v = variant(p);
   if (g.groups > 1) {
@@ -2732,46 +2938,6 @@ static int launch(Kernel kernel, const YearArgs& a, void* stream,
   return (int)cudaGetLastError();
 }
 
-// The launch of a.M clusters of C blocks of `kernel` with `smem` bytes of
-// dynamic shared memory a block into cfg (attrs: room for 2), and how many
-// such clusters the card runs at once (cluster_config, refined_config).
-// G clusters a member is the wide form: a cooperative launch, for its
-// grid barrier.
-template <typename Kernel>
-static int config_with(Kernel kernel, const YearArgs& a, int C,
-                       long long smem, void* stream,
-                       cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
-                       int* clusters, int G = 1) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  if (C > 8) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-  }
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  *cfg = {};
-  cfg->gridDim = dim3(a.M * C * G, 1, 1);
-  cfg->blockDim = dim3(cluster_threads(a.Y / (C * G), a.X), 1, 1);
-  cfg->dynamicSmemBytes = (size_t)smem;
-  cfg->stream = (cudaStream_t)stream;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  if (G > 1) {
-    attr[1].id = cudaLaunchAttributeCooperative;
-    attr[1].val.cooperative = 1;
-    cfg->numAttrs = 2;
-  }
-  *clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(clusters, (void*)kernel, cfg);
-  if (e != cudaSuccess) return (int)e;
-  return *clusters == 0 ? GREB_ERR_NO_CLUSTER : 0;
-}
-
 // The launch of a.M clusters of C blocks of `kernel` (of `kind`; `strict`:
 // a strict instantiation), one member a cluster, into cfg (whose attrs
 // point at attr), and how many such clusters the card runs at once;
@@ -2786,19 +2952,6 @@ static int cluster_config(Kernel kernel, const YearArgs& a, int C, int kind,
                                        strict, parts);
   if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
   return config_with(kernel, a, C, smem, stream, attr, cfg, clusters);
-}
-
-// The refined instantiation's launch (a.M members) as cluster_config's.
-template <typename Kernel>
-static int refined_config(Kernel kernel, const YearArgs& a,
-                          const RefinedArgs& g, int C, void* stream,
-                          cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
-                          int* clusters) {
-  long long parts[N_QPARTS];
-  const long long smem = form_parts(a.Y, a.X, a.ktc, a.kbc, C, g, parts);
-  if (smem == 0 || smem > MAX_SMEM || a.M < 1) return GREB_ERR_LAYOUT;
-  return config_with(kernel, a, C, smem, stream, attr, cfg, clusters,
-                     g.groups > 1 ? g.groups : 1);
 }
 
 // a.M members on a.M clusters of C blocks; raises (returns

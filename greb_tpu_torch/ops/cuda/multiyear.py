@@ -16,9 +16,9 @@ memory; M clusters beyond the card's capacity run in waves.  For
 block per member, the state in shared memory and the coefficient planes in
 a per-member global scratch.  By default each wrapper picks the size by
 the member count (``default_cluster``).  For a plan of the refined
-instantiation (``year_kernel.is_refined``: the folds at 384x192 and
-192x96, modern and legacy, and the strict transport at 384x192) both
-launch it (csrc/year_kernel.cu ``run_refined``,
+instantiation (``year_kernel.is_refined``: the folds from 192x96 to
+384x192, modern and legacy, and the strict transport from 224x112 to
+384x192) both launch it (csrc/year_kernel.cu ``run_refined``,
 ``year_kernel.refined_layout``) on 16-block clusters at every member
 count, under the fold each member with its own global scratch for the
 step's coefficient planes (M, 12, 2, Y, X); K3 adds up the monthly means
@@ -341,7 +341,7 @@ def _launch_members(fn_name: str, yd: yk.YearData, args: yk._Args,
     (``is_refined``; the wide form with its halo slots)."""
     extra, scratch = (), ()
     if yk.is_refined(yd.plan):
-        fn_name += "_refined"
+        fn_name = yk.refined_launcher(fn_name, yd.plan)
         g = yk._refined_args(yd, dev)
         if g.groups > 1:
             scratch = yk._wide_args(g, args.M, args.X, dev)

@@ -17,7 +17,9 @@ step's index and the year's CO2 are read from device memory).
 Only the fold's modern word runs here, in the additive form with dense
 composites or the sequential form with packed composites: the strict
 transport, no transport and the legacy ``log_exp`` words raise
-``NotImplementedError`` naming ``ITEM_5B`` before any launch.  The plain
+``NotImplementedError`` naming ``ITEM_5B``, and additive splitting with
+packed composites (224x112 to 352x176) naming ``ITEM_5C``, before any
+launch.  The plain
 version of a slab step is the plain sharded runner over the plain step
 with the halo hook (parallel/sharded.py); only the tests and
 ``chip_smoke.py`` hold the kernels against it.
@@ -45,6 +47,8 @@ from . import year_kernel as yk
 F32 = np.float32
 HALO = yk.HALO
 ITEM_5B = "ROADMAP Queue 1 item 5b"
+# where the slab kernels' additive form with packed composites is queued
+ITEM_5C = "ROADMAP Queue 1 item 5c"
 # kernel kinds of slab_finish (csrc/year_kernel.cu enum Kind)
 FINISH_KINDS = {"fluxcorr": 0, "scenario": 1}
 
@@ -82,9 +86,11 @@ def _lib():
 # what the slab kernels run, checked before any launch
 # ---------------------------------------------------------------------------
 def check_slab(plan, exp: Experiment, kind: str = "fluxcorr") -> None:
-    """Raise NotImplementedError (naming ITEM_5B) for what the slab kernels
-    do not run: no fold (``plan`` None: the strict transport or none) and
-    the legacy words; then the year kernels' own check of the global plan
+    """Raise NotImplementedError for what the slab kernels do not run: no
+    fold (``plan`` None: the strict transport or none) and the legacy words
+    (naming ITEM_5B); additive splitting with packed composites, whose
+    composite rows slab_substep's additive form would compute as dense ones
+    (naming ITEM_5C); then the year kernels' own check of the global plan
     (``year_kernel.check_plan``)."""
     flags = yk.experiment_flags(exp, plan is None)
     if plan is None or flags:
@@ -93,6 +99,11 @@ def check_slab(plan, exp: Experiment, kind: str = "fluxcorr") -> None:
             f"slab kernels; the strict transport, no transport and the "
             f"legacy log_exp words (flags {flags:#x}) do not run there "
             f"({ITEM_5B})")
+    if not plan.seq_zonal and plan.comp_mode == "packed":
+        raise NotImplementedError(
+            f"a mesh of CUDA devices: the slab kernels' additive form "
+            f"computes dense composites, not the packed ones of "
+            f"{plan.xdim}x{plan.ydim} ({ITEM_5C})")
     yk.check_plan(plan, kind, 0)
 
 

@@ -39,13 +39,15 @@ A fold the cluster body does not hold (``is_refined``: explicit polar
 segment iterations, packed composites, or dense ones too large for a
 block) launches each kernel's refined instantiation (csrc/year_kernel.cu
 ``run_refined``; the member kernels of multiyear.py one member a 16-block
-cluster), modern or legacy (suffix ``_legacy``), in one of two forms: an
+cluster), modern or legacy (suffix ``_legacy``), in one of three forms: an
 extension-mode plan (384x192 at dt_crcl=1800: sequential zonal
-splitting, packed pole composites, segments; ``*_refined``) or a plan
-with additive splitting and dense composites (192x96 at dt_crcl=1800:
+splitting, packed pole composites, segments; ``*_refined``), a plan with
+additive splitting and dense composites (192x96 at dt_crcl=1800:
 advection segments and five 192x192 composite rows at each pole;
-``*_additive``).  A sequential plan whose rows one 16-block cluster
-cannot hold (768x384 at dt_crcl=450) runs in the wide form
+``*_additive``), or a plan with additive splitting and packed composites
+(224x112 to 352x176 at dt_crcl=1800: ``*_additive_packed``, the
+additive form with the sequential form's packed composite rows).  A
+sequential plan whose rows one 16-block cluster cannot hold (768x384 at dt_crcl=450) runs in the wide form
 (``*_wide``, ``*_wide_legacy``): one run or member spread over
 ``refined_groups(plan)`` clusters of 16 blocks (6 at 768x384), the halo
 rows across the clusters' edges exchanged in global memory at a grid
@@ -61,7 +63,12 @@ transport) at an extension-mode grid runs in the refined instantiation's
 third form (``*_strict_refined``, a ``StrictPlan`` with ``seq_zonal``):
 the strict stencils with sequential zonal splitting, both polar
 sub-cycles in every row, its block's shared memory the double buffer, wz
-with halo rows and one sub-cycle scratch (``strict_refined_layout``).
+with halo rows and one sub-cycle scratch (``strict_refined_layout``);
+where the cluster body does not hold the strict transport's K3 (224x112 to
+352x176), all four kernels run the fifth form (``*_strict_additive``), the
+cluster body's strict arithmetic on the same layout.  The two forms of
+224x112 to 352x176 (``BAND_FORMS``) build in a library of their own,
+csrc/band_kernel.cu (``refined_launcher``).
 Grids that these layouts do not hold raise NotImplementedError
 (``check_plan``, ``check_supported``), naming their ROADMAP item; so does
 the strict transport (and no transport) where one cluster does not hold
@@ -144,13 +151,14 @@ MAX_SEGS = 8
 # the forms of the refined instantiation (csrc/year_kernel.cu enum
 # RefinedForm): the fold with sequential splitting and packed composites,
 # the fold with additive splitting and dense composites, the strict
-# transport with sequential splitting
-REFINED_FORMS = ("sequential", "additive", "strict")
+# transport with sequential splitting, the fold with additive splitting and
+# packed composites (224x112 to 352x176), the strict transport with
+# additive splitting where the cluster body does not hold it
+REFINED_FORMS = ("sequential", "additive", "strict", "additive_packed",
+                 "strict_additive")
 # where what the refined instantiation does not run is queued
 REFINED_ITEMS = dict(
     layout="ROADMAP Queue 1 item 3d",    # grids its layout does not hold
-    # additive splitting with packed composites (256x128, 288x144)
-    additive_packed="ROADMAP Queue 1 item 3g",
     # the strict transport and the no-transport words where one cluster
     # does not hold the strict form (768x384; after Queue 2 redesign d)
     strict_wide="ROADMAP Queue 1 item 3h")
@@ -272,6 +280,16 @@ def cluster_layout(plan, blocks: int, kind: str) -> ClusterLayout:
     hold fewer rows than the halo depth, the row length is not a multiple
     of 4 (the composite sums load 16 bytes at a time), or a block needs
     more than MAX_SMEM_BYTES."""
+    lay = _cluster_parts(plan, blocks, kind)
+    if lay.nbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{kind}: a cluster of {blocks} blocks at "
+                         f"{plan.xdim}x{plan.ydim} needs {lay.nbytes} B of "
+                         f"shared memory a block, over {MAX_SMEM_BYTES} B")
+    return lay
+
+
+def _cluster_parts(plan, blocks: int, kind: str) -> ClusterLayout:
+    """``cluster_layout`` without its check against MAX_SMEM_BYTES."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: one of {KINDS}")
     Y, X = plan.ydim, plan.xdim
@@ -303,10 +321,6 @@ def cluster_layout(plan, blocks: int, kind: str) -> ClusterLayout:
         blocks=blocks, rows=R, comp_rows=kmax,
         threads=min(MAX_THREADS, -(-2 * R * X // 32) * 32),
         parts=tuple((n, 4 * words[n]) for n in CLUSTER_PARTS))
-    if lay.nbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"{kind}: a cluster of {blocks} blocks at {X}x{Y} "
-                         f"needs {lay.nbytes} B of shared memory a block, "
-                         f"over {MAX_SMEM_BYTES} B")
     return lay
 
 
@@ -326,14 +340,15 @@ def refined_layout(plan, blocks: int, kind: str,
                    groups: int = 1) -> ClusterLayout:
     """The shared memory of each block of a ``blocks``-block cluster that
     runs the refined instantiation of ``kind`` (one of KINDS; the same for
-    each) on a plan of one of its two forms, sequential zonal splitting
-    with packed composites or additive splitting with dense ones
+    each) on a fold of one of its forms, sequential zonal splitting with
+    packed composites or additive splitting with dense or packed ones
     (csrc/year_kernel.cu ``refined_parts``, the same reckoning), one run
     on ``groups`` such clusters (more than 1: the wide form, sequential
     splitting only, the rows split over groups * blocks blocks): two
     buffers of the 2 transported fields with HALO rows each side, wz of its
     rows, their zonally diffused state xa (first their zonal diffusion dd;
-    additive: dd alone), a scratch and the composite rows' index (packed).
+    additive: dd alone), a scratch and the composite rows' index (packed;
+    unused with dense composites).
     The scratch holds, one after the other in a substep, the diffusion
     segments' two buffers (2 fields of the block's rows in any diffusion
     segment), the composites' t1 rows (packed: and z, at most X a row;
@@ -347,17 +362,17 @@ def refined_layout(plan, blocks: int, kind: str,
     blocks of a row), for a plan of neither form, for more than MAX_SEGS
     segments, for ``groups`` outside 1..MAX_GROUPS or above 1 with
     additive splitting, and where a block needs more than MAX_SMEM_BYTES.
-    A ``StrictPlan`` of the refined instantiation (one cluster):
-    ``strict_refined_layout``."""
-    if isinstance(plan, StrictPlan) and plan.seq_zonal and groups == 1:
+    A ``StrictPlan`` (one cluster): ``strict_refined_layout``."""
+    if isinstance(plan, StrictPlan) and groups == 1:
         return strict_refined_layout(plan, blocks, kind)
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: one of {KINDS}")
-    form = ("packed",) if plan.seq_zonal else ("dense", "none")
-    if not is_refined(plan) or plan.comp_mode not in form:
+    form = ("packed",) if plan.seq_zonal else ("dense", "none", "packed")
+    if (isinstance(plan, StrictPlan) or not is_refined(plan)
+            or plan.comp_mode not in form):
         raise ValueError(f"the refined layout holds sequential splitting "
                          f"with packed composites or additive splitting "
-                         f"with dense ones, not {plan}")
+                         f"with dense or packed ones, not {plan}")
     if max(len(plan.diff_segs), len(plan.adv_segs)) > MAX_SEGS:
         raise ValueError(f"more than {MAX_SEGS} segments: {plan}")
     if not 1 <= groups <= MAX_GROUPS or (groups > 1 and not plan.seq_zonal):
@@ -444,16 +459,20 @@ def check_resident(groups: int, capacity: int, members: int = 1) -> int:
 def strict_refined_layout(plan: StrictPlan, blocks: int,
                           kind: str) -> ClusterLayout:
     """The shared memory of each block of a ``blocks``-block cluster that
-    runs the refined instantiation's strict form of ``kind`` (one of KINDS;
-    the same for each) at an extension-mode grid (csrc/year_kernel.cu
-    ``strict_refined_parts``, the same reckoning; ``STRICT_REFINED_PARTS``
-    order): two buffers of the 2 transported fields with HALO rows each
-    side, wz of both fields with HALO rows each side, no xz (it waits in
-    the next buffer's own rows), the polar sub-cycles' two buffers of 2
-    fields (the diffusion's, then the advection's) and 6 words a row (the
-    two sub-cycle coefficients and counts, the rows in order of each
-    count).  The state, the annual sums, K3's monthly means and the step's
-    winds stay in global memory.  Raises ValueError where the rows do not
+    runs one of the refined instantiation's strict forms of ``kind`` (one
+    of KINDS; the same for each): sequential splitting at an
+    extension-mode grid (``plan.seq_zonal``), else additive splitting
+    (csrc/year_kernel.cu ``strict_refined_parts``, the same reckoning;
+    ``STRICT_REFINED_PARTS`` order): two buffers of the 2 transported
+    fields with HALO rows each side, wz of both fields with HALO rows each
+    side, no xz (the sequential form's xz and the additive form's finished
+    diffusion sub-cycle wait in the next buffer's own rows), the polar
+    sub-cycles' two buffers of 2 fields (the diffusion's, then the
+    advection's) and 6 words a row (the two sub-cycle coefficients and
+    counts, the rows in order of each count; additive splitting 8, with
+    the coefficients of the rows without a sub-cycle).  The state, the
+    annual sums, K3's monthly means and the step's winds stay in global
+    memory.  Raises ValueError where the rows do not
     split evenly, a block would hold fewer rows than the halo depth, the
     row length is not a multiple of 4, or a block needs more than
     MAX_SMEM_BYTES."""
@@ -472,7 +491,7 @@ def strict_refined_layout(plan: StrictPlan, blocks: int,
                          f"block, under the meridional halo depth {HALO}")
     words = dict(transported=2 * 2 * (R + 2 * HALO) * X,
                  wz=2 * (R + 2 * HALO) * X, xz=0, subcycle=2 * 2 * R * X,
-                 rowc=-(-6 * R // 4) * 4)
+                 rowc=-(-(6 if plan.seq_zonal else 8) * R // 4) * 4)
     lay = ClusterLayout(
         blocks=blocks, rows=R, comp_rows=0,
         threads=min(MAX_THREADS, -(-2 * R * X // 32) * 32),
@@ -490,10 +509,22 @@ def is_refined(plan) -> bool:
     with sequential zonal splitting (an extension-mode grid), explicit
     polar segments, packed composites, or dense composites of which one
     pole row's two (X, X) matrices alone exceed a block's shared memory
-    (192x96); or the ``StrictPlan`` of an extension-mode grid (the strict
-    form)."""
+    (192x96); the ``StrictPlan`` of an extension-mode grid (the strict
+    form); a ``StrictPlan`` whose rows a cluster of DEFAULT_CLUSTER blocks
+    of the cluster body splits but whose block there does not hold the
+    largest kind, K3 (the strict additive form: from 224x112 to 352x176,
+    for all four kernels, as one grid's kernels run one instantiation;
+    where K1 alone would fit the cluster body, its pole block would
+    sub-cycle all its rows to the block's deepest count, and the strict
+    additive form runs each row to its own: PERF.md §6)."""
     if isinstance(plan, StrictPlan):
-        return plan.seq_zonal
+        if plan.seq_zonal:
+            return True
+        try:
+            lay = _cluster_parts(plan, DEFAULT_CLUSTER, KINDS[-1])
+        except ValueError:
+            return False
+        return lay.nbytes > MAX_SMEM_BYTES
     return bool(plan.seq_zonal or plan.diff_segs or plan.adv_segs
                 or plan.comp_mode == "packed"
                 or (plan.diff_composite
@@ -526,24 +557,24 @@ def check_plan(plan, kind: str, flags: int = 0) -> None:
     KINDS; "fluxcorr" and "scenario_years" are also the member kernels K4
     and K3) does not run with the flags word ``flags`` (every word runs;
     ``flags`` names the word in the message).  A fold of the refined
-    instantiation (``is_refined``: 384x192, 192x96) runs in one of its two
-    forms: sequential zonal splitting with packed composites or additive
-    splitting with dense ones (additive with packed:
-    REFINED_ITEMS["additive_packed"]; sequential with dense composites,
-    which ``make_plan`` never builds, raises ValueError), at a size
-    ``refined_layout`` holds on REFINED_CLUSTER_SIZES, sequential splitting
-    also on several such clusters (the wide form, ``refined_groups``;
-    else REFINED_ITEMS["layout"]).  A ``StrictPlan`` at an extension-mode
-    grid runs in its strict form where every row takes both polar
-    sub-cycles (as at every extension-mode grid the reference's polar
-    criterion gives; else REFINED_ITEMS["layout"]) and
-    ``strict_refined_layout`` holds it on one cluster of
+    instantiation (``is_refined``: 192x96 to 384x192, 768x384) runs in one
+    of its forms: sequential zonal splitting with packed composites, or
+    additive splitting with dense or packed ones (sequential with dense
+    composites, which ``make_plan`` never builds, raises ValueError), at a
+    size ``refined_layout`` holds on REFINED_CLUSTER_SIZES, sequential
+    splitting also on several such clusters (the wide form,
+    ``refined_groups``; else REFINED_ITEMS["layout"]).  A ``StrictPlan``
+    of the refined instantiation (``is_refined``) runs in a strict form
+    that ``strict_refined_layout`` holds on one cluster of
     REFINED_CLUSTER_SIZES (else, as at 768x384, REFINED_ITEMS["strict_wide"]:
-    the strict form has no wide variant).  The cluster body runs every
-    other fold and the strict transport at any other grid
+    the strict forms have no wide variant): at an extension-mode grid
+    where every row takes both polar sub-cycles (as at every
+    extension-mode grid the reference's polar criterion gives; else
+    REFINED_ITEMS["layout"]), else with additive splitting.  The cluster
+    body runs every other fold and the strict transport at any other grid
     (``check_supported`` checks its fit)."""
     if isinstance(plan, StrictPlan):
-        if not plan.seq_zonal:
+        if not is_refined(plan):
             return
         try:
             strict_refined_layout(plan, REFINED_CLUSTER_SIZES[0], kind)
@@ -554,7 +585,8 @@ def check_plan(plan, kind: str, flags: int = 0) -> None:
                 f"instantiation's strict form does not hold this grid on one "
                 f"cluster and has no wide form: {e} "
                 f"({REFINED_ITEMS['strict_wide']})") from None
-        if plan.sub_cycles is not None and min(map(min, plan.sub_cycles)) < 0:
+        if (plan.seq_zonal and plan.sub_cycles is not None
+                and min(map(min, plan.sub_cycles)) < 0):
             raise NotImplementedError(
                 f"{kind}: the strict transport (flags {flags:#x}) at an "
                 f"extension-mode grid with rows outside the polar "
@@ -566,10 +598,6 @@ def check_plan(plan, kind: str, flags: int = 0) -> None:
                          f"does not build")
     if not is_refined(plan):
         return
-    if not plan.seq_zonal and plan.comp_mode == "packed":
-        raise NotImplementedError(
-            f"{kind}: additive zonal splitting with packed composites "
-            f"({plan.xdim}x{plan.ydim}; {REFINED_ITEMS['additive_packed']})")
     try:
         refined_groups(plan, REFINED_CLUSTER_SIZES[0])
     except ValueError as e:
@@ -802,6 +830,13 @@ class _Refined(ctypes.Structure):
 REFINED_SUFFIXES = ("_refined", "_additive", "_refined_legacy",
                     "_additive_legacy", "_strict_refined", "_wide",
                     "_wide_legacy")
+# the refined forms whose entries build in csrc/band_kernel.cu, a library
+# of its own beside csrc/year_kernel.cu's (the two compile at once): the
+# grids between 192x96 and 384x192; their launchers (greb_*_band) number
+# the entries in the order of BAND_SUFFIXES (band_pick)
+BAND_FORMS = ("additive_packed", "strict_additive")
+BAND_SUFFIXES = ("_additive_packed", "_additive_packed_legacy",
+                 "_strict_additive")
 
 
 def refined_entry(kernel: str, plan, flags: int) -> str:
@@ -809,39 +844,72 @@ def refined_entry(kernel: str, plan, flags: int) -> str:
     "fluxcorr_year", "scenario_year", "fluxcorr_years", "scenario_years")
     runs for ``plan`` under the flags word ``flags`` (csrc/year_kernel.cu
     refined_pick): the fold's forms modern at word 0, legacy at any other
-    word with the fold, each on several clusters a run (``refined_groups``
-    above 1) in the wide form; the strict form for the strict transport or
-    none.  Raises ValueError for a word that no refined kernel runs in the
-    plan's form."""
+    word with the fold, the sequential one on several clusters a run
+    (``refined_groups`` above 1) in the wide form; the strict forms for the
+    strict transport or none.  Raises ValueError for a word that no refined
+    kernel runs in the plan's form."""
     bit = lambda name: bool(flags >> FLAGS.index(name) & 1)
     strict, off = bit("strict_transport"), bit("circulation_off")
     vapor = bit("vapor_circulation_off") or bit("vapor_diffusion_only")
     form = refined_form(plan)
+    strict_form = isinstance(plan, StrictPlan)
     if (flags >> len(FLAGS) or (strict and off) or (vapor and not strict)
-            or (form == "strict") != (strict or off)):
+            or strict_form != (strict or off)):
         raise ValueError(f"{kernel}: no refined kernel runs flags "
                          f"{flags:#x} in the {form} form")
-    if form != "strict" and refined_groups(plan) > 1:
-        k = 5 + (flags != 0)
+    if strict_form:
+        suffix = "_strict_refined" if form == "strict" else "_strict_additive"
+    elif refined_groups(plan) > 1:
+        suffix = "_wide"
     else:
-        k = (4 if form == "strict" else REFINED_FORMS.index(form)
-             + 2 * (flags != 0))
-    return kernel + REFINED_SUFFIXES[k]
+        suffix = dict(sequential="_refined").get(form, "_" + form)
+    return kernel + suffix + ("_legacy" if flags and not strict_form else "")
+
+
+def kernel_entry(kernel: str, plan, flags: int) -> str:
+    """The entry function that the refined launcher of ``kernel`` picks for
+    ``plan`` under the flags word ``flags``, asked of the built library
+    (csrc/year_kernel.cu refined_pick, csrc/band_kernel.cu band_pick for
+    BAND_FORMS), which ``refined_entry`` mirrors.  Raises ValueError where
+    the launcher runs none."""
+    g = _refined_struct(plan)
+    if refined_form(plan) in BAND_FORMS:
+        got = _band_lib().greb_band_pick(flags, g.form, g.groups)
+        suffixes = BAND_SUFFIXES
+    else:
+        got = _lib().greb_refined_pick(flags, g.form, g.groups)
+        suffixes = REFINED_SUFFIXES
+    if got < 0:
+        raise ValueError(f"{kernel}: the launcher runs no kernel for flags "
+                         f"{flags:#x} in the {refined_form(plan)} form")
+    return kernel + suffixes[got]
+
+
+def refined_launcher(fn_name: str, plan) -> str:
+    """The launcher of the refined instantiation of ``fn_name`` (a
+    launcher of the cluster body, e.g. "greb_fluxcorr_year") for
+    ``plan``: csrc/band_kernel.cu's for BAND_FORMS, else
+    csrc/year_kernel.cu's."""
+    return fn_name + ("_band" if refined_form(plan) in BAND_FORMS
+                      else "_refined")
 
 
 def refined_form(plan) -> str:
     """The form of the refined instantiation that runs ``plan`` (one of
     REFINED_FORMS)."""
     if isinstance(plan, StrictPlan):
-        return "strict"
-    return "sequential" if plan.seq_zonal else "additive"
+        return "strict" if plan.seq_zonal else "strict_additive"
+    if plan.seq_zonal:
+        return "sequential"
+    return "additive_packed" if plan.comp_mode == "packed" else "additive"
 
 
 def _refined_struct(plan, **ptrs) -> _Refined:
     """``_Refined`` of ``plan``'s segment tables, form and clusters a run
     (``refined_groups``), with ``ptrs``."""
     if isinstance(plan, StrictPlan):
-        return _Refined(form=REFINED_FORMS.index("strict"), groups=1, **ptrs)
+        return _Refined(form=REFINED_FORMS.index(refined_form(plan)),
+                        groups=1, **ptrs)
     g = _Refined(n_dseg=len(plan.diff_segs), n_aseg=len(plan.adv_segs),
                  form=REFINED_FORMS.index(refined_form(plan)),
                  groups=refined_groups(plan), **ptrs)
@@ -899,6 +967,26 @@ def _lib():
     return lib
 
 
+def _band_lib():
+    """csrc/band_kernel.cu's library (BAND_FORMS), built on first use."""
+    from . import build
+    lib = build.load("band_kernel")
+    for fn in (lib.greb_fluxcorr_year_band, lib.greb_scenario_year_band):
+        fn.argtypes = [_Args, _Params, _Refined, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.greb_fluxcorr_years_band, lib.greb_scenario_years_band):
+        fn.argtypes = [_Args, _Params, _PackCols, _Refined, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.greb_band_capacity.argtypes = [ctypes.c_int] * 6 + [
+        _Refined, ctypes.POINTER(ctypes.c_int)]
+    lib.greb_band_capacity.restype = ctypes.c_int
+    lib.greb_band_pick.argtypes = [ctypes.c_int] * 3
+    lib.greb_band_pick.restype = ctypes.c_int
+    return lib
+
+
 def kernel_cluster_layout(plan, blocks: int, kind: str):
     """The kernel's own reckoning of a cluster block (csrc/year_kernel.cu
     ``greb_cluster_layout``, built on first use): ({part: bytes}, threads),
@@ -940,11 +1028,12 @@ def cluster_capacity(plan, blocks: int, kind: str) -> int:
     lib = _lib()
     n = ctypes.c_int()
     if is_refined(plan):
-        err = lib.greb_refined_capacity(plan.ydim, plan.xdim, plan.comp_kt,
-                                        plan.comp_kb, blocks,
-                                        KINDS.index(kind),
-                                        _refined_struct(plan),
-                                        ctypes.byref(n))
+        capacity = (_band_lib().greb_band_capacity
+                    if refined_form(plan) in BAND_FORMS
+                    else lib.greb_refined_capacity)
+        err = capacity(plan.ydim, plan.xdim, plan.comp_kt, plan.comp_kb,
+                       blocks, KINDS.index(kind), _refined_struct(plan),
+                       ctypes.byref(n))
         if err:
             raise RuntimeError(f"refined cluster capacity at {blocks} "
                                f"blocks: {lib.greb_error_string(err).decode()}")
@@ -1126,17 +1215,18 @@ def _launch_year(fn_name: str, yd: YearData, state5: torch.Tensor,
         kind = "fluxcorr" if fn_name == "greb_fluxcorr_year" else "scenario"
         check_resident(g.groups, wide_capacity(yd, kind))
         scratch = _wide_args(g, 1, X, dev)
-    _launch(fn_name + "_refined", _args(yd, state5, **extra), params, dev,
-            g, ctypes.c_int(cluster))
+    _launch(refined_launcher(fn_name, yd.plan), _args(yd, state5, **extra),
+            params, dev, g, ctypes.c_int(cluster))
     del scratch     # held through the enqueue: g has only their pointers
 
 
 def _launch(fn_name: str, args: _Args, params: _Params, dev: torch.device,
             *extra) -> None:
     lib = _lib()
+    fn = getattr(_band_lib() if fn_name.endswith("_band") else lib, fn_name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(args, params, *extra, stream)
+        err = fn(args, params, *extra, stream)
     if err:
         raise RuntimeError(f"{fn_name}: CUDA error {err}: "
                            f"{lib.greb_error_string(err).decode()}")

@@ -37,7 +37,13 @@ blocks, a grid barrier each substep) equals its plain version: K1, K2
 from the initial state with zero corrections, modern and under log_exp
 11; K4 and K3 at M=2 (one member a launch), K3 with a table per member and
 one shared; K4 = K1 and K3 = K2 at M=1; and the kernel reckons its block as
-``refined_layout`` does on 6 clusters.
+``refined_layout`` does on 6 clusters.  At 256x128 (a 2-step calendar)
+the entries of csrc/band_kernel.cu equal their plain versions: the fold's
+additive packed form, modern and under log_exp 11, and the strict
+additive form (the strict circulation), K1, K2, K4 and K3 at M=2, K4 = K1
+and K3 = K2 at M=1; the kernel reckons both forms' blocks as Python does at
+every grid from 224x112 to 352x176, and its launchers pick the entries
+``refined_entry`` names.
 """
 import dataclasses
 
@@ -601,6 +607,123 @@ def test_wide_member_kernels_match_plain(grid768_model, shared):
     s2, _, a2 = yk.scenario_year(s0, zero, 680.0, yd)
     _equal(s3[:, 0], s2.stack(), "K3 = K2 state")
     _equal(a3[0, 0], a2, "K3 = K2 annual sums")
+
+
+# ---------------------------------------------------------------------------
+# the grids between 192x96 and 384x192: csrc/band_kernel.cu's additive
+# packed and strict additive forms, at 256x128
+# ---------------------------------------------------------------------------
+BAND = Numerics(xdim=256, ydim=128, dt_crcl=1800, ndays_yr=1, jday_mon=(1,),
+                time_flux=1, time_scnr=1)
+
+
+def _band(log_exp=None, fast=True):
+    arrs = regrid_forcing_arrays(make_synthetic_forcing(
+        96, 48, BAND.nstep_yr, BAND.ndays_yr), BAND)
+    return GREB(GrebConfig(numerics=BAND, fast_circulation=fast,
+                           experiment=Experiment(log_exp)),
+                forcing=forcing_from_arrays(arrs, "cuda"), verbose=False,
+                device="cuda")
+
+
+@pytest.mark.parametrize("case", ("fold", "log_exp 11", "strict"))
+def test_band_kernels_match_plain(case):
+    """K1 from the initial state and K2 from it with zero corrections (the
+    2-step calendar), K4 at M=2 and K3 at M=2 over two years from the
+    members' initial states with zero tables, bit for bit in each of the
+    three new entry sets; K4 = K1 and K3 = K2 at M=1; the launchers pick
+    the entries ``refined_entry`` names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
+    m = _band(11 if case == "log_exp 11" else None, case != "strict")
+    yd, s0 = m.year_data, m.initial_state()
+    suffix = dict(fold="_additive_packed", strict="_strict_additive").get(
+        case, "_additive_packed_legacy")
+    for kernel in ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                   "scenario_years"):
+        assert yk.refined_entry(kernel, yd.plan, yd.flags) == kernel + suffix
+        assert yk.kernel_entry(kernel, yd.plan, yd.flags) == kernel + suffix
+    s1, c1 = yk.fluxcorr_year(s0, 340.0, yd)
+    s_p, c_p = yk.fluxcorr_year_plain(s0, 340.0, yd)
+    _equal(s1.stack(), s_p.stack(), "K1 state")
+    for name in ("tf", "tof", "qf"):
+        _equal(getattr(c1, name), getattr(c_p, name), f"K1 {name}")
+    zero = Corrections.zeros(BAND.nstep_yr, BAND.ydim, BAND.xdim,
+                             device="cuda")
+    s2, o2, a2 = yk.scenario_year(s0, zero, 680.0, yd)
+    s_p, o_p, a_p = yk.scenario_year_plain(s0, zero, 680.0, yd)
+    assert torch.isfinite(s2.stack()).all()
+    _equal(s2.stack(), s_p.stack(), "K2 state")
+    _equal(o2, o_p, "K2 outs")
+    _equal(a2, a_p, "K2 annual sums")
+    members = ens.perturbed_params(m.params, {"ct_sens": [22.05, 22.95]})
+    pp = my.pack_member_params(members, "cuda")
+    s5 = ens.ensemble_initial_state(members, m.forcing)
+    s4, c4 = my.fluxcorr_years(s5, pp, 340.0, yd)
+    s4p, c4p = my.fluxcorr_years_plain(s5, pp, 340.0, yd)
+    assert not torch.equal(c4[0], c4[1])
+    _equal(s4, s4p, "K4 state")
+    _equal(c4, c4p, "K4 tables")
+    tab = torch.zeros((2, BAND.nstep_yr, 3, BAND.ydim, BAND.xdim),
+                      device="cuda")
+    co2 = np.full(2, 680.0, np.float32)
+    got = my.scenario_years(s5, pp, tab, co2, yd)
+    want = my.scenario_years_plain(s5, pp, tab, co2, yd)
+    for name, k, p in zip(("state", "monthly means", "annual sums"), got,
+                          want):
+        _equal(k, p, f"K3 {name}")
+    base = my.pack_member_params([m.params], "cuda")
+    s41, c41 = my.fluxcorr_years(s0.stack()[:, None], base, 340.0, yd)
+    _equal(s41[:, 0], s1.stack(), "K4 = K1 state")
+    _equal(c41[0], torch.stack([c1.tf, c1.tof, c1.qf], dim=1), "K4 = K1")
+    s31, _, a31 = my.scenario_years(s0.stack()[:, None], base, tab[:1],
+                                    co2[:1], yd)
+    _equal(s31[:, 0], s2.stack(), "K3 = K2 state")
+    _equal(a31[0, 0], a2, "K3 = K2 annual sums")
+
+
+@pytest.mark.parametrize("kind", yk.KINDS)
+def test_band_layouts_match_the_kernel(kind):
+    """The additive packed form's block (refined_layout) and the strict
+    additive form's (strict_refined_layout) at each grid of the band, as
+    the kernel reckons them, and a capacity of at least one cluster."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the layout is the built kernel's")
+    for xdim, ydim in ((224, 112), (256, 128), (288, 144), (320, 160),
+                       (352, 176)):
+        plan = dataclasses.replace(fc.make_plan(make_grid(xdim, ydim, 1800)),
+                                   comp_mode="packed")
+        for p in (plan, yk.StrictPlan(ydim, xdim)):
+            lay = yk.block_layout(p, yk.DEFAULT_CLUSTER, kind)
+            parts, threads = yk.kernel_cluster_layout(p, yk.DEFAULT_CLUSTER,
+                                                      kind)
+            assert parts == dict(lay.parts) and threads == lay.threads
+            assert yk.cluster_capacity(p, yk.DEFAULT_CLUSTER, kind) >= 1
+
+
+def test_band_launchers_pick_the_named_kernel():
+    """For every log_exp word (and the strict circulation's) in the two
+    forms, the launchers' pick (csrc/band_kernel.cu band_pick) is the
+    entry ``refined_entry`` names, or none where it raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the pick is the built library's")
+    plans = (dataclasses.replace(fc.make_plan(make_grid(256, 128, 1800)),
+                                 comp_mode="packed"),
+             yk.StrictPlan(128, 256))
+    words = {yk.experiment_flags(Experiment(e), e in (7, 8, 16))
+             for e in range(17)} | {0, yk.experiment_flags(Experiment(),
+                                                           True)}
+    for plan in plans:
+        for flags in words:
+            try:
+                want = yk.refined_entry("fluxcorr_year", plan, flags)
+            except ValueError:
+                want = None
+            try:
+                got = yk.kernel_entry("fluxcorr_year", plan, flags)
+            except ValueError:
+                got = None
+            assert got == want, (plan, hex(flags))
 
 
 # ---------------------------------------------------------------------------
