@@ -5,7 +5,13 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from greb_tpu_torch/csrc/ (nvcc, sm_90a) into
-   greb_tpu_torch/_build/ and prints the build time;
+   greb_tpu_torch/_build/ and prints the build time, each source's own
+   and what was made meanwhile for later phases with no kernel of this
+   package (_prebuild: the full-calendar forcing of 384x192, 192x96 and
+   256x128 regridded, step 18's short-calendar 768x384 model and its fold;
+   in a process of its own, this script with --plain-strict PATH, step
+   21's plain sharded strict years), then the ptxas registers and spills
+   of every year, band and slab entry;
    and holds the kernel's own reckoning of a cluster block's shared
    memory against ops/cuda/year_kernel.cluster_layout for each kind at
    each size it offers, with how many such clusters the card runs at once;
@@ -186,11 +192,13 @@
    log_exp 11, each bitwise against its plain version (eager) and finite;
    config 5's long run there (run_long in K3 blocks of G768_BLOCK years, a
    checkpoint after each) stopped at G768_STOP and resumed in a fresh
-   process (this script with --resume-long768 DIR): final state and output
-   file bitwise equal; on a 10-step calendar (where a scenario year after
-   a spin-up stays finite) K1 and then K2 from K1's end with K1's tables,
-   bitwise and finite, and the CLI's --ensemble G768_ENS_M (1 + 1: launch
-   counts, the members' files read back finite);
+   process (this script with --resume-long768 DIR, which reads the fold
+   the first process left in the temp directory and runs beside the next
+   checks): final state and output file bitwise equal; on a 10-step
+   calendar (where a scenario year after a spin-up stays finite) K1 and
+   then K2 from K1's end with K1's tables, bitwise and finite, and the
+   CLI's --ensemble G768_ENS_M (1 + 1: launch counts, the members' files
+   read back finite);
    the strict circulation refused before any launch
    (ROADMAP Queue 1 item 3h); then GREB.run at 768x384, 1 + 1 years on the
    full calendar (the regrid and the model build timed apart; launch
@@ -209,7 +217,8 @@
    launch timed (a graph of 50 launches of it on each shard) and its
    plain version's on one shard, 2 members (ct_sens) x 2 shards against
    K4 -> K3 at M=2, and two processes sharing the card over gloo (this
-   script with --shard-worker RANK PORT PATH) against one process; on 10
+   script with --shard-worker RANK PORT PATH, which then runs step 21's
+   strict transport on 10 steps) against one process; on 10
    steps from the initial state the 4-shard path against its plain sharded
    version (each shard's plain step in a thread, eager: host-bound);
    384x192 and 192x96 on 4 shards against K1 -> K2 on 20 steps and the
@@ -246,7 +255,22 @@
    in one K3 block and the CLI's --ensemble G256_SHARED_M --shared-spinup
    (the members' files), and GREB.run under GrebConfig's default (the
    strict circulation) the same way;
-21. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+21. every word and the band grids on a CUDA mesh (the slab kernels'
+   strict forms slab_strict<FORM>, slab_start_strict, slab_finish<legacy>
+   and the additive packed form slab_substep<additive_packed>), each run
+   bitwise and finite against the unsharded kernels in the same word: at
+   96x48 the library default (the strict circulation) on the full
+   calendar on 2 and 4 shards against K1 -> K2 (the 4-shard path timed
+   on its second run, sim-yr/s beside the fold's, its launches counted by
+   entry), against its plain sharded version on 10 steps (eager, made
+   during the build) and two gloo processes (step 19's) against one, 2
+   members x 2 shards against K4 -> K3 at M=2 on 20 steps; log_exp 11, 8,
+   16 and 2 on 2 shards on 20 steps; 256x128 on 4 shards under the fold
+   (step 20's 20-step model) and the strict circulation (its 2-step
+   model); 384x192 strict on 4 shards (step 17's 2-step model); each new
+   entry's launch timed on each shard (a CUDA graph of 50 launches), its
+   plain version on the pole shard, its bound;
+22. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
    ms and bound, for all four the refined and the 192x96 launch's, the
    legacy fold words' and the strict 384x192 modes' launches, plain
@@ -255,8 +279,8 @@
    bounds, the entries of the grids between 192x96 and 384x192 with their
    modes, their 256x128 launches, plain versions and bounds, and each
    kernel's launches on every path; the three slab
-   entries with their 768x384 launches) and, last,
-   {"ok": true, "device": {...}}.
+   entries with their 768x384 launches, and step 21's six entries) and,
+   last, {"ok": true, "device": {...}}.
 
 Each phase prints its wall time ("phase ...: s wall"), and the run its
 total before the JSON lines.
@@ -608,11 +632,20 @@ class _SharedFolds:
     both fields, grid, stencil statics, kappa, device): models of one grid
     and topography on other calendars or words share it, read-only,
     instead of each repeating its float64 SVDs (~13 s at 768x384 on the
-    card's host)."""
+    card's host).  ``cache_dir`` (the smoke's temp directory): the folds
+    also go to, and are read from, files there, for the smoke's fresh
+    processes.  The key is the inputs' content (hashed): the grid's dims,
+    dt_crcl and the winds of the calendar, and wz, which the topography of
+    the forcing's seed and log_exp gives."""
+
+    def __init__(self, cache_dir=None):
+        self.cache_dir = cache_dir
 
     def start(self):
         import hashlib
         import pickle
+
+        import torch
         from greb_tpu_torch.ops import fastcirc2
         self.mod, self.build, self.folds = fastcirc2, fastcirc2.build_const, {}
 
@@ -621,9 +654,17 @@ class _SharedFolds:
             key = hashlib.sha256(pickle.dumps(
                 (wz_air, wz_vapor, grid, st, float(kappa), str(device),
                  plan))).hexdigest()
-            if key not in self.folds:
+            if key in self.folds:
+                return self.folds[key]
+            path = (os.path.join(self.cache_dir, f"fold-{key}.pt")
+                    if self.cache_dir else None)
+            if path and os.path.exists(path):
+                self.folds[key] = torch.load(path, weights_only=False)
+            else:
                 self.folds[key] = self.build(wz_air, wz_vapor, grid, st,
                                              kappa, device=device, plan=plan)
+                if path:
+                    torch.save(self.folds[key], path)
             return self.folds[key]
 
         fastcirc2.build_const = shared
@@ -1217,25 +1258,83 @@ def _strict_phase(tmp, reset_counts, read_counts):
                 work=work, launches=launches)
 
 
-def _refined_model(num, out_path=None, verbose=False, fast=True,
-                   log_exp=None):
-    """GREB at a refined grid on the card, on forcing regridded by the
-    port's regrid.py from the 96x48 synthetic forcing of num's calendar,
-    with the fold (``fast``), the strict circulation (``fast`` False) or
-    the library's default (``fast`` None: the strict circulation), and the
-    switchboard at ``log_exp``; (model, seconds of the regrid)."""
+# the forcing a process has regridded, by grid, calendar and source (the
+# 96x48 synthetic forcing, which has no seed: the same arrays every run),
+# shared read-only by the models of one grid and calendar
+_REGRIDDED = {}
+
+
+def _regridded(num, fresh=False):
+    """(The 96x48 synthetic forcing of num's calendar regridded to num's
+    grid by the port's regrid.py, seconds): from _REGRIDDED where this
+    process made it before (~6 s for 384x192's full calendar on the card's
+    host), unless ``fresh`` (a path whose set-up is timed from scratch),
+    and kept there for the next model."""
     import numpy as np
-    from greb_tpu_torch.config import Diagnostics, Experiment, GrebConfig
-    from greb_tpu_torch.forcing import forcing_from_arrays
     from greb_tpu_torch.io.synthetic import make_synthetic_forcing
-    from greb_tpu_torch.model.driver import GREB
     from greb_tpu_torch.regrid import regrid_forcing_arrays
     t0 = time.perf_counter()
-    arrs = regrid_forcing_arrays(
-        make_synthetic_forcing(96, 48, num.nstep_yr, num.ndays_yr), num)
-    regrid_s = time.perf_counter() - t0
-    if not all(np.isfinite(a).all() for a in arrs.values()):
-        raise AssertionError("regridded forcing not finite")
+    key = (num.xdim, num.ydim, num.nstep_yr, num.ndays_yr, num.jday_mon,
+           "synthetic 96x48")
+    arrs = None if fresh else _REGRIDDED.get(key)
+    if arrs is None:
+        arrs = regrid_forcing_arrays(
+            make_synthetic_forcing(96, 48, num.nstep_yr, num.ndays_yr), num)
+        if not all(np.isfinite(a).all() for a in arrs.values()):
+            raise AssertionError("regridded forcing not finite")
+        if not fresh:
+            _REGRIDDED[key] = arrs
+    return arrs, time.perf_counter() - t0
+
+
+def _prebuild(tmp):
+    """What later phases use and no kernel of this package computes, made
+    while the kernels build: the full-calendar forcing of the paths at
+    384x192, 192x96 and 256x128 regridded into _REGRIDDED, and step 18's
+    short-calendar 768x384 model (its fold's float64 SVDs; the fold left in
+    ``tmp`` for step 18's fresh process).  Returns ({what: seconds}, step
+    18's _grid768_model result)."""
+    from greb_tpu_torch.config import Numerics
+    took = {}
+    for grid in (REFINED_GRID, G192_GRID, G256_GRID):
+        num = Numerics(**grid)
+        took[f"regrid {num.xdim}x{num.ydim}"] = _regridded(num)[1]
+    with _SharedFolds(cache_dir=tmp):
+        m768 = _grid768_model(Numerics(**G768_GRID, **G768_SHORT))
+    took["768x384 short model"] = sum(m768[1:])
+    return took, m768
+
+
+def _plain_strict(path) -> int:
+    """The plain sharded strict years that step 21 holds the slab kernels
+    against, in a process of its own while the kernels build (no kernel of
+    this package runs): the library default at 96x48 on SHARD_PATH_NY
+    shards of the card, SHARD_PLAIN_96's 10 steps from the initial state
+    (eager, each shard's plain step in a thread: host-bound), saved to
+    ``path``.  ``python3 chip_smoke.py --plain-strict PATH``."""
+    import torch
+    from greb_tpu_torch.config import GrebConfig, Numerics
+    from greb_tpu_torch.model.driver import GREB
+    m10 = GREB(GrebConfig(numerics=Numerics(**SHARD_PLAIN_96)),
+               device="cuda", verbose=False)
+    res, secs, n = _sharded_run(m10, SHARD_PATH_NY, plain=True, from0=True)
+    torch.save(res, path)
+    print(json.dumps({"s": secs, "launches": n}))
+    return 0
+
+
+def _refined_model(num, out_path=None, verbose=False, fast=True,
+                   log_exp=None, fresh=False):
+    """GREB at a refined grid on the card, on forcing regridded by the
+    port's regrid.py from the 96x48 synthetic forcing of num's calendar
+    (``_regridded``; ``fresh``: made anew), with the fold (``fast``), the
+    strict circulation (``fast`` False) or the library's default (``fast``
+    None: the strict circulation), and the switchboard at ``log_exp``;
+    (model, seconds of the regrid)."""
+    from greb_tpu_torch.config import Diagnostics, Experiment, GrebConfig
+    from greb_tpu_torch.forcing import forcing_from_arrays
+    from greb_tpu_torch.model.driver import GREB
+    arrs, regrid_s = _regridded(num, fresh)
     diag = Diagnostics(output_file=out_path) if out_path else Diagnostics()
     kw = {} if fast is None else dict(fast_circulation=fast)
     model = GREB(GrebConfig(numerics=num, diagnostics=diag,
@@ -1446,7 +1545,7 @@ def _refined_member_paths(model, tmp, state, monthly, corr, reset_counts,
 
 
 def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
-                  fast=True):
+                  fast=True, fresh=False):
     """GREB.run at a grid of the refined instantiation (``grid``) on the
     full calendar for ``years`` (spin-up, scenario), with the fold or the
     strict circulation (``fast``, as ``_refined_model``), its output in
@@ -1454,6 +1553,7 @@ def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
     finiteness of state, tables and monthly means, the output file read
     back, the warming under 680 ppm (over two scenario years or more).
     Returns (model, state, corr, monthly, launches, sim-yr/s, timing):
+    ``fresh``: the forcing regridded anew, not from _REGRIDDED.
     timing holds the ms of the path's own K1 and K2 launches (CUDA events
     around each, _TimedLaunches), the spin-up's end state, and the
     seconds of the forcing's regrid and of the model's build."""
@@ -1466,7 +1566,8 @@ def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
     out = os.path.join(tmp, tag, "scenario")
     os.makedirs(os.path.dirname(out))
     t0 = time.perf_counter()
-    model, regrid_s = _refined_model(num, out, verbose=True, fast=fast)
+    model, regrid_s = _refined_model(num, out, verbose=True, fast=fast,
+                                     fresh=fresh)
     build_s = time.perf_counter() - t0 - regrid_s
     spin = model.flux_correction
     kept = []
@@ -2229,7 +2330,10 @@ def _strict_refined_phase(tmp, reset_counts, read_counts):
               f"{time.perf_counter() - t0:.1f} s")
         # the graphs stay for the next modes: the strict circulation's (2,
         # Y, X) call, log_exp 7's and 16's Ta and log_exp 8's Ta share the
-        # advection graph of one field (a capture ~19 s on an H100)
+        # advection graph of one field (a capture ~19 s on an H100); step 21
+        # shards the strict circulation's model
+        if e is None:
+            out["short_model"] = m
         del m, yd, k1, k2
         gc.collect()
         torch.cuda.empty_cache()
@@ -2285,7 +2389,8 @@ def _grid768_runner(model, tmp, tag):
 
 def _resume_long768(tmp: str) -> int:
     """The fresh process of step 18: rebuild the 768x384 model on the
-    short calendar, resume config 5's stopped long run from its newest
+    short calendar (its fold read from the one the first process left in
+    ``tmp``), resume config 5's stopped long run from its newest
     checkpoint and run it to G768_LONG years."""
     t0 = time.perf_counter()
     import numpy as np
@@ -2293,7 +2398,8 @@ def _resume_long768(tmp: str) -> int:
     from greb_tpu_torch.config import Numerics
     from greb_tpu_torch.model import longrun
     from greb_tpu_torch.ops.cuda import multiyear as my
-    model, _, _ = _grid768_model(Numerics(**G768_GRID, **G768_SHORT))
+    with _SharedFolds(cache_dir=tmp):
+        model, _, _ = _grid768_model(Numerics(**G768_GRID, **G768_SHORT))
     ck, runner = _grid768_runner(model, tmp, "resumed")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2308,11 +2414,13 @@ def _resume_long768(tmp: str) -> int:
     return 0
 
 
-def _grid768_phase(tmp, reset_counts, read_counts):
+def _grid768_phase(tmp, reset_counts, read_counts, prebuilt=None):
     """Step 18: 768x384 at dt_crcl=450 (config 5) in the refined
-    instantiation's wide form, and the paths through it.  Returns the worst
-    max |diff| per kernel, the short-calendar launches and plain versions,
-    the full-calendar launches, their work, and each path's launches."""
+    instantiation's wide form, and the paths through it (``prebuilt``:
+    the short-calendar model as _grid768_model returned it, made during
+    the build).  Returns the worst max |diff| per kernel, the
+    short-calendar launches and plain versions, the full-calendar
+    launches, their work, and each path's launches."""
     import gc
     import subprocess
 
@@ -2331,8 +2439,8 @@ def _grid768_phase(tmp, reset_counts, read_counts):
     short = Numerics(**G768_GRID, **G768_SHORT)
     # the short-calendar models (modern, log_exp 11, the ensemble's 10
     # steps) share one fold; the path's model builds its own, timed
-    folds = _SharedFolds().start()
-    m, regrid_s, build_s = _grid768_model(short)
+    folds = _SharedFolds(cache_dir=tmp).start()
+    m, regrid_s, build_s = prebuilt or _grid768_model(short)
     yd, plan = m.year_data, m.fold[0]
     n = short.nstep_yr
     groups = yk.refined_groups(plan)
@@ -2342,7 +2450,8 @@ def _grid768_phase(tmp, reset_counts, read_counts):
     print(f"grid768 {short.xdim}x{short.ydim}: {n}-step calendar, "
           f"{short.nsub_crcl} substeps, plan {plan}; {len(ranks)} composite "
           f"rows, ranks {int(ranks.min())}..{int(ranks.max())}, Rtot "
-          f"{int(ranks.sum())}; regrid {regrid_s:.2f} s, build {build_s:.2f} s")
+          f"{int(ranks.sum())}; regrid {regrid_s:.2f} s, build {build_s:.2f} s"
+          + (" (on the host while the kernels built)" if prebuilt else ""))
 
     # -- the wide block's shared memory: the kernel's own reckoning against
     #    refined_layout on `groups` clusters, and how many clusters fit
@@ -2470,64 +2579,82 @@ def _grid768_phase(tmp, reset_counts, read_counts):
                      checkpointer=ck_res, chunk_years=G768_BLOCK)
     run_res.close()
     torch.cuda.synchronize()
+    # the fresh process runs while this one makes the 10-step model and
+    # holds its K1 and K2 against their plain versions (no timing there)
     t1 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--resume-long768", tmp],
-        capture_output=True, text=True, timeout=600)
-    wall_resume = time.perf_counter() - t1
-    if proc.returncode != 0:
-        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-        raise AssertionError(f"768x384 resume exited {proc.returncode}")
-    child = json.loads(proc.stdout.strip().splitlines()[-1])
-    if child["start"] != G768_STOP:
-        raise AssertionError(f"768x384 resumed at {child['start']}")
-    s_res, _, cursor = type(ck_res)(ck_res.dir).restore(device="cuda")
-    if cursor.year_index != G768_LONG:
-        raise AssertionError(f"768x384 last checkpoint {cursor.year_index}")
-    _bitwise("grid768 resumed vs uninterrupted", [
-        (f"state {k}", getattr(s_res, k), getattr(s_full, k))
-        for k in ModelState.FIELDS], quiet=True)
-    with open(os.path.join(tmp, "long768_full"), "rb") as f, \
-            open(os.path.join(tmp, "long768_resumed"), "rb") as g:
-        full_bytes = f.read()
-        if full_bytes != g.read():
-            raise AssertionError("768x384 resumed output file differs")
-    print(f"grid768 long run ({G768_LONG} years in K3 blocks of {G768_BLOCK},"
-          f" checkpoints every {G768_BLOCK}, {n}-step calendar): stopped at "
-          f"{G768_STOP}, resumed in a fresh process ({wall_resume:.1f} s wall:"
-          f" set-up {child['setup_s']:.1f} s, years {child['start']}.."
-          f"{G768_LONG} {child['run_s']:.3f} s, "
-          f"{child['scenario_years_launches']} K3 launches); final state and "
-          f"output file ({len(full_bytes)} B) bitwise equal; "
-          f"{time.perf_counter() - t0:.1f} s")
-    # step 19 shards this short-calendar model and its fold
-    out["short_model"] = m
-    del m, yd, k1, k2, s0, zero, s_full, s_res
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def resumed():
+        try:
+            o, e = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        wall_resume = time.perf_counter() - t1
+        if proc.returncode != 0:
+            print(o[-4000:], e[-4000:], file=sys.stderr)
+            raise AssertionError(f"768x384 resume exited {proc.returncode}")
+        child = json.loads(o.strip().splitlines()[-1])
+        if child["start"] != G768_STOP:
+            raise AssertionError(f"768x384 resumed at {child['start']}")
+        s_res, _, cursor = type(ck_res)(ck_res.dir).restore(device="cuda")
+        if cursor.year_index != G768_LONG:
+            raise AssertionError(f"768x384 last checkpoint "
+                                 f"{cursor.year_index}")
+        _bitwise("grid768 resumed vs uninterrupted", [
+            (f"state {k}", getattr(s_res, k), getattr(s_full, k))
+            for k in ModelState.FIELDS], quiet=True)
+        with open(os.path.join(tmp, "long768_full"), "rb") as f, \
+                open(os.path.join(tmp, "long768_resumed"), "rb") as g:
+            full_bytes = f.read()
+            if full_bytes != g.read():
+                raise AssertionError("768x384 resumed output file differs")
+        print(f"grid768 long run ({G768_LONG} years in K3 blocks of "
+              f"{G768_BLOCK}, checkpoints every {G768_BLOCK}, {n}-step "
+              f"calendar): stopped at {G768_STOP}, resumed in a fresh process"
+              f" ({wall_resume:.1f} s wall, beside the 10-step checks: set-up "
+              f"{child['setup_s']:.1f} s, years {child['start']}..{G768_LONG} "
+              f"{child['run_s']:.3f} s, {child['scenario_years_launches']} K3 "
+              f"launches); final state and output file ({len(full_bytes)} B) "
+              f"bitwise equal; {time.perf_counter() - t0:.1f} s")
+
+    try:
+        # step 19 shards this short-calendar model and its fold
+        out["short_model"] = m
+        del m, yd, k1, k2, s0, zero
+
+        # -- the CLI's --ensemble G768_ENS_M on G768_ENS's calendar: a
+        #    spin-up each (K4), then K3, as many members a launch as the
+        #    card holds
+        M, enum = G768_ENS_M, Numerics(**G768_GRID, **G768_ENS)
+        me, _, _ = _grid768_model(enum)
+        # -- first, on this calendar (where a scenario year after a spin-up
+        #    stays finite): K1 from the initial state, then K2 from K1's end
+        #    with K1's tables, each bitwise and finite against its plain
+        #    version (eager)
+        ye, ne = me.year_data, enum.nstep_yr
+        s0e = me.initial_state()
+        k1e = yk.fluxcorr_year(s0e, co2f, ye)
+        k2e = yk.scenario_year(k1e[0], k1e[1], co2s, ye)
+        _finite("grid768 K1 (10 steps)", [("state", k1e[0].stack()),
+                                          ("tf", k1e[1].tf)])
+        _finite("grid768 K2 after K1 (10 steps)",
+                [("state", k2e[0].stack()), ("outs", k2e[1])])
+        err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
+            f"K1 grid768, {ne} steps", s0e, co2f, ye, k1e))
+        err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
+            f"K2 grid768 from K1's end with K1's tables, {ne} steps",
+            k1e[0], k1e[1], co2s, ye, k2e))
+        del s0e, k1e, k2e
+        resumed()
+    finally:
+        if proc.poll() is None:   # a check above failed
+            proc.kill()
+    del s_full
     gc.collect()
     torch.cuda.empty_cache()
-
-    # -- the CLI's --ensemble G768_ENS_M on G768_ENS's calendar: a spin-up
-    #    each (K4), then K3, as many members a launch as the card holds
-    M, enum = G768_ENS_M, Numerics(**G768_GRID, **G768_ENS)
-    me, _, _ = _grid768_model(enum)
-    # -- first, on this calendar (where a scenario year after a spin-up
-    #    stays finite): K1 from the initial state, then K2 from K1's end
-    #    with K1's tables, each bitwise and finite against its plain
-    #    version (eager)
-    ye, ne = me.year_data, enum.nstep_yr
-    s0e = me.initial_state()
-    k1e = yk.fluxcorr_year(s0e, co2f, ye)
-    k2e = yk.scenario_year(k1e[0], k1e[1], co2s, ye)
-    _finite("grid768 K1 (10 steps)", [("state", k1e[0].stack()),
-                                      ("tf", k1e[1].tf)])
-    _finite("grid768 K2 after K1 (10 steps)", [("state", k2e[0].stack()),
-                                               ("outs", k2e[1])])
-    err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
-        f"K1 grid768, {ne} steps", s0e, co2f, ye, k1e))
-    err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
-        f"K2 grid768 from K1's end with K1's tables, {ne} steps", k1e[0],
-        k1e[1], co2s, ye, k2e))
-    del s0e, k1e, k2e
     path = os.path.join(tmp, "ensemble768", "member")
     os.makedirs(os.path.dirname(path))
     args = cli.build_parser().parse_args(["--ensemble", str(M), "--quiet"])
@@ -2577,7 +2704,8 @@ def _grid768_phase(tmp, reset_counts, read_counts):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     model, state, corr, monthly, launches, rate, timing = _refined_path(
-        "grid768", tmp, G768_GRID, G768_YEARS, reset_counts, read_counts)
+        "grid768", tmp, G768_GRID, G768_YEARS, reset_counts, read_counts,
+        fresh=True)
     out["peak"] = torch.cuda.max_memory_allocated()
     out["launches_path"], out["path_rate"] = launches, rate
     out["setup_s"] = (timing["regrid_s"], timing["build_s"])
@@ -2651,6 +2779,14 @@ def _slab_launches():
                                    slab.finish.launches)))
 
 
+def _slab_entry_launches():
+    """The slab launches by kernel entry (slab.SlabShard.entry) since the last
+    reset."""
+    from greb_tpu_torch.ops.cuda import slab
+    return {e: n for fn in (slab.start, slab.substep, slab.finish)
+            for e, n in fn.entries.items()}
+
+
 def _sharded_run(model, n_y, plain=False, members=None, n_ens=1,
                  from0=False, mesh=None, graphs=True, repeat=1,
                  scenario=True):
@@ -2670,9 +2806,11 @@ def _sharded_run(model, n_y, plain=False, members=None, n_ens=1,
     from greb_tpu_torch.parallel import ensemble as ens
     from greb_tpu_torch.parallel import sharded as sh
     mesh = mesh if mesh is not None else sh.make_mesh(n_ens, n_y)
-    splan, sconst = fc2.build_sharded(None, None, model.grid, model.st, 0,
-                                      mesh.n_y, fold=model.fold)
-    fcc = sh.shard_fastcirc(mesh, sconst)
+    splan = fcc = None
+    if model.fold is not None:
+        splan, sconst = fc2.build_sharded(None, None, model.grid, model.st,
+                                          0, mesh.n_y, fold=model.fold)
+        fcc = sh.shard_fastcirc(mesh, sconst)
     make = sh.make_plain_year_runners if plain else \
         sh.make_sharded_year_runners
     batched = members is not None
@@ -2691,7 +2829,7 @@ def _sharded_run(model, n_y, plain=False, members=None, n_ens=1,
     from greb_tpu_torch.ops.cuda import slab
     for _ in range(repeat):
         # the slab counts from 0 just before the path, read just after
-        slab.start.launches = slab.substep.launches = slab.finish.launches = 0
+        slab.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s1, c1 = flux(st_s, sfx_s, co2, md_s, fcc)
@@ -2757,23 +2895,25 @@ def _years_pairs(got, want, mon=True):
 
 
 def _slab_ms(model, n_y, reps=50):
-    """ms of one launch of each slab entry on each shard of ``model`` on
+    """ms of one launch of each slab wrapper on each shard of ``model`` on
     n_y shards of the card: ``reps`` launches of the entry on the shard
     captured in a CUDA graph, the graph replayed once, then timed by CUDA
     events around a replay (the card's time, not the host's launches):
-    {entry: [ms of shard 0, 1, ...]}.  On a runner of its own, after a
-    spin-up year: the timing launches change its state, and count no
-    launch of a path (a capture launches nothing, the replays are not
-    counted)."""
+    {entry (the kernel the wrapper launches there, SlabShard.entry): {shard:
+    ms}}.  On a runner of its own, after a spin-up year: the timing
+    launches change its state, and count no launch of a path (a capture
+    launches nothing, the replays are not counted)."""
     import numpy as np
     import torch
     from greb_tpu_torch.ops import fastcirc2 as fc2
     from greb_tpu_torch.ops.cuda import slab
     from greb_tpu_torch.parallel import sharded as sh
     mesh = sh.make_mesh(1, n_y)
-    splan, sconst = fc2.build_sharded(None, None, model.grid, model.st, 0,
-                                      n_y, fold=model.fold)
-    fcc = sh.shard_fastcirc(mesh, sconst)
+    splan = fcc = None
+    if model.fold is not None:
+        splan, sconst = fc2.build_sharded(None, None, model.grid, model.st,
+                                          0, n_y, fold=model.fold)
+        fcc = sh.shard_fastcirc(mesh, sconst)
     flux, _ = sh.make_sharded_year_runners(mesh, model.st, model.num,
                                            model.exp, model.month_mat,
                                            fast_plan=splan)
@@ -2787,8 +2927,7 @@ def _slab_ms(model, n_y, reps=50):
               "slab_substep": lambda s: slab.substep(s, 0, False),
               "slab_finish": lambda s: slab.finish(s, "fluxcorr", 0, False)}
     out = {}
-    for entry, fn in launch.items():
-        out[entry] = []
+    for wrapper, fn in launch.items():
         for k in sorted(runner.shards):
             shard = runner.shards[k]
             g = torch.cuda.CUDAGraph()
@@ -2796,9 +2935,17 @@ def _slab_ms(model, n_y, reps=50):
                 for _ in range(reps):
                     fn(shard)
             g.replay()
-            out[entry].append(_time_ms(g.replay, 3)[0] / reps)
+            out.setdefault(shard.entry(wrapper.split("_")[1]), {})[k[1]] = \
+                _time_ms(g.replay, 3)[0] / reps
             del g
     return out
+
+
+def _slab_wrapper_ms(model, n_y, reps=50):
+    """_slab_ms of the fold's entries by wrapper (SLAB_ENTRIES): {wrapper:
+    [ms of shard 0, 1, ...]}."""
+    return {e.split("<")[0]: [v[k] for k in sorted(v)]
+            for e, v in _slab_ms(model, n_y, reps).items()}
 
 
 def _slab_plain_ms(model, n_y, shard=1):
@@ -2845,10 +2992,13 @@ def _slab_plain_ms(model, n_y, shard=1):
 
 def _shard_worker(argv) -> int:
     """One of SHARD_PROCS processes sharing the card over gloo: its shards
-    of step 19's 96x48 mesh in the slab kernels (the exchange across the
-    processes through pinned host memory); rank 0 saves the gathered
-    years to ``argv[2]``.  ``python3 chip_smoke.py --shard-worker RANK
-    PORT PATH``."""
+    of a 96x48 mesh of SHARD_PATH_NY shards in the slab kernels (the
+    exchange across the processes through pinned host memory), first under
+    the fold on SHARD_SHORT's calendar (step 19), then under the strict
+    transport, the library default, on SHARD_PLAIN_96's from the initial
+    state (the scenario with zero tables; step 21); rank 0
+    saves the gathered years to ``argv[2]`` and ``argv[2]`` + ".strict".
+    ``python3 chip_smoke.py --shard-worker RANK PORT PATH``."""
     import torch
     from greb_tpu_torch.config import GrebConfig, Numerics
     from greb_tpu_torch.model.driver import GREB
@@ -2857,17 +3007,50 @@ def _shard_worker(argv) -> int:
     mh.initialize(f"localhost:{port}", SHARD_PROCS, rank, backend="gloo")
     try:
         mesh = mh.global_mesh(1, SHARD_PATH_NY, local_devices=["cuda"])
-        model = GREB(GrebConfig(numerics=Numerics(**SHARD_SHORT),
-                                fast_circulation=True), device="cuda",
-                     verbose=False)
-        res, secs, n = _sharded_run(model, SHARD_PATH_NY, mesh=mesh)
-        if rank == 0:
-            torch.save(res, path)
-        print(json.dumps({"rank": rank, "shards": mesh.local(), "s": secs,
-                          "launches": n}))
+        runs = {}
+        for tag, cal, fast in (("fold", SHARD_SHORT, True),
+                               ("strict", SHARD_PLAIN_96, False)):
+            model = GREB(GrebConfig(numerics=Numerics(**cal),
+                                    fast_circulation=fast), device="cuda",
+                         verbose=False)
+            res, secs, n = _sharded_run(model, SHARD_PATH_NY, mesh=mesh,
+                                        from0=tag == "strict")
+            if rank == 0:
+                torch.save(res, path + (".strict" if tag == "strict" else ""))
+            runs[tag] = {"s": secs, "launches": n}
+        print(json.dumps({"rank": rank, "shards": mesh.local(), **runs}))
     finally:
         mh.shutdown()
     return 0
+
+
+def _shard_workers(tmp):
+    """SHARD_PROCS processes of _shard_worker sharing the card: (the path
+    rank 0 saved the years to, each process's JSON line, wall seconds)."""
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    path = os.path.join(tmp, "shard_worker.pt")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-worker",
+         str(r), str(port), path], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for r in range(SHARD_PROCS)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (o, e) in zip(procs, res):
+        if p.returncode != 0:
+            print(o[-4000:], e[-4000:], file=sys.stderr)
+            raise AssertionError(f"shard worker exited {p.returncode}")
+    child = [json.loads(o.strip().splitlines()[-1]) for o, _ in res]
+    return path, child, time.perf_counter() - t0
 
 
 def _sharded_phase(tmp, model, m768):
@@ -2877,8 +3060,6 @@ def _sharded_phase(tmp, model, m768):
     members x 2 shards against K4 -> K3; two processes against one), 384x192
     and 192x96 on 20 steps, 768x384 (step 18's short model and fold) on
     2 steps; each entry's launch timed and its plain version's."""
-    import socket
-
     import numpy as np
     import torch
     from greb_tpu_torch.config import GrebConfig, Numerics
@@ -2944,7 +3125,7 @@ def _sharded_phase(tmp, model, m768):
     got4, _, _ = _sharded_run(short, SHARD_PATH_NY)
     got, secs_eager, _ = _sharded_run(short, SHARD_PATH_NY, graphs=False)
     check("96x48 eager vs graphed (20 steps)", _years_pairs(got, got4))
-    ms = _slab_ms(short, SHARD_PATH_NY)
+    ms = _slab_wrapper_ms(short, SHARD_PATH_NY)
     out["ms"] = {e: _median(v) for e, v in ms.items()}
     print(f"sharded 96x48 on {SHARD_PATH_NY} shards eager: {secs_eager:.3f} s"
           f" for 1 + 1 years of 20 steps; a launch (graphed, median of the "
@@ -2980,36 +3161,18 @@ def _sharded_phase(tmp, model, m768):
               gotm[4], core.annual_means(asum[:, 0].transpose(0, 1),
                                          short.num)))])
 
-    # -- two processes on the card over gloo against one process
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    path = os.path.join(tmp, "shard_worker.pt")
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--shard-worker",
-         str(r), str(port), path], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=ROOT)
-        for r in range(SHARD_PROCS)]
-    try:
-        res = [p.communicate(timeout=300) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for p, (o, e) in zip(procs, res):
-        if p.returncode != 0:
-            print(o[-4000:], e[-4000:], file=sys.stderr)
-            raise AssertionError(f"shard worker exited {p.returncode}")
-    child = [json.loads(o.strip().splitlines()[-1]) for o, _ in res]
+    # -- two processes on the card over gloo against one process (the
+    #    workers run step 21's strict transport after the fold: one
+    #    process start for both)
+    path, child, wall = _shard_workers(tmp)
     check(f"{SHARD_PROCS} processes x {SHARD_PATH_NY // SHARD_PROCS} shards "
           f"(gloo, one card) vs one process x {SHARD_PATH_NY}",
           _years_pairs(torch.load(path, weights_only=False), got4))
-    years_s = ", ".join("%.2f" % c["s"] for c in child)
-    print(f"  {SHARD_PROCS} processes: {time.perf_counter() - t0:.1f} s wall"
-          f" (the years {years_s} s; launches "
-          f"{[c['launches'] for c in child]})")
+    out["workers"] = (path + ".strict", child)
+    years_s = ", ".join("%.2f" % c["fold"]["s"] for c in child)
+    print(f"  {SHARD_PROCS} processes: {wall:.1f} s wall, the strict "
+          f"transport's runs for step 21 included (the fold's years "
+          f"{years_s} s; launches {[c['fold']['launches'] for c in child]})")
     tick("members, two processes")
 
     # -- 384x192 and 192x96: against K1 -> K2 on 20 steps, against the
@@ -3039,7 +3202,7 @@ def _sharded_phase(tmp, model, m768):
     got, _, _ = _sharded_run(m768, n7, from0=True, graphs=False)
     check(f"768x384 {n7} shards vs the wide form (2 steps, eager)",
           _years_pairs(got, want))
-    ms7 = _slab_ms(m768, n7, reps=10)
+    ms7 = _slab_wrapper_ms(m768, n7, reps=10)
     got, secs7, _ = _sharded_run(m768, n7, from0=True, repeat=2)
     check(f"768x384 {n7} shards graphed vs the wide form",
           _years_pairs(got, want))
@@ -3430,39 +3593,6 @@ BAND_KERNELS = ("fluxcorr_year", "scenario_year", "fluxcorr_years",
                 "scenario_years")
 
 
-class _SharedRegrid:
-    """Between start and stop (or inside ``with``), regrid.py's
-    regrid_forcing_arrays, which _refined_model calls, returns the arrays
-    it made before for the same grid and calendar: models of one grid and
-    calendar under other transports share them, read-only, instead of each
-    repeating the regrid (~6 s for 256x128's full calendar on the card's
-    host)."""
-
-    def start(self):
-        from greb_tpu_torch import regrid
-        self.mod, self.regrid, self.arrays = regrid, \
-            regrid.regrid_forcing_arrays, {}
-
-        def shared(arrays, num):
-            key = (num.xdim, num.ydim, num.nstep_yr, num.ndays_yr)
-            if key not in self.arrays:
-                self.arrays[key] = self.regrid(arrays, num)
-            return self.arrays[key]
-
-        regrid.regrid_forcing_arrays = shared
-        return self
-
-    def stop(self):
-        self.mod.regrid_forcing_arrays = self.regrid
-        self.arrays.clear()
-
-    def __enter__(self):
-        return self.start()
-
-    def __exit__(self, *exc):
-        self.stop()
-
-
 def _grid256_runner(model, tmp, tag):
     """The 256x128 long run on REFINED_SHORT's calendar: a checkpoint every
     G256_BLOCK years, K3 blocks of G256_BLOCK years, the output file."""
@@ -3624,7 +3754,6 @@ def _grid256_phase(tmp, reset_counts, read_counts):
               f"{time.perf_counter() - t0:.1f} s")
 
     co2f, co2s = np.float32(340.0), np.float32(680.0)
-    regrids = _SharedRegrid().start()
     # the 20-step models at 256x128 (the fold, log_exp 11, the long run's)
     # share one fold; the paths' models build their own, timed
     folds = _SharedFolds().start()
@@ -3684,6 +3813,7 @@ def _grid256_phase(tmp, reset_counts, read_counts):
     out["band"][mode] = dict(ms=ms, plain_ms=plain)
     report(mode, names, ms, plain, t0)
     graphed.stop()
+    out["fold_model"] = m      # step 21 shards it
     del m, m11, yd, k1, k2, s5, tab
     # -- the strict circulation at 256x128 on 2 steps: all four kernels
     #    against plain, K4 = K1 and K3 = K2 at M=1
@@ -3712,6 +3842,7 @@ def _grid256_phase(tmp, reset_counts, read_counts):
                               fluxcorr_years="M=2 x 1 year, 2 steps",
                               scenario_years="M=2 x 2 years, 2 steps")
     report(mode, names, ms, plain, t0)
+    out["strict_model"] = m    # step 21 shards it
     del m, k1, k2, k2_in
     print(f"  256x128 short checks: {time.perf_counter() - t_phase:.1f} s")
 
@@ -3836,7 +3967,6 @@ def _grid256_phase(tmp, reset_counts, read_counts):
     model, _, _, _, launches, rate, timing = _refined_path(
         "grid256_strict", tmp, G256_GRID, G256_YEARS, reset_counts,
         read_counts, fast=None)
-    regrids.stop()
     out["launches_strict_path"], out["strict_rate"] = launches, rate
     yd = model.year_data
     out["full_ms"]["strict"] = {k: timing[k][0] for k in ("fluxcorr_year",
@@ -3860,6 +3990,310 @@ def _grid256_phase(tmp, reset_counts, read_counts):
     return out
 
 
+# step 21: every word and the band grids on a CUDA mesh: the slab kernels'
+# strict forms (csrc/slab_kernel.cu slab_strict: the cluster body's at
+# 96x48, the additive one at 256x128, the sequential one at 384x192), their
+# step start without a fold, their finish with the switches of the flags
+# word, and the additive packed form of 224x112 to 352x176's fold; step
+# 17's 2-step strict 384x192 model and step 20's 256x128 models are reused
+SHARD_WORD_EXPS = (11, 8, 16, 2)   # a fold word; strict, q by diffusion
+                                   # alone; strict, q still; no transport
+SHARD_STRICT_YEARS = dict(time_flux=1, time_scnr=1)
+SHARD_WORD_NY = 2
+STRICT_SLAB_ENTRIES = ("slab_start_strict", "slab_strict<strict_cluster>",
+                       "slab_finish<legacy>", "slab_substep<additive_packed>",
+                       "slab_strict<strict_additive>", "slab_strict<strict>")
+
+
+def _strict_plain_ms(model, n_y, shard=0, reps=20):
+    """ms of the plain version of each strict slab entry on one shard of
+    ``model`` on n_y shards (the card, eager, ``reps`` calls after a
+    warm-up): slab_start_strict ((Ta, q) stacked), slab_strict (one
+    substep of stencils.circulation on the shard's rows in the masked
+    full-field form the plain sharded runners run, zero halo rows),
+    slab_finish<legacy> (core.fluxcorr_step under the model's word with
+    the circulation's increment zero: the pointwise physics and update
+    alone)."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch.model import core
+    from greb_tpu_torch.ops import stencils as stc
+    from greb_tpu_torch.parallel import sharded as sh
+    R = model.num.ydim // n_y
+    lo, hi = shard * R, (shard + 1) * R
+    fx = sh._cut_sfx(model.sfx, lo, hi, "cuda").at(0)
+    md = sh._cut_md(model.md, lo, hi, "cuda")
+    st = dataclasses.replace(md.st, compact_polar=False)
+    md = dataclasses.replace(md, st=st)
+    s0 = model.initial_state()
+    state = type(s0)(*[getattr(s0, f.name)[lo:hi].contiguous()
+                       for f in dataclasses.fields(s0)])
+    d = md.derived
+    x2 = torch.stack([state.ta, state.q], dim=-3)
+    wz2 = torch.stack([d.wz_air, d.wz_vapor], dim=-3)
+    u, v = fx.u, fx.v
+    fns = {"slab_start_strict": lambda: torch.stack([state.ta, state.q],
+                                                    dim=-3),
+           "slab_strict": lambda: stc.circulation(
+               x2, wz2, u.clamp(min=0.0), u.clamp(max=0.0),
+               v.clamp(min=0.0), v.clamp(max=0.0), st, md.sf,
+               model.params.kappa, 1),
+           "slab_finish<legacy>": lambda: core.fluxcorr_step(
+               state, fx, np.float32(680.0), md, model.num, None, model.exp)}
+    out = {}
+    circ = stc.circulation
+    try:
+        for name, fn in fns.items():
+            if name == "slab_finish<legacy>":
+                stc.circulation = lambda x, *a, **k: torch.zeros_like(x)
+            fn()
+            out[name] = _time_ms(fn, reps)[0]
+    finally:
+        stc.circulation = circ
+    return out
+
+
+def _sharded_words_phase(tmp, m384=None, m256=None, m256s=None,
+                         workers=None, plain96=None):
+    """Step 21: the slab kernels under every word and at the band grids,
+    each run against the unsharded kernels in the same word (K1 -> K2,
+    K4 -> K3), bitwise and finite: 96x48 under the library default (the
+    strict circulation) on the full calendar on 2 and 4 shards (the
+    4-shard path timed on its second run, its launches counted by entry),
+    against its plain sharded version on 10 steps (eager) and two gloo
+    processes (step 19's workers, ``workers``) against one, 2 members x 2
+    shards against K4 -> K3 at M=2 on 20 steps; the legacy words
+    SHARD_WORD_EXPS on 2 shards on 20 steps; 256x128 on 4 shards under the
+    fold (step 20's 20-step model: the pole shards' additive packed form)
+    and the strict circulation (its 2-step model, from the initial state);
+    384x192 strict on 4 shards (step 17's 2-step model); each new entry's
+    launch timed on each shard (a CUDA graph of launches), its plain
+    version's on the pole shard, its bound and its launches on its path.
+    Returns the worst max |diff|, the sharded strict 96x48 rate and, by
+    entry, ms, plain ms, work, launches, shape and the runs it was held
+    bitwise in.  A model, the workers or the plain sharded years
+    (``plain96``: _plain_strict's) not given (the phase run alone) are
+    made here as those steps make them."""
+    import gc
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
+    from greb_tpu_torch.model import core
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.ops import fastcirc2 as fc2
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import slab
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+    from greb_tpu_torch.parallel import ensemble as ens
+
+    t_phase = time.perf_counter()
+    if m384 is None:
+        m384, _ = _refined_model(Numerics(**REFINED_GRID,
+                                          **STRICT_REFINED_SHORT), fast=False)
+    if m256 is None:
+        m256, _ = _refined_model(Numerics(**G256_GRID, **REFINED_SHORT))
+    if m256s is None:
+        m256s, _ = _refined_model(Numerics(**G256_GRID,
+                                           **STRICT_REFINED_SHORT),
+                                  fast=False)
+    if workers is None:
+        path, child, _ = _shard_workers(tmp)
+        workers = (path + ".strict", child)
+    out = dict(err=0.0, ms={}, plain_ms={}, work={}, launches={}, shape={},
+               modes={e: [] for e in STRICT_SLAB_ENTRIES})
+    ticks = [t_phase]
+
+    def tick(what):
+        ticks.append(time.perf_counter())
+        print(f"  [{what}: {ticks[-1] - ticks[-2]:.1f} s]")
+
+    def check(tag, pairs, entries=None):
+        """Bitwise, and credit each new entry the run launched."""
+        out["err"] = max(out["err"], _bitwise(tag, pairs, quiet=True))
+        for e in entries or _slab_entry_launches():
+            if e in out["modes"]:
+                out["modes"][e].append(tag)
+
+    def against(tag, m, n_y, launches=None, path=None, **kw):
+        """The slab years of ``m`` on n_y shards against K1 -> K2 (from0:
+        both from the initial state, K2 with zero tables), finite, with
+        ``launches`` (start, substep, finish) a shard a step; ``path``:
+        the new entries of this run take its launch counts."""
+        want = _unsharded_run(m, n_y, from0=kw.get("from0", False))
+        got, secs, n = _sharded_run(m, n_y, **kw)
+        ents = _slab_entry_launches()
+        check(f"{tag} {n_y} shards vs K1 -> K2 ({m.num.nstep_yr} steps)",
+              _years_pairs(got, want), ents)
+        _finite(f"{tag} sharded", [("scenario state", got[2].stack()),
+                                   ("monthly means", got[3])])
+        T = m.num.nstep_yr
+        if launches and n != dict(zip(SLAB_ENTRIES, (2 * T * n_y * k
+                                                     for k in launches))):
+            raise AssertionError(f"{tag} {n_y} shards: launches {n}")
+        for e in path or ():
+            out["launches"][e] = ents[e]
+        return got, secs, n, ents
+
+    # -- 96x48 under the library default (the strict circulation), the
+    #    full calendar on 2 and 4 shards; the 4-shard path's rate
+    model = GREB(GrebConfig(numerics=Numerics(**SHARD_STRICT_YEARS)),
+                 device="cuda", verbose=False)
+    num = model.num
+    T, nsub = num.nstep_yr, num.nsub_crcl
+    if model.fold is not None or model.year_data.transport != "strict":
+        raise AssertionError("the library default: not the strict transport")
+    for n_y in SHARD_NY:
+        path = n_y == SHARD_PATH_NY
+        _, secs, n, ents = against(
+            "96x48 strict circulation", model, n_y, (1, nsub, 1),
+            STRICT_SLAB_ENTRIES[:3] if path else None, repeat=1 + path)
+        if path:
+            out["rate"] = 2 / secs
+            print(f"sharded 96x48 strict circulation on {n_y} shards of the "
+                  f"card (1 + 1 years, a step replayed from one CUDA graph, "
+                  f"the second run on the same runners): {secs:.3f} s = "
+                  f"{2 / secs:.3f} sim-yr/s (the fold's: step 19's); "
+                  f"launches {ents}")
+    tick("96x48 strict, full calendar")
+    # -- the plain sharded strict version on 10 steps (eager, each shard's
+    #    plain step in a thread; made during the build), and two gloo
+    #    processes against one
+    m10 = GREB(GrebConfig(numerics=Numerics(**SHARD_PLAIN_96)),
+               device="cuda", verbose=False)
+    plain = plain96
+    if plain is None:
+        plain, secs, n = _sharded_run(m10, SHARD_PATH_NY, plain=True,
+                                      from0=True)
+        if any(n.values()):
+            raise AssertionError(f"the plain sharded version launched {n}")
+        print(f"  the plain sharded strict version (eager): {secs:.1f} s "
+              f"for 1 + 1 years of {m10.num.nstep_yr} steps")
+    got10, _, _ = _sharded_run(m10, SHARD_PATH_NY, from0=True)
+    ents = _slab_entry_launches()
+    _finite("96x48 strict sharded (10 steps)",
+            [("scenario state", got10[2].stack()),
+             ("monthly means", got10[3])])
+    check(f"96x48 strict {SHARD_PATH_NY} shards vs its plain sharded version "
+          f"({m10.num.nstep_yr} steps)", _years_pairs(got10, plain), ents)
+    path, child = workers
+    check(f"96x48 strict {SHARD_PROCS} processes x "
+          f"{SHARD_PATH_NY // SHARD_PROCS} shards (gloo, one card) vs one "
+          f"process x {SHARD_PATH_NY} ({m10.num.nstep_yr} steps)",
+          _years_pairs(torch.load(path, weights_only=False), got10), ents)
+    print(f"  {SHARD_PROCS} processes (step 19's workers): the strict years "
+          f"{', '.join('%.2f' % c['strict']['s'] for c in child)} s; "
+          f"launches {[c['strict']['launches'] for c in child]}")
+    del m10, got10, plain
+    tick("plain sharded strict, two processes")
+    # -- 2 members x 2 shards under the strict circulation against K4 -> K3
+    short = GREB(GrebConfig(numerics=Numerics(**SHARD_SHORT)), device="cuda",
+                 verbose=False)
+    members = ens.perturbed_params(short.params,
+                                   {"ct_sens": np.float32(SHARD_CT_SENS)})
+    gotm, _, _ = _sharded_run(short, 2, members=members, n_ens=2)
+    s5 = ens.ensemble_initial_state(members, short.forcing)
+    pp = my.pack_member_params(members, "cuda")
+    k4, corr = my.fluxcorr_years(s5, pp, 680.0, short.year_data)
+    k3, _, asum = my.scenario_years(k4, pp, corr, np.float32([680.0]),
+                                    short.year_data)
+    check("2 members x 2 shards strict vs K4 -> K3 (M=2, 20 steps)",
+          [("spin-up", gotm[0].stack(), k4.cpu()),
+           ("scenario", gotm[2].stack(), k3.cpu())]
+          + [(f"table {n}", getattr(gotm[1], n), corr[:, :, i].cpu())
+             for i, n in enumerate(("tf", "tof", "qf"))]
+          + [(f"annual mean {i}", a, b.cpu()) for i, (a, b) in enumerate(zip(
+              gotm[4], core.annual_means(asum[:, 0].transpose(0, 1),
+                                         short.num)))])
+    _finite("strict members sharded", [("scenario state",
+                                        gotm[2].stack())])
+    del short, gotm, k4, k3, corr, asum
+    tick("strict members")
+    # -- the legacy words on SHARD_WORD_NY shards, 20 steps
+    for e in SHARD_WORD_EXPS:
+        mw = GREB(GrebConfig(numerics=Numerics(**SHARD_SHORT),
+                             fast_circulation=True,
+                             experiment=Experiment(e)), device="cuda",
+                  verbose=False)
+        k = 0 if mw.year_data.transport == "none" else 1
+        _, _, _, ents = against(f"96x48 log_exp {e} ({mw.year_data.transport},"
+                                f" flags {mw.year_data.flags:#05x})", mw,
+                                SHARD_WORD_NY, (k, k * nsub, 1))
+        print(f"  log_exp {e}: {ents}")
+        del mw
+    tick("legacy words")
+    # -- 256x128 on 4 shards: the fold (the pole shards' additive packed
+    #    form; step 20's 20-step model) and the strict circulation (the
+    #    strict additive form; its 2-step model, from the initial state)
+    n4 = SHARD_REFINED_NY
+    against("256x128 fold", m256, n4, (1, m256.num.nsub_crcl, 1),
+            STRICT_SLAB_ENTRIES[3:4])
+    against("256x128 strict circulation", m256s, n4,
+            (1, m256s.num.nsub_crcl, 1), STRICT_SLAB_ENTRIES[4:5],
+            from0=True, graphs=False)
+    # -- 384x192 strict on 4 shards (step 17's 2-step model)
+    against("384x192 strict circulation", m384, n4,
+            (1, m384.num.nsub_crcl, 1), STRICT_SLAB_ENTRIES[5:6],
+            from0=True, graphs=False)
+    tick("256x128, 384x192")
+
+    # -- each new entry's launch on each shard (a CUDA graph of launches,
+    #    CUDA events), its plain version on the pole shard (shard 0), its
+    #    bound on the pole shard
+    def timed(m, n_y, entries, plain_ms, shape):
+        """Each of ``entries``' launch on ``m``'s n_y shards, its plain
+        version's ``plain_ms`` and the pole shard's work."""
+        ms = _slab_ms(m, n_y)
+        R = m.num.ydim // n_y
+        yd = m.year_data
+        if m.fold is not None:
+            splan, sconst = fc2.build_sharded(None, None, m.grid, m.st, 0,
+                                              n_y, fold=m.fold)
+            plan0 = splan.plans[0]
+            ranks = (yk.packed_ranks(sconst.shards[0])[1]
+                     if plan0.comp_mode == "packed" else None)
+        else:
+            plan0, ranks = slab.cut_strict(yd.plan, 0, R), None
+        for e in entries:
+            wrapper = ("slab_start" if e.startswith("slab_start") else
+                       "slab_finish" if e.startswith("slab_finish") else
+                       "slab_substep")
+            out["ms"][e] = max(ms[e].values())
+            out["plain_ms"][e] = plain_ms[e]
+            out["work"][e] = slab.slab_work(plan0, m.num, wrapper,
+                                            ranks=ranks, flags=yd.flags)
+            out["shape"][e] = shape
+            print(f"  {e}: a launch {out['ms'][e] * 1e3:.2f} us (the slowest"
+                  f" shard; each shard's: "
+                  f"{ {k: round(v * 1e3, 2) for k, v in ms[e].items()} } us),"
+                  f" plain {plain_ms[e]:.3f} ms on shard 0")
+
+    p96 = _strict_plain_ms(model, SHARD_PATH_NY)
+    timed(model, SHARD_PATH_NY, STRICT_SLAB_ENTRIES[:3],
+          {"slab_start_strict": p96["slab_start_strict"],
+           "slab_strict<strict_cluster>": p96["slab_strict"],
+           "slab_finish<legacy>": p96["slab_finish<legacy>"]},
+          f"96x48 on {SHARD_PATH_NY} shards of the card, one shard's launch")
+    p256, _ = _slab_plain_ms(m256, n4, shard=0)
+    timed(m256, n4, STRICT_SLAB_ENTRIES[3:4],
+          {"slab_substep<additive_packed>": p256["slab_substep"]},
+          f"256x128 on {n4} shards, the pole shard's launch")
+    p256s = _strict_plain_ms(m256s, n4, reps=3)
+    timed(m256s, n4, STRICT_SLAB_ENTRIES[4:5],
+          {"slab_strict<strict_additive>": p256s["slab_strict"]},
+          f"256x128 on {n4} shards, the pole shard's launch")
+    p384 = _strict_plain_ms(m384, n4, reps=1)
+    timed(m384, n4, STRICT_SLAB_ENTRIES[5:6],
+          {"slab_strict<strict>": p384["slab_strict"]},
+          f"384x192 on {n4} shards, the pole shard's launch")
+    tick("launches timed")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sharded words phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3874,6 +4308,8 @@ def main(argv) -> int:
         return _shard_worker(argv[1:])
     if argv[:1] == ["--resume-long256"]:
         return _resume_long256(argv[1])
+    if argv[:1] == ["--plain-strict"]:
+        return _plain_strict(argv[1])
     import math
 
     import numpy as np
@@ -3922,21 +4358,49 @@ def main(argv) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # -- build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    built = build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(f'{k}.cu {v:.1f} s' for k, v in built.items()) or 'cached'})")
-    for source in ("year_kernel", "band_kernel"):
-        with open(os.path.join(build.BUILD_DIR, f"{source}.ptxas.txt")) as f:
-            for line in f:
-                if "Compiling entry function" in line:
-                    print("  ptxas:", line.split("'")[1])
-                elif "registers" in line or "spill" in line:
-                    print("  ptxas:   ", line.split(":", 1)[-1].strip())
-    lap("build")
-
     with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
+        # -- build, while the host makes the set-up later phases share ----
+        from concurrent.futures import ThreadPoolExecutor
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            job = pool.submit(build.build_all)
+            plain_path = os.path.join(tmp, "plain_strict.pt")
+            plain_proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--plain-strict",
+                 plain_path], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, cwd=ROOT)
+            try:
+                took, m768 = _prebuild(tmp)
+                built = job.result()
+                o, e = plain_proc.communicate(timeout=600)
+            finally:
+                if plain_proc.poll() is None:
+                    plain_proc.kill()
+            if plain_proc.returncode != 0:
+                print(o[-4000:], e[-4000:], file=sys.stderr)
+                raise AssertionError(f"--plain-strict exited "
+                                     f"{plain_proc.returncode}")
+            child = json.loads(o.strip().splitlines()[-1])
+            if any(child["launches"].values()):
+                raise AssertionError(f"the plain sharded version launched "
+                                     f"{child['launches']}")
+            took["plain sharded strict 96x48, 10 steps (a process of its "
+                 "own)"] = child["s"]
+            plain96 = torch.load(plain_path, weights_only=False)
+        each = ", ".join(f"{k}.cu {v:.1f} s" for k, v in built.items())
+        print(f"build: {time.perf_counter() - t0:.1f} s ({each or 'cached'});"
+              f" meanwhile on the host: "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
+        for source in ("year_kernel", "band_kernel", "slab_kernel"):
+            with open(os.path.join(build.BUILD_DIR,
+                                   f"{source}.ptxas.txt")) as f:
+                for line in f:
+                    if "Compiling entry function" in line:
+                        print("  ptxas:", line.split("'")[1])
+                    elif "registers" in line or "spill" in line:
+                        print("  ptxas:   ", line.split(":", 1)[-1].strip())
+        lap("build")
+
         out_path = os.path.join(tmp, "scenario")
         num = Numerics(time_flux=3, time_scnr=10)
         cfg = GrebConfig(numerics=num,
@@ -4354,7 +4818,8 @@ def main(argv) -> int:
         lap("ensemble")
 
         # -- 768x384 (config 5): the wide form, its paths -----------------
-        grid768 = _grid768_phase(tmp, reset_counts, read_counts)
+        grid768 = _grid768_phase(tmp, reset_counts, read_counts, m768)
+        del m768
         lap("768x384")
 
         # -- latitude x member sharding: the slab kernels, their paths ----
@@ -4365,6 +4830,14 @@ def main(argv) -> int:
         #    strict additive forms, 256x128's paths ------------------------
         band = _grid256_phase(tmp, reset_counts, read_counts)
         lap("256x128 band")
+
+        # -- every word and the band grids on a CUDA mesh: the slab
+        #    kernels' strict forms, legacy finish and additive packed form
+        words_sh = _sharded_words_phase(
+            tmp, strict_refined.pop("short_model"), band.pop("fold_model"),
+            band.pop("strict_model"), sharded.pop("workers"), plain96)
+        del plain96
+        lap("sharded words")
 
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for LONG_BLOCK years, K4 3 members: the median of
@@ -4616,6 +5089,27 @@ def main(argv) -> int:
             "grid768_us_substep": g7["us_substep"],
             "grid768_ms_step": g7["ms_step"],
             "sharded_sim_yr_per_s": sharded["rate"]})
+    # the slab kernels' entries under the other words and at the band
+    # grids (step 21): ms a launch on the slowest shard of their path's
+    # shape, the plain version on the pole shard, its bound there, the
+    # launches on their path (the 96x48 strict path: 4 shards, 1 + 1
+    # years; 256x128 and 384x192: 4 shards on their short calendars), and
+    # the runs each was held bitwise in
+    for name in STRICT_SLAB_ENTRIES:
+        bound_ms, bound_by = _bound_of(*words_sh["work"][name])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "greb_tpu_torch/csrc/slab_kernel.cu",
+            "replaces": "none: greb_tpu/parallel/sharded.py:115 "
+                        "make_sharded_year_runners runs on XLA, no "
+                        "pallas_call",
+            "launches": words_sh["launches"][name],
+            "max_abs_err": words_sh["err"], "ms": words_sh["ms"][name],
+            "plain_ms": words_sh["plain_ms"][name], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": words_sh["shape"][name],
+            "modes": words_sh["modes"][name],
+            "sharded_strict_sim_yr_per_s": words_sh["rate"]})
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

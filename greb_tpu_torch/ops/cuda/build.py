@@ -16,6 +16,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict
 
@@ -63,8 +64,8 @@ def _lib_path(name: str) -> str:
 
 def build_all() -> Dict[str, float]:
     """Compile every source that has no current library, all at once.
-    Returns {source: seconds}; the compiler's register/shared-memory report
-    goes to ``_build/<source>.ptxas.txt``."""
+    Returns {source: seconds until its compiler ended}; the compiler's
+    register/shared-memory report goes to ``_build/<source>.ptxas.txt``."""
     todo = [n for n in SOURCES if not os.path.exists(_lib_path(n))]
     if not todo:
         return {}
@@ -78,14 +79,25 @@ def build_all() -> Dict[str, float]:
                os.path.join(SRC_DIR, name + ".cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    times, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
+    # each source's own time: its compiler's output read in a thread of
+    # its own, the time taken as that compiler ends
+    times, outs, failed = {}, {}, []
+
+    def drain(name, proc):
+        outs[name] = proc.communicate()[0]
         times[name] = time.perf_counter() - t0
+
+    readers = [threading.Thread(target=drain, args=(name, proc))
+               for name, (_, proc) in procs.items()]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
+    for name, (tmp, proc) in procs.items():
         with open(os.path.join(BUILD_DIR, name + ".ptxas.txt"), "w") as f:
-            f.write(out)
+            f.write(outs[name])
         if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{out}")
+            failed.append(f"{name}.cu:\n{outs[name]}")
             continue
         os.replace(tmp, _lib_path(name))
     if failed:

@@ -737,29 +737,38 @@ def strict_work(plan: StrictPlan, num: Numerics, scenario: bool,
         words += 5 * t * yx + N_SUM * yx
     per_step = yx * (125 + (9 if scenario else 0))
     if not on("circulation_off"):
-        if plan.sub_cycles is None:
-            raise ValueError("the strict transport's work needs each row's "
-                             "sub-cycles (StrictPlan.sub_cycles)")
-        nd, na = plan.sub_cycles
-        o, seq = STRICT_OPS, int(plan.seq_zonal)
-
-        def field_ops(advect: bool) -> int:
-            ops = 0
-            for r in range(Y):
-                ops += o["diff"] + o["combine"] + seq - (0 if advect else 1)
-                if nd[r] >= 0:
-                    ops += 1 - o["diff7"] + o["diff_iter"] * nd[r]
-                if advect:
-                    ops += o["adv"]
-                    if na[r] >= 0:
-                        ops += 1 - o["upwind2"] + o["adv_iter"] * na[r]
-            return ops * X
-
-        per_substep = field_ops(True)
-        if not on("vapor_circulation_off"):
-            per_substep += field_ops(not on("vapor_diffusion_only"))
-        per_step += num.nsub_crcl * per_substep
+        per_step += num.nsub_crcl * strict_substep_ops(plan, flags)
     return 4 * words, t * per_step
+
+
+def strict_substep_ops(plan: StrictPlan, flags: int = 0) -> int:
+    """float32 operations of one strict substep of every row of ``plan``
+    under the flags word ``flags`` (``strict_work``'s count): each row's
+    own sub-cycle iterations (``plan.sub_cycles``), the fields that move
+    and advect as the switchboard says."""
+    on = lambda name: bool(flags >> FLAGS.index(name) & 1)
+    if plan.sub_cycles is None:
+        raise ValueError("the strict transport's work needs each row's "
+                         "sub-cycles (StrictPlan.sub_cycles)")
+    nd, na = plan.sub_cycles
+    o, seq = STRICT_OPS, int(plan.seq_zonal)
+
+    def field_ops(advect: bool) -> int:
+        ops = 0
+        for r in range(plan.ydim):
+            ops += o["diff"] + o["combine"] + seq - (0 if advect else 1)
+            if nd[r] >= 0:
+                ops += 1 - o["diff7"] + o["diff_iter"] * nd[r]
+            if advect:
+                ops += o["adv"]
+                if na[r] >= 0:
+                    ops += 1 - o["upwind2"] + o["adv_iter"] * na[r]
+        return ops * plan.xdim
+
+    ops = field_ops(True)
+    if not on("vapor_circulation_off"):
+        ops += field_ops(not on("vapor_diffusion_only"))
+    return ops
 
 
 

@@ -17,18 +17,23 @@ What the JAX module's names are here:
   joins them again;
 - ``make_sharded_year_runners``: (fluxcorr year, scenario year) over the
   mesh.  On CUDA devices the years run in the slab kernels
-  (ops/cuda/slab.py; the fold's modern word only, else
-  NotImplementedError naming ROADMAP Queue 1 item 5b before any launch).
-  On the CPU they run the plain step (model/core.py) of each shard in a
-  thread of its own, with ``extend`` the halo exchange among the threads:
-  the plain version the kernels are held against.
+  (ops/cuda/slab.py) under every word; what the year kernels do not run
+  (the strict transport and no transport at 768x384) raises
+  NotImplementedError naming its ROADMAP item before any launch.  On the
+  CPU they run the plain step (model/core.py) of each shard in a thread of
+  its own, with ``extend`` the halo exchange among the threads: the plain
+  version the kernels are held against.
 
 The fold of a shard is the unsharded fold cut into its rows
 (``fastcirc2.build_sharded``), so a sharded year equals the unsharded one
 bit for bit, in the plain version and in the kernels.  Without a fold
-(``fast_plan=None``) the strict stencils run in their masked full-field
-form (``StencilStatic.compact_polar=False``), whose per-row masks shard
-with the rows; the plain version only.
+(``fast_plan=None``, or a word that takes the strict transport) the plain
+version runs the strict stencils in their masked full-field form
+(``StencilStatic.compact_polar=False``), whose per-row masks shard with
+the rows and equal the compact form row for row; the slab kernels run the
+year kernels' strict substep on each shard's rows of the strict constants
+(``slab.cut_strict``, and wz with its neighbours' halo rows,
+``ShardModel.wz_halo``).
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ from ..model import core
 from ..ops import fastcirc2 as fc2
 from ..ops import stencils as stc
 from ..ops.cuda import multiyear as my
+from ..ops.cuda import slab
 from .halo import HaloExchange, make_sharded_extend
 
 F32 = np.float32
@@ -176,10 +182,13 @@ def _join(vals: list, dim: int):
 @dataclasses.dataclass
 class ShardModel:
     """One shard's model data: its rows of ``md`` (the strict stencils'
-    per-row constants too) and, where batched, its members' pack
-    (multiyear.pack_member_params, (M, 1, N_PPACK))."""
+    per-row constants too), where batched its members' pack
+    (multiyear.pack_member_params, (M, 1, N_PPACK)), and wz of Ta and q
+    with the neighbour shards' HALO rows each side (``slab.wz_halo``, the
+    slab kernels' strict transport)."""
     md: core.ModelData
     ppack: Optional[torch.Tensor] = None
+    wz_halo: Optional[torch.Tensor] = None
 
 
 def _rows(a: torch.Tensor, lo: int, hi: int, dev) -> torch.Tensor:
@@ -286,10 +295,11 @@ def shard_inputs(mesh: Mesh, batched: bool, state, sfx: core.StepForcing,
         sk = (y, str(dev))
         if sk not in shared:
             shared[sk] = (_cut_sfx(sfx, lo, hi, dev),
-                          _cut_md(md, lo, hi, dev))
+                          _cut_md(md, lo, hi, dev),
+                          slab.wz_halo(md, lo, hi, dev))
         sf[k] = shared[sk][0]
         mds[k] = ShardModel(shared[sk][1], ppack[m0:m1].to(dev)
-                            if batched else None)
+                            if batched else None, shared[sk][2])
     return (shard_state(mesh, state, batched), Sharded(mesh, sf),
             shard_corr(mesh, corr, batched), Sharded(mesh, mds))
 
@@ -419,13 +429,16 @@ def make_sharded_year_runners(mesh: Mesh, st: stc.StencilStatic,
     full-field).  ``monthly_s[k]`` (12, 5, R, X), ``meanf_s[k]`` the annual
     means (``core.StepOutputs``), each with a leading member axis where
     ``batched``.  On a mesh of CUDA devices the years run in the slab
-    kernels (``slab.SlabRunner``, the runners' ``runner``); what they do
-    not run raises NotImplementedError naming ROADMAP Queue 1 item 5b,
-    before any launch."""
+    kernels (``slab.SlabRunner``, the runners' ``runner``) under the fold,
+    the strict transport or none, as ``exp`` and ``fast_plan`` say
+    (``core.transport``); what they do not run raises
+    NotImplementedError naming its ROADMAP item, before any launch
+    (``slab.check_slab``)."""
     if mesh.is_cuda:
-        from ..ops.cuda import slab
-        slab.check_slab(None if fast_plan is None else fast_plan.plan, exp)
-        runner = slab.SlabRunner(mesh, fast_plan, num, exp)
+        plan = slab.global_plan(fast_plan, exp, num, st.seq_zonal)
+        for kind in ("fluxcorr", "scenario"):
+            slab.check_slab(plan, exp, kind)
+        runner = slab.SlabRunner(mesh, fast_plan, num, exp, plan)
         return _slab_runners(mesh, runner, num, month_mat, batched)
     return make_plain_year_runners(mesh, st, num, exp, month_mat, batched,
                                    fast_plan)

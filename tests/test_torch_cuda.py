@@ -43,7 +43,12 @@ additive packed form, modern and under log_exp 11, and the strict
 additive form (the strict circulation), K1, K2, K4 and K3 at M=2, K4 = K1
 and K3 = K2 at M=1; the kernel reckons both forms' blocks as Python does at
 every grid from 224x112 to 352x176, and its launchers pick the entries
-``refined_entry`` names.
+``refined_entry`` names.  Latitude sharding on the card: the slab
+kernels (csrc/slab_kernel.cu) on 2 and 4 shards of the card equal K1 ->
+K2 (the fold at 96x48, and 256x128's additive packed form on 4 shards;
+the strict transport, log_exp 8, 11 and 2 at 96x48 on 2 shards), K4 -> K3
+at M=2 and the plain sharded version, and the kernel reckons each form's
+block as ``slab.slab_layout`` does.
 """
 import dataclasses
 
@@ -738,9 +743,11 @@ def _sharded_years(model, n_y, plain=False, members=None, n_ens=1):
     from greb_tpu_torch.ops.cuda import slab
     from greb_tpu_torch.parallel import sharded as sh
     mesh = sh.make_mesh(n_ens, n_y)
-    splan, sconst = fc2.build_sharded(None, None, model.grid, model.st, 0,
-                                      n_y, fold=model.fold)
-    fcc = sh.shard_fastcirc(mesh, sconst)
+    splan = fcc = None
+    if model.fold is not None:
+        splan, sconst = fc2.build_sharded(None, None, model.grid, model.st,
+                                          0, n_y, fold=model.fold)
+        fcc = sh.shard_fastcirc(mesh, sconst)
     make = sh.make_plain_year_runners if plain else \
         sh.make_sharded_year_runners
     batched = members is not None
@@ -758,6 +765,64 @@ def _sharded_years(model, n_y, plain=False, members=None, n_ens=1):
     n1 = (slab.start.launches, slab.substep.launches, slab.finish.launches)
     return (s1.gather(), c1.gather(), s2.gather(), mon.gather(),
             tuple(b - a for a, b in zip(n0, n1)))
+
+
+def _slab_against_unsharded(model, n_y, launches):
+    """K1 -> K2 of ``model`` on the card against the slab kernels on n_y
+    shards of the card: state, corrections and the monthly means (taken a
+    shard's rows at a time on both sides) bit for bit, finite, with
+    ``launches`` (start, substep, finish) a shard a step."""
+    yd = model.year_data
+    s1, c1 = yk.fluxcorr_year(model.initial_state(), 680.0, yd)
+    s2, outs, _ = yk.scenario_year(s1, c1, 680.0, yd)
+    g1, gc, g2, gmon, n = _sharded_years(model, n_y)
+    T = model.num.nstep_yr
+    assert n == tuple(2 * T * n_y * k for k in launches)
+    _equal(g1.stack().cpu(), s1.stack().cpu(), "spin-up state")
+    _equal(g2.stack().cpu(), s2.stack().cpu(), "scenario state")
+    for name in ("tf", "tof", "qf"):
+        _equal(getattr(gc, name).cpu(), getattr(c1, name).cpu(), name)
+    R = model.num.ydim // n_y
+    mon = torch.cat([core.monthly_means(model.month_mat,
+                                        outs[..., i * R:(i + 1) * R, :])
+                     for i in range(n_y)], dim=-2)
+    _equal(gmon.cpu(), mon.cpu(), "monthly")
+    assert torch.isfinite(g2.stack()).all() and torch.isfinite(gmon).all()
+
+
+@pytest.mark.parametrize("log_exp", (None, 8, 11, 2))
+def test_slab_words_equal_the_unsharded_kernels(log_exp):
+    """The strict transport (the library default, ``GrebConfig()``: the
+    slab kernels' cluster-body strict form) and the legacy words 8 (strict,
+    q by diffusion alone), 11 (the fold with switches) and 2 (no
+    transport: a step is slab_finish alone) at 96x48 on 2 shards of the
+    card against K1 -> K2 in the same word."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the slab kernels have no CPU mode")
+    m = GREB(GrebConfig(numerics=NUM, experiment=Experiment(log_exp),
+                        **({} if log_exp is None else
+                           dict(fast_circulation=True))),
+             verbose=False, device="cuda")
+    nsub = 0 if log_exp == 2 else NUM.nsub_crcl
+    _slab_against_unsharded(m, 2, (int(nsub > 0), nsub, 1))
+
+
+def test_slab_packed_fold_equals_the_unsharded_kernels():
+    """256x128 (additive splitting with packed composites) on 4 shards of
+    the card against K1 -> K2 (the additive packed form), on 20 steps of
+    forcing regridded from the 96x48 synthetic forcing: the pole shards
+    run the slab kernels' additive packed form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the slab kernels have no CPU mode")
+    num = Numerics(xdim=256, ydim=128, dt_crcl=1800, ndays_yr=10,
+                   jday_mon=(6, 4), time_flux=1, time_scnr=1)
+    arrs = regrid_forcing_arrays(
+        make_synthetic_forcing(96, 48, num.nstep_yr, num.ndays_yr), num)
+    m = GREB(GrebConfig(numerics=num, fast_circulation=True),
+             forcing=forcing_from_arrays(arrs, "cuda"), verbose=False,
+             device="cuda")
+    assert yk.refined_form(m.fold[0]) == "additive_packed"
+    _slab_against_unsharded(m, 4, (1, num.nsub_crcl, 1))
 
 
 @pytest.mark.parametrize("n_y", (2, 4))
@@ -816,6 +881,8 @@ def test_slab_members_equal_the_member_kernels(model):
 
 
 def test_slab_layout_matches_the_kernel(model):
+    """The kernel reckons each shard's slab block as ``slab_layout`` does:
+    the fold's at 96x48 on 4 shards, and each strict form's."""
     from greb_tpu_torch.ops import fastcirc2 as fc2
     from greb_tpu_torch.ops.cuda import slab
     splan, _ = fc2.build_sharded(None, None, model.grid, model.st, 0, 4,
@@ -823,3 +890,9 @@ def test_slab_layout_matches_the_kernel(model):
     for plan in splan.plans:
         n = slab.slab_blocks(plan)
         assert slab.kernel_slab_layout(plan, n) == slab.slab_layout(plan, n)
+    for form, plan in (("strict_cluster", yk.StrictPlan(24, 96)),
+                       ("strict_additive", yk.StrictPlan(32, 256)),
+                       ("strict", yk.StrictPlan(48, 384, seq_zonal=True))):
+        n = slab.slab_blocks(plan, form)
+        assert slab.kernel_slab_layout(plan, n, form) == slab.slab_layout(
+            plan, n, form)

@@ -41,8 +41,14 @@ port and greb_tpu (on its XLA path, ``JAX_PLATFORMS=cpu``).
   reckoned here by hand as csrc/year_kernel.cu reckons them
   (``refined_parts``, ``strict_refined_parts``); ``year_work``'s count of
   the packed ranks and the segments with additive splitting; the member
-  wrappers' 16-block clusters; the slab kernels' refusal (ROADMAP Queue 1
-  item 5c).
+  wrappers' 16-block clusters.
+* Sharding: the plain sharded runners on 4 shards (the pole shards hold
+  the packed composite rows and the segments) bitwise equal to the plain
+  unsharded years; what a mesh of CUDA devices runs here, without a card:
+  the slab kernels' additive packed form for the pole shards' fold and
+  the strict additive form for the strict transport, whose layouts are
+  reckoned by hand, accepted before any launch; the strict transport at
+  768x384 refused, naming ROADMAP Queue 1 item 3h.
 """
 import contextlib
 import dataclasses
@@ -60,9 +66,10 @@ from greb_tpu.model.driver import GREB as JGREB
 from greb_tpu.ops import stencils as jst
 
 from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
-from greb_tpu_torch.forcing import forcing_from_arrays
+from greb_tpu_torch.forcing import Corrections, forcing_from_arrays
 from greb_tpu_torch.grid import make_grid
 from greb_tpu_torch.io.synthetic import make_synthetic_forcing
+from greb_tpu_torch.model import core
 from greb_tpu_torch.model.driver import GREB
 from greb_tpu_torch.ops import fastcirc as fc
 from greb_tpu_torch.ops import fastcirc2 as fc2
@@ -84,6 +91,7 @@ try:
 except ImportError:         # speed only
     threadpool_limits = None
 
+F32 = np.float32
 # tests/test_torch_grid192.py's 20-step calendar at 256x128
 CALENDAR = dict(dt_crcl=1800, ndays_yr=10, jday_mon=(6, 4), time_flux=1,
                 time_scnr=1)
@@ -497,14 +505,94 @@ def test_member_wrappers_launch_16_blocks(fold_pair, members):
 
 
 def test_slab_kernels_refuse_additive_packed_plans(fold_pair):
-    """The slab kernels' additive form computes dense composites: a
-    CUDA mesh at these grids raises naming ROADMAP Queue 1 item 5c before
-    anything runs (no card needed)."""
+    """What the slab kernels refused here until they had the additive
+    packed form (ROADMAP Queue 1 item 5c) they now take, and what stays
+    refused, before any launch (no card needed).  On 4 shards the pole
+    shards' fold plans (3 packed composite rows and the segments each) run
+    in the additive packed form, the middle shards' (no composite row) in
+    the additive one, each shard's block reckoned by hand as
+    csrc/slab_kernel.cu slab_parts reckons it; the strict transport's
+    global plan runs in the strict additive form; both pass
+    ``slab.check_slab``.  The strict transport at 768x384 raises naming
+    ROADMAP Queue 1 item 3h."""
     _, m = fold_pair
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
-        slab.check_slab(m.fold[0], Experiment())
-    mesh = sh.Mesh([[torch.device("cuda", 0)] * 4])
     splan, _ = fc2.build_sharded(None, None, m.grid, m.st, 0, 4, fold=m.fold)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
-        sh.make_sharded_year_runners(mesh, m.st, m.num, m.exp, m.month_mat,
-                                     fast_plan=splan)
+    slab.check_slab(splan.plan, Experiment())
+    slab.check_slab(splan.plan, Experiment(11))
+    forms = [slab.slab_form(p) for p in splan.plans]
+    assert forms == ["additive_packed", "additive", "additive",
+                     "additive_packed"]
+    for plan in splan.plans:
+        R, X = 2, 256
+        n = slab.slab_blocks(plan)
+        assert n == plan.ydim // R
+        ktc, kbc = plan.comp_kt, plan.comp_kb
+        dkt = max((s[0] for s in plan.diff_segs), default=0)
+        dkb = max((s[1] for s in plan.diff_segs), default=0)
+        akt = max((s[0] for s in plan.adv_segs), default=0)
+        akb = max((s[1] for s in plan.adv_segs), default=0)
+        Y = plan.ydim
+        bands = ((0, ktc, Y - kbc, Y),
+                 (ktc, ktc + dkt, Y - kbc - dkb, Y - kbc),
+                 (0, akt, Y - akb, Y))
+        most = [max(len(set(range(b * R, (b + 1) * R))
+                        & (set(range(a0, a1)) | set(range(c0, c1))))
+                    for b in range(n)) for a0, a1, c0, c1 in bands]
+        want = dict(transported=0, wz=4 * 2 * R * X, xa=4 * 2 * R * X,
+                    scratch=4 * 2 * 2 * max(most) * X,
+                    comp_index=4 * (-(-(2 * most[0] + 1) // 4) * 4))
+        assert slab.slab_layout(plan, n) == want
+    strict = yk.StrictPlan(128, 256)
+    assert slab.slab_form(strict) == "strict_additive"
+    slab.check_slab(strict, Experiment())
+    assert slab.slab_layout(yk.StrictPlan(32, 256), 16, "strict_additive") \
+        == dict(transported=0, wz=4 * 2 * 6 * 256, winds=0,
+                subcycle=4 * 2 * 2 * 2 * 256, rowc=4 * 16)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3h"):
+        slab.check_slab(yk.StrictPlan(384, 768, seq_zonal=True),
+                        Experiment())
+
+
+def test_sharded_plain_years_equal_unsharded():
+    """The plain sharded runners on 4 shards (each shard's plain step in a
+    thread, the halo rows exchanged a substep) against the plain unsharded
+    spin-up (340 ppm) and scenario year (680 ppm) on a 2-step calendar,
+    both from the initial state, the scenario with zero tables (a scenario
+    after a spin-up with its tables leaves finite values on no calendar
+    this short): states, tables and monthly means bit for bit, the fold cut
+    into each shard's rows (``fastcirc2.build_sharded``) and each composite
+    row and segment on its pole shard."""
+    num = Numerics(xdim=256, ydim=128, dt_crcl=1800, ndays_yr=1,
+                   jday_mon=(1,), time_flux=1, time_scnr=1)
+    arrs = regrid_forcing_arrays(make_synthetic_forcing(96, 48, 2, 1), num)
+    with _limits():
+        m = GREB(GrebConfig(numerics=num, fast_circulation=True),
+                 forcing=forcing_from_arrays(arrs, "cpu"), verbose=False,
+                 device="cpu")
+    assert m.fold[0].comp_mode == "packed" and not m.fold[0].seq_zonal
+    s0, zero = m.initial_state(), Corrections.zeros(2, 128, 256)
+    s1, c1 = core.run_year_fluxcorr(s0, m.sfx, F32(340.0), m.md, num, m.fold)
+    s2, outs, _ = core.run_year_scenario(s0, m.sfx, zero, F32(680.0), m.md,
+                                         num, m.fold)
+    mesh = sh.make_mesh(1, 4, ["cpu"])
+    splan, sconst = fc2.build_sharded(None, None, m.grid, m.st, 0, 4,
+                                      fold=m.fold)
+    fcc = sh.shard_fastcirc(mesh, sconst)
+    flux, scnr = sh.make_sharded_year_runners(mesh, m.st, num, m.exp,
+                                              m.month_mat, fast_plan=splan)
+    st_s, sfx_s, c0_s, md_s = sh.shard_inputs(mesh, False, s0, m.sfx, None,
+                                              m.md)
+    g1, gc = flux(st_s, sfx_s, F32(340.0), md_s, fcc)
+    g2, gmon, _ = scnr(st_s, sfx_s, c0_s, F32(680.0), md_s, fcc)
+    g1, gc, g2, gmon = g1.gather(), gc.gather(), g2.gather(), gmon.gather()
+    for name in ("ts", "ta", "to", "q", "cap_surf"):
+        for got, want in ((g1, s1), (g2, s2)):
+            torch.testing.assert_close(getattr(got, name),
+                                       getattr(want, name), rtol=0, atol=0,
+                                       msg=name)
+    for name in ("tf", "tof", "qf"):
+        torch.testing.assert_close(getattr(gc, name), getattr(c1, name),
+                                   rtol=0, atol=0, msg=name)
+    torch.testing.assert_close(gmon, core.monthly_means(m.month_mat, outs),
+                               rtol=0, atol=0)
+    assert torch.isfinite(g2.ts).all() and torch.isfinite(gmon).all()

@@ -27,10 +27,26 @@ substep a shard does the unsharded fold's arithmetic row for row:
   against its own unsharded run, the port's is held at the golden-year
   tolerance (tests/test_golden_year.py:29, 2e-2 K): two frameworks round
   the correction in their own order;
-* refusals: a mesh of CUDA devices with no fold (the strict transport) or
-  a legacy word raises NotImplementedError naming ROADMAP Queue 1 item 5b
-  before anything runs (no card needed); shards that do not divide the
-  rows, or leave a shard under 2 rows, raise ValueError.
+* the strict stencils' masked full-field form, which the plain sharded
+  runners run, bitwise equal to their compact form, which the unsharded
+  strict kernels are held to, at 96x48 (unsharded, 20 steps): so the slab
+  kernels' strict years are held against the unsharded strict kernels;
+* the plain sharded runners under the legacy words against greb_tpu's:
+  log_exp 11 (the fold with switches) at 96x48 at
+  tests/test_sharded_fast.py:63's tolerances, log_exp 8 (the strict
+  transport, q by diffusion alone) and 2 (no transport) at 32x16 at
+  tests/test_sharded.py:28's;
+* the slab kernels' share of the strict transport, without a card: each
+  shard's sub-cycle counts, row coefficients, wz with the neighbour
+  shards' halo rows and one-sided advection rows are the global rows'
+  (``slab.cut_strict``, ``slab.wz_halo``), and the strict forms' block
+  layouts reckoned by hand;
+* what a mesh of CUDA devices runs, checked before anything runs (no card
+  needed): the fold's modern word, the strict transport (the library
+  default) and every legacy word are accepted (``slab.check_slab``); the
+  strict transport and the no-transport words at 768x384 raise
+  NotImplementedError naming ROADMAP Queue 1 item 3h; shards that do not
+  divide the rows, or leave a shard under 2 rows, raise ValueError.
 
 Inputs are the 96x48 synthetic forcing (regridded for 128x64) on a
 20-step calendar, the same numpy arrays for both packages.
@@ -57,14 +73,20 @@ from greb_tpu.parallel.sharded import make_sharded_year_runners as jrunners
 from greb_tpu.parallel.sharded import shard_fastcirc as jshard_fastcirc
 from greb_tpu.parallel.sharded import shard_inputs as jshard_inputs
 
+from greb_tpu.config import Experiment as JExperiment
+
 from greb_tpu_torch.config import Experiment, GrebConfig, Numerics
 from greb_tpu_torch.forcing import ModelState, forcing_from_arrays
+from greb_tpu_torch.grid import make_grid
 from greb_tpu_torch.io.checkpoint import Checkpointer
 from greb_tpu_torch.io.synthetic import make_synthetic_forcing
 from greb_tpu_torch.model import core, longrun
 from greb_tpu_torch.model.driver import GREB
 from greb_tpu_torch.ops import fastcirc2 as fc2
+from greb_tpu_torch.ops import stencils as stc
 from greb_tpu_torch.ops.cuda import multiyear as my
+from greb_tpu_torch.ops.cuda import slab
+from greb_tpu_torch.ops.cuda import year_kernel as yk
 from greb_tpu_torch.parallel import ensemble as ens
 from greb_tpu_torch.parallel import halo
 from greb_tpu_torch.parallel import sharded as sh
@@ -99,19 +121,21 @@ def _arrays(num):
     return _cache[key]
 
 
-def _port(num, fast=True):
-    key = ("port", num, fast)
+def _port(num, fast=True, log_exp=None):
+    key = ("port", num, fast, log_exp)
     if key not in _cache:
-        _cache[key] = GREB(GrebConfig(numerics=num, fast_circulation=fast),
+        _cache[key] = GREB(GrebConfig(numerics=num, fast_circulation=fast,
+                                      experiment=Experiment(log_exp)),
                            forcing=forcing_from_arrays(_arrays(num), "cpu"),
                            device="cpu", verbose=False)
     return _cache[key]
 
 
-def _jax(num, fast=True):
+def _jax(num, fast=True, log_exp=None):
     jnum = JNumerics(**{f.name: getattr(num, f.name)
                         for f in dataclasses.fields(num)})
-    return JGREB(JConfig(numerics=jnum, fast_circulation=fast),
+    return JGREB(JConfig(numerics=jnum, fast_circulation=fast,
+                         experiment=JExperiment(log_exp)),
                  forcing=jforcing_from_arrays(_arrays(num)), verbose=False)
 
 
@@ -121,13 +145,14 @@ def _masked(m):
         m.md, st=dataclasses.replace(m.st, compact_polar=False))
 
 
-def _unsharded(num, fast=True, ct_sens=None):
+def _unsharded(num, fast=True, ct_sens=None, compact=False):
     """The plain unsharded spin-up and scenario year: (state after each,
-    corrections, monthly means)."""
-    key = ("unsharded", num, fast, ct_sens)
+    corrections, monthly means); without the fold the strict stencils'
+    masked full-field form, or their compact form (``compact``)."""
+    key = ("unsharded", num, fast, ct_sens, compact)
     if key not in _cache:
         m = _port(num, fast)
-        md = m.md if fast else _masked(m)
+        md = m.md if fast or compact else _masked(m)
         s0 = m.initial_state()
         if ct_sens is not None:
             p = m.params.replace(ct_sens=F32(ct_sens))
@@ -144,16 +169,17 @@ def _unsharded(num, fast=True, ct_sens=None):
     return _cache[key]
 
 
-def _sharded(num, n_y, fast=True, n_ens=1, members=None):
+def _sharded(num, n_y, fast=True, n_ens=1, members=None, log_exp=None):
     """The plain sharded spin-up and scenario year on an (n_ens, n_y) CPU
-    mesh, gathered: (state after each, corrections, monthly means)."""
-    key = ("sharded", num, n_y, fast, n_ens, members is not None)
+    mesh under the word ``log_exp``, gathered: (state after each,
+    corrections, monthly means)."""
+    key = ("sharded", num, n_y, fast, n_ens, members is not None, log_exp)
     if key in _cache:
         return _cache[key]
-    m = _port(num, fast)
+    m = _port(num, fast, log_exp)
     mesh = sh.make_mesh(n_ens, n_y, ["cpu"])
     splan = fcc = None
-    if fast:
+    if m.fold is not None:
         splan, sconst = fc2.build_sharded(None, None, m.grid, m.st, 0, n_y,
                                           fold=m.fold)
         fcc = sh.shard_fastcirc(mesh, sconst)
@@ -240,6 +266,18 @@ def test_strict_masked_form_32x16():
                     _unsharded(NUM32, fast=False))
 
 
+def test_strict_masked_form_equals_compact_96x48():
+    """The strict stencils' masked full-field form (every row sub-cycled to
+    the deepest count, a row adding 0 past its own under its 0/1 masks),
+    which the plain sharded runners run, against their compact form (the
+    polar bands alone), which the unsharded strict kernels are held to,
+    unsharded at 96x48 on 20 steps: state, tables and monthly means bit for
+    bit."""
+    assert _port(NUM96, fast=False).st.compact_polar
+    _assert_bitwise(_unsharded(NUM96, fast=False),
+                    _unsharded(NUM96, fast=False, compact=True))
+
+
 def test_halo_exchange_threads():
     """Three shards' rows swapped among three threads: each gets its
     neighbours' edge rows, zeros past the poles."""
@@ -310,18 +348,53 @@ def test_sharded_checkpoint_resume(tmp_path):
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
+NUM768 = Numerics(xdim=768, ydim=384, dt_crcl=450, ndays_yr=1,
+                  jday_mon=(1,), time_flux=1, time_scnr=1)
+
+
 def test_cuda_mesh_refuses_before_any_launch():
-    """No card is needed: the check comes first.  The strict transport
-    (no fold) and a legacy word raise naming item 5b."""
+    """No card is needed: the check comes first.  The strict transport (the
+    library default, no fold) and the no-transport and strict legacy words
+    at 768x384 raise naming ROADMAP Queue 1 item 3h: a shard runs the year
+    kernels' strict form of the grid, which one cluster does not hold
+    there (``year_kernel.REFINED_ITEMS["strict_wide"]``)."""
+    st, _ = stc.make_stencil_arrays(make_grid(768, 384, 450))
+    assert st.seq_zonal
+    mesh = sh.Mesh([[torch.device("cuda", 0)] * 4])
+    for log_exp in (None, 4, 7, 8, 16):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3h"):
+            sh.make_sharded_year_runners(mesh, st, NUM768,
+                                         Experiment(log_exp),
+                                         torch.zeros(1, 2))
+
+
+def test_cuda_mesh_accepts_every_word():
+    """What the slab kernels run passes the check made before any launch
+    (no card needed): at 96x48, with the fold's shard plan and without it,
+    the modern word, the strict transport and every legacy log_exp word,
+    on the global plan ``slab.global_plan`` gives (the fold's where it
+    moves Ta and q, else the StrictPlan), in both kinds; and the strict
+    transport's plans of 224x112 to 384x192 in their forms."""
     m = _port(NUM96)
-    mesh = sh.Mesh([[torch.device("cuda", 0)] * 2])
     splan, _ = fc2.build_sharded(None, None, m.grid, m.st, 0, 2, fold=m.fold)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
-        sh.make_sharded_year_runners(mesh, m.st, NUM96, m.exp, m.month_mat)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
-        sh.make_sharded_year_runners(mesh, m.st, NUM96,
-                                     Experiment(log_exp=11), m.month_mat,
-                                     fast_plan=splan)
+    for log_exp in (None,) + tuple(range(17)):
+        exp = Experiment(log_exp)
+        for sp in (splan, None):
+            plan = slab.global_plan(sp, exp, NUM96, m.st.seq_zonal)
+            fold = core.transport(exp, sp is not None) == "fold"
+            assert (plan is sp.plan) if fold else (
+                plan == yk.StrictPlan(48, 96))
+            for kind in ("fluxcorr", "scenario"):
+                slab.check_slab(plan, exp, kind)
+    for plan, form in ((yk.StrictPlan(48, 96), "strict_cluster"),
+                       (yk.StrictPlan(96, 192), "strict_cluster"),
+                       (yk.StrictPlan(112, 224), "strict_additive"),
+                       (yk.StrictPlan(176, 352), "strict_additive"),
+                       (yk.StrictPlan(192, 384, seq_zonal=True), "strict")):
+        assert slab.slab_form(plan) == form
+        slab.check_slab(plan, Experiment())
+        slab.check_slab(plan, Experiment(4))
+    assert slab.slab_form(splan.plans[0]) == "additive"
 
 
 @pytest.mark.parametrize("n_y", [5, 32])
@@ -345,12 +418,84 @@ def test_make_mesh_defaults_to_cuda():
 
 
 # ---------------------------------------------------------------------------
+# the slab kernels' share of the strict transport, without a card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_y", [2, 4])
+def test_strict_constants_cut_the_global_rows(n_y):
+    """Each shard's strict constants as the slab kernels take them
+    (``slab.SlabRunner``'s shards on a CPU mesh, made without a launch)
+    are the global rows': its plan is ``cut_strict`` of the global plan
+    (each row's sub-cycle counts the global row's), the rows' constants
+    (dxlat^2, the diffusion sub-step, the two advection coefficients) and
+    counts the global year data's rows, wz the global wz of Ta and q with
+    the neighbour shards' HALO rows each side and zeros past the poles, and
+    the one-sided advection rows at global rows 1 and Y-2 the stencils'
+    row_mfull, row_pfull."""
+    m = _port(NUM96, fast=False)
+    gplan, sf = m.year_data.plan, m.md.sf
+    assert gplan.sub_cycles is not None and not gplan.seq_zonal
+    cpu = torch.device("cpu")
+    want, _ = yk._strict_args(m.year_data, cpu)
+    wz = torch.nn.functional.pad(torch.stack(
+        [m.md.derived.wz_air, m.md.derived.wz_vapor]), (0, 0, 2, 2))
+    mesh = sh.make_mesh(1, n_y, ["cpu"])
+    runner = slab.SlabRunner(mesh, None, NUM96, m.exp, gplan)
+    _, sfx_s, _, md_s = sh.shard_inputs(mesh, False, m.initial_state(),
+                                        m.sfx, None, m.md)
+    runner._setup(sfx_s, md_s, None)
+    R = NUM96.ydim // n_y
+    for k, s in runner.shards.items():
+        lo, hi = k[1] * R, (k[1] + 1) * R
+        assert s.yd.plan == slab.cut_strict(gplan, lo, hi)
+        assert s.yd.plan.sub_cycles == tuple(c[lo:hi]
+                                             for c in gplan.sub_cycles)
+        got, _ = yk._strict_args(s.yd, cpu)
+        for name in ("st_rows", "st_n"):
+            assert torch.equal(got[name][0], want[name][0][:, lo:hi]), name
+        assert torch.equal(s.wz, wz[:, lo:hi + 4])
+        # the kernel's one-sided rows: r == 1, r == Yg - 2 of its global
+        # rows r = row0 + local row
+        r = np.arange(s.slab.row0, s.slab.row0 + R)
+        assert np.array_equal(r == 1, sf.row_mfull[lo:hi, 0].numpy())
+        assert np.array_equal(r == s.slab.Yg - 2,
+                              sf.row_pfull[lo:hi, 0].numpy())
+        assert (s.form, s.nf, s.entry("substep"), s.entry("finish")) == (
+            "strict_cluster", 2, "slab_strict<strict_cluster>",
+            "slab_finish<legacy>")
+
+
+@pytest.mark.parametrize("form", slab.STRICT_FORMS)
+@pytest.mark.parametrize("rows, blocks, X", [(24, 12, 96), (48, 8, 384)])
+def test_strict_slab_layout_by_hand(form, rows, blocks, X):
+    """A strict slab block's shared memory, reckoned as
+    csrc/slab_kernel.cu slab_strict_parts reckons it: wz of both fields
+    with 2 halo rows each side, the step's winds in the cluster body's form
+    alone, its four (2, R, X) sub-cycle planes (the refined forms' two),
+    and 6 words a row of constants (the additive form's 8), rounded up to
+    4 words; no transported buffers (global); the fewest rows a block that
+    fit."""
+    R = rows // blocks
+    plan = yk.StrictPlan(rows, X)
+    cl = form == "strict_cluster"
+    want = dict(transported=0, wz=4 * 2 * (R + 4) * X,
+                winds=4 * 2 * R * X if cl else 0,
+                subcycle=4 * (4 if cl else 2) * 2 * R * X,
+                rowc=4 * (-(-(8 if form == "strict_additive" else 6) * R
+                            // 4) * 4))
+    assert slab.slab_layout(plan, blocks, form) == want
+    assert slab.slab_blocks(plan, form) == rows // 2
+    with pytest.raises(ValueError, match="at least 2 rows"):
+        slab.slab_layout(plan, rows, form)
+
+
+# ---------------------------------------------------------------------------
 # the port against greb_tpu's sharded runners
 # ---------------------------------------------------------------------------
-def _jax_sharded(num, n_y, fast=True, batched=False, **build_kw):
+def _jax_sharded(num, n_y, fast=True, batched=False, log_exp=None,
+                 **build_kw):
     """greb_tpu's sharded spin-up and scenario year, as
     tests/test_sharded_fast.py's _run_pair and test_sharded.py run them."""
-    m = _jax(num, fast)
+    m = _jax(num, fast, log_exp)
     state0, md = m.initial_state(), m.md
     corr0 = JCorrections.zeros(num.nstep_yr, num.ydim, num.xdim)
     mesh = jmake_mesh(n_ens=2 if batched else 1, n_y=n_y)
@@ -362,7 +507,7 @@ def _jax_sharded(num, n_y, fast=True, batched=False, **build_kw):
                              corr0)
     args = ()
     kw = {}
-    if fast:
+    if m.fastcirc_tables() is not None:
         splan, sconst = jfc2.build_sharded(
             np.asarray(m.derived.wz_air), np.asarray(m.derived.wz_vapor),
             m.grid, m.st, kappa=float(m.params.kappa), n_shards=n_y,
@@ -493,3 +638,34 @@ def test_vs_greb_tpu_strict_32x16():
                                atol=2e-3)
     np.testing.assert_allclose(_np(ps2.q), np.asarray(js2.q), rtol=1e-4,
                                atol=1e-7)
+
+
+@pytest.mark.parametrize("log_exp", [11, 8, 2])
+def test_vs_greb_tpu_legacy_words(log_exp):
+    """The plain sharded runners under a legacy word on 4 shards against
+    greb_tpu's on the 8-virtual-device mesh.  log_exp 11 (the fold with the
+    linearised vapour feedback) at 96x48 at tests/test_sharded_fast.py:63's
+    tolerances, as ``test_vs_greb_tpu_96x48``: monthly means and the
+    scenario's Ts 2e-2 K, the spin-up's Ts at the golden 2e-2 K and its tf
+    1 W/m^2.  log_exp 8 (the strict transport, q by diffusion alone) and 2
+    (no transport) at 32x16 at tests/test_sharded.py:28's, as
+    ``test_vs_greb_tpu_strict_32x16``: ts rtol 1e-5 atol 1e-3, tf rtol 1e-4
+    atol 2, monthly rtol 1e-5 atol 2e-3, q rtol 1e-4 atol 1e-7."""
+    fold = log_exp == 11
+    num = NUM96 if fold else NUM32
+    js1, jc1, js2, jmon = _jax_sharded(num, 4, fast=fold, log_exp=log_exp)
+    ps1, pc1, ps2, pmon = _sharded(num, 4, fast=fold, log_exp=log_exp)
+    assert _port(num, fold, log_exp).fold is not None or not fold
+    if fold:
+        tol = dict(ts1=(0, TOL_T), tf=(0, 1.0), mon=(0, 2e-2),
+                   ts2=(0, 2e-2))
+    else:
+        tol = dict(ts1=(1e-5, 1e-3), tf=(1e-4, 2.0), mon=(1e-5, 2e-3),
+                   q2=(1e-4, 1e-7))
+    pairs = dict(ts1=(ps1.ts, js1.ts), tf=(pc1.tf, jc1.tf), mon=(pmon, jmon),
+                 ts2=(ps2.ts, js2.ts), q2=(ps2.q, js2.q))
+    for name, (rtol, atol) in tol.items():
+        got, want = pairs[name]
+        assert np.isfinite(_np(got)).all(), name
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=rtol,
+                                   atol=atol, err_msg=name)
