@@ -7,7 +7,8 @@
 2. builds the CUDA kernels from greb_tpu_torch/csrc/ (nvcc, sm_90a) into
    greb_tpu_torch/_build/ and prints the build time, each source's own
    and what was made meanwhile for later phases with no kernel of this
-   package (_prebuild: the full-calendar forcing of 384x192, 192x96 and
+   package (_prebuild: the native record-IO library built with g++, the
+   full-calendar forcing of 384x192, 192x96 and
    256x128 regridded, step 18's short-calendar 768x384 model and its fold;
    in a process of its own, this script with --plain-strict PATH, step
    21's plain sharded strict years), then the ptxas registers and spills
@@ -270,7 +271,23 @@
    model); 384x192 strict on 4 shards (step 17's 2-step model); each new
    entry's launch timed on each shard (a CUDA graph of 50 launches), its
    plain version on the pole shard, its bound;
-22. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+22. the host layer around the main path on step 8's 96x48 model, in at
+   most HOST_PHASE_S seconds: GREB.run with 1 spin-up and 2 scenario
+   years, check_finite_every=1 and an output file (launch counts read);
+   analysis.read_greb, reading through the native record-IO library,
+   returns the run's monthly means bit for bit, and the native read of
+   the file equals the NumPy read byte for byte; check_finite passes on
+   the run's end state and raises, naming .ts, on a copy with one NaN
+   planted on the card; analysis._host gives the host copy of each array
+   plots.save_all reads (the monthly means copied to the card, the run's
+   diagnostics, the model's forcing on the card), and save_all draws the
+   reference's figure set (Agg) from them where matplotlib is installed
+   (the card's machine has none; tests/test_torch_plots.py draws it on
+   the CPU from tensors np.asarray refuses); and one line, with
+   no bound: diag/memory.memory_report for this configuration beside
+   torch.cuda.max_memory_allocated() over the run after a reset, with
+   the card's name and power limit;
+23. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
    ms and bound, for all four the refined and the 192x96 launch's, the
    legacy fold words' and the strict 384x192 modes' launches, plain
@@ -1289,13 +1306,17 @@ def _regridded(num, fresh=False):
 
 def _prebuild(tmp):
     """What later phases use and no kernel of this package computes, made
-    while the kernels build: the full-calendar forcing of the paths at
+    while the kernels build: the native record-IO library (g++), the
+    full-calendar forcing of the paths at
     384x192, 192x96 and 256x128 regridded into _REGRIDDED, and step 18's
     short-calendar 768x384 model (its fold's float64 SVDs; the fold left in
     ``tmp`` for step 18's fresh process).  Returns ({what: seconds}, step
     18's _grid768_model result)."""
     from greb_tpu_torch.config import Numerics
-    took = {}
+    from greb_tpu_torch.io import native_recordio
+    t0 = time.perf_counter()
+    native_recordio.build()
+    took = {"record-IO library (g++)": time.perf_counter() - t0}
     for grid in (REFINED_GRID, G192_GRID, G256_GRID):
         num = Numerics(**grid)
         took[f"regrid {num.xdim}x{num.ydim}"] = _regridded(num)[1]
@@ -4294,6 +4315,102 @@ def _sharded_words_phase(tmp, m384=None, m256=None, m256s=None,
     return out
 
 
+# step 22: the host layer's wall limit [s]
+HOST_PHASE_S = 10.0
+
+
+def _host_layer_phase(tmp, model, smi, reset_counts, read_counts):
+    """Step 22 (see the module docstring) on step 8's model ``model``."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch import analysis, plots
+    from greb_tpu_torch.diag.memory import memory_report
+    from greb_tpu_torch.diag.profiling import check_finite
+    from greb_tpu_torch.io import binio
+    from greb_tpu_torch.io.native_recordio import NativeRecordIO
+    t_phase = time.perf_counter()
+    m = _with_years(model, time_flux=1, time_scnr=2)
+    m.cfg = dataclasses.replace(m.cfg, check_finite_every=1)
+    num = m.num
+    out = os.path.join(tmp, "host_scenario")
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _, monthly, diags = m.run(output_path=out)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    read_counts("host layer run", {
+        "fluxcorr_year": 1, "scenario_year": 2, "fluxcorr_years": 0,
+        "scenario_years": 0})
+    shape = (num.ydim, num.xdim)
+    for i, var in enumerate(analysis.VARS):
+        _, data = analysis.read_greb(out, var, num.xdim, num.ydim)
+        if data.tobytes() != np.ascontiguousarray(
+                monthly[:, :, i]).tobytes():
+            raise AssertionError(f"read_greb {var}: not the run's monthly "
+                                 f"means bit for bit")
+    if not isinstance(binio._native, NativeRecordIO):
+        raise AssertionError("the output file was not read natively")
+    nat = binio.read_records(out, shape)
+    if nat.tobytes() != binio._read_records_numpy(out, shape).tobytes():
+        raise AssertionError("native and NumPy reads of the output differ")
+    check_finite(state, name="state@end")
+    bad = state.replace(ts=state.ts.clone())
+    bad.ts[num.ydim // 2, 7] = float("nan")
+    try:
+        check_finite(bad, name="state@end")
+    except FloatingPointError as e:
+        if str(e) != "state@end.ts: 1 non-finite":
+            raise AssertionError(f"check_finite said {e}")
+    else:
+        raise AssertionError("check_finite passed a NaN")
+    # what save_all reads, on the card, through analysis._host: the
+    # monthly means copied to the card, the run's diagnostics and the
+    # model's forcing
+    mon_dev = torch.as_tensor(monthly, device="cuda")
+    f = m.forcing
+    if f.z_topo.device.type != "cuda":
+        raise AssertionError("the forcing is not on the card")
+    for tag, t in ([("monthly", mon_dev), ("z_topo", f.z_topo),
+                    ("uclim[0]", f.uclim[0]), ("vclim[0]", f.vclim[0])]
+                   + [(f"diag {i} global_mean_ts", d.global_mean_ts)
+                      for i, d in enumerate(diags)]):
+        host = analysis._host(t)
+        if not isinstance(host, np.ndarray) or \
+                host.tobytes() != t.cpu().numpy().tobytes():
+            raise AssertionError(f"_host({tag}) is not its host copy")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        drawn = ("matplotlib is not installed here: save_all's inputs "
+                 "checked through _host, no figure drawn")
+    else:
+        t0 = time.perf_counter()
+        paths = plots.save_all(os.path.join(tmp, "host"), mon_dev,
+                               diags=diags, forcing=f)
+        names = [os.path.basename(p) for p in paths]
+        if names != [f"host_{n}.png" for n in ("warming", "albedo_y1",
+                                                "albedo_yN", "dtsurf",
+                                                "mask", "wind")] \
+                or min(os.path.getsize(p) for p in paths) < 2000:
+            raise AssertionError(f"save_all wrote {names}")
+        drawn = (f"{len(paths)} figures in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    rep = memory_report(num)
+    print(f"  {len(analysis.VARS)} variables read back bit for bit "
+          f"(native = NumPy); check_finite on the end state and on one "
+          f"NaN; {drawn}")
+    print(f"  memory ({smi}): memory_report {rep.total} B resident "
+          f"({num.xdim}x{num.ydim}, 1 member), "
+          f"torch.cuda.max_memory_allocated over the "
+          f"run {peak} B, with what this process held before it")
+    seconds = time.perf_counter() - t_phase
+    print(f"host layer phase: {seconds:.1f} s")
+    if seconds > HOST_PHASE_S:
+        raise AssertionError(f"step 22 took {seconds:.1f} s, over "
+                             f"{HOST_PHASE_S} s")
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4838,6 +4955,10 @@ def main(argv) -> int:
             band.pop("strict_model"), sharded.pop("workers"), plain96)
         del plain96
         lap("sharded words")
+
+        # -- the host layer: analysis, plots, run diagnostics, native IO --
+        _host_layer_phase(tmp, model, smi, reset_counts, read_counts)
+        lap("host layer")
 
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for LONG_BLOCK years, K4 3 members: the median of

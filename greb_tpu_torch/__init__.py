@@ -36,6 +36,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# forcing.py reads resolve_device from here
+from .forcing import (ClimForcing, Corrections, Derived,  # noqa: E402
+                      ModelState, build_derived, initial_state, load_forcing,
+                      synthetic_forcing)
+from .grid import Grid, make_grid  # noqa: E402
+
+
 def __getattr__(name):
     # the driver is imported on first use, not with the package
     if name == "GREB":
@@ -46,5 +53,8 @@ def __getattr__(name):
 
 __all__ = [
     "GREB", "GrebConfig", "Numerics", "PhysicsParams", "Diagnostics",
-    "CO2Params", "Experiment", "config_from_namelist", "resolve_device",
+    "CO2Params", "Experiment", "ClimForcing", "Corrections", "Derived",
+    "ModelState", "Grid", "make_grid", "build_derived", "initial_state",
+    "load_forcing", "synthetic_forcing", "config_from_namelist",
+    "resolve_device",
 ]

@@ -27,6 +27,12 @@ the TF_correct dump to ``<output dir>/control``, the control phase
 ``log_exp`` 0-16; under 7, 8 and 16 the kernels move Ta (and under 8 q)
 with the strict term-by-term stencils.  ``--strict-circulation`` moves Ta
 and q with those stencils instead of the coefficient-folded circulation.
+
+``--plots PREFIX`` writes the reference README's figure set after the run
+(plots.save_all) as ``PREFIX_*.png``: from the run's monthly means and
+yearly diagnostics, or, after the ensemble, legacy and checkpointed runs,
+from the output file read back (the ensemble's first member's,
+``<output>_001``).
 """
 from __future__ import annotations
 
@@ -68,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in "
                         "--checkpoint-dir")
+    p.add_argument("--plots", default=None, metavar="PREFIX",
+                   help="after the run, write the reference README's figure "
+                        "set (warming curve, Arctic albedo, dTsurf, inputs) "
+                        "as PREFIX_*.png")
     p.add_argument("--ensemble", type=int, default=0, metavar="M",
                    help="run an M-member perturbed-physics ensemble batched "
                         "on one card (the reference runs one process per "
@@ -125,6 +135,7 @@ def main(argv=None) -> int:
         os.makedirs(out_dir, exist_ok=True)
 
     t0 = time.perf_counter()
+    monthly = diags = None
     if args.ensemble > 0:
         run_ensemble(model, out_path, args)
     elif args.legacy:
@@ -132,9 +143,22 @@ def main(argv=None) -> int:
     elif args.checkpoint_dir:
         run_checkpointed(model, out_path, args)
     else:
-        model.run(output_path=out_path)
+        _, _, monthly, diags = model.run(output_path=out_path)
     if not args.quiet:
         print(f"% total wall time {time.perf_counter() - t0:.2f}s")
+    if args.plots:
+        num = model.num
+        if monthly is None:
+            from .io.binio import read_output
+            # greb_tpu reads <output> here, which its ensemble never writes
+            path = f"{out_path}_001" if args.ensemble > 0 else out_path
+            monthly = read_output(path, num.xdim, num.ydim).reshape(
+                (-1, len(num.jday_mon), 5, num.ydim, num.xdim))
+        from . import plots as figs
+        paths = figs.save_all(args.plots, monthly, diags=diags,
+                              forcing=model.forcing)
+        if not args.quiet:
+            print("% figures: " + " ".join(paths))
     return 0
 
 

@@ -34,6 +34,7 @@ class Numerics:
     dt: int = 12 * 3600            # model time step [s]
     dt_crcl: int = 1800            # circulation time step [s]
     jday_mon: Tuple[int, ...] = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
+    ireal: int = 4                 # record word length [bytes]
 
     time_flux: int = 0             # flux-correction phase length [yr]
     time_ctrl: int = 0             # control phase length [yr] (legacy variant)
@@ -49,6 +50,14 @@ class Numerics:
     @property
     def nstep_yr(self) -> int:
         return self.ndays_yr * self.ndt_days
+
+    @property
+    def dlon(self) -> float:
+        return 360.0 / self.xdim
+
+    @property
+    def dlat(self) -> float:
+        return 180.0 / self.ydim
 
     @property
     def nsub_crcl(self) -> int:
@@ -130,6 +139,7 @@ class Diagnostics:
     output_file: str = "output/scenario"
     ens_id: str = ""
     console: bool = True      # print annual means like the reference
+    store_monthly: bool = True   # greb_tpu's field; neither package reads it
 
     @property
     def output_file_full(self) -> str:
@@ -235,12 +245,27 @@ class GrebConfig:
     diagnostics: Diagnostics = field(default_factory=Diagnostics)
     co2: CO2Params = field(default_factory=CO2Params)
     experiment: Experiment = field(default_factory=Experiment)
+    # greb_tpu's two XLA/Pallas switches (unroll_circulation, use_pallas),
+    # accepted so a config of either package builds in the other, and
+    # without effect here: every path of the port runs the hand-written
+    # kernels on the card (their plain versions on the CPU), whatever
+    # these say
+    unroll_circulation: bool = False
+    # the reference debug build's FPE traps (Makefile:10): check the state
+    # for NaN/Inf after every N-th year of the per-year scenario loop and
+    # raise FloatingPointError naming the fields (diag/profiling.py
+    # check_finite); 0 = off
+    check_finite_every: int = 0
+    use_pallas: bool = False
     # True: the coefficient-folded circulation (ops/fastcirc2.py), which
     # the CLI runs unless --strict-circulation; False: the strict
     # term-by-term stencils (ops/stencils.py).  The default is greb_tpu's.
     fast_circulation: bool = False
     fastcirc_version: int = 2
     fidelity_jp2_quirk: bool = True   # reproduce src/greb.f90:881 index quirk
+
+    def physics_defaults(self) -> PhysicsParams:
+        return PhysicsParams.default()
 
 
 def config_from_namelist(path: str) -> Tuple[GrebConfig, PhysicsParams]:

@@ -17,6 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from . import resolve_device
 from .config import Experiment, Numerics, PhysicsParams
 
 F32 = np.float32
@@ -98,12 +99,13 @@ def forcing_from_arrays(arrs: Dict[str, np.ndarray], device) -> ClimForcing:
         for k in ClimForcing.__dataclass_fields__ if k in arrs})
 
 
-def load_forcing(input_dir: str, num: Numerics, device) -> ClimForcing:
+def load_forcing(input_dir: str, num: Numerics, device=None) -> ClimForcing:
     """Load a reference-format input directory (src/greb.f90:1018-1027,
-    1073-1085)."""
+    1073-1085) onto ``device`` (None means CUDA)."""
     from .io.binio import read_records
     from .io.synthetic import INPUT_FILES
 
+    device = resolve_device(device)
     y, x, t = num.ydim, num.xdim, num.nstep_yr
     arrs: Dict[str, np.ndarray] = {}
     for key, fname in INPUT_FILES.items():
@@ -117,11 +119,13 @@ def load_forcing(input_dir: str, num: Numerics, device) -> ClimForcing:
     return forcing_from_arrays(arrs, device)
 
 
-def synthetic_forcing(num: Numerics, device) -> ClimForcing:
+def synthetic_forcing(num: Numerics, device=None) -> ClimForcing:
+    """The deterministic synthetic climatology on ``device`` (None means
+    CUDA)."""
     from .io.synthetic import make_synthetic_forcing
     return forcing_from_arrays(
         make_synthetic_forcing(num.xdim, num.ydim, num.nstep_yr, num.ndays_yr),
-        device)
+        resolve_device(device))
 
 
 def apply_experiment(forcing: ClimForcing, params: PhysicsParams,

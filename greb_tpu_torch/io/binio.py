@@ -8,8 +8,15 @@ confirmed by the R reader R/functions.R:34-81).
 NumPy arrays here are (ydim, xdim) [lat, lon] C-order, whose raw bytes match
 the Fortran (xdim, ydim) column-major records exactly.
 
-This copy keeps the NumPy path only; a native record-IO binding is left to
-a later slice.
+``read_records`` and ``write_records`` go through the native C++ library
+built from native/recordio.cpp (pread/pwrite, GIL-free, multi-record
+batching; io/native_recordio.py builds it at first use and raises if the
+build fails), where greb_tpu uses it when present.  The NumPy loops stay as
+``_read_records_numpy`` / ``_write_records_numpy``, the plain versions the
+tests hold the native path to byte for byte.  ``OutputWriter`` writes
+through a Python file, as greb_tpu's does.  One difference between the two
+paths: a record past the end of the file raises OSError (EIO) natively,
+EOFError in the NumPy loop.
 """
 from __future__ import annotations
 
@@ -19,6 +26,26 @@ from typing import Optional, Sequence
 import numpy as np
 
 F32 = np.float32
+_native = None
+
+
+def _get_native():
+    """The native library, built and loaded on first use."""
+    global _native
+    if _native is None:
+        from .native_recordio import NativeRecordIO
+        _native = NativeRecordIO.load()
+    return _native
+
+
+def _record_list(path: str, recl: int, records: Optional[Sequence[int]],
+                 count: Optional[int]) -> list:
+    """The 1-based records ``read_records`` reads."""
+    if records is None:
+        nrec_file = os.path.getsize(path) // recl
+        n = nrec_file if count is None else min(count, nrec_file)
+        records = range(1, n + 1)
+    return list(records)
 
 
 def read_records(path: str, shape: Sequence[int], records: Optional[Sequence[int]] = None,
@@ -30,13 +57,17 @@ def read_records(path: str, shape: Sequence[int], records: Optional[Sequence[int
     Returns (nrec, *shape) float32.
     """
     recl = int(np.prod(shape)) * 4
-    fsize = os.path.getsize(path)
-    nrec_file = fsize // recl
-    if records is None:
-        n = nrec_file if count is None else min(count, nrec_file)
-        records = range(1, n + 1)
-    records = list(records)
+    records = _record_list(path, recl, records, count)
+    flat = _get_native().read(path, recl, [r - 1 for r in records])
+    return flat.view(F32).reshape((len(records),) + tuple(shape))
 
+
+def _read_records_numpy(path: str, shape: Sequence[int],
+                        records: Optional[Sequence[int]] = None,
+                        count: Optional[int] = None) -> np.ndarray:
+    """``read_records`` through NumPy and Python file reads."""
+    recl = int(np.prod(shape)) * 4
+    records = _record_list(path, recl, records, count)
     out = np.empty((len(records),) + tuple(shape), F32)
     with open(path, "rb") as f:
         for i, r in enumerate(records):
@@ -49,7 +80,16 @@ def read_records(path: str, shape: Sequence[int], records: Optional[Sequence[int
 
 
 def write_records(path: str, data: np.ndarray, start_record: int = 1) -> None:
-    """Write float32 records (nrec, *shape) at 1-based ``start_record``."""
+    """Write float32 records (nrec, *shape) at 1-based ``start_record``;
+    records of an existing file past the written ones are kept."""
+    data = np.ascontiguousarray(data, F32)
+    recl = int(np.prod(data.shape[1:])) * 4
+    _get_native().write(path, recl, start_record - 1, data)
+
+
+def _write_records_numpy(path: str, data: np.ndarray,
+                         start_record: int = 1) -> None:
+    """``write_records`` through a Python file."""
     data = np.ascontiguousarray(data, F32)
     recl = int(np.prod(data.shape[1:])) * 4
     mode = "r+b" if os.path.exists(path) else "w+b"

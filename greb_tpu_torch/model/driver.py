@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..config import GrebConfig, PhysicsParams
+from ..config import GrebConfig, PhysicsParams, config_from_namelist
+from ..diag.profiling import check_finite
 from ..forcing import (ClimForcing, Corrections, ModelState,
                        apply_experiment, build_derived, initial_state,
                        load_forcing, synthetic_forcing)
@@ -107,6 +108,13 @@ class GREB:
             device=self.device)
         self._ppack = None   # the base params' member pack, made on first use
 
+    @classmethod
+    def from_namelist(cls, path: str, **kw) -> "GREB":
+        """A model of the namelist's config and physics; ``kw`` (the
+        forcing, ``device``, ...) go to the constructor."""
+        cfg, params = config_from_namelist(path)
+        return cls(cfg, params=params, **kw)
+
     def _check_member_kernels(self) -> None:
         """Raise before any launch where the member kernels (K3, K4) do not
         run this model's plan and flags word (``year_kernel.check_plan``),
@@ -179,7 +187,10 @@ class GREB:
         numbers the console lines of a run continued in chunks.
         ``output_start_record`` / ``output_truncate`` place the output
         stream (io/binio.OutputWriter; ``run_control`` overwrites the
-        control file from its first record and keeps its tail).
+        control file from its first record and keeps its tail).  With
+        ``cfg.check_finite_every`` N > 0 the per-year path checks the state
+        after every N-th year (diag/profiling.check_finite, named
+        ``state@yr<year>``), with or without monthly means.
 
         Returns (state, monthly (years,12,5,y,x) | None, diag list)."""
         num = self.num
@@ -213,10 +224,13 @@ class GREB:
                       "avg temp for ipx/ipy")
             monthly_all, diags = [], []
             ft_mean, fq_mean = core.correction_annual_means(corr)
+            every = self.cfg.check_finite_every
             for iy in range(years):
                 co2 = co2_series[iy]
                 state, outs, asum = yk.scenario_year(state, corr, co2,
                                                      self.year_data)
+                if every and (iy + 1) % every == 0:
+                    check_finite(state, name=f"state@yr{iy + 1}")
                 if not collect_monthly:
                     continue
                 monthly_np = core.monthly_means(self.month_mat,
@@ -249,7 +263,8 @@ class GREB:
                                 writer, years_per_call, first_year):
         """Scenario phase in blocks of ``years_per_call`` years, one call of
         the multi-year kernel each (see run_scenario), through
-        ``_member_blocks`` at M=1."""
+        ``_member_blocks`` at M=1.  ``check_finite_every`` is not checked
+        here: greb_tpu's multi-year path does not check it either."""
         num = self.num
         nmon = len(num.jday_mon)
         shape = (num.ydim, num.xdim)

@@ -129,6 +129,11 @@ class Fast2Const:
     pidx: Optional[PackedIndex] = None   # packed: pmask's blocks
 
 
+# the (Y, X) planes Fast2Const holds for each transported field: zd's 7,
+# zam's 8, mer's 9 and wz (diag/memory.py budgets the fold by it)
+N_COEF_PLANES = 7 + 8 + 9 + 1
+
+
 @dataclass
 class Fast2Coeffs:
     """One step's assembled coefficients."""

@@ -1,8 +1,9 @@
 """The PyTorch port imports without JAX and refuses to run without its
 device: ``greb_tpu_torch`` and every submodule import with neither ``jax``,
-``flax`` nor ``greb_tpu`` in ``sys.modules``, the float32 settings hold,
-and an entry point with no device (CUDA) raises on a machine without a
-card."""
+``flax``, ``greb_tpu`` nor ``matplotlib`` in ``sys.modules`` (plots.py
+loads matplotlib on first use), the float32 settings hold, the public API
+covers greb_tpu's, and an entry point with no device (CUDA) raises on a
+machine without a card."""
 import os
 import subprocess
 import sys
@@ -18,7 +19,8 @@ import greb_tpu_torch
 for info in pkgutil.walk_packages(greb_tpu_torch.__path__, "greb_tpu_torch."):
     importlib.import_module(info.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "greb_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "greb_tpu",
+                                    "matplotlib"))
 assert not bad, bad
 import torch
 assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -38,6 +40,18 @@ def test_port_imports_without_jax():
     assert int(res.stdout.split()[1]) >= 21
 
 
+def test_public_api_covers_greb_tpu():
+    import greb_tpu
+    import greb_tpu_torch
+
+    assert set(greb_tpu_torch.__all__) >= set(greb_tpu.__all__)
+    assert "resolve_device" in greb_tpu_torch.__all__
+    for name in greb_tpu_torch.__all__:
+        assert getattr(greb_tpu_torch, name) is not None, name
+    from greb_tpu_torch.model.driver import GREB
+    assert greb_tpu_torch.GREB is GREB
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-card path cannot run")
@@ -51,6 +65,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         GREB(cfg, verbose=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device(None)
+    import greb_tpu_torch
+    for fn, args in ((greb_tpu_torch.synthetic_forcing, (cfg.numerics,)),
+                     (greb_tpu_torch.load_forcing, ("no-such-dir",
+                                                    cfg.numerics))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(*args)
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -69,3 +89,21 @@ def test_unported_options_raise_with_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="Not to port"):
         GREB(GrebConfig(numerics=num, fastcirc_version=1), verbose=False,
              device="cpu")
+
+
+@pytest.mark.parametrize("module", ["analysis", "plots", "diag.profiling",
+                                    "diag.memory", "io.native_recordio"])
+def test_host_modules_have_greb_tpu_names(module):
+    """Every public function and class greb_tpu's module defines has a
+    counterpart of the same name in the port's."""
+    import importlib
+    theirs = importlib.import_module(f"greb_tpu.{module}")
+    ours = importlib.import_module(f"greb_tpu_torch.{module}")
+    names = {n for n, v in vars(theirs).items()
+             if not n.startswith("_") and callable(v)
+             and getattr(v, "__module__", None) == theirs.__name__}
+    assert names
+    missing = {n for n in names
+               if getattr(getattr(ours, n, None), "__module__", None)
+               != ours.__name__}
+    assert not missing, sorted(missing)
