@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (greb_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases SPEC]
+
+With no arguments it runs every step below.  ``--phases 1-17,23`` runs
+the steps named (numbers and ranges), with steps 1-2 and the steps they
+read from (_NEEDS: 3-7 run as one, 8 needs 3, 9 needs 8, 10 and 15 need
+9, 19 needs 18, 21 needs 17, 19 and 20); it prints no kernel line (step
+24), and its last line is the ok line.
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from greb_tpu_torch/csrc/ (nvcc, sm_90a) into
@@ -10,9 +16,10 @@
    package (_prebuild: the native record-IO library built with g++, the
    full-calendar forcing of 384x192, 192x96 and
    256x128 regridded, step 18's short-calendar 768x384 model and its fold;
-   in a process of its own, this script with --plain-strict PATH, step
-   21's plain sharded strict years), then the ptxas registers and spills
-   of every year, band and slab entry;
+   in processes of their own, this script with --plain-strict PATH, step
+   21's plain sharded strict years, and with --plain-strict768 PATH, step
+   23's plain first steps), then the ptxas registers and spills of every
+   year, band and slab entry;
    and holds the kernel's own reckoning of a cluster block's shared
    memory against ops/cuda/year_kernel.cluster_layout for each kind at
    each size it offers, with how many such clusters the card runs at once;
@@ -177,7 +184,10 @@
    (the strict circulation), 1 + 1 years: launch counts, finiteness, the
    output file read back, sim-yr/s, its own full-calendar strict K1 and K2
    launches timed (CUDA events around each launch of the path,
-   _TimedLaunches);
+   _TimedLaunches); then the path's K2 year again on 2 clusters (the
+   strict form's wide variant, scenario_year_strict_wide, forced by
+   year_kernel._forced) from the spin-up's end state with its tables, its
+   end state and monthly means bitwise against the path's;
 18. 768x384 at dt_crcl=450 (config 5, 96 substeps a step; the refined
    instantiation's wide form: one run or member on 6 clusters of 16
    blocks, the halo rows across the clusters' edges through global memory
@@ -200,13 +210,13 @@
    then K2 from K1's end with K1's tables, bitwise and finite, and the
    CLI's --ensemble G768_ENS_M (1 + 1: launch counts, the members' files
    read back finite);
-   the strict circulation refused before any launch
-   (ROADMAP Queue 1 item 3h); then GREB.run at 768x384, 1 + 1 years on the
-   full calendar (the regrid and the model build timed apart; launch
+   the strict circulation on a CUDA mesh refused before any launch
+   (ROADMAP Queue 1 item 3j); then GREB.run at 768x384, 1 + 1 years on
+   a 40-step calendar (G768_PATH; its forcing and fold made during the
+   build; launch
    counts, finiteness, the output file read back, the warming, sim-yr/s,
    peak device memory with what earlier phases held, the path's own K1 and
-   K2 launches timed with their
-   bounds);
+   K2 launches timed with their bounds);
 19. latitude x member sharding in the slab kernels (csrc/slab_kernel.cu:
    a shard's step as slab_start, nsub slab_substep, slab_finish, the halo
    rows copied between launches, a step replayed from one CUDA graph): at
@@ -287,7 +297,36 @@
    no bound: diag/memory.memory_report for this configuration beside
    torch.cuda.max_memory_allocated() over the run after a reset, with
    the card's name and power limit;
-23. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
+23. the strict transport at 768x384 (the sequential strict form's wide
+   variant, *_strict_wide: a run on 6 clusters, the halo rows across
+   their edges at a grid barrier, each pole's rows' diffusion sub-cycle
+   spread over its cluster's 16 blocks): the kernel's own layout of the
+   wide strict block against strict_wide_layout for each kind, with the
+   clusters the card runs at once; on a 2-step calendar, under the
+   library default, log_exp 7, 8, 16 and 0-4, the launchers' pick, K1
+   from the initial state and K2 from it with zero tables, finite; under
+   the library default and log_exp 16 (S768_PLAIN_WORDS) K1's first step
+   (its correction tables) and K2's (its output fields) bitwise against
+   the plain version's first step, on a calendar of one-hour steps
+   (S768_PLAIN: 8 substeps a step, each with the pole row's 6,612 rounds;
+   made during the build by this script with --plain-strict768 PATH, the
+   polar sub-cycles' rounds replayed from CUDA graphs, _GraphedSubcycle;
+   its wall and each word's first steps' ms reported), the library
+   default's K1 and K2 years there timed; K2 on the 2-step calendar timed
+   at each of S768_ROUNDS rounds between the spread's exchanges (bitwise
+   equal; year_kernel._forced), its year reckoned from its 2 steps beside
+   the year's bound (printed, not in the kernels line); under log_exp 0-4
+   (no transport) K1 and
+   K2 bitwise against their plain years; K4 = K1 and K3 = K2 at M=1 under
+   each word; config 5's long run under the library default (run_long
+   in K3 blocks, checkpoints) stopped and resumed in a
+   fresh process (this script with --resume-long768 DIR strict): final
+   state and output file bitwise equal; on a 10-step calendar GREB.run
+   with the library default (1 + 1 years: launch counts, the output file
+   read back finite, sim-yr/s), the CLI's --ensemble S768_ENS_M (K4
+   spin-ups, K3, one member a launch: the members' files) and run_legacy
+   at log_exp 16 (its control and scenario files, finite);
+24. prints one JSON line per kernel set ({"kernels": [...]}, with the modes
    each kernel was held bitwise in, for K1/K2 the strict year's ms, plain
    ms and bound, for all four the refined and the 192x96 launch's, the
    legacy fold words' and the strict 384x192 modes' launches, plain
@@ -296,8 +335,9 @@
    bounds, the entries of the grids between 192x96 and 384x192 with their
    modes, their 256x128 launches, plain versions and bounds, and each
    kernel's launches on every path; the three slab
-   entries with their 768x384 launches, and step 21's six entries) and,
-   last, {"ok": true, "device": {...}}.
+   entries with their 768x384 launches, and step 21's six entries; for K1-K4
+   step 23's strict wide entries, launches, times, bounds and the plain
+   version's) and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its wall time ("phase ...: s wall"), and the run its
 total before the JSON lines.
@@ -327,6 +367,48 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the steps of the module docstring: 1-2 (the card, the build) always run,
+# 24 (the kernel line) only where every step ran
+ALL_STEPS = frozenset(range(1, 25))
+# steps that read what another made: 3-7 run as one, the main path (8)
+# prints its kernels' share from step 3's times, the long run (9) holds
+# its first years to the main path's, the member chain (10) and the
+# ensemble (15) read the long run's, the sharded phase (19) step 18's
+# short model, the sharded words (21) the models of 17, 19 and 20
+_NEEDS = {8: (3,), 9: (8,), 10: (9,), 15: (9,), 19: (18,),
+          21: (17, 19, 20)}
+
+
+def _phases(spec: str) -> frozenset:
+    """The steps of ``--phases SPEC`` ("1-17,23": numbers and ranges of
+    the module docstring's steps) with steps 1-2 and what they need
+    (_NEEDS)."""
+    steps = {1, 2}
+    for part in spec.split(","):
+        lo, _, hi = part.partition("-")
+        steps.update(range(int(lo), int(hi or lo) + 1))
+    if steps & set(range(3, 8)):
+        steps.update(range(3, 8))
+    while True:
+        more = {n for s in steps for n in _NEEDS.get(s, ())} - steps
+        if not more:
+            break
+        steps |= more
+    bad = steps - ALL_STEPS
+    if bad:
+        raise ValueError(f"--phases {spec}: no step {sorted(bad)}")
+    return frozenset(steps)
+
+
+def _spec(steps) -> str:
+    """``steps`` as ranges ("1-17,23")."""
+    runs, out = sorted(steps), []
+    for n in runs:
+        if out and out[-1][1] == n - 1:
+            out[-1][1] = n
+        else:
+            out.append([n, n])
+    return ",".join(f"{a}-{b}" if b > a else f"{a}" for a, b in out)
 
 # Year-level tolerances of tests/test_golden_year.py (:29) for monthly
 # means, which hold the long run's multi-year kernel against the main
@@ -852,12 +934,15 @@ G192_ENSEMBLES = (("shared", G192_SHARED_M, dict(time_flux=3, time_scnr=3),
 # to plain on G768_SHORT's 2 steps (the plain steps replayed from CUDA
 # graphs), config 5's long run with checkpoints there (G768_LONG years in
 # K3 blocks of G768_BLOCK, stopped at G768_STOP and resumed in a fresh
-# process), GREB.run G768_YEARS on the full calendar and its four kernels'
-# years timed there (the full calendar's forcing is 6.9 GB and its regrid
-# ~50 s, so the path is cut to one year each)
+# process), GREB.run on G768_PATH's calendar (the full calendar's forcing
+# is 6.9 GB, its regrid ~60 s and its two years ~61 s on an H100: the
+# smoke's time limit keeps it out)
 G768_GRID = dict(xdim=768, ydim=384, dt_crcl=450)
 G768_SHORT = dict(ndays_yr=1, jday_mon=(1,))
-G768_YEARS = dict(time_flux=1, time_scnr=1)
+# GREB.run's calendar: 40 steps in two months, where the scenario year
+# ends warmer than its spin-up (on 10 steps it ends colder: at 96x48 and
+# 192x96 on the CPU -0.87 and -1.24 K; on 40 steps +0.32 and +0.38 K)
+G768_PATH = dict(ndays_yr=20, jday_mon=(10, 10), time_flux=1, time_scnr=1)
 G768_LONG = 4
 G768_BLOCK = 2
 G768_STOP = 2
@@ -1281,49 +1366,72 @@ def _strict_phase(tmp, reset_counts, read_counts):
 _REGRIDDED = {}
 
 
-def _regridded(num, fresh=False):
+def _regridded(num):
     """(The 96x48 synthetic forcing of num's calendar regridded to num's
     grid by the port's regrid.py, seconds): from _REGRIDDED where this
     process made it before (~6 s for 384x192's full calendar on the card's
-    host), unless ``fresh`` (a path whose set-up is timed from scratch),
-    and kept there for the next model."""
+    host), and kept there for the next model."""
     import numpy as np
     from greb_tpu_torch.io.synthetic import make_synthetic_forcing
     from greb_tpu_torch.regrid import regrid_forcing_arrays
     t0 = time.perf_counter()
     key = (num.xdim, num.ydim, num.nstep_yr, num.ndays_yr, num.jday_mon,
            "synthetic 96x48")
-    arrs = None if fresh else _REGRIDDED.get(key)
+    arrs = _REGRIDDED.get(key)
     if arrs is None:
         arrs = regrid_forcing_arrays(
             make_synthetic_forcing(96, 48, num.nstep_yr, num.ndays_yr), num)
         if not all(np.isfinite(a).all() for a in arrs.values()):
             raise AssertionError("regridded forcing not finite")
-        if not fresh:
-            _REGRIDDED[key] = arrs
+        _REGRIDDED[key] = arrs
     return arrs, time.perf_counter() - t0
 
 
-def _prebuild(tmp):
+def _prebuild(tmp, want=lambda step: True):
     """What later phases use and no kernel of this package computes, made
     while the kernels build: the native record-IO library (g++), the
     full-calendar forcing of the paths at
     384x192, 192x96 and 256x128 regridded into _REGRIDDED, and step 18's
     short-calendar 768x384 model (its fold's float64 SVDs; the fold left in
-    ``tmp`` for step 18's fresh process).  Returns ({what: seconds}, step
-    18's _grid768_model result)."""
+    ``tmp`` for step 18's fresh process) and its path's forcing and fold
+    (G768_PATH's calendar); each only where a step of
+    ``want`` uses it.  Returns ({what: seconds}, step 18's _grid768_model
+    result or None)."""
     from greb_tpu_torch.config import Numerics
     from greb_tpu_torch.io import native_recordio
     t0 = time.perf_counter()
     native_recordio.build()
     took = {"record-IO library (g++)": time.perf_counter() - t0}
-    for grid in (REFINED_GRID, G192_GRID, G256_GRID):
-        num = Numerics(**grid)
-        took[f"regrid {num.xdim}x{num.ydim}"] = _regridded(num)[1]
-    with _SharedFolds(cache_dir=tmp):
-        m768 = _grid768_model(Numerics(**G768_GRID, **G768_SHORT))
-    took["768x384 short model"] = sum(m768[1:])
+    for grid, steps in ((REFINED_GRID, (13, 16, 17)), (G192_GRID, (14, 16)),
+                        (G256_GRID, (20,))):
+        if any(map(want, steps)):
+            num = Numerics(**grid)
+            took[f"regrid {num.xdim}x{num.ydim}"] = _regridded(num)[1]
+    m768 = None
+    if want(18):
+        with _SharedFolds(cache_dir=tmp):
+            m768 = _grid768_model(Numerics(**G768_GRID, **G768_SHORT))
+            took["768x384 short model"] = sum(m768[1:])
+            # the path's forcing (into _REGRIDDED) and fold (a file in tmp)
+            took["768x384 path's forcing and fold"] = sum(_grid768_model(
+                Numerics(**G768_GRID, **G768_PATH))[1:])
     return took, m768
+
+
+def _child_result(flag, path, proc):
+    """(what the plain-version process ``flag`` saved to ``path``, its
+    seconds), after it ended; raises where it failed or launched a kernel
+    of this package."""
+    import torch
+    o, e = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        print(o[-4000:], e[-4000:], file=sys.stderr)
+        raise AssertionError(f"{flag} exited {proc.returncode}")
+    child = json.loads(o.strip().splitlines()[-1])
+    if any(child["launches"].values()):
+        raise AssertionError(f"{flag}: the plain version launched "
+                             f"{child['launches']}")
+    return torch.load(path, weights_only=False), child["s"]
 
 
 def _plain_strict(path) -> int:
@@ -1345,17 +1453,17 @@ def _plain_strict(path) -> int:
 
 
 def _refined_model(num, out_path=None, verbose=False, fast=True,
-                   log_exp=None, fresh=False):
+                   log_exp=None):
     """GREB at a refined grid on the card, on forcing regridded by the
     port's regrid.py from the 96x48 synthetic forcing of num's calendar
-    (``_regridded``; ``fresh``: made anew), with the fold (``fast``), the
+    (``_regridded``), with the fold (``fast``), the
     strict circulation (``fast`` False) or the library's default (``fast``
     None: the strict circulation), and the switchboard at ``log_exp``;
     (model, seconds of the regrid)."""
     from greb_tpu_torch.config import Diagnostics, Experiment, GrebConfig
     from greb_tpu_torch.forcing import forcing_from_arrays
     from greb_tpu_torch.model.driver import GREB
-    arrs, regrid_s = _regridded(num, fresh)
+    arrs, regrid_s = _regridded(num)
     diag = Diagnostics(output_file=out_path) if out_path else Diagnostics()
     kw = {} if fast is None else dict(fast_circulation=fast)
     model = GREB(GrebConfig(numerics=num, diagnostics=diag,
@@ -1566,15 +1674,15 @@ def _refined_member_paths(model, tmp, state, monthly, corr, reset_counts,
 
 
 def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
-                  fast=True, fresh=False):
+                  fast=True):
     """GREB.run at a grid of the refined instantiation (``grid``) on the
-    full calendar for ``years`` (spin-up, scenario), with the fold or the
+    calendar and years of ``years`` (the full calendar where it sets no
+    other; spin-up, scenario), with the fold or the
     strict circulation (``fast``, as ``_refined_model``), its output in
     tmp/tag/scenario: launch counts (K1 and K2 alone), sim-yr/s, the
     finiteness of state, tables and monthly means, the output file read
     back, the warming under 680 ppm (over two scenario years or more).
     Returns (model, state, corr, monthly, launches, sim-yr/s, timing):
-    ``fresh``: the forcing regridded anew, not from _REGRIDDED.
     timing holds the ms of the path's own K1 and K2 launches (CUDA events
     around each, _TimedLaunches), the spin-up's end state, and the
     seconds of the forcing's regrid and of the model's build."""
@@ -1587,8 +1695,7 @@ def _refined_path(tag, tmp, grid, years, reset_counts, read_counts,
     out = os.path.join(tmp, tag, "scenario")
     os.makedirs(os.path.dirname(out))
     t0 = time.perf_counter()
-    model, regrid_s = _refined_model(num, out, verbose=True, fast=fast,
-                                     fresh=fresh)
+    model, regrid_s = _refined_model(num, out, verbose=True, fast=fast)
     build_s = time.perf_counter() - t0 - regrid_s
     spin = model.flux_correction
     kept = []
@@ -2266,6 +2373,7 @@ def _strict_refined_phase(tmp, reset_counts, read_counts):
     import torch
     from greb_tpu_torch.config import Numerics
     from greb_tpu_torch.forcing import Corrections
+    from greb_tpu_torch.model import core
     from greb_tpu_torch.ops.cuda import year_kernel as yk
 
     t_phase = time.perf_counter()
@@ -2369,6 +2477,26 @@ def _strict_refined_phase(tmp, reset_counts, read_counts):
     out["launches_path"], out["path_rate"] = launches, rate
     num, yd = model.num, model.year_data
     per_sub = 1e3 / (num.nstep_yr * num.nsub_crcl)
+    # -- the strict form's wide variant forced onto 2 clusters
+    #    (year_kernel._forced: each pole's rows spread over its own
+    #    cluster, the halo rows across the clusters' edge at a grid
+    #    barrier), the path's K2 year again from the spin-up's end state
+    #    with its tables, bitwise against the path's
+    #    (scenario_year_strict_refined) on the full calendar
+    two = yk._forced(yd, groups=2)
+    name = _pick_check("384x192 on 2 clusters", "scenario_year", two)
+    ms_two, (s_two, o_two, _) = _time_ms(lambda: yk.scenario_year(
+        timing["spin_state"], corr, model._co2_series()[0], two), 1)
+    _bitwise(f"384x192 strict K2 on 2 clusters ({name}) vs the path's "
+             f"(scenario_year_strict_refined), the full calendar", [
+                 ("state", s_two.stack(), state.stack()),
+                 ("monthly means", core.monthly_means(
+                     model.month_mat, o_two).cpu(),
+                  torch.from_numpy(monthly[0]))])
+    out["two_clusters_ms"] = ms_two
+    print(f"  384x192 strict K2 year on 2 clusters: {ms_two:.1f} ms (the "
+          f"path's on 1: {timing['scenario_year'][0]:.1f} ms)")
+    del two, s_two, o_two
     out["full_ms"] = {k: timing[k][0] for k in ("fluxcorr_year",
                                                 "scenario_year")}
     out["full_work"] = {k: yk.year_work(yd.plan, num, k == "scenario_year",
@@ -2408,11 +2536,12 @@ def _grid768_runner(model, tmp, tag):
     return ck, runner
 
 
-def _resume_long768(tmp: str) -> int:
-    """The fresh process of step 18: rebuild the 768x384 model on the
-    short calendar (its fold read from the one the first process left in
-    ``tmp``), resume config 5's stopped long run from its newest
-    checkpoint and run it to G768_LONG years."""
+def _resume_long768(tmp: str, strict: bool = False) -> int:
+    """The fresh process of steps 18 and 23 (``strict``: the library
+    default's): rebuild the 768x384 model on the short calendar (step
+    18's fold read from the one the first process left in ``tmp``), resume
+    config 5's stopped long run from its newest checkpoint and run it to
+    G768_LONG years."""
     t0 = time.perf_counter()
     import numpy as np
     import torch
@@ -2420,8 +2549,10 @@ def _resume_long768(tmp: str) -> int:
     from greb_tpu_torch.model import longrun
     from greb_tpu_torch.ops.cuda import multiyear as my
     with _SharedFolds(cache_dir=tmp):
-        model, _, _ = _grid768_model(Numerics(**G768_GRID, **G768_SHORT))
-    ck, runner = _grid768_runner(model, tmp, "resumed")
+        model, _, _ = _grid768_model(Numerics(**G768_GRID, **G768_SHORT),
+                                     fast=None if strict else True)
+    ck, runner = _grid768_runner(model, tmp,
+                                 "strict_resumed" if strict else "resumed")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     _, _, start = longrun.run_long(
@@ -2695,38 +2826,46 @@ def _grid768_phase(tmp, reset_counts, read_counts, prebuilt=None):
           f"{wall:.3f} s; {M} files, {nbytes} B, read back finite, the "
           f"members differ")
     del me
-    folds.stop()
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- the strict circulation refuses before any launch (item 3h)
+    # -- the strict circulation on a CUDA mesh refuses before any launch
+    #    (item 3j: a shard's strict block does not fit; step 23 runs it
+    #    unsharded)
+    from greb_tpu_torch.config import Experiment
+    from greb_tpu_torch.parallel import sharded as sh
     reset_counts()
     try:
-        _refined_model(short, fast=False)
+        sh.make_sharded_year_runners(
+            sh.Mesh([[torch.device("cuda", 0)] * 4]),
+            out["short_model"].md.st, short,
+            Experiment(), torch.zeros(1, 2))
     except NotImplementedError as e:
-        if "Queue 1 item 3h" not in str(e):
+        if "Queue 1 item 3j" not in str(e):
             raise
-        print(f"grid768 strict circulation refused: "
+        print(f"grid768 strict circulation on a CUDA mesh refused: "
               f"...{str(e)[-60:]}")
     else:
-        raise AssertionError("768x384 strict circulation was not refused")
+        raise AssertionError("768x384 strict circulation on a CUDA mesh was "
+                             "not refused")
     read_counts("grid768 strict refusal", dict.fromkeys(
         ("fluxcorr_year", "scenario_year", "fluxcorr_years",
          "scenario_years"), 0))
 
-    # -- the path: GREB.run at 768x384 on the full calendar, the regrid
-    #    and the model build timed apart, its peak device memory, its own
-    #    K1 and K2 launches timed (CUDA events); the warming: the scenario
-    #    year's end state against the spin-up's, area-weighted.  K3 and K4
-    #    are timed on the short calendar above (M=2), where each member's
-    #    launch is held to plain and K4 = K1, K3 = K2 at M=1.
+    # -- the path: GREB.run at 768x384 on G768_PATH's 40-step calendar
+    #    (its forcing and fold made during the build), its peak device
+    #    memory, its own K1 and K2 launches timed (CUDA events); the
+    #    warming: the scenario year's end state against the spin-up's,
+    #    area-weighted.  K3 and K4 are timed on the short calendar above
+    #    (M=2), where each member's launch is held to plain and K4 = K1,
+    #    K3 = K2 at M=1.
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     model, state, corr, monthly, launches, rate, timing = _refined_path(
-        "grid768", tmp, G768_GRID, G768_YEARS, reset_counts, read_counts,
-        fresh=True)
+        "grid768", tmp, G768_GRID, G768_PATH, reset_counts, read_counts)
+    folds.stop()
     out["peak"] = torch.cuda.max_memory_allocated()
     out["launches_path"], out["path_rate"] = launches, rate
     out["setup_s"] = (timing["regrid_s"], timing["build_s"])
@@ -2748,12 +2887,14 @@ def _grid768_phase(tmp, reset_counts, read_counts, prebuilt=None):
                  "scenario_year": timing["scenario_year"][0],
                  "fluxcorr_years": m_ms["fluxcorr_years"],
                  "scenario_years": m_ms["scenario_years"]}
-    out["shape"] = {"fluxcorr_year": "1 year", "scenario_year": "1 year",
+    out["shape"] = {"fluxcorr_year": f"1 year, {num.nstep_yr} steps",
+                    "scenario_year": f"1 year, {num.nstep_yr} steps",
                     "fluxcorr_years": f"M=2 x 1 year, {n} steps",
                     "scenario_years": f"M=2 x 2 years, {n} steps"}
+    _, ranks_p = yk.packed_ranks(model.fold[1])
     out["work"] = {
-        "fluxcorr_year": yk.year_work(plan, num, False, ranks),
-        "scenario_year": yk.year_work(plan, num, True, ranks),
+        "fluxcorr_year": yk.year_work(plan, num, False, ranks_p),
+        "scenario_year": yk.year_work(plan, num, True, ranks_p),
         "fluxcorr_years": my.years_work(plan, short, 1, 2, "fluxcorr",
                                         ranks=ranks),
         "scenario_years": my.years_work(plan, short, 2, 2, "scenario",
@@ -4411,6 +4552,448 @@ def _host_layer_phase(tmp, model, smi, reset_counts, read_counts):
                              f"{HOST_PHASE_S} s")
 
 
+# step 23: the strict transport at 768x384 (config 5's grid): the
+# sequential strict form's wide variant (*_strict_wide), its pole rows'
+# sub-cycle spread over the pole's cluster
+# the library default, the strict legacy words, the no-transport words
+S768_WORDS = (None, 7, 8, 16, 0, 1, 2, 3, 4)
+S768_ROUNDS = (4, 8, 12, 16)   # the spread's rounds between exchanges, timed
+S768_PATH = dict(ndays_yr=5, jday_mon=(3, 2), time_flux=1, time_scnr=1)
+# the calendar of the first step held against the plain version: one-hour
+# steps of 8 substeps (the sub-cycle counts follow dt_crcl: the same 6,612
+# rounds a substep), so the plain step is 8 substeps, not 96
+S768_PLAIN = dict(ndays_yr=1, jday_mon=(1,), dt=3600)
+# the words whose first steps are held against the plain version there:
+# the library default and a legacy strict word
+S768_PLAIN_WORDS = (None, 16)
+S768_LEGACY = dict(ndays_yr=5, jday_mon=(3, 2), time_flux=1, time_ctrl=1,
+                   time_scnr=1)
+S768_LEGACY_EXP = 16
+S768_ENS_M = 2
+
+
+class _GraphedSubcycle:
+    """Between start and stop (or inside ``with``), stencils._subcycle, the
+    polar sub-cycles' rounds of the strict transport's plain version,
+    replays its rounds from a CUDA graph: in each call of at least 2 CHUNK
+    rounds, CHUNK rounds of its body (the step, the clamp, the masked
+    add; _subcycle's float32 operations) are captured once from static
+    copies of the state and of the rounds' masks, and replayed for each
+    whole CHUNK, the rest eager.  A graph launches the kernels the eager
+    rounds launch, on the same values; the first such call also runs
+    eager and must agree bit for bit.  At 768x384 the pole row's 6,612
+    rounds a substep run over the whole grid (an extension-mode grid
+    sub-cycles every row), ~160 s a step eager on the card's host."""
+    CHUNK = 128
+
+    def start(self):
+        from greb_tpu_torch.ops import stencils
+        self.stc, self.eager = stencils, stencils._subcycle
+        self.checked = False
+        stencils._subcycle = self._call
+        return self
+
+    def stop(self):
+        self.stc._subcycle = self.eager
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def _call(self, x0, itm, max_iter, step_fn):
+        import torch
+        n = self.CHUNK
+        if max_iter < 2 * n:
+            return self.eager(x0, itm, max_iter, step_fn)
+        want = None if self.checked else self.eager(x0, itm, max_iter,
+                                                    step_fn)
+        t_in, m_in = x0.clone(), itm[:n].clone()
+
+        def rounds(t, masks):
+            for i in range(masks.shape[0]):
+                d = step_fn(t)
+                d = torch.where(d <= -t, -0.9 * t, d)
+                t = torch.addcmul(t, d, masks[i])
+            return t
+
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = rounds(t_in, m_in)
+        t1h = x0
+        whole = max_iter // n * n
+        for c in range(0, whole, n):
+            t_in.copy_(t1h)
+            m_in.copy_(itm[c:c + n])
+            graph.replay()
+            t1h = out.clone()
+        t1h = rounds(t1h, itm[whole:max_iter])
+        if want is not None:
+            _bitwise("graphed polar sub-cycle vs eager",
+                     [("rounds", t1h, want)], quiet=True)
+            self.checked = True
+        return t1h
+
+
+def _plain_strict768(path) -> int:
+    """The plain version that step 23 holds the strict wide kernels'
+    first steps against, in a process of its own while the kernels build
+    (no kernel of this package runs): at 768x384 on S768_PLAIN's calendar,
+    under each word of S768_PLAIN_WORDS (the library default, log_exp 16),
+    K1's first step from the initial state (its correction tables) and K2's
+    from the initial state with zero tables at 680 ppm (its five output
+    fields), which share the step's strict circulation (computed once, the
+    second call held equal in its inputs), the sub-cycles' rounds replayed
+    from CUDA graphs (_GraphedSubcycle).  Each word's two step calls are
+    timed on the host's clock between two synchronizes: the plain first
+    steps' ms, graph captures included.  ``python3 chip_smoke.py
+    --plain-strict768 PATH``; prints the process's wall."""
+    t_start = time.perf_counter()
+    import numpy as np
+    import torch
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.model import core
+    from greb_tpu_torch.ops import stencils
+    eager, res = stencils.circulation, {}
+    for e in S768_PLAIN_WORDS:
+        m, _ = _refined_model(Numerics(**G768_GRID, **S768_PLAIN),
+                              fast=None if e is None else True, log_exp=e)
+        yd = m.year_data
+        s0, fx = m.initial_state(), yd.sfx.at(0)
+        co2 = np.float32(m.exp.co2_ctrl if m.exp.active else 340.0)
+        seen = []
+
+        def once(x, wz, **kw):
+            for args, out in seen:
+                if all(torch.equal(a, b) if torch.is_tensor(a) else a is b
+                       or a == b for a, b in zip(args, (x, wz,
+                                                        *kw.values()))):
+                    return out.clone()
+            out = eager(x, wz, **kw)
+            seen.append(((x, wz, *kw.values()), out))
+            return out
+
+        stencils.circulation = once
+        try:
+            with _GraphedSubcycle():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, tabs = core.fluxcorr_step(s0, fx, co2, yd.md, yd.num,
+                                             None, yd.exp)
+                zero = tuple(torch.zeros_like(s0.ts) for _ in range(3))
+                _, outs = core.scenario_step(s0, fx, zero, np.float32(680.0),
+                                             yd.md, yd.num, None, yd.exp)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            stencils.circulation = eager
+        if len(seen) != 1:
+            raise AssertionError(f"log_exp {e}: K1's and K2's first steps "
+                                 f"made {len(seen)} circulations, not one")
+        res[e] = dict(tables=torch.stack(tabs),
+                      outs=torch.stack(outs[:core.N_OUT]), ms=ms)
+        del m, yd, seen
+    torch.save(res, path)
+    print(json.dumps({"s": time.perf_counter() - t_start, "launches": {}}))
+    return 0
+
+
+def _strict768_phase(tmp, reset_counts, read_counts, plain):
+    """Step 23 (see the module docstring); ``plain``: _plain_strict768's
+    first steps.  Returns the worst max |diff| per kernel, the launches'
+    and plain versions' times and work, the paths' launches and rates."""
+    import contextlib
+    import gc
+    import io
+
+    import numpy as np
+    import torch
+    from greb_tpu_torch import __main__ as cli
+    from greb_tpu_torch.config import Numerics
+    from greb_tpu_torch.forcing import Corrections, ModelState
+    from greb_tpu_torch.io.binio import read_output, read_records
+    from greb_tpu_torch.model import core, longrun
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+
+    t_phase = time.perf_counter()
+    kernels = ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+               "scenario_years")
+    err = dict.fromkeys(kernels, 0.0)
+    out = dict(ms={}, work={}, launches={}, rate={})
+    short = Numerics(**G768_GRID, **G768_SHORT)
+    full = Numerics(**G768_GRID)
+    n = short.nstep_yr
+    co2f, co2s = np.float32(340.0), np.float32(680.0)
+    zero = Corrections.zeros(n, short.ydim, short.xdim, device="cuda")
+    names = []
+    for e in S768_WORDS:
+        t0 = time.perf_counter()
+        m, _ = _refined_model(short, fast=None if e is None else True,
+                              log_exp=e)
+        yd, plan = m.year_data, m.year_data.plan
+        word = "library default" if e is None else f"log_exp {e}"
+        tag = f"strict768 {word} (flags {yd.flags:#05x})"
+        groups = yk.refined_groups(plan)
+        if not (isinstance(plan, yk.StrictPlan) and plan.seq_zonal
+                and groups > 1):
+            raise AssertionError(f"{tag}: not the strict wide form: {plan}")
+        names += [_pick_check(tag, k, yd) for k in kernels]
+        if e is None:
+            # the wide strict block: the kernel's reckoning against
+            # strict_wide_layout, the spread's groups, the clusters at once
+            H, W = yk.spread_layout(plan, 16, groups)
+            for kind in yk.KINDS:
+                lay = yk.block_layout(plan, 16, kind)
+                parts, threads = yk.kernel_cluster_layout(plan, 16, kind)
+                if parts != dict(lay.parts) or threads != lay.threads:
+                    raise AssertionError(
+                        f"{tag} {kind}: kernel layout {parts}, {threads} "
+                        f"threads; strict_wide_layout {dict(lay.parts)}")
+                cap = yk.cluster_capacity(plan, 16, kind)
+                print(f"strict768 {kind:<14s}: {groups} clusters of 16 "
+                      f"blocks a run, {lay.rows} rows/block, {lay.threads} "
+                      f"threads, {lay.nbytes} B shared memory a block, {cap} "
+                      f"clusters at once; kernel and strict_wide_layout "
+                      f"agree: {dict(lay.parts)}")
+            nd, na = plan.sub_cycles
+            print(f"  sub-cycles from each pole: diffusion {nd[:6]}, "
+                  f"advection {na[:4]}; {n}-step calendar, "
+                  f"{short.nsub_crcl} substeps; the pole rows spread over "
+                  f"{H} blocks of {W} columns, "
+                  f"{yk.spread_rounds(plan, 16, groups)} rounds between "
+                  f"exchanges")
+        co2 = np.float32(m.exp.co2_ctrl if m.exp.active else co2f)
+        s0 = m.initial_state()
+        k1_fn = lambda: yk.fluxcorr_year(s0, co2, yd)
+        k2_fn = lambda: yk.scenario_year(s0, zero, co2s, yd)
+        if e is None:
+            # timed after a warm-up launch (the run's set-up)
+            (ms1,), k1 = _launches_ms(k1_fn, 1)
+            (ms2,), k2 = _launches_ms(k2_fn, 1)
+        else:
+            ms1, k1 = _time_ms(k1_fn, 1)
+            ms2, k2 = _time_ms(k2_fn, 1)
+        _finite(f"K1 {tag}", [("state", k1[0].stack()), ("tf", k1[1].tf)])
+        _finite(f"K2 {tag}", [("state", k2[0].stack()), ("outs", k2[1])])
+        if e in plain:
+            # the first step of each against the plain version (made in a
+            # process of its own during the build), on S768_PLAIN's
+            # calendar of one-hour steps, 8 substeps a step; under the
+            # library default both launches there timed (a year of
+            # S768_PLAIN's steps each)
+            num_p = Numerics(**G768_GRID, **S768_PLAIN)
+            mp, _ = _refined_model(num_p, fast=None if e is None else True,
+                                   log_exp=e)
+            ydp, sp0 = mp.year_data, mp.initial_state()
+            zp = Corrections.zeros(num_p.nstep_yr, num_p.ydim, num_p.xdim,
+                                   device="cuda")
+            # each timed after a warm-up launch (the run's set-up)
+            (ms1p,), k1p = _launches_ms(
+                lambda: yk.fluxcorr_year(sp0, co2, ydp), 1)
+            (ms2p,), k2p = _launches_ms(
+                lambda: yk.scenario_year(sp0, zp, co2s, ydp), 1)
+            tabs = torch.stack([k1p[1].tf[0], k1p[1].tof[0], k1p[1].qf[0]])
+            err["fluxcorr_year"] = max(err["fluxcorr_year"], _bitwise(
+                f"K1 {tag}, its first step's tables ({num_p.nsub_crcl} "
+                f"substeps)", [("tables", tabs, plain[e]["tables"])],
+                quiet=True))
+            err["scenario_year"] = max(err["scenario_year"], _bitwise(
+                f"K2 {tag}, its first step's outputs ({num_p.nsub_crcl} "
+                f"substeps)", [("outs", k2p[1][0], plain[e]["outs"])],
+                quiet=True))
+            print(f"  {tag} on {num_p.nstep_yr} one-hour steps of "
+                  f"{num_p.nsub_crcl} substeps: K1 {ms1p:.1f} ms, K2 "
+                  f"{ms2p:.1f} ms a year; the plain first steps of K1 and "
+                  f"K2 (one circulation) {plain[e]['ms']:.1f} ms")
+            if e is None:
+                out["ms_1h"] = dict(fluxcorr_year=ms1p, scenario_year=ms2p)
+                out["work_1h"] = {
+                    k: yk.year_work(ydp.plan, num_p, k == "scenario_year",
+                                    flags=ydp.flags)
+                    for k in ("fluxcorr_year", "scenario_year")}
+                out["plain_ms_1h_first_steps"] = plain[e]["ms"]
+            del mp, ydp, k1p, k2p
+        if e is None:
+            out["ms"] = dict(fluxcorr_year=ms1, scenario_year=ms2)
+            # the work of the launches timed (a year of the short
+            # calendar) and of a full year (the year reckoned, printed)
+            out["short_work"], out["work"] = (
+                {k: yk.year_work(plan, cal, k == "scenario_year",
+                                 flags=yd.flags)
+                 for k in ("fluxcorr_year", "scenario_year")}
+                for cal in (short, full))
+            # the spread's rounds between exchanges: K2 timed at each,
+            # bitwise equal to the default's year
+            for k in S768_ROUNDS:
+                ydk = yk._forced(yd, rounds=k)
+                (ms,), got = _launches_ms(lambda: yk.scenario_year(
+                    s0, zero, co2s, ydk), 1)
+                _bitwise(f"K2 {tag} at {k} rounds between exchanges",
+                         [("outs", got[1], k2[1])], quiet=True)
+                print(f"  K2 {n} steps at k={k}: {ms:.3f} ms, "
+                      f"{ms * 1e3 / (n * short.nsub_crcl * nd[0]):.4f} us "
+                      f"a pole round (the whole substep over the pole "
+                      f"row's rounds)")
+                del ydk, got
+        elif yd.transport == "none":
+            # no transport: the plain year is cheap, held in full
+            err["fluxcorr_year"] = max(err["fluxcorr_year"], _k1_vs_plain(
+                f"K1 {tag}", s0, co2, yd, k1))
+            err["scenario_year"] = max(err["scenario_year"], _k2_vs_plain(
+                f"K2 {tag}", s0, zero, co2s, yd, k2))
+        ms_m, m_err = _time_ms(lambda: _single_members(
+            m, tag, co2, co2s, k1, k2, (s0, zero)), 1)
+        for name, v in m_err.items():
+            err[name] = max(err[name], v)
+        if e is None:
+            out["ms"]["members_m1"] = ms_m
+        print(f"  {tag}: K1 {ms1:.1f} ms, K2 {ms2:.1f} ms ({n} steps); "
+              f"{time.perf_counter() - t0:.1f} s")
+        del m, yd, k1, k2
+    print(f"  {', '.join(sorted(set(names)))}")
+    ms2 = out["ms"]["scenario_year"]
+    b_ms, b_by = _bound_of(*out["work"]["scenario_year"])
+    print(f"strict768 scenario_year: {ms2 / n:.3f} ms a step (timed on {n} "
+          f"steps) x {full.nstep_yr} = {ms2 / n * full.nstep_yr:.1f} ms a "
+          f"year, reckoned, not timed; bound {b_ms:.3f} ms a year by {b_by},"
+          f" {ms2 / n * full.nstep_yr / b_ms:.0f}x")
+
+    # -- config 5's long run under the library default: run_long in K3
+    #    blocks from the initial state with zero tables, a checkpoint after
+    #    each; stopped at G768_STOP and resumed in a fresh process beside
+    #    the paths below; final state and output file bitwise equal
+    m, _ = _refined_model(short, fast=None)
+    s0 = m.initial_state()
+    co2_long = np.full(G768_LONG, 680.0, np.float32)
+    ck_full, run_full = _grid768_runner(m, tmp, "strict_full")
+    reset_counts()
+    s_full, _, _ = longrun.run_long(G768_LONG, s0, zero, co2_long, run_full,
+                                    checkpointer=ck_full,
+                                    chunk_years=G768_BLOCK)
+    run_full.close()
+    out["launches"]["long"] = read_counts("strict768 long run", {
+        "fluxcorr_year": 0, "scenario_year": 0, "fluxcorr_years": 0,
+        "scenario_years": G768_LONG // G768_BLOCK})
+    _finite("strict768 long run", [(f"state {k}", getattr(s_full, k))
+                                   for k in ModelState.FIELDS])
+    ck_res, run_res = _grid768_runner(m, tmp, "strict_resumed")
+    longrun.run_long(G768_STOP, s0, zero, co2_long, run_res,
+                     checkpointer=ck_res, chunk_years=G768_BLOCK)
+    run_res.close()
+    torch.cuda.synchronize()
+    del m
+    t1 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--resume-long768", tmp,
+         "strict"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # -- GREB.run (the library default, 1 + 1 years) on S768_PATH's
+        #    10 steps, where a scenario year after a spin-up stays finite
+        num = Numerics(**G768_GRID, **S768_PATH)
+        path = os.path.join(tmp, "strict768", "scenario")
+        m, _ = _refined_model(num, path, fast=None)
+        reset_counts()
+        _, wall = _synced_s(lambda: m.run(output_path=path))
+        out["launches"]["path"] = read_counts("strict768 GREB.run", {
+            "fluxcorr_year": num.time_flux, "scenario_year": num.time_scnr,
+            "fluxcorr_years": 0, "scenario_years": 0})
+        back = read_output(path, num.xdim, num.ydim)
+        if back.shape != (num.time_scnr * len(num.jday_mon), 5, num.ydim,
+                          num.xdim) or not np.isfinite(back).all():
+            raise AssertionError(f"strict768 GREB.run output {back.shape}")
+        years = num.time_flux + num.time_scnr
+        out["rate"]["path"] = years / wall
+        print(f"strict768 GREB.run (the library default, {years} years of "
+              f"{num.nstep_yr} steps): {wall:.3f} s = {years / wall:.4f} "
+              f"sim-yr/s; the output file read back finite")
+
+        # -- run_members through the CLI's --ensemble: K4 spin-ups, K3,
+        #    one member a launch
+        path = os.path.join(tmp, "strict768_ens", "member")
+        os.makedirs(os.path.dirname(path))
+        args = cli.build_parser().parse_args(["--ensemble", str(S768_ENS_M),
+                                              "--quiet"])
+        per = yk.check_resident(yk.refined_groups(m.year_data.plan),
+                                yk.wide_capacity(m.year_data, "fluxcorr"),
+                                S768_ENS_M)
+        reset_counts()
+        _, wall = _synced_s(lambda: cli.run_ensemble(m, path, args))
+        chunks = -(-S768_ENS_M // per)
+        out["launches"]["ensemble"] = read_counts(
+            f"strict768 ensemble path (M={S768_ENS_M})", {
+                "fluxcorr_year": 0, "scenario_year": 0,
+                "fluxcorr_years": num.time_flux * chunks,
+                "scenario_years": chunks})
+        nbytes = _read_members(path, S768_ENS_M, num)
+        print(f"strict768 ensemble path (--ensemble {S768_ENS_M}): "
+              f"{wall:.3f} s; {S768_ENS_M} files, {nbytes} B, read back "
+              f"finite, the members differ")
+        del m
+
+        # -- run_legacy at log_exp 16: spin-up, a control year, a
+        #    scenario year; both files read back finite
+        num = Numerics(**G768_GRID, **S768_LEGACY)
+        path = os.path.join(tmp, "strict768_legacy", "scenario")
+        os.makedirs(os.path.dirname(path))
+        m, _ = _refined_model(num, path, fast=True, log_exp=S768_LEGACY_EXP)
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, wall = _synced_s(lambda: cli.run_legacy(m, path))
+        out["launches"]["legacy"] = read_counts(
+            f"strict768 legacy path (log_exp {S768_LEGACY_EXP})", {
+                "fluxcorr_year": num.time_flux,
+                "scenario_year": num.time_ctrl + num.time_scnr,
+                "fluxcorr_years": 0, "scenario_years": 0})
+        Y, X = num.ydim, num.xdim
+        ctl = read_records(os.path.join(os.path.dirname(path), "control"),
+                           (Y, X))
+        back = read_output(path, X, Y)
+        if ctl.shape[0] != num.nstep_yr or not np.isfinite(ctl).all() \
+                or not np.isfinite(back).all():
+            raise AssertionError(f"strict768 legacy files: control "
+                                 f"{ctl.shape}, scenario {back.shape}")
+        print(f"strict768 legacy path (run_legacy, log_exp "
+              f"{S768_LEGACY_EXP}): {wall:.3f} s; control file "
+              f"{ctl.shape[0]} records, scenario {back.shape[0]} months, "
+              f"finite")
+        del m
+
+        o, e = proc.communicate(timeout=600)
+        wall_resume = time.perf_counter() - t1
+        if proc.returncode != 0:
+            print(o[-4000:], e[-4000:], file=sys.stderr)
+            raise AssertionError(f"strict768 resume exited "
+                                 f"{proc.returncode}")
+        child = json.loads(o.strip().splitlines()[-1])
+        if child["start"] != G768_STOP:
+            raise AssertionError(f"strict768 resumed at {child['start']}")
+        s_res, _, _ = type(ck_res)(ck_res.dir).restore(device="cuda")
+        _bitwise("strict768 resumed vs uninterrupted", [
+            (f"state {k}", getattr(s_res, k), getattr(s_full, k))
+            for k in ModelState.FIELDS], quiet=True)
+        with open(os.path.join(tmp, "long768_strict_full"), "rb") as f, \
+                open(os.path.join(tmp, "long768_strict_resumed"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("strict768 resumed output differs")
+        print(f"strict768 long run ({G768_LONG} years in K3 blocks of "
+              f"{G768_BLOCK}): stopped at {G768_STOP}, resumed in a fresh "
+              f"process ({wall_resume:.1f} s wall beside the paths, set-up "
+              f"{child['setup_s']:.1f} s, years {child['run_s']:.3f} s); "
+              f"final state and output file bitwise equal")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    del s_full
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["err"] = err
+    print(f"strict768 phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4420,13 +5003,22 @@ def main(argv) -> int:
     if argv[:1] == ["--resume-long"]:
         return _resume_long(argv[1])
     if argv[:1] == ["--resume-long768"]:
-        return _resume_long768(argv[1])
+        return _resume_long768(argv[1], argv[2:] == ["strict"])
     if argv[:1] == ["--shard-worker"]:
         return _shard_worker(argv[1:])
     if argv[:1] == ["--resume-long256"]:
         return _resume_long256(argv[1])
     if argv[:1] == ["--plain-strict"]:
         return _plain_strict(argv[1])
+    if argv[:1] == ["--plain-strict768"]:
+        return _plain_strict768(argv[1])
+    steps = ALL_STEPS
+    if argv[:1] == ["--phases"]:
+        steps = _phases(argv[1])
+    elif argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
+    want = steps.__contains__
     import math
 
     import numpy as np
@@ -4467,6 +5059,8 @@ def main(argv) -> int:
         print(f"phase {phase}: {now - t_lap[0]:.1f} s wall")
         t_lap[0] = now
 
+    if steps != ALL_STEPS:
+        print(f"steps {_spec(steps)} (with the steps they need)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -4481,34 +5075,41 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         with ThreadPoolExecutor(1) as pool:
             job = pool.submit(build.build_all)
-            plain_path = os.path.join(tmp, "plain_strict.pt")
-            plain_proc = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--plain-strict",
-                 plain_path], stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True, cwd=ROOT)
+            # the plain versions that steps 21 and 23 hold their kernels
+            # against, each in a process of its own (no kernel of this
+            # package runs there)
+            children = {}
+            for step, flag in ((21, "--plain-strict"),
+                               (23, "--plain-strict768")):
+                if want(step):
+                    path = os.path.join(tmp, flag[2:] + ".pt")
+                    children[step] = (flag, path, subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__), flag,
+                         path], stdout=subprocess.PIPE,
+                        stderr=subprocess.PIPE, text=True, cwd=ROOT))
             try:
-                took, m768 = _prebuild(tmp)
+                took, m768 = _prebuild(tmp, want)
                 built = job.result()
-                o, e = plain_proc.communicate(timeout=600)
+                got = {step: _child_result(*child)
+                       for step, child in children.items()}
             finally:
-                if plain_proc.poll() is None:
-                    plain_proc.kill()
-            if plain_proc.returncode != 0:
-                print(o[-4000:], e[-4000:], file=sys.stderr)
-                raise AssertionError(f"--plain-strict exited "
-                                     f"{plain_proc.returncode}")
-            child = json.loads(o.strip().splitlines()[-1])
-            if any(child["launches"].values()):
-                raise AssertionError(f"the plain sharded version launched "
-                                     f"{child['launches']}")
-            took["plain sharded strict 96x48, 10 steps (a process of its "
-                 "own)"] = child["s"]
-            plain96 = torch.load(plain_path, weights_only=False)
+                for _, _, proc in children.values():
+                    if proc.poll() is None:
+                        proc.kill()
+            if 21 in got:
+                plain96, secs = got[21]
+                took["plain sharded strict 96x48, 10 steps (a process of "
+                     "its own)"] = secs
+            if 23 in got:
+                plain768, plain768_s = got[23]
+                took["plain strict 768x384 first steps (a process of its "
+                     "own)"] = plain768_s
         each = ", ".join(f"{k}.cu {v:.1f} s" for k, v in built.items())
         print(f"build: {time.perf_counter() - t0:.1f} s ({each or 'cached'});"
               f" meanwhile on the host: "
               + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
-        for source in ("year_kernel", "band_kernel", "slab_kernel"):
+        for source in ("year_kernel", "band_kernel", "strict_wide_kernel",
+                       "slab_kernel"):
             with open(os.path.join(build.BUILD_DIR,
                                    f"{source}.ptxas.txt")) as f:
                 for line in f:
@@ -4549,417 +5150,449 @@ def main(argv) -> int:
                       f"kernel and cluster_layout agree: {dict(lay.parts)}")
         print(f"the single-run wrappers' default: clusters of C={C} blocks")
 
-        # -- K1: spin-up year kernel vs its plain version --------------------
-        #    (the plain years below replay their steps from CUDA graphs)
-        s0 = model.initial_state()
-        co2f = np.float32(cfg.co2.co2_flux)
-        graphed = _GraphedSteps().start()
-        graphed.check(model, co2f)
-        (s_k, c_k) = yk.fluxcorr_year(s0, co2f, yd)        # first launch
-        ms_k1, (s_k, c_k) = _time_ms(lambda: yk.fluxcorr_year(s0, co2f, yd), 2)
-        plain_k1, (s_p, c_p) = _time_ms(
-            lambda: yk.fluxcorr_year_plain(s0, co2f, yd), 1)
-        print(f"K1 fluxcorr_year (C={C}): kernel {ms_k1:.2f} ms/launch, "
-              f"plain {plain_k1:.1f} ms/year")
-        err_k1 = _bitwise("K1", [(f"state {n}", getattr(s_k, n), getattr(s_p, n))
-                                 for n in ModelState.FIELDS]
-                          + [(f"table {n}", getattr(c_k, n), getattr(c_p, n))
-                             for n in ("tf", "tof", "qf")])
+        if want(3):
+            # -- K1: spin-up year kernel vs its plain version --------------------
+            #    (the plain years below replay their steps from CUDA graphs)
+            s0 = model.initial_state()
+            co2f = np.float32(cfg.co2.co2_flux)
+            graphed = _GraphedSteps().start()
+            graphed.check(model, co2f)
+            (s_k, c_k) = yk.fluxcorr_year(s0, co2f, yd)        # first launch
+            ms_k1, (s_k, c_k) = _time_ms(lambda: yk.fluxcorr_year(s0, co2f, yd), 2)
+            plain_k1, (s_p, c_p) = _time_ms(
+                lambda: yk.fluxcorr_year_plain(s0, co2f, yd), 1)
+            print(f"K1 fluxcorr_year (C={C}): kernel {ms_k1:.2f} ms/launch, "
+                  f"plain {plain_k1:.1f} ms/year")
+            err_k1 = _bitwise("K1", [(f"state {n}", getattr(s_k, n), getattr(s_p, n))
+                                     for n in ModelState.FIELDS]
+                              + [(f"table {n}", getattr(c_k, n), getattr(c_p, n))
+                                 for n in ("tf", "tof", "qf")])
 
-        # -- K2: scenario year kernel vs its plain version -------------------
-        co2s = np.float32(680.0)
-        s_k2, o_k, a_k = yk.scenario_year(s_p, c_p, co2s, yd)
-        ms_k2, (s_k2, o_k, a_k) = _time_ms(
-            lambda: yk.scenario_year(s_p, c_p, co2s, yd), 2)
-        plain_k2, (s_p2, o_p, a_p) = _time_ms(
-            lambda: yk.scenario_year_plain(s_p, c_p, co2s, yd), 1)
-        print(f"K2 scenario_year (C={C}): kernel {ms_k2:.2f} ms/launch, "
-              f"plain {plain_k2:.1f} ms/year")
+            # -- K2: scenario year kernel vs its plain version -------------------
+            co2s = np.float32(680.0)
+            s_k2, o_k, a_k = yk.scenario_year(s_p, c_p, co2s, yd)
+            ms_k2, (s_k2, o_k, a_k) = _time_ms(
+                lambda: yk.scenario_year(s_p, c_p, co2s, yd), 2)
+            plain_k2, (s_p2, o_p, a_p) = _time_ms(
+                lambda: yk.scenario_year_plain(s_p, c_p, co2s, yd), 1)
+            print(f"K2 scenario_year (C={C}): kernel {ms_k2:.2f} ms/launch, "
+                  f"plain {plain_k2:.1f} ms/year")
 
-        def k2_pairs(s, o, a):
-            return ([(f"state {n}", getattr(s, n), getattr(s_p2, n))
-                     for n in ModelState.FIELDS]
-                    + [("outs", o, o_p), ("annual sums", a, a_p)])
+            def k2_pairs(s, o, a):
+                return ([(f"state {n}", getattr(s, n), getattr(s_p2, n))
+                         for n in ModelState.FIELDS]
+                        + [("outs", o, o_p), ("annual sums", a, a_p)])
 
-        err_k2 = _bitwise("K2", k2_pairs(s_k2, o_k, a_k))
-        _bitwise("K2", [("monthly means", core.monthly_means(model.month_mat, o_k),
-                         core.monthly_means(model.month_mat, o_p))])
+            err_k2 = _bitwise("K2", k2_pairs(s_k2, o_k, a_k))
+            _bitwise("K2", [("monthly means", core.monthly_means(model.month_mat, o_k),
+                             core.monthly_means(model.month_mat, o_p))])
 
-        # -- K2 against K3 and K1 against K4 at M=1 with the base params, at
-        #    every size the member kernel offers: the cluster body and the
-        #    per-cell device functions are shared, so the year must agree
-        #    bitwise
-        pp_base = my.pack_member_params([model.params], "cuda")
-        corr_base = torch.stack([c_p.tf, c_p.tof, c_p.qf], dim=1)[None]
-        for c in yk.offered_sizes("scenario_years"):
-            s3_1, _, a3_1 = my.scenario_years(
-                s_p.stack()[:, None], pp_base, corr_base,
-                np.asarray([co2s]), yd, cluster=c)
-            _bitwise(f"K2 vs K3 (M=1, C={c})",
-                     [("state", s_k2.stack(), s3_1[:, 0]),
-                      ("annual sums", a_k, a3_1[0, 0])])
-        for c in yk.offered_sizes("fluxcorr"):
-            s4_1, c4_1 = my.fluxcorr_years(s0.stack()[:, None], pp_base, co2f,
-                                           yd, cluster=c)
-            _bitwise(f"K1 vs K4 (M=1, C={c})",
-                     [("state", s_k.stack(), s4_1[:, 0])]
-                     + [(f"table {n}", getattr(c_k, n), c4_1[0, :, i])
-                        for i, n in enumerate(("tf", "tof", "qf"))])
-        del s3_1, a3_1, s4_1, c4_1
+            # -- K2 against K3 and K1 against K4 at M=1 with the base params, at
+            #    every size the member kernel offers: the cluster body and the
+            #    per-cell device functions are shared, so the year must agree
+            #    bitwise
+            pp_base = my.pack_member_params([model.params], "cuda")
+            corr_base = torch.stack([c_p.tf, c_p.tof, c_p.qf], dim=1)[None]
+            for c in yk.offered_sizes("scenario_years"):
+                s3_1, _, a3_1 = my.scenario_years(
+                    s_p.stack()[:, None], pp_base, corr_base,
+                    np.asarray([co2s]), yd, cluster=c)
+                _bitwise(f"K2 vs K3 (M=1, C={c})",
+                         [("state", s_k2.stack(), s3_1[:, 0]),
+                          ("annual sums", a_k, a3_1[0, 0])])
+            for c in yk.offered_sizes("fluxcorr"):
+                s4_1, c4_1 = my.fluxcorr_years(s0.stack()[:, None], pp_base, co2f,
+                                               yd, cluster=c)
+                _bitwise(f"K1 vs K4 (M=1, C={c})",
+                         [("state", s_k.stack(), s4_1[:, 0])]
+                         + [(f"table {n}", getattr(c_k, n), c4_1[0, :, i])
+                            for i, n in enumerate(("tf", "tof", "qf"))])
+            del s3_1, a3_1, s4_1, c4_1
 
-        # -- cluster-size sweep of K2, and where a launch's time goes: the
-        #    same year with one substep per step splits substep time from
-        #    per-step time
-        one = yk.YearData(md=yd.md, sfx=yd.sfx, fold=yd.fold,
-                          num=dataclasses.replace(num, dt_crcl=num.dt))
-        sweep = {}
-        for c in yk.CLUSTER_SIZES["scenario"]:
-            yk.scenario_year(s_p, c_p, co2s, yd, cluster=c)
-            ms_c, (s_c, o_c, a_c) = _time_ms(
-                lambda: yk.scenario_year(s_p, c_p, co2s, yd, cluster=c), 2)
-            _bitwise(f"K2 C={c}", k2_pairs(s_c, o_c, a_c))
-            yk.scenario_year(s_p, c_p, co2s, one, cluster=c)
-            ms_one, _ = _time_ms(
-                lambda: yk.scenario_year(s_p, c_p, co2s, one, cluster=c), 2)
-            us_sub = (ms_c - ms_one) * 1e3 / (num.nstep_yr * (num.nsub_crcl - 1))
-            sweep[c] = ms_c
-            print(f"K2 sweep C={c:2d}: {ms_c:.3f} ms/launch; "
-                  f"{ms_one:.3f} ms/launch at 1 substep/step -> "
-                  f"{us_sub:.3f} us per substep, "
-                  f"{ms_one * 1e3 / num.nstep_yr - us_sub:.3f} us per step "
-                  f"outside the substeps")
-        best = min(sweep, key=sweep.get)
-        print(f"K2 sweep: fastest C={best} ({sweep[best]:.3f} ms); the "
-              f"wrappers' default is C={C}")
-        del s_c, o_c, a_c
-        # a timing probe, not the model: the same year on a plan without
-        # the pole composite rows shows what they add to a substep (the
-        # two pole blocks' extra phases, which every block waits for)
-        bare = dataclasses.replace(plan, comp_mode="none", comp_kt=0,
-                                   comp_kb=0)
-        ms_bare = []
-        for n in (num, one.num):
-            ydb = yk.YearData(md=yd.md, sfx=yd.sfx, fold=(bare, yd.fold[1]),
-                              num=n)
-            yk.scenario_year(s_p, c_p, co2s, ydb)
-            ms_bare.append(_time_ms(
-                lambda: yk.scenario_year(s_p, c_p, co2s, ydb), 2)[0])
-        us_bare = (ms_bare[0] - ms_bare[1]) * 1e3 / (
-            num.nstep_yr * (num.nsub_crcl - 1))
-        print(f"K2 C={C} without pole composites (timing probe): "
-              f"{ms_bare[0]:.3f} ms/launch, {ms_bare[1]:.3f} at 1 substep/step "
-              f"-> {us_bare:.3f} us per substep")
-        # ... and what one cluster barrier costs, with the release the
-        # kernels need (the pushed halo rows) and, for comparison, relaxed
-        _barrier_costs(build, {
-            c: yk.cluster_layout(plan, c, "scenario").threads
-            for c in yk.CLUSTER_SIZES["scenario"]})
-        lap("96x48 K1, K2, sweep and probes")
+            # -- cluster-size sweep of K2, and where a launch's time goes: the
+            #    same year with one substep per step splits substep time from
+            #    per-step time
+            one = yk.YearData(md=yd.md, sfx=yd.sfx, fold=yd.fold,
+                              num=dataclasses.replace(num, dt_crcl=num.dt))
+            sweep = {}
+            for c in yk.CLUSTER_SIZES["scenario"]:
+                yk.scenario_year(s_p, c_p, co2s, yd, cluster=c)
+                ms_c, (s_c, o_c, a_c) = _time_ms(
+                    lambda: yk.scenario_year(s_p, c_p, co2s, yd, cluster=c), 2)
+                _bitwise(f"K2 C={c}", k2_pairs(s_c, o_c, a_c))
+                yk.scenario_year(s_p, c_p, co2s, one, cluster=c)
+                ms_one, _ = _time_ms(
+                    lambda: yk.scenario_year(s_p, c_p, co2s, one, cluster=c), 2)
+                us_sub = (ms_c - ms_one) * 1e3 / (num.nstep_yr * (num.nsub_crcl - 1))
+                sweep[c] = ms_c
+                print(f"K2 sweep C={c:2d}: {ms_c:.3f} ms/launch; "
+                      f"{ms_one:.3f} ms/launch at 1 substep/step -> "
+                      f"{us_sub:.3f} us per substep, "
+                      f"{ms_one * 1e3 / num.nstep_yr - us_sub:.3f} us per step "
+                      f"outside the substeps")
+            best = min(sweep, key=sweep.get)
+            print(f"K2 sweep: fastest C={best} ({sweep[best]:.3f} ms); the "
+                  f"wrappers' default is C={C}")
+            del s_c, o_c, a_c
+            # a timing probe, not the model: the same year on a plan without
+            # the pole composite rows shows what they add to a substep (the
+            # two pole blocks' extra phases, which every block waits for)
+            bare = dataclasses.replace(plan, comp_mode="none", comp_kt=0,
+                                       comp_kb=0)
+            ms_bare = []
+            for n in (num, one.num):
+                ydb = yk.YearData(md=yd.md, sfx=yd.sfx, fold=(bare, yd.fold[1]),
+                                  num=n)
+                yk.scenario_year(s_p, c_p, co2s, ydb)
+                ms_bare.append(_time_ms(
+                    lambda: yk.scenario_year(s_p, c_p, co2s, ydb), 2)[0])
+            us_bare = (ms_bare[0] - ms_bare[1]) * 1e3 / (
+                num.nstep_yr * (num.nsub_crcl - 1))
+            print(f"K2 C={C} without pole composites (timing probe): "
+                  f"{ms_bare[0]:.3f} ms/launch, {ms_bare[1]:.3f} at 1 substep/step "
+                  f"-> {us_bare:.3f} us per substep")
+            # ... and what one cluster barrier costs, with the release the
+            # kernels need (the pushed halo rows) and, for comparison, relaxed
+            _barrier_costs(build, {
+                c: yk.cluster_layout(plan, c, "scenario").threads
+                for c in yk.CLUSTER_SIZES["scenario"]})
+            lap("96x48 K1, K2, sweep and probes")
 
-        # -- K4: member-batched spin-up year vs its plain version at the
-        #    member chain's shape, at every size it offers: M=3 members,
-        #    ct_sens -2%, base, +2%
-        path_in = _path_shape_inputs(model, s_p, c_p)
-        s5_0, pp3, _, _ = path_in["fluxcorr_years"]
-        plain_k4, (s4_p, c4_p) = _time_ms(
-            lambda: my.fluxcorr_years_plain(*path_in["fluxcorr_years"]), 1)
-        print(f"K4 fluxcorr_years plain (M=3): {plain_k4:.1f} ms")
-        err_k4 = 0.0
-        for c in yk.offered_sizes("fluxcorr"):
-            s4_k, c4_k = my.fluxcorr_years(s5_0, pp3, co2f, yd, cluster=c)
-            if torch.equal(s4_k[:, 0], s4_k[:, 2]):
-                raise AssertionError("K4: the perturbed members did not "
-                                     "differ")
-            err_k4 = max(err_k4, _bitwise(f"K4 C={c}", [
-                ("state", s4_k, s4_p), ("tables", c4_k, c4_p)]))
-        del s4_k, c4_k
+            # -- K4: member-batched spin-up year vs its plain version at the
+            #    member chain's shape, at every size it offers: M=3 members,
+            #    ct_sens -2%, base, +2%
+            path_in = _path_shape_inputs(model, s_p, c_p)
+            s5_0, pp3, _, _ = path_in["fluxcorr_years"]
+            plain_k4, (s4_p, c4_p) = _time_ms(
+                lambda: my.fluxcorr_years_plain(*path_in["fluxcorr_years"]), 1)
+            print(f"K4 fluxcorr_years plain (M=3): {plain_k4:.1f} ms")
+            err_k4 = 0.0
+            for c in yk.offered_sizes("fluxcorr"):
+                s4_k, c4_k = my.fluxcorr_years(s5_0, pp3, co2f, yd, cluster=c)
+                if torch.equal(s4_k[:, 0], s4_k[:, 2]):
+                    raise AssertionError("K4: the perturbed members did not "
+                                         "differ")
+                err_k4 = max(err_k4, _bitwise(f"K4 C={c}", [
+                    ("state", s4_k, s4_p), ("tables", c4_k, c4_p)]))
+            del s4_k, c4_k
 
-        # -- K3: multi-year scenario block vs its plain version, at every
-        #    size it offers; M=2, K4's two perturbed members, for two years
-        #    at CO2 560 and 680 (its month and year boundaries)
-        two = [0, 2]
-        pp2, s3_in, c3_in = pp3[two], s4_p[:, two], c4_p[two]
-        co2y = np.asarray([560.0, 680.0], np.float32)
-        plain_k3_m2, (s3_p, m3_p, a3_p) = _time_ms(
-            lambda: my.scenario_years_plain(s3_in, pp2, c3_in, co2y, yd), 1)
-        print(f"K3 scenario_years plain (M=2, 2 years): {plain_k3_m2:.1f} ms")
-        err_k3 = 0.0
-        for c in yk.offered_sizes("scenario_years"):
-            s3_k, m3_k, a3_k = my.scenario_years(s3_in, pp2, c3_in, co2y,
-                                                 yd, cluster=c)
-            if torch.equal(m3_k[0], m3_k[1]):
-                raise AssertionError("K3: the two members did not differ")
-            err_k3 = max(err_k3, _bitwise(f"K3 C={c}", [
-                ("state", s3_k, s3_p), ("monthly means", m3_k, m3_p),
-                ("annual sums", a3_k, a3_p)]))
-        del s3_k, m3_k, a3_k, s3_p, m3_p, a3_p
-
-        # -- both member kernels at the shapes their paths launch, each
-        #    timed launch held bitwise against its plain version on the same
-        #    inputs (K4's plain version is step 5's)
-        member_ms, member_out = _time_member_kernels(path_in)
-        err_k4 = max(err_k4, _bitwise("K4 timed (M=3)", [
-            ("state", member_out["fluxcorr_years"][0], s4_p),
-            ("tables", member_out["fluxcorr_years"][1], c4_p)]))
-        plain_k3, k3_p = _time_ms(
-            lambda: my.scenario_years_plain(*path_in["scenario_years"]), 1)
-        print(f"K3 scenario_years plain (M=1, {LONG_BLOCK} years): "
-              f"{plain_k3:.1f} ms")
-        err_k3 = max(err_k3, _bitwise(
-            f"K3 timed (M=1 x {LONG_BLOCK} years)",
-            zip(("state", "monthly means", "annual sums"),
-                member_out["scenario_years"], k3_p)))
-        del member_out, k3_p
-        graphed.stop()
-        lap("96x48 K4, K3 and their timed launches")
-
-        # -- member scaling: one year of each member kernel at M = 1 .. 132
-        #    on each size it offers (clusters beyond the card's capacity run
-        #    in waves; one block a member is one SM), against the size the
-        #    wrappers pick by default
-        for M in SCALING_M:
-            pp = my.pack_member_params(ens.perturbed_params(
-                model.params, {"ct_sens": np.linspace(22.05, 22.95, M)}),
-                "cuda")
-            s5m = s4_p[:, :1].repeat(1, M, 1, 1)
-            cpm = c4_p[:1].expand(M, -1, -1, -1, -1).contiguous()
-            for kind in my.KINDS:
-                got = {}
-                for c in yk.offered_sizes(kind):
-                    if kind == "fluxcorr":
-                        def run():
-                            return my.fluxcorr_years(s5m, pp, co2f, yd,
-                                                     cluster=c)
-                    else:
-                        def run():
-                            return my.scenario_years(s5m, pp, cpm, co2y[:1],
+            # -- K3: multi-year scenario block vs its plain version, at every
+            #    size it offers; M=2, K4's two perturbed members, for two years
+            #    at CO2 560 and 680 (its month and year boundaries)
+            two = [0, 2]
+            pp2, s3_in, c3_in = pp3[two], s4_p[:, two], c4_p[two]
+            co2y = np.asarray([560.0, 680.0], np.float32)
+            plain_k3_m2, (s3_p, m3_p, a3_p) = _time_ms(
+                lambda: my.scenario_years_plain(s3_in, pp2, c3_in, co2y, yd), 1)
+            print(f"K3 scenario_years plain (M=2, 2 years): {plain_k3_m2:.1f} ms")
+            err_k3 = 0.0
+            for c in yk.offered_sizes("scenario_years"):
+                s3_k, m3_k, a3_k = my.scenario_years(s3_in, pp2, c3_in, co2y,
                                                      yd, cluster=c)
-                    run()
-                    got[c], _ = _time_ms(run, 1)
-                    cap = 132 if c == 1 else capacity[kind, c]
-                    print(f"member scaling {kind:<14s} C={c:2d} M={M:3d}: "
-                          f"{got[c]:.3f} ms (1 year) = "
-                          f"{M / got[c] * 1e3:.3f} member-yr/s; {cap} at "
-                          f"once, {math.ceil(M / cap)} wave(s)")
-                best = min(got, key=got.get)
-                pick = my.default_cluster(kind, M, capacity[kind, C])
-                print(f"member scaling {kind:<14s} M={M:3d}: fastest C={best}"
-                      f", default C={pick} ({got[pick] / got[best]:.3f}x the "
-                      f"fastest)")
-            del pp, s5m, cpm
-        torch.cuda.empty_cache()
-        lap("member scaling")
+                if torch.equal(m3_k[0], m3_k[1]):
+                    raise AssertionError("K3: the two members did not differ")
+                err_k3 = max(err_k3, _bitwise(f"K3 C={c}", [
+                    ("state", s3_k, s3_p), ("monthly means", m3_k, m3_p),
+                    ("annual sums", a3_k, a3_p)]))
+            del s3_k, m3_k, a3_k, s3_p, m3_p, a3_p
 
-        # -- the main path: GREB.run, 3 spin-up + 10 scenario years, run
-        #    MAIN_RUNS times, the counts reset and read around each run ------
-        walls = []
-        for _ in range(MAIN_RUNS):
+            # -- both member kernels at the shapes their paths launch, each
+            #    timed launch held bitwise against its plain version on the same
+            #    inputs (K4's plain version is step 5's)
+            member_ms, member_out = _time_member_kernels(path_in)
+            err_k4 = max(err_k4, _bitwise("K4 timed (M=3)", [
+                ("state", member_out["fluxcorr_years"][0], s4_p),
+                ("tables", member_out["fluxcorr_years"][1], c4_p)]))
+            plain_k3, k3_p = _time_ms(
+                lambda: my.scenario_years_plain(*path_in["scenario_years"]), 1)
+            print(f"K3 scenario_years plain (M=1, {LONG_BLOCK} years): "
+                  f"{plain_k3:.1f} ms")
+            err_k3 = max(err_k3, _bitwise(
+                f"K3 timed (M=1 x {LONG_BLOCK} years)",
+                zip(("state", "monthly means", "annual sums"),
+                    member_out["scenario_years"], k3_p)))
+            del member_out, k3_p
+            graphed.stop()
+            lap("96x48 K4, K3 and their timed launches")
+
+            # -- member scaling: one year of each member kernel at M = 1 .. 132
+            #    on each size it offers (clusters beyond the card's capacity run
+            #    in waves; one block a member is one SM), against the size the
+            #    wrappers pick by default
+            for M in SCALING_M:
+                pp = my.pack_member_params(ens.perturbed_params(
+                    model.params, {"ct_sens": np.linspace(22.05, 22.95, M)}),
+                    "cuda")
+                s5m = s4_p[:, :1].repeat(1, M, 1, 1)
+                cpm = c4_p[:1].expand(M, -1, -1, -1, -1).contiguous()
+                for kind in my.KINDS:
+                    got = {}
+                    for c in yk.offered_sizes(kind):
+                        if kind == "fluxcorr":
+                            def run():
+                                return my.fluxcorr_years(s5m, pp, co2f, yd,
+                                                         cluster=c)
+                        else:
+                            def run():
+                                return my.scenario_years(s5m, pp, cpm, co2y[:1],
+                                                         yd, cluster=c)
+                        run()
+                        got[c], _ = _time_ms(run, 1)
+                        cap = 132 if c == 1 else capacity[kind, c]
+                        print(f"member scaling {kind:<14s} C={c:2d} M={M:3d}: "
+                              f"{got[c]:.3f} ms (1 year) = "
+                              f"{M / got[c] * 1e3:.3f} member-yr/s; {cap} at "
+                              f"once, {math.ceil(M / cap)} wave(s)")
+                    best = min(got, key=got.get)
+                    pick = my.default_cluster(kind, M, capacity[kind, C])
+                    print(f"member scaling {kind:<14s} M={M:3d}: fastest C={best}"
+                          f", default C={pick} ({got[pick] / got[best]:.3f}x the "
+                          f"fastest)")
+                del pp, s5m, cpm
+            torch.cuda.empty_cache()
+            lap("member scaling")
+
+        if want(8):
+            # -- the main path: GREB.run, 3 spin-up + 10 scenario years, run
+            #    MAIN_RUNS times, the counts reset and read around each run ------
+            walls = []
+            for _ in range(MAIN_RUNS):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, corr, monthly, diags = model.run(output_path=out_path)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                launches = read_counts("main path", {
+                    "fluxcorr_year": num.time_flux,
+                    "scenario_year": num.time_scnr,
+                    "fluxcorr_years": 0, "scenario_years": 0})
+            years = num.time_flux + num.time_scnr
+            rates = [years / w for w in walls]
+            wall = _median(walls[1:])
+            kern = (num.time_flux * ms_k1 + num.time_scnr * ms_k2) / 1e3
+            print(f"main path: {years} sim-years, {MAIN_RUNS} runs: "
+                  f"{' '.join(f'{r:.3f}' for r in rates)} sim-yr/s; after the "
+                  f"first: median {years / wall:.3f} sim-yr/s, spread "
+                  f"{(max(rates[1:]) - min(rates[1:])) / (years / wall):.1%}; "
+                  f"kernels ~{kern:.3f} s of a run (launches x the times above), "
+                  f"host ~{wall - kern:.3f} s = {(wall - kern) / wall:.1%}")
+            for name in ("ts", "ta", "to", "q", "cap_surf"):
+                if not bool(torch.isfinite(getattr(state, name)).all()):
+                    raise AssertionError(f"state {name} not finite")
+            for name in ("tf", "tof", "qf"):
+                if not bool(torch.isfinite(getattr(corr, name)).all()):
+                    raise AssertionError(f"corr {name} not finite")
+            if monthly.shape != (num.time_scnr, 12, 5, num.ydim, num.xdim) \
+                    or not np.isfinite(monthly).all():
+                raise AssertionError(f"monthly means {monthly.shape} not finite")
+            back = read_output(out_path, num.xdim, num.ydim)
+            if not np.array_equal(back, monthly.reshape(-1, 5, num.ydim,
+                                                        num.xdim)):
+                raise AssertionError("output file does not read back")
+            gm = [float(d.global_mean_ts) for d in diags]
+            print(f"  global mean Ts [K] by scenario year: "
+                  f"{' '.join(f'{g:.4f}' for g in gm)}")
+            if not gm[-1] > gm[0]:
+                raise AssertionError(f"no warming under 680 ppm: {gm}")
+            lap("main path")
+
+        if want(9):
+            # -- the long-run path: 3 spin-up + 50 scenario years, checkpoints ---
+            co2_long = np.full(LONG_YEARS, 680.0, np.float32)
+            nmon = len(num.jday_mon)
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, corr, monthly, diags = model.run(output_path=out_path)
+            state_fc, corr_fc = model.flux_correction()
+            ck_full, run_full = _long_runner(model, tmp, "full")
+            s_full, _, _ = longrun.run_long(
+                LONG_YEARS, state_fc, corr_fc, co2_long, run_full,
+                checkpointer=ck_full, chunk_years=LONG_BLOCK)
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            launches = read_counts("main path", {
-                "fluxcorr_year": num.time_flux,
-                "scenario_year": num.time_scnr,
-                "fluxcorr_years": 0, "scenario_years": 0})
-        years = num.time_flux + num.time_scnr
-        rates = [years / w for w in walls]
-        wall = _median(walls[1:])
-        kern = (num.time_flux * ms_k1 + num.time_scnr * ms_k2) / 1e3
-        print(f"main path: {years} sim-years, {MAIN_RUNS} runs: "
-              f"{' '.join(f'{r:.3f}' for r in rates)} sim-yr/s; after the "
-              f"first: median {years / wall:.3f} sim-yr/s, spread "
-              f"{(max(rates[1:]) - min(rates[1:])) / (years / wall):.1%}; "
-              f"kernels ~{kern:.3f} s of a run (launches x the times above), "
-              f"host ~{wall - kern:.3f} s = {(wall - kern) / wall:.1%}")
-        for name in ("ts", "ta", "to", "q", "cap_surf"):
-            if not bool(torch.isfinite(getattr(state, name)).all()):
-                raise AssertionError(f"state {name} not finite")
-        for name in ("tf", "tof", "qf"):
-            if not bool(torch.isfinite(getattr(corr, name)).all()):
-                raise AssertionError(f"corr {name} not finite")
-        if monthly.shape != (num.time_scnr, 12, 5, num.ydim, num.xdim) \
-                or not np.isfinite(monthly).all():
-            raise AssertionError(f"monthly means {monthly.shape} not finite")
-        back = read_output(out_path, num.xdim, num.ydim)
-        if not np.array_equal(back, monthly.reshape(-1, 5, num.ydim,
-                                                    num.xdim)):
-            raise AssertionError("output file does not read back")
-        gm = [float(d.global_mean_ts) for d in diags]
-        print(f"  global mean Ts [K] by scenario year: "
-              f"{' '.join(f'{g:.4f}' for g in gm)}")
-        if not gm[-1] > gm[0]:
-            raise AssertionError(f"no warming under 680 ppm: {gm}")
-        lap("main path")
+            run_full.close()
+            wall_long = time.perf_counter() - t0
+            years_long = num.time_flux + LONG_YEARS
+            print(f"long run: {years_long} sim-years in {wall_long:.3f} s = "
+                  f"{years_long / wall_long:.3f} sim-yr/s ({num.time_flux} "
+                  f"spin-up + {LONG_YEARS} scenario years in blocks of "
+                  f"{LONG_BLOCK}, checkpoints every {LONG_BLOCK})")
+            launches_long = read_counts("long run", {
+                "fluxcorr_year": num.time_flux, "scenario_year": 0,
+                "fluxcorr_years": 0, "scenario_years": LONG_YEARS // LONG_BLOCK})
+            for name in ModelState.FIELDS:
+                if not bool(torch.isfinite(getattr(s_full, name)).all()):
+                    raise AssertionError(f"long run state {name} not finite")
+            long_out = read_output(os.path.join(tmp, "long_full"), num.xdim,
+                                   num.ydim)
+            if long_out.shape != (LONG_YEARS * nmon, 5, num.ydim, num.xdim) \
+                    or not np.isfinite(long_out).all():
+                raise AssertionError(f"long run output {long_out.shape}")
+            print(f"  output file {os.path.getsize(os.path.join(tmp, 'long_full'))}"
+                  f" B; checkpoints {sorted(os.listdir(ck_full.dir))}")
+            # its first 10 years against the main path's (both at 680 ppm): the
+            # multi-year kernel sums monthly means step by step, GREB.run's path
+            # as one product, so they agree at the golden tolerances
+            first = long_out[:num.time_scnr * nmon].reshape(monthly.shape)
+            for v, (name, tol) in enumerate((("ts", TOL_T), ("ta", TOL_T),
+                                             ("to", TOL_T), ("q", TOL_Q),
+                                             ("albedo", TOL_ALBEDO))):
+                _check(f"long vs main monthly {name}", float(
+                    np.abs(first[:, :, v] - monthly[:, :, v]).max()), tol)
 
-        # -- the long-run path: 3 spin-up + 50 scenario years, checkpoints ---
-        co2_long = np.full(LONG_YEARS, 680.0, np.float32)
-        nmon = len(num.jday_mon)
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state_fc, corr_fc = model.flux_correction()
-        ck_full, run_full = _long_runner(model, tmp, "full")
-        s_full, _, _ = longrun.run_long(
-            LONG_YEARS, state_fc, corr_fc, co2_long, run_full,
-            checkpointer=ck_full, chunk_years=LONG_BLOCK)
-        torch.cuda.synchronize()
-        run_full.close()
-        wall_long = time.perf_counter() - t0
-        years_long = num.time_flux + LONG_YEARS
-        print(f"long run: {years_long} sim-years in {wall_long:.3f} s = "
-              f"{years_long / wall_long:.3f} sim-yr/s ({num.time_flux} "
-              f"spin-up + {LONG_YEARS} scenario years in blocks of "
-              f"{LONG_BLOCK}, checkpoints every {LONG_BLOCK})")
-        launches_long = read_counts("long run", {
-            "fluxcorr_year": num.time_flux, "scenario_year": 0,
-            "fluxcorr_years": 0, "scenario_years": LONG_YEARS // LONG_BLOCK})
-        for name in ModelState.FIELDS:
-            if not bool(torch.isfinite(getattr(s_full, name)).all()):
-                raise AssertionError(f"long run state {name} not finite")
-        long_out = read_output(os.path.join(tmp, "long_full"), num.xdim,
-                               num.ydim)
-        if long_out.shape != (LONG_YEARS * nmon, 5, num.ydim, num.xdim) \
-                or not np.isfinite(long_out).all():
-            raise AssertionError(f"long run output {long_out.shape}")
-        print(f"  output file {os.path.getsize(os.path.join(tmp, 'long_full'))}"
-              f" B; checkpoints {sorted(os.listdir(ck_full.dir))}")
-        # its first 10 years against the main path's (both at 680 ppm): the
-        # multi-year kernel sums monthly means step by step, GREB.run's path
-        # as one product, so they agree at the golden tolerances
-        first = long_out[:num.time_scnr * nmon].reshape(monthly.shape)
-        for v, (name, tol) in enumerate((("ts", TOL_T), ("ta", TOL_T),
-                                         ("to", TOL_T), ("q", TOL_Q),
-                                         ("albedo", TOL_ALBEDO))):
-            _check(f"long vs main monthly {name}", float(
-                np.abs(first[:, :, v] - monthly[:, :, v]).max()), tol)
+            # stop at year 20, resume to 50 in a fresh process
+            ck_res, run_res = _long_runner(model, tmp, "resumed")
+            longrun.run_long(LONG_STOP, state_fc, corr_fc, co2_long, run_res,
+                             checkpointer=ck_res, chunk_years=LONG_BLOCK)
+            run_res.close()
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--resume-long", tmp],
+                capture_output=True, text=True, timeout=900)
+            wall_resume = time.perf_counter() - t0
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+                raise AssertionError(f"resume process exited {proc.returncode}")
+            child = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(f"resume in a fresh process: {wall_resume:.3f} s wall "
+                  f"(setup {child['setup_s']:.3f} s, restore "
+                  f"{child['restore_s']:.3f} s, years {child['start']}.."
+                  f"{LONG_YEARS} in {child['run_s']:.3f} s, "
+                  f"{child['scenario_years_launches']} scenario_years launches)")
+            if child["start"] != LONG_STOP:
+                raise AssertionError(f"resumed at {child['start']}")
+            s_res, _, cursor = Checkpointer(ck_res.dir).restore(device="cuda")
+            if cursor.year_index != LONG_YEARS:
+                raise AssertionError(f"last checkpoint at {cursor.year_index}")
+            for name in ModelState.FIELDS:
+                if not torch.equal(getattr(s_res, name), getattr(s_full, name)):
+                    raise AssertionError(f"resumed state {name} differs")
+            with open(os.path.join(tmp, "long_full"), "rb") as f, \
+                    open(os.path.join(tmp, "long_resumed"), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError("resumed output file differs")
+            print("  resumed run: final state and output file bitwise equal")
+            lap("long run and resume")
 
-        # stop at year 20, resume to 50 in a fresh process
-        ck_res, run_res = _long_runner(model, tmp, "resumed")
-        longrun.run_long(LONG_STOP, state_fc, corr_fc, co2_long, run_res,
-                         checkpointer=ck_res, chunk_years=LONG_BLOCK)
-        run_res.close()
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--resume-long", tmp],
-            capture_output=True, text=True, timeout=900)
-        wall_resume = time.perf_counter() - t0
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            raise AssertionError(f"resume process exited {proc.returncode}")
-        child = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(f"resume in a fresh process: {wall_resume:.3f} s wall "
-              f"(setup {child['setup_s']:.3f} s, restore "
-              f"{child['restore_s']:.3f} s, years {child['start']}.."
-              f"{LONG_YEARS} in {child['run_s']:.3f} s, "
-              f"{child['scenario_years_launches']} scenario_years launches)")
-        if child["start"] != LONG_STOP:
-            raise AssertionError(f"resumed at {child['start']}")
-        s_res, _, cursor = Checkpointer(ck_res.dir).restore(device="cuda")
-        if cursor.year_index != LONG_YEARS:
-            raise AssertionError(f"last checkpoint at {cursor.year_index}")
-        for name in ModelState.FIELDS:
-            if not torch.equal(getattr(s_res, name), getattr(s_full, name)):
-                raise AssertionError(f"resumed state {name} differs")
-        with open(os.path.join(tmp, "long_full"), "rb") as f, \
-                open(os.path.join(tmp, "long_resumed"), "rb") as g:
-            if f.read() != g.read():
-                raise AssertionError("resumed output file differs")
-        print("  resumed run: final state and output file bitwise equal")
-        lap("long run and resume")
-
-        # -- the member chain: 3 spin-up years + a LONG_BLOCK-year block,
-        #    3 members
-        members3 = ens.perturbed_params(
-            model.params, {"ct_sens": np.linspace(22.05, 22.95, 3)})
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s5_m, corr_m, mon_m, _ = model.run_members(
-            members3, years=LONG_BLOCK, years_per_call=LONG_BLOCK,
-            co2_series=co2_long)
-        torch.cuda.synchronize()
-        wall_m = time.perf_counter() - t0
-        print(f"member chain: 3 members x {num.time_flux + LONG_BLOCK} years "
-              f"in {wall_m:.3f} s = {3 * (num.time_flux + LONG_BLOCK) / wall_m:.3f}"
-              f" member-yr/s")
-        launches_m = read_counts("member chain", {
-            "fluxcorr_year": 0, "scenario_year": 0,
-            "fluxcorr_years": num.time_flux, "scenario_years": 1})
-        if not (np.isfinite(mon_m).all()
-                and bool(torch.isfinite(s5_m).all())):
-            raise AssertionError("member chain not finite")
-        # member 1 has the base params: it is the long run's first block
-        if not (torch.equal(corr_m[1, :, 0], corr_fc.tf)
-                and np.array_equal(mon_m[1], long_out[:LONG_BLOCK * nmon])):
-            raise AssertionError("base member differs from the long run")
-        if np.array_equal(mon_m[0], mon_m[2]):
-            raise AssertionError("perturbed members do not differ")
-        print("  base member bitwise equal to the long run's first block")
-        lap("member chain")
+        if want(10):
+            # -- the member chain: 3 spin-up years + a LONG_BLOCK-year block,
+            #    3 members
+            members3 = ens.perturbed_params(
+                model.params, {"ct_sens": np.linspace(22.05, 22.95, 3)})
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s5_m, corr_m, mon_m, _ = model.run_members(
+                members3, years=LONG_BLOCK, years_per_call=LONG_BLOCK,
+                co2_series=co2_long)
+            torch.cuda.synchronize()
+            wall_m = time.perf_counter() - t0
+            print(f"member chain: 3 members x {num.time_flux + LONG_BLOCK} years "
+                  f"in {wall_m:.3f} s = {3 * (num.time_flux + LONG_BLOCK) / wall_m:.3f}"
+                  f" member-yr/s")
+            launches_m = read_counts("member chain", {
+                "fluxcorr_year": 0, "scenario_year": 0,
+                "fluxcorr_years": num.time_flux, "scenario_years": 1})
+            if not (np.isfinite(mon_m).all()
+                    and bool(torch.isfinite(s5_m).all())):
+                raise AssertionError("member chain not finite")
+            # member 1 has the base params: it is the long run's first block
+            if not (torch.equal(corr_m[1, :, 0], corr_fc.tf)
+                    and np.array_equal(mon_m[1], long_out[:LONG_BLOCK * nmon])):
+                raise AssertionError("base member differs from the long run")
+            if np.array_equal(mon_m[0], mon_m[2]):
+                raise AssertionError("perturbed members do not differ")
+            print("  base member bitwise equal to the long run's first block")
+            lap("member chain")
 
         # -- the legacy switchboard in every kernel, and the legacy path ---
-        with _GraphedSteps():
-            legacy = _legacy_phase(tmp, reset_counts, read_counts)
-        lap("legacy")
+        if want(11):
+            with _GraphedSteps():
+                legacy = _legacy_phase(tmp, reset_counts, read_counts)
+            lap("legacy")
 
         # -- the strict transport in every kernel, and the strict paths ----
-        with _GraphedSteps():
-            strict = _strict_phase(tmp, reset_counts, read_counts)
-        lap("strict")
+        if want(12):
+            with _GraphedSteps():
+                strict = _strict_phase(tmp, reset_counts, read_counts)
+            lap("strict")
 
         # -- the refined grid: K1/K2's refined instantiation, the refined
         #    path -----------------------------------------------------------
-        refined = _refined_phase(tmp, reset_counts, read_counts)
-        lap("refined 384x192")
+        if want(13):
+            refined = _refined_phase(tmp, reset_counts, read_counts)
+            lap("refined 384x192")
 
         # -- 192x96: the refined instantiation's additive form, its paths --
-        grid192 = _grid192_phase(tmp, reset_counts, read_counts)
-        lap("192x96")
+        if want(14):
+            grid192 = _grid192_phase(tmp, reset_counts, read_counts)
+            lap("192x96")
 
         # -- the legacy fold words at the refined grids, their paths -------
-        words = _words_phase(tmp, reset_counts, read_counts)
-        lap("refined legacy words")
+        if want(16):
+            words = _words_phase(tmp, reset_counts, read_counts)
+            lap("refined legacy words")
 
         # -- the strict transport at 384x192, the library default's path ---
-        strict_refined = _strict_refined_phase(tmp, reset_counts,
-                                               read_counts)
-        lap("strict 384x192")
+        if want(17):
+            strict_refined = _strict_refined_phase(tmp, reset_counts,
+                                                   read_counts)
+            lap("strict 384x192")
 
         # -- K3's shared table, and the ensemble path ----------------------
-        with _GraphedSteps():
-            ensemble = _ensemble_phase(tmp, os.path.join(tmp, "long_full"),
-                                       reset_counts, read_counts)
-        lap("ensemble")
+        if want(15):
+            with _GraphedSteps():
+                ensemble = _ensemble_phase(tmp, os.path.join(tmp,
+                                                             "long_full"),
+                                           reset_counts, read_counts)
+            lap("ensemble")
 
         # -- 768x384 (config 5): the wide form, its paths -----------------
-        grid768 = _grid768_phase(tmp, reset_counts, read_counts, m768)
-        del m768
-        lap("768x384")
+        if want(18):
+            grid768 = _grid768_phase(tmp, reset_counts, read_counts, m768)
+            del m768
+            lap("768x384")
 
         # -- latitude x member sharding: the slab kernels, their paths ----
-        sharded = _sharded_phase(tmp, model, grid768.pop("short_model"))
-        lap("sharded")
+        if want(19):
+            sharded = _sharded_phase(tmp, model, grid768.pop("short_model"))
+            lap("sharded")
 
         # -- the grids between 192x96 and 384x192: the additive packed and
         #    strict additive forms, 256x128's paths ------------------------
-        band = _grid256_phase(tmp, reset_counts, read_counts)
-        lap("256x128 band")
+        if want(20):
+            band = _grid256_phase(tmp, reset_counts, read_counts)
+            lap("256x128 band")
 
         # -- every word and the band grids on a CUDA mesh: the slab
         #    kernels' strict forms, legacy finish and additive packed form
-        words_sh = _sharded_words_phase(
-            tmp, strict_refined.pop("short_model"), band.pop("fold_model"),
-            band.pop("strict_model"), sharded.pop("workers"), plain96)
-        del plain96
-        lap("sharded words")
+        if want(21):
+            words_sh = _sharded_words_phase(
+                tmp, strict_refined.pop("short_model"), band.pop("fold_model"),
+                band.pop("strict_model"), sharded.pop("workers"), plain96)
+            del plain96
+            lap("sharded words")
 
         # -- the host layer: analysis, plots, run diagnostics, native IO --
-        _host_layer_phase(tmp, model, smi, reset_counts, read_counts)
-        lap("host layer")
+        if want(22):
+            _host_layer_phase(tmp, model, smi, reset_counts, read_counts)
+            lap("host layer")
 
+        # -- the strict transport at 768x384: the strict form's wide
+        #    variant, its paths ---------------------------------------------
+        if want(23):
+            strict768 = _strict768_phase(tmp, reset_counts, read_counts,
+                                         plain768)
+            del plain768
+            lap("strict 768x384")
+
+    if steps != ALL_STEPS:
+        print(f"smoke total: {time.perf_counter() - t_start:.1f} s wall "
+              f"(steps {_spec(steps)}: no kernel line)")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     # ms, plain_ms and bound_ms at the shape each path launches the kernel
     # (K3 one member for LONG_BLOCK years, K4 3 members: the median of
     # member_ms's 3 launches, on the size the wrapper picks for that
@@ -5030,7 +5663,8 @@ def main(argv) -> int:
                                grid192["strict_err"].get(name, 0.0),
                                words["err"][name],
                                strict_refined["err"][name],
-                               grid768["err"][name], band["err"][name]),
+                               grid768["err"][name], band["err"][name],
+                               strict768["err"][name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "cluster": c,
             "shape": shape, "modes": modes + band_modes[name],
@@ -5138,6 +5772,37 @@ def main(argv) -> int:
             launches_grid768_long_path=grid768["launches_long"][name],
             launches_grid768_ensemble_path=grid768["launches_ensemble"][
                 name])
+        # 768x384 under the library default (the strict form's wide
+        # variant, csrc/strict_wide_kernel.cu): K1/K2 timed on the short
+        # calendar (2 twelve-hour steps of 96 substeps) with that launch's
+        # bound, and on S768_PLAIN's (24 one-hour steps of 8 substeps)
+        # with its bound beside the plain version's first steps there (K1's
+        # and K2's step together: one circulation), K4 and K3 at M=1 timed
+        # together, the paths' launches
+        entry.update(
+            strict768_entries=[name + "_strict_wide"],
+            strict768_source="greb_tpu_torch/csrc/strict_wide_kernel.cu",
+            strict768_launches_path=strict768["launches"]["path"][name],
+            strict768_launches_long_path=strict768["launches"]["long"][name],
+            strict768_launches_ensemble_path=strict768["launches"][
+                "ensemble"][name],
+            strict768_launches_legacy_path=strict768["launches"]["legacy"][
+                name],
+            strict768_plain_ms_1h_first_steps=strict768[
+                "plain_ms_1h_first_steps"])
+        if name in strict768["ms"]:
+            s7_bound, s7_by = _bound_of(*strict768["short_work"][name])
+            h_bound, h_by = _bound_of(*strict768["work_1h"][name])
+            entry.update(
+                strict768_ms_short=strict768["ms"][name],
+                strict768_bound_ms_short=s7_bound,
+                strict768_bound_by_short=s7_by,
+                strict768_ms_1h=strict768["ms_1h"][name],
+                strict768_bound_ms_1h=h_bound,
+                strict768_bound_by_1h=h_by)
+        else:
+            entry["strict768_ms_k4_k3_m1_short"] = strict768["ms"][
+                "members_m1"]
         # the grids between 192x96 and 384x192: the entries of this kernel
         # with the modes each was held bitwise in; at 256x128 under the
         # fold and the strict circulation each launch (K1/K2 a year, K4

@@ -1425,10 +1425,16 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // (sub_cycle: the block's rows in order of count), so the pole blocks'
 // deep rounds touch the pole row alone; a row past its count keeps its
 // value, which the plain version's masked add of a finite increment
-// leaves unchanged.  What bounds it: the pole blocks' 1652 dependent
-// rounds a substep, each a 7-point stencil and a __syncthreads(), which
-// every other block waits for at the cluster barrier.  Spreading the pole
-// row is a later redesign (ROADMAP Queue 2, redesign d).
+// leaves unchanged.  The pole blocks' rows hold the deepest counts (1652,
+// 184, 67, ... a substep from each pole; every other row at most 3): their
+// diffusion sub-cycle runs spread over half the cluster each
+// (spread_cycle: each block 48 of the 384 columns of every pole row, an
+// exchange of 3k edge columns with its two neighbours every k rounds,
+// one thread a cell with a named barrier between rounds), after every
+// block's own rows' sub-cycle, between two cluster barriers.  What
+// bounds it: the pole rows' 1652 dependent rounds a substep, each now a
+// 7-point stencil and a barrier of 3 warps, and an exchange every k
+// rounds (ROADMAP Queue 2, redesign d).
 //
 // The member kernels (K4 fluxcorr_years_refined, K3 scenario_years_refined,
 // and their other forms and variants) run the same body with MEMBERS:
@@ -1480,7 +1486,8 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // a 256x128 strict year takes ~3.08 s, ~176 us a substep.
 //
 // The wide form (WIDE, suffixes _wide and _wide_legacy: 768x384 at dt_crcl
-// 450 s, 96 substeps a step) runs the sequential form's body for a grid
+// 450 s, 96 substeps a step; and the sequential strict form's, suffix
+// _strict_wide, below, built in csrc/strict_wide_kernel.cu) runs the sequential form's body for a grid
 // whose rows one 16-block cluster cannot hold (24 rows of 768 columns a
 // block: the double buffer alone is 344,064 B).  One run, or one member,
 // spreads over G = RefinedArgs::groups clusters of 16 blocks (G = 6 at
@@ -1510,6 +1517,18 @@ __device__ void run_cluster(const YearArgs& a, GrebParams p) {
 // U_all and W_all, 39.6 MB each at 768x384, every substep; together
 // they exceed the 50 MB L2, so those eight blocks stream them from HBM
 // while the other 88 wait at the barrier (ROADMAP Queue 2, redesign e).
+//
+// The strict wide form (R_STRICT with WIDE, suffix _strict_wide: the
+// strict transport and no transport at 768x384; its entries and launchers
+// in csrc/strict_wide_kernel.cu, a library of its own) is the sequential strict
+// form's body on the wide form's clusters and exchanges: 6 clusters of 16
+// blocks of 4 rows, strict_refined_parts on 96 blocks (196,704 B a block),
+// the halo rows across the cluster edges through ghalo after each step
+// start and substep.  Each pole's 4 rows (6612, 734, 265, 135 diffusion
+// rounds a substep; every other row at most 82) run spread over its own
+// cluster's 16 blocks, 48 of the 768 columns each (spread_cycle), after
+// those blocks' own rows; the middle clusters wait at the grid barrier.
+// Without transport a step is the state update alone.
 
 #define MAX_SEGS 8        // = year_kernel.MAX_SEGS
 #define MAX_GROUPS 8      // = year_kernel.MAX_GROUPS: clusters a wide run
@@ -1538,6 +1557,9 @@ struct RefinedArgs {
   // 2 fields, HALO, X)
   int groups;
   float* ghalo;
+  // the sequential strict form: rounds of the spread pole sub-cycle
+  // between exchanges (1..SPREAD_KMAX)
+  int spread_k;
 };
 
 // Parts of a refined block's shared memory, in layout order
@@ -1629,11 +1651,14 @@ __host__ __device__ inline long long refined_parts(int Y, int X, int ktc,
 // sub-cycle; 0 where C does not split the rows into blocks of at least
 // HALO rows or X is not a multiple of 4.  The same reckoning as
 // ops/cuda/year_kernel.py strict_refined_layout.
+// C counts every block of a run: up to max_blocks (the wide form's 16 G).
 __host__ __device__ inline long long strict_refined_parts(int Y, int X, int C,
                                                           long long* parts,
                                                           bool additive =
-                                                              false) {
-  if (C < 1 || C > MAX_CLUSTER || Y % C != 0 || Y / C < HALO || X % 4 != 0)
+                                                              false,
+                                                          int max_blocks =
+                                                              MAX_CLUSTER) {
+  if (C < 1 || C > max_blocks || Y % C != 0 || Y / C < HALO || X % 4 != 0)
     return 0;
   const long long R = Y / C, f = sizeof(float);
   parts[Q_XBUF] = f * 2 * 2 * (R + 2 * HALO) * X;
@@ -1646,17 +1671,58 @@ __host__ __device__ inline long long strict_refined_parts(int Y, int X, int C,
   return total;
 }
 
+#define SPREAD_KMAX 16  // = year_kernel.SPREAD_KMAX: most rounds between
+                        // exchanges (RefinedArgs::spread_k)
+#define SPREAD_MAXR 32  // most rows a block of the sequential strict form
+
+// The blocks of a spread group on a run of G clusters of C blocks.
+__host__ __device__ inline int spread_blocks(int C, int G) {
+  return G > 1 ? C : C / 2;
+}
+
+// Words of a block's spread scratch (a line's two buffers and wz of
+// W + 6k columns, its two slots of both sides' 3k columns; 2 lines a row),
+// which lives in the sub-cycles' second (2, R, X) buffer.
+__host__ __device__ inline long long spread_words(int R, int W, int k) {
+  return 2LL * R * (3LL * W + 30LL * k);
+}
+
+// Whether the spread fits a run of G clusters of C blocks (k rounds
+// between exchanges): each group at least 2 blocks over whole columns,
+// W >= 3k (only the next block's columns are a halo), a warp for each of
+// the pole block's 2R lines, and the scratch in the second sub-cycle
+// buffer.  The same reckoning as ops/cuda/year_kernel.py spread_layout.
+__host__ __device__ inline bool spread_fits(int Y, int X, int C, int G,
+                                            int k) {
+  const int H = spread_blocks(C, G);
+  if (G < 1 || C < 1 || (G == 1 && C % 2) || H < 2 || X % H || k < 1
+      || k > SPREAD_KMAX || Y % (C * G))
+    return false;
+  const int R = Y / (C * G), W = X / H;
+  return R >= HALO && R <= SPREAD_MAXR && W >= 3 * k
+         && 2 * R * 32 <= cluster_threads(R, X)
+         && spread_words(R, W, k) <= 2LL * R * X;
+}
+
 // The block's shared memory in the form of g (host side); the wide form
-// (g.groups > 1, the sequential form only) on g.groups clusters of C.
+// (g.groups > 1, the sequential fold or strict form) on g.groups clusters
+// of C.  The sequential strict form only where its spread sub-cycle fits.
 static long long form_parts(int Y, int X, int ktc, int kbc, int C,
                             const RefinedArgs& g, long long* parts) {
-  if (g.groups > 1)
-    return g.form == R_SEQ && g.groups <= MAX_GROUPS
-               ? refined_parts(Y, X, ktc, kbc, C * g.groups, g, parts,
-                               MAX_CLUSTER * MAX_GROUPS)
+  const int G = g.groups > 1 ? g.groups : 1;
+  if (G > MAX_GROUPS) return 0;
+  if (g.form == R_STRICT)
+    return spread_fits(Y, X, C, G, g.spread_k)
+               ? strict_refined_parts(Y, X, C * G, parts, false,
+                                      G > 1 ? MAX_CLUSTER * MAX_GROUPS
+                                            : MAX_CLUSTER)
                : 0;
-  if (g.form == R_STRICT || g.form == R_STRICT_ADDITIVE)
-    return strict_refined_parts(Y, X, C, parts, g.form == R_STRICT_ADDITIVE);
+  if (G > 1)
+    return g.form == R_SEQ ? refined_parts(Y, X, ktc, kbc, C * G, g, parts,
+                                           MAX_CLUSTER * MAX_GROUPS)
+                           : 0;
+  if (g.form == R_STRICT_ADDITIVE)
+    return strict_refined_parts(Y, X, C, parts, true);
   return refined_parts(Y, X, ktc, kbc, C, g, parts);
 }
 
@@ -2212,6 +2278,349 @@ __device__ __forceinline__ void sub_cycle(float* sub, const int* n,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the pole blocks' diffusion sub-cycle spread over their blocks' group
+// (ROADMAP Queue 2 redesign d)
+// ---------------------------------------------------------------------------
+// The sequential strict form's deepest rounds are the pole blocks' rows'
+// (768x384: 6612, 734, 265, 135 a substep; 384x192: 1652, 184, 67, ...),
+// where every other row takes at most 82.  One SM cannot take them fast:
+// at 768x384 a round is 1,536 (field, cell)s, past one a thread.  So each
+// pole block's rows run on a group of H blocks, each owning W = X / H
+// columns of every row (a line: one row of one field; the zonal stencils
+// are row-local, and lines leave at their rows' counts): a block keeps its
+// columns and 3k more each side, runs k rounds on them with a barrier of
+// the line's warps between rounds (the valid columns shrink by 3 a round:
+// the 7-point stencil reaches 3), then sends its 3k edge columns of each
+// line still running to its two neighbours (st.async into their slots,
+// which completes bytes on their mbarrier: no cluster barrier between
+// exchanges).  Each cell's update is sub_cycle's, so the rounds stay
+// bitwise equal to stencils._subcycle.  Groups: one cluster (384x192),
+// its two halves, the top pole's (ranks 0..C/2-1) and the bottom's; a
+// wide run, its first and last clusters.  The blocks of a group run their
+// own rows' sub-cycles first, then lend their warps to the pole rows.  On
+// an H100 a round takes ~400 cycles, an exchange ~1,400 (chip_smoke.py
+// step 23 times k).
+// A pole's spread group: H blocks from cluster rank rank0 (H = 0: this
+// block is in none), this block h-th; the pole block's cluster rank and
+// first global row.
+struct SpreadGroup {
+  int H, h, rank0, pole, r0p;
+  bool top;
+};
+
+// This block's spread group, by its cluster rank and its cluster's place
+// grp in a run of G clusters.
+__device__ __forceinline__ SpreadGroup spread_group(int Y, int R, int C,
+                                                    int G, int rank,
+                                                    int grp) {
+  SpreadGroup s{};
+  if (G == 1) {
+    s.H = C / 2;
+    s.top = rank < s.H;
+    s.rank0 = s.top ? 0 : s.H;
+  } else {
+    if (grp != 0 && grp != G - 1) return s;
+    s.H = C;
+    s.top = grp == 0;
+  }
+  s.h = rank - s.rank0;
+  s.pole = s.top ? 0 : C - 1;
+  s.r0p = s.top ? 0 : Y - R;
+  return s;
+}
+
+// The mbarriers a spread block's slots complete on (two, used in turn),
+// in static shared memory: the same offset in every block.
+__shared__ unsigned long long spread_bar[2];
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// The one arrival of a phase, expecting `bytes` from the neighbours.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}"
+      ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete; a wait past ~4e9
+// clocks (seconds, where an exchange takes microseconds) means a missing
+// arrival, and traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > 4000000000LL) __trap();
+  } while (!done);
+}
+
+// v into block `rank`'s shared memory at the offset of dst, completing 4
+// bytes on that block's mbarrier at the offset of bar.
+__device__ __forceinline__ void st_async(float* dst, float v,
+                                         unsigned long long* bar,
+                                         unsigned rank) {
+  unsigned d, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(d) : "r"(smem_u32(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(b) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(d), "r"(__float_as_uint(v)), "r"(b) : "memory");
+}
+
+// The pole block's lines' counts, from the pole row outward (static
+// shared memory).
+__shared__ int spread_n[SPREAD_MAXR];
+
+// One line's part of the spread sub-cycle in a run of epochs, the
+// line's group of n threads, one cell a thread (spread_cycle).
+struct SpreadLine {
+  float* b0;          // the line's two buffers of L positions
+  float* b1;
+  float* slot;        // its slots: slot s at slot + s * sstride, the left
+  int sstride;        // halo's 3k columns, then the right halo's
+  int L, W, k, n;     // chunk, owned columns, rounds an epoch, its count
+  int E, base;        // epochs of the substep, the slot epochs before it
+  unsigned left, right;   // the neighbours' cluster ranks
+  float cc;           // the row's coefficient
+  unsigned bytes_in, bytes_next;   // a block's slot bytes an epoch in the
+                                   // run, and in the epoch after it
+};
+
+// Epochs [e0, e1) of line ln (spread_cycle), this thread taking position
+// p = 3 + t of the group's n threads (wz taps w), named barrier id
+// between rounds: from epoch 1 on, the neighbours' edge columns from the
+// epoch's slot after its mbarrier (thread 0 of the block arming the next
+// epoch's), then the epoch's rounds, then this block's edge columns to the
+// neighbours' slots where the line runs on.  Not inlined: the rounds run
+// in registers of their own, apart from the substep's.  The one-warp
+// schedule of spread_cycle repeats this protocol inline: a stride loop
+// and a runtime choice of barrier here cost 44% of the pole rounds' time
+// on an H100 (PERF.md §6), so the two stay apart and change together.
+__device__ __noinline__ void spread_epochs(const SpreadLine& ln, int e0,
+                                           int e1, int t, int n, int id,
+                                           Taps w) {
+  const SpreadLine s = ln;
+  const int K3 = 3 * s.k, p = 3 + t;
+  for (int e = e0; e < e1; ++e) {
+    int b = (e * s.k) & 1;
+    if (e > 0) {
+      const int sl = (s.base + e - 1) & 1;
+      if (threadIdx.x == 0 && e + 1 < s.E)
+        mbar_expect(spread_bar + ((s.base + e) & 1),
+                    e + 1 < e1 ? s.bytes_in : s.bytes_next);
+      mbar_wait(spread_bar + sl, ((s.base + e - 1) >> 1) & 1);
+      const float* src = s.slot + sl * s.sstride;
+      float* cb = b ? s.b1 : s.b0;
+      if (t < K3) {
+        cb[t] = src[t];
+        cb[K3 + s.W + t] = src[K3 + t];
+      }
+    }
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+    const int rounds = s.n - e * s.k < s.k ? s.n - e * s.k : s.k;
+    for (int q = 0; q < rounds; ++q, b ^= 1) {
+      const float* src = b ? s.b1 : s.b0;
+      float* dst = b ? s.b0 : s.b1;
+      if (p >= 3 * (q + 1) && p < s.L - 3 * (q + 1)) {
+        Taps x;
+        x.xm3 = src[p - 3]; x.xm2 = src[p - 2]; x.xm1 = src[p - 1];
+        x.x0 = src[p];
+        x.xp1 = src[p + 1]; x.xp2 = src[p + 2]; x.xp3 = src[p + 3];
+        dst[p] = x.x0 + clamp_neg(diff7(x, w, s.cc), x.x0);
+      }
+      asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+    }
+    if (e + 1 < s.E && s.n > (e + 1) * s.k && t < K3) {
+      // the next epoch's halos: the first 3k owned columns to the left
+      // neighbour's right slot, the last 3k to the right one's left slot
+      const int sl = (s.base + e) & 1;
+      float* dst = s.slot + sl * s.sstride;
+      const float* cb = b ? s.b1 : s.b0;
+      st_async(dst + K3 + t, cb[K3 + t], spread_bar + sl, s.left);
+      st_async(dst + t, cb[s.W + t], spread_bar + sl, s.right);
+    }
+  }
+}
+
+// The diffusion sub-cycle of the pole block's rows (strict_seq_substep's
+// first sub_cycle and xz, for those rows) on this block's columns of its
+// group sg, k rounds between exchanges; after the cluster.sync() that ends
+// every block's own rows' xz, before the one that hands the pole block its
+// xz.  Line l is row l / nf from the pole outward, field l % nf; a line's
+// chunk position p is global column c0 - 3k + p (periodic).  Epoch e runs
+// the rounds [e k, (e + 1) k) of the lines still within their counts (a
+// prefix of the lines: the counts fall away from the pole).  Between two
+// epochs where a row leaves the lines keep their groups of warps: where
+// the block has the warps, enough for one cell a thread (spread_epochs),
+// else one warp a line, a lane taking its cells in turn; the block
+// synchronises only where the groups change.  Epoch 0 starts from the
+// pole block's x, a later one takes its neighbours' edge columns from slot
+// (sc + e - 1) & 1.  A line's last value makes xz = x + wz (t1 - x) of its
+// owned columns, written into the pole block's next buffer and its
+// scratch's buffer 0 (the advection's start).  *sc counts the slot epochs
+// of the run, the same in every block of a group.
+__device__ void spread_cycle(const YearArgs& a, const StrictSeq& st,
+                             const Bufs& bufs, const SpreadGroup& sg, int k,
+                             int cur, int nxt, int* sc) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int Y = a.Y, X = a.X, R = bufs.R, RX = R * X, P = 2 * RX;
+  const int BX = bufs.field(), W = X / sg.H, K3 = 3 * k, L = W + 2 * K3;
+  const int nf = st.nf, NL = nf * R, c0 = sg.h * W;
+  const int tid = threadIdx.x, nw = blockDim.x >> 5;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int nmax = a.st_n[sg.top ? 0 : Y - 1];
+  const int E = (nmax + k - 1) / k, base = *sc;
+  *sc = base + (E > 1 ? E - 1 : 0);
+  float* const priv = st.sub + P;              // (2, NL, L) the lines
+  float* const wzl = priv + 2 * NL * L;        // (NL, L) their wz
+  float* const slot = wzl + NL * L;            // (2, NL, 2, 3k)
+  const unsigned left = sg.rank0 + (sg.h + sg.H - 1) % sg.H;
+  const unsigned right = sg.rank0 + (sg.h + 1) % sg.H;
+  const float* xpole = cluster.map_shared_rank(bufs.mine + cur, sg.pole);
+  auto row = [&](int l) { return sg.top ? l / nf : R - 1 - l / nf; };
+  auto xrow = [&](int l) {
+    return xpole + (l % nf) * BX + (HALO + row(l)) * X;
+  };
+  if (tid < R) spread_n[tid] = a.st_n[sg.r0p + (sg.top ? tid : R - 1 - tid)];
+  __syncthreads();
+  // the lines still running are a prefix of them: the counts fall away
+  // from the pole (as at every grid spread_fits takes; the host checks it)
+  if (tid > 0 && tid < R && spread_n[tid] > spread_n[tid - 1]) __trap();
+  for (int l = warp; l < NL; l += nw) {
+    const float* xp = xrow(l);
+    const float* wg = a.st_wz + (size_t)(l % nf) * Y * X
+                      + (size_t)(sg.r0p + row(l)) * X;
+    for (int p = lane; p < L; p += 32) {
+      int c = c0 - K3 + p;
+      c = c < 0 ? c + X : (c >= X ? c - X : c);
+      priv[l * L + p] = xp[c];
+      wzl[l * L + p] = wg[c];
+    }
+  }
+  __syncthreads();
+  // rows still running in epoch e
+  auto rows_at = [&](int e, int r) {
+    while (r > 0 && spread_n[r - 1] <= e * k) --r;
+    return r;
+  };
+  const unsigned line_bytes = 2 * K3 * sizeof(float) * nf;
+  if (tid == 0 && E > 1)
+    mbar_expect(spread_bar + (base & 1), line_bytes * rows_at(1, R));
+  // one cell a thread: warps a line
+  const int wcell = (L - 6 + 31) / 32;
+  for (int e0 = 0, rr = R; e0 < E;) {
+    // a run of epochs [e0, e1) with the same lines: until the last of them
+    // leaves
+    if (e0 > 0) __syncthreads();
+    rr = rows_at(e0, rr);
+    const int A = nf * rr;
+    const int e1 = min(E, (spread_n[rr - 1] + k - 1) / k);
+    const int wpl = A * wcell <= nw && A <= 15 ? wcell : 1;
+    const int g = warp / wpl, gt = tid - g * wpl * 32, gn = wpl * 32;
+    const int l = g < A ? g : -1;
+    if (l >= 0) {
+      const int n = spread_n[l / nf], r = sg.r0p + row(l);
+      const float* wl = wzl + l * L;
+      SpreadLine ln{priv + l * L, priv + (NL + l) * L,
+                    slot + l * 2 * K3, NL * 2 * K3, L, W, k, n, E, base,
+                    left, right,
+                    (a.st_kappa * a.st_rows[Y + r]) / a.st_rows[r],
+                    line_bytes * rr, line_bytes * rows_at(e1, rr)};
+      if (wpl > 1) {
+        const int p = 3 + gt;
+        Taps w{};
+        if (p < L - 3) {
+          w.xm3 = wl[p - 3]; w.xm2 = wl[p - 2]; w.xm1 = wl[p - 1];
+          w.x0 = wl[p];
+          w.xp1 = wl[p + 1]; w.xp2 = wl[p + 2]; w.xp3 = wl[p + 3];
+        }
+        spread_epochs(ln, e0, e1, gt, gn, 1 + g, w);
+      } else {
+        // one warp a line, a lane's cells in turn (spread_epochs' protocol)
+        for (int e = e0; e < e1; ++e) {
+          int b = (e * k) & 1;
+          if (e > 0) {
+            const int s = (base + e - 1) & 1;
+            if (tid == 0 && e + 1 < E)
+              mbar_expect(spread_bar + ((base + e) & 1),
+                          e + 1 < e1 ? ln.bytes_in : ln.bytes_next);
+            mbar_wait(spread_bar + s, ((base + e - 1) >> 1) & 1);
+            const float* sl = ln.slot + s * ln.sstride;
+            float* cb = b ? ln.b1 : ln.b0;
+            for (int j = lane; j < K3; j += 32) {
+              cb[j] = sl[j];
+              cb[K3 + W + j] = sl[K3 + j];
+            }
+          }
+          __syncwarp();
+          const int rounds = n - e * k < k ? n - e * k : k;
+          for (int q = 0; q < rounds; ++q, b ^= 1) {
+            const float* src = b ? ln.b1 : ln.b0;
+            float* dst = b ? ln.b0 : ln.b1;
+            for (int p = 3 * (q + 1) + lane; p < L - 3 * (q + 1); p += 32) {
+              Taps t, ww;
+              t.xm3 = src[p - 3]; t.xm2 = src[p - 2]; t.xm1 = src[p - 1];
+              t.x0 = src[p];
+              t.xp1 = src[p + 1]; t.xp2 = src[p + 2]; t.xp3 = src[p + 3];
+              ww.xm3 = wl[p - 3]; ww.xm2 = wl[p - 2]; ww.xm1 = wl[p - 1];
+              ww.x0 = wl[p];
+              ww.xp1 = wl[p + 1]; ww.xp2 = wl[p + 2]; ww.xp3 = wl[p + 3];
+              dst[p] = t.x0 + clamp_neg(diff7(t, ww, ln.cc), t.x0);
+            }
+            __syncwarp();
+          }
+          if (e + 1 < E && n > (e + 1) * k) {
+            const int s = (base + e) & 1;
+            float* sl = ln.slot + s * ln.sstride;
+            const float* cb = b ? ln.b1 : ln.b0;
+            for (int j = lane; j < K3; j += 32) {
+              st_async(sl + K3 + j, cb[K3 + j], spread_bar + s, left);
+              st_async(sl + j, cb[W + j], spread_bar + s, right);
+            }
+          }
+        }
+      }
+      if (n <= e1 * k) {
+        // the line's last epoch was e1 - 1: xz of its owned columns, in
+        // the pole block, from its last value (buffer n & 1)
+        const int f = l % nf, i = row(l);
+        const float* xp = xrow(l);
+        const float* cb = n & 1 ? ln.b1 : ln.b0;
+        float* xz = cluster.map_shared_rank(bufs.mine + nxt, sg.pole)
+                    + f * BX + (HALO + i) * X;
+        float* zs = f < st.nfa ? cluster.map_shared_rank(st.sub, sg.pole)
+                                     + f * RX + i * X
+                               : nullptr;
+        if (wpl == 1) __syncwarp();
+        for (int j = gt; j < W; j += gn) {
+          const float x0 = xp[c0 + j];
+          const float z = x0 + wl[K3 + j] * (cb[K3 + j] - x0);
+          xz[c0 + j] = z;
+          if (zs != nullptr) zs[c0 + j] = z;
+        }
+      }
+    }
+    e0 = e1;
+  }
+}
+
 // One strict substep with sequential zonal splitting (stencils.circulation
 // at seq_zonal, every row sub-cycled) of this block's rows at step t,
 // buffer cur -> nxt: the diffusion sub-cycle of each moving field from x;
@@ -2221,9 +2630,16 @@ __device__ __forceinline__ void sub_cycle(float* sub, const int* n,
 // not advect: xz + wz*dty), the meridional terms from x (dty of
 // stencils.diffusion and of stencils.advection), written over its xz and
 // pushed to the neighbours' halos.  The winds are read from global memory.
+// SPREAD (run_refined's R_STRICT forms; g: the run's RefinedArgs, *sc the
+// spread's slot epochs): the pole blocks' rows' diffusion sub-cycle and
+// xz run on their groups (spread_cycle) between two cluster barriers,
+// after the other blocks' own rows'; the slab kernels run the rest alone.
+template <bool SPREAD = false>
 __device__ void strict_seq_substep(const YearArgs& a, const StrictSeq& st,
                                    const Bufs& bufs, int cur, int nxt,
-                                   int r0, int t) {
+                                   int r0, int t,
+                                   const RefinedArgs* g = nullptr,
+                                   int* sc = nullptr) {
   const int Y = a.Y, X = a.X, R = bufs.R, RX = R * X, P = 2 * RX;
   const int BX = bufs.field(), WX = (R + 2 * HALO) * X;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -2237,20 +2653,39 @@ __device__ void strict_seq_substep(const YearArgs& a, const StrictSeq& st,
     const int f = by_rx(l);
     st.sub[l] = x[f * BX + HALO * X + (l - f * RX)];
   }
-  sub_cycle(st.sub, st.nd, st.od, st.nf, R, X, [&](int f, int i, int j) {
-    DiffCell c;
-    zonal_taps(st.wz + f * WX + (i + HALO) * X, j, X, c.w);
-    c.cc = st.ccx2[i];
-    return c;
-  });
-  for (int l = tid; l < st.nf * RX; l += nt) {
-    const int f = by_rx(l), li = l - f * RX, i = by_x(li);
-    const int o = f * BX + HALO * X + li;
-    const float x0 = x[o];
-    const float z = x0 + st.wz[f * WX + HALO * X + li]
-                             * (st.sub[(st.nd[i] & 1) * P + l] - x0);
-    xz[o] = z;
-    if (f < st.nfa) st.sub[l] = z;
+  SpreadGroup sg{};
+  bool own = true;   // this block runs its own rows' diffusion sub-cycle
+  if constexpr (SPREAD) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+    const int G = g->groups > 1 ? g->groups : 1;
+    sg = spread_group(Y, R, C, G, rank, (int)(blockIdx.x / C) % G);
+    own = sg.H == 0 || rank != sg.pole;
+  }
+  if (own) {
+    sub_cycle(st.sub, st.nd, st.od, st.nf, R, X, [&](int f, int i, int j) {
+      DiffCell c;
+      zonal_taps(st.wz + f * WX + (i + HALO) * X, j, X, c.w);
+      c.cc = st.ccx2[i];
+      return c;
+    });
+    for (int l = tid; l < st.nf * RX; l += nt) {
+      const int f = by_rx(l), li = l - f * RX, i = by_x(li);
+      const int o = f * BX + HALO * X + li;
+      const float x0 = x[o];
+      const float z = x0 + st.wz[f * WX + HALO * X + li]
+                               * (st.sub[(st.nd[i] & 1) * P + l] - x0);
+      xz[o] = z;
+      if (f < st.nfa) st.sub[l] = z;
+    }
+  }
+  if constexpr (SPREAD) {
+    if (sg.H > 0) {   // cluster-uniform
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      spread_cycle(a, st, bufs, sg, g->spread_k, cur, nxt, sc);
+      cluster.sync();
+    }
   }
   sub_cycle(st.sub, st.na, st.oa, st.nfa, R, X, [&](int f, int i, int j) {
     AdvCell c;
@@ -2456,10 +2891,12 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
   const int ktc = a.ktc, kbc = a.kbc, K = ktc + kbc;
   constexpr bool SADD = FORM == R_STRICT_ADDITIVE;
   constexpr bool STRICT = FORM == R_STRICT || SADD;
-  static_assert(!WIDE || FORM == R_SEQ, "the wide form is sequential");
+  static_assert(!WIDE || FORM == R_SEQ || FORM == R_STRICT,
+                "the wide form is sequential");
   long long parts[N_QPARTS];
   if constexpr (STRICT)
-    strict_refined_parts(Y, X, C, parts, SADD);
+    strict_refined_parts(Y, X, C * G, parts, SADD,
+                         WIDE ? MAX_CLUSTER * MAX_GROUPS : MAX_CLUSTER);
   else if constexpr (WIDE)
     refined_parts(Y, X, ktc, kbc, C * G, g, parts, MAX_CLUSTER * MAX_GROUPS);
   else
@@ -2573,6 +3010,16 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
     const int row = h < HALO * X ? h / X : R + h / X;
     bufs.mine[fb * BX + row * X + h % X] = 0.f;
   }
+  // R_STRICT: the spread sub-cycle's mbarriers, before the first
+  // cluster.sync() (which any remote arrival follows) and its slot epochs
+  int spread_sc = 0;
+  if constexpr (FORM == R_STRICT) {
+    if (tid == 0) {
+      mbar_init(spread_bar);
+      mbar_init(spread_bar + 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
   if ((FORM == R_SEQ || FORM == R_ADDITIVE_PACKED) && tid == 0) {
     // the packed composites' slots
     const int nq = bk.comp.n();
@@ -2623,14 +3070,19 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
             bufs.put(0, f, i, j, st[(f == 0 ? 1 : 3) * FS + li]);
           }
           cluster.sync();
+          if constexpr (WIDE)
+            wide_exchange(we, bufs, 0, ep++ & 1);
           // -- circulation: nsub strict substeps, buffer cur -> nxt
           for (int s = 0; s < a.nsub; ++s) {
             const int nxt = NXT - cur;
             if constexpr (SADD)
               strict_add_substep(a, sa, bufs, cur, nxt, r0, t);
             else
-              strict_seq_substep(a, ss, bufs, cur, nxt, r0, t);
+              strict_seq_substep<true>(a, ss, bufs, cur, nxt, r0, t, &g,
+                                       &spread_sc);
             cluster.sync();
+            if constexpr (WIDE)
+              wide_exchange(we, bufs, nxt, ep++ & 1);
             cur = nxt;
           }
         }
@@ -2719,7 +3171,8 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
 // The entry functions and their launchers follow.  What comes before the
 // guard below serves them and the sources that build their own entries on
 // these device functions (slab_kernel.cu; band_kernel.cu, the refined
-// forms of the grids between 192x96 and 384x192), which define
+// forms of the grids between 192x96 and 384x192; strict_wide_kernel.cu,
+// the strict form's wide variant at 768x384), which define
 // GREB_DEVICE_ONLY before including this file.
 
 // The refined instantiation of the four kernels: in each form and variant,
@@ -2913,7 +3366,8 @@ static_assert(sizeof(YearArgs) + sizeof(GrebParams) + sizeof(PackCols) +
 // variant of p's flags word: the fold's forms modern or legacy, the strict
 // form for the strict transport or none, the wide form (g.groups > 1: the
 // sequential form on several clusters) modern or legacy; -1 where none
-// runs it (the forms of csrc/band_kernel.cu included).
+// runs it (the forms of csrc/band_kernel.cu and the strict form on several
+// clusters, csrc/strict_wide_kernel.cu's, included).
 static int refined_pick(const GrebParams& p, const RefinedArgs& g) {
   const Variant v = variant(p);
   if (g.groups > 1) {
@@ -3119,8 +3573,9 @@ int greb_refined_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
   a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg;
-  const int k = g.groups > 1 ? 5 : g.form == R_STRICT ? 4 : g.form;
-  if (k < 0 || k > 5) return GREB_ERR_LAYOUT;
+  const int k = g.groups > 1 ? (g.form == R_SEQ ? 5 : -1)
+                             : g.form == R_STRICT ? 4 : g.form;
+  if (k < 0 || k >= N_REFINED) return GREB_ERR_LAYOUT;
   if (kind == FLUX) {
     decltype(&fluxcorr_years_refined) const t[] =
         REFINED_TABLE(fluxcorr_years);

@@ -25,10 +25,12 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # the year kernels, the refined forms of the grids between 192x96 and
-# 384x192 and the sharded runners' slab kernels (both built on the year
-# kernels' device functions), and a probe of the cluster barrier's cost
-# that chip_smoke.py reads beside them
-SOURCES = ("year_kernel", "band_kernel", "slab_kernel", "cluster_probe")
+# 384x192, the strict form's wide variant at 768x384 and the sharded
+# runners' slab kernels (all three built on the year kernels' device
+# functions), and a probe of the cluster barrier's cost that chip_smoke.py
+# reads beside them
+SOURCES = ("year_kernel", "band_kernel", "strict_wide_kernel", "slab_kernel",
+           "cluster_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC")

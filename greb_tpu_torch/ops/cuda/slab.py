@@ -25,12 +25,13 @@ launches and the halo copies) as one CUDA graph and replays it for every
 step of every year (the step's index and the year's CO2 are read from
 device memory).
 
-What the year kernels do not run raises before any launch
-(``check_slab``): the strict transport and no transport at 768x384
-(``year_kernel.REFINED_ITEMS["strict_wide"]``).  The plain version of a
-slab step is the plain sharded runner over the plain step with the halo
-hook (parallel/sharded.py); only the tests and ``chip_smoke.py`` hold
-the kernels against it.
+What the slab kernels do not run raises before any launch
+(``check_slab``): what the year kernels do not run, and the strict
+transport and no transport where the year kernels run the sequential
+strict form's wide variant (768x384: ``SLAB_ITEMS["strict_wide"]``).
+The plain version of a slab step is the plain sharded runner over the
+plain step with the halo hook (parallel/sharded.py); only the tests and
+``chip_smoke.py`` hold the kernels against it.
 
 Launch counts: ``start.launches``, ``substep.launches``,
 ``finish.launches`` (plain ints), one for each kernel launched, eager or
@@ -117,16 +118,35 @@ def global_plan(splan: Optional[fc2.ShardPlan], exp: Experiment,
     return yk.StrictPlan(num.ydim, num.xdim, seq_zonal=seq_zonal)
 
 
+# where what the slab kernels do not run is queued
+SLAB_ITEMS = dict(
+    # the strict transport and the no-transport words where the year
+    # kernels run the strict form on several clusters (768x384): a shard's
+    # strict block there (a cluster holding 96 rows, ~258 KB a block) does
+    # not fit
+    strict_wide="ROADMAP Queue 1 item 3j")
+
+
 def check_slab(plan, exp: Experiment, kind: str = "fluxcorr") -> None:
     """Raise NotImplementedError for what the slab kernels do not run, before
     any launch: what ``year_kernel.check_plan`` refuses for the global plan
     ``plan`` (``global_plan``) under ``exp``'s flags word, since a shard
-    runs the year kernels' form of the grid.  That is the strict transport
-    and no transport where one cluster does not hold the strict form
-    (768x384: ``REFINED_ITEMS["strict_wide"]``) and a fold no refined
-    layout holds (``REFINED_ITEMS["layout"]``)."""
+    runs the year kernels' form of the grid (a fold no refined layout
+    holds: ``REFINED_ITEMS["layout"]``), and the strict transport and no
+    transport where the year kernels run the sequential strict form on
+    several clusters (768x384, ``year_kernel.refined_groups``:
+    ``SLAB_ITEMS["strict_wide"]``)."""
     transport = core.transport(exp, not isinstance(plan, yk.StrictPlan))
-    yk.check_plan(plan, kind, yk.experiment_flags(exp, transport == "strict"))
+    flags = yk.experiment_flags(exp, transport == "strict")
+    yk.check_plan(plan, kind, flags)
+    if (isinstance(plan, yk.StrictPlan) and yk.is_refined(plan)
+            and plan.seq_zonal and yk.refined_groups(plan) > 1):
+        raise NotImplementedError(
+            f"{kind}: the strict transport or no transport (flags "
+            f"{flags:#x}) at {plan.xdim}x{plan.ydim} on a CUDA mesh: the "
+            f"year kernels run it on {yk.refined_groups(plan)} clusters, "
+            f"and a shard's strict block does not fit "
+            f"({SLAB_ITEMS['strict_wide']})")
 
 
 def slab_form(plan) -> str:

@@ -63,22 +63,25 @@ transport) at an extension-mode grid runs in the refined instantiation's
 third form (``*_strict_refined``, a ``StrictPlan`` with ``seq_zonal``):
 the strict stencils with sequential zonal splitting, both polar
 sub-cycles in every row, its block's shared memory the double buffer, wz
-with halo rows and one sub-cycle scratch (``strict_refined_layout``);
+with halo rows and one sub-cycle scratch (``strict_refined_layout``),
+the pole blocks' rows' diffusion sub-cycle spread over half the cluster
+each (``spread_layout``); at 768x384, where one cluster does not hold it,
+on 6 clusters (``*_strict_wide``, ``strict_wide_layout``: the fold's wide
+form's halo exchange, each pole's rows spread over its own cluster);
 where the cluster body does not hold the strict transport's K3 (224x112 to
 352x176), all four kernels run the fifth form (``*_strict_additive``), the
 cluster body's strict arithmetic on the same layout.  The two forms of
 224x112 to 352x176 (``BAND_FORMS``) build in a library of their own,
 csrc/band_kernel.cu (``refined_launcher``).
 Grids that these layouts do not hold raise NotImplementedError
-(``check_plan``, ``check_supported``), naming their ROADMAP item; so does
-the strict transport (and no transport) where one cluster does not hold
-its strict form (768x384: ``REFINED_ITEMS["strict_wide"]``).
+(``check_plan``, ``check_supported``), naming their ROADMAP item.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -158,10 +161,16 @@ REFINED_FORMS = ("sequential", "additive", "strict", "additive_packed",
                  "strict_additive")
 # where what the refined instantiation does not run is queued
 REFINED_ITEMS = dict(
-    layout="ROADMAP Queue 1 item 3d",    # grids its layout does not hold
-    # the strict transport and the no-transport words where one cluster
-    # does not hold the strict form (768x384; after Queue 2 redesign d)
-    strict_wide="ROADMAP Queue 1 item 3h")
+    layout="ROADMAP Queue 1 item 3d")    # grids its layout does not hold
+# the sequential strict form's spread pole sub-cycle (csrc/year_kernel.cu
+# spread_cycle): the most rounds between two exchanges of a line's edge
+# columns (a run takes the most its layout holds, ``spread_rounds``; 12,
+# the fastest of 4, 8, 12 and 16 at 768x384 on an H100, PERF.md §6), the
+# most the kernel takes (SPREAD_KMAX) and the most rows of a block
+# (SPREAD_MAXR)
+SPREAD_ROUNDS = 12
+SPREAD_KMAX = 16
+SPREAD_MAXR = 32
 
 
 def experiment_flags(exp: Experiment, strict: bool = False) -> int:
@@ -180,7 +189,10 @@ class StrictPlan:
     form runs (sequential zonal splitting, every row sub-cycled);
     ``sub_cycles``, where known, the (diffusion, advection) sub-cycles of
     each row (``stencils.sub_cycles``; -1: the row takes the vectorised
-    form), which ``year_work`` counts."""
+    form), which ``year_work`` counts.  ``_groups`` and ``_rounds`` (0:
+    the run's own) force the clusters a run of the sequential strict form
+    spans and the spread sub-cycle's rounds between exchanges, for checks
+    that hold one such run against another (``_forced``)."""
     ydim: int
     xdim: int
     seq_zonal: bool = False
@@ -190,6 +202,8 @@ class StrictPlan:
     comp_kb: int = 0
     sub_cycles: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = field(
         default=None, repr=False, compare=False)
+    _groups: int = field(default=0, repr=False)
+    _rounds: int = field(default=0, repr=False)
 
 
 @dataclass
@@ -362,9 +376,12 @@ def refined_layout(plan, blocks: int, kind: str,
     blocks of a row), for a plan of neither form, for more than MAX_SEGS
     segments, for ``groups`` outside 1..MAX_GROUPS or above 1 with
     additive splitting, and where a block needs more than MAX_SMEM_BYTES.
-    A ``StrictPlan`` (one cluster): ``strict_refined_layout``."""
-    if isinstance(plan, StrictPlan) and groups == 1:
-        return strict_refined_layout(plan, blocks, kind)
+    A ``StrictPlan``: ``strict_refined_layout`` on one cluster,
+    ``strict_wide_layout`` on more."""
+    if isinstance(plan, StrictPlan):
+        if groups == 1:
+            return strict_refined_layout(plan, blocks, kind)
+        return strict_wide_layout(plan, blocks, kind, groups)
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: one of {KINDS}")
     form = ("packed",) if plan.seq_zonal else ("dense", "none", "packed")
@@ -420,15 +437,20 @@ def refined_layout(plan, blocks: int, kind: str,
 def refined_groups(plan, blocks: int = REFINED_CLUSTER_SIZES[0]) -> int:
     """The clusters of ``blocks`` blocks that one run (or member) of
     ``plan`` spans in the refined instantiation: 1 where one cluster holds
-    it, else, for sequential splitting, the smallest G in 2..MAX_GROUPS
-    whose wide layout (``refined_layout(plan, blocks, kind, G)``, the same
-    for every kind) fits.  Raises ValueError where none does (the card's
+    it, else, for sequential splitting (the fold's or the strict
+    transport's), the smallest G in 2..MAX_GROUPS whose wide layout
+    (``refined_layout(plan, blocks, kind, G)``, the same for every kind)
+    fits; a ``StrictPlan``'s forced ``_groups`` where it sets one (its
+    layout checked).  Raises ValueError where none does (the card's
     capacity is ``check_resident``'s)."""
+    if isinstance(plan, StrictPlan) and plan._groups:
+        refined_layout(plan, blocks, KINDS[0], plan._groups)
+        return plan._groups
     try:
         refined_layout(plan, blocks, KINDS[0])
         return 1
     except ValueError as e:
-        if isinstance(plan, StrictPlan) or not plan.seq_zonal:
+        if not plan.seq_zonal:
             raise
         first = e
     for g in range(2, MAX_GROUPS + 1):
@@ -456,8 +478,115 @@ def check_resident(groups: int, capacity: int, members: int = 1) -> int:
     return max(1, min(members, capacity // groups))
 
 
-def strict_refined_layout(plan: StrictPlan, blocks: int,
-                          kind: str) -> ClusterLayout:
+def spread_layout(plan, blocks: int, groups: int = 1,
+                  rounds: Optional[int] = None) -> Tuple[int, int]:
+    """(H, W): the blocks of each pole's group in the sequential strict
+    form's spread sub-cycle (csrc/year_kernel.cu ``spread_fits``, the same
+    reckoning) on ``groups`` clusters of ``blocks`` blocks, and the columns
+    each owns, ``rounds`` (default SPREAD_ROUNDS) rounds between exchanges.
+    One cluster holds both poles' groups, its two halves; a wide run's
+    first and last clusters are the poles' groups.  A block keeps each of
+    the pole block's 2R lines (a row of a field, a warp at least each) on
+    its W columns and 3k more each side in its second sub-cycle buffer,
+    with wz and two slots of 3k columns a side: 2R (3W + 30k) words; the
+    lines still running are a prefix of them, so the pole block's counts
+    (``plan.sub_cycles``, where known) must fall away from the pole.
+    Raises ValueError where it does not fit."""
+    k = SPREAD_ROUNDS if rounds is None else rounds
+    Y, X = plan.ydim, plan.xdim
+    H = blocks if groups > 1 else blocks // 2
+    if not 1 <= k <= SPREAD_KMAX:
+        raise ValueError(f"spread sub-cycle: {k} rounds between exchanges, "
+                         f"not in 1..{SPREAD_KMAX}")
+    if (H < 2 or (groups == 1 and blocks % 2) or X % H
+            or Y % (blocks * groups)):
+        raise ValueError(f"spread sub-cycle: {X} columns or {Y} rows do not "
+                         f"split over {groups} cluster(s) of {blocks} blocks")
+    R, W = Y // (blocks * groups), X // H
+    if plan.sub_cycles is not None:
+        # the lines still running are a prefix of the pole block's: the
+        # counts fall away from each pole
+        nd = plan.sub_cycles[0]
+        for rows in (nd[:R], nd[::-1][:R]):
+            if any(b > a for a, b in zip(rows, rows[1:])):
+                raise ValueError(f"spread sub-cycle: the pole block's "
+                                 f"diffusion counts {tuple(rows)} do not "
+                                 f"fall away from the pole")
+    lanes = min(MAX_THREADS, -(-2 * R * X // 32) * 32)
+    if R < HALO or R > SPREAD_MAXR or W < 3 * k or 2 * R * 32 > lanes \
+            or 2 * R * (3 * W + 30 * k) > 2 * R * X:
+        raise ValueError(f"spread sub-cycle: {2 * R} lines of {W} columns a "
+                         f"block and {k} rounds between exchanges do not fit "
+                         f"{groups} cluster(s) of {blocks} blocks at {X}x{Y}")
+    return H, W
+
+
+def spread_rounds(plan, blocks: int = REFINED_CLUSTER_SIZES[0],
+                  groups: int = 1) -> int:
+    """The rounds between the spread sub-cycle's exchanges that a run of
+    ``plan`` takes: the most, up to SPREAD_ROUNDS, that ``spread_layout``
+    holds (768x384: 12; 384x192: 8, on one cluster or two); a
+    ``StrictPlan``'s forced ``_rounds`` where it sets one (its layout
+    checked).  Raises ValueError where not even one does."""
+    if getattr(plan, "_rounds", 0):
+        spread_layout(plan, blocks, groups, plan._rounds)
+        return plan._rounds
+    for k in range(SPREAD_ROUNDS, 1, -1):
+        try:
+            spread_layout(plan, blocks, groups, k)
+            return k
+        except ValueError:
+            continue
+    spread_layout(plan, blocks, groups, 1)
+    return 1
+
+
+def _forced(yd: YearData, groups: int = 0, rounds: int = 0) -> YearData:
+    """A ``YearData`` of ``yd``'s run under the strict transport whose
+    plan forces the sequential strict form onto ``groups`` clusters a run
+    and the spread sub-cycle to ``rounds`` rounds between exchanges (0:
+    the run's own), both checked against the layouts; for checks that hold
+    such a run against the run's own.  Its cache starts empty."""
+    plan = dataclasses.replace(yd.plan, _groups=groups, _rounds=rounds)
+    spread_rounds(plan, groups=refined_groups(plan))
+    out = YearData(md=yd.md, sfx=yd.sfx, fold=yd.fold, num=yd.num,
+                   exp=yd.exp)
+    out.cache[("plan", yd.transport)] = plan
+    return out
+
+
+def strict_wide_layout(plan: StrictPlan, blocks: int, kind: str,
+                       groups: int) -> ClusterLayout:
+    """The shared memory of each block of the sequential strict form's wide
+    variant (``*_strict_wide``): one run on ``groups`` clusters of
+    ``blocks`` blocks (2..MAX_GROUPS), its rows split over groups * blocks
+    blocks, each block ``strict_refined_layout``'s parts for its rows
+    (csrc/year_kernel.cu ``strict_refined_parts`` on 16 G blocks), the halo
+    rows across the clusters' edges through global memory at a grid
+    barrier, as the fold's wide form (``refined_layout`` with ``groups``).
+    Raises ValueError where ``strict_refined_layout`` does, for a plan with
+    additive splitting, for ``groups`` outside 2..MAX_GROUPS and where the
+    spread sub-cycle does not fit (``spread_rounds``)."""
+    if not plan.seq_zonal:
+        raise ValueError(f"the strict wide form runs sequential splitting, "
+                         f"not {plan}")
+    if not 2 <= groups <= MAX_GROUPS:
+        raise ValueError(f"{groups} clusters a run: the wide form takes "
+                         f"2..{MAX_GROUPS}")
+    if not 1 <= blocks <= MAX_CLUSTER or plan.ydim % (blocks * groups):
+        raise ValueError(f"{groups} clusters of {blocks} blocks: "
+                         f"{plan.ydim} latitude rows do not split evenly "
+                         f"over them")
+    lay = strict_refined_layout(plan, blocks * groups, kind,
+                                max_blocks=MAX_CLUSTER * MAX_GROUPS,
+                                spread=False)
+    spread_rounds(plan, blocks, groups)
+    return dataclasses.replace(lay, blocks=blocks, groups=groups)
+
+
+def strict_refined_layout(plan: StrictPlan, blocks: int, kind: str,
+                          max_blocks: int = MAX_CLUSTER,
+                          spread: bool = True) -> ClusterLayout:
     """The shared memory of each block of a ``blocks``-block cluster that
     runs one of the refined instantiation's strict forms of ``kind`` (one
     of KINDS; the same for each): sequential splitting at an
@@ -474,17 +603,19 @@ def strict_refined_layout(plan: StrictPlan, blocks: int,
     annual sums, K3's monthly means and the step's winds stay in global
     memory.  Raises ValueError where the rows do not
     split evenly, a block would hold fewer rows than the halo depth, the
-    row length is not a multiple of 4, or a block needs more than
-    MAX_SMEM_BYTES."""
+    row length is not a multiple of 4, a block needs more than
+    MAX_SMEM_BYTES, or (sequential splitting, ``spread``) the spread
+    sub-cycle does not fit (``spread_rounds``).  ``max_blocks``: the
+    blocks of a run (``strict_wide_layout``'s 16 G)."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: one of {KINDS}")
     Y, X = plan.ydim, plan.xdim
     if X % 4:
         raise ValueError(f"strict refined kernels: {X} columns, not a "
                          f"multiple of 4")
-    if not 1 <= blocks <= MAX_CLUSTER or Y % blocks:
+    if not 1 <= blocks <= max_blocks or Y % blocks:
         raise ValueError(f"a cluster of {blocks} blocks: {Y} latitude rows "
-                         f"do not split evenly over 1..{MAX_CLUSTER} blocks")
+                         f"do not split evenly over 1..{max_blocks} blocks")
     R = Y // blocks
     if R < HALO:
         raise ValueError(f"a cluster of {blocks} blocks gives {R} row(s) per "
@@ -500,6 +631,8 @@ def strict_refined_layout(plan: StrictPlan, blocks: int,
         raise ValueError(f"strict refined {kind}: a cluster of {blocks} "
                          f"blocks at {X}x{Y} needs {lay.nbytes} B of shared "
                          f"memory a block, over {MAX_SMEM_BYTES} B")
+    if plan.seq_zonal and spread:
+        spread_rounds(plan, blocks)
     return lay
 
 
@@ -564,27 +697,26 @@ def check_plan(plan, kind: str, flags: int = 0) -> None:
     size ``refined_layout`` holds on REFINED_CLUSTER_SIZES, sequential
     splitting also on several such clusters (the wide form,
     ``refined_groups``; else REFINED_ITEMS["layout"]).  A ``StrictPlan``
-    of the refined instantiation (``is_refined``) runs in a strict form
-    that ``strict_refined_layout`` holds on one cluster of
-    REFINED_CLUSTER_SIZES (else, as at 768x384, REFINED_ITEMS["strict_wide"]:
-    the strict forms have no wide variant): at an extension-mode grid
-    where every row takes both polar sub-cycles (as at every
-    extension-mode grid the reference's polar criterion gives; else
-    REFINED_ITEMS["layout"]), else with additive splitting.  The cluster
-    body runs every other fold and the strict transport at any other grid
-    (``check_supported`` checks its fit)."""
+    of the refined instantiation (``is_refined``) runs in a strict form:
+    at an extension-mode grid where every row takes both polar sub-cycles
+    (as at every extension-mode grid the reference's polar criterion
+    gives; else REFINED_ITEMS["layout"]) with sequential splitting, on one
+    cluster of REFINED_CLUSTER_SIZES (``strict_refined_layout``) or, as
+    at 768x384, on several (the wide form, ``refined_groups``), else with
+    additive splitting on one (else REFINED_ITEMS["layout"]).  The
+    cluster body runs every other fold and the strict transport at any
+    other grid (``check_supported`` checks its fit)."""
     if isinstance(plan, StrictPlan):
         if not is_refined(plan):
             return
         try:
-            strict_refined_layout(plan, REFINED_CLUSTER_SIZES[0], kind)
+            refined_groups(plan, REFINED_CLUSTER_SIZES[0])
         except ValueError as e:
             raise NotImplementedError(
                 f"{kind}: the strict transport or no transport (flags "
-                f"{flags:#x}) at {plan.xdim}x{plan.ydim}: the refined "
-                f"instantiation's strict form does not hold this grid on one "
-                f"cluster and has no wide form: {e} "
-                f"({REFINED_ITEMS['strict_wide']})") from None
+                f"{flags:#x}) at {plan.xdim}x{plan.ydim}: no strict form of "
+                f"the refined instantiation holds this grid: {e} "
+                f"({REFINED_ITEMS['layout']})") from None
         if (plan.seq_zonal and plan.sub_cycles is not None
                 and min(map(min, plan.sub_cycles)) < 0):
             raise NotImplementedError(
@@ -824,14 +956,15 @@ class _Refined(ctypes.Structure):
     RefinedArgs): the packed factors, each composite row's offset and rank
     in Rtot, the segment tables, (kt, kb, iters) each, the plan's form (an
     index of REFINED_FORMS), and the wide form's clusters a run
-    (``refined_groups``) and halo slots."""
+    (``refined_groups``) and halo slots, and the sequential strict form's
+    rounds between the spread sub-cycle's exchanges."""
     _fields_ = ([(n, ctypes.c_void_p)
                  for n in ("pcu", "pcw", "comp_off", "comp_rank")]
                 + [(n, ctypes.c_int) for n in ("rtot", "n_dseg", "n_aseg")]
                 + [(n, ctypes.c_int * (3 * MAX_SEGS))
                    for n in ("dseg", "aseg")]
                 + [("form", ctypes.c_int), ("groups", ctypes.c_int),
-                   ("ghalo", ctypes.c_void_p)])
+                   ("ghalo", ctypes.c_void_p), ("spread_k", ctypes.c_int)])
 
 
 # the refined kernels' entry suffixes in the order the launchers number
@@ -846,6 +979,10 @@ REFINED_SUFFIXES = ("_refined", "_additive", "_refined_legacy",
 BAND_FORMS = ("additive_packed", "strict_additive")
 BAND_SUFFIXES = ("_additive_packed", "_additive_packed_legacy",
                  "_strict_additive")
+# the sequential strict form on several clusters a run (768x384), whose
+# entries build in csrc/strict_wide_kernel.cu, a library of its own; its
+# launchers (greb_*_strict_wide) run the one entry of STRICT_WIDE_SUFFIXES
+STRICT_WIDE_SUFFIXES = ("_strict_wide",)
 
 
 def refined_entry(kernel: str, plan, flags: int) -> str:
@@ -855,8 +992,9 @@ def refined_entry(kernel: str, plan, flags: int) -> str:
     refined_pick): the fold's forms modern at word 0, legacy at any other
     word with the fold, the sequential one on several clusters a run
     (``refined_groups`` above 1) in the wide form; the strict forms for the
-    strict transport or none.  Raises ValueError for a word that no refined
-    kernel runs in the plan's form."""
+    strict transport or none, the sequential one on several clusters in
+    its wide form.  Raises ValueError for a word that no refined kernel
+    runs in the plan's form."""
     bit = lambda name: bool(flags >> FLAGS.index(name) & 1)
     strict, off = bit("strict_transport"), bit("circulation_off")
     vapor = bit("vapor_circulation_off") or bit("vapor_diffusion_only")
@@ -868,6 +1006,8 @@ def refined_entry(kernel: str, plan, flags: int) -> str:
                          f"{flags:#x} in the {form} form")
     if strict_form:
         suffix = "_strict_refined" if form == "strict" else "_strict_additive"
+        if form == "strict" and refined_groups(plan) > 1:
+            suffix = "_strict_wide"
     elif refined_groups(plan) > 1:
         suffix = "_wide"
     else:
@@ -879,12 +1019,17 @@ def kernel_entry(kernel: str, plan, flags: int) -> str:
     """The entry function that the refined launcher of ``kernel`` picks for
     ``plan`` under the flags word ``flags``, asked of the built library
     (csrc/year_kernel.cu refined_pick, csrc/band_kernel.cu band_pick for
-    BAND_FORMS), which ``refined_entry`` mirrors.  Raises ValueError where
-    the launcher runs none."""
+    BAND_FORMS, csrc/strict_wide_kernel.cu for ``is_strict_wide``), which
+    ``refined_entry`` mirrors.  Raises ValueError where the launcher runs
+    none."""
     g = _refined_struct(plan)
     if refined_form(plan) in BAND_FORMS:
         got = _band_lib().greb_band_pick(flags, g.form, g.groups)
         suffixes = BAND_SUFFIXES
+    elif is_strict_wide(plan):
+        got = _strict_wide_lib().greb_strict_wide_pick(flags, g.form,
+                                                       g.groups)
+        suffixes = STRICT_WIDE_SUFFIXES
     else:
         got = _lib().greb_refined_pick(flags, g.form, g.groups)
         suffixes = REFINED_SUFFIXES
@@ -897,10 +1042,19 @@ def kernel_entry(kernel: str, plan, flags: int) -> str:
 def refined_launcher(fn_name: str, plan) -> str:
     """The launcher of the refined instantiation of ``fn_name`` (a
     launcher of the cluster body, e.g. "greb_fluxcorr_year") for
-    ``plan``: csrc/band_kernel.cu's for BAND_FORMS, else
-    csrc/year_kernel.cu's."""
-    return fn_name + ("_band" if refined_form(plan) in BAND_FORMS
-                      else "_refined")
+    ``plan``: csrc/band_kernel.cu's for BAND_FORMS,
+    csrc/strict_wide_kernel.cu's for the strict form on several clusters
+    (``is_strict_wide``), else csrc/year_kernel.cu's."""
+    if refined_form(plan) in BAND_FORMS:
+        return fn_name + "_band"
+    return fn_name + ("_strict_wide" if is_strict_wide(plan) else "_refined")
+
+
+def is_strict_wide(plan) -> bool:
+    """Whether ``plan`` runs in the sequential strict form on several
+    clusters a run (``*_strict_wide``, csrc/strict_wide_kernel.cu)."""
+    return (isinstance(plan, StrictPlan) and plan.seq_zonal
+            and is_refined(plan) and refined_groups(plan) > 1)
 
 
 def refined_form(plan) -> str:
@@ -915,10 +1069,15 @@ def refined_form(plan) -> str:
 
 def _refined_struct(plan, **ptrs) -> _Refined:
     """``_Refined`` of ``plan``'s segment tables, form and clusters a run
-    (``refined_groups``), with ``ptrs``."""
+    (``refined_groups``; the sequential strict form's ``spread_rounds``),
+    with ``ptrs``."""
     if isinstance(plan, StrictPlan):
-        return _Refined(form=REFINED_FORMS.index(refined_form(plan)),
-                        groups=1, **ptrs)
+        if refined_form(plan) != "strict":
+            return _Refined(form=REFINED_FORMS.index("strict_additive"),
+                            groups=1, **ptrs)
+        groups = refined_groups(plan)
+        return _Refined(form=REFINED_FORMS.index("strict"), groups=groups,
+                        spread_k=spread_rounds(plan, groups=groups), **ptrs)
     g = _Refined(n_dseg=len(plan.diff_segs), n_aseg=len(plan.adv_segs),
                  form=REFINED_FORMS.index(refined_form(plan)),
                  groups=refined_groups(plan), **ptrs)
@@ -996,6 +1155,29 @@ def _band_lib():
     return lib
 
 
+def _strict_wide_lib():
+    """csrc/strict_wide_kernel.cu's library (``is_strict_wide``), built on
+    first use."""
+    from . import build
+    lib = build.load("strict_wide_kernel")
+    for fn in (lib.greb_fluxcorr_year_strict_wide,
+               lib.greb_scenario_year_strict_wide):
+        fn.argtypes = [_Args, _Params, _Refined, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.greb_fluxcorr_years_strict_wide,
+               lib.greb_scenario_years_strict_wide):
+        fn.argtypes = [_Args, _Params, _PackCols, _Refined, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.greb_strict_wide_capacity.argtypes = [ctypes.c_int] * 4 + [
+        _Refined, ctypes.POINTER(ctypes.c_int)]
+    lib.greb_strict_wide_capacity.restype = ctypes.c_int
+    lib.greb_strict_wide_pick.argtypes = [ctypes.c_int] * 3
+    lib.greb_strict_wide_pick.restype = ctypes.c_int
+    return lib
+
+
 def kernel_cluster_layout(plan, blocks: int, kind: str):
     """The kernel's own reckoning of a cluster block (csrc/year_kernel.cu
     ``greb_cluster_layout``, built on first use): ({part: bytes}, threads),
@@ -1036,13 +1218,18 @@ def cluster_capacity(plan, blocks: int, kind: str) -> int:
     where the card runs none."""
     lib = _lib()
     n = ctypes.c_int()
-    if is_refined(plan):
+    if is_strict_wide(plan):
+        err = _strict_wide_lib().greb_strict_wide_capacity(
+            plan.ydim, plan.xdim, blocks, KINDS.index(kind),
+            _refined_struct(plan), ctypes.byref(n))
+    elif is_refined(plan):
         capacity = (_band_lib().greb_band_capacity
                     if refined_form(plan) in BAND_FORMS
                     else lib.greb_refined_capacity)
         err = capacity(plan.ydim, plan.xdim, plan.comp_kt, plan.comp_kb,
                        blocks, KINDS.index(kind), _refined_struct(plan),
                        ctypes.byref(n))
+    if is_refined(plan):
         if err:
             raise RuntimeError(f"refined cluster capacity at {blocks} "
                                f"blocks: {lib.greb_error_string(err).decode()}")
@@ -1232,7 +1419,9 @@ def _launch_year(fn_name: str, yd: YearData, state5: torch.Tensor,
 def _launch(fn_name: str, args: _Args, params: _Params, dev: torch.device,
             *extra) -> None:
     lib = _lib()
-    fn = getattr(_band_lib() if fn_name.endswith("_band") else lib, fn_name)
+    own = {"_band": _band_lib, "_strict_wide": _strict_wide_lib}
+    fn = getattr(next((load() for end, load in own.items()
+                       if fn_name.endswith(end)), lib), fn_name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(args, params, *extra, stream)

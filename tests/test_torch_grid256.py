@@ -48,7 +48,7 @@ port and greb_tpu (on its XLA path, ``JAX_PLATFORMS=cpu``).
   the slab kernels' additive packed form for the pole shards' fold and
   the strict additive form for the strict transport, whose layouts are
   reckoned by hand, accepted before any launch; the strict transport at
-  768x384 refused, naming ROADMAP Queue 1 item 3h.
+  768x384 refused, naming ROADMAP Queue 1 item 3j.
 """
 import contextlib
 import dataclasses
@@ -514,7 +514,7 @@ def test_slab_kernels_refuse_additive_packed_plans(fold_pair):
     csrc/slab_kernel.cu slab_parts reckons it; the strict transport's
     global plan runs in the strict additive form; both pass
     ``slab.check_slab``.  The strict transport at 768x384 raises naming
-    ROADMAP Queue 1 item 3h."""
+    ROADMAP Queue 1 item 3j."""
     _, m = fold_pair
     splan, _ = fc2.build_sharded(None, None, m.grid, m.st, 0, 4, fold=m.fold)
     slab.check_slab(splan.plan, Experiment())
@@ -548,7 +548,7 @@ def test_slab_kernels_refuse_additive_packed_plans(fold_pair):
     assert slab.slab_layout(yk.StrictPlan(32, 256), 16, "strict_additive") \
         == dict(transported=0, wz=4 * 2 * 6 * 256, winds=0,
                 subcycle=4 * 2 * 2 * 2 * 256, rowc=4 * 16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3h"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3j"):
         slab.check_slab(yk.StrictPlan(384, 768, seq_zonal=True),
                         Experiment())
 

@@ -16,8 +16,8 @@ step):
   every kind), G the smallest that fits, and the refusal of a launch whose
   clusters the card cannot hold at once (``check_resident``);
 * the strict transport and the no-transport words (the library default,
-  ``--strict-circulation``, log_exp 4 and 16) refused before any launch,
-  naming ROADMAP Queue 1 item 3h;
+  ``--strict-circulation``, log_exp 4 and 16) routed before any launch to
+  the sequential strict form's wide variant (``*_strict_wide``);
 * K1 and K2 through the port's wrappers on CPU tensors (the plain
   versions the wide kernels are held to bit for bit on the card) against
   ``greb_tpu``'s XLA years (``_pallas_viable`` is False at this grid):
@@ -249,10 +249,20 @@ STRICT_WORDS = ("library default", "--strict-circulation", "log_exp 4",
 
 @pytest.mark.parametrize("word", STRICT_WORDS)
 def test_strict_words_refused_naming_3h(runs, word):
-    """The strict transport and the no-transport words at 768x384 raise
-    before any launch, naming ROADMAP Queue 1 item 3h: in the checks GREB
-    runs on the card before any year, and in the member wrappers and the
-    driver's member paths on CPU tensors too."""
+    """(Named for the refusal it replaced.)  The strict transport and the
+    no-transport words at 768x384, which raised naming ROADMAP Queue 1
+    item 3h until the sequential strict form had its wide variant, route
+    to that form before any launch: GREB builds no fold, the plan is the
+    grid's ``StrictPlan`` (under the strict transport with every row's
+    sub-cycle counts: the pole row 6,612 diffusion rounds a substep;
+    without transport a step is the state update alone), the checks GREB
+    runs on the card pass, all four kernels pick ``*_strict_wide`` (in
+    csrc/strict_wide_kernel.cu's library) on 6 clusters of 16 blocks
+    (``strict_wide_layout``, the spread sub-cycle's groups of 16 blocks
+    of 48 columns), and the member kernels take one member a launch on a
+    card that runs 7 such clusters at once.  The plain member years at
+    this grid (6,612 rounds over the grid a substep) are the card's to
+    check (chip_smoke.py step 23)."""
     m = runs[0]
     if word == "library default":
         cfg = GrebConfig(numerics=m.num)
@@ -266,17 +276,27 @@ def test_strict_words_refused_naming_3h(runs, word):
     strict = GREB(cfg, forcing=m.forcing, verbose=False, device="cpu")
     yd = strict.year_data
     assert strict.fold is None and yd.transport in ("strict", "none")
-    assert isinstance(yd.plan, yk.StrictPlan) and yd.plan.seq_zonal
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3h"):
-        yk.check_supported(yd.plan, flags=yd.flags)
-    s5 = strict.initial_state().stack()[:, None]
-    pp = my.pack_member_params([strict.params])
-    n0 = my.fluxcorr_years.launches
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3h"):
-        my.fluxcorr_years(s5, pp, 340.0, yd)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3h"):
-        strict.run_members([strict.params], years=1)
-    assert my.fluxcorr_years.launches == n0
+    plan = yd.plan
+    assert isinstance(plan, yk.StrictPlan) and plan.seq_zonal
+    if yd.transport == "strict":
+        assert plan.sub_cycles[0][:4] == (6612, 734, 265, 135)
+    yk.check_supported(plan, flags=yd.flags)
+    assert yk.refined_groups(plan) == 6
+    assert yk._refined_struct(plan).groups == 6
+    assert yk.spread_layout(plan, 16, 6, yk.spread_rounds(plan, 16, 6)) \
+        == (16, 48)
+    for kernel in ("fluxcorr_year", "scenario_year", "fluxcorr_years",
+                   "scenario_years"):
+        assert yk.refined_entry(kernel, plan, yd.flags) == \
+            kernel + "_strict_wide"
+        # launched from csrc/strict_wide_kernel.cu's library
+        assert yk.refined_launcher("greb_" + kernel, plan) == \
+            "greb_" + kernel + "_strict_wide"
+    for kind in yk.KINDS:
+        lay = yk.block_layout(plan, 16, kind)
+        assert (lay.groups, lay.rows, lay.nbytes) == (6, 4, 196704)
+        yd.cache[("wide capacity", kind)] = 7
+    assert my._member_launches(yd, "fluxcorr", 2) == [(0, 1), (1, 2)]
 
 
 def test_xla_scenario_after_its_spinup_is_not_finite(runs):

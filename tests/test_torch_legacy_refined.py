@@ -42,6 +42,7 @@ Its substep is held to greb_tpu in tests/test_torch_stencils.py (one
 substep at 384x192, with sequential splitting and the deep sub-cycles).
 """
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -289,14 +290,18 @@ def test_strict_refined_layout_bytes():
                                        subcycle=73728, rowc=288)
         assert lay.nbytes == 221472 <= yk.MAX_SMEM_BYTES
         assert yk.refined_layout(STRICT, 16, kind) == lay
-    # 8 and 12 blocks do not fit; 768x384 does not either, and the strict
-    # form has no wide variant (3h)
+    # 8 and 12 blocks do not fit; 768x384 does not either, and runs in
+    # the strict form's wide variant on 6 clusters
     for blocks in (8, 12):
         with pytest.raises(ValueError, match="over 232448 B"):
             yk.strict_refined_layout(STRICT, blocks, "scenario")
     wide = yk.StrictPlan(384, 768, seq_zonal=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3h"):
-        yk.check_supported(wide, flags=0x80)
+    with pytest.raises(ValueError, match="over 232448 B"):
+        yk.strict_refined_layout(wide, 16, "scenario")
+    yk.check_supported(wide, flags=0x80)
+    assert yk.refined_groups(wide) == 6
+    assert yk.refined_entry("scenario_year", wide, 0x80) == \
+        "scenario_year_strict_wide"
 
 
 def test_strict_plan_with_unsubcycled_rows_is_refused():
@@ -327,6 +332,36 @@ def test_strict_model_plan_carries_its_sub_cycles(strict_model):
     assert nd[:6] == (1652, 184, 67, 34, 21, 14) and nd == nd[::-1]
     assert na[:3] == (5, 2, 1) and na == na[::-1]
     assert min(nd) == min(na) == 1
+
+
+def test_forced_strict_run_at_384(strict_model):
+    """``year_kernel._forced``, which the card's checks use to hold one
+    strict run against another: a ``YearData`` of the same run whose plan
+    forces 2 clusters a run (the strict wide form, ``*_strict_wide`` from
+    csrc/strict_wide_kernel.cu) or 4 rounds between the spread's exchanges
+    (the one-cluster form's), the run's own plan and cache untouched, and a
+    force the layout does not hold refused."""
+    yd = strict_model.year_data
+    own = yd.plan
+    two = yk._forced(yd, groups=2)
+    assert (two.md, two.sfx, two.num, two.exp) == \
+        (yd.md, yd.sfx, yd.num, yd.exp)
+    assert two.transport == "strict" and two.flags == yd.flags
+    assert two.plan == dataclasses.replace(own, _groups=2)
+    assert two.plan.sub_cycles == own.sub_cycles
+    assert yk.refined_groups(two.plan) == 2 and yk.is_strict_wide(two.plan)
+    assert yk.refined_launcher("greb_scenario_years", two.plan) == \
+        "greb_scenario_years_strict_wide"
+    g = yk._refined_struct(two.plan)
+    assert (g.groups, g.spread_k) == (2, 8)
+    four = yk._forced(yd, rounds=4)
+    g = yk._refined_struct(four.plan)
+    assert (g.groups, g.spread_k) == (1, 4)
+    assert yk.refined_entry("scenario_year", four.plan, yd.flags) == \
+        "scenario_year_strict_refined"
+    assert yd.plan is own and yk._refined_struct(own).spread_k == 8
+    with pytest.raises(ValueError, match="do not fit"):
+        yk._forced(yd, groups=2, rounds=9)
 
 
 def test_strict_year_work_at_384(strict_model):

@@ -45,7 +45,7 @@ substep a shard does the unsharded fold's arithmetic row for row:
   needed): the fold's modern word, the strict transport (the library
   default) and every legacy word are accepted (``slab.check_slab``); the
   strict transport and the no-transport words at 768x384 raise
-  NotImplementedError naming ROADMAP Queue 1 item 3h; shards that do not
+  NotImplementedError naming ROADMAP Queue 1 item 3j; shards that do not
   divide the rows, or leave a shard under 2 rows, raise ValueError.
 
 Inputs are the 96x48 synthetic forcing (regridded for 128x64) on a
@@ -355,14 +355,14 @@ NUM768 = Numerics(xdim=768, ydim=384, dt_crcl=450, ndays_yr=1,
 def test_cuda_mesh_refuses_before_any_launch():
     """No card is needed: the check comes first.  The strict transport (the
     library default, no fold) and the no-transport and strict legacy words
-    at 768x384 raise naming ROADMAP Queue 1 item 3h: a shard runs the year
-    kernels' strict form of the grid, which one cluster does not hold
-    there (``year_kernel.REFINED_ITEMS["strict_wide"]``)."""
+    at 768x384 raise naming ROADMAP Queue 1 item 3j: the year kernels run
+    the strict form there on 6 clusters, and a shard's strict block does
+    not fit (``slab.SLAB_ITEMS["strict_wide"]``)."""
     st, _ = stc.make_stencil_arrays(make_grid(768, 384, 450))
     assert st.seq_zonal
     mesh = sh.Mesh([[torch.device("cuda", 0)] * 4])
     for log_exp in (None, 4, 7, 8, 16):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3h"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3j"):
             sh.make_sharded_year_runners(mesh, st, NUM768,
                                          Experiment(log_exp),
                                          torch.zeros(1, 2))
