@@ -144,15 +144,23 @@ read from (_NEEDS: 3-7 run as one, 8 needs 3, 9 needs 8, 10 and 15 need
    size it offers, bitwise equal to the table copied M times and to the
    plain version, also under the strict circulation at C=16; the CLI's
    run_ensemble (--ensemble 65, the default ct_sens sweep, 3 K4 spin-up
-   years and 10 scenario years through K3, 65 files): wall, member-yr/s,
-   launch counts, the files read back, and member 33 (ct_sens 22.5, the
-   base) byte-equal to step 9's first 120 months; --ensemble 256
-   --shared-spinup (3 K1 years, 3 scenario years): launch counts, the files
-   and the peak device memory, below a per-member table set's 10.3 GB, and
-   the first and last members' first year (one block each, in the first
-   and the second wave of K3's one-block body) byte-equal to the plain
-   version on the same inputs; one K3 year at M=65 timed with a table per
-   member and with the shared table;
+   years and 10 scenario years through K3, 65 files) at the default
+   --mxu-precision high, through the matmul circulation's member kernels
+   at bf16_3x (step 25's): wall, member-yr/s, launch counts, the files
+   read back, the first and last members' first year byte-equal to the
+   plain twin on the same inputs; the same run at --mxu-precision highest
+   (the member kernels at highest, which compute the exact fold's bits):
+   its member-yr/s, and member 33 (ct_sens 22.5, the base) byte-equal to
+   step 9's first 120 months; --ensemble 256 --shared-spinup (3 K1 years,
+   3 scenario years, the matmul circulation): launch counts, the files and
+   the peak device memory, below a per-member table set's 10.3 GB, and the
+   first and last members' first year (in the first and the last cluster
+   of K3) byte-equal to the plain twin on the same inputs; then the same
+   run at highest, which from MXU_HIGHEST_PER_MEMBER_M members takes the
+   exact fold's per-member kernels (K3's one-block body, in two waves):
+   its member-yr/s, and members 1 and 256's first year byte-equal to the
+   plain version on the same inputs; one K3 year at M=65 timed with a
+   table per member and with the shared table;
 16. the legacy fold words at the refined grids (the refined
    instantiation's legacy variant in both forms): for each of
    the seven log_exp whose word keeps the fold with a switch (5, 6, 9, 11,
@@ -337,7 +345,32 @@ read from (_NEEDS: 3-7 run as one, 8 needs 3, 9 needs 8, 10 and 15 need
    kernel's launches on every path; the three slab
    entries with their 768x384 launches, and step 21's six entries; for K1-K4
    step 23's strict wide entries, launches, times, bounds and the plain
-   version's) and, last, {"ok": true, "device": {...}}.
+   version's, and the two entries of step 25 with their modes, times,
+   bounds, plain versions, launches on the ensemble paths and step 25's
+   readings) and, last, {"ok": true, "device": {...}};
+25. the member-batched matmul circulation (csrc/members_kernel.cu: K4 and
+   K3 with mb members a 16-block cluster), run before the kernel line, in
+   at most MXU_PHASE_S seconds: the kernel's own layout of a member block
+   against multiyear.members_layout at each kind's default mb, with the
+   clusters the card runs at once; at 96x48 on the full calendar at
+   bf16_3x and highest, fluxcorr_years_mxu (M = 2 mb, 1 year) and
+   scenario_years_mxu (M = 2 mb x 2 years, a table per member and one
+   shared) bitwise against the plain twin (the members as one batch, each
+   step from a CUDA graph), at highest K4 and K3 also against the exact
+   fold's per-member kernels; on the 20-step calendar M = mb + 1 (the
+   short last cluster) at both precisions; one K3 year at M = 65 and 256
+   (the shared table) at both precisions and through the per-member
+   kernel, timed (CUDA events, a warm-up, then 2 launches) in member-yr/s
+   beside its bound (at bf16_3x the lesser of the split on CUDA cores and
+   three dense bfloat16 products on tensor cores); at M = 96, 112 and 128
+   highest against the per-member kernel (a warm-up, then 1 launch), which
+   places the CLI's MXU_HIGHEST_PER_MEMBER_M; the substep's row dot alone
+   by torch.bmm at its shapes (three bfloat16 products, or one float32
+   product) for M = 65 and 256; the
+   HIGH budget of a bf16_3x K4 + K3 year at M=2 against the exact fold's
+   per-member kernels, read against tests/test_mxu.py:71's CPU bounds
+   (Ts 5e-2 K, monthly RMS 5e-3, monthly max 5e-2) and printed within or
+   a miss (a miss is recorded, as greb_tpu's TPU miss is).
 
 Each phase prints its wall time ("phase ...: s wall"), and the run its
 total before the JSON lines.
@@ -361,6 +394,7 @@ import copy
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -369,7 +403,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the steps of the module docstring: 1-2 (the card, the build) always run,
 # 24 (the kernel line) only where every step ran
-ALL_STEPS = frozenset(range(1, 25))
+ALL_STEPS = frozenset(range(1, 26))
 # steps that read what another made: 3-7 run as one, the main path (8)
 # prints its kernels' share from step 3's times, the long run (9) holds
 # its first years to the main path's, the member chain (10) and the
@@ -424,6 +458,9 @@ TOL_ALBEDO = 5e-4
 # years_work count each add and multiply as one operation.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OP_PER_S = 132 * 128 * 1.98e9
+# dense bfloat16 on the tensor cores (the data sheet's 989 TFLOP/s, a
+# multiply-add two operations, as years_work_dense counts them)
+PEAK_BF16_OP_PER_S = 989e12
 
 
 def _check(label, got, limit):
@@ -820,10 +857,26 @@ class _TimedLaunches:
                 if name.startswith(entry)]
 
 
-def _bound_of(nbytes, ops):
+def _bound_of(nbytes, ops, bf16_ops=0):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OP_PER_S * 1e3
+    t_ops = (ops / PEAK_F32_OP_PER_S + bf16_ops / PEAK_BF16_OP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _mxu_bound(plan, num, n_years, members, kind, precision,
+               shared_corr=False):
+    """(ms, "bytes" or "operations") of a member-kernel launch of the
+    matmul circulation at ``precision``: at "bf16_3x" the lesser of its
+    split on the CUDA cores (years_work) and three dense bfloat16 products
+    a substep on the tensor cores, the rest in float32
+    (years_work_dense)."""
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    split = _bound_of(*my.years_work(plan, num, n_years, members, kind,
+                                     shared_corr, precision=precision))
+    if precision != "bf16_3x":
+        return split
+    return min(split, _bound_of(*my.years_work_dense(
+        plan, num, n_years, members, kind, shared_corr)))
 
 
 # runs of the main path; the first is a process's slowest
@@ -3516,48 +3569,96 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
         del m, yd, s5, shared, copies, plain, got, want
 
     # -- the CLI's --ensemble: ENS_M members of the default sweep, a
-    #    spin-up each (K4), ENS_YEARS; the middle member has the base
-    #    ct_sens (22.5 exactly), so its file is the long run's first years
+    #    spin-up each, ENS_YEARS, at the default --mxu-precision (high: the
+    #    matmul circulation's K4 and K3 at bf16_3x); then the same run at
+    #    highest (the member kernels at highest, the exact fold's bits),
+    #    whose middle member has the base ct_sens (22.5 exactly), so its
+    #    file is the long run's first years
     num = Numerics(**ENS_YEARS)
-    reset_counts()
-    out, wall, m = _ensemble_run(tmp, "ensemble",
-                                 ["--ensemble", str(ENS_M)], num)
-    block = cli.ensemble_block_years(ENS_M, num)
-    launches = read_counts(f"ensemble path (M={ENS_M})", {
-        "fluxcorr_year": 0, "scenario_year": 0,
-        "fluxcorr_years": num.time_flux,
-        "scenario_years": -(-num.time_scnr // block)})
-    # the spin-up alone: the run's time_flux K4 years again
-    members = _sweep_members(m, ENS_M)
-    pp = my.pack_member_params(members, "cuda")
-    s5 = ens.ensemble_initial_state(members, m.forcing)
-    co2 = np.float32(m.cfg.co2.co2_flux)
+    rates = {}
+    if ENS_M >= cli.MXU_HIGHEST_PER_MEMBER_M:
+        raise AssertionError(f"--ensemble {ENS_M} at highest would not run "
+                             f"the member kernels")
+    for flag in ("high", "highest"):
+        prec = cli.MXU_PRECISION[flag]
+        tag = f"matmul {prec}"
+        reset_counts()
+        out, wall, m = _ensemble_run(
+            tmp, f"ensemble_{flag}",
+            ["--ensemble", str(ENS_M), "--mxu-precision", flag], num)
+        block = cli.ensemble_block_years(ENS_M, num)
+        got = read_counts(f"ensemble path (M={ENS_M}, {tag})", {
+            "fluxcorr_years_mxu": num.time_flux,
+            "scenario_years_mxu": -(-num.time_scnr // block)})
+        if flag == "high":
+            launches = got
+        # the spin-up alone: the run's time_flux K4 years again
+        members = _sweep_members(m, ENS_M)
+        pp = my.pack_member_params(members, "cuda")
+        s5 = ens.ensemble_initial_state(members, m.forcing)
+        co2 = np.float32(m.cfg.co2.co2_flux)
+        mxu = m.members_mxu(prec)
 
-    def spin_up(s5=s5):
-        for _ in range(num.time_flux):
-            s5, _ = my.fluxcorr_years(s5, pp, co2, m.year_data)
+        def spin_up(s5=s5):
+            for _ in range(num.time_flux):
+                s5, _ = my.fluxcorr_years(s5, pp, co2, m.year_data, mxu=mxu)
 
-    _, spin = _synced_s(spin_up)
-    years = num.time_flux + num.time_scnr
-    print(f"ensemble path (--ensemble {ENS_M}, {num.time_flux} spin-up + "
-          f"{num.time_scnr} scenario years): {wall:.3f} s = "
-          f"{ENS_M * years / wall:.3f} member-yr/s; the spin-up alone "
-          f"{spin:.3f} s, so the scenario with its files {wall - spin:.3f} s "
-          f"= {ENS_M * num.time_scnr / (wall - spin):.3f} member-yr/s")
-    nbytes = _read_members(out, ENS_M, num)
-    mid = (ENS_M + 1) // 2
-    if np.linspace(22.05, 22.95, ENS_M).astype(np.float32)[mid - 1] \
-            != np.float32(22.5):
-        raise AssertionError(f"member {mid}'s ct_sens is not the base's")
-    with open(f"{out}_{mid:03d}", "rb") as f, open(long_path, "rb") as g:
-        mine = f.read()
-        if mine != g.read(len(mine)):
-            raise AssertionError(f"member {mid}'s file is not the long run's "
-                                 f"first {num.time_scnr} years")
-    print(f"  {ENS_M} files, {nbytes} B, read back finite; member {mid} "
-          f"(ct_sens 22.5) byte-equal to the long run's first "
-          f"{num.time_scnr * 12} months")
-    del m, members, pp, s5
+        _, spin = _synced_s(spin_up)
+        years = num.time_flux + num.time_scnr
+        rates[tag] = ENS_M * years / wall
+        print(f"ensemble path (--ensemble {ENS_M}, {tag}, {num.time_flux} "
+              f"spin-up + {num.time_scnr} scenario years): {wall:.3f} s = "
+              f"{ENS_M * years / wall:.3f} member-yr/s; the spin-up alone "
+              f"{spin:.3f} s, so the scenario with its files "
+              f"{wall - spin:.3f} s = "
+              f"{ENS_M * num.time_scnr / (wall - spin):.3f} member-yr/s")
+        nbytes = _read_members(out, ENS_M, num)
+        if flag == "highest":
+            mid = (ENS_M + 1) // 2
+            if np.linspace(22.05, 22.95, ENS_M).astype(np.float32)[mid - 1] \
+                    != np.float32(22.5):
+                raise AssertionError(f"member {mid}'s ct_sens is not the "
+                                     f"base's")
+            with open(f"{out}_{mid:03d}", "rb") as f, \
+                    open(long_path, "rb") as g:
+                mine = f.read()
+                if mine != g.read(len(mine)):
+                    raise AssertionError(f"member {mid}'s file is not the "
+                                         f"long run's first {num.time_scnr} "
+                                         f"years")
+            print(f"  {ENS_M} files, {nbytes} B, read back finite; member "
+                  f"{mid} (ct_sens 22.5) byte-equal to the long run's first "
+                  f"{num.time_scnr * 12} months")
+            shutil.rmtree(os.path.dirname(out))
+        else:
+            # members 1 and ENS_M's first scenario year against the plain
+            # twin on the inputs K3 got: their K4 spin-ups again (two
+            # members on one cluster: members do not interact)
+            pick = [members[i - 1] for i in ENS_SHARED_PLAIN[:1] + (ENS_M,)]
+            pp2 = my.pack_member_params(pick, "cuda")
+            s2 = ens.ensemble_initial_state(pick, m.forcing)
+            for _ in range(num.time_flux):
+                s2, c2 = my.fluxcorr_years(s2, pp2, co2, m.year_data,
+                                           mxu=mxu)
+            (_, plain, _), plain_s = _synced_s(
+                lambda: my.scenario_years_plain(
+                    s2, pp2, c2, m.cfg.co2.series(num.time_scnr)[:1],
+                    m.year_data, mxu))
+            nmon = len(num.jday_mon)
+            for k, i in enumerate((1, ENS_M)):
+                back = read_output(f"{out}_{i:03d}", num.xdim,
+                                   num.ydim)[:nmon]
+                err = max(err, _bitwise(
+                    f"ensemble member {i} of {ENS_M}, first year",
+                    [("file vs plain twin", torch.from_numpy(back),
+                      plain[k].cpu())]))
+            print(f"  {ENS_M} files, {nbytes} B, read back finite; the "
+                  f"plain twin's first year of members 1 and {ENS_M}: "
+                  f"{plain_s:.1f} s")
+        del m, members, pp, s5
+    print(f"  --ensemble {ENS_M}: {rates['matmul bf16_3x']:.3f} member-yr/s "
+          f"(matmul bf16_3x) against {rates['matmul highest']:.3f} (matmul "
+          f"highest); the per-member kernels' K3 year is step 25's")
 
     # -- --shared-spinup: ENS_SHARED_M members read one K1 spin-up's
     #    tables; the peak device memory must stay below a per-member table
@@ -3575,9 +3676,8 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
     block = cli.ensemble_block_years(ENS_SHARED_M, snum)
     launches_shared = read_counts(
         f"shared spin-up ensemble path (M={ENS_SHARED_M})", {
-            "fluxcorr_year": snum.time_flux, "scenario_year": 0,
-            "fluxcorr_years": 0,
-            "scenario_years": -(-snum.time_scnr // block)})
+            "fluxcorr_year": snum.time_flux,
+            "scenario_years_mxu": -(-snum.time_scnr // block)})
     # the spin-up alone (the run's K1 years again), whose tables and end
     # state rebuild the inputs of the plain check below
     (state_fc, corr), spin = _synced_s(m.flux_correction)
@@ -3595,24 +3695,66 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
         raise AssertionError(f"shared spin-up peak {peak} B >= {tables} B")
     nbytes = _read_members(out, ENS_SHARED_M, snum)
     print(f"  {ENS_SHARED_M} files, {nbytes} B, read back finite")
-    # members ENS_SHARED_PLAIN's first scenario year from the plain
-    # version, on the inputs run_ensemble gave K3: the shared tables, each
-    # member's initial state with the spun-up cap_surf, its pack row
+    # members ENS_SHARED_PLAIN's first scenario year from the plain twin
+    # of the matmul circulation, on the inputs run_ensemble gave K3: the
+    # shared tables, each member's initial state with the spun-up
+    # cap_surf, its pack row
     pick = [_sweep_members(m, ENS_SHARED_M)[i - 1] for i in ENS_SHARED_PLAIN]
     s5 = ens.ensemble_initial_state(pick, m.forcing)
     s5[4] = state_fc.cap_surf
     (_, plain, _), plain_s = _synced_s(lambda: my.scenario_years_plain(
         s5, my.pack_member_params(pick, "cuda"),
         torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None],
-        m.cfg.co2.series(snum.time_scnr)[:1], m.year_data))
+        m.cfg.co2.series(snum.time_scnr)[:1], m.year_data,
+        m.members_mxu("bf16_3x")))
     nmon = len(snum.jday_mon)
     for k, i in enumerate(ENS_SHARED_PLAIN):
         back = read_output(f"{out}_{i:03d}", snum.xdim, snum.ydim)[:nmon]
         err = max(err, _bitwise(
             f"shared spin-up member {i} of {ENS_SHARED_M}, first year",
-            [("file vs plain", torch.from_numpy(back), plain[k].cpu())]))
+            [("file vs plain twin", torch.from_numpy(back),
+              plain[k].cpu())]))
+    print(f"  plain twin's first year of members "
+          f"{' and '.join(map(str, ENS_SHARED_PLAIN))}: {plain_s:.1f} s")
+    del m, plain
+    shutil.rmtree(os.path.dirname(out))
+    # the same run at highest: from MXU_HIGHEST_PER_MEMBER_M members the
+    # exact fold's per-member kernels (K3's one-block body, two waves at
+    # 256); members ENS_SHARED_PLAIN's first scenario year from the plain
+    # version on the same inputs (the same K1 tables and cap_surf)
+    if ENS_SHARED_M < cli.MXU_HIGHEST_PER_MEMBER_M:
+        raise AssertionError(f"--ensemble {ENS_SHARED_M} at highest would "
+                             f"not run the per-member kernels")
+    reset_counts()
+    out_x, wall_x, m = _ensemble_run(
+        tmp, "shared_highest", ["--ensemble", str(ENS_SHARED_M),
+                                "--shared-spinup", "--mxu-precision",
+                                "highest"], snum)
+    read_counts(f"shared spin-up ensemble path (M={ENS_SHARED_M}, highest: "
+                f"the per-member kernels)", {
+                    "fluxcorr_year": snum.time_flux,
+                    "scenario_years": -(-snum.time_scnr // block)})
+    _read_members(out_x, ENS_SHARED_M, snum)
+    (_, plain, _), plain_s = _synced_s(lambda: my.scenario_years_plain(
+        s5, my.pack_member_params(pick, "cuda"),
+        torch.stack([corr.tf, corr.tof, corr.qf], dim=1)[None],
+        m.cfg.co2.series(snum.time_scnr)[:1], m.year_data))
+    for k, i in enumerate(ENS_SHARED_PLAIN):
+        back = read_output(f"{out_x}_{i:03d}", snum.xdim, snum.ydim)[:nmon]
+        err = max(err, _bitwise(
+            f"shared spin-up member {i} of {ENS_SHARED_M} (highest), first "
+            f"year", [("file vs plain", torch.from_numpy(back),
+                       plain[k].cpu())]))
     print(f"  plain first year of members "
           f"{' and '.join(map(str, ENS_SHARED_PLAIN))}: {plain_s:.1f} s")
+    shutil.rmtree(os.path.dirname(out_x))
+    rates["shared matmul bf16_3x"] = ENS_SHARED_M * years / wall
+    rates["shared highest, per-member kernels"] = ENS_SHARED_M * years / wall_x
+    print(f"  --ensemble {ENS_SHARED_M} --shared-spinup: {wall:.3f} s = "
+          f"{rates['shared matmul bf16_3x']:.3f} member-yr/s (matmul "
+          f"bf16_3x) against {wall_x:.3f} s = "
+          f"{rates['shared highest, per-member kernels']:.3f} (highest: the "
+          f"exact fold's per-member kernels)")
     del m, pick, s5, plain, state_fc, corr
 
     # -- one K3 year at M=ENS_M, a table per member against the shared
@@ -3642,7 +3784,271 @@ def _ensemble_phase(tmp, long_path, reset_counts, read_counts):
               f"{_runs(ms[label])}; bound {b_ms:.3f} ms by {b_by}")
     print(f"ensemble phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(err=err, ms={k: _median(v) for k, v in ms.items()},
-                work=work, launches=launches, launches_shared=launches_shared)
+                work=work, launches=launches, launches_shared=launches_shared,
+                rates=rates)
+
+
+# step 25: the member-batched matmul circulation (csrc/members_kernel.cu):
+# K4 and K3 with mb members a 16-block cluster at both precisions
+MXU_PRECS = ("bf16_3x", "highest")
+MXU_SHORT = dict(ndays_yr=10, jday_mon=(6, 4))     # the 20-step calendar
+MXU_TIMED_M = (65, 256)                             # one K3 year timed
+# one K3 year at highest against the per-member kernel, about the CLI's
+# MXU_HIGHEST_PER_MEMBER_M
+MXU_CROSS_M = (96, 112, 128)
+# the HIGH budget of tests/test_mxu.py:71 (bf16_3x against the exact fold
+# over a spin-up and a scenario year): end-state Ts [K], monthly RMS and
+# monthly max
+MXU_HIGH_BUDGET = dict(ts=5e-2, rms=5e-3, max=5e-2)
+MXU_PHASE_S = 90.0
+
+
+def _mxu_inputs(m, M):
+    """(pack, initial states (5, M, Y, X)) of run_ensemble's first M
+    members of the default sweep over M members."""
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.parallel import ensemble as ens
+    members = _sweep_members(m, M)
+    return (my.pack_member_params(members, "cuda"),
+            ens.ensemble_initial_state(members, m.forcing))
+
+
+def _mxu_phase(tmp, reset_counts, read_counts):
+    """Step 25 (see the module docstring).  Returns the worst max |diff|,
+    each kernel's ms, plain ms and work at its check's shape (bf16_3x),
+    the timed K3 years, the torch.bmm row dots and the HIGH budget."""
+    import numpy as np
+    import torch
+    from greb_tpu_torch import __main__ as cli
+    from greb_tpu_torch.config import GrebConfig, Numerics
+    from greb_tpu_torch.model.driver import GREB
+    from greb_tpu_torch.ops.cuda import multiyear as my
+    from greb_tpu_torch.ops.cuda import year_kernel as yk
+
+    t_phase = time.perf_counter()
+    m = GREB(GrebConfig(numerics=Numerics(), fast_circulation=True),
+             device="cuda", verbose=False)
+    yd, plan, num = m.year_data, m.fold[0], m.num
+    co2f = np.float32(m.cfg.co2.co2_flux)
+    co2y = np.asarray([560.0, 680.0], np.float32)
+
+    # -- a member block's shared memory: the kernel's reckoning against
+    #    members_layout at each kind's default mb, the clusters at once
+    mbs, capacity = {}, {}
+    for kind in my.KINDS:
+        mb = mbs[kind] = my.default_mb(plan, kind)
+        lay = my.members_layout(plan, mb, kind)
+        parts, threads = my.kernel_members_layout(plan, mb, kind)
+        if parts != dict(lay.parts) or threads != lay.threads:
+            raise AssertionError(f"{kind} mb={mb}: kernel layout {parts}, "
+                                 f"{threads} threads; members_layout "
+                                 f"{dict(lay.parts)}, {lay.threads}")
+        capacity[kind] = my.members_capacity(plan, mb, kind)
+        print(f"  {kind}_mxu: mb={mb}, {lay.nbytes} B a block "
+              f"({', '.join(f'{n} {b}' for n, b in lay.parts if b)}), "
+              f"{threads} threads, {capacity[kind]} clusters at once")
+    k4, k3 = "fluxcorr", "scenario_years"
+
+    err, ms, plain_ms, bound = 0.0, {}, {}, {}
+    launches0 = (my.fluxcorr_years_mxu.launches,
+                 my.scenario_years_mxu.launches)
+    for prec in MXU_PRECS:
+        mxu = m.members_mxu(prec)
+        # -- K4: M = 2 mb members, one year, against the plain twin (the
+        #    members as one batch, each step from a CUDA graph); at
+        #    "highest" also against the exact fold's per-member kernel
+        M4 = 2 * mbs[k4]
+        pp4, s4_in = _mxu_inputs(m, M4)
+        t4, (s4, c4) = _launches_ms(
+            lambda: my.fluxcorr_years_mxu(s4_in, pp4, co2f, yd, mxu), 1)
+        (ps4, pc4), p4 = _synced_s(lambda: my.fluxcorr_years_plain(
+            s4_in, pp4, co2f, yd, mxu))
+        pairs = [("state", s4, ps4), ("tables", c4, pc4)]
+        if prec == "highest":
+            es4, ec4 = my.fluxcorr_years(s4_in, pp4, co2f, yd)
+            pairs += [("state vs exact fold", s4, es4),
+                      ("tables vs exact fold", c4, ec4)]
+        err = max(err, _bitwise(f"fluxcorr_years_mxu {prec} (M={M4}, "
+                                f"mb={mbs[k4]}, 1 year)", pairs, quiet=True))
+        _finite(f"fluxcorr_years_mxu {prec}", [("state", s4),
+                                                ("tables", c4)])
+        # -- K3: M = 2 mb members x 2 years from K4's states, a table per
+        #    member (K4's) and one shared (K1's of the base params); the
+        #    twin runs both as one batch of 2M
+        M3 = 2 * mbs[k3]
+        s3_in = s4[:, :M3].contiguous()
+        pp3, tabs = pp4[:M3].contiguous(), c4[:M3].contiguous()
+        _, c1 = yk.fluxcorr_year(m.initial_state(), co2f, yd)
+        shared = torch.stack([c1.tf, c1.tof, c1.qf], dim=1)[None]
+        t3, got = _launches_ms(lambda: my.scenario_years_mxu(
+            s3_in, pp3, tabs, co2y, yd, mxu), 1)
+        got_sh = my.scenario_years_mxu(s3_in, pp3, shared, co2y, yd, mxu)
+        plain, p3 = _synced_s(lambda: my.scenario_years_plain(
+            torch.cat([s3_in, s3_in], dim=1), torch.cat([pp3, pp3]),
+            torch.cat([tabs, shared.expand(M3, -1, -1, -1, -1)]), co2y, yd,
+            mxu))
+        names = ("state", "monthly means", "annual sums")
+        pairs = ([(f"{n} (tables)", g, p[:, :M3] if n == "state" else
+                   p[:M3]) for n, g, p in zip(names, got, plain)]
+                 + [(f"{n} (shared)", g, p[:, M3:] if n == "state" else
+                     p[M3:]) for n, g, p in zip(names, got_sh, plain)])
+        if prec == "highest":
+            for form, tab, mine in (("tables", tabs, got),
+                                    ("shared", shared, got_sh)):
+                exact = my.scenario_years(s3_in, pp3, tab, co2y, yd)
+                pairs += [(f"{n} ({form}) vs exact fold", g, e)
+                          for n, g, e in zip(names, mine, exact)]
+        err = max(err, _bitwise(f"scenario_years_mxu {prec} (M={M3}, "
+                                f"mb={mbs[k3]}, 2 years)", pairs,
+                                quiet=True))
+        _finite(f"scenario_years_mxu {prec}",
+                list(zip(names, got)) + list(zip(names, got_sh)))
+        ms[prec] = {k4: t4[0], k3: t3[0]}
+        plain_ms[prec] = {k4: p4 * 1e3, k3: p3 * 1e3}
+        bound[prec] = {
+            k4: _mxu_bound(plan, num, 1, M4, "fluxcorr", prec),
+            k3: _mxu_bound(plan, num, 2, M3, "scenario", prec)}
+        print(f"  {prec}: K4 M={M4} a year {t4[0]:.3f} ms (plain twin "
+              f"{p4:.1f} s); K3 M={M3} x 2 years {t3[0]:.3f} ms (plain twin "
+              f"of both table forms {p3:.1f} s)")
+        del s4, c4, ps4, pc4, got, got_sh, plain, tabs
+
+    # -- the short last cluster: M = mb + 1 on the 20-step calendar
+    ms_m = GREB(GrebConfig(numerics=Numerics(**MXU_SHORT),
+                           fast_circulation=True), device="cuda",
+                verbose=False)
+    for prec in MXU_PRECS:
+        mxu = ms_m.members_mxu(prec)
+        M = mbs[k4] + 1
+        pp, s_in = _mxu_inputs(ms_m, M)
+        got4 = my.fluxcorr_years_mxu(s_in, pp, co2f, ms_m.year_data, mxu)
+        want4 = my.fluxcorr_years_plain(s_in, pp, co2f, ms_m.year_data, mxu)
+        M = mbs[k3] + 1
+        got3 = my.scenario_years_mxu(got4[0][:, :M].contiguous(), pp[:M],
+                                     got4[1][:M].contiguous(), co2y,
+                                     ms_m.year_data, mxu)
+        want3 = my.scenario_years_plain(got4[0][:, :M].contiguous(), pp[:M],
+                                        got4[1][:M].contiguous(), co2y,
+                                        ms_m.year_data, mxu)
+        err = max(err, _bitwise(
+            f"short last cluster {prec} (K4 M={mbs[k4] + 1}, K3 "
+            f"M={mbs[k3] + 1} x 2 years, {MXU_SHORT['ndays_yr'] * 2} "
+            f"steps)", [(n, g, w) for n, g, w in zip(
+                ("K4 state", "K4 tables", "K3 state", "K3 monthly",
+                 "K3 sums"), list(got4) + list(got3),
+                list(want4) + list(want3))], quiet=True))
+    del ms_m
+
+    # -- one K3 year at M = 65 and 256 (the shared table, initial states):
+    #    both precisions against the per-member kernel (its default size);
+    #    a warm-up, then 2 launches each
+    timed = {}
+    _, c1 = yk.fluxcorr_year(m.initial_state(), co2f, yd)
+    shared = torch.stack([c1.tf, c1.tof, c1.qf], dim=1)[None]
+    co2 = np.asarray([680.0], np.float32)
+    for M in MXU_TIMED_M:
+        pp, s_in = _mxu_inputs(m, M)
+        row = {}
+        for prec in MXU_PRECS:
+            mxu = m.members_mxu(prec)
+            row[prec], _ = _launches_ms(lambda: my.scenario_years_mxu(
+                s_in, pp, shared, co2, yd, mxu), 2)
+        row["per-member"], _ = _launches_ms(lambda: my.scenario_years(
+            s_in, pp, shared, co2, yd), 2)
+        c = my.default_cluster(k3, M, yk.cluster_capacity(
+            plan, yk.DEFAULT_CLUSTER, k3))
+        timed[M] = {}
+        for label, got in row.items():
+            prec = label if label in MXU_PRECS else None
+            b_ms, b_by = _mxu_bound(plan, num, 1, M, "scenario", prec,
+                                    shared_corr=True)
+            t = _median(got)
+            timed[M][label] = dict(ms=t, member_yr_s=M / (t * 1e-3),
+                                   bound_ms=b_ms, bound_by=b_by)
+            print(f"  K3 one year at M={M}, {label}"
+                  f"{f' (C={c})' if prec is None else ''}: {_runs(got)} = "
+                  f"{M / (t * 1e-3):.1f} member-yr/s; bound {b_ms:.3f} ms "
+                  f"by {b_by}")
+        del pp, s_in
+    # -- about the CLI's MXU_HIGHEST_PER_MEMBER_M: one K3 year at highest
+    #    against the per-member kernel, a warm-up, then 1 launch each
+    mxu = m.members_mxu("highest")
+    for M in MXU_CROSS_M:
+        pp, s_in = _mxu_inputs(m, M)
+        b_ms, b_by = _mxu_bound(plan, num, 1, M, "scenario", "highest",
+                                shared_corr=True)
+        timed[M] = {}
+        for label, fn in (
+                ("highest", lambda: my.scenario_years_mxu(
+                    s_in, pp, shared, co2, yd, mxu)),
+                ("per-member", lambda: my.scenario_years(
+                    s_in, pp, shared, co2, yd))):
+            (t,), _ = _launches_ms(fn, 1)
+            timed[M][label] = dict(ms=t, member_yr_s=M / (t * 1e-3),
+                                   bound_ms=b_ms, bound_by=b_by)
+        faster = min(timed[M], key=lambda k: timed[M][k]["ms"])
+        route = ("per-member" if M >= cli.MXU_HIGHEST_PER_MEMBER_M
+                 else "highest")
+        print(f"  K3 one year at M={M}: highest "
+              f"{timed[M]['highest']['ms']:.3f} ms, per-member "
+              f"{timed[M]['per-member']['ms']:.3f} ms after a warm-up; the "
+              f"faster {faster}, the CLI's route at highest {route}; bound "
+              f"{b_ms:.3f} ms by {b_by}")
+        del pp, s_in
+
+    # -- the substep's row dot alone by torch.bmm at its shapes, (F*Y, M,
+    #    X) @ (F*Y, X, 2X): three bfloat16 products (bf16_3x, their parts
+    #    made once) or one float32 product, a substep of M members
+    bmm = {}
+    F, Y, X = 2, plan.ydim, plan.xdim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for M in MXU_TIMED_M:
+        x = torch.rand((F * Y, M, X), device="cuda", generator=gen)
+        w = torch.rand((F * Y, X, 2 * X), device="cuda", generator=gen)
+        xh, wh = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        xl = (x - xh.float()).to(torch.bfloat16)
+        wl = (w - wh.float()).to(torch.bfloat16)
+        for prec, fn in (
+                ("bf16_3x", lambda: (torch.bmm(xh, wh) + torch.bmm(xh, wl))
+                 + torch.bmm(xl, wh)),
+                ("highest", lambda: torch.bmm(x, w))):
+            fn()        # the library's first call picks its kernel
+            t, _ = _time_ms(fn, 200)
+            bmm[(M, prec)] = t
+            print(f"  torch.bmm row dot, M={M}, {prec}: {t * 1e3:.2f} us a "
+                  f"substep, {t * num.nsub_crcl * num.nstep_yr:.1f} ms a year")
+
+    # -- the HIGH budget: a bf16_3x K4 + K3 year at M=2 against the exact
+    #    fold's per-member kernels (tests/test_mxu.py:71's CPU bounds)
+    pp, s_in = _mxu_inputs(m, 2)
+    mxu = m.members_mxu("bf16_3x")
+    hs, hc = my.fluxcorr_years_mxu(s_in, pp, co2f, yd, mxu)
+    es, ec = my.fluxcorr_years(s_in, pp, co2f, yd)
+    hs, hmon, _ = my.scenario_years_mxu(hs, pp, hc, co2y[1:], yd, mxu)
+    es, emon, _ = my.scenario_years(es, pp, ec, co2y[1:], yd)
+    _finite("HIGH budget, bf16_3x", [("state", hs), ("monthly", hmon)])
+    dmon = (hmon - emon).double()
+    budget = dict(ts=float((hs[0] - es[0]).abs().max()),
+                  rms=float(dmon.pow(2).mean().sqrt()),
+                  max=float(dmon.abs().max()))
+    # a reading against the CPU bounds: a miss is recorded (ROADMAP Queue
+    # 3, beside greb_tpu's own miss on the TPU), as the JAX package's TPU
+    # run records its own; the finite check above holds
+    within = {k: v < MXU_HIGH_BUDGET[k] for k, v in budget.items()}
+    print(f"  HIGH budget (bf16_3x against the exact fold, M=2, 1 + 1 "
+          f"years): " + ", ".join(
+              f"{k} {v:.3e} ({'within' if within[k] else 'MISS of'} "
+              f"{MXU_HIGH_BUDGET[k]:.0e})" for k, v in budget.items()))
+    budget = dict(budget, within=within)
+    print(f"  launches in this step: fluxcorr_years_mxu "
+          f"{my.fluxcorr_years_mxu.launches - launches0[0]}, "
+          f"scenario_years_mxu "
+          f"{my.scenario_years_mxu.launches - launches0[1]}")
+    seconds = time.perf_counter() - t_phase
+    print(f"mxu phase: {seconds:.1f} s")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound, timed=timed,
+                bmm=bmm, budget=budget, mb=mbs, capacity=capacity,
+                seconds=seconds)
 
 
 def _long_runner(model, tmp, tag):
@@ -5037,13 +5443,17 @@ def main(argv) -> int:
     counters = {"fluxcorr_year": yk.fluxcorr_year,
                 "scenario_year": yk.scenario_year,
                 "fluxcorr_years": my.fluxcorr_years,
-                "scenario_years": my.scenario_years}
+                "scenario_years": my.scenario_years,
+                "fluxcorr_years_mxu": my.fluxcorr_years_mxu,
+                "scenario_years_mxu": my.scenario_years_mxu}
 
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
 
     def read_counts(path, want):
+        """Every counter against ``want`` (a counter it does not name: 0)."""
+        want = {k: want.get(k, 0) for k in counters}
         got = {k: fn.launches for k, fn in counters.items()}
         print(f"  {path} launches: {got}")
         if got != want:
@@ -5108,7 +5518,8 @@ def main(argv) -> int:
         print(f"build: {time.perf_counter() - t0:.1f} s ({each or 'cached'});"
               f" meanwhile on the host: "
               + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
-        for source in ("year_kernel", "band_kernel", "strict_wide_kernel",
+        for source in ("year_kernel", "refined_kernel", "band_kernel",
+                       "strict_wide_kernel", "members_kernel",
                        "slab_kernel"):
             with open(os.path.join(build.BUILD_DIR,
                                    f"{source}.ptxas.txt")) as f:
@@ -5586,6 +5997,15 @@ def main(argv) -> int:
             del plain768
             lap("strict 768x384")
 
+        # -- the member-batched matmul circulation in K3 and K4 ------------
+        if want(25):
+            with _GraphedSteps():
+                mxu = _mxu_phase(tmp, reset_counts, read_counts)
+            lap("mxu")
+            if mxu["seconds"] > MXU_PHASE_S:
+                raise AssertionError(f"step 25 took {mxu['seconds']:.1f} s, "
+                                     f"over {MXU_PHASE_S} s")
+
     if steps != ALL_STEPS:
         print(f"smoke total: {time.perf_counter() - t_start:.1f} s wall "
               f"(steps {_spec(steps)}: no kernel line)")
@@ -5848,6 +6268,54 @@ def main(argv) -> int:
             entry.update(refined_wave_members=M, refined_wave_ms=w_ms,
                          refined_wave_bound_ms=w_bound,
                          refined_wave_bound_by=w_by)
+        kernels.append(entry)
+    # the member-batched matmul circulation (step 25, csrc/members_kernel.cu):
+    # ms, plain_ms (its twin: the members as one batch, each step from a
+    # CUDA graph) and bound_ms at the check's shape at bf16_3x, the CLI's
+    # default (K4 M = 2 mb, 1 year; K3 M = 2 mb x 2 years, a table per
+    # member; the twin's time covers both of K3's table forms), the same at
+    # highest; launches on the ensemble paths (--ensemble ENS_M, bf16_3x);
+    # K3's timed years at MXU_TIMED_M members against the per-member
+    # kernel, the torch.bmm row dots (information, not a library call of
+    # the same function), the HIGH budget
+    for name, line, kind, years in (("fluxcorr_years_mxu", 253, "fluxcorr",
+                                     1),
+                                    ("scenario_years_mxu", 107,
+                                     "scenario_years", 2)):
+        mb = mxu["mb"][kind]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "greb_tpu_torch/csrc/members_kernel.cu",
+            "replaces": f"greb_tpu/ops/pallas/multiyear.py:{line}",
+            "replaces_circulation": "greb_tpu/ops/fastcirc2.py:782 "
+                                    "mxu_members_circulation",
+            "launches": ensemble["launches"][name],
+            "launches_shared_ensemble_path": ensemble["launches_shared"][
+                name],
+            "max_abs_err": max(mxu["err"], ensemble["err"]),
+            "library_ms": None, "cluster": 16, "mb": mb,
+            "clusters_at_once": mxu["capacity"][kind],
+            "shape": f"M={2 * mb} x {years} year{'s' * (years > 1)}",
+            "modes": ["bf16_3x", "highest", "short last cluster (M = mb + 1)",
+                      "ensemble path"]}
+        for prec in MXU_PRECS:
+            b_ms, b_by = mxu["bound"][prec][kind]
+            pre = "" if prec == "bf16_3x" else "highest_"
+            entry.update({f"{pre}ms": mxu["ms"][prec][kind],
+                          f"{pre}plain_ms": mxu["plain_ms"][prec][kind],
+                          f"{pre}bound_ms": b_ms, f"{pre}bound_by": b_by})
+        if kind == "scenario_years":
+            for M, row in mxu["timed"].items():
+                for label, t in row.items():
+                    key = f"year_M{M}_{label.replace('-', '_')}"
+                    entry.update({f"{key}_ms": t["ms"],
+                                  f"{key}_member_yr_s": t["member_yr_s"],
+                                  f"{key}_bound_ms": t["bound_ms"],
+                                  f"{key}_bound_by": t["bound_by"]})
+            entry.update({f"bmm_row_dot_M{M}_{prec}_ms_substep": t
+                          for (M, prec), t in mxu["bmm"].items()})
+            entry["ensemble_member_yr_s"] = ensemble["rates"]
+            entry["high_budget"] = mxu["budget"]
         kernels.append(entry)
     # the slab kernels (no TPU counterpart: greb_tpu's sharded fold runs on
     # XLA): ms a launch on the sharded path's shape (96x48, SHARD_PATH_NY

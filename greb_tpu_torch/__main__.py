@@ -18,7 +18,9 @@ at the checkpoint's record.
 1064-1068): ``--perturb P=LO:HI`` sweeps one physics parameter linearly
 across the members, each member spins up under its own params (or, with
 ``--shared-spinup``, all read the base params' tables) and writes its
-monthly records to ``<output>_<i>``.
+monthly records to ``<output>_<i>``; the members' circulation is the
+member-batched matmul form at ``--mxu-precision`` where it runs the plan,
+as greb_tpu's ensemble.
 
 ``--legacy`` runs the original variant's experiment workflow for the
 namelist's ``log_exp`` (src/greb.original.model.f90:199-231): the spin-up,
@@ -94,10 +96,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "40 MB a member at 96x48)")
     p.add_argument("--mxu-precision", choices=("high", "highest"),
                    default="high",
-                   help="accepted for compatibility with python -m greb_tpu "
-                        "(its matmul precision of the ensemble circulation); "
-                        "on the card both values run the member kernels' "
-                        "exact float32 fold")
+                   help="ensemble mode: precision of the member-batched "
+                        "matmul circulation, as python -m greb_tpu: 'high' "
+                        "(the 3-pass bfloat16 split, ~2^-21 relative error "
+                        "a product) or 'highest' (exact float32, the exact "
+                        f"fold's bits; from {MXU_HIGHEST_PER_MEMBER_M} "
+                        "members the per-member "
+                        "kernels run it); plans it does not run (48x24, "
+                        "the refined grids, the strict circulation) take "
+                        "the exact fold")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -175,6 +182,19 @@ def ensemble_block_years(members: int, num) -> int:
     return max(1, min(ENSEMBLE_BLOCK_YEARS, ENSEMBLE_BLOCK_BYTES // year))
 
 
+# --mxu-precision -> the member kernels' precision (greb_tpu's "high" is
+# XLA's Precision.HIGH, documented as the 3-pass bfloat16 split)
+MXU_PRECISION = {"high": "bf16_3x", "highest": "highest"}
+# At "highest" the member kernels of the matmul circulation compute the
+# per-member kernels' bits (each row product's 7 terms in the fold's
+# order), so the ensemble runs the faster of the two.  On an H100 the
+# member kernels' K3 year is the faster at 112 members, the per-member
+# kernels' at 128 (chip_smoke.py step 25; PERF.md section 6); from 113
+# the member kernels need a ninth wave of the 7 clusters the card runs at
+# once (2 members a cluster)
+MXU_HIGHEST_PER_MEMBER_M = 113
+
+
 def run_ensemble(model, out_path: str, args) -> None:
     """M-member perturbed-physics ensemble (``greb_tpu.__main__
     .run_ensemble``, with its semantics): ``args.perturb`` "P=LO:HI" gives
@@ -192,10 +212,16 @@ def run_ensemble(model, out_path: str, args) -> None:
     open-file limit.  One console line a year: CO2 and the members'
     range of the global-mean annual-mean Ts.
 
-    ``args.mxu_precision`` is printed only: the member kernels run the
-    exact float32 fold at either value.  Raises SystemExit for a bad
-    ``--perturb``, and NotImplementedError (before any launch) where the
-    member kernels do not run the model's plan."""
+    Where the member-batched matmul circulation runs the model's plan
+    (``GREB.members_mxu``: the fold without segments, with dense
+    composites and additive splitting, as at 96x48), K4 and K3 run it at
+    ``args.mxu_precision`` (MXU_PRECISION), as greb_tpu's ensemble runs its
+    matmul circulation; at "highest" from MXU_HIGHEST_PER_MEMBER_M members
+    on, and elsewhere, the exact float32 fold, one member a cluster or
+    block.  A line on stderr says which.
+    Raises SystemExit for a bad ``--perturb``, and NotImplementedError
+    (before any launch) where the member kernels do not run the model's
+    plan."""
     import numpy as np
 
     from .io.binio import OutputWriter
@@ -216,10 +242,22 @@ def run_ensemble(model, out_path: str, args) -> None:
         raise SystemExit(f"{name!r} perturbs the transport operator; "
                          f"batched ensembles share the folded circulation "
                          f"tables (see parallel.ensemble)")
-    model._check_member_kernels()
+    precision = MXU_PRECISION[args.mxu_precision]
+    mxu = model.members_mxu(precision)
+    why = "the matmul circulation does not run this plan"
+    if mxu is not None and precision == "highest" \
+            and M >= MXU_HIGHEST_PER_MEMBER_M:
+        mxu = None
+        why = (f"the matmul circulation's bits at highest, faster from "
+               f"{MXU_HIGHEST_PER_MEMBER_M} members")
+    model._check_member_kernels(mxu)
     if not args.quiet:
         print(f"% ENSEMBLE RUN; members = {M} perturb {name} in "
               f"[{sweep[0]}, {sweep[-1]}] mxu={args.mxu_precision}")
+        # on stderr: stdout's lines are greb_tpu's, character for character
+        print("% circulation: " + (
+            f"member-batched matmul, {precision}" if mxu is not None else
+            f"exact float32 fold ({why})"), file=sys.stderr)
     members = ens.perturbed_params(model.params, {name: sweep})
     num = model.num
     nmon = len(num.jday_mon)
@@ -241,7 +279,7 @@ def run_ensemble(model, out_path: str, args) -> None:
                   f"[{gm.min():.4f} .. {gm.max():.4f}] degC")
 
     run = dict(years=num.time_scnr, co2_series=co2_series, on_block=write,
-               years_per_call=ensemble_block_years(M, num))
+               years_per_call=ensemble_block_years(M, num), mxu=mxu)
     if getattr(args, "shared_spinup", False):
         state_fc, corr = model.flux_correction()
         state5 = ens.ensemble_initial_state(members, model.forcing)

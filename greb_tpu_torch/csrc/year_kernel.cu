@@ -114,10 +114,12 @@
 // extension-mode grids (384x192, suffix _refined) and 192x96's additive
 // form (suffix _additive), each modern and legacy (suffix _legacy); and
 // the strict transport at an extension-mode grid (suffix _strict_refined);
-// see its section below.  The forms of the grids between 192x96 and
-// 384x192 (additive splitting with packed composites, and the strict
-// transport where the cluster body does not hold it) are this file's
-// device code too; their entries build in band_kernel.cu.
+// see its section below; its entries build in refined_kernel.cu.  The
+// forms of the grids between 192x96 and 384x192 (additive splitting with
+// packed composites, and the strict transport where the cluster body does
+// not hold it) are this file's device code too; their entries build in
+// band_kernel.cu.  The member kernels' matmul circulation (mb members a
+// cluster) builds in members_kernel.cu on the cluster body's functions.
 //
 // The strict transport.  Where the JAX package builds no fold (its
 // GREB.fastcirc_tables() is None: --strict-circulation, and legacy
@@ -3170,10 +3172,11 @@ __device__ void run_refined(const YearArgs& a, const RefinedArgs& g,
 
 // The entry functions and their launchers follow.  What comes before the
 // guard below serves them and the sources that build their own entries on
-// these device functions (slab_kernel.cu; band_kernel.cu, the refined
-// forms of the grids between 192x96 and 384x192; strict_wide_kernel.cu,
-// the strict form's wide variant at 768x384), which define
-// GREB_DEVICE_ONLY before including this file.
+// these device functions (slab_kernel.cu; refined_kernel.cu, the refined
+// instantiation's entries; band_kernel.cu, the refined forms of the grids
+// between 192x96 and 384x192; strict_wide_kernel.cu, the strict form's
+// wide variant at 768x384; members_kernel.cu, the member kernels' matmul
+// circulation), which define GREB_DEVICE_ONLY before including this file.
 
 // The refined instantiation of the four kernels: in each form and variant,
 // <kernel><suffix> runs run_refined<kind, members, form, legacy>.
@@ -3271,6 +3274,7 @@ static int refined_config(Kernel kernel, const YearArgs& a,
 // Each kernel in three instantiations: the modern variant (flags 0); with
 // the suffix _legacy, the fold with the switches of the flags word; with
 // the suffix _strict, the strict transport or none, with the switches.
+// The refined instantiation's entries build in refined_kernel.cu.
 __global__ void __launch_bounds__(NT, 1) fluxcorr_year(YearArgs a, GrebParams p) {
   run_cluster<FLUX, false, false>(a, p);
 }
@@ -3342,44 +3346,6 @@ __global__ void __launch_bounds__(NT, 1) scenario_years_strict(
                                                        member_index()));
 }
 
-REFINED_KERNELS(_refined, R_SEQ, false, false)
-REFINED_KERNELS(_additive, R_ADDITIVE, false, false)
-REFINED_KERNELS(_refined_legacy, R_SEQ, true, false)
-REFINED_KERNELS(_additive_legacy, R_ADDITIVE, true, false)
-REFINED_KERNELS(_strict_refined, R_STRICT, true, false)
-REFINED_KERNELS(_wide, R_SEQ, false, true)
-REFINED_KERNELS(_wide_legacy, R_SEQ, true, true)
-
-// A launcher's refined kernels in the order refined_pick numbers them.
-#define N_REFINED 7
-#define REFINED_TABLE(K)                                                     \
-  { K##_refined, K##_additive, K##_refined_legacy, K##_additive_legacy,     \
-    K##_strict_refined, K##_wide, K##_wide_legacy }
-
-// A kernel's parameters are passed by value: the largest set (the refined
-// member kernels') stays under the 4 KB that every toolkit takes.
-static_assert(sizeof(YearArgs) + sizeof(GrebParams) + sizeof(PackCols) +
-                      sizeof(RefinedArgs) <= 4096,
-              "kernel parameters over 4 KB");
-
-// The refined kernel (REFINED_TABLE's index) that runs g.form under the
-// variant of p's flags word: the fold's forms modern or legacy, the strict
-// form for the strict transport or none, the wide form (g.groups > 1: the
-// sequential form on several clusters) modern or legacy; -1 where none
-// runs it (the forms of csrc/band_kernel.cu and the strict form on several
-// clusters, csrc/strict_wide_kernel.cu's, included).
-static int refined_pick(const GrebParams& p, const RefinedArgs& g) {
-  const Variant v = variant(p);
-  if (g.groups > 1) {
-    if (g.form != R_SEQ) return -1;
-    return v == V_MODERN ? 5 : v == V_LEGACY ? 6 : -1;
-  }
-  if (g.form == R_STRICT) return v == V_STRICT ? 4 : -1;
-  if (g.form != R_SEQ && g.form != R_ADDITIVE) return -1;
-  if (v == V_MODERN) return g.form;
-  return v == V_LEGACY ? 2 + g.form : -1;
-}
-
 // One block of NT threads per member (a.M blocks).
 template <typename Kernel, typename... Extra>
 static int launch(Kernel kernel, const YearArgs& a, void* stream,
@@ -3422,32 +3388,6 @@ static int launch_cluster(Kernel kernel, const YearArgs& a,
                                  &cfg, &clusters);
   if (err) return err;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, p, extra...);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// The refined instantiation: a.M members on a.M clusters of C blocks of
-// the kernel of `table` that refined_pick picks, as launch_cluster
-// (GREB_ERR_FLAGS where none); the member kernels take the pack's columns
-// (extra) before g.  The wide form (g.groups clusters a member) launches
-// only where the card runs all a.M * g.groups clusters at once
-// (GREB_ERR_RESIDENT: its grid barrier would never end).
-template <typename Kernel, typename... Extra>
-static int launch_refined(Kernel const (&table)[N_REFINED],
-                          const YearArgs& a, const GrebParams& p,
-                          const RefinedArgs& g, int C, void* stream,
-                          Extra... extra) {
-  const int k = refined_pick(p, g);
-  if (k < 0) return GREB_ERR_FLAGS;
-  cudaLaunchAttribute attr[2];
-  cudaLaunchConfig_t cfg;
-  int clusters;
-  const int err = refined_config(table[k], a, g, C, stream, attr, &cfg,
-                                 &clusters);
-  if (err) return err;
-  if (g.groups > 1 && clusters < a.M * g.groups) return GREB_ERR_RESIDENT;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, table[k], a, p, extra...,
-                                           g);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -3525,80 +3465,6 @@ int greb_scenario_years(YearArgs a, GrebParams p, PackCols c, int C,
     default:
       return GREB_ERR_FLAGS;
   }
-}
-
-// The four kernels at a grid of the refined instantiation, in the form
-// g.form, under the variant of the flags word (refined_pick; any other
-// word: GREB_ERR_FLAGS).
-int greb_fluxcorr_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
-                               void* stream) {
-  decltype(&fluxcorr_year_refined) const t[] = REFINED_TABLE(fluxcorr_year);
-  return launch_refined(t, a, p, g, C, stream);
-}
-
-int greb_scenario_year_refined(YearArgs a, GrebParams p, RefinedArgs g, int C,
-                               void* stream) {
-  decltype(&scenario_year_refined) const t[] = REFINED_TABLE(scenario_year);
-  return launch_refined(t, a, p, g, C, stream);
-}
-
-int greb_fluxcorr_years_refined(YearArgs a, GrebParams p, PackCols c,
-                                RefinedArgs g, int C, void* stream) {
-  decltype(&fluxcorr_years_refined) const t[] = REFINED_TABLE(fluxcorr_years);
-  return launch_refined(t, a, p, g, C, stream, c);
-}
-
-int greb_scenario_years_refined(YearArgs a, GrebParams p, PackCols c,
-                                RefinedArgs g, int C, void* stream) {
-  decltype(&scenario_years_refined) const t[] =
-      REFINED_TABLE(scenario_years);
-  return launch_refined(t, a, p, g, C, stream, c);
-}
-
-// The kernel's own reckoning of a refined block's shared memory in the
-// form g.form: fills parts[N_QPARTS] (bytes, layout order), returns the
-// total (0: no layout).
-long long greb_refined_layout(int Y, int X, int ktc, int kbc, int C,
-                              RefinedArgs g, long long* parts) {
-  return form_parts(Y, X, ktc, kbc, C, g, parts);
-}
-
-// How many clusters of C blocks of the refined kernel of `kind` (FLUX:
-// fluxcorr_years, SCEN: scenario_year, SCEN_YEARS: scenario_years; in the
-// form g.form, its modern variant or the strict form's) the card runs at
-// once, into *clusters; an error code as the launchers.
-int greb_refined_capacity(int Y, int X, int ktc, int kbc, int C, int kind,
-                          RefinedArgs g, int* clusters) {
-  YearArgs a = {};
-  a.Y = Y; a.X = X; a.ktc = ktc; a.kbc = kbc; a.M = 1;
-  cudaLaunchAttribute attr[2];
-  cudaLaunchConfig_t cfg;
-  const int k = g.groups > 1 ? (g.form == R_SEQ ? 5 : -1)
-                             : g.form == R_STRICT ? 4 : g.form;
-  if (k < 0 || k >= N_REFINED) return GREB_ERR_LAYOUT;
-  if (kind == FLUX) {
-    decltype(&fluxcorr_years_refined) const t[] =
-        REFINED_TABLE(fluxcorr_years);
-    return refined_config(t[k], a, g, C, nullptr, attr, &cfg, clusters);
-  }
-  if (kind == SCEN) {
-    decltype(&scenario_year_refined) const t[] = REFINED_TABLE(scenario_year);
-    return refined_config(t[k], a, g, C, nullptr, attr, &cfg, clusters);
-  }
-  decltype(&scenario_years_refined) const t[] = REFINED_TABLE(scenario_years);
-  return refined_config(t[k], a, g, C, nullptr, attr, &cfg, clusters);
-}
-
-// The refined kernel (REFINED_TABLE's index) that a launcher runs for a
-// flags word in a form on `groups` clusters a run; -1: none
-// (GREB_ERR_FLAGS).
-int greb_refined_pick(int flags, int form, int groups) {
-  GrebParams p = {};
-  p.flags = flags;
-  RefinedArgs g = {};
-  g.form = form;
-  g.groups = groups;
-  return refined_pick(p, g);
 }
 
 // The kernel's own reckoning of a cluster block's shared memory (`strict`:

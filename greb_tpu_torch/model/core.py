@@ -31,7 +31,10 @@ from ..ops import stencils as stc
 
 F32 = np.float32
 
-Fold = Tuple[fc2.FastPlan, fc2.Fast2Const]
+# the fold: (plan, const), or with a third element that picks the matmul
+# circulation (fastcirc2.MxuMembers, MxuConst) or the member kernels' plain
+# twin of it (fastcirc2.MxuTwin)
+Fold = Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -144,10 +147,23 @@ def compute_tendencies(state: ModelState, fx: StepForcing, co2,
     if mode == "none":
         dta_crcl = dq_crcl = torch.zeros_like(state.ta)
     elif mode == "fold":
-        plan, const = fold
+        # a third element of the fold tuple picks the circulation, as in
+        # greb_tpu's core: the member-batched matmul form (MxuMembers), the
+        # matmul form (MxuConst), the member kernels' twin (MxuTwin)
+        plan, const = fold[0], fold[1]
+        mxu = fold[2] if len(fold) > 2 else None
         x2 = torch.stack([state.ta, state.q], dim=-3)
         cf_t = fc2.step_coeffs(fx.u, fx.v, const, plan)
-        dx2 = fc2.circulation(x2, cf_t, const, plan, num.nsub_crcl, extend)
+        nsub = num.nsub_crcl
+        if isinstance(mxu, fc2.MxuMembers):
+            dx2 = fc2.mxu_members_circulation(x2, cf_t, const, mxu, plan,
+                                              nsub)
+        elif isinstance(mxu, fc2.MxuConst):
+            dx2 = fc2.mxu_circulation(x2, cf_t, const, mxu, plan, nsub)
+        else:
+            prec = mxu.precision if isinstance(mxu, fc2.MxuTwin) \
+                else "highest"
+            dx2 = fc2.circulation(x2, cf_t, const, plan, nsub, extend, prec)
         dta_crcl, dq_crcl = dx2[..., 0, :, :], dx2[..., 1, :, :]
     else:
         # wind sign splits (src/greb.f90:203-216)

@@ -115,13 +115,29 @@ class GREB:
         cfg, params = config_from_namelist(path)
         return cls(cfg, params=params, **kw)
 
-    def _check_member_kernels(self) -> None:
+    def _check_member_kernels(self, mxu=None) -> None:
         """Raise before any launch where the member kernels (K3, K4) do not
         run this model's plan and flags word (``year_kernel.check_plan``),
-        on any device."""
+        on any device; with ``mxu`` (a ``fastcirc2.MxuMembers``) where their
+        matmul circulation does not (``multiyear._check_mxu``: the plan
+        ``fastcirc2.members_covered``, the matrices)."""
         yd = self.year_data
         for kind in my.KINDS:
             yk.check_plan(yd.plan, kind, yd.flags)
+            if mxu is not None:
+                my._check_mxu(mxu, yd, kind)
+
+    def members_mxu(self, precision: str):
+        """The member kernels' matmul circulation at ``precision``
+        ("bf16_3x", "highest") for this model's fold, or None where it does
+        not run the plan (``fastcirc2.members_covered``; the strict
+        transport and no transport have no fold; the refined
+        instantiation's plans)."""
+        yd = self.year_data
+        if (yd.transport != "fold" or not fc2.members_covered(yd.plan)
+                or yk.is_refined(yd.plan)):
+            return None
+        return fc2.build_mxu_members(self.fold[1], yd.plan, precision)
 
     def _multiyear_args(self, corr: Corrections):
         """(member pack (1, 1, N_PPACK), corrections (1, T, 3, Y, X)) of the
@@ -296,7 +312,8 @@ class GREB:
 
     def _member_blocks(self, state5: torch.Tensor, ppack: torch.Tensor,
                        corrpack: torch.Tensor, co2_series: np.ndarray,
-                       years_per_call: int, sink) -> torch.Tensor:
+                       years_per_call: int, sink,
+                       mxu=None) -> torch.Tensor:
         """``len(co2_series)`` scenario years of the multi-year kernel (K3)
         for the members of ``state5`` (5, M, y, x), in blocks of
         ``years_per_call`` years; returns the end state.  ``sink(done,
@@ -304,6 +321,7 @@ class GREB:
         before it, its monthly means (M, ny * 12, 5, y, x) and annual sums
         (M, ny, 9, y, x) as host tensors, which on the card are pinned
         buffers reused two blocks later (copy what must outlive the call).
+        ``mxu``: K3's matmul circulation (``run_members``).
 
         Dispatch, then drain: block N's monthly means and sums go to pinned
         host buffers by copies queued behind it on the stream, an event
@@ -335,7 +353,7 @@ class GREB:
             ny = min(years_per_call, years - done)
             state5, monthly, asum = my.scenario_years(
                 state5, ppack, corrpack, co2_dev[done:done + ny],
-                self.year_data)
+                self.year_data, mxu=mxu)
             event = None
             if cuda:
                 h_mon, h_asum = host[k % 2]
@@ -357,7 +375,8 @@ class GREB:
                     years: Optional[int] = None, years_per_call: int = 10,
                     co2_series: Optional[np.ndarray] = None,
                     corr=None, state5: Optional[torch.Tensor] = None,
-                    spinup_co2: Optional[float] = None, on_block=None):
+                    spinup_co2: Optional[float] = None, on_block=None,
+                    mxu=None):
         """Member-batched chain, the ensemble path: a spin-up, then
         ``years`` scenario years in blocks of ``years_per_call`` through the
         multi-year kernel (K3).  The members share forcing and fold, so they
@@ -378,12 +397,18 @@ class GREB:
         (see ``_member_blocks``), so a long run of many members keeps one
         block on the host; then nothing is collected.
 
+        ``mxu`` (a ``fastcirc2.MxuMembers``, ``members_mxu``): K4 and K3 run
+        the member-batched matmul circulation at its precision, the most
+        members a cluster that fit (``multiyear.default_mb``); checked
+        before any launch (``_check_member_kernels``).  None: the exact
+        fold, one member a cluster or block.
+
         Returns (state5 (5, M, y, x), the corrections K3 read (M or 1, T,
         3, y, x), and without ``on_block`` the monthly means (M, years*12,
         5, y, x) and annual sums (M, years, 9, y, x) as host numpy arrays,
         with it None, None)."""
         num, yd = self.num, self.year_data
-        self._check_member_kernels()
+        self._check_member_kernels(mxu)
         years = years if years is not None else num.time_scnr
         if co2_series is None:
             co2_series = self._co2_series()
@@ -400,7 +425,8 @@ class GREB:
             corrpack = torch.zeros((1, num.nstep_yr, 3, num.ydim, num.xdim),
                                    dtype=torch.float32, device=self.device)
             for _ in range(num.time_flux):
-                state5, corrpack = my.fluxcorr_years(state5, ppack, co2, yd)
+                state5, corrpack = my.fluxcorr_years(state5, ppack, co2, yd,
+                                                     mxu=mxu)
         monthly, asums = [], []
 
         def collect(done, mon, asum):
@@ -408,7 +434,8 @@ class GREB:
             asums.append(asum.numpy().copy())
 
         state5 = self._member_blocks(state5, ppack, corrpack, co2_series,
-                                     years_per_call, on_block or collect)
+                                     years_per_call, on_block or collect,
+                                     mxu)
         if on_block is not None or not years:
             return state5, corrpack, None, None
         return (state5, corrpack, np.concatenate(monthly, axis=1),

@@ -24,12 +24,15 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-# the year kernels, the refined forms of the grids between 192x96 and
-# 384x192, the strict form's wide variant at 768x384 and the sharded
-# runners' slab kernels (all three built on the year kernels' device
-# functions), and a probe of the cluster barrier's cost that chip_smoke.py
-# reads beside them
-SOURCES = ("year_kernel", "band_kernel", "strict_wide_kernel", "slab_kernel",
+# the year kernels' cluster body, their refined instantiation, the refined
+# forms of the grids between 192x96 and 384x192, the strict form's wide
+# variant at 768x384, the member kernels' matmul circulation and the
+# sharded runners' slab kernels (all built on the year kernels' device
+# functions, each a library of its own so that they compile at once), and
+# a probe of the cluster barrier's cost that chip_smoke.py reads beside
+# them
+SOURCES = ("year_kernel", "refined_kernel", "band_kernel",
+           "strict_wide_kernel", "members_kernel", "slab_kernel",
            "cluster_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",

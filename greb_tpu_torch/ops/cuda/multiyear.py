@@ -44,8 +44,18 @@ The fold and the strict stencils' constants are built once from the base
 parameters, so the members may not differ from them in a transport
 parameter (``parallel.ensemble.TRANSPORT_PARAM_KEYS``).  K3's one-block
 body does not run the strict transport (``cluster=1`` raises).
-The TPU kernel's members-per-block ``mb`` has no counterpart: a member
-fills a cluster's shared memory, and members do not interact.
+Given ``mxu`` (a ``fastcirc2.MxuMembers``), both wrappers run the TPU
+kernels' member-batched matmul circulation instead (greb_tpu's
+``mxu_members_circulation`` in K3/K4, its ``mb`` members a kernel
+instance): ``fluxcorr_years_mxu`` and ``scenario_years_mxu`` launch
+csrc/members_kernel.cu, ``mb`` members on one 16-block cluster
+(``members_layout``; the most that fit, ``default_mb``), at
+the precision of ``mxu`` ("bf16_3x" or "highest"), for the plans it runs
+(``fastcirc2.members_covered``: no segments, dense composites, additive
+splitting; NotImplementedError naming ``fastcirc2.MXU_PLAN_ITEM`` for the
+others, before any launch).  Their plain version is the twin of that
+circulation in the kernel's order (``fastcirc2.MxuTwin``), through
+``*_plain(..., mxu=...)``.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -62,6 +72,7 @@ from ...config import Numerics, PhysicsParams
 from ...forcing import ModelState
 from ...grid import month_average_matrix
 from ...model import core
+from ...ops import fastcirc2 as fc2
 from ...parallel.ensemble import TRANSPORT_PARAM_KEYS
 from . import year_kernel as yk
 
@@ -169,9 +180,21 @@ def _maps_on(yd: yk.YearData, dev: torch.device):
     return yd.cache[key]
 
 
+# float32 operations of the bf16_3x split (csrc/members_kernel.cu zonal):
+# for each (field, cell, member) and substep, the 7 taps split (a round, a
+# subtract, a round: 3 each) and each zonal apply's three 7-term sums (13
+# each) and their two adds, against 13 for an exact apply; for each
+# (field, cell) and substep the 14 coefficients split (3 each), once for
+# the batch
+BF16_TAPS_OPS = 7 * 3
+BF16_APPLY_OPS = 3 * 13 + 2
+BF16_COEF_OPS = 14 * 3
+
+
 def years_work(plan, num: Numerics, n_years: int, members: int,
                kind: str, shared_corr: bool = False,
-               ranks: Optional[np.ndarray] = None, flags: int = 0):
+               ranks: Optional[np.ndarray] = None, flags: int = 0,
+               precision: Optional[str] = None):
     """(bytes, operations) a launch of ``kind`` ("fluxcorr": K4, one year;
     "scenario": K3) must move and compute at least for ``members`` members
     over ``n_years`` years, counted as ``year_kernel.year_work`` (packed
@@ -184,7 +207,10 @@ def years_work(plan, num: Numerics, n_years: int, members: int,
     per member and year: a year streams them step by step, and from one
     year to the next 40 MB a member (at 96x48) cannot stay on chip.  K3's
     shared table (``shared_corr``) counts once a year: members that step
-    together could all read one step's slice from L2."""
+    together could all read one step's slice from L2.  ``precision``
+    ("bf16_3x", "highest") counts the member-batched matmul circulation
+    (the member kernels given ``mxu``): at "highest" the fold's operations,
+    at "bf16_3x" the split's (BF16_*_OPS)."""
     scen = kind == "scenario"
     if not scen and (n_years != 1 or shared_corr):
         raise ValueError("a spin-up launch runs one year and writes a "
@@ -213,7 +239,34 @@ def years_work(plan, num: Numerics, n_years: int, members: int,
     # monthly means
     ops = yk.year_work(plan, num, scen, ranks, flags)[1] + (
         t * yx * 10 if scen else 0)
-    return 4 * words, members * n_years * ops
+    batch = 0
+    if precision == "bf16_3x":
+        sub = t * num.nsub_crcl * 2 * yx
+        ops += sub * (BF16_TAPS_OPS + 2 * (BF16_APPLY_OPS - 13))
+        batch = n_years * sub * BF16_COEF_OPS
+    return 4 * words, members * n_years * ops + batch
+
+
+def years_work_dense(plan, num: Numerics, n_years: int, members: int,
+                     kind: str, shared_corr: bool = False):
+    """(bytes, float32 operations, bfloat16 operations) of a launch of
+    ``kind`` in the matmul circulation at "bf16_3x" realised as greb_tpu's
+    ``_dot_b`` writes it: each substep's row dot three dense bfloat16
+    products (F*Y, M, X) @ (F*Y, X, 2X) on tensor cores (2 * 3 * F*Y * X *
+    2X operations a member), the rest in float32: the step body less the
+    fold's exact row dots (2 applies of 13 operations a field, cell and
+    substep), plus each member's split of x (3) and the sum of the three
+    products (2 a column, 4), and once a step for the batch the split of
+    the dense (X, 2X) row matrices (3 an entry).  Bytes as ``years_work``.
+    The bound of the bf16_3x form is the lesser of this realisation's and
+    ``years_work(..., precision="bf16_3x")``'s."""
+    nbytes, ops = years_work(plan, num, n_years, members, kind, shared_corr,
+                             precision="highest")
+    F, Y, X, t = 2, plan.ydim, plan.xdim, num.nstep_yr
+    sub = members * n_years * t * num.nsub_crcl * F * Y * X
+    f32 = (ops + sub * (3 + 4 - 2 * 13)
+           + n_years * t * F * Y * X * 2 * X * 3)
+    return nbytes, f32, sub * 2 * 3 * 2 * X
 
 
 # ---------------------------------------------------------------------------
@@ -278,10 +331,91 @@ def _member_data(row: np.ndarray, yd: yk.YearData) -> core.ModelData:
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+def _plain_fold(yd: yk.YearData, mxu):
+    """The fold tuple of the plain versions: the run's, or with ``mxu``
+    (an MxuMembers) the member kernels' matmul circulation in their own
+    order (``fastcirc2.MxuTwin``), made once per run and precision."""
+    if mxu is None:
+        return yd.fold
+    key = ("twin fold", mxu.precision)
+    if key not in yd.cache:
+        yd.cache[key] = tuple(yd.fold[:2]) + (fc2.MxuTwin(mxu.precision),)
+    return yd.cache[key]
+
+
+def _batched_member_data(ppack: torch.Tensor,
+                         yd: yk.YearData) -> core.ModelData:
+    """The model data of all M members at once, for the plain twin of the
+    matmul circulation's member kernels, which steps the members as one
+    batch: each physics parameter and heat capacity a (M, 1, 1) float32
+    tensor on the pack's device (p_emi (10, M, 1, 1)), made once per run
+    and pack."""
+    hit = yd.cache.get("batched md")
+    if hit is not None and hit[0] is ppack:
+        return hit[1]
+    col = lambda i: ppack[:, 0, i].reshape(-1, 1, 1).contiguous()
+    p = PhysicsParams(**{f: col(i) for i, f in enumerate(_SCALAR_FIELDS)},
+                      p_emi=torch.stack([col(_COL_P_EMI + k)
+                                         for k in range(10)]))
+    derived = dataclasses.replace(yd.md.derived, cap_ocean=col(_COL_CAPS),
+                                  cap_land=col(_COL_CAPS + 1),
+                                  cap_air=col(_COL_CAPS + 2))
+    md = dataclasses.replace(yd.md, params=p, derived=derived)
+    yd.cache["batched md"] = (ppack, md)
+    return md
+
+
+def _twin_fluxcorr(state5: torch.Tensor, ppack: torch.Tensor, co2,
+                   yd: yk.YearData, mxu):
+    """fluxcorr_years_plain's twin of the matmul circulation: the M members
+    as one batch (each member's arithmetic is the per-member step's)."""
+    s, c = core.run_year_fluxcorr(ModelState.unstack(state5), yd.sfx,
+                                  F32(co2), _batched_member_data(ppack, yd),
+                                  yd.num, _plain_fold(yd, mxu), yd.exp)
+    corr = torch.stack([c.tf, c.tof, c.qf], dim=2)       # (T, M, 3, Y, X)
+    return s.stack(), corr.transpose(0, 1).contiguous()
+
+
+def _twin_scenario(state5: torch.Tensor, ppack: torch.Tensor,
+                   corrpack: torch.Tensor, co2s: np.ndarray,
+                   yd: yk.YearData, mxu):
+    """scenario_years_plain's twin of the matmul circulation: the M members
+    as one batch, the monthly means and annual sums added as the per-member
+    loop adds them."""
+    num, dev = yd.num, state5.device
+    M, ny, nmon = state5.shape[1], len(co2s), len(num.jday_mon)
+    mon_idx, _ = month_maps(num)
+    _, w = _maps_on(yd, dev)
+    shape = tuple(state5.shape[2:])
+    md, fold = _batched_member_data(ppack, yd), _plain_fold(yd, mxu)
+    monthly = torch.empty((M, ny * nmon, core.N_OUT) + shape,
+                          dtype=torch.float32, device=dev)
+    asum = torch.empty((M, ny, yk.N_SUM) + shape, dtype=torch.float32,
+                       device=dev)
+    state = ModelState.unstack(state5)
+    for y, co2 in enumerate(co2s):
+        acc = torch.zeros((M, yk.N_SUM) + shape, dtype=torch.float32,
+                          device=dev)
+        for t in range(num.nstep_yr):
+            state, o = core.scenario_step(
+                state, yd.sfx.at(t), tuple(corrpack[:, t].unbind(1)), co2,
+                md, num, fold, yd.exp)
+            slot = monthly[:, y * nmon + mon_idx[t]]
+            if t == 0 or mon_idx[t - 1] != mon_idx[t]:
+                slot.zero_()
+            slot.copy_(slot + w[t] * torch.stack(o[:core.N_OUT], dim=1))
+            acc += torch.stack(o, dim=1)
+        asum[:, y] = acc
+    return state.stack(), monthly, asum
+
+
 def fluxcorr_years_plain(state5: torch.Tensor, ppack: torch.Tensor, co2,
-                         yd: yk.YearData):
+                         yd: yk.YearData, mxu=None):
     """One spin-up year per member: (state5 (5, M, Y, X), corr
-    (M, T, 3, Y, X))."""
+    (M, T, 3, Y, X)); with ``mxu`` the member kernels' matmul circulation
+    at its precision, all members as one batch (``_twin_fluxcorr``)."""
+    if mxu is not None:
+        return _twin_fluxcorr(state5, ppack, co2, yd, mxu)
     rows = _pack_np(ppack, yd)[:, 0]
     out, corrs = torch.empty_like(state5), []
     for m, row in enumerate(rows):
@@ -294,15 +428,20 @@ def fluxcorr_years_plain(state5: torch.Tensor, ppack: torch.Tensor, co2,
 
 
 def scenario_years_plain(state5: torch.Tensor, ppack: torch.Tensor,
-                         corrpack: torch.Tensor, co2_years, yd: yk.YearData):
+                         corrpack: torch.Tensor, co2_years, yd: yk.YearData,
+                         mxu=None):
     """``n_years`` scenario years per member: (state5, monthly
     (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X)).  Monthly
     means add w * fields step by step from 0 at each month's first step,
     and the annual sums add the 9 outputs from 0 at each year's start, as
-    the kernel does.  A (1, T, 3, Y, X) ``corrpack`` is every member's."""
+    the kernel does.  A (1, T, 3, Y, X) ``corrpack`` is every member's.
+    With ``mxu`` the member kernels' matmul circulation at its precision,
+    all members as one batch (``_twin_scenario``)."""
     num, dev = yd.num, state5.device
     shared = _shared_table(corrpack, state5, yd)
     co2s = np.asarray(torch.as_tensor(co2_years).cpu(), F32).reshape(-1)
+    if mxu is not None:
+        return _twin_scenario(state5, ppack, corrpack, co2s, yd, mxu)
     M, ny, nmon = state5.shape[1], len(co2s), len(num.jday_mon)
     mon_idx, _ = month_maps(num)
     _, w = _maps_on(yd, dev)
@@ -388,10 +527,15 @@ def _coeff_scratch(M: int, Y: int, X: int, dev: torch.device):
 # wrappers
 # ---------------------------------------------------------------------------
 def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
-                   yd: yk.YearData, cluster: Optional[int] = None):
+                   yd: yk.YearData, cluster: Optional[int] = None,
+                   mxu: Optional[fc2.MxuMembers] = None):
     """One spin-up year for each member: (state5 (5, M, Y, X), corr
     (M, T, 3, Y, X)).  On the card each member runs on a cluster of
-    ``cluster`` blocks (default: ``default_cluster``)."""
+    ``cluster`` blocks (default: ``default_cluster``); given ``mxu``, the
+    member-batched matmul circulation (``fluxcorr_years_mxu``)."""
+    if mxu is not None:
+        _check_members_cluster(cluster)
+        return fluxcorr_years_mxu(state5, ppack, co2, yd, mxu)
     M = _check(state5, ppack, yd, "fluxcorr")
     if cluster is not None:
         yk._check_cluster(cluster, "fluxcorr", yd.plan)
@@ -430,14 +574,20 @@ def fluxcorr_years(state5: torch.Tensor, ppack: torch.Tensor, co2,
 
 def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
                    corrpack: torch.Tensor, co2_years, yd: yk.YearData,
-                   cluster: Optional[int] = None):
+                   cluster: Optional[int] = None,
+                   mxu: Optional[fc2.MxuMembers] = None):
     """``n_years`` scenario years for each member, one CO2 value per year
     (an array, or a float32 tensor on the state's device): (state5,
     monthly (M, 12 * n_years, 5, Y, X), asum (M, n_years, 9, Y, X)).
     ``corrpack`` is a table per member (M, T, 3, Y, X) or one table for all
     (1, T, 3, Y, X).  On the card each member runs on a cluster of
     ``cluster`` blocks, or with ``cluster=1`` on one block (default:
-    ``default_cluster``)."""
+    ``default_cluster``); given ``mxu``, the member-batched matmul
+    circulation (``scenario_years_mxu``)."""
+    if mxu is not None:
+        _check_members_cluster(cluster)
+        return scenario_years_mxu(state5, ppack, corrpack, co2_years, yd,
+                                  mxu)
     M = _check(state5, ppack, yd, "scenario_years")
     shared = _shared_table(corrpack, state5, yd)
     if cluster is not None:
@@ -494,5 +644,224 @@ def scenario_years(state5: torch.Tensor, ppack: torch.Tensor,
     return state_out, monthly, asum
 
 
+# ---------------------------------------------------------------------------
+# the member-batched matmul circulation (csrc/members_kernel.cu)
+# ---------------------------------------------------------------------------
+# the cluster size of the member kernels' matmul circulation; the most
+# members a cluster (csrc/members_kernel.cu MAX_MB); the parts of a block's
+# shared memory in the kernel's layout order (MemberPart): shared by the
+# batch, then each member's; the most threads a block (MEMBER_NT)
+MEMBERS_CLUSTER = 16
+MAX_MB = 8
+MEMBER_PARTS = ("coeffs", "zd", "wz", "pcomp", "params", "state",
+                "transported", "asum", "monthly", "comp_rows",
+                "comp_partials")
+MEMBER_THREADS = 640
+# bytes of the kernel's GrebParams, a member's physics (rounded to 16)
+_PARAMS_BYTES = 128
+_KIND_CODE = {"fluxcorr": 0, "scenario_years": 2}   # enum Kind
+_PREC_CODE = {"highest": 0, "bf16_3x": 1}            # enum MxuPrecision
+
+
+def members_layout(plan, mb: int, kind: str,
+                   blocks: int = MEMBERS_CLUSTER) -> yk.ClusterLayout:
+    """The shared memory of each block of a ``blocks``-block cluster that
+    runs ``mb`` members of the member kernel of ``kind`` ("fluxcorr": K4,
+    "scenario_years": K3) in the matmul circulation (csrc/members_kernel.cu
+    ``members_parts``, the same reckoning): once for the batch, the step's
+    12 coefficient planes, the 7 zd planes, wz and the composite matrices of
+    the pole rows a block holds (``year_kernel.cluster_layout``'s parts);
+    for each member its physics, state, (Ta, q) double buffer with halo
+    rows, (K3) annual sums and month's means, composite rows and partial
+    sums.  ``threads``: one per (field, cell) of the block's rows, at most
+    MEMBER_THREADS.  Raises ValueError where ``mb`` is outside
+    1..MAX_MB, the cluster body has no layout (``cluster_layout``'s
+    checks) or a block needs more than MAX_SMEM_BYTES."""
+    if kind not in KINDS:
+        raise ValueError(f"kind {kind!r}: one of {KINDS}")
+    if not 1 <= mb <= MAX_MB:
+        raise ValueError(f"mb={mb}: the member kernels run 1..{MAX_MB} "
+                         f"members a cluster")
+    one = dict(yk._cluster_parts(plan, blocks, kind).parts)
+    per = ("state", "transported", "asum", "monthly", "comp_rows",
+           "comp_partials")
+    nbytes = dict(coeffs=one["coeffs"], zd=one["zd"], wz=one["wz"],
+                  pcomp=one["pcomp"], params=mb * _PARAMS_BYTES,
+                  **{n: mb * one[n] for n in per})
+    R, X = plan.ydim // blocks, plan.xdim
+    lay = yk.ClusterLayout(
+        blocks=blocks, rows=R, comp_rows=one["pcomp"] // (8 * X * X),
+        threads=min(MEMBER_THREADS, -(-2 * R * X // 32) * 32),
+        parts=tuple((n, nbytes[n]) for n in MEMBER_PARTS))
+    if lay.nbytes > yk.MAX_SMEM_BYTES:
+        raise ValueError(f"{kind}: {mb} members a cluster of {blocks} "
+                         f"blocks at {plan.xdim}x{plan.ydim} need "
+                         f"{lay.nbytes} B of shared memory a block, over "
+                         f"{yk.MAX_SMEM_BYTES} B")
+    return lay
+
+
+def default_mb(plan, kind: str) -> int:
+    """The most members a cluster that ``members_layout`` holds (96x48: K3
+    2, K4 4); ValueError where not even one fits."""
+    for mb in range(MAX_MB, 0, -1):
+        try:
+            members_layout(plan, mb, kind)
+            return mb
+        except ValueError:
+            continue
+    raise ValueError(f"{kind}: not one member of the matmul circulation "
+                     f"fits a block at {plan.xdim}x{plan.ydim}")
+
+
+def kernel_members_layout(plan, mb: int, kind: str):
+    """The kernel's own reckoning of a member block (csrc/members_kernel.cu
+    ``greb_members_layout``, built on first use): ({part: bytes}, threads),
+    for holding against ``members_layout``."""
+    lib = yk._members_lib()
+    parts = (ctypes.c_longlong * len(MEMBER_PARTS))()
+    total = lib.greb_members_layout(plan.ydim, plan.xdim, plan.comp_kt,
+                                    plan.comp_kb, MEMBERS_CLUSTER,
+                                    _KIND_CODE[kind], mb, parts)
+    if total <= 0:
+        raise ValueError(f"the kernel has no member layout for mb={mb}")
+    return (dict(zip(MEMBER_PARTS, parts)),
+            lib.greb_members_threads(plan.ydim, plan.xdim, MEMBERS_CLUSTER))
+
+
+def members_capacity(plan, mb: int, kind: str) -> int:
+    """How many clusters of the member kernel of ``kind`` with ``mb``
+    members the card runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = yk._members_lib()
+    n = ctypes.c_int()
+    err = lib.greb_members_capacity(plan.ydim, plan.xdim, plan.comp_kt,
+                                    plan.comp_kb, MEMBERS_CLUSTER,
+                                    _KIND_CODE[kind], mb, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"member cluster capacity, {kind}, mb={mb}: "
+                           f"{yk._lib().greb_error_string(err).decode()}")
+    return n.value
+
+
+def _check_members_cluster(cluster: Optional[int]) -> None:
+    if cluster not in (None, MEMBERS_CLUSTER):
+        raise ValueError(f"cluster={cluster}: the matmul circulation's "
+                         f"member kernels launch on clusters of "
+                         f"{MEMBERS_CLUSTER} blocks")
+
+
+def _check_mxu(mxu: fc2.MxuMembers, yd: yk.YearData, kind: str) -> int:
+    """Raise for what the member kernels of the matmul circulation do not
+    run (on CPU tensors too): a plan ``fastcirc2.members_covered`` refuses
+    or the refined instantiation runs (NotImplementedError, MXU_PLAN_ITEM),
+    a precision other than MEMBER_PRECISIONS, matrices that are not the
+    run's fold densified (``fastcirc2.build_mxu``; compared once per run
+    and object), a plan where not one member fits a block.  Returns the
+    members a cluster, ``default_mb``."""
+    yk.check_plan(yd.plan, kind, yd.flags)
+    if yd.transport != "fold":
+        raise NotImplementedError(
+            f"the matmul circulation moves Ta and q with the fold, not the "
+            f"{yd.transport} transport ({fc2.MXU_PLAN_ITEM})")
+    fc2.check_members_plan(yd.plan)
+    if yk.is_refined(yd.plan):
+        raise NotImplementedError(
+            f"the matmul circulation's member kernels run the cluster "
+            f"body's plans, not the refined instantiation's "
+            f"({fc2.MXU_PLAN_ITEM})")
+    if mxu.precision not in fc2.MEMBER_PRECISIONS:
+        raise ValueError(f"mxu precision {mxu.precision!r}: one of "
+                         f"{fc2.MEMBER_PRECISIONS}")
+    key = ("mxu", id(mxu))
+    if key not in yd.cache:
+        want = fc2.build_mxu(yd.fold[1], yd.plan, "highest")
+        dev = mxu.zd_mat.device
+        if not (torch.equal(mxu.zd_mat, want.zd_mat.to(dev))
+                and torch.equal(mxu.shift1h, want.shift1h.to(dev))):
+            raise ValueError("mxu: its matrices are not this run's fold "
+                             "densified (fastcirc2.build_mxu_members)")
+        yd.cache[key] = mxu        # holds it: no id is reused
+    return default_mb(yd.plan, kind)
+
+
+def _launch_mxu(fn_name: str, yd: yk.YearData, args: yk._Args,
+                params: yk._Params, dev: torch.device, mxu: fc2.MxuMembers,
+                mb: int) -> None:
+    yk._launch(fn_name, args, params, dev, _pack_cols(),
+               ctypes.c_int(_PREC_CODE[mxu.precision]),
+               ctypes.c_int(mb), ctypes.c_int(MEMBERS_CLUSTER))
+
+
+def fluxcorr_years_mxu(state5: torch.Tensor, ppack: torch.Tensor, co2,
+                       yd: yk.YearData, mxu: fc2.MxuMembers):
+    """``fluxcorr_years`` in the member-batched matmul circulation at
+    ``mxu.precision``: on the card ceil(M / mb) clusters of
+    MEMBERS_CLUSTER blocks, mb = ``default_mb`` members each (the last
+    cluster runs M mod mb members where mb does not divide M), in waves
+    past the card's capacity; on a CPU tensor the plain twin."""
+    M = _check(state5, ppack, yd, "fluxcorr")
+    mb = _check_mxu(mxu, yd, "fluxcorr")
+    dev = state5.device
+    if dev.type == "cpu":
+        return fluxcorr_years_plain(state5, ppack, co2, yd, mxu)
+    params = yk._params(yd, co2)
+    T, Y, X = yd.num.nstep_yr, state5.shape[2], state5.shape[3]
+    state_out = torch.empty_like(state5)
+    corr = torch.empty((M, T, 3, Y, X), dtype=torch.float32, device=dev)
+    args = yk._args(
+        yd, state5, ints=dict(M=M, corr_step=3 * Y * X, n_pack=N_PPACK),
+        state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
+        tf=(corr, None), ppack=(ppack, (M, 1, N_PPACK)))
+    args.tof = args.tf + 4 * Y * X
+    args.qf = args.tf + 8 * Y * X
+    _launch_mxu("greb_fluxcorr_years_mxu", yd, args, params, dev, mxu, mb)
+    fluxcorr_years_mxu.launches += 1
+    return state_out, corr
+
+
+def scenario_years_mxu(state5: torch.Tensor, ppack: torch.Tensor,
+                       corrpack: torch.Tensor, co2_years, yd: yk.YearData,
+                       mxu: fc2.MxuMembers):
+    """``scenario_years`` in the member-batched matmul circulation at
+    ``mxu.precision``: on the card ceil(M / mb) clusters of
+    MEMBERS_CLUSTER blocks, mb = ``default_mb`` members each (the last
+    cluster runs M mod mb members where mb does not divide M), in waves
+    past the card's capacity; on a CPU tensor the plain twin."""
+    M = _check(state5, ppack, yd, "scenario_years")
+    shared = _shared_table(corrpack, state5, yd)
+    mb = _check_mxu(mxu, yd, "scenario_years")
+    dev = state5.device
+    if dev.type == "cpu":
+        return scenario_years_plain(state5, ppack, corrpack, co2_years, yd,
+                                    mxu)
+    params = yk._params(yd, 0.0)    # each year's CO2 comes from the table
+    num = yd.num
+    T, Y, X, nmon = num.nstep_yr, state5.shape[2], state5.shape[3], \
+        len(num.jday_mon)
+    co2t = torch.as_tensor(co2_years, dtype=torch.float32, device=dev)
+    ny = co2t.numel()
+    state_out = torch.empty_like(state5)
+    monthly = torch.empty((M, ny * nmon, core.N_OUT, Y, X),
+                          dtype=torch.float32, device=dev)
+    asum = torch.empty((M, ny, yk.N_SUM, Y, X), dtype=torch.float32,
+                       device=dev)
+    mon, w = _maps_on(yd, dev)
+    args = yk._args(
+        yd, state5,
+        ints=dict(M=M, n_years=ny, corr_step=3 * Y * X,
+                  corr_shared=int(shared), n_pack=N_PPACK),
+        state_in=(state5, (5, M, Y, X)), state_out=(state_out, None),
+        tf=(corrpack, None), ppack=(ppack, (M, 1, N_PPACK)),
+        co2_years=(co2t, (ny,)), mon=(mon, (T,), torch.int32),
+        mon_w=(w, (T,)), monthly=(monthly, None), asum=(asum, None))
+    args.tof = args.tf + 4 * Y * X
+    args.qf = args.tf + 8 * Y * X
+    _launch_mxu("greb_scenario_years_mxu", yd, args, params, dev, mxu, mb)
+    scenario_years_mxu.launches += 1
+    return state_out, monthly, asum
+
+
 fluxcorr_years.launches = 0
 scenario_years.launches = 0
+fluxcorr_years_mxu.launches = 0
+scenario_years_mxu.launches = 0

@@ -1031,7 +1031,7 @@ def kernel_entry(kernel: str, plan, flags: int) -> str:
                                                        g.groups)
         suffixes = STRICT_WIDE_SUFFIXES
     else:
-        got = _lib().greb_refined_pick(flags, g.form, g.groups)
+        got = _refined_lib().greb_refined_pick(flags, g.form, g.groups)
         suffixes = REFINED_SUFFIXES
     if got < 0:
         raise ValueError(f"{kernel}: the launcher runs no kernel for flags "
@@ -1100,24 +1100,8 @@ def _lib():
     for fn in (lib.greb_fluxcorr_year, lib.greb_scenario_year):
         fn.argtypes = [_Args, _Params, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for fn in (lib.greb_fluxcorr_year_refined,
-               lib.greb_scenario_year_refined):
-        fn.argtypes = [_Args, _Params, _Refined, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.greb_refined_layout.argtypes = [ctypes.c_int] * 5 + [
-        _Refined, ctypes.POINTER(ctypes.c_longlong)]
-    lib.greb_refined_layout.restype = ctypes.c_longlong
-    lib.greb_refined_capacity.argtypes = [ctypes.c_int] * 6 + [
-        _Refined, ctypes.POINTER(ctypes.c_int)]
-    lib.greb_refined_capacity.restype = ctypes.c_int
     for fn in (lib.greb_fluxcorr_years, lib.greb_scenario_years):
         fn.argtypes = [_Args, _Params, _PackCols, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for fn in (lib.greb_fluxcorr_years_refined,
-               lib.greb_scenario_years_refined):
-        fn.argtypes = [_Args, _Params, _PackCols, _Refined, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.greb_cluster_layout.argtypes = [ctypes.c_int] * 7 + [
@@ -1126,12 +1110,36 @@ def _lib():
     lib.greb_cluster_capacity.argtypes = [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.greb_cluster_capacity.restype = ctypes.c_int
-    lib.greb_refined_pick.argtypes = [ctypes.c_int] * 3
-    lib.greb_refined_pick.restype = ctypes.c_int
     lib.greb_cluster_threads.argtypes = [ctypes.c_int] * 3
     lib.greb_cluster_threads.restype = ctypes.c_int
     lib.greb_error_string.argtypes = [ctypes.c_int]
     lib.greb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _refined_lib():
+    """csrc/refined_kernel.cu's library (the refined instantiation's
+    entries, ``refined_launcher``), built on first use."""
+    from . import build
+    lib = build.load("refined_kernel")
+    for fn in (lib.greb_fluxcorr_year_refined,
+               lib.greb_scenario_year_refined):
+        fn.argtypes = [_Args, _Params, _Refined, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.greb_fluxcorr_years_refined,
+               lib.greb_scenario_years_refined):
+        fn.argtypes = [_Args, _Params, _PackCols, _Refined, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.greb_refined_layout.argtypes = [ctypes.c_int] * 5 + [
+        _Refined, ctypes.POINTER(ctypes.c_longlong)]
+    lib.greb_refined_layout.restype = ctypes.c_longlong
+    lib.greb_refined_capacity.argtypes = [ctypes.c_int] * 6 + [
+        _Refined, ctypes.POINTER(ctypes.c_int)]
+    lib.greb_refined_capacity.restype = ctypes.c_int
+    lib.greb_refined_pick.argtypes = [ctypes.c_int] * 3
+    lib.greb_refined_pick.restype = ctypes.c_int
     return lib
 
 
@@ -1178,6 +1186,28 @@ def _strict_wide_lib():
     return lib
 
 
+def _members_lib():
+    """csrc/members_kernel.cu's library (the member kernels' matmul
+    circulation, ops/cuda/multiyear.py), built on first use."""
+    from . import build
+    lib = build.load("members_kernel")
+    for fn in (lib.greb_fluxcorr_years_mxu, lib.greb_scenario_years_mxu):
+        fn.argtypes = [_Args, _Params, _PackCols] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.greb_members_layout.argtypes = [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.greb_members_layout.restype = ctypes.c_longlong
+    lib.greb_members_capacity.argtypes = [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.greb_members_capacity.restype = ctypes.c_int
+    lib.greb_members_threads.argtypes = [ctypes.c_int] * 3
+    lib.greb_members_threads.restype = ctypes.c_int
+    lib.greb_members_pick.argtypes = [ctypes.c_int] * 2
+    lib.greb_members_pick.restype = ctypes.c_int
+    return lib
+
+
 def kernel_cluster_layout(plan, blocks: int, kind: str):
     """The kernel's own reckoning of a cluster block (csrc/year_kernel.cu
     ``greb_cluster_layout``, built on first use): ({part: bytes}, threads),
@@ -1191,7 +1221,7 @@ def kernel_cluster_layout(plan, blocks: int, kind: str):
                  else REFINED_PARTS)
         parts = (ctypes.c_longlong * len(names))()
         g = _refined_struct(plan)
-        total = lib.greb_refined_layout(plan.ydim, plan.xdim, plan.comp_kt,
+        total = _refined_lib().greb_refined_layout(plan.ydim, plan.xdim, plan.comp_kt,
                                         plan.comp_kb, blocks, g, parts)
         if total <= 0:
             raise ValueError(f"the kernel has no refined layout for {blocks} "
@@ -1225,7 +1255,7 @@ def cluster_capacity(plan, blocks: int, kind: str) -> int:
     elif is_refined(plan):
         capacity = (_band_lib().greb_band_capacity
                     if refined_form(plan) in BAND_FORMS
-                    else lib.greb_refined_capacity)
+                    else _refined_lib().greb_refined_capacity)
         err = capacity(plan.ydim, plan.xdim, plan.comp_kt, plan.comp_kb,
                        blocks, KINDS.index(kind), _refined_struct(plan),
                        ctypes.byref(n))
@@ -1419,7 +1449,8 @@ def _launch_year(fn_name: str, yd: YearData, state5: torch.Tensor,
 def _launch(fn_name: str, args: _Args, params: _Params, dev: torch.device,
             *extra) -> None:
     lib = _lib()
-    own = {"_band": _band_lib, "_strict_wide": _strict_wide_lib}
+    own = {"_refined": _refined_lib, "_band": _band_lib,
+           "_strict_wide": _strict_wide_lib, "_mxu": _members_lib}
     fn = getattr(next((load() for end, load in own.items()
                        if fn_name.endswith(end)), lib), fn_name)
     with torch.cuda.device(dev):

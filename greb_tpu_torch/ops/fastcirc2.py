@@ -323,17 +323,40 @@ def build_const(wz_air: np.ndarray, wz_vapor: np.ndarray, grid: Grid,
 # ---------------------------------------------------------------------------
 # apply (eager PyTorch)
 # ---------------------------------------------------------------------------
-def _apply7_rolled(rolls, x, coef):
-    """sum_s coef[s] * roll(x, s) with the 6 rolls shared, summed as the
-    JAX package's balanced tree: ((c*x + m3) + (m2 + m1)) + ((p1 + p2) + p3)."""
-    terms = [coef[3] * x] + [coef[i] * r
-                             for (i, _), r in zip(_LON_IDX_SHIFT, rolls)]
+def _tree(terms):
+    """The sum of the 7 terms [c, m3, m2, m1, p1, p2, p3] as the JAX
+    package's balanced tree: ((c + m3) + (m2 + m1)) + ((p1 + p2) + p3)."""
     while len(terms) > 1:
         nxt = [terms[k] + terms[k + 1] for k in range(0, len(terms) - 1, 2)]
         if len(terms) % 2:
             nxt.append(terms[-1])
         terms = nxt
     return terms[0]
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest, ties to even), as float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _apply7_rolled(rolls, x, coef, precision: str = "highest"):
+    """sum_s coef[s] * roll(x, s) with the 6 rolls shared, summed in
+    ``_tree``'s order.  ``precision="bf16_3x"``: the member kernels'
+    matmul circulation (``MxuTwin``), each product split as ``_dot_b``
+    splits it, hi*hi, hi*lo and lo*hi of bfloat16 parts (each exact in
+    float32), the three sums added in _dot_b's order."""
+    coefs = [coef[3]] + [coef[i] for i, _ in _LON_IDX_SHIFT]
+    taps = [x] + list(rolls)
+    if precision == "highest":
+        return _tree([c * t for c, t in zip(coefs, taps)])
+    th = [_bf16(t) for t in taps]
+    tl = [_bf16(t - h) for t, h in zip(taps, th)]
+    ch = [_bf16(c) for c in coefs]
+    cl = [_bf16(c - h) for c, h in zip(coefs, ch)]
+    hh = _tree([a * b for a, b in zip(th, ch)])
+    hl = _tree([a * b for a, b in zip(th, cl)])
+    lh = _tree([a * b for a, b in zip(tl, ch)])
+    return (hh + hl) + lh
 
 
 def _masked_clamp(d, x, band):
@@ -415,10 +438,13 @@ def _packed_comp(x, dd, const: Fast2Const, plan: FastPlan):
                       dcomp[..., ktc:, :]], dim=-2)
 
 
-def _extra_diffusion(x, dd, const: Fast2Const, plan: FastPlan):
+def _extra_diffusion(x, dd, const: Fast2Const, plan: FastPlan,
+                     row_dot=None):
     """Extra sub-cycle iterations for rows with diffusion time2 > 1: the
     explicit prefix/suffix segments (past the composite rows), then the
-    composite rows.  Returns the updated full-field dd."""
+    composite rows, whose dense products take ``row_dot`` (default
+    ``_row_dot``'s blocked order).  Returns the updated full-field dd."""
+    row_dot = row_dot or _row_dot
     Y = plan.ydim
     ktc, kbc = plan.comp_kt, plan.comp_kb
 
@@ -444,7 +470,7 @@ def _extra_diffusion(x, dd, const: Fast2Const, plan: FastPlan):
     def comp_rows(r0, n, k0):
         """Composite rows [r0, r0+n) of every field at once."""
         t1 = x[..., r0:r0 + n, :] + dd[..., r0:r0 + n, :]   # (..., F, n, X)
-        t2 = _row_dot(t1, const.pcomp[:, k0:k0 + n])
+        t2 = row_dot(t1, const.pcomp[:, k0:k0 + n])
         t1 = t1 + v1._clamped(t2 - t1, t1)
         return t1 - x[..., r0:r0 + n, :]
 
@@ -479,16 +505,19 @@ def extend_lat_zero(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def substep(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
-            plan: FastPlan, extend=extend_lat_zero) -> torch.Tensor:
+            plan: FastPlan, extend=extend_lat_zero,
+            precision: str = "highest") -> torch.Tensor:
     """One dt_crcl circulation substep on the (..., F, Y, X) stacked field.
     ``extend(x, 2)`` gives the meridional halo: zeros past the poles, or a
-    shard's neighbour rows (parallel/halo.py)."""
+    shard's neighbour rows (parallel/halo.py).  ``precision`` of the two
+    zonal applies (``_apply7_rolled``): "highest" the fold's exact float32,
+    "bf16_3x" the split of the member kernels' matmul circulation."""
     Y = x.shape[-2]
     rolls = [torch.roll(x, s, dims=-1) for _, s in _LON_IDX_SHIFT]
     band = const.band
 
     # zonal diffusion (clamped on band rows), then extra iterations
-    dd = _apply7_rolled(rolls, x, const.zd)
+    dd = _apply7_rolled(rolls, x, const.zd, precision)
     dd = _masked_clamp(dd, x, band)
     dd = _extra_diffusion(x, dd, const, plan)
 
@@ -499,7 +528,7 @@ def substep(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
         rolls_a = [torch.roll(xa, s, dims=-1) for _, s in _LON_IDX_SHIFT]
     else:
         xa, rolls_a = x, rolls
-    da = _apply7_rolled(rolls_a, xa, cf.za)
+    da = _apply7_rolled(rolls_a, xa, cf.za, precision)
     da = _masked_clamp(da, xa, band)
     da = _extra_advection(xa, da, cf, plan)
 
@@ -518,13 +547,298 @@ def substep(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
 
 
 def circulation(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
-                plan: FastPlan, nsub: int,
-                extend=extend_lat_zero) -> torch.Tensor:
-    """Sub-cycled circulation increment over one 12-h step."""
+                plan: FastPlan, nsub: int, extend=extend_lat_zero,
+                precision: str = "highest") -> torch.Tensor:
+    """Sub-cycled circulation increment over one 12-h step (``precision``:
+    ``substep``'s)."""
     xc = x
     for _ in range(nsub):
-        xc = substep(xc, cf, const, plan, extend)
+        xc = substep(xc, cf, const, plan, extend, precision)
     return xc - x
+
+
+# ---------------------------------------------------------------------------
+# the matmul ("MXU") circulation (``greb_tpu.ops.fastcirc2`` MxuConst,
+# build_mxu, adv_matrix, _row_matmul, mxu_substep_stacked, mxu_circulation;
+# MxuMembers, build_mxu_members, _dot_b, mxu_members_circulation)
+# ---------------------------------------------------------------------------
+# Each zonal apply is a row vector times an (X, X) banded matrix that the
+# members share: build_mxu densifies the 7 diffusion coefficients of each
+# (field, row), adv_matrix a step's 7 advection coefficients, exactly (each
+# output column has 7 non-zero entries, the rest exact zeros).  The two
+# forms here are the plain PyTorch versions of greb_tpu's, with its
+# library products (torch.bmm / torch.matmul in float32, TF32 off).
+# Precision: greb_tpu's "high" is XLA's Precision.HIGH, bf16_3x on the TPU
+# and exact float32 on XLA:CPU; the port gives it the one meaning greb_tpu
+# documents, the explicit 3-pass bfloat16 split of _dot_b, on every
+# device; "highest" is exact float32.  greb_tpu's "pair" and "fused" modes
+# are not ported (MXU_NOT_PORTED), nor the pair form that mxu_circulation
+# takes for sequential zonal splitting, nor the member form at plans with
+# explicit segments or without dense composites (MXU_PLAN_ITEM).
+#
+# The member kernels (ops/cuda/multiyear.py, csrc/members_kernel.cu) run
+# mxu_members_circulation's function with the dense dot evaluated over its
+# 7 non-zero terms a column, from the fold's zd and the step's za, summed
+# in the fold's balanced order (``_tree``), at "bf16_3x" each term split
+# as _dot_b splits it.  Their plain twin is ``circulation(...,
+# precision=...)``, reached through a fold tuple whose third element is an
+# ``MxuTwin``.
+
+# where what is not ported is queued
+MXU_NOT_PORTED = "ROADMAP Queue 1, 'Not to port'"
+MXU_PLAN_ITEM = "ROADMAP Queue 1 item 4b"
+MXU_MODES = ("stacked",)
+MXU_PRECISIONS = ("high", "highest")
+MEMBER_PRECISIONS = ("bf16_3x", "highest")
+
+
+@dataclass
+class MxuConst:
+    """Constants of the matmul circulation (greb_tpu's MxuConst): the dense
+    zonal-diffusion row matrices and the one-hot shift tensors that densify
+    a step's advection coefficients."""
+    zd_mat: torch.Tensor     # (F, Y, X, X)
+    shift1h: torch.Tensor    # (7, X, X)
+    precision: str = "high"  # "high": bf16_3x (_dot_b); "highest": exact
+    mode: str = "stacked"    # one (X, 2X) product a substep
+
+
+def build_mxu(const: Fast2Const, plan: FastPlan, precision: str = "high",
+              mode: str = "stacked") -> MxuConst:
+    """The dense row matrices of the fold's zd and the shift tensors, on
+    zd's device.  ``mode`` "pair" and "fused" raise NotImplementedError
+    (MXU_NOT_PORTED): greb_tpu's default is "pair", the port's the one
+    mode it runs."""
+    if precision not in MXU_PRECISIONS:
+        raise ValueError(f"precision {precision!r}: one of {MXU_PRECISIONS}")
+    if mode not in MXU_MODES:
+        raise NotImplementedError(
+            f"build_mxu mode={mode!r}: the port runs mode 'stacked' only "
+            f"({MXU_NOT_PORTED})")
+    zd = const.zd.detach().cpu().numpy()            # (7, F, Y, X)
+    _, F, Y, X = zd.shape
+    jout = np.arange(X)
+    zmat = np.zeros((F, Y, X, X), np.float32)
+    zmat[:, :, jout, jout] = zd[3]
+    for i, s in _LON_IDX_SHIFT:
+        zmat[:, :, (jout - s) % X, jout] += zd[i]
+    sh = np.zeros((7, X, X), np.float32)
+    sh[3, jout, jout] = 1.0
+    for i, s in _LON_IDX_SHIFT:
+        sh[i, (jout - s) % X, jout] = 1.0
+    dev = const.zd.device
+    return MxuConst(zd_mat=torch.as_tensor(zmat, device=dev),
+                    shift1h=torch.as_tensor(sh, device=dev),
+                    precision=precision, mode=mode)
+
+
+def adv_matrix(za: torch.Tensor, mxu) -> torch.Tensor:
+    """One step's advection coefficients (7, F, Y, X) densified into
+    (F, Y, X, X) row matrices through the one-hot shift tensors: each entry
+    is one coefficient plus exact zeros, so the sum is exact."""
+    out = None
+    for s in range(7):
+        term = za[s][:, :, None, :] * mxu.shift1h[s]
+        out = term if out is None else out + term
+    return out
+
+
+def _dot_b(x: torch.Tensor, mat: torch.Tensor, precision: str) -> torch.Tensor:
+    """(B, M, X) x (B, X, Z) batched over B.  "bf16_3x": the 3-pass
+    bfloat16 split, hi@hi + hi@lo + lo@hi, each product of two bfloat16
+    values exact in float32, summed by the float32 library product;
+    "highest": one exact float32 product."""
+    if precision == "bf16_3x":
+        xh = _bf16(x)
+        xl = _bf16(x - xh)
+        mh = _bf16(mat)
+        ml = _bf16(mat - mh)
+        return (torch.bmm(xh, mh) + torch.bmm(xh, ml)) + torch.bmm(xl, mh)
+    if precision != "highest":
+        raise ValueError(f"precision {precision!r}: one of "
+                         f"{MEMBER_PRECISIONS}")
+    return torch.bmm(x, mat)
+
+
+def _row_matmul(x: torch.Tensor, mat: torch.Tensor,
+                precision: str = "high") -> torch.Tensor:
+    """(..., F, Y, X) x (F, Y, X, Z) batched over the (F, Y) rows: "high"
+    through _dot_b's bf16_3x split, "highest" exact float32."""
+    F, Y, X = x.shape[-3:]
+    lead = x.shape[:-3]
+    xb = x.reshape((-1, F * Y, X)).transpose(0, 1)          # (FY, L, X)
+    out = _dot_b(xb, mat.reshape(F * Y, X, -1),
+                 "bf16_3x" if precision == "high" else precision)
+    return out.transpose(0, 1).reshape(lead + (F, Y, out.shape[-1]))
+
+
+def _meridional(x: torch.Tensor, cf: Fast2Coeffs) -> torch.Tensor:
+    """The merged meridional step of the (..., F, Y, X) field, zeros past
+    the poles, summed in sequence."""
+    Y = x.shape[-2]
+    xe = extend_lat_zero(x, 2)
+    dy = cf.c0m * x
+    dy = dy + cf.mc[0] * xe[..., 0:Y, :]
+    dy = dy + cf.mc[1] * xe[..., 1:Y + 1, :]
+    dy = dy + cf.mc[2] * xe[..., 3:Y + 3, :]
+    dy = dy + cf.mc[3] * xe[..., 4:Y + 4, :]
+    return dy
+
+
+def _library_row_dot(t_row: torch.Tensor, pmat: torch.Tensor) -> torch.Tensor:
+    """(..., F, n, X) x (F, n, X, Z): each (field, row)'s (L, X) x (X, Z)
+    float32 library product, as greb_tpu's _row_dot (jnp.dot at HIGHEST)."""
+    F, n, X = t_row.shape[-3:]
+    lead = t_row.shape[:-3]
+    rows = [[torch.matmul(t_row[..., f, j, :].reshape(-1, X), pmat[f, j])
+             for j in range(n)] for f in range(F)]
+    out = torch.stack([torch.stack(r, dim=-2) for r in rows], dim=-3)
+    return out.reshape(lead + (F, n, pmat.shape[-1]))
+
+
+def mxu_substep_stacked(x: torch.Tensor, cf: Fast2Coeffs,
+                        dz_mat: torch.Tensor, const: Fast2Const,
+                        mxu: MxuConst, plan: FastPlan) -> torch.Tensor:
+    """One substep with both zonal applies in one (X, 2X)-output product
+    (out[..., :X] diffusion, [..., X:] advection), then the clamps, the
+    composite rows and segments, the meridional step and the combine."""
+    X = x.shape[-1]
+    both = _row_matmul(x, dz_mat, mxu.precision)
+    dd = _masked_clamp(both[..., :X], x, const.band)
+    dd = _extra_diffusion(x, dd, const, plan, _library_row_dot)
+    da = _masked_clamp(both[..., X:], x, const.band)
+    da = _extra_advection(x, da, cf, plan)
+    return x + const.wz * dd + da + _meridional(x, cf)
+
+
+def mxu_circulation(x: torch.Tensor, cf: Fast2Coeffs, const: Fast2Const,
+                    mxu: MxuConst, plan: FastPlan,
+                    nsub: int) -> torch.Tensor:
+    """Sub-cycled circulation increment, matmul form (greb_tpu's
+    mxu_circulation in mode "stacked").  A plan with sequential zonal
+    splitting, which greb_tpu runs in the pair form, raises
+    NotImplementedError (MXU_PLAN_ITEM)."""
+    if plan.seq_zonal:
+        raise NotImplementedError(
+            f"mxu_circulation: sequential zonal splitting takes greb_tpu's "
+            f"pair form, not ported ({MXU_PLAN_ITEM})")
+    if mxu.mode not in MXU_MODES:
+        raise NotImplementedError(f"mxu_circulation mode={mxu.mode!r} "
+                                  f"({MXU_NOT_PORTED})")
+    dz_mat = torch.cat([mxu.zd_mat, adv_matrix(cf.za, mxu)], dim=-1)
+    xc = x
+    for _ in range(nsub):
+        xc = mxu_substep_stacked(xc, cf, dz_mat, const, mxu, plan)
+    return xc - x
+
+
+@dataclass
+class MxuMembers:
+    """Constants of the member-batched matmul circulation (greb_tpu's
+    MxuMembers): build_mxu's matrices and the precision, "bf16_3x" or
+    "highest"."""
+    zd_mat: torch.Tensor     # (F, Y, X, X)
+    shift1h: torch.Tensor    # (7, X, X)
+    precision: str = "bf16_3x"
+
+
+@dataclass(frozen=True)
+class MxuTwin:
+    """The third element of a fold tuple that runs the member kernels'
+    matmul circulation in their own order (``circulation`` at
+    ``precision``): their plain twin."""
+    precision: str = "bf16_3x"
+
+
+def members_covered(plan) -> bool:
+    """Whether the member-batched matmul circulation runs ``plan``: a fold
+    with no explicit segments, dense composites and additive splitting
+    (greb_tpu's asserts, fastcirc2.py:792-794: its 96x48-class plans)."""
+    return (isinstance(plan, FastPlan) and plan.diff_segs == ()
+            and plan.adv_segs == () and plan.comp_mode == "dense"
+            and not plan.seq_zonal)
+
+
+def check_members_plan(plan) -> None:
+    """NotImplementedError where ``members_covered`` does not hold."""
+    if not members_covered(plan):
+        what = (f"segments {plan.diff_segs}, {plan.adv_segs}, composites "
+                f"{plan.comp_mode!r}, seq_zonal {plan.seq_zonal}"
+                if isinstance(plan, FastPlan) else "no fold")
+        raise NotImplementedError(
+            f"the member-batched matmul circulation runs segment-free plans "
+            f"with dense composites and additive splitting, not this one "
+            f"({what}; {MXU_PLAN_ITEM})")
+
+
+def build_mxu_members(const: Fast2Const, plan: FastPlan,
+                      precision: str = "bf16_3x") -> MxuMembers:
+    if precision not in MEMBER_PRECISIONS:
+        raise ValueError(f"precision {precision!r}: one of "
+                         f"{MEMBER_PRECISIONS}")
+    base = build_mxu(const, plan, precision="highest")
+    return MxuMembers(zd_mat=base.zd_mat, shift1h=base.shift1h,
+                      precision=precision)
+
+
+def mxu_members_circulation(x2: torch.Tensor, cf: Fast2Coeffs,
+                            const: Fast2Const, mm: MxuMembers,
+                            plan: FastPlan, nsub: int) -> torch.Tensor:
+    """Sub-cycled circulation increment of (..., F, Y, X) members (the
+    leading axes are the batch MB), greb_tpu's member-batched form: the
+    state as (F*Y, MB, X) rows, one (FY, MB, X) @ (FY, X, 2X) product a
+    substep (_dot_b at ``mm.precision``), the band clamps, the dense pole
+    composites as exact float32 row products, the meridional step and the
+    combine.  Raises NotImplementedError where ``members_covered`` does not
+    hold (greb_tpu asserts)."""
+    check_members_plan(plan)
+    Fd, Y, X = x2.shape[-3:]
+    lead = x2.shape[:-3]
+    MB = int(np.prod(lead)) if lead else 1
+    za_mat = adv_matrix(cf.za, mm)
+    dzr = torch.cat([mm.zd_mat, za_mat], dim=-1).reshape(Fd * Y, X, 2 * X)
+    band_m = const.band.repeat(Fd, 1)[..., None]             # (FY, 1, 1)
+    wz_m = const.wz.reshape(Fd * Y, 1, X)
+    c0m_m = cf.c0m[:, :, None, :]                            # (F, Y, 1, X)
+    mc_m = cf.mc[:, :, :, None, :]                           # (4, F, Y, 1, X)
+    kt, kb = plan.comp_kt, plan.comp_kb
+    neg = F32(-0.9)
+
+    def substep(xf):                                         # (FY, MB, X)
+        both = _dot_b(xf, dzr, mm.precision)
+        dd = torch.where(band_m & (both[..., :X] <= -xf), neg * xf,
+                         both[..., :X])
+        segs = []
+        for f in range(Fd):
+            base = f * Y
+
+            def comp_one(r, k):
+                t1 = xf[base + r] + dd[base + r]             # (MB, X)
+                t2 = torch.matmul(t1, const.pcomp[f, k])
+                t1 = t1 + v1._clamped(t2 - t1, t1)
+                return (t1 - xf[base + r])[None]
+
+            segs += [comp_one(r, r) for r in range(kt)]
+            segs.append(dd[base + kt:base + Y - kb])
+            segs += [comp_one(Y - kb + j, kt + j) for j in range(kb)]
+        dd = torch.cat(segs, dim=0)
+        da = torch.where(band_m & (both[..., X:] <= -xf), neg * xf,
+                         both[..., X:])
+        xr = xf.reshape(Fd, Y, MB, X)
+        xe = tnf.pad(xr, (0, 0, 0, 0, 2, 2))
+        dy = c0m_m * xr
+        dy = dy + mc_m[0] * xe[:, 0:Y]
+        dy = dy + mc_m[1] * xe[:, 1:Y + 1]
+        dy = dy + mc_m[2] * xe[:, 3:Y + 3]
+        dy = dy + mc_m[3] * xe[:, 4:Y + 4]
+        return xf + wz_m * dd + da + dy.reshape(Fd * Y, MB, X)
+
+    x = x2.reshape(MB, Fd, Y, X).permute(1, 2, 0, 3).reshape(Fd * Y, MB, X)
+    xc = x
+    for _ in range(nsub):
+        xc = substep(xc)
+    d = (xc - x).reshape(Fd, Y, MB, X).permute(2, 0, 1, 3)
+    return d.reshape(lead + (Fd, Y, X))
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,10 @@ LINEAR_VAPOR_LW_C = F32(0.022 / (0.15 * 24.0))
 def div(a: torch.Tensor, s) -> torch.Tensor:
     """a / s for a scalar s, as true float32 division on every device.
     PyTorch's CUDA division by a host scalar multiplies by the reciprocal
-    instead (one ulp off); the JAX package and the year kernels divide."""
+    instead (one ulp off); the JAX package and the year kernels divide.  A
+    tensor s (a parameter of each member, (M, 1, 1)) divides as it is."""
+    if isinstance(s, torch.Tensor):
+        return a / s
     return a / torch.full((), s, dtype=a.dtype, device=a.device)
 
 
@@ -53,7 +56,7 @@ def shortwave(ts, cld_t, sw_solar_t, z_topo, glacier,
                          ramp(p.To_ice1, p.To_ice2))
     a_surf = torch.where(glacier > 0.5, p.a_no_ice + p.da_ice, a_surf)
     if exp.fixed_albedo:  # legacy log_exp <= 5 (greb.original.model.f90:394)
-        a_surf = torch.full_like(a_surf, p.a_no_ice)
+        a_surf = torch.zeros_like(a_surf) + p.a_no_ice
     albedo = a_surf + a_atmos - a_surf * a_atmos
     col = (sw_solar_t if sw_solar_t.ndim and sw_solar_t.shape[-1] == 1
            else sw_solar_t[..., :, None])
@@ -90,7 +93,7 @@ def longwave(ts, ta, q, co2, cld_t, tclim_t, qclim_t, wz_air,
           + pe[5] * torch.log(pe[1] * e_vapor + pe[2]))
     em = div(pe[7] - e_cloud, pe[8]) * (em - pe[9]) + pe[9]
     if exp.linear_vapor_lw:  # legacy log_exp == 11 (:430)
-        em = em + F32(LINEAR_VAPOR_LW_C * p.r_qviwv) * (q - qclim_t)
+        em = em + (LINEAR_VAPOR_LW_C * p.r_qviwv) * (q - qclim_t)
 
     dtrad_t = F32(-0.16) * tclim_t - 5.0
     lw_surf = -p.sig * _pow4(ts)
@@ -182,7 +185,8 @@ def deep_ocean(ts, to, mld_t, mld_tm1, z_topo, dt, d: Derived,
     dto = p.c_effmix * dto
     dt_ocean = p.c_effmix * dt_ocean
 
-    tx = torch.clamp(ts, min=float(p.To_ice2))
+    tx = (torch.maximum(ts, p.To_ice2) if isinstance(p.To_ice2, torch.Tensor)
+          else torch.clamp(ts, min=float(p.To_ice2)))
     dto = dto + dt * p.co_turb * (tx - to) / (d.cap_ocean * safe_below)
     dt_ocean = dt_ocean + dt * p.co_turb * (to - tx) / (d.cap_ocean * safe_mld)
     return DeepOceanResult(dt_ocean=dt_ocean, dto=dto)

@@ -485,9 +485,9 @@ def test_strict_refined_layout_matches_the_kernel(kind):
 
 def test_refined_launchers_pick_the_named_kernel(refined_model):
     """For every log_exp word (and the strict circulation's) in each form,
-    the launchers' pick (csrc/year_kernel.cu refined_pick) is the kernel
+    the launchers' pick (csrc/refined_kernel.cu refined_pick) is the kernel
     ``refined_entry`` names, or none where it raises."""
-    lib = yk._lib()
+    lib = yk._refined_lib()
     plans = (refined_model.fold[0], fc.make_plan(make_grid(192, 96, 1800)),
              yk.StrictPlan(REFINED.ydim, REFINED.xdim, seq_zonal=True),
              dataclasses.replace(refined_model.fold[0], ydim=384, xdim=768))
@@ -536,7 +536,7 @@ def test_wide_year_kernels_match_plain(grid768_model, log_exp):
     yd, s0 = m.year_data, m.initial_state()
     assert yk.refined_groups(yd.plan) == 6
     suffix = "_wide" if log_exp is None else "_wide_legacy"
-    lib = yk._lib()
+    lib = yk._refined_lib()
     for kernel in ("fluxcorr_year", "scenario_year"):
         assert yk.refined_entry(kernel, yd.plan, yd.flags) == kernel + suffix
         got = lib.greb_refined_pick(yd.flags, 0, 6)
